@@ -6,24 +6,45 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 Phases (any failure exits non-zero before the final line):
 
 1. print the card (``nvidia-smi`` name and power limit) and build every
-   CUDA kernel of the serving path from ``tpu_als_torch/csrc``;
-2. K2 (batched SPD solve) against its plain version on random SPD
-   batches ``M Mᵀ/r + 0.5·I`` at ranks 10, 64 and 128, with b = 0 rows
-   and a near-singular row;
+   CUDA kernel of the port from ``tpu_als_torch/csrc`` (one nvcc per
+   source, all started together);
+2. K2 (batched SPD solve, rank <= 128) and K1 (blocked SPD solve)
+   against their plain versions on random SPD batches ``M Mᵀ/r + 0.5·I``
+   (K2 at ranks 10, 64, 128; K1 at 10, 128, 256), with b = 0 rows and a
+   near-singular row;
 3. K5 (fused score GEMM + top-k) against its plain version over the full
    59,047-item catalog with ~10 % of items invalid, at k = 10 and 128,
    and on a catalog smaller than k;
-4. the serving slice at the ML-25M shape (162,541 users x 59,047 items,
-   rank 128, implicit, alpha 40, regParam 0.01) from seeded random
-   factors: save/load, ``FoldInServer.update`` on hourly-style batches
-   of 4,096 users (half new), ``update_items`` on 512 items, then
-   ``recommendForUserSubset``, ``recommend_arrays`` for all users and
-   ``transform`` on 100k pairs; launch counts are read around this run;
-5. timings at the slice's shapes (CUDA events);
-6. where the time goes: one more fold-in batch and one all-users
-   recommend under ``torch.profiler`` (wall, device busy, idle share,
-   host packing, top kernels); then one JSON line with every kernel's
-   numbers, and the final ``{"ok": true, ...}`` line.
+4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
+   their plain versions (``V[cols]`` + ``torch.bmm``, K1's plain solve):
+   two- and one-sided, f32 and bf16 tables, widths 24, 100, 512 and a
+   row wider than the trainer's split width (K3's split path); empty
+   rows, duplicate columns and an implicit row with no positive rating
+   (K4: exactly 0);
+5. the training slice at the full ML-25M shape (162,541 users x 59,047
+   items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
+   layout both ways (host seconds), each bucket's route, then
+   ``ALS(rank=128, implicitPrefs=True, alpha=40.0, regParam=0.01,
+   maxIter=3).fit`` on the card with K1/K3/K4 launch counts read around
+   it, per-iteration wall time, finite factors, and one iteration from
+   one init through 'auto' (K4 + K3/K1) against 'unfused' (torch gather
+   + bmm + K2), row by row, with each route's distance from a float64
+   solve of the heaviest rows;
+6. the serving slice at the ML-25M shape (rank 128, implicit, alpha 40,
+   regParam 0.01) from seeded random factors: save/load,
+   ``FoldInServer.update`` on hourly-style batches of 4,096 users (half
+   new), ``update_items`` on 512 items, then ``recommendForUserSubset``,
+   ``recommend_arrays`` for all users and ``transform`` on 100k pairs;
+   K2/K5 launch counts are read around this run;
+7. timings at the slices' shapes (CUDA events), each kernel beside its
+   plain version, its library yardstick and its bound; K4 and K3 held
+   against their plain versions once more on the item half-step's
+   buckets (widths up to 2^13, and the wide rows split); each bucket's
+   time in both half-steps, and one iteration beside its bound;
+8. where the time goes: one training iteration, one more fold-in batch
+   and one all-users recommend under ``torch.profiler`` (wall, device
+   busy, idle share, top kernels); then one JSON line with every
+   kernel's numbers, and the final ``{"ok": true, ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM and 67 TFLOP/s
 in float32 outside the tensor cores.
@@ -32,6 +53,7 @@ in float32 outside the tensor cores.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import tempfile
@@ -41,11 +63,15 @@ import numpy as np
 import torch
 
 from tpu_als_torch import _build
-from tpu_als_torch.api.estimator import ALSModel
+from tpu_als_torch.api.estimator import ALS, ALSModel
 from tpu_als_torch.convert import model_from_arrays
+from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
-from tpu_als_torch.ops import cuda_lanes, cuda_topk
-from tpu_als_torch.ops.solve import compute_yty, regularize
+from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
+from tpu_als_torch.io.movielens import ML25M_SHAPE, synthetic_movielens
+from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
+from tpu_als_torch.ops import cuda_topk
+from tpu_als_torch.ops.solve import compute_yty, implicit_weights, regularize
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.utils.platform import pin_fp32
@@ -56,8 +82,18 @@ F32_FLOPS_PER_S = 67e12                         # H100 SXM, non-tensor f32
 NEG_INF32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
 # stated tolerances
-K2_RTOL, K2_ATOL = 1e-4, 1e-5       # well-conditioned batches
+K2_RTOL, K2_ATOL = 1e-4, 1e-5       # well-conditioned batches (K1, K2)
 K5_TOL = 1e-5                       # scores and each id's own U·V
+# K3: |S - S_plain| and |b - b_plain| entry by entry, relative to the sum
+# of the magnitudes of the entry's terms (b's terms cancel, so its own
+# size is no scale).  The plain side's cuBLAS sums each width chunk (up
+# to the trainer's split width of same-sign terms) in sequence, which
+# drifts ~eps·sqrt(w/3) of their size; the kernel sums in two levels
+K3_REL = 5e-5
+# K4: the reference's own band for fused vs unfused solves
+K4_RTOL, K4_ATOL = 5e-4, 5e-5
+TRAIN_REL = 1e-3                    # 'auto' vs 'unfused', per row / ||x||
+REG, ALPHA = 0.01, 40.0             # the slice's implicit configuration
 FOLDIN_REL = 1e-3                   # per row, relative to ||x||
 
 
@@ -89,42 +125,79 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def gram_work(bks, num_rows):
+    """``(padded, real, rows)`` of the buckets ``bks``: padded entries,
+    real entries (mask 1) and real rows (``rows < num_rows``).  A bound
+    reads cols and weights for every padded entry, but gathers a factor
+    row and does the Gram's and b's operations only for a real entry, and
+    solves (and writes x for) only a real row: padded entries carry mask
+    0, and the scatter drops padding rows."""
+    padded = sum(b.cols.numel() for b in bks)
+    real = sum(int(b.mask.count_nonzero()) for b in bks)
+    rows = sum(int((b.rows < num_rows).sum()) for b in bks)
+    return padded, real, rows
+
+
+def gram_flops(real, rows, r):
+    """The Gram on its lower triangle and b per real entry, r(r+1) + 2r,
+    plus a Cholesky factorization and two substitutions, r³/3 + 2r², per
+    solved row."""
+    return real * (r * (r + 1) + 2 * r) + rows * (r ** 3 / 3 + 2 * r * r)
+
+
 def unit_rows(rng, n, r):
     x = rng.standard_normal((n, r), dtype=np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
 # -- phase 2 ---------------------------------------------------------------
-def check_k2(rng, dev):
+def spd_batch(rng, N, r, dev):
+    """Random SPD ``M Mᵀ/r + 0.5·I`` with rows 0..7 of b zero and row 8 a
+    near-singular rank-1-plus-small-ridge system."""
+    M = torch.from_numpy(
+        rng.standard_normal((N, r, r), dtype=np.float32)).to(dev)
+    A = M @ M.transpose(1, 2) / r + 0.5 * torch.eye(r, device=dev)
+    b = torch.from_numpy(
+        rng.standard_normal((N, r), dtype=np.float32)).to(dev)
+    b[:8] = 0.0
+    v = torch.from_numpy(rng.standard_normal(r, dtype=np.float32))
+    A[8] = (torch.outer(v, v) + 1e-4 * torch.eye(r)).to(dev)
+    return A.contiguous(), b
+
+
+def check_spd(name, solve, plain, shapes, rng, dev):
+    """Kernel vs plain on ``spd_batch``; returns the error at RANK."""
     worst = 0.0
-    for r in (10, 64, 128):
-        N = 4096
-        M = torch.from_numpy(
-            rng.standard_normal((N, r, r), dtype=np.float32)).to(dev)
-        A = M @ M.transpose(1, 2) / r + 0.5 * torch.eye(r, device=dev)
-        b = torch.from_numpy(
-            rng.standard_normal((N, r), dtype=np.float32)).to(dev)
-        b[:8] = 0.0                                  # rows with b = 0
-        v = torch.from_numpy(rng.standard_normal(r, dtype=np.float32))
-        # a near-singular row: rank-1 plus a small ridge
-        A[8] = (torch.outer(v, v) + 1e-4 * torch.eye(r)).to(dev)
-        A = A.contiguous()
-        xk = cuda_lanes.spd_solve_lanes(A, b)
-        xp = cuda_lanes.chol_solve_plain(A, b)
+    for r, N in shapes:
+        A, b = spd_batch(rng, N, r, dev)
+        xk = solve(A, b)
+        xp = plain(A, b)
         torch.cuda.synchronize()
         if not (torch.all(xk[:8] == 0) and torch.all(xp[:8] == 0)):
-            fail(f"K2 r={r}: b = 0 rows did not solve to 0")
+            fail(f"{name} r={r}: b = 0 rows did not solve to 0")
         if not torch.isfinite(xk[8]).all():
-            fail(f"K2 r={r}: near-singular row is not finite")
+            fail(f"{name} r={r}: near-singular row is not finite")
         ok = slice(9, None)
         err = (xk[ok] - xp[ok]).abs().max().item()
         if not torch.allclose(xk[ok], xp[ok], rtol=K2_RTOL, atol=K2_ATOL):
-            fail(f"K2 r={r}: kernel vs plain max |diff| {err:.3e}")
-        log(f"k2 r={r} N={N}: max |kernel - plain| {err:.3e} "
+            fail(f"{name} r={r}: kernel vs plain max |diff| {err:.3e}")
+        log(f"{name.lower()} r={r} N={N}: max |kernel - plain| {err:.3e} "
             f"(rtol {K2_RTOL}, atol {K2_ATOL})")
         if r == RANK:
             worst = err
     return worst
+
+
+def check_k2(rng, dev):
+    return check_spd("K2", cuda_lanes.spd_solve_lanes,
+                     cuda_lanes.chol_solve_plain,
+                     ((10, 4096), (64, 4096), (128, 4096)), rng, dev)
+
+
+def check_k1(rng, dev):
+    return check_spd("K1", cuda_solve.spd_solve_blocked,
+                     cuda_solve.chol_blocked_plain,
+                     ((10, 4096), (128, 4096), (256, 512)), rng, dev)
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -179,6 +252,237 @@ def check_k5(rng, dev):
 
 
 # -- phase 4 ---------------------------------------------------------------
+def gather_problem(rng, dev, n, w, dtype, N=N_ITEMS, dup=True):
+    """Unit factor rows, half-star ratings with ~20 % padding; row 0 is
+    empty, row 1 (with ``dup``) repeats one column in every other slot,
+    row 2 has only non-positive ratings."""
+    V = torch.from_numpy(unit_rows(rng, N, RANK)).to(dev).to(dtype)
+    cols = rng.integers(0, N, (n, w)).astype(np.int32)
+    if dup:
+        cols[1, 1::2] = cols[1, 0]
+    vals = (rng.integers(1, 11, (n, w)) * 0.5).astype(np.float32)
+    mask = (rng.random((n, w)) < 0.8).astype(np.float32)
+    mask[0] = 0.0
+    vals[2] = -vals[2]
+    vals *= mask
+    return (V, torch.from_numpy(cols).to(dev),
+            torch.from_numpy(vals).to(dev).to(dtype),
+            torch.from_numpy(mask).to(dev).to(dtype))
+
+
+def rel_err(x, ref, scale):
+    """max |x - ref| / scale over the entries where scale > 0."""
+    ok = scale > 0
+    return ((x - ref).abs()[ok] / scale[ok]).max().item()
+
+
+def check_k3(rng, dev):
+    """K3 vs V[cols] + bmm: returns the largest |S - S_plain| at f32.
+    The row wider than the split width has no repeated column: a long
+    sum of equal terms drifts in float32 far more than one of varied
+    terms in cuBLAS's sequential order, which would be the plain side's
+    error, not the kernel's."""
+    worst = 0.0
+    split = core_als.SPLIT_WIDTH
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, w in ((64, 24), (64, 100), (64, 512), (3, 3 * split)):
+            V, cols, vals, mask = gather_problem(rng, dev, n, w, dtype,
+                                                 dup=w <= split)
+            conf, pref = implicit_weights(vals, mask, ALPHA)
+            for two_sided, aw, bw in ((True, mask, vals * mask),
+                                      (False, conf,
+                                       (1.0 + conf) * pref * mask)):
+                S, b = cuda_gather_ne.gather_gram(
+                    V, cols, aw, bw, two_sided=two_sided, split_width=split)
+                Sp, bp = cuda_gather_ne.gather_gram_plain(
+                    V, cols, aw, bw, two_sided=two_sided, split_width=split)
+                Sa, ba = cuda_gather_ne.gather_gram_plain(
+                    V.abs(), cols, aw.abs(), bw.abs(), two_sided=two_sided,
+                    split_width=split)
+                torch.cuda.synchronize()
+                es, eb = rel_err(S, Sp, Sa), rel_err(b, bp, ba)
+                if not (es <= K3_REL and eb <= K3_REL):
+                    fail(f"K3 {dtype} n={n} w={w} two_sided={two_sided}: "
+                         f"relative |diff| S {es:.3e}, b {eb:.3e}")
+                if dtype == torch.float32:
+                    worst = max(worst, (S - Sp).abs().max().item())
+            log(f"k3 {str(dtype)[6:]} n={n} w={w}"
+                f"{' (split)' if w > split else ''}: max |kernel - plain| / "
+                f"Σ|terms| S {es:.3e}, b {eb:.3e} (tol {K3_REL})")
+    return worst
+
+
+def check_k4(rng, dev):
+    """K4 vs K3's plain Gram + tail + K1's plain solve: returns the
+    largest |x - x_plain| at f32."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, w in ((256, 24), (256, 100), (64, 512)):
+            V, cols, vals, mask = gather_problem(rng, dev, n, w, dtype)
+            YtY = compute_yty(V.float())
+            conf, pref = implicit_weights(vals, mask, ALPHA)
+            for name, xk, xp in (
+                    ("implicit",
+                     cuda_gather_ne.gather_fused_solve_implicit(
+                         V, cols, vals, mask, REG, ALPHA, YtY),
+                     cuda_gather_ne.gather_solve_plain(
+                         V, cols, conf, (1.0 + conf) * pref * mask,
+                         pref * mask, YtY, two_sided=False, reg=REG)),
+                    ("explicit",
+                     cuda_gather_ne.gather_fused_solve_explicit(
+                         V, cols, vals, mask, REG),
+                     cuda_gather_ne.gather_solve_plain(
+                         V, cols, mask, vals * mask, mask, two_sided=True,
+                         reg=REG))):
+                torch.cuda.synchronize()
+                zero = (0, 2) if name == "implicit" else (0,)
+                if not all(bool((xk[j] == 0).all()) for j in zero):
+                    fail(f"K4 {name} {dtype}: rows {zero} (empty, or no "
+                         "positive rating) did not solve to exactly 0")
+                err = (xk - xp).abs().max().item()
+                if not (torch.isfinite(xk).all() and torch.allclose(
+                        xk, xp, rtol=K4_RTOL, atol=K4_ATOL)):
+                    fail(f"K4 {name} {dtype} n={n} w={w}: kernel vs plain "
+                         f"max |diff| {err:.3e}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                log(f"k4 {name} {str(dtype)[6:]} n={n} w={w}: max |kernel "
+                    f"- plain| {err:.3e} (rtol {K4_RTOL}, atol {K4_ATOL})")
+    return worst
+
+
+# -- phase 5 ---------------------------------------------------------------
+def layout(csr, side):
+    widths = [(b.width, int((b.rows < csr.num_rows).sum()))
+              for b in csr.buckets]
+    log(f"{side}: {csr.num_rows} rows, padded nnz {csr.padded_nnz}, "
+        f"{len(csr.buckets)} buckets, widest (width, rows) {widths[-4:]}, "
+        f"max degree {int(csr.counts.max())}")
+    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True)
+    routes = {}
+    for w, _ in widths:
+        routes.setdefault(core_als.resolve_solve_path(cfg, RANK, w),
+                          []).append(w)
+    for label, ws in routes.items():
+        log(f"  route {label}: widths {ws}")
+
+
+def row_rel(x, ref):
+    return ((x - ref).norm(dim=1)
+            / ref.norm(dim=1).clamp(min=1e-30)).max().item()
+
+
+def f64_rel(x, V, csr):
+    """max |x[row] - x64| / |x64| over the heaviest row of every bucket of
+    width >= 8192, where x64 solves the same implicit normal equations
+    against the same V in float64: the error of a route, not a
+    difference between two routes."""
+    dev = V.device
+    V64 = V.double()
+    Y64 = V64.T @ V64
+    eye = torch.eye(V.shape[1], dtype=torch.float64, device=dev)
+    worst = 0.0
+    for b in csr.buckets:
+        pos = np.flatnonzero(b.rows < csr.num_rows)
+        if b.width < 8192 or not len(pos):
+            continue
+        k = pos[np.argmax(csr.counts[b.rows[pos]])]
+        Vg = V64[torch.from_numpy(b.cols[k].astype(np.int64)).to(dev)]
+        vals = torch.from_numpy(b.vals[k]).to(dev).double()
+        mask = torch.from_numpy(b.mask[k]).to(dev).double()
+        conf, pref = ALPHA * vals.abs() * mask, (vals > 0).double()
+        A = (Vg * conf[:, None]).T @ Vg + Y64 \
+            + (REG * (pref * mask).sum() + 1e-6) * eye
+        x64 = torch.linalg.solve(A, ((1.0 + conf) * pref * mask) @ Vg)
+        worst = max(worst, ((x[int(b.rows[k])].double() - x64).norm()
+                            / x64.norm()).item())
+    return worst
+
+
+def train_slice(seed, dev):
+    """The training slice at the full ML-25M shape; returns what the
+    timings and the profile reuse."""
+    t0 = time.perf_counter()
+    frame = synthetic_movielens(*ML25M_SHAPE, seed=seed)
+    log(f"synthetic_movielens{ML25M_SHAPE}: "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    u_idx, umap = remap_ids(frame["user"])
+    i_idx, imap = remap_ids(frame["item"])
+    r = frame["rating"]
+    t0 = time.perf_counter()
+    ucsr = build_csr_buckets(u_idx, i_idx, r, len(umap))
+    t1 = time.perf_counter()
+    icsr = build_csr_buckets(i_idx, u_idx, r, len(imap))
+    t2 = time.perf_counter()
+    log(f"host blocking: users {t1 - t0:.2f} s, items {t2 - t1:.2f} s")
+    layout(ucsr, "users")
+    layout(icsr, "items")
+
+    ticks = []
+
+    def tick(it, U, V):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    est = ALS(rank=RANK, implicitPrefs=True, alpha=ALPHA, regParam=REG,
+              maxIter=3, fitCallback=tick)
+    cuda_solve.LAUNCHES = cuda_lanes.LAUNCHES = 0
+    cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    model = est.fit(frame)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"k1": cuda_solve.LAUNCHES,
+                "k3": cuda_gather_ne.GRAM_LAUNCHES,
+                "k4": cuda_gather_ne.SOLVE_LAUNCHES}
+    log(f"fit launches: K1 {launches['k1']}, K3 {launches['k3']}, K4 "
+        f"{launches['k4']} (K2 {cuda_lanes.LAUNCHES})")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the training path never launched: {launches}")
+    iter_s = [b - a for a, b in zip(ticks, ticks[1:])]
+    log(f"fit: {fit_s:.2f} s wall (host remap and blocking included); "
+        f"iterations 2-3 wall {', '.join(f'{x * 1e3:.1f}' for x in iter_s)}"
+        " ms")
+    if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
+        fail("the fitted factors are not finite")
+    if model._U.shape != (len(umap), RANK) or \
+            model._V.shape != (len(imap), RANK):
+        fail(f"factor shapes {tuple(model._U.shape)}, {tuple(model._V.shape)}")
+
+    # one iteration from one init: 'auto' (K4 + K3/K1) vs 'unfused'
+    ub, ib = ucsr.to(dev), icsr.to(dev)
+    g = torch.Generator().manual_seed(seed)
+    U0 = core_als.init_factors(len(umap), RANK, g).to(dev)
+    V0 = core_als.init_factors(len(imap), RANK, g).to(dev)
+    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True, alpha=ALPHA,
+                             reg_param=REG)
+    out = {}
+    for backend in ("auto", "unfused"):
+        out[backend] = core_als.als_step(
+            U0, V0, ub, ib, len(umap), len(imap),
+            dataclasses.replace(cfg, solve_backend=backend))
+    torch.cuda.synchronize()
+    (Ua, Va), (Uu, Vu) = out["auto"], out["unfused"]
+    eu, ev = row_rel(Ua, Uu), row_rel(Va, Vu)
+    log(f"one iteration 'auto' vs 'unfused': max per-row |diff|/|x| users "
+        f"{eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    e64 = {"items auto": f64_rel(Va, U0, icsr),
+           "items unfused": f64_rel(Vu, U0, icsr),
+           "users auto": f64_rel(Ua, Va, ucsr),
+           "users unfused": f64_rel(Uu, Vu, ucsr)}
+    log("heaviest rows of the buckets of width >= 8192 vs float64: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+        + f" (tol {TRAIN_REL})")
+    if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+        fail(f"'auto' and 'unfused' disagree: users {eu:.3e}, items {ev:.3e}")
+    if max(e64.values()) > TRAIN_REL:
+        fail(f"a route is off the float64 solution: {e64}")
+    return {"launches": launches, "iter_s": iter_s, "ub": ub, "ib": ib,
+            "U0": U0, "V0": V0, "cfg": cfg, "n_items": len(imap),
+            "n_users": len(umap)}
+
+
+# -- phase 6 ---------------------------------------------------------------
 def foldin_batch(rng, n_users, existing, first_new, n_fixed):
     """Hourly-style batch: ``n_users`` distinct ids, half of them new,
     power-law rating counts capped at 256, half-star ratings."""
@@ -300,7 +604,7 @@ def run_slice(rng, dev):
     return model, launches, A_slice, b_slice
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phase 7 ---------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -340,16 +644,209 @@ def timings(model, launches, A, b, errs, dev):
     log(f"timing K2 N={N} r={r}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
         f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
         f"launches={launches['k2']}")
+    log(f"timing K1 on the same systems: kernel_ms="
+        f"{cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 20):.4f}")
     log(f"timing K5 n={n} Ni={Ni} r={r} k={k}: kernel_ms={k_ms5:.4f} "
         f"plain_ms={p_ms5:.4f} library_ms={l_ms5:.4f} bound_ms={b_ms5:.4f} "
         f"({by5}) launches={launches['k5']}")
     return out
 
 
-def where_time_goes(model, rng, dev):
-    """One more fold-in batch and one all-users recommend under the
-    profiler: wall time, device busy time (sum of kernel times), the
-    device's idle share, the host's packing time, and the top kernels."""
+def train_timings(tr, errs, dev):
+    """K1, K3 and K4 at the training slice's shapes: every bucket of the
+    item half-step (from the seeded init) that each kernel takes.  One
+    pass of K4 and of K3 over those buckets is also held against its
+    plain version (K4_RTOL/K4_ATOL, K3_REL), and the larger of that error
+    and phase 4's is the kernel's ``max_abs_err``."""
+    out = []
+    ib, U0, cfg, r = tr["ib"], tr["U0"], tr["cfg"], RANK
+    n_items = tr["n_items"]
+    YtY = compute_yty(U0)
+    split = core_als.SPLIT_WIDTH
+
+    def route(b):
+        return core_als.resolve_solve_path(cfg, r, b.width)
+
+    k4_b = [b for b in ib if route(b) == "gatherfused_solve"]
+    k3_b = [b for b in ib if route(b).startswith("gatherfused+")]
+
+    # K4: one launch per K4 bucket; yardstick: the 'unfused' half-step
+    # over the same buckets (V[cols], torch normal equations, K2)
+    def k4():
+        return [cuda_gather_ne.gather_fused_solve_implicit(
+            U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY) for b in k4_b]
+
+    def k4_plain():
+        xs = []
+        for b in k4_b:
+            conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
+            bw, cw = (1.0 + conf) * pref * b.mask, pref * b.mask
+            step = max(1, min(4096, (1 << 28) // (b.width * r)))
+            for s in range(0, b.cols.shape[0], step):
+                sl = slice(s, s + step)
+                xs.append(cuda_gather_ne.gather_solve_plain(
+                    U0, b.cols[sl], conf[sl], bw[sl], cw[sl], YtY,
+                    two_sided=False, reg=REG))
+        return xs
+
+    unfused = dataclasses.replace(cfg, solve_backend="unfused")
+
+    def k4_lib():
+        core_als.local_half_step(U0, k4_b, n_items, unfused, YtY)
+
+    xk, xp = torch.cat(k4()), torch.cat(k4_plain())
+    torch.cuda.synchronize()
+    e4 = (xk - xp).abs().max().item()
+    if not (torch.isfinite(xk).all() and torch.allclose(
+            xk, xp, rtol=K4_RTOL, atol=K4_ATOL)):
+        fail(f"K4 on the item half-step's buckets: kernel vs plain max "
+             f"|diff| {e4:.3e}")
+    log(f"k4 item half-step ({len(k4_b)} buckets, widths up to "
+        f"{k4_b[-1].width}): max |kernel - plain| {e4:.3e} (rtol "
+        f"{K4_RTOL}, atol {K4_ATOL})")
+    del xk, xp
+
+    P, E, n = gram_work(k4_b, n_items)
+    ms4 = cuda_ms(k4, 3)
+    b4, by4 = bound(P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r))
+    p4, l4 = cuda_ms(k4_plain, 1), cuda_ms(k4_lib, 1)
+    out.append({"name": "gather_solve (K4)", "route": "cuda",
+                "source": "tpu_als_torch/csrc/gather_solve.cu",
+                "replaces": "tpu_als/ops/pallas_gather_ne.py:396",
+                "launches": tr["launches"]["k4"],
+                "max_abs_err": max(errs["k4"], e4),
+                "ms": ms4, "plain_ms": p4, "bound_ms": b4, "bound_by": by4,
+                "library_ms": l4})
+    log(f"timing K4 item half-step, {len(k4_b)} buckets, {n} real rows, "
+        f"{E} real of {P} padded entries: kernel_ms={ms4:.4f} "
+        f"plain_ms={p4:.4f} library_ms={l4:.4f} (unfused half-step) "
+        f"bound_ms={b4:.4f} ({by4}) launches/fit={tr['launches']['k4']}")
+
+    # K3: the wide buckets, width split over blocks; yardstick V[cols] +
+    # bmm
+    pre = []
+    for b in k3_b:
+        conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
+        pre.append((b.cols, conf, (1.0 + conf) * pref * b.mask))
+
+    def k3():
+        return [cuda_gather_ne.gather_gram(U0, c, aw, bw, two_sided=False,
+                                           split_width=split)
+                for c, aw, bw in pre]
+
+    def k3_plain(V=U0):
+        return [cuda_gather_ne.gather_gram_plain(
+            V, c, aw, bw, two_sided=False, split_width=split)
+            for c, aw, bw in pre]
+
+    def k3_lib():
+        for c, aw, bw in pre:
+            Vg = U0[c.long()]
+            torch.bmm((Vg * aw[..., None]).transpose(1, 2), Vg)
+            torch.bmm(bw[:, None, :], Vg)
+
+    # the weights are >= 0, so |V| alone gives each entry's Σ|terms|
+    e3 = {"S": 0.0, "b": 0.0}
+    worst3 = 0.0
+    for (S, b), (Sp, bp), (Sa, ba) in zip(k3(), k3_plain(), k3_plain(
+            U0.abs())):
+        e3["S"] = max(e3["S"], rel_err(S, Sp, Sa))
+        e3["b"] = max(e3["b"], rel_err(b, bp, ba))
+        worst3 = max(worst3, (S - Sp).abs().max().item())
+    if not max(e3.values()) <= K3_REL:
+        fail(f"K3 on the item half-step's wide buckets: relative |diff| "
+             f"S {e3['S']:.3e}, b {e3['b']:.3e}")
+    log(f"k3 item half-step ({len(k3_b)} wide buckets, widths up to "
+        f"{k3_b[-1].width}): max |kernel - plain| / Σ|terms| S "
+        f"{e3['S']:.3e}, b {e3['b']:.3e} (tol {K3_REL}); max |kernel - "
+        f"plain| {worst3:.3e}")
+
+    P3, E3, n3 = gram_work(k3_b, n_items)
+    ms3 = cuda_ms(k3, 3)
+    p3, l3 = cuda_ms(k3_plain, 1), cuda_ms(k3_lib, 1)
+    b3, by3 = bound(P3 * 12 + E3 * r * 4 + n3 * (r * r + r) * 4,
+                    gram_flops(E3, 0, r))
+    out.append({"name": "gather_gram (K3)", "route": "cuda",
+                "source": "tpu_als_torch/csrc/gather_gram.cu",
+                "replaces": "tpu_als/ops/pallas_gather_ne.py:167",
+                "launches": tr["launches"]["k3"],
+                "max_abs_err": max(errs["k3"], worst3),
+                "ms": ms3, "plain_ms": p3, "bound_ms": b3, "bound_by": by3,
+                "library_ms": l3})
+    log(f"timing K3 item half-step, {len(k3_b)} wide buckets, {n3} real "
+        f"rows, {E3} real of {P3} padded entries: kernel_ms={ms3:.4f} "
+        f"plain_ms={p3:.4f} library_ms={l3:.4f} bound_ms={b3:.4f} ({by3}) "
+        f"launches/fit={tr['launches']['k3']}")
+
+    # K1: the regularized systems of those wide rows (real rows only)
+    As, bs = [], []
+    for b in k3_b:
+        A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
+            U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY, split_width=split)
+        real = b.rows < n_items
+        As.append(regularize(A, count)[real])
+        bs.append(rhs[real])
+    A1, b1 = torch.cat(As).contiguous(), torch.cat(bs).contiguous()
+    N1 = A1.shape[0]
+    ms1 = cuda_ms(lambda: cuda_solve.spd_solve_blocked(A1, b1), 20)
+    p1 = cuda_ms(lambda: cuda_solve.chol_blocked_plain(A1, b1), 2)
+    l1 = cuda_ms(lambda: torch.cholesky_solve(
+        b1[..., None], torch.linalg.cholesky(A1)), 20)
+    b1_ms, by1 = bound((N1 * r * (r + 1) // 2 + 2 * N1 * r) * 4,
+                       N1 * (r ** 3 / 3 + 2 * r * r))
+    out.append({"name": "spd_solve_pallas (K1)", "route": "cuda",
+                "source": "tpu_als_torch/csrc/chol_blocked.cu",
+                "replaces": "tpu_als/ops/pallas_solve.py:199",
+                "launches": tr["launches"]["k1"], "max_abs_err": errs["k1"],
+                "ms": ms1, "plain_ms": p1, "bound_ms": b1_ms,
+                "bound_by": by1, "library_ms": l1})
+    log(f"timing K1 N={N1} r={r} (the wide buckets' real rows): "
+        f"kernel_ms={ms1:.4f} "
+        f"plain_ms={p1:.4f} library_ms={l1:.4f} bound_ms={b1_ms:.4f} "
+        f"({by1}) launches/fit={tr['launches']['k1']}")
+    return out
+
+
+def bucket_times(tr):
+    """Each bucket's share of the two half-steps from the seeded init
+    (CUDA events), and one iteration beside its bound."""
+    cfg, U0, r = tr["cfg"], tr["U0"], RANK
+    yU = compute_yty(U0)
+    V1 = core_als.local_half_step(U0, tr["ib"], tr["n_items"], cfg, yU)
+    iter_bound = 0.0
+    for side, Y, bks, n, yty in (
+            ("items", U0, tr["ib"], tr["n_items"], yU),
+            ("users", V1, tr["ub"], tr["n_users"], compute_yty(V1))):
+        per = [(b.width, cuda_ms(lambda b=b: core_als.local_half_step(
+            Y, [b], n, cfg, yty), 1), b.cols.shape[0]) for b in bks]
+        total = sum(t for _, t, _ in per)
+        # the half-step's bound: cols and weights read per padded entry, a
+        # gathered row, the lower-triangle Gram and b per real entry, a
+        # solve and x written per real row
+        P, E, rows = gram_work(bks, n)
+        b_ms, by = bound(P * 16 + E * r * 4 + rows * r * 4,
+                         gram_flops(E, rows, r))
+        iter_bound += b_ms
+        log(f"{side} half-step by bucket (width: ms, rows): "
+            + ", ".join(f"{w}: {t:.2f}, {n_b}" for w, t, n_b in per)
+            + f"; sum {total:.1f} ms, widest bucket's share "
+            f"{per[-1][1] / total:.3f}; {E} real of {P} padded entries, "
+            f"{rows} real rows; bound {b_ms:.2f} ms ({by})")
+
+    def iteration():
+        core_als.als_step(U0, tr["V0"], tr["ub"], tr["ib"], tr["n_users"],
+                          tr["n_items"], cfg)
+
+    ms = cuda_ms(iteration, 2)
+    log(f"one iteration at SPLIT_WIDTH {core_als.SPLIT_WIDTH}: {ms:.1f} ms "
+        f"({ms / iter_bound:.1f}x its bound {iter_bound:.2f} ms)")
+
+
+def where_time_goes(model, rng, dev, tr):
+    """One training iteration, one more fold-in batch and one all-users
+    recommend under the profiler: wall time, device busy time (sum of
+    kernel times), the device's idle share, the host's packing time, and
+    the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,7 +857,12 @@ def where_time_goes(model, rng, dev):
     pack_rows(batch["user"], fixed, batch["rating"])
     pack_ms = (time.perf_counter() - t0) * 1e3
     srv = FoldInServer(model)
-    for what, fn in (("fold-in update", lambda: srv.update(batch)),
+    def iteration():
+        core_als.als_step(tr["U0"], tr["V0"], tr["ub"], tr["ib"],
+                          tr["n_users"], tr["n_items"], tr["cfg"])
+
+    for what, fn in (("training iteration", iteration),
+                     ("fold-in update", lambda: srv.update(batch)),
                      ("recommend_arrays", lambda: model.recommend_arrays(10))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -403,10 +905,16 @@ def main():
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    errs = {"k2": check_k2(rng, dev), "k5": check_k5(rng, dev)}
+    errs = {"k2": check_k2(rng, dev), "k1": check_k1(rng, dev),
+            "k5": check_k5(rng, dev), "k3": check_k3(rng, dev),
+            "k4": check_k4(rng, dev)}
+    tr = train_slice(args.seed, dev)
     model, launches, A, b = run_slice(rng, dev)
     kernels = timings(model, launches, A, b, errs, dev)
-    where_time_goes(model, rng, dev)
+    kernels += train_timings(tr, errs, dev)
+    kernels.sort(key=lambda k: k["name"].split("(K")[1])
+    bucket_times(tr)
+    where_time_goes(model, rng, dev, tr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

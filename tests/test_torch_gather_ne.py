@@ -1,0 +1,194 @@
+"""Parity of kernels K3 (gather + Gram) and K4 (gather + Gram + tail +
+solve) with ``tpu_als/ops/pallas_gather_ne.py``.
+
+The same numpy inputs go to the port (on the CPU, where the wrappers take
+the kernels' plain versions) and to the JAX package (its Pallas kernels
+in interpret mode).  Tolerances:
+
+- K3, the normal equations: each entry within 5e-6 of the sum of the
+  magnitudes of its terms — float32 sums of the same products in another
+  order (at width 512 the reference adds two width chunks of 256).  The
+  scale is the magnitude sum, not the entry, because the terms of b
+  cancel; at bfloat16 the lower triangle, where both sides form the same
+  f32 products (the reference's upper triangle is its own transposed
+  rounding);
+- K4, the solutions: atol 5e-5, rtol 5e-4, the reference's own band for
+  fused vs unfused solves (another elimination order);
+- the split path (rows cut into width chunks) against the unsplit one:
+  1e-5 relative to the largest entry.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_als.ops import pallas_gather_ne as jg
+from tpu_als_torch.ops import cuda_gather_ne as tg
+
+SHAPES = [
+    (5, 8, 4),
+    (37, 24, 10),
+    (33, 100, 128),
+    (64, 512, 32),
+]
+
+
+def _problem(seed, n, w, r, N=200, implicit=False):
+    """As tests/test_gather_solve.py builds it, plus an empty row, a row
+    of one repeated column, and (implicit) a row with no positive
+    rating."""
+    rng = np.random.default_rng(seed)
+    V = (rng.normal(size=(N, r)) / np.sqrt(r)).astype(np.float32)
+    cols = rng.integers(0, N, (n, w)).astype(np.int32)
+    vals = rng.normal(size=(n, w)).astype(np.float32)
+    if implicit:
+        vals = np.abs(vals) * 3
+        vals[rng.random((n, w)) < 0.2] *= -1
+    mask = (rng.random((n, w)) < 0.8).astype(np.float32)
+    if n > 3:
+        mask[0] = 0.0
+        cols[1] = cols[1, 0]
+        vals[2] = -np.abs(vals[2])
+    vals = vals * mask
+    YtY = (V.T @ V).astype(np.float32)
+    return V, cols, vals, mask, YtY
+
+
+def _both(arrays, dtype=np.float32):
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    j = [jnp.asarray(a).astype(jdt) if a.dtype == np.float32
+         else jnp.asarray(a) for a in arrays]
+    t = [torch.from_numpy(a).to(tdt) if a.dtype == np.float32
+         else torch.from_numpy(a) for a in arrays]
+    return j, t
+
+
+def _assert_within_scale(got, ref, tV, tc, tv, tm, implicit, YtY,
+                         tol=5e-6, lower=False):
+    """|got - ref| <= tol · (Σ |terms|) entry by entry, for (A, b, count)."""
+    conf = 4.0 * tv.abs() * tm
+    aw = conf if implicit else tm
+    bw = (1.0 + conf) * tm if implicit else (tv * tm).abs()
+    S_abs, b_abs = tg.gather_gram_plain(tV.abs(), tc, aw.abs(), bw,
+                                        two_sided=not implicit)
+    A_scale = S_abs + 1.0 + (torch.from_numpy(np.abs(YtY))[None]
+                             if implicit else 0.0)
+    for g, j, scale in zip(got, ref, (A_scale, b_abs + 1e-30, None)):
+        g, j = g.float().numpy(), np.asarray(j).astype(np.float32)
+        if scale is None:
+            np.testing.assert_array_equal(g, j)
+            continue
+        if lower:
+            g, j, scale = np.tril(g), np.tril(j), torch.tril(scale)
+        assert np.all(np.abs(g - j) <= tol * scale.numpy()), \
+            np.max(np.abs(g - j) / scale.numpy())
+
+
+@pytest.mark.parametrize("n,w,r", SHAPES)
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k3_normal_equations_match_reference(n, w, r, implicit):
+    V, cols, vals, mask, YtY = _problem(n * w + r, n, w, r,
+                                        implicit=implicit)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    if implicit:
+        ref = jg.gather_normal_eq_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                           jnp.asarray(YtY), interpret=True)
+        got = tg.gather_normal_eq_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                           torch.from_numpy(YtY))
+    else:
+        ref = jg.gather_normal_eq_explicit(jV, jc, jv, jm, 0.05,
+                                           interpret=True)
+        got = tg.gather_normal_eq_explicit(tV, tc, tv, tm, 0.05)
+    _assert_within_scale(got, ref, tV, tc, tv, tm, implicit, YtY)
+
+
+def test_k3_bfloat16_table_matches_reference():
+    n, w, r = 24, 32, 16
+    V, cols, vals, mask, YtY = _problem(3, n, w, r, implicit=True)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask),
+                                                "bf16")
+    jA, jb, jn = jg.gather_normal_eq_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                              jnp.asarray(YtY),
+                                              interpret=True)
+    tA, tb, tn = tg.gather_normal_eq_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                              torch.from_numpy(YtY))
+    _assert_within_scale((tA, tb, tn), (jA, jb, jn), tV.float(), tc,
+                         tv.float(), tm.float(), True, YtY, lower=True)
+
+
+@pytest.mark.parametrize("n,w,r", SHAPES)
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k4_solutions_match_reference(n, w, r, implicit):
+    V, cols, vals, mask, YtY = _problem(n + w + r, n, w, r,
+                                        implicit=implicit)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    if implicit:
+        ref = jg.gather_fused_solve_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                             jnp.asarray(YtY),
+                                             interpret=True)
+        got = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                             torch.from_numpy(YtY))
+    else:
+        ref = jg.gather_fused_solve_explicit(jV, jc, jv, jm, 0.05,
+                                             interpret=True)
+        got = tg.gather_fused_solve_explicit(tV, tc, tv, tm, 0.05)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                               rtol=5e-4)
+    if n > 3:
+        # the empty row, and (implicit) the row with no positive rating,
+        # solve to exactly 0 on both sides
+        zero = [0, 2] if implicit else [0]
+        assert np.all(got.numpy()[zero] == 0)
+        assert np.all(np.asarray(ref)[zero] == 0)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k4_bfloat16_table_matches_reference(implicit):
+    n, w, r = 24, 32, 16
+    V, cols, vals, mask, YtY = _problem(5, n, w, r, implicit=implicit)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask),
+                                                "bf16")
+    if implicit:
+        ref = jg.gather_fused_solve_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                             jnp.asarray(YtY),
+                                             interpret=True)
+        got = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                             torch.from_numpy(YtY))
+    else:
+        ref = jg.gather_fused_solve_explicit(jV, jc, jv, jm, 0.05,
+                                             interpret=True)
+        got = tg.gather_fused_solve_explicit(tV, tc, tv, tm, 0.05)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                               rtol=5e-4)
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+def test_k3_split_path_matches_unsplit(two_sided):
+    n, w, r = 6, 100, 12
+    V, cols, vals, mask, _ = _problem(9, n, w, r, implicit=not two_sided)
+    t = [torch.from_numpy(a) for a in (V, cols, vals, mask)]
+    tV, tc, tv, tm = t
+    aw = tm if two_sided else 4.0 * tv.abs() * tm
+    S1, b1 = tg.gather_gram(tV, tc, aw, tv * tm, two_sided=two_sided)
+    S2, b2 = tg.gather_gram(tV, tc, aw, tv * tm, two_sided=two_sided,
+                            split_width=16)
+    for a, b in ((S2, S1), (b2, b1)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(S2, S2.transpose(1, 2))
+
+
+def test_k4_plain_is_k3_plain_then_tail_then_k1_plain():
+    from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
+    from tpu_als_torch.ops.solve import regularize
+
+    V, cols, vals, mask, YtY = _problem(13, 9, 16, 8, implicit=True)
+    tV, tc, tv, tm = (torch.from_numpy(a) for a in (V, cols, vals, mask))
+    A, b, count = tg.gather_normal_eq_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                               torch.from_numpy(YtY))
+    x = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                       torch.from_numpy(YtY))
+    torch.testing.assert_close(x, chol_blocked_plain(regularize(A, count),
+                                                     b), rtol=0, atol=0)

@@ -4,8 +4,9 @@
   imports, imports with ``jax`` and ``tpu_als`` made unimportable.
 - ``device=None`` entry points raise without a CUDA device instead of
   running quietly on the CPU.
-- The kernel wrappers run their plain versions on CPU tensors and leave
-  the launch counters at 0; TF32 stays off.
+- The kernel wrappers (K1-K5) and a CPU ``ALS.fit`` run the plain
+  versions on CPU tensors and leave the launch counters at 0; TF32 stays
+  off.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
   when it stands in a directory without the rest of the repository.
 """
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 import tpu_als_torch
-from tpu_als_torch.ops import cuda_lanes, cuda_topk
+from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
+from tpu_als_torch.ops import cuda_topk
 from tpu_als_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +56,7 @@ def test_port_imports_without_jax_or_the_reference():
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15
+    assert int(out.stdout.split()[0]) >= 27
 
 
 def _model(device="cpu"):
@@ -74,12 +76,26 @@ def test_entry_points_without_cuda_raise(tmp_path, monkeypatch):
         _model(device=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpu_als_torch.ALS(rank=2, maxIter=1).fit(_ratings())
     assert tpu_als_torch.ALSModel.load(path, device="cpu").device.type \
         == "cpu"
 
 
+def _ratings():
+    rng = np.random.default_rng(3)
+    return {"user": rng.integers(0, 12, 150), "item": rng.integers(0, 9, 150),
+            "rating": (rng.integers(1, 11, 150) * 0.5).astype(np.float32)}
+
+
+def _launches():
+    return (cuda_lanes.LAUNCHES, cuda_topk.LAUNCHES, cuda_solve.LAUNCHES,
+            cuda_gather_ne.GRAM_LAUNCHES, cuda_gather_ne.SOLVE_LAUNCHES)
+
+
 def test_wrappers_on_cpu_run_plain_versions_without_launching():
-    cuda_lanes.LAUNCHES = cuda_topk.LAUNCHES = 0
+    cuda_lanes.LAUNCHES = cuda_topk.LAUNCHES = cuda_solve.LAUNCHES = 0
+    cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
     rng = np.random.default_rng(1)
     M = rng.normal(size=(6, 5, 5)).astype(np.float32)
     A = torch.from_numpy(M @ M.transpose(0, 2, 1) + np.eye(5,
@@ -93,7 +109,23 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
                 "rating": np.array([3.0, 4.0])})
     m.recommendForAllUsers(3)
     m.recommend_arrays(3)
-    assert cuda_lanes.LAUNCHES == 0 and cuda_topk.LAUNCHES == 0
+    np.testing.assert_array_equal(
+        cuda_solve.spd_solve_blocked(A, b).numpy(),
+        cuda_solve.chol_blocked_plain(A, b).numpy())
+    V = torch.from_numpy(rng.normal(size=(20, 5)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, 20, (4, 8)).astype(np.int32))
+    w = torch.ones(4, 8)
+    S, bb = cuda_gather_ne.gather_gram(V, cols, w, w, two_sided=True)
+    Sp, bp = cuda_gather_ne.gather_gram_plain(V, cols, w, w, two_sided=True)
+    assert torch.equal(S, Sp) and torch.equal(bb, bp)
+    x = cuda_gather_ne.gather_solve(V, cols, w, w, w, two_sided=True,
+                                    reg=0.1)
+    assert torch.equal(x, cuda_gather_ne.gather_solve_plain(
+        V, cols, w, w, w, two_sided=True, reg=0.1))
+    model = tpu_als_torch.ALS(rank=4, maxIter=2, implicitPrefs=True,
+                              device="cpu").fit(_ratings())
+    assert torch.isfinite(model._U).all()
+    assert _launches() == (0, 0, 0, 0, 0)
 
 
 def test_tf32_is_off_on_every_entry_point():

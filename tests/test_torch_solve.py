@@ -1,9 +1,10 @@
-"""Parity of the port's normal equations and SPD solve with ``tpu_als``.
+"""Parity of the port's normal equations, SPD solves and CG with ``tpu_als``.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
-port runs on the CPU, where the solve wrapper takes kernel K2's plain
-version; the JAX side runs on the CPU backend, with the Pallas lanes
-kernel in interpret mode where it is named.
+port runs on the CPU, where the solve wrappers take kernels K2's and K1's
+plain versions; the JAX side runs on the CPU backend, with the Pallas
+lanes and blocked-Cholesky kernels in interpret mode where they are
+named.
 """
 
 import numpy as np
@@ -14,7 +15,8 @@ import jax.numpy as jnp
 
 from tpu_als.ops import pallas_lanes
 from tpu_als.ops import solve as jsolve
-from tpu_als_torch.ops import cuda_lanes
+from tpu_als.ops.pallas_solve import spd_solve_pallas
+from tpu_als_torch.ops import cuda_lanes, cuda_solve
 from tpu_als_torch.ops import solve as tsolve
 
 # float32 on both sides; the sums run in different orders
@@ -80,6 +82,50 @@ def test_normal_eq_implicit_matches_reference(alpha):
         jY)
     ta, tb, tc = tsolve.normal_eq_implicit(*_t(Vg, vals, mask), 0.01, alpha,
                                            tY)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("w", [3, 8, 10])
+def test_contract_sums_width_chunks_in_order(monkeypatch, w):
+    """With WIDTH_CHUNK at 4, a width-10 contraction is two whole chunks
+    and a ragged one of 2, a width-8 one two whole chunks, a width-3 one a
+    single chunk: each equals the chunk products summed in float64."""
+    monkeypatch.setattr(tsolve, "WIDTH_CHUNK", 4)
+    rng = np.random.default_rng(w)
+    L = torch.from_numpy(rng.normal(size=(3, w, 5)).astype(np.float32))
+    R = torch.from_numpy(rng.normal(size=(3, w, 2)).astype(np.float32))
+    ref = sum(torch.bmm(L[:, s:s + 4].double().transpose(1, 2),
+                        R[:, s:s + 4].double()) for s in range(0, w, 4))
+    got = tsolve._contract(L, R)
+    assert got.shape == (3, 5, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("w", [2048, 1000])
+def test_normal_eq_wide_rows_match_reference(implicit, w):
+    """Rows wider than WIDTH_CHUNK are contracted in width chunks (2048
+    divides into 4; 1000 is one whole chunk and a ragged one of 488).
+    Same tolerances as the narrow builders above."""
+    assert w > tsolve.WIDTH_CHUNK
+    Vg, vals, mask = _ne_inputs(5, n=4, w=w, empty_rows=(3,))
+    args = (0.01, 40.0) if implicit else (0.05,)
+    jargs, targs = args, args
+    if implicit:
+        Y = np.random.default_rng(6).normal(size=(50, 8)).astype(np.float32)
+        jargs = args + (jsolve.compute_yty(jnp.asarray(Y)),)
+        targs = args + (tsolve.compute_yty(torch.from_numpy(Y)),)
+    jfn, tfn = ((jsolve.normal_eq_implicit, tsolve.normal_eq_implicit)
+                if implicit else
+                (jsolve.normal_eq_explicit, tsolve.normal_eq_explicit))
+    ja, jb, jc = jfn(jnp.asarray(Vg), jnp.asarray(vals), jnp.asarray(mask),
+                     *jargs)
+    ta, tb, tc = tfn(*_t(Vg, vals, mask), *targs)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5,
                                atol=1e-3)
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-5,
@@ -179,3 +225,90 @@ def test_k2_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         cuda_lanes.spd_solve_lanes(torch.from_numpy(A),
                                    torch.from_numpy(b[:, :2]))
+
+
+@pytest.mark.parametrize("r", [10, 24, 128])
+def test_k1_plain_matches_pallas_solve_interpret(r):
+    """The blocked factorization (panel 16) against the TPU kernel; r = 10
+    and 24 exercise a last panel narrower than 16 (the TPU side pads the
+    rank to a panel multiple with an identity block)."""
+    A, b = _spd(30 + r, 9, r)
+    A = A + jsolve.DEFAULT_JITTER * np.eye(r, dtype=np.float32)
+    b[:2] = 0.0
+    ref = np.asarray(spd_solve_pallas(jnp.asarray(A), jnp.asarray(b),
+                                      interpret=True))
+    x = cuda_solve.spd_solve_blocked(*_t(A, b)).numpy()
+    _close_rowwise(x, ref)
+    np.testing.assert_array_equal(x[:2], 0.0)
+
+
+def test_k1_wrapper_limits_and_checks():
+    assert cuda_solve.MAX_RANK == 323
+    assert cuda_solve.smem_bytes(256) == (256 * 257 // 2 + 17 * 256) * 4
+    A, b = _spd(8, 4, 3)
+    with pytest.raises(TypeError):
+        cuda_solve.spd_solve_blocked(torch.from_numpy(A).double(),
+                                     torch.from_numpy(b))
+    with pytest.raises(ValueError):
+        cuda_solve.spd_solve_blocked(torch.from_numpy(A),
+                                     torch.from_numpy(b[:, :2]))
+
+
+@pytest.mark.parametrize("r", [16, 136])
+def test_solve_spd_backends_agree(r):
+    """'lanes' (K2) and 'pallas' (K1) solve the same guarded systems;
+    'auto' is K2 up to rank 128 and K1 above."""
+    A, b = _spd(40 + r, 12, r)
+    count = np.ones(12, np.float32)
+    count[3] = 0.0
+    b[3] = 0.0
+    tA, tb, tc = _t(A, b, count)
+    xk1 = tsolve.solve_spd(tA, tb, tc, backend="pallas")
+    ref = np.asarray(jsolve.solve_spd(jnp.asarray(A), jnp.asarray(b),
+                                      jnp.asarray(count), backend="xla"))
+    _close_rowwise(xk1.numpy(), ref)
+    assert torch.equal(tsolve.solve_spd(tA, tb, tc), xk1 if r > 128
+                       else tsolve.solve_spd(tA, tb, tc, backend="lanes"))
+    assert tsolve.auto_solve_backend(r) == ("lanes" if r <= 128
+                                            else "pallas")
+    np.testing.assert_array_equal(xk1.numpy()[3], 0.0)
+    with pytest.raises(ValueError):
+        tsolve.solve_spd(tA, tb, tc, backend="xla")
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_solve_cg_matches_reference(warm):
+    Vg, vals, mask = _ne_inputs(7, n=20, r=8)
+    jA, jb, jc = jsolve.normal_eq_explicit(
+        jnp.asarray(Vg), jnp.asarray(vals), jnp.asarray(mask), 0.05)
+    tA, tb, tc = tsolve.normal_eq_explicit(*_t(Vg, vals, mask), 0.05)
+    x0 = (np.random.default_rng(1).normal(size=(20, 8)).astype(np.float32)
+          if warm else None)
+    jx = np.asarray(jsolve.solve_cg(
+        jA, jb, jc, x0=None if x0 is None else jnp.asarray(x0), iters=4))
+    tx = tsolve.solve_cg(tA, tb, tc, x0=None if x0 is None
+                         else torch.from_numpy(x0), iters=4).numpy()
+    _close_rowwise(tx, jx, rel=1e-4, atol=1e-5)
+    # cold rows land exactly on 0, even from a warm start
+    np.testing.assert_allclose(tx[[3, 7]], 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_solve_cg_matfree_matches_reference(implicit, bf16):
+    Vg, vals, mask = _ne_inputs(8, n=20, r=8)
+    Y = np.random.default_rng(4).normal(size=(30, 8)).astype(np.float32)
+    YtY = Y.T @ Y
+    x0 = np.random.default_rng(5).normal(size=(20, 8)).astype(np.float32)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jx = np.asarray(jsolve.solve_cg_matfree(
+        jnp.asarray(Vg).astype(jdt), jnp.asarray(vals), jnp.asarray(mask),
+        0.05, implicit=implicit, alpha=4.0, YtY=jnp.asarray(YtY),
+        x0=jnp.asarray(x0), iters=3))
+    tx = tsolve.solve_cg_matfree(
+        torch.from_numpy(Vg).to(tdt), *_t(vals, mask), 0.05,
+        implicit=implicit, alpha=4.0, YtY=torch.from_numpy(YtY),
+        x0=torch.from_numpy(x0), iters=3).numpy()
+    _close_rowwise(tx, jx, rel=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tx[[3, 7]], 0.0, atol=1e-6)

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry point and its argument types, per source
 SIGNATURES = {
@@ -39,6 +40,16 @@ SIGNATURES = {
     "chol_solve": ("chol_solve_f32", [_P, _P, _P, _LL, _I, _P]),
     # topk_f32(U, V, valid, out_s, out_i, n, ni, r, k, stream)
     "topk": ("topk_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P]),
+    # chol_blocked_f32(A, b, x, n, r, stream)
+    "chol_blocked": ("chol_blocked_f32", [_P, _P, _P, _LL, _I, _P]),
+    # gather_gram(V, cols, aw, bw, S, b, part_S, part_b, n, w, r, split,
+    #             two_sided, bf16, stream)
+    "gather_gram": ("gather_gram", [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                    _LL, _I, _LL, _I, _I, _P]),
+    # gather_solve(V, cols, aw, bw, cw, YtY, x, n, w, r, reg_w, jitter,
+    #              two_sided, bf16, stream)
+    "gather_solve": ("gather_solve", [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                      _I, _F, _F, _I, _I, _P]),
 }
 
 _LIBS = {}  # name -> loaded ctypes function

@@ -1,12 +1,22 @@
-"""Command line: ``python -m tpu_als_torch.cli recommend ...``.
+"""Command line: ``python -m tpu_als_torch.cli train|recommend ...``.
 
-Counterpart of ``tpu_als/cli.py::cmd_recommend``: load a saved model
+``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
+device: load ``--data`` (``csv:PATH``, strict ``int,int,float,int`` with
+a header, or ``synthetic:UxIxN``, MovieLens-shaped from ``--seed``),
+hold out ``--holdout`` of it with the seeded ``randomSplit``, fit ``ALS``
+(``--checkpoint-dir``/``--checkpoint-interval`` write resumable
+checkpoints, ``--resume PATH`` continues one), print
+``{"holdout_rmse": ...}`` and save the model to ``--output`` (replacing
+it).
+
+``recommend`` is the counterpart of ``cmd_recommend``: load a saved model
 (either package's save), optionally fold new ratings in — items first
 (``--foldin-items-data``), then users (``--foldin-data``) — and print one
 JSON line per user, ``{"user": id, "items": [[item, score], ...]}`` with
-scores rounded to 4 decimals.  Fold-in data is ``csv:PATH``, strict
-``int,int,float,int`` with a header.  ``--device`` defaults to the CUDA
-device; pass ``--device cpu`` to run on the CPU.
+scores rounded to 4 decimals.  Fold-in data is ``csv:PATH``.
+
+``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
+the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +36,50 @@ def _load_foldin(spec):
         raise SystemExit(f"unknown fold-in data spec {spec!r} (use "
                          "csv:PATH)")
     return load_ratings_csv(arg)
+
+
+def _load_train_data(spec):
+    kind, _, arg = spec.partition(":")
+    if kind == "csv":
+        from tpu_als_torch.io.ratings_csv import load_ratings_csv
+
+        return load_ratings_csv(arg)
+    if kind == "synthetic":
+        from tpu_als_torch.io.movielens import synthetic_movielens
+
+        try:
+            nu, ni, nnz = (int(x) for x in arg.split("x"))
+        except ValueError:
+            raise SystemExit(f"synthetic data takes UxIxN, got {arg!r}") \
+                from None
+        return synthetic_movielens(nu, ni, nnz)
+    raise SystemExit(f"unknown data spec {spec!r} (use csv:PATH | "
+                     "synthetic:UxIxN)")
+
+
+def cmd_train(args):
+    from tpu_als_torch.api.estimator import ALS
+    from tpu_als_torch.api.evaluation import RegressionEvaluator
+
+    frame = _load_train_data(args.data)
+    train, test = frame.randomSplit([1 - args.holdout, args.holdout],
+                                    seed=args.seed)
+    als = ALS(rank=args.rank, maxIter=args.max_iter, regParam=args.reg_param,
+              implicitPrefs=args.implicit, alpha=args.alpha,
+              nonnegative=args.nonnegative, seed=args.seed,
+              coldStartStrategy="drop", cgIters=args.cg_iters,
+              checkpointDir=args.checkpoint_dir,
+              checkpointInterval=args.checkpoint_interval,
+              resumeFrom=args.resume, device=args.device)
+    print(f"training on {len(train):,} ratings ({len(test):,} held out)",
+          file=sys.stderr)
+    model = als.fit(train)
+    if len(test):
+        rmse = RegressionEvaluator(labelCol="rating").evaluate(
+            model.transform(test))
+        print(json.dumps({"holdout_rmse": round(rmse, 4)}))
+    if args.output:
+        model.write().overwrite().save(args.output)
 
 
 def cmd_recommend(args):
@@ -68,6 +122,31 @@ def cmd_recommend(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="tpu_als_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="fit an ALS model on one device")
+    t.add_argument("--data", required=True,
+                   help="csv:PATH | synthetic:UxIxN")
+    t.add_argument("--rank", type=int, default=10)
+    t.add_argument("--max-iter", type=int, default=10)
+    t.add_argument("--reg-param", type=float, default=0.1)
+    t.add_argument("--implicit", action="store_true")
+    t.add_argument("--alpha", type=float, default=1.0)
+    t.add_argument("--nonnegative", action="store_true")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--holdout", type=float, default=0.2)
+    t.add_argument("--output", default=None)
+    t.add_argument("--cg-iters", type=int, default=0,
+                   help="> 0: inexact ALS, warm-started CG with this many "
+                        "steps per half-step (0 = exact Cholesky)")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="write resumable checkpoints under this directory "
+                        "every --checkpoint-interval iterations")
+    t.add_argument("--checkpoint-interval", type=int, default=10)
+    t.add_argument("--resume", default=None, metavar="PATH",
+                   help="warm-start from this checkpoint directory")
+    t.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the "
+                        "kernels' plain versions)")
+    t.set_defaults(fn=cmd_train)
     r = sub.add_parser("recommend", help="top-k recommendations")
     r.add_argument("--model", required=True)
     r.add_argument("--users", default=None,

@@ -47,10 +47,10 @@ def _file_digest(path):
 
 
 def save_factors(path, user_ids, user_factors, item_ids, item_factors,
-                 params=None):
-    """Write a model directory (numpy arrays in, atomic tmp+rename).  The
-    manifest's ``iteration`` and ``extra`` keys, which training fills in
-    the reference, are written empty."""
+                 params=None, iteration=None):
+    """Write a model or checkpoint directory (numpy arrays in, atomic
+    tmp+rename).  ``iteration``: the ALS iterations the factors have seen
+    (a resumable checkpoint); the manifest's ``extra`` is written empty."""
     user_factors = np.asarray(user_factors)
     item_factors = np.asarray(item_factors)
     tmp = path + ".tmp"
@@ -66,7 +66,7 @@ def save_factors(path, user_ids, user_factors, item_ids, item_factors,
         "rank": int(user_factors.shape[1]),
         "num_users": int(user_factors.shape[0]),
         "num_items": int(item_factors.shape[0]),
-        "iteration": None,
+        "iteration": iteration,
         "params": params or {},
         "extra": {},
         "files": {name: _file_digest(os.path.join(tmp, name))

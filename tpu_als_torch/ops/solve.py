@@ -2,11 +2,13 @@
 
 Counterpart of ``tpu_als/ops/solve.py``: the ALS-WR and Hu–Koren–Volinsky
 normal-equation builds, ``compute_yty``, ``solve_spd`` with its
-contract, and ``solve_nnls``.  The normal-equation contractions stay
-PyTorch ops, as the JAX package leaves them to XLA; the SPD solve is
-kernel K2 (:mod:`tpu_als_torch.ops.cuda_lanes`) on a CUDA tensor and its
-plain version on a CPU tensor.  The adaptive jitter ladder and the CG
-solvers belong to training and are not here.
+contract, ``solve_nnls`` and the warm-started CG solvers of inexact
+ALS.  The normal-equation contractions and CG stay PyTorch ops, as the
+JAX package leaves them to XLA; the SPD solve is kernel K2
+(:mod:`tpu_als_torch.ops.cuda_lanes`, rank <= 128) or kernel K1
+(:mod:`tpu_als_torch.ops.cuda_solve`, blocked, any rank that fits) on a
+CUDA tensor, and their plain versions on a CPU tensor.  The ``adaptive=``
+jitter ladder belongs to the guardrails slice and is not here.
 
 Shapes use the padded-row convention of the reference:
 
@@ -19,9 +21,35 @@ from __future__ import annotations
 
 import torch
 
-from tpu_als_torch.ops import cuda_lanes
+from tpu_als_torch.ops import cuda_lanes, cuda_solve
 
 DEFAULT_JITTER = 1e-6
+
+# Rows wider than this are contracted in width chunks of this many
+# entries, and the chunk sums added.  A batched GEMM on the card sums a
+# long contraction in one sequential chain, and on a power-law catalog's
+# widest rows that chain's rounding, amplified by the system's condition,
+# moved x by more than 1e-3 of its norm (chip_smoke.py's float64 check of
+# the widest rows reads both routes).
+WIDTH_CHUNK = 512
+
+
+def _contract(L, R):
+    """``Σ_w L[:, w, :]ᵀ R[:, w, :]``: [n, w, a] x [n, w, c] -> [n, a, c],
+    in width chunks of at most :data:`WIDTH_CHUNK` entries: the whole
+    chunks in one batched product whose partials are summed, a ragged
+    last chunk (when the chunk does not divide the width) added after."""
+    n, w, a = L.shape
+    c = R.shape[-1]
+    step = max(1, min(WIDTH_CHUNK, w))
+    p = w // step
+    q = p * step
+    part = torch.bmm(L[:, :q].reshape(n * p, step, a).transpose(1, 2),
+                     R[:, :q].reshape(n * p, step, c))
+    out = part.reshape(n, p, a, c).sum(1)
+    if q < w:
+        out = out + torch.bmm(L[:, q:].transpose(1, 2), R[:, q:])
+    return out
 
 
 def normal_eq_explicit(Vg, vals, mask, reg):
@@ -31,8 +59,8 @@ def normal_eq_explicit(Vg, vals, mask, reg):
     """
     Vg = Vg.float()
     Vm = Vg * mask[..., None]
-    A = torch.bmm(Vm.transpose(1, 2), Vm)
-    b = torch.bmm((vals * mask)[:, None, :], Vg)[:, 0]
+    A = _contract(Vm, Vm)
+    b = _contract((vals * mask).float()[..., None], Vg)[:, 0]
     count = mask.sum(-1)
     r = Vg.shape[-1]
     eye = torch.eye(r, dtype=A.dtype, device=A.device)
@@ -57,8 +85,9 @@ def normal_eq_implicit(Vg, vals, mask, reg, alpha, YtY):
     """
     Vg = Vg.float()
     conf_m1, pref = implicit_weights(vals, mask, alpha)
-    A = torch.bmm((Vg * conf_m1[..., None]).transpose(1, 2), Vg)
-    b = torch.bmm(((1.0 + conf_m1) * pref * mask)[:, None, :], Vg)[:, 0]
+    A = _contract(Vg * conf_m1[..., None], Vg)
+    b = _contract(((1.0 + conf_m1) * pref * mask).float()[..., None],
+                  Vg)[:, 0]
     count = (pref * mask).sum(-1)
     r = Vg.shape[-1]
     eye = torch.eye(r, dtype=A.dtype, device=A.device)
@@ -81,17 +110,32 @@ def regularize(A, count, jitter=DEFAULT_JITTER):
     return (A + jitter * eye).contiguous()
 
 
-def solve_spd(A, b, count, jitter=DEFAULT_JITTER):
+def auto_solve_backend(rank):
+    """'lanes' (K2) up to rank 128, 'pallas' (K1, blocked) above — the
+    reference's preference order, with no probes: each name is one
+    hand-written kernel."""
+    return "lanes" if rank <= cuda_lanes.MAX_RANK else "pallas"
+
+
+def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
     """Batched SPD solve x = A⁻¹ b after :func:`regularize`.
 
-    bfloat16 input is upcast to float32 before the guard, solved, and the
-    answer cast back (there is no bf16 factorization).
+    ``backend``: 'auto' (:func:`auto_solve_backend`), 'lanes' forces K2,
+    'pallas' forces K1.  bfloat16 input is upcast to float32 before the
+    guard, solved, and the answer cast back (there is no bf16
+    factorization).
     """
     if A.dtype == torch.bfloat16:
-        return solve_spd(A.float(), b.float(), count,
-                         jitter=jitter).to(torch.bfloat16)
-    return cuda_lanes.spd_solve_lanes(regularize(A, count, jitter),
-                                      b.contiguous())
+        return solve_spd(A.float(), b.float(), count, jitter=jitter,
+                         backend=backend).to(torch.bfloat16)
+    if backend == "auto":
+        backend = auto_solve_backend(A.shape[-1])
+    if backend not in ("lanes", "pallas"):
+        raise ValueError(f"unknown solve backend {backend!r} (expected "
+                         "'auto', 'lanes' or 'pallas')")
+    solve = (cuda_lanes.spd_solve_lanes if backend == "lanes"
+             else cuda_solve.spd_solve_blocked)
+    return solve(regularize(A, count, jitter), b.contiguous())
 
 
 def solve_nnls(A, b, count, sweeps=32, jitter=DEFAULT_JITTER):
@@ -107,3 +151,86 @@ def solve_nnls(A, b, count, sweeps=32, jitter=DEFAULT_JITTER):
             x[:, j] = torch.clamp(x[:, j] - (Ax_j - b[:, j]) / diag[:, j],
                                   min=0.0)
     return x
+
+
+def pcg(matvec, b, diag, x0=None, iters=3):
+    """Batched Jacobi-preconditioned CG with a fixed number of steps.
+
+    ``matvec``: [n, r] -> [n, r], the batched SPD operator; ``diag``
+    [n, r]: its diagonal.  The engine of :func:`solve_cg` (dense A) and
+    :func:`solve_cg_matfree` (A applied through the gathered rows).
+    """
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
+    res = b - matvec(x)
+    z = res / diag
+    p = z
+    rz = (res * z).sum(-1)
+    for _ in range(iters):
+        Ap = matvec(p)
+        denom = (p * Ap).sum(-1)
+        alpha = rz / torch.clamp(denom, min=1e-30)
+        x = x + alpha[:, None] * p
+        res = res - alpha[:, None] * Ap
+        z = res / diag
+        rz_new = (res * z).sum(-1)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+def solve_cg(A, b, count, x0=None, iters=3, jitter=DEFAULT_JITTER):
+    """Inexact solve: ``iters`` warm-started Jacobi-CG steps on the built
+    A, with :func:`solve_spd`'s guard (rows with ``count <= 0`` act as
+    A := I, so from any warm start they land on x = 0)."""
+    A = regularize(A, count, jitter)
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+
+    def matvec(p):
+        return torch.bmm(A, p[:, :, None])[..., 0]
+
+    return pcg(matvec, b, diag, x0=x0, iters=iters)
+
+
+def _wsum(weights, Vg):
+    """``Σ_w weights[n, w]·Vg[n, w, :]`` in float32: [n, r]."""
+    return torch.bmm(weights.float()[:, None, :], Vg)[:, 0]
+
+
+def solve_cg_matfree(Vg, vals, mask, reg, implicit=False, alpha=1.0,
+                     YtY=None, x0=None, iters=3, jitter=DEFAULT_JITTER):
+    """Matrix-free inexact solve: CG with A applied through the gathered
+    rows, ``A·p = YᵀY·p + Vgᵀ((c−1) ⊙ (Vg·p)) + (λn + jitter)·p``, so the
+    [n, r, r] tensor is never built.  ``Vg`` may be bfloat16; every
+    reduction runs in float32.  Same weights, count rule and cold-row
+    contract as the dense build."""
+    dt = Vg.dtype
+    mA = mask.to(dt)
+    vA = vals.to(dt)
+    Vf = Vg.float()
+    if implicit:
+        w_conf, pref = implicit_weights(vA, mA, alpha)
+        rhs = _wsum((1.0 + w_conf) * pref * mA, Vf)
+        count = (pref.float() * mask.float()).sum(-1)
+    else:
+        w_conf = mA
+        rhs = _wsum(vA * mA, Vf)
+        count = mask.float().sum(-1)
+    w32 = w_conf.float()
+    ridge = (reg * count + jitter)[:, None]
+    empty = (count <= 0)[:, None]
+    # the squares in Vg's type, as the reference's ``Vg * Vg``
+    diag = _wsum(w32, (Vg * Vg).float()) + ridge
+    YtYf = YtY.float() if implicit else None
+    if YtYf is not None:
+        diag = diag + torch.diagonal(YtYf)[None, :]
+    diag = torch.where(empty, torch.ones_like(diag), diag)
+
+    def matvec(p):
+        t = torch.bmm(Vf, p[:, :, None])[..., 0]
+        mv = _wsum(w32 * t, Vf) + ridge * p
+        if YtYf is not None:
+            mv = mv + p @ YtYf
+        return torch.where(empty, p, mv)
+
+    return pcg(matvec, rhs, diag, x0=x0, iters=iters)

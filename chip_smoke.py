@@ -8,19 +8,23 @@ Phases (any failure exits non-zero before the final line):
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel of the port from ``tpu_als_torch/csrc`` (one nvcc per
    source, all started together);
-2. K2 (batched SPD solve, rank <= 128) and K1 (blocked SPD solve)
+2. K2 (batched SPD solve, rank <= 128), K1 (blocked SPD solve) and K6
+   (blocked factorization above rank 128, written over its input)
    against their plain versions on random SPD batches ``M Mᵀ/r + 0.5·I``
-   (K2 at ranks 10, 64, 128; K1 at 10, 128, 256), with b = 0 rows and a
-   near-singular row;
+   (K2 at ranks 10, 64, 128; K1 at 10, 128, 256; K6's L entry by entry
+   at 136, 256 and 384, past K1's 323, its storage holding L afterwards,
+   and x through ``spd_solve_lanes_blocked`` against a float64 solve),
+   with b = 0 rows and a near-singular row;
 3. K5 (fused score GEMM + top-k) against its plain version over the full
    59,047-item catalog with ~10 % of items invalid, at k = 10 and 128,
    and on a catalog smaller than k;
 4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
-   their plain versions (``V[cols]`` + ``torch.bmm``, K1's plain solve):
-   two- and one-sided, f32 and bf16 tables, widths 24, 100, 512 and a
-   row wider than the trainer's split width (K3's split path); empty
-   rows, duplicate columns and an implicit row with no positive rating
-   (K4: exactly 0);
+   their plain versions (``V[cols]`` + ``torch.bmm``, K1's plain solve)
+   at rank 128, then at ranks 200 and 256: two- and one-sided, f32 and
+   bf16 tables, widths 24, 100 (rank 128), 512 and a row wider than the
+   trainer's split width (K3's split path; K4 at ranks 200 and 256 too);
+   empty rows, duplicate columns and an implicit row with no positive
+   rating (K4: exactly 0);
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
    layout both ways (host seconds), each bucket's route, then
@@ -29,22 +33,29 @@ Phases (any failure exits non-zero before the final line):
    it, per-iteration wall time, finite factors, and one iteration from
    one init through 'auto' (K4 + K3/K1) against 'unfused' (torch gather
    + bmm + K2), row by row, with each route's distance from a float64
-   solve of the heaviest rows;
+   solve of the heaviest rows; then the same at rank 256 (BASELINE
+   config 3's width) on the same data and layout: K3/K4/K6 launch
+   counts, and 'auto' (K4 + K3/K6) against 'unfused' (torch + K6);
 6. the serving slice at the ML-25M shape (rank 128, implicit, alpha 40,
    regParam 0.01) from seeded random factors: save/load,
    ``FoldInServer.update`` on hourly-style batches of 4,096 users (half
    new), ``update_items`` on 512 items, then ``recommendForUserSubset``,
    ``recommend_arrays`` for all users and ``transform`` on 100k pairs;
-   K2/K5 launch counts are read around this run;
+   K2/K5 launch counts are read around this run; then at rank 256 the
+   fitted factors through ``model_from_arrays``, save/load, two fold-in
+   batches of 4,096 users (K6) and recommend-all (K5 at r = 256);
 7. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound; K4 and K3 held
    against their plain versions once more on the item half-step's
-   buckets (widths up to 2^13, and the wide rows split); each bucket's
-   time in both half-steps, and one iteration beside its bound;
+   buckets (widths up to 2^13, and the wide rows split), at ranks 128
+   and 256; K6 on the rank-256 fold-in systems and on the fit's wide
+   rows, beside K1 on the same systems and the two substitutions; each
+   bucket's time in both half-steps, and one iteration beside its bound;
 8. where the time goes: one training iteration, one more fold-in batch
-   and one all-users recommend under ``torch.profiler`` (wall, device
-   busy, idle share, top kernels); then one JSON line with every
-   kernel's numbers, and the final ``{"ok": true, ...}`` line.
+   and one all-users recommend, and one rank-256 iteration and fold-in
+   batch, under ``torch.profiler`` (wall, device busy, idle share, top
+   kernels); then one JSON line with every kernel's numbers (K3, K4 and
+   K6 at rank 256 named so), and the final ``{"ok": true, ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM and 67 TFLOP/s
 in float32 outside the tensor cores.
@@ -70,19 +81,24 @@ from tpu_als_torch.core.foldin import normal_eqs
 from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
 from tpu_als_torch.io.movielens import ML25M_SHAPE, synthetic_movielens
 from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
-from tpu_als_torch.ops import cuda_topk
+from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
 from tpu_als_torch.ops.solve import compute_yty, implicit_weights, regularize
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.utils.platform import pin_fp32
 
 N_USERS, N_ITEMS, RANK = 162_541, 59_047, 128   # ML-25M serving shape
+RANK256 = 256                                   # BASELINE config 3's width
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                         # H100 SXM, non-tensor f32
 NEG_INF32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
 # stated tolerances
-K2_RTOL, K2_ATOL = 1e-4, 1e-5       # well-conditioned batches (K1, K2)
+K2_RTOL, K2_ATOL = 1e-4, 1e-5       # well-conditioned batches (K1, K2,
+                                    # K6's L, and x against float64)
+# K6 on the fold-in's own systems (implicit, alpha 40: L reaches ~1e2):
+# max |L - L_plain| relative to max |L_plain|
+K6_REL = 1e-5
 K5_TOL = 1e-5                       # scores and each id's own U·V
 # K3: |S - S_plain| and |b - b_plain| entry by entry, relative to the sum
 # of the magnitudes of the entry's terms (b's terms cancel, so its own
@@ -117,6 +133,19 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def timed(fn):
+    """``(fn(), milliseconds)`` of one call by CUDA events: a plain
+    version is timed on the pass that is also checked, not run again."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def bound(nbytes, flops):
@@ -200,6 +229,47 @@ def check_k1(rng, dev):
                      ((10, 4096), (128, 4096), (256, 512)), rng, dev)
 
 
+def check_k6(rng, dev):
+    """K6 vs plain on ``spd_batch``, L entry by entry (it is written over
+    A, so A's storage must hold L afterwards), then x through
+    ``spd_solve_lanes_blocked`` against a float64 solve; returns the
+    error of L at rank 256."""
+    worst = 0.0
+    for r, N in ((136, 512), (256, 4096), (384, 256)):
+        A, b = spd_batch(rng, N, r, dev)
+        Ak = A.clone()
+        ptr = Ak.untyped_storage().data_ptr()
+        L = cuda_lanes_blocked.chol_lanes_blocked(Ak)
+        Lp = cuda_lanes_blocked.chol_lanes_blocked_plain(A.clone())
+        torch.cuda.synchronize()
+        if L.untyped_storage().data_ptr() != ptr or not torch.equal(L, Ak):
+            fail(f"K6 r={r}: L is not in A's storage")
+        if not bool((torch.triu(Ak, 1) == 0).all()):
+            fail(f"K6 r={r}: A's storage holds non-zeros above the diagonal")
+        if not torch.isfinite(Ak[8]).all():
+            fail(f"K6 r={r}: near-singular row is not finite")
+        ok = slice(9, None)
+        err = (Ak[ok] - Lp[ok]).abs().max().item()
+        if not torch.allclose(Ak[ok], Lp[ok], rtol=K2_RTOL, atol=K2_ATOL):
+            fail(f"K6 r={r}: kernel vs plain max |diff| of L {err:.3e}")
+        x = cuda_lanes_blocked.spd_solve_lanes_blocked(A.clone(), b)
+        x64 = torch.linalg.solve(A.double(), b.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        if not torch.all(x[:8] == 0) or not torch.isfinite(x[8]).all():
+            fail(f"K6 r={r}: b = 0 rows not 0, or the near-singular row "
+                 "not finite")
+        e64 = (x[ok].double() - x64[ok]).abs().max().item()
+        if not torch.allclose(x[ok].double(), x64[ok], rtol=K2_RTOL,
+                              atol=K2_ATOL):
+            fail(f"K6 r={r}: x vs float64 max |diff| {e64:.3e}")
+        log(f"k6 r={r} N={N}: max |L - L_plain| {err:.3e}; x max |x - x64| "
+            f"{e64:.3e} (rtol {K2_RTOL}, atol {K2_ATOL}); L in A's storage")
+        if r == RANK256:
+            worst = err
+        del A, Ak, L, Lp, x, x64
+    return worst
+
+
 # -- phase 3 ---------------------------------------------------------------
 def earns_scores(U, V, valid, s, ix, where):
     """Each real slot's id is valid, distinct in its row, and U·V[id]
@@ -252,11 +322,11 @@ def check_k5(rng, dev):
 
 
 # -- phase 4 ---------------------------------------------------------------
-def gather_problem(rng, dev, n, w, dtype, N=N_ITEMS, dup=True):
+def gather_problem(rng, dev, n, w, dtype, N=N_ITEMS, dup=True, r=RANK):
     """Unit factor rows, half-star ratings with ~20 % padding; row 0 is
     empty, row 1 (with ``dup``) repeats one column in every other slot,
     row 2 has only non-positive ratings."""
-    V = torch.from_numpy(unit_rows(rng, N, RANK)).to(dev).to(dtype)
+    V = torch.from_numpy(unit_rows(rng, N, r)).to(dev).to(dtype)
     cols = rng.integers(0, N, (n, w)).astype(np.int32)
     if dup:
         cols[1, 1::2] = cols[1, 0]
@@ -276,8 +346,9 @@ def rel_err(x, ref, scale):
     return ((x - ref).abs()[ok] / scale[ok]).max().item()
 
 
-def check_k3(rng, dev):
-    """K3 vs V[cols] + bmm: returns the largest |S - S_plain| at f32.
+def check_k3(rng, dev, r=RANK, widths=(24, 100, 512)):
+    """K3 vs V[cols] + bmm at rank r, 64 rows of each width and 3 rows
+    wider than the split width: returns the largest |S - S_plain| at f32.
     The row wider than the split width has no repeated column: a long
     sum of equal terms drifts in float32 far more than one of varied
     terms in cuBLAS's sequential order, which would be the plain side's
@@ -285,9 +356,9 @@ def check_k3(rng, dev):
     worst = 0.0
     split = core_als.SPLIT_WIDTH
     for dtype in (torch.float32, torch.bfloat16):
-        for n, w in ((64, 24), (64, 100), (64, 512), (3, 3 * split)):
+        for n, w in [(64, w) for w in widths] + [(3, 3 * split)]:
             V, cols, vals, mask = gather_problem(rng, dev, n, w, dtype,
-                                                 dup=w <= split)
+                                                 dup=w <= split, r=r)
             conf, pref = implicit_weights(vals, mask, ALPHA)
             for two_sided, aw, bw in ((True, mask, vals * mask),
                                       (False, conf,
@@ -306,19 +377,22 @@ def check_k3(rng, dev):
                          f"relative |diff| S {es:.3e}, b {eb:.3e}")
                 if dtype == torch.float32:
                     worst = max(worst, (S - Sp).abs().max().item())
-            log(f"k3 {str(dtype)[6:]} n={n} w={w}"
+            log(f"k3 r={r} {str(dtype)[6:]} n={n} w={w}"
                 f"{' (split)' if w > split else ''}: max |kernel - plain| / "
                 f"Σ|terms| S {es:.3e}, b {eb:.3e} (tol {K3_REL})")
     return worst
 
 
-def check_k4(rng, dev):
-    """K4 vs K3's plain Gram + tail + K1's plain solve: returns the
-    largest |x - x_plain| at f32."""
+def check_k4(rng, dev, r=RANK, shapes=((256, 24), (256, 100), (64, 512))):
+    """K4 vs K3's plain Gram + tail + K1's plain solve at rank r, on
+    (rows, width) ``shapes``: returns the largest |x - x_plain| at f32.
+    A row wider than the split width has no repeated column (see
+    :func:`check_k3`)."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for n, w in ((256, 24), (256, 100), (64, 512)):
-            V, cols, vals, mask = gather_problem(rng, dev, n, w, dtype)
+        for n, w in shapes:
+            V, cols, vals, mask = gather_problem(
+                rng, dev, n, w, dtype, dup=w <= core_als.SPLIT_WIDTH, r=r)
             YtY = compute_yty(V.float())
             conf, pref = implicit_weights(vals, mask, ALPHA)
             for name, xk, xp in (
@@ -346,8 +420,9 @@ def check_k4(rng, dev):
                          f"max |diff| {err:.3e}")
                 if dtype == torch.float32:
                     worst = max(worst, err)
-                log(f"k4 {name} {str(dtype)[6:]} n={n} w={w}: max |kernel "
-                    f"- plain| {err:.3e} (rtol {K4_RTOL}, atol {K4_ATOL})")
+                log(f"k4 r={r} {name} {str(dtype)[6:]} n={n} w={w}: max "
+                    f"|kernel - plain| {err:.3e} (rtol {K4_RTOL}, atol "
+                    f"{K4_ATOL})")
     return worst
 
 
@@ -358,13 +433,14 @@ def layout(csr, side):
     log(f"{side}: {csr.num_rows} rows, padded nnz {csr.padded_nnz}, "
         f"{len(csr.buckets)} buckets, widest (width, rows) {widths[-4:]}, "
         f"max degree {int(csr.counts.max())}")
-    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True)
-    routes = {}
-    for w, _ in widths:
-        routes.setdefault(core_als.resolve_solve_path(cfg, RANK, w),
-                          []).append(w)
-    for label, ws in routes.items():
-        log(f"  route {label}: widths {ws}")
+    for r in (RANK, RANK256):
+        cfg = core_als.AlsConfig(rank=r, implicit_prefs=True)
+        routes = {}
+        for w, _ in widths:
+            routes.setdefault(core_als.resolve_solve_path(cfg, r, w),
+                              []).append(w)
+        for label, ws in routes.items():
+            log(f"  rank {r} route {label}: widths {ws}")
 
 
 def row_rel(x, ref):
@@ -399,9 +475,9 @@ def f64_rel(x, V, csr):
     return worst
 
 
-def train_slice(seed, dev):
-    """The training slice at the full ML-25M shape; returns what the
-    timings and the profile reuse."""
+def prepare(seed, dev):
+    """The ML-25M-shaped ratings and their bucketed layout both ways,
+    made once for the training slices at both ranks."""
     t0 = time.perf_counter()
     frame = synthetic_movielens(*ML25M_SHAPE, seed=seed)
     log(f"synthetic_movielens{ML25M_SHAPE}: "
@@ -417,75 +493,100 @@ def train_slice(seed, dev):
     log(f"host blocking: users {t1 - t0:.2f} s, items {t2 - t1:.2f} s")
     layout(ucsr, "users")
     layout(icsr, "items")
+    return {"frame": frame, "ucsr": ucsr, "icsr": icsr,
+            "ub": ucsr.to(dev), "ib": icsr.to(dev),
+            "n_users": len(umap), "n_items": len(imap)}
 
+
+def _launch_counts():
+    return {"k1": cuda_solve.LAUNCHES, "k2": cuda_lanes.LAUNCHES,
+            "k3": cuda_gather_ne.GRAM_LAUNCHES,
+            "k4": cuda_gather_ne.SOLVE_LAUNCHES,
+            "k6": cuda_lanes_blocked.LAUNCHES}
+
+
+def _zero_launches():
+    cuda_solve.LAUNCHES = cuda_lanes.LAUNCHES = 0
+    cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
+    cuda_lanes_blocked.LAUNCHES = cuda_topk.LAUNCHES = 0
+
+
+def train_slice(data, r, seed, dev):
+    """The training slice at the full ML-25M shape and rank r (the
+    kernels of the path: K4, K3 and K1 at rank 128; K4, K3 and K6 above);
+    returns what the timings and the profile reuse."""
+    path = ("k1", "k3", "k4") if r <= 128 else ("k3", "k4", "k6")
+    n_users, n_items = data["n_users"], data["n_items"]
     ticks = []
 
     def tick(it, U, V):
         torch.cuda.synchronize()
         ticks.append(time.perf_counter())
 
-    est = ALS(rank=RANK, implicitPrefs=True, alpha=ALPHA, regParam=REG,
+    est = ALS(rank=r, implicitPrefs=True, alpha=ALPHA, regParam=REG,
               maxIter=3, fitCallback=tick)
-    cuda_solve.LAUNCHES = cuda_lanes.LAUNCHES = 0
-    cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
+    _zero_launches()
     t0 = time.perf_counter()
-    model = est.fit(frame)
+    model = est.fit(data["frame"])
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"k1": cuda_solve.LAUNCHES,
-                "k3": cuda_gather_ne.GRAM_LAUNCHES,
-                "k4": cuda_gather_ne.SOLVE_LAUNCHES}
-    log(f"fit launches: K1 {launches['k1']}, K3 {launches['k3']}, K4 "
-        f"{launches['k4']} (K2 {cuda_lanes.LAUNCHES})")
+    counts = _launch_counts()
+    launches = {k: counts[k] for k in path}
+    log(f"rank {r} fit launches: " + ", ".join(
+        f"{k.upper()} {v}" for k, v in counts.items()))
     if min(launches.values()) == 0:
-        fail(f"a kernel of the training path never launched: {launches}")
+        fail(f"a kernel of the rank-{r} training path never launched: "
+             f"{launches}")
     iter_s = [b - a for a, b in zip(ticks, ticks[1:])]
-    log(f"fit: {fit_s:.2f} s wall (host remap and blocking included); "
-        f"iterations 2-3 wall {', '.join(f'{x * 1e3:.1f}' for x in iter_s)}"
-        " ms")
+    log(f"rank {r} fit: {fit_s:.2f} s wall (host remap and blocking "
+        f"included); iterations 2-3 wall "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in iter_s)} ms")
     if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
-        fail("the fitted factors are not finite")
-    if model._U.shape != (len(umap), RANK) or \
-            model._V.shape != (len(imap), RANK):
+        fail(f"the rank-{r} fitted factors are not finite")
+    if model._U.shape != (n_users, r) or model._V.shape != (n_items, r):
         fail(f"factor shapes {tuple(model._U.shape)}, {tuple(model._V.shape)}")
 
-    # one iteration from one init: 'auto' (K4 + K3/K1) vs 'unfused'
-    ub, ib = ucsr.to(dev), icsr.to(dev)
+    # one iteration from one init: 'auto' (K4 + K3/K1 or K3/K6) vs
+    # 'unfused' (torch normal equations + K2 or K6)
+    ub, ib = data["ub"], data["ib"]
     g = torch.Generator().manual_seed(seed)
-    U0 = core_als.init_factors(len(umap), RANK, g).to(dev)
-    V0 = core_als.init_factors(len(imap), RANK, g).to(dev)
-    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True, alpha=ALPHA,
+    U0 = core_als.init_factors(n_users, r, g).to(dev)
+    V0 = core_als.init_factors(n_items, r, g).to(dev)
+    cfg = core_als.AlsConfig(rank=r, implicit_prefs=True, alpha=ALPHA,
                              reg_param=REG)
     out = {}
     for backend in ("auto", "unfused"):
         out[backend] = core_als.als_step(
-            U0, V0, ub, ib, len(umap), len(imap),
+            U0, V0, ub, ib, n_users, n_items,
             dataclasses.replace(cfg, solve_backend=backend))
     torch.cuda.synchronize()
     (Ua, Va), (Uu, Vu) = out["auto"], out["unfused"]
     eu, ev = row_rel(Ua, Uu), row_rel(Va, Vu)
-    log(f"one iteration 'auto' vs 'unfused': max per-row |diff|/|x| users "
-        f"{eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    log(f"rank {r}: one iteration 'auto' vs 'unfused': max per-row "
+        f"|diff|/|x| users {eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    icsr, ucsr = data["icsr"], data["ucsr"]
     e64 = {"items auto": f64_rel(Va, U0, icsr),
            "items unfused": f64_rel(Vu, U0, icsr),
            "users auto": f64_rel(Ua, Va, ucsr),
            "users unfused": f64_rel(Uu, Vu, ucsr)}
-    log("heaviest rows of the buckets of width >= 8192 vs float64: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+    log(f"rank {r}: heaviest rows of the buckets of width >= 8192 vs "
+        "float64: " + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
         + f" (tol {TRAIN_REL})")
     if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
-        fail(f"'auto' and 'unfused' disagree: users {eu:.3e}, items {ev:.3e}")
+        fail(f"rank {r}: 'auto' and 'unfused' disagree: users {eu:.3e}, "
+             f"items {ev:.3e}")
     if max(e64.values()) > TRAIN_REL:
-        fail(f"a route is off the float64 solution: {e64}")
+        fail(f"rank {r}: a route is off the float64 solution: {e64}")
     return {"launches": launches, "iter_s": iter_s, "ub": ub, "ib": ib,
-            "U0": U0, "V0": V0, "cfg": cfg, "n_items": len(imap),
-            "n_users": len(umap)}
+            "U0": U0, "V0": V0, "cfg": cfg, "n_items": n_items,
+            "n_users": n_users, "model": model}
 
 
 # -- phase 6 ---------------------------------------------------------------
-def foldin_batch(rng, n_users, existing, first_new, n_fixed):
+def foldin_batch(rng, n_users, existing, first_new, items):
     """Hourly-style batch: ``n_users`` distinct ids, half of them new,
-    power-law rating counts capped at 256, half-star ratings."""
+    power-law rating counts capped at 256, half-star ratings of ids drawn
+    from ``items``."""
     half = n_users // 2
     users = np.concatenate([
         rng.choice(existing, half, replace=False),
@@ -493,7 +594,7 @@ def foldin_batch(rng, n_users, existing, first_new, n_fixed):
     counts = np.minimum(256, 1 + (rng.pareto(0.8, n_users) * 4)
                         .astype(np.int64))
     u = np.repeat(users, counts)
-    i = rng.integers(0, n_fixed, len(u))
+    i = rng.choice(items, len(u))
     r = (rng.integers(1, 11, len(u)) * 0.5).astype(np.float32)
     return {"user": u, "item": i, "rating": r}, users
 
@@ -516,7 +617,7 @@ def run_slice(rng, dev):
         fail("save/load did not round-trip the user factors onto the card")
 
     batch1, users1 = foldin_batch(rng, 4096, np.arange(N_USERS), N_USERS,
-                                  N_ITEMS)
+                                  np.arange(N_ITEMS))
     # the plain reference for batch 1, before any fold-in moves the model
     touched_ref, cols, vals, mask = pack_rows(
         batch1["user"], batch1["item"], batch1["rating"])
@@ -531,7 +632,7 @@ def run_slice(rng, dev):
     srv = FoldInServer(model)
     srv.prewarm(rows=(4096,), widths=(256,))
     later = [foldin_batch(rng, 4096, np.arange(N_USERS),
-                          N_USERS + 4096 * (j + 1), N_ITEMS)[0]
+                          N_USERS + 4096 * (j + 1), np.arange(N_ITEMS))[0]
              for j in range(4)]
     ib = {"user": rng.integers(0, N_USERS, 8192),
           "item": np.repeat(np.concatenate([
@@ -581,18 +682,8 @@ def run_slice(rng, dev):
     if not (np.isfinite(sc).all() and (np.diff(sc, axis=1) <= 0).all()):
         fail("new users' scores are not finite and sorted")
     n_all = model._U.shape[0]
-    if rec_ids.shape != (n_all, 10) or not np.isfinite(rec_scores).all():
-        fail(f"recommend_arrays shape {rec_ids.shape} for {n_all} users")
-    sample = torch.from_numpy(rng.choice(n_all, 2048, replace=False)).to(dev)
-    Us = model._U[sample]
-    valid_all = torch.ones(model._V.shape[0], dtype=torch.bool, device=dev)
-    sp, _ = chunked_topk_scores(Us, model._V, valid_all, 10)
-    dense_ids = torch.from_numpy(
-        model._item_map.to_dense(rec_ids[sample.cpu().numpy()])).to(dev)
-    got = torch.from_numpy(rec_scores[sample.cpu().numpy()]).to(dev)
-    if not torch.allclose(got, sp, rtol=K5_TOL, atol=K5_TOL):
-        fail("recommend_arrays scores differ from the plain top-k")
-    earns_scores(Us, model._V, valid_all, got, dense_ids, "recommend_arrays")
+    check_recommend_all(model, rec_ids, rec_scores, rng, dev,
+                        "recommend_arrays")
     known = ((model._user_map.to_dense(pairs["user"]) >= 0)
              & (model._item_map.to_dense(pairs["item"]) >= 0))
     if not (np.isfinite(preds[known]).all() and np.isnan(preds[~known]).all()):
@@ -601,6 +692,105 @@ def run_slice(rng, dev):
         "(host clock, results on the host)")
     log(f"fold-in p50 latency: {p50 * 1e3:.1f} ms over "
         f"{n_user_batches} user batches of 4096 users")
+    return model, launches, A_slice, b_slice
+
+
+def check_recommend_all(model, rec_ids, rec_scores, rng, dev, where):
+    """recommend_arrays' scores against the plain top-k on 2,048 sampled
+    users, and each id earning its score."""
+    n_all = model._U.shape[0]
+    if rec_ids.shape != (n_all, 10) or not np.isfinite(rec_scores).all():
+        fail(f"{where}: recommend_arrays shape {rec_ids.shape} for {n_all} "
+             "users")
+    sample = torch.from_numpy(rng.choice(n_all, 2048, replace=False)).to(dev)
+    Us = model._U[sample]
+    valid_all = torch.ones(model._V.shape[0], dtype=torch.bool, device=dev)
+    sp, _ = chunked_topk_scores(Us, model._V, valid_all, 10)
+    dense_ids = torch.from_numpy(
+        model._item_map.to_dense(rec_ids[sample.cpu().numpy()])).to(dev)
+    got = torch.from_numpy(rec_scores[sample.cpu().numpy()]).to(dev)
+    if not torch.allclose(got, sp, rtol=K5_TOL, atol=K5_TOL):
+        fail(f"{where}: recommend_arrays scores differ from the plain top-k")
+    earns_scores(Us, model._V, valid_all, got, dense_ids, where)
+
+
+def serve_slice_256(fitted, rng, dev):
+    """Serving at rank 256: the rank-256 fit's factors carried by
+    ``model_from_arrays`` through save/load, ``FoldInServer.update`` on
+    two hourly-style batches of 4,096 users, half new (K6), then
+    ``recommendForUserSubset`` and ``recommend_arrays`` for all users (K5
+    at r = 256), with K6/K5 launch counts read around the run.  Returns
+    the model, the launches and batch 1's regularized systems."""
+    r = RANK256
+    uids, iids = fitted._user_map.ids, fitted._item_map.ids
+    U0, V0 = fitted._U.cpu().numpy(), fitted._V.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model"
+        model_from_arrays(r, uids, U0, iids, V0, fitted._params,
+                          device=dev).save(path)
+        model = ALSModel.load(path)            # device=None -> cuda
+    if model.rank != r or not torch.equal(model._U.cpu(),
+                                          torch.from_numpy(U0)):
+        fail("rank 256: save/load did not round-trip the user factors")
+    first_new = int(uids.max()) + 1
+    batches = [foldin_batch(rng, 4096, uids, first_new + 4096 * j, iids)
+               for j in range(2)]
+    batch1, users1 = batches[0]
+    touched_ref, cols, vals, mask = pack_rows(
+        batch1["user"], model._item_map.to_dense(batch1["item"]),
+        batch1["rating"])
+    A, b, count = normal_eqs(
+        model._V, torch.from_numpy(cols).to(dev),
+        torch.from_numpy(vals).to(dev), torch.from_numpy(mask).to(dev),
+        REG, implicit_prefs=True, alpha=ALPHA, YtY=compute_yty(model._V))
+    A_slice, b_slice = regularize(A, count), b.contiguous()
+    del A, b
+    x_ref = cuda_lanes_blocked.substitute(
+        cuda_lanes_blocked.chol_lanes_blocked_plain(A_slice.clone()),
+        b_slice)
+
+    srv = FoldInServer(model)
+    _zero_launches()
+    touched = srv.update(batch1)
+    x1 = model._U[torch.from_numpy(
+        model._user_map.to_dense(touched)).to(dev)].clone()
+    srv.update(batches[1][0])
+    p50 = srv.latency(0.5)
+    recs = model.recommendForUserSubset({"user": users1}, 10)
+    t0 = time.perf_counter()
+    _, rec_ids, rec_scores = model.recommend_arrays(10)
+    rec_wall = time.perf_counter() - t0
+    launches = {"k6": cuda_lanes_blocked.LAUNCHES, "k5": cuda_topk.LAUNCHES}
+    log(f"rank 256 serving launches: K6 {launches['k6']}, K5 "
+        f"{launches['k5']} (K2 {cuda_lanes.LAUNCHES}, K1 "
+        f"{cuda_solve.LAUNCHES})")
+    if launches["k6"] == 0 or launches["k5"] == 0:
+        fail(f"a kernel of the rank-256 serving path never launched: "
+             f"{launches}")
+
+    if not np.array_equal(touched, touched_ref):
+        fail("rank 256: fold-in touched set differs from the packed batch")
+    rel = ((x1 - x_ref).norm(dim=1) / x_ref.norm(dim=1).clamp(min=1e-30))
+    rel_max = rel.max().item()
+    if not torch.isfinite(x1).all() or rel_max > FOLDIN_REL:
+        fail(f"rank 256 fold-in vs plain on the card: max rel err "
+             f"{rel_max:.3e}")
+    log(f"rank 256 fold-in batch 1 ({len(touched)} users, "
+        f"{len(batch1['user'])} ratings): max |x - x_plain|/|x_plain| "
+        f"{rel_max:.3e} (tol {FOLDIN_REL})")
+    new_users = set(users1[users1 >= first_new].tolist())
+    rows = [j for j, u in enumerate(recs["user"]) if int(u) in new_users]
+    sc = recs["recommendations"]["rating"][rows]
+    if len(rows) != len(new_users) or not (
+            np.isfinite(sc).all() and (np.diff(sc, axis=1) <= 0).all()):
+        fail("rank 256: new users' recommendations missing, not finite or "
+             "not sorted")
+    check_recommend_all(model, rec_ids, rec_scores, rng, dev,
+                        "rank 256 recommend_arrays")
+    log(f"rank 256 recommend_arrays: {model._U.shape[0]} users x k=10 in "
+        f"{rec_wall * 1e3:.1f} ms (host clock, results on the host)")
+    log(f"rank 256 fold-in p50 latency: {p50 * 1e3:.1f} ms over "
+        f"{len(srv.stats)} user batches of 4096 users")
     return model, launches, A_slice, b_slice
 
 
@@ -653,13 +843,17 @@ def timings(model, launches, A, b, errs, dev):
 
 
 def train_timings(tr, errs, dev):
-    """K1, K3 and K4 at the training slice's shapes: every bucket of the
-    item half-step (from the seeded init) that each kernel takes.  One
-    pass of K4 and of K3 over those buckets is also held against its
-    plain version (K4_RTOL/K4_ATOL, K3_REL), and the larger of that error
-    and phase 4's is the kernel's ``max_abs_err``."""
+    """K3, K4 and the wide rows' solve kernel (K1 at rank 128, K6 at
+    rank 256) at the training slice's shapes: every bucket of the item
+    half-step (from the seeded init) that each kernel takes.  One pass of
+    K4 and of K3 over those buckets is also held against its plain
+    version (K4_RTOL/K4_ATOL, K3_REL), and the larger of that error and
+    phase 4's is the kernel's ``max_abs_err``."""
     out = []
-    ib, U0, cfg, r = tr["ib"], tr["U0"], tr["cfg"], RANK
+    ib, U0, cfg = tr["ib"], tr["U0"], tr["cfg"]
+    r = U0.shape[1]
+    tag = "" if r == RANK else f", rank {r}"
+    sfx = "" if r == RANK else f"_{r}"
     n_items = tr["n_items"]
     YtY = compute_yty(U0)
     split = core_als.SPLIT_WIDTH
@@ -694,14 +888,15 @@ def train_timings(tr, errs, dev):
     def k4_lib():
         core_als.local_half_step(U0, k4_b, n_items, unfused, YtY)
 
-    xk, xp = torch.cat(k4()), torch.cat(k4_plain())
+    xp, p4 = timed(lambda: torch.cat(k4_plain()))
+    xk = torch.cat(k4())
     torch.cuda.synchronize()
     e4 = (xk - xp).abs().max().item()
     if not (torch.isfinite(xk).all() and torch.allclose(
             xk, xp, rtol=K4_RTOL, atol=K4_ATOL)):
         fail(f"K4 on the item half-step's buckets: kernel vs plain max "
              f"|diff| {e4:.3e}")
-    log(f"k4 item half-step ({len(k4_b)} buckets, widths up to "
+    log(f"k4 r={r} item half-step ({len(k4_b)} buckets, widths up to "
         f"{k4_b[-1].width}): max |kernel - plain| {e4:.3e} (rtol "
         f"{K4_RTOL}, atol {K4_ATOL})")
     del xk, xp
@@ -709,16 +904,16 @@ def train_timings(tr, errs, dev):
     P, E, n = gram_work(k4_b, n_items)
     ms4 = cuda_ms(k4, 3)
     b4, by4 = bound(P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r))
-    p4, l4 = cuda_ms(k4_plain, 1), cuda_ms(k4_lib, 1)
-    out.append({"name": "gather_solve (K4)", "route": "cuda",
+    l4 = cuda_ms(k4_lib, 1)
+    out.append({"name": f"gather_solve (K4{tag})", "route": "cuda",
                 "source": "tpu_als_torch/csrc/gather_solve.cu",
                 "replaces": "tpu_als/ops/pallas_gather_ne.py:396",
                 "launches": tr["launches"]["k4"],
-                "max_abs_err": max(errs["k4"], e4),
+                "max_abs_err": max(errs["k4" + sfx], e4),
                 "ms": ms4, "plain_ms": p4, "bound_ms": b4, "bound_by": by4,
                 "library_ms": l4})
-    log(f"timing K4 item half-step, {len(k4_b)} buckets, {n} real rows, "
-        f"{E} real of {P} padded entries: kernel_ms={ms4:.4f} "
+    log(f"timing K4 r={r} item half-step, {len(k4_b)} buckets, {n} real "
+        f"rows, {E} real of {P} padded entries: kernel_ms={ms4:.4f} "
         f"plain_ms={p4:.4f} library_ms={l4:.4f} (unfused half-step) "
         f"bound_ms={b4:.4f} ({by4}) launches/fit={tr['launches']['k4']}")
 
@@ -748,37 +943,40 @@ def train_timings(tr, errs, dev):
     # the weights are >= 0, so |V| alone gives each entry's Σ|terms|
     e3 = {"S": 0.0, "b": 0.0}
     worst3 = 0.0
-    for (S, b), (Sp, bp), (Sa, ba) in zip(k3(), k3_plain(), k3_plain(
+    plain3, p3 = timed(k3_plain)
+    for (S, b), (Sp, bp), (Sa, ba) in zip(k3(), plain3, k3_plain(
             U0.abs())):
         e3["S"] = max(e3["S"], rel_err(S, Sp, Sa))
         e3["b"] = max(e3["b"], rel_err(b, bp, ba))
         worst3 = max(worst3, (S - Sp).abs().max().item())
+    del plain3
     if not max(e3.values()) <= K3_REL:
         fail(f"K3 on the item half-step's wide buckets: relative |diff| "
              f"S {e3['S']:.3e}, b {e3['b']:.3e}")
-    log(f"k3 item half-step ({len(k3_b)} wide buckets, widths up to "
+    log(f"k3 r={r} item half-step ({len(k3_b)} wide buckets, widths up to "
         f"{k3_b[-1].width}): max |kernel - plain| / Σ|terms| S "
         f"{e3['S']:.3e}, b {e3['b']:.3e} (tol {K3_REL}); max |kernel - "
         f"plain| {worst3:.3e}")
 
     P3, E3, n3 = gram_work(k3_b, n_items)
     ms3 = cuda_ms(k3, 3)
-    p3, l3 = cuda_ms(k3_plain, 1), cuda_ms(k3_lib, 1)
+    l3 = cuda_ms(k3_lib, 1)
     b3, by3 = bound(P3 * 12 + E3 * r * 4 + n3 * (r * r + r) * 4,
                     gram_flops(E3, 0, r))
-    out.append({"name": "gather_gram (K3)", "route": "cuda",
+    out.append({"name": f"gather_gram (K3{tag})", "route": "cuda",
                 "source": "tpu_als_torch/csrc/gather_gram.cu",
                 "replaces": "tpu_als/ops/pallas_gather_ne.py:167",
                 "launches": tr["launches"]["k3"],
-                "max_abs_err": max(errs["k3"], worst3),
+                "max_abs_err": max(errs["k3" + sfx], worst3),
                 "ms": ms3, "plain_ms": p3, "bound_ms": b3, "bound_by": by3,
                 "library_ms": l3})
-    log(f"timing K3 item half-step, {len(k3_b)} wide buckets, {n3} real "
+    log(f"timing K3 r={r} item half-step, {len(k3_b)} wide buckets, {n3} real "
         f"rows, {E3} real of {P3} padded entries: kernel_ms={ms3:.4f} "
         f"plain_ms={p3:.4f} library_ms={l3:.4f} bound_ms={b3:.4f} ({by3}) "
         f"launches/fit={tr['launches']['k3']}")
 
-    # K1: the regularized systems of those wide rows (real rows only)
+    # the regularized systems of those wide rows (real rows only): K1 at
+    # rank 128; K6 (with K1 beside it) at rank 256
     As, bs = [], []
     for b in k3_b:
         A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
@@ -787,6 +985,10 @@ def train_timings(tr, errs, dev):
         As.append(regularize(A, count)[real])
         bs.append(rhs[real])
     A1, b1 = torch.cat(As).contiguous(), torch.cat(bs).contiguous()
+    if r > RANK:
+        out.append(k6_timings(A1, b1, tr["launches"]["k6"], errs["k6"],
+                              "the fit's wide rows"))
+        return out
     N1 = A1.shape[0]
     ms1 = cuda_ms(lambda: cuda_solve.spd_solve_blocked(A1, b1), 20)
     p1 = cuda_ms(lambda: cuda_solve.chol_blocked_plain(A1, b1), 2)
@@ -805,6 +1007,75 @@ def train_timings(tr, errs, dev):
         f"plain_ms={p1:.4f} library_ms={l1:.4f} bound_ms={b1_ms:.4f} "
         f"({by1}) launches/fit={tr['launches']['k1']}")
     return out
+
+
+def kernel_ms_each(setup, fn, reps):
+    """Mean milliseconds of ``fn`` alone over ``reps`` calls, each after
+    an untimed ``setup()`` (K6 writes over its input, which is restored
+    before every call), after one warm-up."""
+    setup()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        setup()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / reps
+
+
+def k6_timings(A, b, launches, err, what):
+    """K6 on the systems A [N, r, r] (regularized), b [N, r]: its time
+    beside its plain version's, ``torch.linalg.cholesky``'s and its bound
+    (reading the lower triangle once, writing the whole square: L with
+    zeros above the diagonal goes over A's symmetric input), the two
+    substitutions beside theirs, and K1 on the same systems; K6 is held
+    against its plain version here too (K6_REL).  Returns K6's row."""
+    N, r = b.shape
+    Aw = torch.empty_like(A)
+
+    def restore():
+        Aw.copy_(A)
+
+    L = cuda_lanes_blocked.chol_lanes_blocked(A.clone())
+    Lp = cuda_lanes_blocked.chol_lanes_blocked_plain(A.clone())
+    torch.cuda.synchronize()
+    e6 = (L - Lp).abs().max().item()
+    rel = e6 / Lp.abs().max().item()
+    if not (torch.isfinite(L).all() and rel <= K6_REL):
+        fail(f"K6 on {what}: max |L - L_plain| {e6:.3e}, {rel:.3e} of "
+             "max |L|")
+    del Lp
+    ms6 = kernel_ms_each(
+        restore, lambda: cuda_lanes_blocked.chol_lanes_blocked(Aw), 10)
+    p6 = cuda_ms(lambda: cuda_lanes_blocked.chol_lanes_blocked_plain(
+        A.clone()), 1)
+    l6 = cuda_ms(lambda: torch.linalg.cholesky(A), 10)
+    b6, by6 = bound(N * (r * (r + 1) // 2 + r * r) * 4, N * r ** 3 / 3)
+    ms_s = cuda_ms(lambda: cuda_lanes_blocked.substitute(L, b), 10)
+    bs_, bys = bound(N * (r * (r + 1) // 2 + 2 * r) * 4, N * 2 * r * r)
+    ms1 = cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 10)
+    b1, by1 = bound((N * r * (r + 1) // 2 + 2 * N * r) * 4,
+                    N * (r ** 3 / 3 + 2 * r * r))
+    log(f"timing K6 N={N} r={r} ({what}): kernel_ms={ms6:.4f} "
+        f"plain_ms={p6:.4f} library_ms={l6:.4f} (linalg.cholesky) "
+        f"bound_ms={b6:.4f} ({by6}) launches={launches}; max |L - L_plain| "
+        f"{e6:.3e} ({rel:.3e} of max |L|)")
+    log(f"timing substitutions N={N} r={r} ({what}, two solve_triangular): "
+        f"ms={ms_s:.4f} bound_ms={bs_:.4f} ({bys}); K6 + substitutions "
+        f"{ms6 + ms_s:.4f} ms")
+    log(f"timing K1 on the same systems N={N} r={r} ({what}): "
+        f"kernel_ms={ms1:.4f} bound_ms={b1:.4f} ({by1})")
+    return {"name": "chol_lanes_blocked (K6, rank 256)", "route": "cuda",
+            "source": "tpu_als_torch/csrc/chol_lanes_blocked.cu",
+            "replaces": "tpu_als/ops/pallas_lanes_blocked.py:181",
+            "launches": launches, "max_abs_err": max(err, e6),
+            "ms": ms6, "plain_ms": p6, "bound_ms": b6, "bound_by": by6,
+            "library_ms": l6}
 
 
 def bucket_times(tr):
@@ -842,16 +1113,18 @@ def bucket_times(tr):
         f"({ms / iter_bound:.1f}x its bound {iter_bound:.2f} ms)")
 
 
-def where_time_goes(model, rng, dev, tr):
-    """One training iteration, one more fold-in batch and one all-users
-    recommend under the profiler: wall time, device busy time (sum of
-    kernel times), the device's idle share, the host's packing time, and
-    the top kernels."""
+def where_time_goes(model, rng, tr, users, items):
+    """One training iteration, one more fold-in batch (of ``users`` and
+    new ones, rating ``items``) and one all-users recommend under the
+    profiler, at the rank of ``tr`` and ``model``: wall time, device
+    busy time (sum of kernel times), the device's idle share, the host's
+    packing time, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch, _ = foldin_batch(rng, 4096, np.arange(N_USERS),
-                            int(model._user_map.ids.max()) + 1, N_ITEMS)
+    r = model.rank
+    batch, _ = foldin_batch(rng, 4096, users,
+                            int(model._user_map.ids.max()) + 1, items)
     t0 = time.perf_counter()
     fixed = model._item_map.to_dense(batch["item"])
     pack_rows(batch["user"], fixed, batch["rating"])
@@ -879,7 +1152,8 @@ def where_time_goes(model, rng, dev, tr):
               and not e.key.startswith("Activity Buffer")]
         busy = sum(e.self_device_time_total for e in ev) / 1e3
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"profile {what}: wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
+        log(f"profile rank {r} {what}: wall_ms={wall:.3f} "
+            f"device_busy_ms={busy:.3f} "
             f"device_idle_share={1 - busy / wall:.3f}"
             + (f" host_pack_ms={pack_ms:.3f}" if what.startswith("fold")
                else ""))
@@ -905,16 +1179,33 @@ def main():
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    split = core_als.SPLIT_WIDTH
     errs = {"k2": check_k2(rng, dev), "k1": check_k1(rng, dev),
-            "k5": check_k5(rng, dev), "k3": check_k3(rng, dev),
-            "k4": check_k4(rng, dev)}
-    tr = train_slice(args.seed, dev)
+            "k6": check_k6(rng, dev), "k5": check_k5(rng, dev),
+            "k3": check_k3(rng, dev), "k4": check_k4(rng, dev)}
+    for r in (200, RANK256):   # the larger error of the two ranks
+        for k, e in (("k3", check_k3(rng, dev, r, (24, 512))),
+                     ("k4", check_k4(rng, dev, r, ((256, 24), (64, 512),
+                                                  (3, 2 * split))))):
+            errs[f"{k}_256"] = max(errs.get(f"{k}_256", 0.0), e)
+    data = prepare(args.seed, dev)
+    tr = train_slice(data, RANK, args.seed, dev)
+    tr256 = train_slice(data, RANK256, args.seed, dev)
+    del data
     model, launches, A, b = run_slice(rng, dev)
+    model256, launches256, A256, b256 = serve_slice_256(tr256["model"], rng,
+                                                        dev)
     kernels = timings(model, launches, A, b, errs, dev)
     kernels += train_timings(tr, errs, dev)
+    kernels += train_timings(tr256, errs, dev)
+    k6_timings(A256, b256, launches256["k6"], errs["k6"],
+               "the rank-256 fold-in batch")
+    del A256, b256
     kernels.sort(key=lambda k: k["name"].split("(K")[1])
     bucket_times(tr)
-    where_time_goes(model, rng, dev, tr)
+    where_time_goes(model, rng, tr, np.arange(N_USERS), np.arange(N_ITEMS))
+    where_time_goes(model256, rng, tr256, tr256["model"]._user_map.ids,
+                    model256._item_map.ids)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,3 +68,14 @@ def test_fold_in_nonnegative_matches_reference():
     tx, jx = _run_both(*_batch(9), nonnegative=True, nnls_sweeps=16)
     assert (tx >= 0).all()
     _close(tx, jx)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fold_in_rank_256_matches_reference(implicit):
+    """BASELINE config 3's width: the port's solve is K6's plain
+    factorization and two triangular solves; the reference's its XLA
+    Cholesky."""
+    V, cols, vals, mask = _batch(256 + implicit, r=256)
+    kw = {"implicit_prefs": True, "alpha": 40.0} if implicit else {}
+    tx, jx = _run_both(V, cols, vals, mask, **kw)
+    _close(tx, jx)

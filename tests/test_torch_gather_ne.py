@@ -192,3 +192,35 @@ def test_k4_plain_is_k3_plain_then_tail_then_k1_plain():
                                        torch.from_numpy(YtY))
     torch.testing.assert_close(x, chol_blocked_plain(regularize(A, count),
                                                      b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("r", [200, 256])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k3_k4_at_rank_256_match_reference_einsum_builders(r, implicit):
+    """Above rank 128 (the kernels' shared-memory triangle instantiation)
+    the plain versions against the reference's einsum builders on
+    ``V[cols]`` (``normal_eq_*``, then ``solve_spd(backend='xla')``) —
+    what the reference pins its own gather kernels against — with K3's
+    and K4's tolerances above."""
+    from tpu_als.ops import solve as jsolve
+
+    V, cols, vals, mask, YtY = _problem(r + implicit, 6, 24, r, N=300,
+                                        implicit=implicit)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    Vg = jV[jc]
+    if implicit:
+        ref = jsolve.normal_eq_implicit(Vg, jv, jm, 0.1, 4.0,
+                                        jnp.asarray(YtY))
+        got = tg.gather_normal_eq_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                           torch.from_numpy(YtY))
+        x = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                           torch.from_numpy(YtY))
+    else:
+        ref = jsolve.normal_eq_explicit(Vg, jv, jm, 0.05)
+        got = tg.gather_normal_eq_explicit(tV, tc, tv, tm, 0.05)
+        x = tg.gather_fused_solve_explicit(tV, tc, tv, tm, 0.05)
+    _assert_within_scale(got, ref, tV, tc, tv, tm, implicit, YtY)
+    xref = np.asarray(jsolve.solve_spd(*ref, backend="xla"))
+    np.testing.assert_allclose(x.numpy(), xref, atol=5e-5, rtol=5e-4)
+    zero = [0, 2] if implicit else [0]
+    assert np.all(x.numpy()[zero] == 0)

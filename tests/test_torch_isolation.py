@@ -4,7 +4,7 @@
   imports, imports with ``jax`` and ``tpu_als`` made unimportable.
 - ``device=None`` entry points raise without a CUDA device instead of
   running quietly on the CPU.
-- The kernel wrappers (K1-K5) and a CPU ``ALS.fit`` run the plain
+- The kernel wrappers (K1-K6) and a CPU ``ALS.fit`` run the plain
   versions on CPU tensors and leave the launch counters at 0; TF32 stays
   off.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
@@ -22,7 +22,7 @@ import torch
 
 import tpu_als_torch
 from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
-from tpu_als_torch.ops import cuda_topk
+from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
 from tpu_als_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,12 +90,14 @@ def _ratings():
 
 def _launches():
     return (cuda_lanes.LAUNCHES, cuda_topk.LAUNCHES, cuda_solve.LAUNCHES,
-            cuda_gather_ne.GRAM_LAUNCHES, cuda_gather_ne.SOLVE_LAUNCHES)
+            cuda_gather_ne.GRAM_LAUNCHES, cuda_gather_ne.SOLVE_LAUNCHES,
+            cuda_lanes_blocked.LAUNCHES)
 
 
 def test_wrappers_on_cpu_run_plain_versions_without_launching():
     cuda_lanes.LAUNCHES = cuda_topk.LAUNCHES = cuda_solve.LAUNCHES = 0
     cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
+    cuda_lanes_blocked.LAUNCHES = 0
     rng = np.random.default_rng(1)
     M = rng.normal(size=(6, 5, 5)).astype(np.float32)
     A = torch.from_numpy(M @ M.transpose(0, 2, 1) + np.eye(5,
@@ -122,10 +124,23 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
                                     reg=0.1)
     assert torch.equal(x, cuda_gather_ne.gather_solve_plain(
         V, cols, w, w, w, two_sided=True, reg=0.1))
+    L = cuda_lanes_blocked.chol_lanes_blocked(A.clone())
+    assert torch.equal(L, cuda_lanes_blocked.chol_lanes_blocked_plain(
+        A.clone()))
+    assert torch.equal(
+        cuda_lanes_blocked.spd_solve_lanes_blocked(A.clone(), b),
+        cuda_lanes_blocked.substitute(L, b))
     model = tpu_als_torch.ALS(rank=4, maxIter=2, implicitPrefs=True,
                               device="cpu").fit(_ratings())
     assert torch.isfinite(model._U).all()
-    assert _launches() == (0, 0, 0, 0, 0)
+    # above rank 128 the CPU fit and fold-in take K6's plain version
+    wide = tpu_als_torch.ALS(rank=136, maxIter=1, implicitPrefs=True,
+                             device="cpu").fit(_ratings())
+    tpu_als_torch.FoldInServer(wide).update(
+        {"user": np.array([0, 99]), "item": np.array([1, 2]),
+         "rating": np.array([3.0, 4.0])})
+    assert torch.isfinite(wide._U).all()
+    assert _launches() == (0, 0, 0, 0, 0, 0)
 
 
 def test_tf32_is_off_on_every_entry_point():

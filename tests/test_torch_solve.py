@@ -256,8 +256,8 @@ def test_k1_wrapper_limits_and_checks():
 
 @pytest.mark.parametrize("r", [16, 136])
 def test_solve_spd_backends_agree(r):
-    """'lanes' (K2) and 'pallas' (K1) solve the same guarded systems;
-    'auto' is K2 up to rank 128 and K1 above."""
+    """'lanes' (K2), 'lanes_blocked' (K6) and 'pallas' (K1) solve the
+    same guarded systems; 'auto' is K2 up to rank 128 and K6 above."""
     A, b = _spd(40 + r, 12, r)
     count = np.ones(12, np.float32)
     count[3] = 0.0
@@ -267,13 +267,27 @@ def test_solve_spd_backends_agree(r):
     ref = np.asarray(jsolve.solve_spd(jnp.asarray(A), jnp.asarray(b),
                                       jnp.asarray(count), backend="xla"))
     _close_rowwise(xk1.numpy(), ref)
-    assert torch.equal(tsolve.solve_spd(tA, tb, tc), xk1 if r > 128
+    xk6 = tsolve.solve_spd(tA, tb, tc, backend="lanes_blocked")
+    _close_rowwise(xk6.numpy(), ref)
+    assert torch.equal(tsolve.solve_spd(tA, tb, tc), xk6 if r > 128
                        else tsolve.solve_spd(tA, tb, tc, backend="lanes"))
     assert tsolve.auto_solve_backend(r) == ("lanes" if r <= 128
-                                            else "pallas")
+                                            else "lanes_blocked")
     np.testing.assert_array_equal(xk1.numpy()[3], 0.0)
+    np.testing.assert_array_equal(xk6.numpy()[3], 0.0)
     with pytest.raises(ValueError):
         tsolve.solve_spd(tA, tb, tc, backend="xla")
+
+
+@pytest.mark.parametrize("r,backend", [(128, "lanes"),
+                                       (129, "lanes_blocked"),
+                                       (256, "lanes_blocked")])
+def test_auto_solve_backend_follows_the_reference_order(r, backend):
+    """K2 up to rank 128, K6 above it — the reference's 'lanes' then
+    'lanes_blocked' — and each name is a solve kernel; K1 stays
+    reachable as 'pallas'."""
+    assert tsolve.auto_solve_backend(r) == backend
+    assert set(tsolve.SOLVERS) == {"lanes", "lanes_blocked", "pallas"}
 
 
 @pytest.mark.parametrize("warm", [False, True])

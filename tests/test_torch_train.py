@@ -140,9 +140,11 @@ def test_resolve_solve_path_labels():
         "gatherfused+pallas_cholesky"
     assert tals.resolve_solve_path(c(), 256, 64) == "gatherfused_solve"
     assert tals.resolve_solve_path(c(), 256, tals.SPLIT_WIDTH * 2) == \
-        "gatherfused+pallas_cholesky"
+        "gatherfused+pallas_lanes_blocked"
     assert tals.resolve_solve_path(c(solve_backend="unfused"), 256, 8) == \
-        "einsum+pallas_cholesky"
+        "einsum+pallas_lanes_blocked"
+    assert tals.resolve_solve_path(c(solve_backend="gather_fused"), 256,
+                                   8) == "gatherfused+pallas_lanes_blocked"
     assert tals.resolve_solve_path(c(solve_backend="unfused"), 128, 8) == \
         "einsum+pallas_lanes"
     assert tals.resolve_solve_path(c(solve_backend="gather_fused"), 64,
@@ -162,30 +164,70 @@ def test_resolve_solve_path_labels():
 
 
 def test_auto_above_rank_128_keeps_the_gather_kernels():
-    """Above K3/K4's rank 128, 'auto' still routes through them: on the
-    card their wrappers raise (naming the rank-256 slice) rather than fall
+    """Above K3/K4's rank 256, 'auto' still routes through them: on the
+    card their wrappers raise (saying what is missing) rather than fall
     back to the torch Gram; on the CPU their plain versions take any rank
     and agree with the explicit 'unfused' route."""
     from tpu_als_torch.ops import cuda_gather_ne as gne
 
     class OnCard:
         device = torch.device("cuda")
-        shape = (30, 136)
+        shape = (30, 264)
 
-    with pytest.raises(NotImplementedError, match="rank-256"):
+    with pytest.raises(NotImplementedError, match="at most rank 256"):
         gne._cuda_ready("gather_solve", OnCard())
     u, i, r, _, _ = _problem()
     g = torch.Generator().manual_seed(3)
-    init = (tals.init_factors(NU, 136, g), tals.init_factors(NI, 136, g))
+    init = (tals.init_factors(NU, 264, g), tals.init_factors(NI, 264, g))
     got = {}
     for backend in ("auto", "unfused"):
-        cfg = tals.AlsConfig(rank=136, max_iter=1, reg_param=0.1,
+        cfg = tals.AlsConfig(rank=264, max_iter=1, reg_param=0.1,
                              implicit_prefs=True, alpha=4.0,
                              solve_backend=backend)
         got[backend] = tals.train(tbuild(u, i, r, NU), tbuild(i, u, r, NI),
                                   cfg, init=init, device="cpu")
     _assert_close([x.numpy() for x in got["auto"]],
                   [x.numpy() for x in got["unfused"]])
+
+
+@pytest.mark.parametrize("backend", ["auto", "unfused"])
+@pytest.mark.parametrize("name", ["explicit", "implicit"])
+def test_two_iterations_at_rank_256_match_reference(name, backend):
+    """BASELINE config 3's width: two iterations from one injected init
+    against the reference's ``train(..., init=)``.  'auto' goes through
+    K4's plain version (every bucket here is narrow), 'unfused' through
+    the torch normal equations and K6's plain factorization."""
+    u, i, r, _, _ = _problem()
+    rng = np.random.default_rng(256)
+    U0, V0 = _unit_rows(rng, NU, 256), _unit_rows(rng, NI, 256)
+    jcfg = JConfig(rank=256, max_iter=2, reg_param=0.1, **CONFIGS[name])
+    ref = jtrain(jbuild(u, i, r, NU, native=False),
+                 jbuild(i, u, r, NI, native=False), jcfg, init=(U0, V0))
+    cfg = tals.AlsConfig(rank=256, max_iter=2, reg_param=0.1,
+                         solve_backend=backend, **CONFIGS[name])
+    got = tals.train(tbuild(u, i, r, NU), tbuild(i, u, r, NI), cfg,
+                     init=(U0, V0), device="cpu")
+    _assert_close([x.numpy() for x in got], [np.asarray(x) for x in ref])
+
+
+def test_rank_256_checkpoint_loads_in_reference(tmp_path):
+    """A rank-256 fit's checkpoint and saved model, written by the port,
+    load in the reference with the same arrays."""
+    data = _frame(seed=5)
+    out = str(tmp_path / "ck")
+    tm = tpu_als_torch.ALS(rank=256, maxIter=1, regParam=0.1,
+                           checkpointDir=out, checkpointInterval=1,
+                           device="cpu").fit(data)
+    manifest, cu, cU, ci, cV = jload(os.path.join(out, "als_checkpoint"))
+    assert manifest["rank"] == 256 and cU.shape[1] == 256
+    np.testing.assert_array_equal(cU, tm._U.numpy())
+    np.testing.assert_array_equal(cV, tm._V.numpy())
+    path = str(tmp_path / "model")
+    tm.save(path)
+    jm = tpu_als.ALSModel.load(path)
+    assert jm.rank == 256
+    np.testing.assert_array_equal(np.asarray(jm._U), tm._U.numpy())
+    np.testing.assert_array_equal(jm._user_map.ids, tm._user_map.ids)
 
 
 def _frame(seed=1, n=400):

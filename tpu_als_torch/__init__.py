@@ -20,8 +20,9 @@ kernel (or raises), and only a CPU tensor takes a kernel's plain PyTorch
 version.
 
 Package map:
-  ops/     normal equations, CG, the SPD solves (kernels K1 and K2), the
-           fused gather + Gram (K3) and gather + solve (K4), top-k (K5)
+  ops/     normal equations, CG, the SPD solves (kernels K1 and K2, and
+           K6's factorization above rank 128), the fused gather + Gram
+           (K3) and gather + solve (K4), top-k (K5)
   core/    id maps and bucketed CSR, the training loop, fold-in, predict
   stream/  the micro-batch fold-in server
   api/     ALS, ALSModel, params, regression evaluators

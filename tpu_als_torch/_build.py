@@ -50,6 +50,8 @@ SIGNATURES = {
     #              two_sided, bf16, stream)
     "gather_solve": ("gather_solve", [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                       _I, _F, _F, _I, _I, _P]),
+    # chol_lanes_blocked_f32(A, n, r, stream): L written over A
+    "chol_lanes_blocked": ("chol_lanes_blocked_f32", [_P, _LL, _I, _P]),
 }
 
 _LIBS = {}  # name -> loaded ctypes function

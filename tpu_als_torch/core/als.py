@@ -9,15 +9,18 @@ Routes, with the reference's labels.  Under ``solve_backend='auto'`` a
 bucket of width <= :data:`SPLIT_WIDTH` goes through kernel K4
 (``gatherfused_solve``: gather, Gram, tail and solve in one kernel, one
 block per row); a wider bucket goes through kernel K3 with its width
-split over blocks, the ``normal_eq`` tail, and kernel K1
-(``gatherfused+pallas_cholesky``).  K3 and K4 hold rank <= 128: above
-it their wrappers raise on the card (the rank-256 slice extends them)
-and 'auto' does not step around them; ``'unfused'`` is the explicit
-choice at such a rank.  ``'gather_fused_solve'`` forces K4 on every bucket,
-``'gather_fused'`` forces K3 + ``solve_spd``, ``'unfused'`` forces
-``V[cols]`` + torch normal equations + ``solve_spd``; nonnegative runs
-NNLS and ``cg_iters > 0`` inexact CG, as in the reference.  No route has
-a probe: on the card each kernel launches or raises.
+split over blocks, the ``normal_eq`` tail, and a solve kernel: K1 up to
+rank 128 (``gatherfused+pallas_cholesky``; it solves those systems
+faster than K2, PERF.md), K6 and two triangular solves above
+(``gatherfused+pallas_lanes_blocked``).  K3 and K4 hold rank <= 256:
+above it their wrappers raise on the card and 'auto' does not step
+around them; ``'unfused'`` is the explicit choice at such a rank.
+``'gather_fused_solve'`` forces K4 on every bucket, ``'gather_fused'``
+forces K3 + ``solve_spd``, ``'unfused'`` forces ``V[cols]`` + torch
+normal equations + ``solve_spd`` (K2 up to rank 128, K6 above:
+``einsum+pallas_lanes`` / ``einsum+pallas_lanes_blocked``); nonnegative
+runs NNLS and ``cg_iters > 0`` inexact CG, as in the reference.  No
+route has a probe: on the card each kernel launches or raises.
 """
 
 from __future__ import annotations
@@ -56,7 +59,10 @@ SPLIT_WIDTH = 1 << 13
 
 SOLVE_BACKENDS = ("auto", "unfused", "gather_fused", "gather_fused_solve",
                   "gather_fused_ring")
-_SOLVER_LABEL = {"lanes": "pallas_lanes", "pallas": "pallas_cholesky"}
+_SOLVER_LABEL = {"lanes": "pallas_lanes",
+                 "lanes_blocked": "pallas_lanes_blocked",
+                 "pallas": "pallas_cholesky"}
+_SOLVER_BACKEND = {label: name for name, label in _SOLVER_LABEL.items()}
 
 # a route's per-launch intermediates ([chunk, r, r] and the like) are
 # each kept within this many f32 elements (trainer_chunk's default
@@ -114,8 +120,12 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
                 if cfg.cg_mode == "matfree"
                 else f"einsum+cg{cfg.cg_iters}_warmstart")
     if cfg.solve_backend == "auto":
-        return ("gatherfused_solve" if width <= SPLIT_WIDTH
-                else "gatherfused+pallas_cholesky")
+        if width <= SPLIT_WIDTH:
+            return "gatherfused_solve"
+        # the wide rows' systems: K1 where K2 would be auto's solver (K1
+        # solves them faster, PERF.md), K6 above rank 128
+        return "gatherfused+" + ("pallas_cholesky" if solver == "pallas_lanes"
+                                 else solver)
     return "einsum+" + solver
 
 
@@ -150,7 +160,7 @@ def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
                 V_comp, c, v, m, reg, alpha, YtY, jitter=cfg.jitter)
         return gne.gather_fused_solve_explicit(V_comp, c, v, m, reg,
                                                jitter=cfg.jitter)
-    backend = "pallas" if path.endswith("pallas_cholesky") else "lanes"
+    backend = _SOLVER_BACKEND.get(path.partition("+")[2])
     if path.startswith("gatherfused+"):
         if cfg.implicit_prefs:
             A, rhs, count = gne.gather_normal_eq_implicit(

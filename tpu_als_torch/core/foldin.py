@@ -6,7 +6,9 @@ entity u with ratings against the fixed factor table V,
     u* = (VᵤᵀCᵤVᵤ + λ·n·I)⁻¹ VᵤᵀCᵤp(u)
 
 — one half-step restricted to the touched rows.  The gather and the
-normal equations are PyTorch ops; the SPD solve is kernel K2 on the card.
+normal equations are PyTorch ops; on the card the SPD solve is kernel K2
+up to rank 128 and kernel K6 (then two triangular solves) above
+(:func:`tpu_als_torch.ops.solve.solve_spd`).
 """
 
 from __future__ import annotations

@@ -21,10 +21,13 @@
 // gathered (528); per row the solve adds r³/3 + 2r² flops.
 //
 // What the design does about it: one block per row, gram.cuh's
-// register-tiled accumulation, then the lower triangle goes to shared
-// memory (packed, 33 KB at rank 128, in the space the staging used) and
-// the tail and the solve run there.  Rows wider than the trainer's split
-// width do not come here: kernel K3 spreads their width over blocks.
+// register-tiled accumulation, then the tail and the solve run on the
+// packed lower triangle in shared memory: at rank <= 128 the triangle
+// (33 KB) is written from the registers into the space the staging used;
+// at rank <= 256 the running sums are already that triangle (131.6 KB,
+// 197.6 KB with the staging, whose space then holds the panel).  Rows
+// wider than the trainer's split width do not come here: kernel K3
+// spreads their width over blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,42 +37,55 @@
 
 namespace {
 
+// floats of shared memory at rank r: the running sums (rank > 128), then
+// the staging, whose space the solve reuses once the Gram is built
+template <int kMaxRank>
 __host__ __device__ inline int smem_floats(int r) {
-  const int solve = cholb::smem_floats(r) + r + 1;  // + b, count
   const int stage = gram::stage_floats(r);
-  return solve > stage ? solve : stage;
+  if constexpr (gram::Acc<kMaxRank>::kInRegisters) {
+    const int solve = cholb::smem_floats(r) + r + 1;  // + b, count
+    return solve > stage ? solve : stage;
+  } else {
+    const int solve = cholb::kPanel * r + r + r + 1;  // panel, res, b, count
+    return gram::sums_floats<kMaxRank>(r) + (solve > stage ? solve : stage);
+  }
 }
 
-template <typename T, bool kTwoSided>
-__global__ void __launch_bounds__(gram::kThreads, 2)
+template <typename T, bool kTwoSided, int kMaxRank>
+__global__ void __launch_bounds__(gram::Acc<kMaxRank>::kThreads,
+                                  kMaxRank <= 128 ? 2 : 1)
 gather_solve_kernel(const T* __restrict__ V, const int* __restrict__ cols,
                     const T* __restrict__ aw, const T* __restrict__ bw,
                     const T* __restrict__ cw, const float* __restrict__ YtY,
                     float* __restrict__ x, int r, long long w, float reg_w,
                     float jitter) {
+  using Acc = gram::Acc<kMaxRank>;
   extern __shared__ __align__(16) float smem[];
   const long long row = blockIdx.x;
-  gram::Acc acc;
-  gram::init(acc, r);
+  float* stage = smem + gram::sums_floats<kMaxRank>(r);
+  Acc acc;
+  gram::init(acc, r, smem);
   gram::accumulate<T, kTwoSided>(V, cols + row * w, aw + row * w,
-                                 bw + row * w, cw + row * w, r, 0, w, smem,
+                                 bw + row * w, cw + row * w, r, 0, w, stage,
                                  acc);
-  __syncthreads();  // the stage is dead; its space becomes the system
-  float* S = smem;
-  float* Lp = S + cholb::tri(r);
+  __syncthreads();  // the stage is dead; its space becomes the system's
+  float* S = smem;  // the packed lower triangle
+  float* Lp = Acc::kInRegisters ? S + cholb::tri(r) : stage;
   float* res = Lp + cholb::kPanel * r;
   float* bs = res + r;
   float* cnt_s = bs + r;
-  gram::for_each_lower(acc, r, [&](int i, int c, float v) {
-    S[cholb::tri(i) + c] = v;
-  });
+  if constexpr (Acc::kInRegisters) {
+    gram::for_each_lower(acc, r, [&](int i, int c, float v) {
+      S[cholb::tri(i) + c] = v;
+    });
+  }
   if (threadIdx.x < r) bs[threadIdx.x] = acc.b;
   if (threadIdx.x == 0) *cnt_s = acc.cnt;
   __syncthreads();
   const float cnt = *cnt_s;
   const float ridge = gram::round_w<T>(gram::round_w<T>(cnt) * reg_w);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < r; i += gram::kThreads / 32) {
+  for (int i = warp; i < r; i += Acc::kThreads / 32) {
     float* Si = S + cholb::tri(i);
     for (int c = lane; c <= i; c += 32) {
       float a = Si[c];
@@ -83,22 +99,36 @@ gather_solve_kernel(const T* __restrict__ V, const int* __restrict__ cols,
   cholb::substitute(S, r, res, bs, x + row * r);
 }
 
-template <typename T, bool kTwoSided>
+template <typename T, bool kTwoSided, int kMaxRank>
 cudaError_t launch(const void* V, const int* cols, const void* aw,
                    const void* bw, const void* cw, const float* YtY,
                    float* x, long long n, long long w, int r, float reg_w,
                    float jitter, cudaStream_t stream) {
-  auto kern = gather_solve_kernel<T, kTwoSided>;
-  const size_t smem = smem_floats(r) * sizeof(float);
+  auto kern = gather_solve_kernel<T, kTwoSided, kMaxRank>;
+  const size_t smem = smem_floats<kMaxRank>(r) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(n), gram::kThreads, smem, stream>>>(
+  kern<<<static_cast<unsigned>(n), gram::Acc<kMaxRank>::kThreads, smem,
+         stream>>>(
       static_cast<const T*>(V), cols, static_cast<const T*>(aw),
       static_cast<const T*>(bw), static_cast<const T*>(cw), YtY, x, r, w,
       reg_w, jitter);
   return cudaGetLastError();
+}
+
+// the instantiation for rank r: 128 up to rank 128, 256 above
+template <typename T, bool kTwoSided>
+cudaError_t launch_rank(const void* V, const int* cols, const void* aw,
+                        const void* bw, const void* cw, const float* YtY,
+                        float* x, long long n, long long w, int r,
+                        float reg_w, float jitter, cudaStream_t stream) {
+  return r <= 128
+      ? launch<T, kTwoSided, 128>(V, cols, aw, bw, cw, YtY, x, n, w, r,
+                                  reg_w, jitter, stream)
+      : launch<T, kTwoSided, 256>(V, cols, aw, bw, cw, YtY, x, n, w, r,
+                                  reg_w, jitter, stream);
 }
 
 }  // namespace
@@ -110,21 +140,21 @@ extern "C" int gather_solve(const void* V, const int* cols, const void* aw,
                             float reg_w, float jitter, int two_sided,
                             int bf16, void* stream) {
   if (n <= 0) return 0;
-  if (r < 1 || r > gram::kMaxRank || w < 1 || n > 0x7fffffffLL)
+  if (r < 1 || r > gram::kRankLimit || w < 1 || n > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bf16)
     e = two_sided
-        ? launch<__nv_bfloat16, true>(V, cols, aw, bw, cw, YtY, x, n, w, r,
-                                      reg_w, jitter, st)
-        : launch<__nv_bfloat16, false>(V, cols, aw, bw, cw, YtY, x, n, w, r,
-                                       reg_w, jitter, st);
+        ? launch_rank<__nv_bfloat16, true>(V, cols, aw, bw, cw, YtY, x, n, w,
+                                           r, reg_w, jitter, st)
+        : launch_rank<__nv_bfloat16, false>(V, cols, aw, bw, cw, YtY, x, n,
+                                            w, r, reg_w, jitter, st);
   else
     e = two_sided
-        ? launch<float, true>(V, cols, aw, bw, cw, YtY, x, n, w, r, reg_w,
-                              jitter, st)
-        : launch<float, false>(V, cols, aw, bw, cw, YtY, x, n, w, r, reg_w,
-                               jitter, st);
+        ? launch_rank<float, true>(V, cols, aw, bw, cw, YtY, x, n, w, r,
+                                   reg_w, jitter, st)
+        : launch_rank<float, false>(V, cols, aw, bw, cw, YtY, x, n, w, r,
+                                    reg_w, jitter, st);
   return static_cast<int>(e);
 }

@@ -14,21 +14,31 @@
 // everything accumulates in f32.  The
 // gathered rows never reach device memory: kT of them at a time are
 // staged in shared memory (weighted and raw, zero-padded to R4 = r rounded
-// up to 4), and each thread keeps up to kMaxTiles 4x4 tiles of the LOWER
-// triangle of S in registers, so one pair of 16-byte shared loads feeds
-// 16 multiply-adds.  Rank <= 128 (RT = r/4 <= 32 tile rows, 528 tiles
-// over 256 threads).
+// up to 4), and each thread owns up to kMaxTiles 4x4 tiles of the LOWER
+// triangle of S, so one pair of 16-byte shared loads feeds 16
+// multiply-adds.
+//
+// Two instantiations, by the largest rank they take (Acc<kMaxRank>):
+// - rank <= 128: 256 threads, 3 tiles each (528 tiles at RT = r/4 = 32),
+//   the running sums in registers;
+// - rank <= 256: 544 threads (17 warps), 4 tiles each (2,080 tiles at
+//   RT = 64).  Holding the running sums in registers as well would take
+//   twice the tiles' registers and spill; so only each step's partials
+//   are registers, and the running sums live in the packed lower
+//   triangle in shared memory (chol_blocked.cuh's layout, 131.6 KB at
+//   rank 256), where K4 factorizes it in place.  Every thread adds its
+//   own entries after each step: no atomics, no barrier.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include "chol_blocked.cuh"
+
 namespace gram {
 
-constexpr int kThreads = 256;
 constexpr int kT = 32;         // entries staged per step
-constexpr int kMaxTiles = 3;   // 4x4 register tiles per thread
-constexpr int kMaxRank = 128;
+constexpr int kRankLimit = 256;  // the largest instantiation's rank
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -53,30 +63,53 @@ __host__ __device__ inline int stage_floats(int r) {
   return 2 * kT * round4(r) + 4 * kT;
 }
 
+template <int kMaxRank>
 struct Acc {
-  float s[kMaxTiles][4][4];
+  static_assert(kMaxRank == 128 || kMaxRank == 256, "rank 128 or 256");
+  static constexpr bool kInRegisters = kMaxRank <= 128;
+  static constexpr int kThreads = kInRegisters ? 256 : 544;
+  static constexpr int kMaxTiles = kInRegisters ? 3 : 4;
+  float s[kInRegisters ? kMaxTiles : 1][4][4];  // running sums (<= 128)
+  float* tri;  // running sums, packed lower triangle in shared memory
   int ti[kMaxTiles], tj[kMaxTiles];
   int ntiles;
   float b;    // b[threadIdx.x], for threadIdx.x < r
   float cnt;  // on thread 0
 };
 
-__device__ __forceinline__ void init(Acc& acc, int r) {
+// floats of shared memory the running sums take before the staging
+// (16-byte aligned)
+template <int kMaxRank>
+__host__ __device__ inline int sums_floats(int r) {
+  return Acc<kMaxRank>::kInRegisters ? 0 : round4(cholb::tri(r));
+}
+
+// tri: sums_floats(r) floats of shared memory (unused at rank <= 128)
+template <int kMaxRank>
+__device__ __forceinline__ void init(Acc<kMaxRank>& acc, int r, float* tri) {
+  constexpr int kThreads = Acc<kMaxRank>::kThreads;
   const int rt = round4(r) / 4;
   const int total = rt * (rt + 1) / 2;
   acc.ntiles = 0;
 #pragma unroll
-  for (int s = 0; s < kMaxTiles; ++s) {
+  for (int s = 0; s < Acc<kMaxRank>::kMaxTiles; ++s) {
     const int t = threadIdx.x + s * kThreads;
     int ti = 0;
     while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
     acc.ti[s] = ti;
     acc.tj[s] = t - ti * (ti + 1) / 2;
     if (t < total) acc.ntiles = s + 1;
+  }
+  if constexpr (Acc<kMaxRank>::kInRegisters) {
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
+    for (int s = 0; s < Acc<kMaxRank>::kMaxTiles; ++s)
 #pragma unroll
-      for (int y = 0; y < 4; ++y) acc.s[s][x][y] = 0.f;
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc.s[s][x][y] = 0.f;
+  } else {
+    acc.tri = tri;
+    for (int e = threadIdx.x; e < cholb::tri(r); e += kThreads) tri[e] = 0.f;
   }
   acc.b = 0.f;
   acc.cnt = 0.f;
@@ -85,12 +118,14 @@ __device__ __forceinline__ void init(Acc& acc, int r) {
 // Accumulate entries [w0, w1) of one row.  cols/aw/bw/cw point at the
 // row's first entry; cw may be null (no count).  stage: stage_floats(r)
 // floats of shared memory, 16-byte aligned.  Opens with a barrier.
-template <typename T, bool kTwoSided>
+template <typename T, bool kTwoSided, int kMaxRank>
 __device__ __forceinline__ void accumulate(
     const T* __restrict__ V, const int* __restrict__ cols,
     const T* __restrict__ aw, const T* __restrict__ bw,
     const T* __restrict__ cw, int r, long long w0, long long w1,
-    float* stage, Acc& acc) {
+    float* stage, Acc<kMaxRank>& acc) {
+  constexpr int kThreads = Acc<kMaxRank>::kThreads;
+  constexpr int kMaxTiles = Acc<kMaxRank>::kMaxTiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R4 = round4(r);
   float* Vw = stage;                 // [kT][R4]  aw·v
@@ -154,22 +189,39 @@ __device__ __forceinline__ void accumulate(
       if (tid < r) tb += bw_s[e] * Vg[e * R4 + tid];
       if (tid == 0) tc += cw_s[e];
     }
+    if constexpr (Acc<kMaxRank>::kInRegisters) {
 #pragma unroll
-    for (int s = 0; s < kMaxTiles; ++s)
+      for (int s = 0; s < kMaxTiles; ++s)
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
+        for (int x = 0; x < 4; ++x)
 #pragma unroll
-        for (int y = 0; y < 4; ++y) acc.s[s][x][y] += ts[s][x][y];
+          for (int y = 0; y < 4; ++y) acc.s[s][x][y] += ts[s][x][y];
+    } else {
+#pragma unroll
+      for (int s = 0; s < kMaxTiles; ++s) {
+        if (s < acc.ntiles) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+              const int i = acc.ti[s] * 4 + x, c = acc.tj[s] * 4 + y;
+              if (i < r && c <= i) acc.tri[cholb::tri(i) + c] += ts[s][x][y];
+            }
+        }
+      }
+    }
     acc.b += tb;
     acc.cnt += tc;
   }
 }
 
-// Visit every lower-triangle entry (i, c), c <= i < r, this thread holds.
+// Visit every lower-triangle entry (i, c), c <= i < r, this thread holds
+// in registers (rank <= 128).
 template <typename F>
-__device__ __forceinline__ void for_each_lower(const Acc& acc, int r, F f) {
+__device__ __forceinline__ void for_each_lower(const Acc<128>& acc, int r,
+                                               F f) {
 #pragma unroll
-  for (int s = 0; s < kMaxTiles; ++s) {
+  for (int s = 0; s < Acc<128>::kMaxTiles; ++s) {
     if (s < acc.ntiles) {
 #pragma unroll
       for (int x = 0; x < 4; ++x)

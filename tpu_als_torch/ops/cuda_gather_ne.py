@@ -9,9 +9,10 @@ inside the kernels and never materialized; the weights, the count and
 the ridge/YᵀY tail are the reference builders' exact expressions.
 
 Both kernels take the table in float32 or bfloat16, weights in the
-table's type, and rank <= 128 (the Gram accumulates in register tiles;
-above that rank a CUDA tensor raises, and the plain versions take any
-rank).  S is symmetric: its
+table's type, and rank <= 256 (the Gram accumulates in register tiles,
+and above rank 128 into a packed triangle in shared memory; above rank
+256 a CUDA tensor raises, and the plain versions take any rank).  S is
+symmetric: its
 lower triangle ``S[i, c] = Σ (aw·v_i)·v_c`` (c <= i) is mirrored.
 
 A CUDA tensor goes to a kernel (or raises); only CPU tensors take the
@@ -26,7 +27,7 @@ from tpu_als_torch import _build
 from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
 
-MAX_RANK = 128
+MAX_RANK = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches in this process, per kernel; a run reads them to show
@@ -105,9 +106,11 @@ def _cuda_ready(name, V, *tensors):
     r = V.shape[1]
     if r > MAX_RANK:
         raise NotImplementedError(
-            f"{name}: rank {r} > {MAX_RANK}: the register-tiled Gram holds "
-            "at most rank 128 until the rank-256 slice of the port (with "
-            "K6); solve_backend='unfused' is the explicit choice meanwhile")
+            f"{name}: rank {r} > {MAX_RANK}: the Gram's register tiles and "
+            "its packed triangle in shared memory hold at most rank 256; a "
+            "Gram streamed through device memory (as K6 streams its blocks) "
+            "is not written yet; solve_backend='unfused' is the explicit "
+            "choice above it")
     if not all(t.is_contiguous() for t in (V,) + tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 

@@ -5,9 +5,11 @@ normal-equation builds, ``compute_yty``, ``solve_spd`` with its
 contract, ``solve_nnls`` and the warm-started CG solvers of inexact
 ALS.  The normal-equation contractions and CG stay PyTorch ops, as the
 JAX package leaves them to XLA; the SPD solve is kernel K2
-(:mod:`tpu_als_torch.ops.cuda_lanes`, rank <= 128) or kernel K1
-(:mod:`tpu_als_torch.ops.cuda_solve`, blocked, any rank that fits) on a
-CUDA tensor, and their plain versions on a CPU tensor.  The ``adaptive=``
+(:mod:`tpu_als_torch.ops.cuda_lanes`, rank <= 128), kernel K6
+(:mod:`tpu_als_torch.ops.cuda_lanes_blocked`, the factorization above
+rank 128, then two triangular solves) or, by name, kernel K1
+(:mod:`tpu_als_torch.ops.cuda_solve`, blocked, rank <= 323) on a CUDA
+tensor, and their plain versions on a CPU tensor.  The ``adaptive=``
 jitter ladder belongs to the guardrails slice and is not here.
 
 Shapes use the padded-row convention of the reference:
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_als_torch.ops import cuda_lanes, cuda_solve
+from tpu_als_torch.ops import cuda_lanes, cuda_lanes_blocked, cuda_solve
 
 DEFAULT_JITTER = 1e-6
 
@@ -103,26 +105,35 @@ def compute_yty(V):
 
 def regularize(A, count, jitter=DEFAULT_JITTER):
     """``solve_spd``'s pre-regularization: rows with ``count <= 0`` get
-    ``A := I`` (their b is 0, so x is exactly 0), then ``+ jitter·I``."""
+    ``A := I`` (their b is 0, so x is exactly 0), then ``+ jitter·I``.
+    The result is always a fresh contiguous tensor: K6 writes its factor
+    over it, and the caller's A is left as it was."""
     r = A.shape[-1]
     eye = torch.eye(r, dtype=A.dtype, device=A.device)
     A = torch.where((count <= 0)[:, None, None], eye, A)
     return (A + jitter * eye).contiguous()
 
 
+# the solve kernels by backend name
+SOLVERS = {"lanes": cuda_lanes.spd_solve_lanes,
+           "lanes_blocked": cuda_lanes_blocked.spd_solve_lanes_blocked,
+           "pallas": cuda_solve.spd_solve_blocked}
+
+
 def auto_solve_backend(rank):
-    """'lanes' (K2) up to rank 128, 'pallas' (K1, blocked) above — the
+    """'lanes' (K2) up to rank 128, 'lanes_blocked' (K6) above — the
     reference's preference order, with no probes: each name is one
     hand-written kernel."""
-    return "lanes" if rank <= cuda_lanes.MAX_RANK else "pallas"
+    return "lanes" if rank <= cuda_lanes.MAX_RANK else "lanes_blocked"
 
 
 def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
     """Batched SPD solve x = A⁻¹ b after :func:`regularize`.
 
-    ``backend``: 'auto' (:func:`auto_solve_backend`), 'lanes' forces K2,
-    'pallas' forces K1.  bfloat16 input is upcast to float32 before the
-    guard, solved, and the answer cast back (there is no bf16
+    ``backend``: 'auto' (:func:`auto_solve_backend`), or a name of
+    :data:`SOLVERS`: 'lanes' forces K2, 'lanes_blocked' K6 and the two
+    triangular solves, 'pallas' K1.  bfloat16 input is upcast to float32
+    before the guard, solved, and the answer cast back (there is no bf16
     factorization).
     """
     if A.dtype == torch.bfloat16:
@@ -130,12 +141,10 @@ def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
                          backend=backend).to(torch.bfloat16)
     if backend == "auto":
         backend = auto_solve_backend(A.shape[-1])
-    if backend not in ("lanes", "pallas"):
+    if backend not in SOLVERS:
         raise ValueError(f"unknown solve backend {backend!r} (expected "
-                         "'auto', 'lanes' or 'pallas')")
-    solve = (cuda_lanes.spd_solve_lanes if backend == "lanes"
-             else cuda_solve.spd_solve_blocked)
-    return solve(regularize(A, count, jitter), b.contiguous())
+                         f"'auto' or one of {sorted(SOLVERS)})")
+    return SOLVERS[backend](regularize(A, count, jitter), b.contiguous())
 
 
 def solve_nnls(A, b, count, sweeps=32, jitter=DEFAULT_JITTER):

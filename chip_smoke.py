@@ -24,7 +24,13 @@ Phases (any failure exits non-zero before the final line):
    bf16 tables, widths 24, 100 (rank 128), 512 and a row wider than the
    trainer's split width (K3's split path; K4 at ranks 200 and 256 too);
    empty rows, duplicate columns and an implicit row with no positive
-   rating (K4: exactly 0);
+   rating (K4: exactly 0); K7 (K4 over S shards in ring order) against
+   its plain version at ranks 128, 200 and 256, S = 1, 3 and 4 shards,
+   explicit and implicit, f32 and bf16, and at S = 1 against K4 bit for
+   bit; K8 (the cross-shard top-k merge) against its plain version and
+   the whole-catalog plain top-k, bitwise, on the integer tie corpus at
+   4,096 users x 59,047 items, S = 1, 3, 4 and 8, k = 10 and 128, with a
+   sparse validity mask and an all-invalid shard;
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
    layout both ways (host seconds), each bucket's route, then
@@ -35,7 +41,12 @@ Phases (any failure exits non-zero before the final line):
    + bmm + K2), row by row, with each route's distance from a float64
    solve of the heaviest rows; then the same at rank 256 (BASELINE
    config 3's width) on the same data and layout: K3/K4/K6 launch
-   counts, and 'auto' (K4 + K3/K6) against 'unfused' (torch + K6);
+   counts, and 'auto' (K4 + K3/K6) against 'unfused' (torch + K6); then
+   sharded training on 4 logical shards on the card: the ring's owner x
+   source grid (host seconds, padded entries), ``train_sharded(...,
+   strategy='ring')`` with ``solve_backend='gather_fused_ring'`` (K7) for
+   2 iterations from the init of a 2-iteration single-device fit, row by
+   row against it, and one iteration of the unfused ring (K2);
 6. the serving slice at the ML-25M shape (rank 128, implicit, alpha 40,
    regParam 0.01) from seeded random factors: save/load,
    ``FoldInServer.update`` on hourly-style batches of 4,096 users (half
@@ -43,13 +54,21 @@ Phases (any failure exits non-zero before the final line):
    ``recommend_arrays`` for all users and ``transform`` on 100k pairs;
    K2/K5 launch counts are read around this run; then at rank 256 the
    fitted factors through ``model_from_arrays``, save/load, two fold-in
-   batches of 4,096 users (K6) and recommend-all (K5 at r = 256);
+   batches of 4,096 users (K6) and recommend-all (K5 at r = 256); then
+   ``recommend_arrays(10, mesh=4 logical shards,
+   gatherStrategy='merge_ring')`` (K8) for every user of the rank-128
+   fit, against the single-device K5 sweep;
 7. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound; K4 and K3 held
    against their plain versions once more on the item half-step's
    buckets (widths up to 2^13, and the wide rows split), at ranks 128
    and 256; K6 on the rank-256 fold-in systems and on the fit's wide
-   rows, beside K1 on the same systems and the two substitutions; each
+   rows, beside K1 on the same systems and the two substitutions; K7 over
+   the sharded item half-step's ring grid (each bucket's time) beside
+   its plain version and the unfused ring half-step, after K7 == K4
+   bitwise at one shard on the single-device item half-step's K4
+   buckets; K8 at the sharded serving shape beside its plain version and
+   a matmul + stable sort; each
    bucket's time in both half-steps, and one iteration beside its bound;
 8. where the time goes: one training iteration, one more fold-in batch
    and one all-users recommend, and one rank-256 iteration and fold-in
@@ -75,7 +94,7 @@ import torch
 
 from tpu_als_torch import _build
 from tpu_als_torch.api.estimator import ALS, ALSModel
-from tpu_als_torch.convert import model_from_arrays
+from tpu_als_torch.convert import entity_rows, model_from_arrays, slot_rows
 from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
 from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
@@ -84,11 +103,16 @@ from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
 from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
 from tpu_als_torch.ops.solve import compute_yty, implicit_weights, regularize
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
+from tpu_als_torch.parallel.comm import ring_half_step, shard_csr_grid
+from tpu_als_torch.parallel.data import partition_balanced
+from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.utils.platform import pin_fp32
 
 N_USERS, N_ITEMS, RANK = 162_541, 59_047, 128   # ML-25M serving shape
 RANK256 = 256                                   # BASELINE config 3's width
+SHARDS = 4                                      # logical shards on the card
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                         # H100 SXM, non-tensor f32
 NEG_INF32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
@@ -109,6 +133,13 @@ K3_REL = 5e-5
 # K4: the reference's own band for fused vs unfused solves
 K4_RTOL, K4_ATOL = 5e-4, 5e-5
 TRAIN_REL = 1e-3                    # 'auto' vs 'unfused', per row / ||x||
+                                    # (and sharded vs one device)
+# K7 vs its plain version: K4's band (the same Gram and tail over S·w
+# entries); at one shard K7 must equal K4 bitwise.  K8 vs its plain
+# version: bitwise on the integer tie corpus (every score exact).
+# Sharded vs single-device recommend-all scores: within SERVE_ULPS units
+# in the last place (K8 and K5 compute each score the same way)
+SERVE_ULPS = 4
 REG, ALPHA = 0.01, 40.0             # the slice's implicit configuration
 FOLDIN_REL = 1e-3                   # per row, relative to ||x||
 
@@ -426,6 +457,129 @@ def check_k4(rng, dev, r=RANK, shapes=((256, 24), (256, 100), (64, 512))):
     return worst
 
 
+def ring_problem(rng, dev, S, per, n, w, dtype, r):
+    """``gather_problem`` per (owner, source shard): V_shards [S, per, r]
+    unit rows, cols/vals/mask [S, S, n, w] shard-local; on every owner row
+    0 is empty, row 1 repeats a column, row 2 has no positive rating."""
+    V = torch.from_numpy(unit_rows(rng, S * per, r)).to(dev).to(dtype)
+    cols = rng.integers(0, per, (S, S, n, w)).astype(np.int32)
+    cols[:, :, 1, 1::2] = cols[:, :, 1, :1]
+    vals = (rng.integers(1, 11, (S, S, n, w)) * 0.5).astype(np.float32)
+    mask = (rng.random((S, S, n, w)) < 0.8).astype(np.float32)
+    mask[:, :, 0] = 0.0
+    vals[:, :, 2] = -vals[:, :, 2]
+    vals *= mask
+    return (V.reshape(S, per, r), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(vals).to(dev).to(dtype),
+            torch.from_numpy(mask).to(dev).to(dtype))
+
+
+def check_k7(rng, dev):
+    """K7 vs its plain version (K4's plain Gram, tail and solve over each
+    owner's ring-ordered stream) at ranks 128, 200 and 256, S = 1, 3 and
+    4 shards, explicit and implicit, f32 and bf16, within K4's band; and
+    at S = 1, K7 == K4 bit for bit.  Returns the largest |x - x_plain| at
+    f32 by rank class (128, 256)."""
+    worst = {RANK: 0.0, RANK256: 0.0}
+    for r in (RANK, 200, RANK256):
+        for S in (1, 3, SHARDS):
+            for dtype in (torch.float32, torch.bfloat16):
+                for n, w in ((64, 24), (16, 100)):
+                    V, cols, vals, mask = ring_problem(rng, dev, S, 2048, n,
+                                                       w, dtype, r)
+                    YtY = compute_yty(V.reshape(-1, r).float())
+                    conf, pref = implicit_weights(vals, mask, ALPHA)
+                    for name, xk, xp in (
+                            ("implicit",
+                             cuda_gather_ne.gather_fused_ring_implicit(
+                                 V, cols, vals, mask, REG, ALPHA, YtY),
+                             cuda_gather_ne.gather_solve_ring_plain(
+                                 V, cols, conf, (1.0 + conf) * pref * mask,
+                                 pref * mask, YtY, two_sided=False,
+                                 reg=REG)),
+                            ("explicit",
+                             cuda_gather_ne.gather_fused_ring_explicit(
+                                 V, cols, vals, mask, REG),
+                             cuda_gather_ne.gather_solve_ring_plain(
+                                 V, cols, mask, vals * mask, mask,
+                                 two_sided=True, reg=REG))):
+                        torch.cuda.synchronize()
+                        zero = (0, 2) if name == "implicit" else (0,)
+                        if not all(bool((xk[:, j] == 0).all())
+                                   for j in zero):
+                            fail(f"K7 {name} r={r} S={S}: rows {zero} did "
+                                 "not solve to exactly 0")
+                        err = (xk - xp).abs().max().item()
+                        if not (torch.isfinite(xk).all() and torch.allclose(
+                                xk, xp, rtol=K4_RTOL, atol=K4_ATOL)):
+                            fail(f"K7 {name} {dtype} r={r} S={S} n={n} "
+                                 f"w={w}: kernel vs plain max |diff| "
+                                 f"{err:.3e}")
+                        if dtype == torch.float32:
+                            key = RANK if r <= RANK else RANK256
+                            worst[key] = max(worst[key], err)
+                        if S == 1:
+                            fused = (cuda_gather_ne.gather_fused_solve_implicit
+                                     if name == "implicit" else
+                                     cuda_gather_ne.gather_fused_solve_explicit)
+                            args = ((V[0], cols[0, 0], vals[0, 0], mask[0, 0],
+                                     REG) + ((ALPHA, YtY)
+                                             if name == "implicit" else ()))
+                            if not torch.equal(xk[0], fused(*args)):
+                                fail(f"K7 {name} {dtype} r={r} at one shard "
+                                     "is not K4 bit for bit")
+            log(f"k7 r={r} S={S}: explicit and implicit, f32 and bf16, "
+                f"w 24 and 100: within rtol {K4_RTOL}, atol {K4_ATOL} of "
+                "plain" + ("; == K4 bitwise" if S == 1 else ""))
+    return worst
+
+
+def tie_corpus(rng, n, ni, r, pool=7):
+    """The reference's integer tie corpus: integer factors, the catalog
+    from a ``pool``-row palette: every f32 score is exact, ties abound."""
+    base = rng.integers(-3, 4, size=(pool, r)).astype(np.float32)
+    V = base[rng.integers(0, pool, ni)]
+    U = rng.integers(-3, 4, size=(n, r)).astype(np.float32)
+    return U, V
+
+
+def check_k8(rng, dev):
+    """K8 vs its plain version, bitwise (scores and ids), and both vs the
+    plain top-k over the whole concatenated catalog, on the integer tie
+    corpus at 4,096 users x the 59,047-item catalog, r = 16, S = 1, 3, 4
+    and 8 shards, k = 10 and 128, ~30 % of items valid and (S > 1) shard 1
+    all invalid.  Returns the largest |score - score_plain| (0.0)."""
+    U, V = tie_corpus(rng, 4096, N_ITEMS, 16)
+    U, V = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
+    for S in (1, 3, SHARDS, 8):
+        ni_loc = -(-N_ITEMS // S)
+        Vp = torch.zeros(S * ni_loc, 16, device=dev)
+        Vp[:N_ITEMS] = V
+        validp = torch.zeros(S * ni_loc, dtype=torch.bool, device=dev)
+        validp[:N_ITEMS] = torch.from_numpy(rng.random(N_ITEMS) < 0.3)
+        if S > 1:
+            validp[ni_loc:2 * ni_loc] = False
+        Vs, vs = Vp.reshape(S, ni_loc, 16), validp.reshape(S, ni_loc)
+        for k in (10, 128):
+            sk, ik = cuda_topk.topk_merge_ring(U, Vs, vs, k)
+            sp, ip = cuda_topk.topk_merge_ring_plain(U, Vs, vs, k)
+            sc, ic = chunked_topk_scores(U, Vp, validp, k)
+            torch.cuda.synchronize()
+            for what, (s, i) in (("plain", (sp, ip)),
+                                 ("the whole-catalog top-k", (sc, ic))):
+                if not (torch.equal(sk, s) and torch.equal(ik, i)):
+                    bad = int((ik != i).any(dim=1).sum())
+                    fail(f"K8 S={S} k={k}: not bitwise {what} (scores max "
+                         f"|diff| {(sk - s).abs().max().item():.3e}, "
+                         f"{bad} rows with other ids)")
+            if S > 1 and bool(((ik >= ni_loc) & (ik < 2 * ni_loc)
+                               & (sk > NEG_INF32)).any()):
+                fail(f"K8 S={S}: an item of the all-invalid shard came back")
+        log(f"k8 S={S} n=4096 Ni={N_ITEMS} r=16 k=10 and 128: bitwise plain "
+            "and the whole-catalog top-k (tie corpus)")
+    return 0.0
+
+
 # -- phase 5 ---------------------------------------------------------------
 def layout(csr, side):
     widths = [(b.width, int((b.rows < csr.num_rows).sum()))
@@ -495,20 +649,24 @@ def prepare(seed, dev):
     layout(icsr, "items")
     return {"frame": frame, "ucsr": ucsr, "icsr": icsr,
             "ub": ucsr.to(dev), "ib": icsr.to(dev),
-            "n_users": len(umap), "n_items": len(imap)}
+            "n_users": len(umap), "n_items": len(imap),
+            "u_idx": u_idx, "i_idx": i_idx, "r": r}
 
 
 def _launch_counts():
     return {"k1": cuda_solve.LAUNCHES, "k2": cuda_lanes.LAUNCHES,
             "k3": cuda_gather_ne.GRAM_LAUNCHES,
             "k4": cuda_gather_ne.SOLVE_LAUNCHES,
-            "k6": cuda_lanes_blocked.LAUNCHES}
+            "k6": cuda_lanes_blocked.LAUNCHES, "k5": cuda_topk.LAUNCHES,
+            "k7": cuda_gather_ne.RING_LAUNCHES,
+            "k8": cuda_topk.MERGE_LAUNCHES}
 
 
 def _zero_launches():
     cuda_solve.LAUNCHES = cuda_lanes.LAUNCHES = 0
     cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
     cuda_lanes_blocked.LAUNCHES = cuda_topk.LAUNCHES = 0
+    cuda_gather_ne.RING_LAUNCHES = cuda_topk.MERGE_LAUNCHES = 0
 
 
 def train_slice(data, r, seed, dev):
@@ -533,7 +691,7 @@ def train_slice(data, r, seed, dev):
     counts = _launch_counts()
     launches = {k: counts[k] for k in path}
     log(f"rank {r} fit launches: " + ", ".join(
-        f"{k.upper()} {v}" for k, v in counts.items()))
+        f"{k.upper()} {v}" for k, v in counts.items() if v))
     if min(launches.values()) == 0:
         fail(f"a kernel of the rank-{r} training path never launched: "
              f"{launches}")
@@ -580,6 +738,103 @@ def train_slice(data, r, seed, dev):
     return {"launches": launches, "iter_s": iter_s, "ub": ub, "ib": ib,
             "U0": U0, "V0": V0, "cfg": cfg, "n_items": n_items,
             "n_users": n_users, "model": model}
+
+
+def sharded_train_slice(data, seed, dev):
+    """Sharded training at the ML-25M shape, rank 128, implicit: SHARDS
+    logical shards on the card, the ring's owner x source grid (host
+    seconds, padded entries), then ``train_sharded(strategy='ring')`` with
+    ``solve_backend='gather_fused_ring'`` (K7) for 2 iterations from the
+    injected init of a 2-iteration single-device fit, row by row within
+    TRAIN_REL of it (and both against float64 on the heaviest users), and
+    one iteration of the unfused ring (torch normal equations + K2) on the
+    same grid against the fused ring's first.  Returns what the timings
+    reuse."""
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    u_idx, i_idx, r = data["u_idx"], data["i_idx"], data["r"]
+    n_users, n_items = data["n_users"], data["n_items"]
+    upart = partition_balanced(np.bincount(u_idx, minlength=n_users), SHARDS)
+    ipart = partition_balanced(np.bincount(i_idx, minlength=n_items), SHARDS)
+    t0 = time.perf_counter()
+    ush = shard_csr_grid(upart, ipart, u_idx, i_idx, r)
+    t1 = time.perf_counter()
+    ish = shard_csr_grid(ipart, upart, i_idx, u_idx, r)
+    t2 = time.perf_counter()
+    counts = (stacked_counts(upart, u_idx, r, positive_only=True),
+              stacked_counts(ipart, i_idx, r, positive_only=True))
+    for side, g, sd in (("users", ush, t1 - t0), ("items", ish, t2 - t1)):
+        widest = g.buckets[-1]
+        log(f"ring grid {side} ({SHARDS} shards): shard_csr_grid {sd:.2f} s "
+            f"(host), {g.padded_nnz} padded entries for {g.nnz} ratings in "
+            f"{len(g.buckets)} buckets, widest {SHARDS} x "
+            f"{widest.cols.shape[-1]} entries per row")
+    g = torch.Generator().manual_seed(seed)
+    U0 = core_als.init_factors(n_users, RANK, g)
+    V0 = core_als.init_factors(n_items, RANK, g)
+    cfg = core_als.AlsConfig(rank=RANK, max_iter=2, implicit_prefs=True,
+                             alpha=ALPHA, reg_param=REG,
+                             solve_backend="gather_fused_ring")
+    ticks, first = [time.perf_counter()], {}
+
+    def tick(it, U, V):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+        if it == 1:
+            first["U"], first["V"] = U.clone(), V.clone()
+
+    _zero_launches()
+    ticks[0] = time.perf_counter()
+    Us, Vs = train_sharded(mesh, upart, ipart, ush, ish, cfg, callback=tick,
+                           strategy="ring", ring_counts=counts,
+                           init=(U0, V0))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    log("sharded fit launches: " + ", ".join(
+        f"{k.upper()} {v}" for k, v in launches.items() if v))
+    if launches["k7"] == 0:
+        fail(f"K7 never launched on the sharded training path: {launches}")
+    iter_s = [b - a for a, b in zip(ticks, ticks[1:])]
+    log(f"sharded fit ({SHARDS} logical shards, ring, gather_fused_ring): "
+        f"iterations 1-2 wall {', '.join(f'{x * 1e3:.1f}' for x in iter_s)}"
+        " ms (iteration 1 includes moving the grid to the card)")
+    U, V = entity_rows(upart, Us), entity_rows(ipart, Vs)
+    if not (torch.isfinite(U).all() and torch.isfinite(V).all()):
+        fail("the sharded fit's factors are not finite")
+    # the single-device fit from the same init
+    one = dataclasses.replace(cfg, solve_backend="auto")
+    U1, V1 = U0.to(dev), V0.to(dev)
+    for _ in range(2):
+        U1, V1 = core_als.als_step(U1, V1, data["ub"], data["ib"], n_users,
+                                   n_items, one)
+    eu, ev = row_rel(U, U1), row_rel(V, V1)
+    e64 = {"sharded": f64_rel(U, V, data["ucsr"]),
+           "single-device": f64_rel(U1, V1, data["ucsr"])}
+    log(f"sharded vs single-device fit, 2 iterations: max per-row "
+        f"|diff|/|x| users {eu:.3e}, items {ev:.3e} (tol {TRAIN_REL}); "
+        "heaviest users vs float64: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e64.items()))
+    if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+        fail(f"the sharded fit is off the single-device fit: users "
+             f"{eu:.3e}, items {ev:.3e}; float64: {e64}")
+    # the unfused ring, one iteration on the same grid
+    unfused = dataclasses.replace(cfg, max_iter=1, solve_backend="auto")
+    _zero_launches()
+    Uu, Vu = train_sharded(mesh, upart, ipart, ush, ish, unfused,
+                           strategy="ring", ring_counts=counts,
+                           init=(U0, V0))
+    torch.cuda.synchronize()
+    unf = _launch_counts()
+    if unf["k2"] == 0 or unf["k7"] != 0:
+        fail(f"the unfused ring's launches: {unf}")
+    eu1, ev1 = row_rel(Uu, first["U"]), row_rel(Vu, first["V"])
+    log(f"unfused ring (K2 {unf['k2']} launches) vs the fused ring, one "
+        f"iteration: max per-row |diff|/|x| users {eu1:.3e}, items "
+        f"{ev1:.3e} (tol {TRAIN_REL})")
+    if not (eu1 <= TRAIN_REL and ev1 <= TRAIN_REL):
+        fail(f"the unfused and fused rings disagree: {eu1:.3e}, {ev1:.3e}")
+    return {"launches": launches, "iter_s": iter_s, "ish": ish,
+            "icounts": counts[1], "U0": slot_rows(upart, U0.to(dev)),
+            "mesh": mesh}
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -792,6 +1047,50 @@ def serve_slice_256(fitted, rng, dev):
     log(f"rank 256 fold-in p50 latency: {p50 * 1e3:.1f} ms over "
         f"{len(srv.stats)} user batches of 4096 users")
     return model, launches, A_slice, b_slice
+
+
+def sharded_serve_slice(model, mesh, dev):
+    """recommend-all through ``recommend_arrays(10, mesh=...,
+    gatherStrategy='merge_ring')`` (K8) for every user of ``model``, with
+    K8's launches read around it, its wall and device time, then its
+    scores against the single-device K5 sweep (within SERVE_ULPS ulp),
+    each id earning its score, and the ids that differ from K5's
+    counted."""
+    _zero_launches()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    _, ids, scores = model.recommend_arrays(10, mesh=mesh,
+                                            gatherStrategy="merge_ring")
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    log(f"sharded serving launches: K8 {launches['k8']} (K5 "
+        f"{launches['k5']})")
+    if launches["k8"] == 0:
+        fail(f"K8 never launched on the sharded serving path: {launches}")
+    n = model._U.shape[0]
+    _, ids1, sc1 = model.recommend_arrays(10)  # single device: K5
+    if ids.shape != (n, 10) or not np.isfinite(scores).all():
+        fail(f"sharded recommend_arrays: shape {ids.shape} for {n} users")
+    ulps = np.abs(scores - sc1) / np.spacing(np.abs(sc1))
+    if ulps.max() > SERVE_ULPS:
+        fail(f"sharded scores {ulps.max():.1f} ulp off the K5 sweep")
+    dense = torch.from_numpy(model._item_map.to_dense(ids)).to(dev)
+    valid = torch.ones(model._V.shape[0], dtype=torch.bool, device=dev)
+    err = earns_scores(model._U, model._V, valid,
+                       torch.from_numpy(scores).to(dev), dense,
+                       "sharded recommend_arrays")
+    log(f"sharded recommend_arrays ({SHARDS} logical shards, merge_ring): "
+        f"{n} users x k=10 in {wall:.1f} ms wall, {e0.elapsed_time(e1):.1f} "
+        f"ms by CUDA events (results on the host); scores vs the K5 sweep "
+        f"max {ulps.max():.1f} ulp (tol {SERVE_ULPS}), each id earns its "
+        f"score ({err:.3e}); rows whose ids differ from K5's: "
+        f"{int((ids != ids1).any(axis=1).sum())}")
+    return launches
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1078,6 +1377,155 @@ def k6_timings(A, b, launches, err, what):
             "library_ms": l6}
 
 
+def ring_timings(sh, tr, errs, dev):
+    """K7 at the sharded slice's shapes: every bucket of the item
+    half-step's ring grid (the ring routes every width through K7) from
+    the seeded init, with each bucket's time and the widest bucket's
+    share; its plain version on the same pass, held to K4's band on the
+    buckets up to the split width (past it the plain version's long bmm
+    chains drift); the unfused ring half-step as the yardstick; the
+    bound in K4's closed form on the real entries and rows.  First, K7 at
+    one shard against K4 bit for bit on the single-device item
+    half-step's K4 buckets."""
+    U1, r = tr["U0"], RANK
+    Y1 = compute_yty(U1)
+    k4_b = [b for b in tr["ib"]
+            if core_als.resolve_solve_path(tr["cfg"], r, b.width)
+            == "gatherfused_solve"]
+    for b in k4_b:
+        x4 = cuda_gather_ne.gather_fused_solve_implicit(
+            U1, b.cols, b.vals, b.mask, REG, ALPHA, Y1)
+        x7 = cuda_gather_ne.gather_fused_ring_implicit(
+            U1[None], b.cols[None, None], b.vals[None, None],
+            b.mask[None, None], REG, ALPHA, Y1)
+        if not torch.equal(x7[0], x4):
+            fail(f"K7 at one shard is not K4 bit for bit on the item "
+                 f"half-step's bucket of width {b.width}")
+    log(f"k7 at one shard == K4 bitwise on the item half-step's "
+        f"{len(k4_b)} K4 buckets")
+
+    ib, Us0 = sh["ish"].to(dev), sh["U0"]
+    S = SHARDS
+    Vsh = Us0.reshape(S, -1, r)
+    YtY = compute_yty(Us0)
+    split = core_als.SPLIT_WIDTH
+    pre = []
+    for b in ib:
+        conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
+        pre.append((b, conf, (1.0 + conf) * pref * b.mask, pref * b.mask))
+
+    def k7_one(b, aw, bw, cw):
+        return cuda_gather_ne.gather_solve_ring(Vsh, b.cols, aw, bw, cw, YtY,
+                                                two_sided=False, reg=REG)
+
+    def k7():
+        return [k7_one(*p) for p in pre]
+
+    def k7_plain():
+        xs = []
+        for b, aw, bw, cw in pre:
+            step = max(1, (1 << 28) // (S * b.width * r))
+            xs.append(torch.cat([cuda_gather_ne.gather_solve_ring_plain(
+                Vsh, b.cols[:, :, sl], aw[:, :, sl], bw[:, :, sl],
+                cw[:, :, sl], YtY, two_sided=False, reg=REG)
+                for sl in (slice(s0, s0 + step)
+                           for s0 in range(0, b.cols.shape[2], step))],
+                dim=1))
+        return xs
+
+    xp, p7 = timed(k7_plain)
+    xk = k7()
+    torch.cuda.synchronize()
+    e7, wide = 0.0, 0.0
+    for (b, *_), x, y in zip(pre, xk, xp):
+        if S * b.width <= split:
+            e7 = max(e7, (x - y).abs().max().item())
+            if not (torch.isfinite(x).all() and torch.allclose(
+                    x, y, rtol=K4_RTOL, atol=K4_ATOL)):
+                fail(f"K7 on the ring grid's bucket of width {b.width}: "
+                     f"kernel vs plain max |diff| {(x - y).abs().max():.3e}")
+        else:
+            wide = max(wide, row_rel(x.reshape(-1, r), y.reshape(-1, r)))
+    log(f"k7 r={r} item half-step ring grid ({len(ib)} buckets): max "
+        f"|kernel - plain| {e7:.3e} on the buckets of S x width <= {split} "
+        f"(rtol {K4_RTOL}, atol {K4_ATOL}); wider buckets max per-row "
+        f"|diff|/|x| {wide:.3e} (not gated: the plain sums run in one chain)")
+    del xk, xp
+
+    per = [(p[0].width, cuda_ms(lambda p=p: k7_one(*p), 1)) for p in pre]
+    total = sum(t for _, t in per)
+    ms7 = cuda_ms(k7, 3)
+    unfused = core_als.AlsConfig(rank=r, implicit_prefs=True, alpha=ALPHA,
+                                 reg_param=REG)
+    ic = torch.from_numpy(sh["icounts"]).to(dev)
+    l7 = cuda_ms(lambda: ring_half_step(
+        Us0, ib, ic, sh["ish"].rows_per_shard, S, unfused,
+        sh["ish"].chunk_elems, YtY), 1)
+    P = sum(b.cols.numel() for b in ib)
+    E = sum(int(b.mask.count_nonzero()) for b in ib)
+    n = sum(int((b.rows < sh["ish"].rows_per_shard).sum()) for b in ib)
+    b7, by7 = bound(P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r))
+    log(f"k7 item half-step by bucket (S x width: ms): " + ", ".join(
+        f"{S}x{w}: {t:.2f}" for w, t in per) + f"; widest bucket's share "
+        f"{per[-1][1] / total:.3f}")
+    log(f"timing K7 r={r} item half-step, {S} shards, {len(ib)} buckets, "
+        f"{n} real rows, {E} real of {P} padded entries: kernel_ms="
+        f"{ms7:.4f} plain_ms={p7:.4f} library_ms={l7:.4f} (unfused ring "
+        f"half-step) bound_ms={b7:.4f} ({by7}) launches/fit="
+        f"{sh['launches']['k7']}")
+    return {"name": "gather_solve_ring (K7)", "route": "cuda",
+            "source": "tpu_als_torch/csrc/gather_solve_ring.cu",
+            "replaces": "tpu_als/ops/pallas_gather_ne.py:708",
+            "launches": sh["launches"]["k7"],
+            "max_abs_err": max(errs["k7"], e7),
+            "ms": ms7, "plain_ms": p7, "bound_ms": b7, "bound_by": by7,
+            "library_ms": l7}
+
+
+def merge_timings(model, launches, dev):
+    """K8 at the sharded serving shape (every user, the catalog in SHARDS
+    shards, k = 10) beside its plain version (held to K5_TOL on the
+    scores: real factors, so no bitwise bar), the bound in K5's closed
+    form, and a blocked ``matmul`` + stable ``sort`` over the whole
+    catalog as the yardstick."""
+    U, V = model._U, model._V
+    (n, r), Ni, k = U.shape, V.shape[0], 10
+    ni_loc = -(-Ni // SHARDS)
+    Vp = torch.zeros(SHARDS * ni_loc, r, device=dev)
+    Vp[:Ni] = V
+    vp = torch.zeros(SHARDS * ni_loc, dtype=torch.bool, device=dev)
+    vp[:Ni] = True
+    Vs, vs = Vp.reshape(SHARDS, ni_loc, r), vp.reshape(SHARDS, ni_loc)
+    sk, _ = cuda_topk.topk_merge_ring(U, Vs, vs, k)
+    (sp, _), p8 = timed(lambda: cuda_topk.topk_merge_ring_plain(U, Vs, vs,
+                                                                 k))
+    e8 = (sk - sp).abs().max().item()
+    if not torch.allclose(sk, sp, rtol=K5_TOL, atol=K5_TOL):
+        fail(f"K8 at the serving shape: kernel vs plain scores max |diff| "
+             f"{e8:.3e}")
+    del sk, sp
+    ms8 = cuda_ms(lambda: cuda_topk.topk_merge_ring(U, Vs, vs, k), 3)
+
+    def library():
+        for s in range(0, n, 8192):
+            torch.sort(U[s:s + 8192] @ V.T, dim=1, descending=True,
+                       stable=True)
+
+    l8 = cuda_ms(library, 1)
+    b8, by8 = bound((n * r + Ni * r) * 4 + Ni + n * k * (4 + 8),
+                    2 * n * Ni * r)
+    log(f"timing K8 n={n} Ni={Ni} ({SHARDS} shards) r={r} k={k}: "
+        f"kernel_ms={ms8:.4f} plain_ms={p8:.4f} library_ms={l8:.4f} "
+        f"(matmul + stable sort) bound_ms={b8:.4f} ({by8}) "
+        f"launches={launches['k8']}; max |kernel - plain| {e8:.3e}")
+    return {"name": "topk_merge_ring (K8)", "route": "cuda",
+            "source": "tpu_als_torch/csrc/topk_merge_ring.cu",
+            "replaces": "tpu_als/ops/pallas_topk.py:346",
+            "launches": launches["k8"], "max_abs_err": e8,
+            "ms": ms8, "plain_ms": p8, "bound_ms": b8, "bound_by": by8,
+            "library_ms": l8}
+
+
 def bucket_times(tr):
     """Each bucket's share of the two half-steps from the seeded init
     (CUDA events), and one iteration beside its bound."""
@@ -1188,16 +1636,23 @@ def main():
                      ("k4", check_k4(rng, dev, r, ((256, 24), (64, 512),
                                                   (3, 2 * split))))):
             errs[f"{k}_256"] = max(errs.get(f"{k}_256", 0.0), e)
+    errs["k7"] = check_k7(rng, dev)[RANK]
+    errs["k8"] = check_k8(rng, dev)
     data = prepare(args.seed, dev)
     tr = train_slice(data, RANK, args.seed, dev)
     tr256 = train_slice(data, RANK256, args.seed, dev)
+    sh = sharded_train_slice(data, args.seed, dev)
     del data
     model, launches, A, b = run_slice(rng, dev)
     model256, launches256, A256, b256 = serve_slice_256(tr256["model"], rng,
                                                         dev)
+    launches8 = sharded_serve_slice(tr["model"], sh["mesh"], dev)
     kernels = timings(model, launches, A, b, errs, dev)
     kernels += train_timings(tr, errs, dev)
     kernels += train_timings(tr256, errs, dev)
+    kernels.append(ring_timings(sh, tr, errs, dev))
+    del sh
+    kernels.append(merge_timings(tr["model"], launches8, dev))
     k6_timings(A256, b256, launches256["k6"], errs["k6"],
                "the rank-256 fold-in batch")
     del A256, b256

@@ -7,10 +7,15 @@
 - The kernel wrappers (K1-K6) and a CPU ``ALS.fit`` run the plain
   versions on CPU tensors and leave the launch counters at 0; TF32 stays
   off.
+- The sharded path (K7, K8): CPU logical shards take the plain versions;
+  any other tensor gets the kernel or an error, never a plain version; a
+  mesh over two cards and the strategies not ported yet raise
+  ``NotImplementedError`` naming what is missing.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
   when it stands in a directory without the rest of the repository.
 """
 
+import contextlib
 import os
 import shutil
 import subprocess
@@ -22,7 +27,13 @@ import torch
 
 import tpu_als_torch
 from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
+from tpu_als_torch import _build
 from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
+from tpu_als_torch.parallel import data as pdata
+from tpu_als_torch.parallel import mesh as pmesh
+from tpu_als_torch.parallel import trainer as ptrainer
+from tpu_als_torch.parallel.comm import shard_csr_grid
+from tpu_als_torch.parallel.serve import topk_sharded
 from tpu_als_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,3 +176,98 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_mesh_over_two_cards_raises(monkeypatch):
+    with pytest.raises(NotImplementedError, match="peer-mapped"):
+        pmesh.make_mesh(devices=["cuda:0", "cuda:1"])
+    with pytest.raises(NotImplementedError, match="peer-mapped"):
+        pmesh.make_mesh(devices=["cpu", "cuda:0"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="peer-mapped"):
+        pmesh.make_mesh(2)
+    with pytest.raises(ValueError, match="silently smaller"):
+        pmesh.make_mesh(3)
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * 4)
+    assert mesh.size == 4 and mesh.device == torch.device("cuda:0")
+
+
+def _sharded_problem(S=3):
+    u, i, r = _ratings()["user"], _ratings()["item"], _ratings()["rating"]
+    up = pdata.partition_balanced(np.bincount(u, minlength=12), S)
+    ip = pdata.partition_balanced(np.bincount(i, minlength=9), S)
+    return u, i, r, up, ip
+
+
+@pytest.mark.parametrize("strategy", ["all_gather_chunked", "all_to_all",
+                                      "auto"])
+def test_strategies_not_ported_raise(strategy):
+    u, i, r, up, ip = _sharded_problem()
+    us, is_ = pdata.shard_csr(up, ip, u, i, r), pdata.shard_csr(ip, up, i, u,
+                                                                r)
+    cfg = tpu_als_torch.core.als.AlsConfig(rank=2, max_iter=1)
+    mesh = pmesh.make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(NotImplementedError, match="slice"):
+        ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, strategy=strategy)
+    with pytest.raises(NotImplementedError, match="slice"):
+        tpu_als_torch.ALS(mesh=mesh, gatherStrategy=strategy)
+    with pytest.raises(NotImplementedError, match="resilience"):
+        ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, elastic=True)
+    with pytest.raises(ValueError, match="unknown gather strategy"):
+        ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, strategy="bogus")
+
+
+def test_sharded_path_on_cpu_takes_plain_versions_without_launching():
+    cuda_gather_ne.RING_LAUNCHES = cuda_topk.MERGE_LAUNCHES = 0
+    u, i, r, up, ip = _sharded_problem()
+    mesh = pmesh.make_mesh(devices=["cpu"] * 3)
+    cfg = tpu_als_torch.core.als.AlsConfig(
+        rank=4, max_iter=2, implicit_prefs=True,
+        solve_backend="gather_fused_ring")
+    counts = (ptrainer.stacked_counts(up, u, r, positive_only=True),
+              ptrainer.stacked_counts(ip, i, r, positive_only=True))
+    U, V = ptrainer.train_sharded(mesh, up, ip, shard_csr_grid(up, ip, u, i,
+                                                               r),
+                                  shard_csr_grid(ip, up, i, u, r), cfg,
+                                  strategy="ring", ring_counts=counts)
+    s, ix = topk_sharded(U, V, 3, mesh, strategy="merge_ring")
+    assert torch.isfinite(U).all() and torch.isfinite(s).all()
+    assert cuda_gather_ne.RING_LAUNCHES == cuda_topk.MERGE_LAUNCHES == 0
+
+
+def test_ring_kernel_wrappers_raise_rather_than_run_plain(monkeypatch,
+                                                          tmp_path):
+    """K7 and K8 on a tensor that is not on the CPU: the kernel or an
+    error.  A 'meta' tensor is refused by the device check; with that
+    check waved through, a build without nvcc raises from ``_build`` —
+    neither ever reaches a plain version."""
+    S, per, r, n, w = 2, 5, 4, 3, 4
+    meta = dict(device="meta")
+    V = torch.empty(S, per, r, **meta)
+    cols = torch.empty(S, S, n, w, dtype=torch.int32, **meta)
+    wts = torch.empty(S, S, n, w, **meta)
+    U = torch.empty(n, r, **meta)
+    valid = torch.empty(S, per, dtype=torch.bool, **meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_gather_ne.gather_solve_ring(V, cols, wts, wts, wts,
+                                         two_sided=True, reg=0.1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_topk.topk_merge_ring(U, V, valid, 2)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))  # nothing built
+    monkeypatch.setattr(cuda_gather_ne, "_cuda_ready", lambda *a: None)
+    monkeypatch.setattr(cuda_gather_ne, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    before = cuda_gather_ne.RING_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_gather_ne.gather_solve_ring(V, cols, wts, wts, wts,
+                                         two_sided=True, reg=0.1)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("topk_merge_ring")
+    assert cuda_gather_ne.RING_LAUNCHES == before

@@ -155,8 +155,11 @@ def test_resolve_solve_path_labels():
         "matfree_cg2_warmstart"
     assert tals.resolve_solve_path(c(cg_iters=2, cg_mode="dense"), 16,
                                    8) == "einsum+cg2_warmstart"
-    with pytest.raises(NotImplementedError, match="K7"):
-        tals.resolve_solve_path(c(solve_backend="gather_fused_ring"), 16, 8)
+    # the one-shard ring on the local path: K4 on every bucket (K7 runs
+    # under the sharded 'ring' strategies)
+    assert tals.resolve_solve_path(c(solve_backend="gather_fused_ring"),
+                                   16, tals.SPLIT_WIDTH * 2) == \
+        "gatherfused_ring"
     with pytest.raises(NotImplementedError):
         tals.resolve_solve_path(c(adaptive_solve=True), 16, 8)
     with pytest.raises(ValueError):
@@ -268,11 +271,14 @@ def test_fit_callback_and_later_slice_knobs():
                       fitCallback=lambda it, U, V: seen.append(it)).fit(
         _frame())
     assert seen == [1, 2]
-    for knob in ({"mesh": object()}, {"guardrails": "warn"},
-                 {"elastic": True}, {"dataMode": "per_host"},
-                 {"gatherStrategy": "ring"}, {"checkpointSharded": True}):
+    for knob in ({"guardrails": "warn"}, {"elastic": True},
+                 {"dataMode": "per_host"}, {"checkpointSharded": True},
+                 {"gatherStrategy": "all_to_all"},
+                 {"gatherStrategy": "all_gather_chunked"}):
         with pytest.raises(NotImplementedError):
             tpu_als_torch.ALS(**knob)
+    with pytest.raises(TypeError, match="make_mesh"):
+        tpu_als_torch.ALS(mesh=object())
     with pytest.raises(ValueError, match="non-finite"):
         bad = _frame()
         bad["rating"][3] = np.nan

@@ -9,7 +9,10 @@ The slices ported so far: single-device training
 (:class:`~tpu_als_torch.api.estimator.ALS` ``.fit``, the ``train``
 command) and the serving path — fold-in of new ratings
 (:class:`~tpu_als_torch.stream.microbatch.FoldInServer`), then top-k
-recommendation (:class:`~tpu_als_torch.api.estimator.ALSModel`) — plus
+recommendation (:class:`~tpu_als_torch.api.estimator.ALSModel`) — the
+sharded path over a mesh of logical shards on one device
+(:mod:`tpu_als_torch.parallel`: ``ALS(mesh=...)``,
+``recommendFor*(mesh=...)``), plus
 the shared checkpoint format, the ``recommend`` command
 (``python -m tpu_als_torch.cli train|recommend``) and
 :class:`~tpu_als_torch.api.evaluation.RegressionEvaluator`.
@@ -22,10 +25,12 @@ version.
 Package map:
   ops/     normal equations, CG, the SPD solves (kernels K1 and K2, and
            K6's factorization above rank 128), the fused gather + Gram
-           (K3) and gather + solve (K4), top-k (K5)
+           (K3) and gather + solve (K4) and its ring over shards (K7),
+           top-k (K5) and the cross-shard top-k merge (K8)
   core/    id maps and bucketed CSR, the training loop, fold-in, predict
   stream/  the micro-batch fold-in server
-  api/     ALS, ALSModel, params, regression evaluators
+  parallel/  the mesh, sharded layouts, the sharded trainer and server
+  api/     ALS, ALSModel, the sharded fit, params, regression evaluators
   io/      checkpoint persistence (same on-disk format as tpu_als), the
            ratings CSV reader, synthetic MovieLens-shaped data
   utils/   device resolution, the columnar frame

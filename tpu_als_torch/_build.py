@@ -52,6 +52,16 @@ SIGNATURES = {
                                       _I, _F, _F, _I, _I, _P]),
     # chol_lanes_blocked_f32(A, n, r, stream): L written over A
     "chol_lanes_blocked": ("chol_lanes_blocked_f32", [_P, _LL, _I, _P]),
+    # gather_solve_ring(bases, per, cols, aw, bw, cw, YtY, x, D, S, n, w, r,
+    #                   reg_w, jitter, two_sided, bf16, stream)
+    "gather_solve_ring": ("gather_solve_ring", [_P, _I, _P, _P, _P, _P, _P,
+                                                _P, _LL, _I, _LL, _LL, _I,
+                                                _F, _F, _I, _I, _P]),
+    # topk_merge_ring_f32(U, V, valid, coll_s, coll_i, tickets, out_s,
+    #                     out_i, n, ni_loc, S, r, k, stream)
+    "topk_merge_ring": ("topk_merge_ring_f32", [_P, _P, _P, _P, _P, _P, _P,
+                                                _P, _LL, _LL, _I, _I, _I,
+                                                _P]),
 }
 
 _LIBS = {}  # name -> loaded ctypes function

@@ -11,9 +11,11 @@ checkpoints in the shared format (``checkpointDir``/``checkpointInterval``,
 ``recommendations`` dtype, the ``coldStartStrategy`` semantics,
 ``save``/``load`` in the shared format, and the settable serving-time
 params; its factor tables are float32 tensors on the model's device, id
-maps stay numpy.  Sharded training and serving (``mesh=``), guardrails,
-elastic training, per-host data and preemption belong to later slices
-and raise ``NotImplementedError``.
+maps stay numpy.  Sharded training and serving (``mesh=`` with a
+``gatherStrategy``) run over a mesh of logical shards on one device
+(:mod:`tpu_als_torch.parallel`).  Guardrails, elastic training, per-host
+data and preemption belong to later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ import shutil
 import numpy as np
 import torch
 
+from tpu_als_torch.api.fitting import fit_sharded
 from tpu_als_torch.api.params import Estimator, Params, TypeConverters
 from tpu_als_torch.core.als import AlsConfig, predict as _predict
 from tpu_als_torch.core.als import train as _train
 from tpu_als_torch.core.ratings import IdMap, build_csr_buckets, remap_ids
 from tpu_als_torch.io.checkpoint import load_factors, save_factors
 from tpu_als_torch.ops.cuda_topk import topk_scores
+from tpu_als_torch.parallel.mesh import Mesh
+from tpu_als_torch.parallel.serve import topk_sharded
+from tpu_als_torch.parallel.trainer import check_strategy
 from tpu_als_torch.utils.frame import ColumnarFrame, as_frame
 from tpu_als_torch.utils.platform import resolve_device
 
@@ -181,7 +187,7 @@ def _attach_accessors(cls, names):
 
 class ALS(_ALSParams, Estimator):
     """ALS matrix factorization (explicit and implicit feedback), fit on
-    one device.
+    one device or over a mesh of shards.
 
     Runtime knobs besides the params: ``device`` (None -> the card;
     ``'cpu'`` runs the kernels' plain versions); ``checkpointDir`` —
@@ -191,9 +197,13 @@ class ALS(_ALSParams, Estimator):
     must match; the fit runs only the remaining iterations);
     ``fitCallback(iteration, U, V)`` every ``fitCallbackInterval``
     iterations; ``cgIters`` > 0 replaces the exact solve by that many
-    warm-started CG steps, ``cgMode`` 'matfree' (default) or 'dense'.
-    ``mesh``, ``gatherStrategy``, ``dataMode='per_host'``,
-    ``checkpointSharded``, ``guardrails`` and ``elastic`` raise
+    warm-started CG steps, ``cgMode`` 'matfree' (default) or 'dense';
+    ``mesh`` — a :class:`~tpu_als_torch.parallel.mesh.Mesh` to fit over
+    (its shards share one device; the fit runs there), with
+    ``gatherStrategy`` a row of
+    ``tpu_als_torch.parallel.trainer.GATHER_STRATEGIES``.
+    ``dataMode='per_host'``, ``checkpointSharded``, ``guardrails``,
+    ``elastic`` and the strategies not ported yet raise
     ``NotImplementedError``: they belong to later slices.
     """
 
@@ -203,10 +213,10 @@ class ALS(_ALSParams, Estimator):
                  cgMode="matfree", checkpointSharded=False, guardrails=None,
                  elastic=False, device=None, **kwargs):
         super().__init__()
-        if mesh is not None:
-            _later_slice("mesh=", "multi-GPU")
-        if gatherStrategy != "all_gather":
-            _later_slice(f"gatherStrategy={gatherStrategy!r}", "multi-GPU")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a tpu_als_torch.parallel.mesh.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
+        check_strategy(gatherStrategy)
         if dataMode == "per_host":
             _later_slice("dataMode='per_host'", "multi-GPU")
         if dataMode != "replicated":
@@ -228,7 +238,7 @@ class ALS(_ALSParams, Estimator):
                              "'matfree' or 'dense')")
         if int(fitCallbackInterval) < 1:
             raise ValueError("fitCallbackInterval must be >= 1")
-        self.mesh = None
+        self.mesh = mesh
         self.gatherStrategy = gatherStrategy
         self.dataMode = dataMode
         self.cgIters = int(cgIters)
@@ -311,7 +321,11 @@ class ALS(_ALSParams, Estimator):
 
     def _fit(self, dataset):
         self._validate()
-        device = resolve_device(self.device)
+        if self.mesh is not None and self.device is not None:
+            raise ValueError("pass device= or mesh=, not both: a mesh fit "
+                             "runs on its shards' device")
+        device = resolve_device(self.device if self.mesh is None
+                                else self.mesh.device)
         u_raw, i_raw, r = self._extract_columns(as_frame(dataset))
         u_idx, user_map = remap_ids(u_raw)
         i_idx, item_map = remap_ids(i_raw)
@@ -319,11 +333,15 @@ class ALS(_ALSParams, Estimator):
         init, start_iter = None, 0
         if self.resumeFrom is not None:
             init, start_iter = self._resume(cfg, user_map, item_map)
+        callback = self._callback(user_map, item_map)
+        if self.mesh is not None:
+            U, V = fit_sharded(self, u_idx, i_idx, r, user_map, item_map,
+                               cfg, init, start_iter, callback=callback)
+            return self._make_model(user_map, item_map, U, V, device)
         ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
         icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
-        U, V = _train(ucsr, icsr, cfg,
-                      callback=self._callback(user_map, item_map),
-                      init=init, start_iter=start_iter, device=device)
+        U, V = _train(ucsr, icsr, cfg, callback=callback, init=init,
+                      start_iter=start_iter, device=device)
         return self._make_model(user_map, item_map, U, V, device)
 
     def _make_model(self, user_map, item_map, U, V, device):
@@ -424,32 +442,45 @@ class ALSModel:
                 else float("nan"))
 
     # -- top-k recommendation ------------------------------------------
-    def recommendForAllUsers(self, numItems):
+    # mesh/gatherStrategy are keyword-only, as in the reference: serve
+    # over a mesh (parallel/serve.py) with one of its strategies
+    def recommendForAllUsers(self, numItems, *, mesh=None,
+                             gatherStrategy="all_gather"):
         return self._recommend(self._U, self._user_map.ids, numItems,
-                               users=True)
+                               users=True, mesh=mesh,
+                               gatherStrategy=gatherStrategy)
 
-    def recommendForAllItems(self, numUsers):
+    def recommendForAllItems(self, numUsers, *, mesh=None,
+                             gatherStrategy="all_gather"):
         return self._recommend(self._V, self._item_map.ids, numUsers,
-                               users=False)
+                               users=False, mesh=mesh,
+                               gatherStrategy=gatherStrategy)
 
-    def recommendForUserSubset(self, dataset, numItems):
+    def recommendForUserSubset(self, dataset, numItems, *, mesh=None,
+                               gatherStrategy="all_gather"):
         ids = np.unique(as_frame(dataset)[self._get("userCol")])
         dense = self._user_map.to_dense(ids)
         keep = dense >= 0
         rows = torch.from_numpy(dense[keep]).to(self.device)
         return self._recommend(self._U[rows], ids[keep], numItems,
-                               users=True)
+                               users=True, mesh=mesh,
+                               gatherStrategy=gatherStrategy)
 
-    def recommendForItemSubset(self, dataset, numUsers):
+    def recommendForItemSubset(self, dataset, numUsers, *, mesh=None,
+                               gatherStrategy="all_gather"):
         ids = np.unique(as_frame(dataset)[self._get("itemCol")])
         dense = self._item_map.to_dense(ids)
         keep = dense >= 0
         rows = torch.from_numpy(dense[keep]).to(self.device)
         return self._recommend(self._V[rows], ids[keep], numUsers,
-                               users=False)
+                               users=False, mesh=mesh,
+                               gatherStrategy=gatherStrategy)
 
-    def _recommend(self, Q, q_ids, k, users):
-        """Top-k for the query rows ``Q``, ``blockSize`` rows per call."""
+    def _recommend(self, Q, q_ids, k, users, mesh=None,
+                   gatherStrategy="all_gather"):
+        """Top-k for the query rows ``Q``, ``blockSize`` rows per call, or
+        with ``mesh`` one sharded call (parallel/serve.py) with the
+        serving strategy ``gatherStrategy``."""
         other = self._V if users else self._U
         other_ids = self._item_map.ids if users else self._user_map.ids
         other_col = self._get("itemCol") if users else self._get("userCol")
@@ -460,16 +491,21 @@ class ALSModel:
                 "recommendations struct (reference schema); rename the "
                 "column before calling recommendFor*")
         k = min(k, other.shape[0])
-        block = max(1, int(self._get("blockSize")))
-        valid = torch.ones(other.shape[0], dtype=torch.bool,
-                           device=self.device)
-        ids_out = np.empty((Q.shape[0], k), dtype=other_ids.dtype)
-        scores_out = np.empty((Q.shape[0], k), dtype=np.float32)
-        for s in range(0, Q.shape[0], block):
-            sc, ix = topk_scores(Q[s:s + block].contiguous(), other, valid,
-                                 k, item_chunk=block)
-            ids_out[s:s + block] = other_ids[ix.cpu().numpy()]
-            scores_out[s:s + block] = sc.cpu().numpy()
+        if mesh is not None:
+            sc, ix = topk_sharded(Q, other, k, mesh, strategy=gatherStrategy)
+            ids_out = other_ids[ix.cpu().numpy()]
+            scores_out = sc.cpu().numpy()
+        else:
+            block = max(1, int(self._get("blockSize")))
+            valid = torch.ones(other.shape[0], dtype=torch.bool,
+                               device=self.device)
+            ids_out = np.empty((Q.shape[0], k), dtype=other_ids.dtype)
+            scores_out = np.empty((Q.shape[0], k), dtype=np.float32)
+            for s in range(0, Q.shape[0], block):
+                sc, ix = topk_scores(Q[s:s + block].contiguous(), other,
+                                     valid, k, item_chunk=block)
+                ids_out[s:s + block] = other_ids[ix.cpu().numpy()]
+                scores_out[s:s + block] = sc.cpu().numpy()
         # one [n, k] structured array with the reference's struct field
         # names ((itemCol|userCol), 'rating'): column[row] is a [k] record
         # view whose elements unpack like (id, score) tuples
@@ -481,18 +517,22 @@ class ALSModel:
         key_col = self._get("userCol") if users else self._get("itemCol")
         return ColumnarFrame({key_col: q_ids, "recommendations": recs})
 
-    def recommend_arrays(self, numItems, for_users=True):
+    def recommend_arrays(self, numItems, for_users=True, mesh=None,
+                         gatherStrategy="all_gather"):
         """Dense variant of recommendForAll*: (query_ids, ids [n, k],
-        scores [n, k]) as numpy arrays."""
+        scores [n, k]) as numpy arrays; ``mesh``: serve sharded, with the
+        serving strategy ``gatherStrategy`` (parallel/serve.py)."""
         frame_ids = self._user_map.ids if for_users else self._item_map.ids
         Q = self._U if for_users else self._V
         other = self._V if for_users else self._U
         other_ids = self._item_map.ids if for_users else self._user_map.ids
         k = min(numItems, other.shape[0])
-        sc, ix = topk_scores(
-            Q, other,
-            torch.ones(other.shape[0], dtype=torch.bool, device=self.device),
-            k)
+        if mesh is not None:
+            sc, ix = topk_sharded(Q, other, k, mesh, strategy=gatherStrategy)
+        else:
+            sc, ix = topk_scores(
+                Q, other, torch.ones(other.shape[0], dtype=torch.bool,
+                                     device=self.device), k)
         return frame_ids, other_ids[ix.cpu().numpy()], sc.cpu().numpy()
 
     # -- persistence ----------------------------------------------------

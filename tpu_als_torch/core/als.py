@@ -15,7 +15,10 @@ faster than K2, PERF.md), K6 and two triangular solves above
 (``gatherfused+pallas_lanes_blocked``).  K3 and K4 hold rank <= 256:
 above it their wrappers raise on the card and 'auto' does not step
 around them; ``'unfused'`` is the explicit choice at such a rank.
-``'gather_fused_solve'`` forces K4 on every bucket, ``'gather_fused'``
+``'gather_fused_solve'`` forces K4 on every bucket, and so does
+``'gather_fused_ring'`` on this local path (``gatherfused_ring``, the
+one-shard ring: under the sharded 'ring' strategies it is kernel K7,
+:mod:`tpu_als_torch.parallel.comm`), ``'gather_fused'``
 forces K3 + ``solve_spd``, ``'unfused'`` forces ``V[cols]`` + torch
 normal equations + ``solve_spd`` (K2 up to rank 128, K6 above:
 ``einsum+pallas_lanes`` / ``einsum+pallas_lanes_blocked``); nonnegative
@@ -63,6 +66,8 @@ _SOLVER_LABEL = {"lanes": "pallas_lanes",
                  "lanes_blocked": "pallas_lanes_blocked",
                  "pallas": "pallas_cholesky"}
 _SOLVER_BACKEND = {label: name for name, label in _SOLVER_LABEL.items()}
+# the routes that run K4 on every bucket
+_K4_PATHS = ("gatherfused_solve", "gatherfused_ring")
 
 # a route's per-launch intermediates ([chunk, r, r] and the like) are
 # each kept within this many f32 elements (trainer_chunk's default
@@ -109,10 +114,7 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
     if cfg.solve_backend == "gather_fused_solve":
         return "gatherfused_solve"
     if cfg.solve_backend == "gather_fused_ring":
-        raise NotImplementedError(
-            "solve_backend='gather_fused_ring' runs the in-kernel ring of "
-            "tpu_als/ops/pallas_gather_ne.py::gather_solve_ring (K7), "
-            "which waits for the multi-GPU slice of the port")
+        return "gatherfused_ring"
     if cfg.solve_backend == "gather_fused":
         return "gatherfused+" + solver
     if cfg.cg_iters > 0:
@@ -145,7 +147,7 @@ def _chunk_rows(path, nb, w, r, chunk_elems):
     memory budget (its blocks run in parallel, where the TPU walked
     chunks in order); the gather routes keep the reference's
     trainer_chunk, which also bounds V[cols]."""
-    if path == "gatherfused_solve":
+    if path in _K4_PATHS:
         return nb
     if path.startswith("gatherfused+"):
         return max(1, min(nb, _MEM_ELEMS // (r * r * -(-w // SPLIT_WIDTH))))
@@ -154,7 +156,7 @@ def _chunk_rows(path, nb, w, r, chunk_elems):
 
 def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
                  num_rows):
-    if path == "gatherfused_solve":
+    if path in _K4_PATHS:
         if cfg.implicit_prefs:
             return gne.gather_fused_solve_implicit(
                 V_comp, c, v, m, reg, alpha, YtY, jitter=cfg.jitter)

@@ -69,14 +69,18 @@ class CsrBuckets:
         return sum(b.mask.size for b in self.buckets)
 
     def to(self, device):
-        """The buckets as tensors on ``device``: rows int64, cols int32,
-        vals and mask as built."""
-        return [Bucket(rows=torch.from_numpy(b.rows.astype(np.int64))
-                       .to(device),
-                       cols=torch.from_numpy(b.cols).to(device),
-                       vals=torch.from_numpy(b.vals).to(device),
-                       mask=torch.from_numpy(b.mask).to(device))
-                for b in self.buckets]
+        """The buckets as tensors on ``device`` (:func:`buckets_to`)."""
+        return buckets_to(self.buckets, device)
+
+
+def buckets_to(buckets, device):
+    """Host buckets as tensors on ``device``: rows int64, cols int32, vals
+    and mask as built."""
+    return [Bucket(rows=torch.from_numpy(b.rows.astype(np.int64)).to(device),
+                   cols=torch.from_numpy(b.cols).to(device),
+                   vals=torch.from_numpy(b.vals).to(device),
+                   mask=torch.from_numpy(b.mask).to(device))
+            for b in buckets]
 
 
 @dataclass

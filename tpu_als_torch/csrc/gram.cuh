@@ -115,15 +115,38 @@ __device__ __forceinline__ void init(Acc<kMaxRank>& acc, int r, float* tri) {
   acc.cnt = 0.f;
 }
 
-// Accumulate entries [w0, w1) of one row.  cols/aw/bw/cw point at the
-// row's first entry; cw may be null (no count).  stage: stage_floats(r)
-// floats of shared memory, 16-byte aligned.  Opens with a barrier.
-template <typename T, bool kTwoSided, int kMaxRank>
-__device__ __forceinline__ void accumulate(
-    const T* __restrict__ V, const int* __restrict__ cols,
-    const T* __restrict__ aw, const T* __restrict__ bw,
-    const T* __restrict__ cw, int r, long long w0, long long w1,
-    float* stage, Acc<kMaxRank>& acc) {
+// The entries of one padded CSR row of a table V [N, r]: entry `pos`
+// gathers V[cols[pos]] with weights aw/bw/cw[pos] (cw may be null: no
+// count).  An entry source gives accumulate_entries, per entry, a row
+// handle and its weights (load) and, per handle, the row (row); kernel
+// K7 (gather_solve_ring.cu) has a source whose entries walk S shards.
+template <typename T>
+struct RowEntries {
+  const T* __restrict__ V;
+  const int* __restrict__ cols;  // the row's first entry
+  const T* __restrict__ aw;
+  const T* __restrict__ bw;
+  const T* __restrict__ cw;
+  int r;
+  __device__ __forceinline__ void load(long long pos, int& h, float& a,
+                                       float& b, float& c) const {
+    h = cols[pos];
+    a = to_f(aw[pos]);
+    b = to_f(bw[pos]);
+    c = cw != nullptr ? to_f(cw[pos]) : 0.f;
+  }
+  __device__ __forceinline__ const T* row(int h) const {
+    return V + static_cast<size_t>(h) * r;
+  }
+};
+
+// Accumulate entries [w0, w1) of one row from the entry source `src`.
+// stage: stage_floats(r) floats of shared memory, 16-byte aligned.  Opens
+// with a barrier.
+template <typename T, bool kTwoSided, int kMaxRank, typename Src>
+__device__ __forceinline__ void accumulate_entries(
+    const Src& src, int r, long long w0, long long w1, float* stage,
+    Acc<kMaxRank>& acc) {
   constexpr int kThreads = Acc<kMaxRank>::kThreads;
   constexpr int kMaxTiles = Acc<kMaxRank>::kMaxTiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -138,16 +161,18 @@ __device__ __forceinline__ void accumulate(
     __syncthreads();  // the previous step's reads of the stage are done
     if (tid < kT) {
       const long long pos = e0 + tid;
-      const bool ok = pos < w1;
-      col_s[tid] = ok ? cols[pos] : 0;
-      aw_s[tid] = ok ? to_f(aw[pos]) : 0.f;
-      bw_s[tid] = ok ? to_f(bw[pos]) : 0.f;
-      cw_s[tid] = (ok && cw != nullptr) ? to_f(cw[pos]) : 0.f;
+      int h = 0;
+      float a = 0.f, bb = 0.f, c = 0.f;
+      if (pos < w1) src.load(pos, h, a, bb, c);
+      col_s[tid] = h;
+      aw_s[tid] = a;
+      bw_s[tid] = bb;
+      cw_s[tid] = c;
     }
     __syncthreads();
     for (int e = warp; e < kT; e += kThreads / 32) {
       const bool ok = e0 + e < w1;
-      const T* vr = V + static_cast<size_t>(col_s[e]) * r;
+      const T* vr = src.row(col_s[e]);
       const float a = aw_s[e];
       for (int k = lane; k < R4; k += 32) {
         const float v = (ok && k < r) ? to_f(vr[k]) : 0.f;
@@ -213,6 +238,18 @@ __device__ __forceinline__ void accumulate(
     acc.b += tb;
     acc.cnt += tc;
   }
+}
+
+// Accumulate entries [w0, w1) of one row of V [N, r]: cols/aw/bw/cw point
+// at the row's first entry; cw may be null (no count).
+template <typename T, bool kTwoSided, int kMaxRank>
+__device__ __forceinline__ void accumulate(
+    const T* __restrict__ V, const int* __restrict__ cols,
+    const T* __restrict__ aw, const T* __restrict__ bw,
+    const T* __restrict__ cw, int r, long long w0, long long w1,
+    float* stage, Acc<kMaxRank>& acc) {
+  accumulate_entries<T, kTwoSided>(RowEntries<T>{V, cols, aw, bw, cw, r},
+                                   r, w0, w1, stage, acc);
 }
 
 // Visit every lower-triangle entry (i, c), c <= i < r, this thread holds

@@ -1,14 +1,17 @@
-"""Kernels K3 (gather + Gram) and K4 (gather + Gram + tail + solve).
+"""Kernels K3 (gather + Gram), K4 (gather + Gram + tail + solve) and K7
+(K4 over the S shards of a ring).
 
 Counterpart of ``tpu_als/ops/pallas_gather_ne.py``: ``gather_gram`` and
 its wrappers ``gather_normal_eq_explicit`` / ``gather_normal_eq_implicit``
-(K3, ``csrc/gather_gram.cu``), and ``gather_solve`` with its wrappers
+(K3, ``csrc/gather_gram.cu``), ``gather_solve`` with its wrappers
 ``gather_fused_solve_explicit`` / ``gather_fused_solve_implicit`` (K4,
-``csrc/gather_solve.cu``).  The factor rows ``V[cols]`` are gathered
+``csrc/gather_solve.cu``), and ``gather_solve_ring`` with its wrappers
+``gather_fused_ring_explicit`` / ``gather_fused_ring_implicit`` (K7,
+``csrc/gather_solve_ring.cu``).  The factor rows ``V[cols]`` are gathered
 inside the kernels and never materialized; the weights, the count and
 the ridge/YᵀY tail are the reference builders' exact expressions.
 
-Both kernels take the table in float32 or bfloat16, weights in the
+The kernels take the table in float32 or bfloat16, weights in the
 table's type, and rank <= 256 (the Gram accumulates in register tiles,
 and above rank 128 into a packed triangle in shared memory; above rank
 256 a CUDA tensor raises, and the plain versions take any rank).  S is
@@ -16,7 +19,8 @@ symmetric: its
 lower triangle ``S[i, c] = Σ (aw·v_i)·v_c`` (c <= i) is mirrored.
 
 A CUDA tensor goes to a kernel (or raises); only CPU tensors take the
-plain versions :func:`gather_gram_plain` and :func:`gather_solve_plain`.
+plain versions :func:`gather_gram_plain`, :func:`gather_solve_plain` and
+:func:`gather_solve_ring_plain`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # that its path went through the kernels
 GRAM_LAUNCHES = 0   # K3
 SOLVE_LAUNCHES = 0  # K4
+RING_LAUNCHES = 0   # K7
 
 
 def _chunks(w, split_width):
@@ -103,7 +108,7 @@ def _check(name, V, cols, *weights):
 def _cuda_ready(name, V, *tensors):
     if V.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {V.device}")
-    r = V.shape[1]
+    r = V.shape[-1]
     if r > MAX_RANK:
         raise NotImplementedError(
             f"{name}: rank {r} > {MAX_RANK}: the Gram's register tiles and "
@@ -189,6 +194,21 @@ def gather_normal_eq_implicit(V, cols, vals, mask, reg, alpha, YtY, *,
     return A, b, count
 
 
+def _yty(name, YtY, r, device):
+    """YᵀY as the kernels take it: [r, r] float32, contiguous, or None."""
+    if YtY is None:
+        return None
+    YtY = YtY.float().contiguous()
+    if YtY.shape != (r, r) or YtY.device != device:
+        raise ValueError(f"{name}: YtY must be [{r}, {r}] on {device}")
+    return YtY
+
+
+def _reg_w(reg, dtype):
+    """The ridge coefficient rounded to the weight type, as a float."""
+    return float(torch.tensor(float(reg)).to(dtype).float())
+
+
 def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
                  jitter=DEFAULT_JITTER):
     """``x [n, r]`` f32: kernel K4 for CUDA tensors, the plain version for
@@ -203,22 +223,17 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
     _cuda_ready("gather_solve", V, cols, aw, bw, cw)
     n, w = cols.shape
     r = V.shape[1]
-    if YtY is not None:
-        YtY = YtY.float().contiguous()
-        if YtY.shape != (r, r) or YtY.device != V.device:
-            raise ValueError(f"gather_solve: YtY must be [{r}, {r}] on "
-                             f"{V.device}")
+    YtY = _yty("gather_solve", YtY, r, V.device)
     x = torch.empty(n, r, dtype=torch.float32, device=V.device)
     if n == 0:
         return x
     if w == 0:
         return x.zero_()
-    reg_w = float(torch.tensor(float(reg)).to(V.dtype).float())
     fn = _build.load("gather_solve")
     with torch.cuda.device(V.device):
         err = fn(V.data_ptr(), cols.data_ptr(), aw.data_ptr(), bw.data_ptr(),
                  cw.data_ptr(), None if YtY is None else YtY.data_ptr(),
-                 x.data_ptr(), n, w, r, reg_w, float(jitter),
+                 x.data_ptr(), n, w, r, _reg_w(reg, V.dtype), float(jitter),
                  int(two_sided), int(V.dtype == torch.bfloat16), _stream(V))
     _build.check(err, "gather_solve")
     SOLVE_LAUNCHES += 1
@@ -241,3 +256,98 @@ def gather_fused_solve_implicit(V, cols, vals, mask, reg, alpha, YtY, *,
     return gather_solve(V, cols, conf_m1, (1.0 + conf_m1) * pref * mask,
                         pref * mask, YtY, two_sided=False, reg=reg,
                         jitter=jitter)
+
+
+def gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY=None, *,
+                            two_sided, reg, jitter=DEFAULT_JITTER):
+    """K7's function in plain PyTorch: for each owner d,
+    :func:`gather_solve_plain` over its ring-ordered entry stream — the
+    entries of source shard (d - t) mod S for t = 0 .. S-1, each source's
+    ids offset into the stacked table — so at S = 1 it is K4's plain
+    version."""
+    S, per, r = V_shards.shape
+    V = V_shards.reshape(S * per, r)
+    xs = []
+    for d in range(cols.shape[0]):
+        order = [(d - t) % S for t in range(S)]
+        stream = [torch.cat([t[d, s] for s in order], dim=1)
+                  for t in (aw, bw, cw)]
+        c = torch.cat([cols[d, s] + s * per for s in order], dim=1)
+        xs.append(gather_solve_plain(V, c, *stream, YtY, two_sided=two_sided,
+                                     reg=reg, jitter=jitter))
+    return torch.stack(xs)
+
+
+def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
+                      reg, jitter=DEFAULT_JITTER):
+    """``x [D, n, r]`` f32 for the rows of all D owners of a ring: kernel K7
+    for CUDA tensors, the plain version for CPU tensors.
+
+    ``V_shards`` [S, per, r]: the opposite factors' S shards, stacked;
+    ``cols``/``aw``/``bw``/``cw`` [D, S, n, w]: each owner's bucket,
+    shard-local ids, source-major and unrotated — owner d's row sums its
+    entries over the sources (d - t) mod S, t = 0 .. S-1, in that order;
+    ``reg``, ``jitter``, ``YtY`` as :func:`gather_solve`."""
+    global RING_LAUNCHES
+    if V_shards.dim() != 3 or cols.dim() != 4 \
+            or cols.shape[1] != V_shards.shape[0]:
+        raise ValueError(f"gather_solve_ring takes V_shards [S, per, r] and "
+                         f"cols [D, S, n, w]; got {tuple(V_shards.shape)}, "
+                         f"{tuple(cols.shape)}")
+    S, per, r = V_shards.shape
+    _check("gather_solve_ring", V_shards.reshape(S * per, r), cols[0, 0],
+           *(t[0, 0] for t in (aw, bw, cw)))
+    for t in (aw, bw, cw):
+        if t.shape != cols.shape:
+            raise TypeError(f"gather_solve_ring: weights must be "
+                            f"{tuple(cols.shape)}, got {tuple(t.shape)}")
+    if V_shards.device.type == "cpu":
+        return gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY,
+                                       two_sided=two_sided, reg=reg,
+                                       jitter=jitter)
+    _cuda_ready("gather_solve_ring", V_shards, cols, aw, bw, cw)
+    D, _, n, w = cols.shape
+    if S * per >= 1 << 31:
+        raise ValueError(f"gather_solve_ring: {S} x {per} rows overflow the "
+                         "kernel's int32 row handles")
+    YtY = _yty("gather_solve_ring", YtY, r, V_shards.device)
+    x = torch.empty(D, n, r, dtype=torch.float32, device=V_shards.device)
+    if D * n == 0:
+        return x
+    if w == 0:
+        return x.zero_()
+    # the shards' base pointers; on this one-device mesh they point into
+    # the stacked table
+    bases = torch.tensor([V_shards[s].data_ptr() for s in range(S)],
+                         dtype=torch.int64, device=V_shards.device)
+    fn = _build.load("gather_solve_ring")
+    with torch.cuda.device(V_shards.device):
+        err = fn(bases.data_ptr(), per, cols.data_ptr(), aw.data_ptr(),
+                 bw.data_ptr(), cw.data_ptr(),
+                 None if YtY is None else YtY.data_ptr(), x.data_ptr(), D, S,
+                 n, w, r, _reg_w(reg, V_shards.dtype), float(jitter),
+                 int(two_sided), int(V_shards.dtype == torch.bfloat16),
+                 _stream(V_shards))
+    _build.check(err, "gather_solve_ring")
+    RING_LAUNCHES += 1
+    return x
+
+
+def gather_fused_ring_explicit(V_shards, cols, vals, mask, reg, *,
+                               jitter=DEFAULT_JITTER):
+    """The explicit ring half-step's rows in one kernel (the reference's
+    weight expressions over the unrotated [D, S, n, w] buckets): at S = 1
+    :func:`gather_fused_solve_explicit`."""
+    return gather_solve_ring(V_shards, cols, mask, vals * mask, mask,
+                             two_sided=True, reg=reg, jitter=jitter)
+
+
+def gather_fused_ring_implicit(V_shards, cols, vals, mask, reg, alpha, YtY,
+                               *, jitter=DEFAULT_JITTER):
+    """The implicit ring half-step's rows in one kernel: weights from
+    :func:`implicit_weights`, the whole table's YᵀY and the weighted-λ
+    tail in the kernel."""
+    conf_m1, pref = implicit_weights(vals, mask, alpha)
+    return gather_solve_ring(V_shards, cols, conf_m1,
+                             (1.0 + conf_m1) * pref * mask, pref * mask, YtY,
+                             two_sided=False, reg=reg, jitter=jitter)

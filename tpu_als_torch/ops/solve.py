@@ -54,27 +54,39 @@ def _contract(L, R):
     return out
 
 
-def normal_eq_explicit(Vg, vals, mask, reg):
-    """ALS-WR normal equations: ``A = Σ v vᵀ + λ·n·I``, ``b = Σ r v``.
-
-    Returns ``(A [n,r,r], b [n,r], count [n])``, all float32.
-    """
-    Vg = Vg.float()
-    Vm = Vg * mask[..., None]
-    A = _contract(Vm, Vm)
-    b = _contract((vals * mask).float()[..., None], Vg)[:, 0]
-    count = mask.sum(-1)
-    r = Vg.shape[-1]
-    eye = torch.eye(r, dtype=A.dtype, device=A.device)
-    A = A + (reg * count)[:, None, None] * eye
-    return A, b, count
-
-
 def implicit_weights(vals, mask, alpha):
     """Hu–Koren–Volinsky weighting: ``(c − 1, preference)``."""
     conf_m1 = alpha * vals.abs() * mask
     pref = (vals > 0).to(vals.dtype)
     return conf_m1, pref
+
+
+def gram_terms(Vg, vals, mask, implicit=False, alpha=1.0):
+    """The data terms of the normal equations, without YᵀY and the ridge:
+    ``(S [n,r,r], b [n,r], count [n])`` with ``S = Σ v vᵀ``, ``b = Σ r v``
+    and ``count`` the rated entries (explicit), or ``S = Σ (c − 1) v vᵀ``,
+    ``b = Σ c·p·v`` and ``count`` the positive ones (implicit)."""
+    Vg = Vg.float()
+    if implicit:
+        conf_m1, pref = implicit_weights(vals, mask, alpha)
+        S = _contract(Vg * conf_m1[..., None], Vg)
+        b = _contract(((1.0 + conf_m1) * pref * mask).float()[..., None],
+                      Vg)[:, 0]
+        return S, b, (pref * mask).sum(-1)
+    Vm = Vg * mask[..., None]
+    S = _contract(Vm, Vm)
+    b = _contract((vals * mask).float()[..., None], Vg)[:, 0]
+    return S, b, mask.sum(-1)
+
+
+def normal_eq_explicit(Vg, vals, mask, reg):
+    """ALS-WR normal equations: ``A = Σ v vᵀ + λ·n·I``, ``b = Σ r v``.
+
+    Returns ``(A [n,r,r], b [n,r], count [n])``, all float32.
+    """
+    A, b, count = gram_terms(Vg, vals, mask)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return A + (reg * count)[:, None, None] * eye, b, count
 
 
 def normal_eq_implicit(Vg, vals, mask, reg, alpha, YtY):
@@ -85,16 +97,9 @@ def normal_eq_implicit(Vg, vals, mask, reg, alpha, YtY):
     with ``c = 1 + α|r|``, ``p = [r > 0]``, and only ratings > 0 counting
     toward ``n``.  Returns ``(A [n,r,r], b [n,r], count [n])``.
     """
-    Vg = Vg.float()
-    conf_m1, pref = implicit_weights(vals, mask, alpha)
-    A = _contract(Vg * conf_m1[..., None], Vg)
-    b = _contract(((1.0 + conf_m1) * pref * mask).float()[..., None],
-                  Vg)[:, 0]
-    count = (pref * mask).sum(-1)
-    r = Vg.shape[-1]
-    eye = torch.eye(r, dtype=A.dtype, device=A.device)
-    A = A + YtY[None] + (reg * count)[:, None, None] * eye
-    return A, b, count
+    A, b, count = gram_terms(Vg, vals, mask, implicit=True, alpha=alpha)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return A + YtY[None] + (reg * count)[:, None, None] * eye, b, count
 
 
 def compute_yty(V):

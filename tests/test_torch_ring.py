@@ -10,12 +10,17 @@
   reference's own bands (``tests/test_ring_substrate.py``): atol 2e-5 and
   rtol 1e-5 explicit, 1e-4 both implicit (α = 40 makes the systems'
   entries large; both sides sum them in other orders); at S = 1 it is
-  K4's plain version exactly (``torch.equal``).
+  K4's plain version exactly (``torch.equal``).  With a split width below
+  S·w (the kernel's width split: the stream's Gram summed in chunks that
+  may cross a source boundary) it stays within the same bands of the
+  reference, and at S = 1 it is K3's chunked plain Gram + the tail + K1's
+  plain solve exactly.
 - ``train_sharded`` on a mesh of S logical shards on the CPU, three
   iterations from one injected init, against the reference's
   ``train_sharded`` on ``make_mesh(S)`` and the port's single-device
   ``train``, at 2e-3 (the reference's band for its own ring against one
-  device, ``tests/test_ring_substrate.py``).
+  device, ``tests/test_ring_substrate.py``); the fused ring again with the
+  split width lowered, so that K7's long rows take the split path.
 - The estimator surface: ``ALS(mesh=...).fit``.
 """
 
@@ -125,13 +130,15 @@ def _reference_ring(V, cols, vals, mask, implicit, S):
                             (V, cols, vals, mask, YtY))))
 
 
-def _port_ring(V, cols, vals, mask, implicit, S):
+def _port_ring(V, cols, vals, mask, implicit, S, split_width=None):
     Vs = torch.from_numpy(V).reshape(S, -1, RANK)
     c, v, m = (torch.from_numpy(a) for a in (cols, vals, mask))
     if implicit:
         YtY = torch.from_numpy(V.T @ V)
-        return gne.gather_fused_ring_implicit(Vs, c, v, m, 0.05, 40.0, YtY)
-    return gne.gather_fused_ring_explicit(Vs, c, v, m, 0.05)
+        return gne.gather_fused_ring_implicit(Vs, c, v, m, 0.05, 40.0, YtY,
+                                              split_width=split_width)
+    return gne.gather_fused_ring_explicit(Vs, c, v, m, 0.05,
+                                          split_width=split_width)
 
 
 @pytest.mark.parametrize("S", [1, 3, 8])
@@ -162,6 +169,49 @@ def test_k7_plain_at_one_shard_is_k4_plain(implicit):
     else:
         x4 = gne.gather_fused_solve_explicit(tV, c, v, m, 0.05)
     assert torch.equal(x[0], x4)
+
+
+@pytest.mark.parametrize("S,w", [(1, 64), (3, 21), (4, 16)])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k7_split_plain_matches_reference_ring_kernel(S, w, implicit):
+    """Split 16 below S·w (64, 63 and 64 entries a row: at S = 3 the
+    chunks cross the sources' boundaries); the reference kernel has no
+    split, so the bands are the ones above."""
+    V, cols, vals, mask = _ring_problem(40 + S + 10 * implicit, S, 24, 12,
+                                        w, implicit)
+    before = gne.RING_LAUNCHES
+    x = _port_ring(V, cols, vals, mask, implicit, S, split_width=16).numpy()
+    assert gne.RING_LAUNCHES == before  # CPU tensors: the plain version
+    ref = _reference_ring(V, cols, vals, mask, implicit, S)
+    atol, rtol = RING_TOL[implicit]
+    np.testing.assert_allclose(x, ref, atol=atol, rtol=rtol)
+    np.testing.assert_array_equal(x[:, 0], 0.0)  # the empty rows
+    if implicit:
+        np.testing.assert_array_equal(x[:, 1], 0.0)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k7_split_plain_at_one_shard_is_k3_plain_tail_k1_plain(implicit):
+    """At S = 1 and w = 40 above the split 16: the single-device wide
+    route's plain pieces, K3's Gram in the same 16-entry chunks
+    (``gather_normal_eq_*``), ``regularize`` (jitter and the empty-row
+    guard) and K1's plain solve, give the same x exactly."""
+    from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
+    from tpu_als_torch.ops.solve import regularize
+
+    V, cols, vals, mask = _ring_problem(9, 1, 40, 16, 40, implicit)
+    x = _port_ring(V, cols, vals, mask, implicit, 1, split_width=16)
+    tV, c, v, m = (torch.from_numpy(a) for a in
+                   (V, cols[0, 0], vals[0, 0], mask[0, 0]))
+    if implicit:
+        A, b, count = gne.gather_normal_eq_implicit(
+            tV, c, v, m, 0.05, 40.0, torch.from_numpy(V.T @ V),
+            split_width=16)
+    else:
+        A, b, count = gne.gather_normal_eq_explicit(tV, c, v, m, 0.05,
+                                                    split_width=16)
+    torch.testing.assert_close(x[0], chol_blocked_plain(regularize(A, count),
+                                                        b), rtol=0, atol=0)
 
 
 NU, NI = 60, 45
@@ -238,6 +288,43 @@ def test_train_sharded_matches_reference_and_one_device(strategy, backend,
                                     implicit_prefs=implicit, alpha=6.0),
                      init=(U0, V0), device="cpu")
     ref = _reference_sharded(strategy, backend, implicit, S)
+    for g, j, o in zip(got, ref, one):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, j, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+        np.testing.assert_allclose(g, o.numpy(), atol=TRAIN_TOL,
+                                   rtol=TRAIN_TOL)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fused_ring_with_low_split_matches_reference_and_one_device(
+        monkeypatch, implicit):
+    """``train_sharded(..., solve_backend='gather_fused_ring')`` with the
+    port's ``SPLIT_WIDTH`` lowered to 8: every ring bucket (S·w >= 12 at
+    S = 3) takes K7's width split; against the reference's fused ring and
+    the single-device fit (the same split width: its wide buckets go
+    through K3 + tail + K1) at the band above."""
+    monkeypatch.setattr(tals, "SPLIT_WIDTH", 8)
+    S = 3
+    u, i, r, U0, V0 = _ratings(implicit)
+    parts = (tdata.partition_balanced(np.bincount(u, minlength=NU), S),
+             tdata.partition_balanced(np.bincount(i, minlength=NI), S))
+    (us, is_), counts = _containers(tdata, tcomm, ttrainer, "ring", parts,
+                                    u, i, r, implicit)
+    assert all(S * b.cols.shape[-1] > tals.SPLIT_WIDTH
+               for b in us.buckets + is_.buckets)
+    cfg = tals.AlsConfig(rank=4, max_iter=3, reg_param=0.05,
+                         implicit_prefs=implicit, alpha=6.0,
+                         solve_backend="gather_fused_ring")
+    U, V = ttrainer.train_sharded(make_mesh(devices=["cpu"] * S), *parts, us,
+                                  is_, cfg, strategy="ring",
+                                  ring_counts=counts, init=(U0, V0))
+    got = (entity_rows(parts[0], U).numpy(), entity_rows(parts[1], V).numpy())
+    one = tals.train(tbuild(u, i, r, NU, min_width=4),
+                     tbuild(i, u, r, NI, min_width=4),
+                     tals.AlsConfig(rank=4, max_iter=3, reg_param=0.05,
+                                    implicit_prefs=implicit, alpha=6.0),
+                     init=(U0, V0), device="cpu")
+    ref = _reference_sharded("ring", "gather_fused_ring", implicit, S)
     for g, j, o in zip(got, ref, one):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, j, atol=TRAIN_TOL, rtol=TRAIN_TOL)

@@ -10,114 +10,70 @@
 // symmetric, mirrored from the lower triangle the block accumulates.
 //
 // What bounds it on this card: the Gram arithmetic, r(r+1) + 2r flops per
-// padded entry for the lower triangle and b (16,768 at rank 128), against
+// real entry for the lower triangle and b (16,768 at rank 128), against
 // r·4 + 12 bytes per entry gathered (524 bytes at rank 128): some 32
-// flops per byte, so operations, not the gather, bound it at f32.
+// flops per byte.  At the f32 FMA rate (67 TFLOP/s) that is operations;
+// on the tensor cores the 3xTF32 form does 3x the flops at 495 TFLOP/s
+// (dense TF32), about 1/3 of the FMA time, and the gather's bytes come
+// close to binding.
 //
-// What the design does about it: gram.cuh's register-tiled accumulation
-// (each 16-byte pair of shared loads feeds 16 multiply-adds), rank <= 256
-// (the running sums in registers up to rank 128; above, in the shared
-// packed triangle, 197.6 KB of shared memory at rank 256).  On the TPU
-// a wide row's width chunks ran in order on one core; here a row wider
-// than `split` is cut into width chunks of `split` entries, one block
-// each (grid (n, nsplit)), so the few rows of a power-law catalog's
-// widest buckets spread over many SMs.  Each chunk writes a partial
-// (S, b) to scratch the wrapper allocates, and a second kernel sums the
-// partials in chunk order: deterministic, no float atomics.
+// What the design does about it: gram_sm90.cuh's block body, the rows
+// gathered by cp.async into a 4-stage ring that overlaps the math, and
+// the Gram on the tensor cores in the 3xTF32 form (an f32 operand split
+// into two TF32 halves, three mma products, the sums in f32 registers,
+// two-level) at every rank <= 256; above 12 warp tiles (rank > 128) the
+// triangle is cut over blocks; a stage of 32 entries whose weights are
+// all zero (padding) is skipped.  On the TPU a wide row's width chunks ran
+// in order on one core; here a row wider than `split` is cut into width
+// chunks of `split` entries, one block each (grid (n, nsplit, parts)),
+// so the few rows of a power-law catalog's widest buckets spread over
+// many SMs.  Each chunk writes a partial (S, b) to scratch the wrapper
+// allocates, and a second kernel sums the partials in chunk order:
+// deterministic, no float atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "gram.cuh"
+#include "gram_sm90.cuh"
 
 namespace {
 
-template <typename T, bool kTwoSided, int kMaxRank>
-__global__ void __launch_bounds__(gram::Acc<kMaxRank>::kThreads,
-                                  kMaxRank <= 128 ? 2 : 1)
+template <typename T, bool kTwoSided>
+__global__ void __launch_bounds__(g90::kMaxThreads, 1)
 gather_gram_kernel(const T* __restrict__ V, const int* __restrict__ cols,
                    const T* __restrict__ aw, const T* __restrict__ bw,
                    float* __restrict__ S, float* __restrict__ b, int r,
                    long long w, long long split) {
-  using Acc = gram::Acc<kMaxRank>;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   const long long row = blockIdx.x;
-  const int k = blockIdx.y, nsplit = gridDim.y;
+  const int k = blockIdx.y, nsplit = gridDim.y, part = blockIdx.z;
   const long long w0 = k * split;
   const long long w1 = w0 + split < w ? w0 + split : w;
-  Acc acc;
-  gram::init(acc, r, smem);
-  gram::accumulate<T, kTwoSided>(V, cols + row * w, aw + row * w,
-                                 bw + row * w, nullptr, r, w0, w1,
-                                 smem + gram::sums_floats<kMaxRank>(r), acc);
+  const gram::RowEntries<T> src{V, cols + row * w, aw + row * w,
+                                bw + row * w, nullptr, r};
+  g90::Acc acc;
+  g90::gram<T, kTwoSided>(src, r, w0, w1, part, smem, acc);
   const long long out = row * nsplit + k;
-  float* So = S + out * r * r;
-  if constexpr (Acc::kInRegisters) {
-    gram::for_each_lower(acc, r, [&](int i, int c, float v) {
-      So[i * r + c] = v;
-      So[c * r + i] = v;
-    });
-  } else {
-    __syncthreads();  // every thread's last step is in the triangle
-    for (int e = threadIdx.x; e < r * r; e += Acc::kThreads) {
-      const int i = e / r, c = e - i * r;
-      So[e] = smem[i >= c ? cholb::tri(i) + c : cholb::tri(c) + i];
-    }
-  }
-  if (threadIdx.x < r) b[out * r + threadIdx.x] = acc.b;
+  g90::store(acc, r, part, S + out * r * r, b + out * r, nullptr);
 }
 
-// S[row] = Σ_k part_S[row, k], b likewise, k in order.
-__global__ void sum_partials(const float* __restrict__ part_S,
-                             const float* __restrict__ part_b,
-                             float* __restrict__ S, float* __restrict__ b,
-                             int r, int nsplit) {
-  const long long row = blockIdx.x;
-  const int rr = r * r;
-  for (int e = threadIdx.x; e < rr + r; e += blockDim.x) {
-    float s = 0.f;
-    if (e < rr) {
-      for (int k = 0; k < nsplit; ++k)
-        s += part_S[(row * nsplit + k) * rr + e];
-      S[row * rr + e] = s;
-    } else {
-      for (int k = 0; k < nsplit; ++k)
-        s += part_b[(row * nsplit + k) * r + (e - rr)];
-      b[row * r + (e - rr)] = s;
-    }
-  }
-}
-
-template <typename T, bool kTwoSided, int kMaxRank>
+template <typename T, bool kTwoSided>
 cudaError_t launch(const void* V, const int* cols, const void* aw,
                    const void* bw, float* S, float* b, long long n,
                    long long w, int r, long long split, int nsplit,
                    cudaStream_t stream) {
-  auto kern = gather_gram_kernel<T, kTwoSided, kMaxRank>;
-  const size_t smem = (gram::sums_floats<kMaxRank>(r) +
-                       gram::stage_floats(r)) * sizeof(float);
+  auto kern = gather_gram_kernel<T, kTwoSided>;
+  const size_t smem = g90::smem_bytes<T>(r);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(nsplit));
-  kern<<<grid, gram::Acc<kMaxRank>::kThreads, smem, stream>>>(
+  dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(nsplit),
+            static_cast<unsigned>(g90::parts(r)));
+  kern<<<grid, 32 * g90::warps(r), smem, stream>>>(
       static_cast<const T*>(V), cols, static_cast<const T*>(aw),
       static_cast<const T*>(bw), S, b, r, w, split);
   return cudaGetLastError();
-}
-
-// the instantiation for rank r: 128 up to rank 128, 256 above
-template <typename T, bool kTwoSided>
-cudaError_t launch_rank(const void* V, const int* cols, const void* aw,
-                        const void* bw, float* S, float* b, long long n,
-                        long long w, int r, long long split, int nsplit,
-                        cudaStream_t stream) {
-  return r <= 128
-      ? launch<T, kTwoSided, 128>(V, cols, aw, bw, S, b, n, w, r, split,
-                                  nsplit, stream)
-      : launch<T, kTwoSided, 256>(V, cols, aw, bw, S, b, n, w, r, split,
-                                  nsplit, stream);
 }
 
 }  // namespace
@@ -142,19 +98,17 @@ extern "C" int gather_gram(const void* V, const int* cols, const void* aw,
   const int ns = static_cast<int>(nsplit);
   cudaError_t e;
   if (bf16)
-    e = two_sided
-        ? launch_rank<__nv_bfloat16, true>(V, cols, aw, bw, So, bo, n, w, r,
-                                           split, ns, st)
-        : launch_rank<__nv_bfloat16, false>(V, cols, aw, bw, So, bo, n, w,
-                                            r, split, ns, st);
+    e = two_sided ? launch<__nv_bfloat16, true>(V, cols, aw, bw, So, bo, n,
+                                                w, r, split, ns, st)
+                  : launch<__nv_bfloat16, false>(V, cols, aw, bw, So, bo, n,
+                                                 w, r, split, ns, st);
   else
-    e = two_sided
-        ? launch_rank<float, true>(V, cols, aw, bw, So, bo, n, w, r, split,
-                                   ns, st)
-        : launch_rank<float, false>(V, cols, aw, bw, So, bo, n, w, r, split,
-                                    ns, st);
+    e = two_sided ? launch<float, true>(V, cols, aw, bw, So, bo, n, w, r,
+                                        split, ns, st)
+                  : launch<float, false>(V, cols, aw, bw, So, bo, n, w, r,
+                                         split, ns, st);
   if (e != cudaSuccess || nsplit == 1) return static_cast<int>(e);
-  sum_partials<<<static_cast<unsigned>(n), 256, 0, st>>>(part_S, part_b, S,
-                                                         b, r, ns);
-  return static_cast<int>(cudaGetLastError());
+  e = g90::launch_sum(part_S, S, n, static_cast<long long>(r) * r, ns, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(g90::launch_sum(part_b, b, n, r, ns, st));
 }

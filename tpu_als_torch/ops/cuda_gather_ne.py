@@ -12,11 +12,12 @@ inside the kernels and never materialized; the weights, the count and
 the ridge/YᵀY tail are the reference builders' exact expressions.
 
 The kernels take the table in float32 or bfloat16, weights in the
-table's type, and rank <= 256 (the Gram accumulates in register tiles,
-and above rank 128 into a packed triangle in shared memory; above rank
-256 a CUDA tensor raises, and the plain versions take any rank).  S is
-symmetric: its
-lower triangle ``S[i, c] = Σ (aw·v_i)·v_c`` (c <= i) is mirrored.
+table's type, and rank <= 256 (K4 and K7's one-block rows accumulate the
+Gram in register tiles, and above rank 128 into a packed triangle in
+shared memory; K3 and K7's split rows on the tensor cores in the 3xTF32
+form, ``csrc/gram_sm90.cuh``; above rank 256 a CUDA tensor raises, and
+the plain versions take any rank).  S is symmetric: its lower triangle
+``S[i, c] = Σ (aw·v_i)·v_c`` (c <= i) is mirrored.
 
 A CUDA tensor goes to a kernel (or raises); only CPU tensors take the
 plain versions :func:`gather_gram_plain`, :func:`gather_solve_plain` and
@@ -39,6 +40,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 GRAM_LAUNCHES = 0   # K3
 SOLVE_LAUNCHES = 0  # K4
 RING_LAUNCHES = 0   # K7
+
+# K7's width split keeps its partial Grams within this many f32 elements
+# a launch (1 GiB, the trainer's per-launch budget)
+_SCRATCH_ELEMS = 1 << 28
 
 
 def _chunks(w, split_width):
@@ -69,22 +74,27 @@ def _round(x, dtype):
     return x.to(dtype).float()
 
 
+def _tail_solve(S, b, cnt, dt, YtY, reg, jitter):
+    """The tail of ``gather_solve.cuh`` on a summed Gram (A += YᵀY; diag
+    += ridge, then + jitter; rows with count <= 0 become (1 + jitter)·I),
+    then K1's plain solve."""
+    ridge = _round(_round(cnt, dt) * _round(torch.tensor(reg), dt), dt)
+    r = S.shape[-1]
+    eye = torch.eye(r, dtype=torch.float32, device=S.device)
+    A = S if YtY is None else S + YtY.float()[None]
+    A = A + torch.diag_embed(ridge[:, None].expand(-1, r))
+    A = A + jitter * eye
+    A = torch.where((cnt <= 0)[:, None, None], eye + jitter * eye, A)
+    return chol_blocked_plain(A.contiguous(), b)
+
+
 def gather_solve_plain(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
                        jitter=DEFAULT_JITTER):
     """K4's function in plain PyTorch: K3's plain Gram, then the tail of
     ``gather_solve.cu`` (A += YᵀY; diag += ridge, then + jitter; rows
     with count <= 0 become (1 + jitter)·I), then K1's plain solve."""
     S, b = gather_gram_plain(V, cols, aw, bw, two_sided=two_sided)
-    dt = V.dtype
-    cnt = cw.float().sum(-1)
-    ridge = _round(_round(cnt, dt) * _round(torch.tensor(reg), dt), dt)
-    r = V.shape[1]
-    eye = torch.eye(r, dtype=torch.float32, device=V.device)
-    A = S if YtY is None else S + YtY.float()[None]
-    A = A + torch.diag_embed(ridge[:, None].expand(-1, r))
-    A = A + jitter * eye
-    A = torch.where((cnt <= 0)[:, None, None], eye + jitter * eye, A)
-    return chol_blocked_plain(A.contiguous(), b)
+    return _tail_solve(S, b, cw.float().sum(-1), V.dtype, YtY, reg, jitter)
 
 
 def _check(name, V, cols, *weights):
@@ -259,27 +269,32 @@ def gather_fused_solve_implicit(V, cols, vals, mask, reg, alpha, YtY, *,
 
 
 def gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY=None, *,
-                            two_sided, reg, jitter=DEFAULT_JITTER):
-    """K7's function in plain PyTorch: for each owner d,
-    :func:`gather_solve_plain` over its ring-ordered entry stream — the
-    entries of source shard (d - t) mod S for t = 0 .. S-1, each source's
-    ids offset into the stacked table — so at S = 1 it is K4's plain
-    version."""
+                            two_sided, reg, jitter=DEFAULT_JITTER,
+                            split_width=None):
+    """K7's function in plain PyTorch: for each owner d, its ring-ordered
+    entry stream — the entries of source shard (d - t) mod S for t = 0 ..
+    S-1, each source's ids offset into the stacked table — through K3's
+    plain Gram, summed in chunks of ``split_width`` entries in order as
+    the kernel's width split sums them (one chunk when the stream is not
+    longer), then the tail of :func:`gather_solve_plain` and K1's plain
+    solve: at S = 1 and no split it is K4's plain version."""
     S, per, r = V_shards.shape
     V = V_shards.reshape(S * per, r)
     xs = []
     for d in range(cols.shape[0]):
         order = [(d - t) % S for t in range(S)]
-        stream = [torch.cat([t[d, s] for s in order], dim=1)
-                  for t in (aw, bw, cw)]
-        c = torch.cat([cols[d, s] + s * per for s in order], dim=1)
-        xs.append(gather_solve_plain(V, c, *stream, YtY, two_sided=two_sided,
-                                     reg=reg, jitter=jitter))
+        a, b, c = (torch.cat([t[d, s] for s in order], dim=1)
+                   for t in (aw, bw, cw))
+        ids = torch.cat([cols[d, s] + s * per for s in order], dim=1)
+        G, rhs = gather_gram_plain(V, ids, a, b, two_sided=two_sided,
+                                   split_width=split_width)
+        xs.append(_tail_solve(G, rhs, c.float().sum(-1), V.dtype, YtY, reg,
+                              jitter))
     return torch.stack(xs)
 
 
 def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
-                      reg, jitter=DEFAULT_JITTER):
+                      reg, jitter=DEFAULT_JITTER, split_width=None):
     """``x [D, n, r]`` f32 for the rows of all D owners of a ring: kernel K7
     for CUDA tensors, the plain version for CPU tensors.
 
@@ -287,7 +302,13 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     ``cols``/``aw``/``bw``/``cw`` [D, S, n, w]: each owner's bucket,
     shard-local ids, source-major and unrotated — owner d's row sums its
     entries over the sources (d - t) mod S, t = 0 .. S-1, in that order;
-    ``reg``, ``jitter``, ``YtY`` as :func:`gather_solve`."""
+    ``reg``, ``jitter``, ``YtY`` as :func:`gather_solve`.
+    ``split_width``: when a row's stream (S·w entries) is longer, the
+    kernel splits it over blocks in chunks of that many entries (partial
+    Grams, summed in order, then the tail and the solve per row), on row
+    tiles that keep the partials within a fixed budget; otherwise one
+    block per row.  ``RING_LAUNCHES`` counts one per call, whatever the
+    number of passes and row tiles."""
     global RING_LAUNCHES
     if V_shards.dim() != 3 or cols.dim() != 4 \
             or cols.shape[1] != V_shards.shape[0]:
@@ -304,7 +325,8 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     if V_shards.device.type == "cpu":
         return gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY,
                                        two_sided=two_sided, reg=reg,
-                                       jitter=jitter)
+                                       jitter=jitter,
+                                       split_width=split_width)
     _cuda_ready("gather_solve_ring", V_shards, cols, aw, bw, cw)
     D, _, n, w = cols.shape
     if S * per >= 1 << 31:
@@ -320,34 +342,53 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     # the stacked table
     bases = torch.tensor([V_shards[s].data_ptr() for s in range(S)],
                          dtype=torch.int64, device=V_shards.device)
+    split = 0 if split_width is None else max(1, int(split_width))
+    tiles = [(0, n, None, None)]
+    if split and S * w > split:
+        # per row of every owner: its chunks' partials and their sum
+        E = r * r + r + 1
+        nchunk = -(-S * w // split)
+        step = max(1, min(n, _SCRATCH_ELEMS // (D * (nchunk + 1) * E)))
+        part = torch.empty(D * step * nchunk * E, dtype=torch.float32,
+                           device=V_shards.device)
+        sums = torch.empty(D * step * E, dtype=torch.float32,
+                           device=V_shards.device)
+        tiles = [(s0, min(step, n - s0), part, sums)
+                 for s0 in range(0, n, step)]
     fn = _build.load("gather_solve_ring")
     with torch.cuda.device(V_shards.device):
-        err = fn(bases.data_ptr(), per, cols.data_ptr(), aw.data_ptr(),
-                 bw.data_ptr(), cw.data_ptr(),
-                 None if YtY is None else YtY.data_ptr(), x.data_ptr(), D, S,
-                 n, w, r, _reg_w(reg, V_shards.dtype), float(jitter),
-                 int(two_sided), int(V_shards.dtype == torch.bfloat16),
-                 _stream(V_shards))
-    _build.check(err, "gather_solve_ring")
+        for row0, nrows, part, sums in tiles:
+            err = fn(bases.data_ptr(), per, cols.data_ptr(), aw.data_ptr(),
+                     bw.data_ptr(), cw.data_ptr(),
+                     None if YtY is None else YtY.data_ptr(), x.data_ptr(),
+                     D, S, n, w, r, _reg_w(reg, V_shards.dtype),
+                     float(jitter), int(two_sided),
+                     int(V_shards.dtype == torch.bfloat16), split, row0,
+                     nrows, None if part is None else part.data_ptr(),
+                     None if sums is None else sums.data_ptr(),
+                     _stream(V_shards))
+            _build.check(err, "gather_solve_ring")
     RING_LAUNCHES += 1
     return x
 
 
 def gather_fused_ring_explicit(V_shards, cols, vals, mask, reg, *,
-                               jitter=DEFAULT_JITTER):
+                               jitter=DEFAULT_JITTER, split_width=None):
     """The explicit ring half-step's rows in one kernel (the reference's
     weight expressions over the unrotated [D, S, n, w] buckets): at S = 1
-    :func:`gather_fused_solve_explicit`."""
+    and S·w <= ``split_width`` :func:`gather_fused_solve_explicit`."""
     return gather_solve_ring(V_shards, cols, mask, vals * mask, mask,
-                             two_sided=True, reg=reg, jitter=jitter)
+                             two_sided=True, reg=reg, jitter=jitter,
+                             split_width=split_width)
 
 
 def gather_fused_ring_implicit(V_shards, cols, vals, mask, reg, alpha, YtY,
-                               *, jitter=DEFAULT_JITTER):
+                               *, jitter=DEFAULT_JITTER, split_width=None):
     """The implicit ring half-step's rows in one kernel: weights from
     :func:`implicit_weights`, the whole table's YᵀY and the weighted-λ
     tail in the kernel."""
     conf_m1, pref = implicit_weights(vals, mask, alpha)
     return gather_solve_ring(V_shards, cols, conf_m1,
                              (1.0 + conf_m1) * pref * mask, pref * mask, YtY,
-                             two_sided=False, reg=reg, jitter=jitter)
+                             two_sided=False, reg=reg, jitter=jitter,
+                             split_width=split_width)

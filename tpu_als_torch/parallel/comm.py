@@ -17,7 +17,7 @@ Two half-steps over it, each for every owner at once:
   arithmetic on the stacked table's shard axis, not a copy.
 - :func:`ring_fused_half_step` (``solve_backend='gather_fused_ring'``):
   one launch of kernel K7 per bucket, whose blocks walk the S sources
-  themselves.
+  themselves (the long rows' streams split over blocks by width).
 
 The reference's ``gather_block_plan`` and ``chunked_gather_half_step``
 ('all_gather_chunked') are not ported yet, nor its multi-host
@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.ratings import (
     Bucket,
     buckets_to,
@@ -149,7 +150,10 @@ def _scatter(out, b, x):
 def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
                          YtY=None):
     """One half-step of every owner through kernel K7, one launch per
-    bucket.  ``V_stacked`` [S·per, r]: the opposite factors in slot space;
+    bucket; a bucket whose rows' ring streams (S·w entries) are longer
+    than ``core.als.SPLIT_WIDTH`` is split over blocks in chunks of that
+    many entries, as the single-device trainer splits K3's wide rows.
+    ``V_stacked`` [S·per, r]: the opposite factors in slot space;
     ``ring_buckets``: the grid as tensors (:meth:`RingCsr.to`).  Returns
     the solved side [D·num_rows, r] f32.  The count and the ridge come from
     the kernel's own ``cw`` sums, as in the reference."""
@@ -164,10 +168,11 @@ def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
         if cfg.implicit_prefs:
             x = gne.gather_fused_ring_implicit(
                 V_sh, b.cols, vals, mask, cfg.reg_param, cfg.alpha, YtY,
-                jitter=cfg.jitter)
+                jitter=cfg.jitter, split_width=core_als.SPLIT_WIDTH)
         else:
             x = gne.gather_fused_ring_explicit(
-                V_sh, b.cols, vals, mask, cfg.reg_param, jitter=cfg.jitter)
+                V_sh, b.cols, vals, mask, cfg.reg_param, jitter=cfg.jitter,
+                split_width=core_als.SPLIT_WIDTH)
         _scatter(out, b, x)
     return out[:, :num_rows].reshape(D * num_rows, r)
 

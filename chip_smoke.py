@@ -19,7 +19,7 @@ Phases (any failure exits non-zero before the final line):
    59,047-item catalog with ~10 % of items invalid, at k = 10 and 128,
    and on a catalog smaller than k;
 4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
-   their plain versions (``V[cols]`` + ``torch.bmm``, K1's plain solve)
+   their plain versions (``V[cols]`` + ``torch.bmm``, K2's plain solve)
    at rank 128, then at ranks 200 and 256: two- and one-sided, f32 and
    bf16 tables, widths 24, 100 (rank 128), 512 and a row wider than the
    trainer's split width (K3's split path; K4 at ranks 200 and 256 too);
@@ -58,7 +58,12 @@ Phases (any failure exits non-zero before the final line):
    batches of 4,096 users (K6) and recommend-all (K5 at r = 256); then
    ``recommend_arrays(10, mesh=4 logical shards,
    gatherStrategy='merge_ring')`` (K8) for every user of the rank-128
-   fit, against the single-device K5 sweep;
+   fit, against the single-device K5 sweep; then k = 200, above K5's
+   128 (the scan route, counted), single-device and over the mesh, each
+   id earning its score; k = 0 (empty results, no launch); and
+   ``ALS(rank=320).fit`` on a 2000 x 800 x 40000 frame (the einsum route
+   with K6 above K3/K4's rank) with one more item half-step against a
+   float64 solve;
 7. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound; K4 and K3 held
    against their plain versions once more on the item half-step's
@@ -69,9 +74,12 @@ Phases (any failure exits non-zero before the final line):
    bucket held to K4's band against its plain version chunked the same
    way) beside the unfused ring half-step, after K7 == K4 bitwise at one
    shard on the single-device item half-step's K4 buckets and K7 within
-   K4's band of the wide route (K3 + tail + K1) on its K3 buckets; K8 at the sharded serving shape beside its plain version and
-   a matmul + stable sort; each
-   bucket's time in both half-steps, and one iteration beside its bound;
+   K4's band of the wide route (K3 + tail + K1) on its K3 buckets; K8 at
+   the sharded serving shape beside its plain version and a matmul +
+   stable sort; where K4's time goes on its buckets at both ranks (K3's
+   Gram, K1, K6 + the two substitutions, K2 at rank 128, and K4 itself,
+   bucket by bucket); each bucket's time in both half-steps, and one
+   iteration beside its bound;
 8. where the time goes: one training iteration, one more fold-in batch
    and one all-users recommend, and one rank-256 iteration and fold-in
    batch, under ``torch.profiler`` (wall, device busy, idle share, top
@@ -79,8 +87,8 @@ Phases (any failure exits non-zero before the final line):
    K6 at rank 256 named so), and the final ``{"ok": true, ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
-in float32 outside the tensor cores, and for the Gram that K3 and K7's
-width split run on the tensor cores in the 3xTF32 form, three TF32
+in float32 outside the tensor cores, and for the Gram that K3, K4 and
+K7 run on the tensor cores in the 3xTF32 form, three TF32
 products per f32 product at 495 TFLOP/s (dense TF32).
 """
 
@@ -223,10 +231,13 @@ def gram_work(bks, num_rows):
 
 
 def gram_flops(real, rows, r):
-    """The Gram on its lower triangle and b per real entry, r(r+1) + 2r,
-    plus a Cholesky factorization and two substitutions, r³/3 + 2r², per
-    solved row."""
-    return real * (r * (r + 1) + 2 * r) + rows * (r ** 3 / 3 + 2 * r * r)
+    """``(flops at the f32 FMA rate, flops on the tensor cores)`` of a
+    fused half-step: the Gram on its lower triangle, r(r+1) per real
+    entry, runs on the tensor cores in 3xTF32 (K3, K4 and K7 share that
+    Gram); b, 2r per real entry, and a Cholesky factorization and two
+    substitutions, r³/3 + 2r², per solved row, at the FMA rate."""
+    return (real * 2 * r + rows * (r ** 3 / 3 + 2 * r * r),
+            real * r * (r + 1))
 
 
 def unit_rows(rng, n, r):
@@ -439,7 +450,7 @@ def check_k3(rng, dev, r=RANK, widths=(24, 100, 512)):
 
 
 def check_k4(rng, dev, r=RANK, shapes=((256, 24), (256, 100), (64, 512))):
-    """K4 vs K3's plain Gram + tail + K1's plain solve at rank r, on
+    """K4 vs K3's plain Gram + tail + K2's plain solve at rank r, on
     (rows, width) ``shapes``: returns the largest |x - x_plain| at f32.
     A row wider than the split width has no repeated column (see
     :func:`check_k3`)."""
@@ -1127,6 +1138,130 @@ def sharded_serve_slice(model, mesh, dev):
     return launches
 
 
+def topk_k200(model, mesh, rng, dev):
+    """k = 200, above K5's 128 candidates, on the card: the scan route
+    (``chunked_topk_scores``) behind ``topk_scores``, single-device
+    (``recommendForUserSubset`` of 8,192 users, blocks of 4,096) and over
+    the mesh (``recommend_arrays(200, mesh=..., 'merge_ring')``, which
+    takes the ring strategy above 128), each id earning its score, and
+    the first 128 scores against K5's k = 128 on the same users."""
+    _zero_launches()
+    cuda_topk.SCAN_CALLS = 0
+    users = np.sort(rng.choice(model._user_map.ids, 8192, replace=False))
+    recs = model.recommendForUserSubset({"user": users}, 200)
+    single = cuda_topk.SCAN_CALLS
+    _, ids, scores = model.recommend_arrays(200, mesh=mesh,
+                                            gatherStrategy="merge_ring")
+    launches = _launch_counts()
+    log(f"k=200 recommend: scan route calls {single} single-device, "
+        f"{cuda_topk.SCAN_CALLS - single} over the mesh (K5 "
+        f"{launches['k5']}, K8 {launches['k8']})")
+    if single == 0 or cuda_topk.SCAN_CALLS == single:
+        fail("k = 200 did not take the scan route on the card")
+    valid = torch.ones(model._V.shape[0], dtype=torch.bool, device=dev)
+    rows = torch.from_numpy(model._user_map.to_dense(users)).to(dev)
+    Q = model._U[rows]
+    got = torch.from_numpy(np.ascontiguousarray(
+        recs["recommendations"]["rating"])).to(dev)
+    dense = torch.from_numpy(model._item_map.to_dense(
+        recs["recommendations"]["item"])).to(dev)
+    if got.shape != (8192, 200) or not torch.isfinite(got).all():
+        fail(f"k=200 recommendForUserSubset: shape {tuple(got.shape)}")
+    e1 = earns_scores(Q, model._V, valid, got, dense,
+                      "k=200 recommendForUserSubset")
+    s128, _ = cuda_topk.topk_scores(Q.contiguous(), model._V, valid, 128)
+    if not torch.allclose(got[:, :128], s128, rtol=K5_TOL, atol=K5_TOL):
+        fail("k=200: the first 128 scores differ from K5's k = 128")
+    n = model._U.shape[0]
+    if ids.shape != (n, 200) or not np.isfinite(scores).all():
+        fail(f"k=200 over the mesh: shape {ids.shape} for {n} users")
+    sample = rng.choice(n, 8192, replace=False)
+    e2 = earns_scores(model._U[torch.from_numpy(sample).to(dev)], model._V,
+                      valid, torch.from_numpy(scores[sample]).to(dev),
+                      torch.from_numpy(model._item_map.to_dense(
+                          ids[sample])).to(dev),
+                      "k=200 recommend_arrays over the mesh")
+    log(f"k=200: recommendForUserSubset of 8192 users and recommend_arrays "
+        f"of {n} users over {SHARDS} logical shards: each id earns its "
+        f"score ({e1:.3e}, {e2:.3e}; tol {K5_TOL}); the first 128 within "
+        f"{K5_TOL} of K5's k = 128")
+
+
+def recommend_zero(model):
+    """k = 0: empty [n, 0] results, no launch."""
+    _zero_launches()
+    q, ids, scores = model.recommend_arrays(0)
+    recs = model.recommendForAllItems(0)
+    if ids.shape != (len(q), 0) or scores.shape != (len(q), 0) \
+            or scores.dtype != np.float32 \
+            or recs["recommendations"].shape != (len(model._item_map), 0):
+        fail(f"k=0: shapes {ids.shape}, {scores.shape}, "
+             f"{recs['recommendations'].shape}")
+    if any(_launch_counts().values()):
+        fail(f"k=0 launched a kernel: {_launch_counts()}")
+    log(f"k=0: recommend_arrays gives ids {ids.shape} {ids.dtype} and "
+        f"scores {scores.shape} {scores.dtype}, recommendForAllItems "
+        f"{recs['recommendations'].shape}; no launch")
+
+
+def rank320_fit(seed, dev):
+    """``ALS(rank=320).fit`` on the card, above K3/K4's rank: 'auto'
+    takes the einsum route, whose solves are K6 and two substitutions.
+    Then one more item half-step on the card against a float64 solve of
+    the same normal equations, row by row."""
+    frame = synthetic_movielens(2000, 800, 40_000, seed=seed)
+    _zero_launches()
+    t0 = time.perf_counter()
+    model = ALS(rank=320, maxIter=2, implicitPrefs=True, alpha=ALPHA,
+                regParam=REG).fit(frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    log(f"rank 320 fit (2000 x 800 x 40000, 2 iterations): {wall:.2f} s "
+        "wall; launches " + ", ".join(f"{k.upper()} {v}"
+                                      for k, v in launches.items() if v))
+    if launches["k6"] == 0 or launches["k3"] or launches["k4"]:
+        fail(f"rank 320 did not take the einsum route with K6: {launches}")
+    U, V = model._U, model._V
+    if not (torch.isfinite(U).all() and torch.isfinite(V).all()) \
+            or U.shape[1] != 320:
+        fail("rank 320: the fitted factors are not finite")
+    i_idx, imap = remap_ids(frame["item"])
+    u_idx, _ = remap_ids(frame["user"])
+    icsr = build_csr_buckets(i_idx, u_idx, frame["rating"], len(imap))
+    cfg = core_als.AlsConfig(rank=320, implicit_prefs=True, alpha=ALPHA,
+                             reg_param=REG)
+    x = core_als.local_half_step(U, icsr.to(dev), len(imap), cfg,
+                                 compute_yty(U))
+    # the same normal equations in float64, densely: W[i, u] sums the
+    # confidences of item i's ratings by user u (duplicates add, as the
+    # gathered entries do)
+    n_items, n_users = len(imap), U.shape[0]
+    U64 = U.double()
+    rows = torch.from_numpy(i_idx).to(dev)
+    cols = torch.from_numpy(u_idx).to(dev)
+    vals = torch.from_numpy(frame["rating"]).to(dev).double()
+    conf, pref = ALPHA * vals.abs(), (vals > 0).double()
+    W = torch.zeros(n_items, n_users, dtype=torch.float64, device=dev)
+    P = torch.zeros_like(W)
+    W.index_put_((rows, cols), conf, accumulate=True)
+    P.index_put_((rows, cols), (1.0 + conf) * pref, accumulate=True)
+    cnt = torch.zeros(n_items, dtype=torch.float64, device=dev)
+    cnt.index_put_((rows,), pref, accumulate=True)
+    eye = torch.eye(320, dtype=torch.float64, device=dev)
+    x64 = torch.empty(n_items, 320, dtype=torch.float64, device=dev)
+    for s0 in range(0, n_items, 100):
+        sl = slice(s0, s0 + 100)
+        A = (W[sl, :, None] * U64[None]).transpose(1, 2) @ U64 \
+            + U64.T @ U64 + (REG * cnt[sl] + 1e-6)[:, None, None] * eye
+        x64[sl] = torch.linalg.solve(A, (P[sl] @ U64)[..., None])[..., 0]
+    err = row_rel(x.double(), x64)
+    log(f"rank 320: one item half-step on the card vs float64: max "
+        f"per-row |diff|/|x| {err:.3e} (tol {TRAIN_REL})")
+    if not err <= TRAIN_REL:
+        fail(f"rank 320: the half-step is {err:.3e} off float64")
+
+
 # -- phase 7 ---------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
@@ -1236,7 +1371,8 @@ def train_timings(tr, errs, dev):
 
     P, E, n = gram_work(k4_b, n_items)
     ms4 = cuda_ms(k4, 3)
-    b4, by4 = bound(P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r))
+    nb4, fl4 = P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r)
+    b4, by4 = bound(nb4, *fl4)
     l4 = cuda_ms(k4_lib, 1)
     out.append({"name": f"gather_solve (K4{tag})", "route": "cuda",
                 "source": "tpu_als_torch/csrc/gather_solve.cu",
@@ -1248,7 +1384,8 @@ def train_timings(tr, errs, dev):
     log(f"timing K4 r={r} item half-step, {len(k4_b)} buckets, {n} real "
         f"rows, {E} real of {P} padded entries: kernel_ms={ms4:.4f} "
         f"plain_ms={p4:.4f} library_ms={l4:.4f} (unfused half-step) "
-        f"bound_ms={b4:.4f} ({by4}) launches/fit={tr['launches']['k4']}")
+        f"bound_ms={b4:.4f} ({by4}: {bound_note(nb4, *fl4)}) "
+        f"launches/fit={tr['launches']['k4']}")
 
     # K3: the wide buckets, width split over blocks; yardstick V[cols] +
     # bmm
@@ -1345,6 +1482,55 @@ def train_timings(tr, errs, dev):
     return out
 
 
+def k4_split(tr, smi):
+    """Where K4's time goes, on the rows it times (the item half-step's
+    K4 buckets from the seeded init), bucket by bucket: (a) K3's Gram on
+    those rows (one block a row, no width split), (b) K1 on their
+    regularized systems, (c) K6 plus the two substitutions on the same
+    systems, (d) K4 itself; at rank <= 128 also (e) K2 on the systems.
+    Each bucket's systems are built, timed and freed in turn, so the
+    rank-256 systems (15 GB in all) never sit on the card together.
+    Returns the sums in ms by name."""
+    ib, U0, cfg = tr["ib"], tr["U0"], tr["cfg"]
+    r = U0.shape[1]
+    YtY = compute_yty(U0)
+    t = {"gram (K3)": 0.0, "K1": 0.0, "K6": 0.0, "substitutions": 0.0,
+         "K4": 0.0}
+    if r <= cuda_lanes.MAX_RANK:
+        t["K2"] = 0.0
+    for b in ib:
+        if core_als.resolve_solve_path(cfg, r, b.width) != \
+                "gatherfused_solve":
+            continue
+        conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
+        bw = (1.0 + conf) * pref * b.mask
+        t["gram (K3)"] += cuda_ms(lambda: cuda_gather_ne.gather_gram(
+            U0, b.cols, conf, bw, two_sided=False), 1)
+        A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
+            U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY)
+        A = regularize(A, count)
+        del count
+        t["K1"] += cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, rhs), 1)
+        if "K2" in t:
+            t["K2"] += cuda_ms(lambda: cuda_lanes.spd_solve_lanes(A, rhs), 1)
+        Aw = torch.empty_like(A)
+        t["K6"] += kernel_ms_each(
+            lambda: Aw.copy_(A),
+            lambda: cuda_lanes_blocked.chol_lanes_blocked(Aw), 1)
+        del A
+        t["substitutions"] += cuda_ms(
+            lambda: cuda_lanes_blocked.substitute(Aw, rhs), 1)
+        del Aw, rhs
+        t["K4"] += cuda_ms(lambda: cuda_gather_ne.gather_fused_solve_implicit(
+            U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY), 1)
+    log(f"k4 split r={r} (the item half-step's K4 buckets; {smi}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; K6 + substitutions {t['K6'] + t['substitutions']:.4f} ms; "
+        f"K3's Gram + K6 + substitutions "
+        f"{t['gram (K3)'] + t['K6'] + t['substitutions']:.4f} ms")
+    return t
+
+
 def kernel_ms_each(setup, fn, reps):
     """Mean milliseconds of ``fn`` alone over ``reps`` calls, each after
     an untimed ``setup()`` (K6 writes over its input, which is restored
@@ -1421,8 +1607,8 @@ def ring_timings(sh, tr, errs, dev):
     with each bucket's time and the widest bucket's share; its plain
     version on the same pass, chunked the same way, every bucket held to
     K4's band; the unfused ring half-step as the yardstick; the bound in
-    K4's closed form on the real entries and rows, the split buckets'
-    Gram on the tensor cores.  First, at one shard on the single-device
+    K4's closed form on the real entries and rows, the Gram on the
+    tensor cores.  First, at one shard on the single-device
     item half-step: K7 against K4 bit for bit on its K4 buckets, and
     against the wide route (K3 + tail + K1) within K4's band on its K3
     buckets."""
@@ -1496,18 +1682,18 @@ def ring_timings(sh, tr, errs, dev):
     xp, p7 = timed(k7_plain)
     xk = k7()
     torch.cuda.synchronize()
-    e7 = {"one block": 0.0, "split": 0.0}
+    e7 = {"unsplit": 0.0, "split": 0.0}
     for (b, *_), x, y in zip(pre, xk, xp):
         err = (x - y).abs().max().item()
-        kind = "split" if S * b.width > split else "one block"
+        kind = "split" if S * b.width > split else "unsplit"
         e7[kind] = max(e7[kind], err)
         if not (torch.isfinite(x).all() and torch.allclose(
                 x, y, rtol=K4_RTOL, atol=K4_ATOL)):
             fail(f"K7 on the ring grid's bucket of S x width {S}x{b.width} "
                  f"({kind}): kernel vs plain max |diff| {err:.3e}")
     log(f"k7 r={r} item half-step ring grid ({len(ib)} buckets, every one "
-        f"gated): max |kernel - plain| {e7['one block']:.3e} on the buckets "
-        f"of S x width <= {split} (one block a row), {e7['split']:.3e} on "
+        f"gated): max |kernel - plain| {e7['unsplit']:.3e} on the buckets "
+        f"of S x width <= {split} (unsplit), {e7['split']:.3e} on "
         f"the longer ones (split in chunks of {split}, the plain version "
         f"chunked the same way) (rtol {K4_RTOL}, atol {K4_ATOL})")
     del xk, xp
@@ -1525,12 +1711,7 @@ def ring_timings(sh, tr, errs, dev):
     P = sum(b.cols.numel() for b in ib)
     E = sum(int(b.mask.count_nonzero()) for b in ib)
     n = sum(int((b.rows < rows_per).sum()) for b in ib)
-    # the split buckets' Gram runs on the tensor cores (3xTF32); the
-    # one-block buckets' Gram, every b and every solve at the FMA rate
-    E_tc = sum(int(b.mask.count_nonzero()) for b in ib
-               if S * b.width > split)
-    nb7 = P * 16 + E * r * 4 + n * r * 4
-    fl7 = (gram_flops(E, n, r) - E_tc * r * (r + 1), E_tc * r * (r + 1))
+    nb7, fl7 = P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r)
     b7, by7 = bound(nb7, *fl7)
     split_ms = sum(t for w, t in per if S * w > split)
     log(f"k7 item half-step by bucket (S x width: ms): " + ", ".join(
@@ -1613,7 +1794,7 @@ def bucket_times(tr):
         # solve and x written per real row
         P, E, rows = gram_work(bks, n)
         b_ms, by = bound(P * 16 + E * r * 4 + rows * r * 4,
-                         gram_flops(E, rows, r))
+                         *gram_flops(E, rows, r))
         iter_bound += b_ms
         log(f"{side} half-step by bucket (width: ms, rows): "
             + ", ".join(f"{w}: {t:.2f}, {n_b}" for w, t, n_b in per)
@@ -1716,9 +1897,14 @@ def main():
     model256, launches256, A256, b256 = serve_slice_256(tr256["model"], rng,
                                                         dev)
     launches8 = sharded_serve_slice(tr["model"], sh["mesh"], dev)
+    topk_k200(tr["model"], sh["mesh"], rng, dev)
+    recommend_zero(model)
+    rank320_fit(args.seed, dev)
     kernels = timings(model, launches, A, b, errs, dev)
     kernels += train_timings(tr, errs, dev)
     kernels += train_timings(tr256, errs, dev)
+    k4_split(tr, smi)
+    k4_split(tr256, smi)
     kernels.append(ring_timings(sh, tr, errs, dev))
     del sh
     kernels.append(merge_timings(tr["model"], launches8, dev))

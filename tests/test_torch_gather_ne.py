@@ -181,7 +181,11 @@ def test_k3_split_path_matches_unsplit(two_sided):
 
 
 def test_k4_plain_is_k3_plain_then_tail_then_k1_plain():
-    from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
+    """K4's plain version is K3's plain Gram, the tail (``regularize``:
+    jitter and the empty-row guard) and the plain solve of K4's solve
+    pass, which is K2's tiled recurrence (K1's blocked one before K4
+    shared K2's routines), exactly."""
+    from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
     from tpu_als_torch.ops.solve import regularize
 
     V, cols, vals, mask, YtY = _problem(13, 9, 16, 8, implicit=True)
@@ -190,8 +194,8 @@ def test_k4_plain_is_k3_plain_then_tail_then_k1_plain():
                                                torch.from_numpy(YtY))
     x = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
                                        torch.from_numpy(YtY))
-    torch.testing.assert_close(x, chol_blocked_plain(regularize(A, count),
-                                                     b), rtol=0, atol=0)
+    torch.testing.assert_close(x, chol_solve_plain(regularize(A, count),
+                                                   b), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("r", [200, 256])
@@ -224,3 +228,23 @@ def test_k3_k4_at_rank_256_match_reference_einsum_builders(r, implicit):
     np.testing.assert_allclose(x.numpy(), xref, atol=5e-5, rtol=5e-4)
     zero = [0, 2] if implicit else [0]
     assert np.all(x.numpy()[zero] == 0)
+
+
+def test_k4_plain_at_rank_320_matches_the_einsum_route():
+    """Above the kernels' rank 256 the plain K4 takes any rank: at rank
+    320 it raises nothing and agrees with the einsum route (``V[cols]``,
+    the torch normal equations, ``solve_spd``: K6's plain factorization
+    and two triangular solves), within K4's band."""
+    from tpu_als_torch.ops.solve import normal_eq_implicit, solve_spd
+
+    V, cols, vals, mask, YtY = _problem(320, 6, 24, 320, N=300,
+                                        implicit=True)
+    tV, tc, tv, tm = (torch.from_numpy(a) for a in (V, cols, vals, mask))
+    x = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                       torch.from_numpy(YtY))
+    A, b, count = normal_eq_implicit(tV[tc.long()], tv, tm, 0.1, 4.0,
+                                     torch.from_numpy(YtY))
+    xe = solve_spd(A, b, count)
+    assert x.shape == (6, 320) and torch.isfinite(x).all()
+    np.testing.assert_allclose(x.numpy(), xe.numpy(), atol=5e-5, rtol=5e-4)
+    assert np.all(x.numpy()[[0, 2]] == 0)

@@ -194,9 +194,10 @@ def test_k7_split_plain_matches_reference_ring_kernel(S, w, implicit):
 def test_k7_split_plain_at_one_shard_is_k3_plain_tail_k1_plain(implicit):
     """At S = 1 and w = 40 above the split 16: the single-device wide
     route's plain pieces, K3's Gram in the same 16-entry chunks
-    (``gather_normal_eq_*``), ``regularize`` (jitter and the empty-row
-    guard) and K1's plain solve, give the same x exactly."""
-    from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
+    (``gather_normal_eq_*``) and ``regularize`` (jitter and the empty-row
+    guard), then the plain solve of K7's solve pass (K2's tiled
+    recurrence, which K7 and K4 share), give the same x exactly."""
+    from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
     from tpu_als_torch.ops.solve import regularize
 
     V, cols, vals, mask = _ring_problem(9, 1, 40, 16, 40, implicit)
@@ -210,8 +211,8 @@ def test_k7_split_plain_at_one_shard_is_k3_plain_tail_k1_plain(implicit):
     else:
         A, b, count = gne.gather_normal_eq_explicit(tV, c, v, m, 0.05,
                                                     split_width=16)
-    torch.testing.assert_close(x[0], chol_blocked_plain(regularize(A, count),
-                                                        b), rtol=0, atol=0)
+    torch.testing.assert_close(x[0], chol_solve_plain(regularize(A, count),
+                                                      b), rtol=0, atol=0)
 
 
 NU, NI = 60, 45

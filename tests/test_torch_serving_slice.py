@@ -281,3 +281,54 @@ def test_ratings_csv_rejects_malformed_lines(tmp_path, bad):
         load_ratings_csv(str(p))
     with pytest.raises(ValueError, match="malformed ratings line"):
         load_movielens_csv(str(p))
+
+
+def test_user_and_item_factors_match_reference(saved):
+    """``userFactors`` / ``itemFactors``: the reference's frames, the same
+    ids in the same order, each row's features equal in float32."""
+    jm, tm = _both(saved, implicit=False)
+    for name in ("userFactors", "itemFactors"):
+        tf, jf = getattr(tm, name), getattr(jm, name)
+        assert tf.columns == jf.columns == ["id", "features"]
+        np.testing.assert_array_equal(tf["id"], jf["id"])
+        assert tf["id"].dtype == jf["id"].dtype
+        got, ref = np.stack(tf["features"]), np.stack(jf["features"])
+        assert got.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_recommend_zero_items_gives_the_references_empty_results(saved):
+    """k = 0: ``recommend_arrays`` and every ``recommendFor*`` return the
+    reference's empty [n, 0] results (shapes and dtypes), on one device
+    and over a mesh, and launch nothing."""
+    from tpu_als_torch.ops import cuda_topk
+    from tpu_als_torch.parallel.mesh import make_mesh
+
+    jm, tm = _both(saved, implicit=False)
+    before = (cuda_topk.LAUNCHES, cuda_topk.MERGE_LAUNCHES,
+              cuda_topk.SCAN_CALLS)
+    for kw in ({}, {"for_users": False}):
+        got, ref = tm.recommend_arrays(0, **kw), jm.recommend_arrays(0, **kw)
+        np.testing.assert_array_equal(got[0], ref[0])
+        for g, j in zip(got[1:], ref[1:]):
+            assert g.shape == j.shape == (len(ref[0]), 0)
+            assert g.dtype == j.dtype
+    for strategy in ("merge_ring", "ring", "all_gather"):
+        _, ids, sc = tm.recommend_arrays(0, mesh=make_mesh(
+            devices=["cpu"] * 2), gatherStrategy=strategy)
+        assert ids.shape == sc.shape == (len(tm._user_map), 0)
+    users = {"user": jm._user_map.ids[:5]}
+    items = {"item": jm._item_map.ids[:3]}
+    for key, tr, jr in (
+            ("user", tm.recommendForAllUsers(0), jm.recommendForAllUsers(0)),
+            ("item", tm.recommendForAllItems(0), jm.recommendForAllItems(0)),
+            ("user", tm.recommendForUserSubset(users, 0),
+             jm.recommendForUserSubset(users, 0)),
+            ("item", tm.recommendForItemSubset(items, 0),
+             jm.recommendForItemSubset(items, 0))):
+        np.testing.assert_array_equal(tr[key], jr[key])
+        g, j = tr["recommendations"], jr["recommendations"]
+        assert g.shape == j.shape and g.shape[1] == 0
+        assert g.dtype == j.dtype
+    assert (cuda_topk.LAUNCHES, cuda_topk.MERGE_LAUNCHES,
+            cuda_topk.SCAN_CALLS) == before

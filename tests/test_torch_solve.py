@@ -196,6 +196,22 @@ def test_k2_plain_matches_pallas_lanes_interpret(r):
     np.testing.assert_array_equal(x[:4], 0.0)
 
 
+@pytest.mark.parametrize("r", [40, 128])
+def test_k2_plain_across_tiles_matches_pallas_lanes_interpret(r):
+    """The plain version's order walks block columns of 32: at r = 40 a
+    full tile and a partial one (the kernel pads it with the identity),
+    at r = 128 four full tiles, each with its panel and trailing
+    update."""
+    A, b = _spd(3 * r, 130, r)
+    A = A + jsolve.DEFAULT_JITTER * np.eye(r, dtype=np.float32)
+    b[:3] = 0.0
+    ref = np.asarray(pallas_lanes.spd_solve_lanes(
+        jnp.asarray(A), jnp.asarray(b), interpret=True))
+    x = cuda_lanes.chol_solve_plain(*_t(A, b)).numpy()
+    np.testing.assert_allclose(x, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(x[:3], 0.0)
+
+
 @pytest.mark.parametrize("r", [1, 10, 64])
 def test_k2_plain_matches_xla_backend(r):
     A, b = _spd(20 + r, 48, r)

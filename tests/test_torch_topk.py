@@ -128,3 +128,67 @@ def test_k5_wrapper_rejects_bad_inputs():
         cuda_topk.topk_scores(tU, tV, tvalid.float(), 3)
     with pytest.raises(ValueError):
         cuda_topk.topk_scores(tU, tV[:, :4], tvalid, 3)
+
+
+def test_topk_route_follows_k():
+    """On the card ``topk_scores`` picks its route from k alone, as the
+    reference's dispatch does: nothing at k = 0, K5 up to its 128
+    candidates, the chunked scan above."""
+    assert cuda_topk.topk_route(0) == "empty"
+    assert cuda_topk.topk_route(1) == "kernel"
+    assert cuda_topk.topk_route(cuda_topk.MAX_K) == "kernel"
+    assert cuda_topk.topk_route(cuda_topk.MAX_K + 1) == "scan"
+    assert cuda_topk.topk_route(200) == "scan"
+    U, V, valid = _factors(8, 5, 40, 4, 1.0)
+    s, ix = cuda_topk.topk_scores(torch.from_numpy(U), torch.from_numpy(V),
+                                  torch.from_numpy(valid), 0)
+    assert s.shape == ix.shape == (5, 0)
+    assert s.dtype == torch.float32 and ix.dtype == torch.int64
+    with pytest.raises(ValueError, match=">= 0"):
+        cuda_topk.topk_scores(torch.from_numpy(U), torch.from_numpy(V),
+                              torch.from_numpy(valid), -1)
+
+
+def _k200_models():
+    """One model in both packages: 37 users, a 301-item catalog, rank 8."""
+    import tpu_als
+    import tpu_als_torch
+    from tpu_als.core.ratings import IdMap
+
+    U, V, _ = _factors(200, 37, 301, 8, 1.0)
+    params = {"userCol": "user", "itemCol": "item", "ratingCol": "rating",
+              "predictionCol": "prediction", "coldStartStrategy": "nan",
+              "blockSize": 16, "regParam": 0.1}
+    uids, iids = 10 + np.arange(37), 3 + 2 * np.arange(301)
+    tm = tpu_als_torch.model_from_arrays(8, uids, U, iids, V, params,
+                                         device="cpu")
+    jm = tpu_als.ALSModel(8, IdMap(ids=uids), IdMap(ids=iids), U, V, params)
+    return tm, jm, U, V
+
+
+def test_recommend_arrays_k200_matches_reference():
+    """k = 200 (the scan route on the card): scores within TOL of the
+    reference's, each id earning its score; the same for
+    ``recommendForAllUsers`` (blocks of 16 users) and for the sharded
+    strategies on 2 shards of 151 items (more than K5's 128 a shard)."""
+    from tpu_als_torch.parallel.mesh import make_mesh
+
+    tm, jm, U, V = _k200_models()
+    valid = np.ones(301, bool)
+    q, ids, sc = tm.recommend_arrays(200)
+    jq, jids, jsc = jm.recommend_arrays(200)
+    np.testing.assert_array_equal(q, jq)
+    assert ids.shape == sc.shape == (37, 200) and ids.dtype == jids.dtype
+    np.testing.assert_allclose(sc, jsc, rtol=TOL, atol=TOL)
+    _earns_scores(U, V, valid, sc, tm._item_map.to_dense(ids))
+    tr, jr = tm.recommendForAllUsers(200), jm.recommendForAllUsers(200)
+    rg = tr["recommendations"]
+    np.testing.assert_allclose(rg["rating"], jr["recommendations"]["rating"],
+                               rtol=TOL, atol=TOL)
+    _earns_scores(U, V, valid, rg["rating"],
+                  tm._item_map.to_dense(rg["item"]))
+    for strategy in ("merge_ring", "ring", "all_gather"):
+        _, ids, sc = tm.recommend_arrays(200, mesh=make_mesh(
+            devices=["cpu"] * 2), gatherStrategy=strategy)
+        np.testing.assert_allclose(sc, jsc, rtol=TOL, atol=TOL)
+        _earns_scores(U, V, valid, sc, tm._item_map.to_dense(ids))

@@ -167,10 +167,11 @@ def test_resolve_solve_path_labels():
 
 
 def test_auto_above_rank_128_keeps_the_gather_kernels():
-    """Above K3/K4's rank 256, 'auto' still routes through them: on the
-    card their wrappers raise (saying what is missing) rather than fall
-    back to the torch Gram; on the CPU their plain versions take any rank
-    and agree with the explicit 'unfused' route."""
+    """Up to K3/K4's rank 256, 'auto' routes through them; above it
+    'auto' resolves to the einsum route (torch Gram, K6), and the gather
+    kernels' wrappers, forced there, raise on the card (saying what is
+    missing) rather than fall back to the torch Gram; on the CPU 'auto'
+    agrees with the explicit 'unfused' route."""
     from tpu_als_torch.ops import cuda_gather_ne as gne
 
     class OnCard:
@@ -191,6 +192,42 @@ def test_auto_above_rank_128_keeps_the_gather_kernels():
                                   cfg, init=init, device="cpu")
     _assert_close([x.numpy() for x in got["auto"]],
                   [x.numpy() for x in got["unfused"]])
+
+
+@pytest.mark.parametrize("rank,narrow,wide", [
+    (128, "gatherfused_solve", "gatherfused+pallas_cholesky"),
+    (256, "gatherfused_solve", "gatherfused+pallas_lanes_blocked"),
+    (320, "einsum+pallas_lanes_blocked", "einsum+pallas_lanes_blocked"),
+])
+def test_auto_route_follows_the_rank(rank, narrow, wide):
+    """'auto' picks K4 / K3 while the rank fits them
+    (``cuda_gather_ne.MAX_RANK``), and the einsum route with K6 above,
+    from the shapes alone, for narrow and wide buckets alike."""
+    cfg = tals.AlsConfig(rank=rank)
+    assert tals.resolve_solve_path(cfg, rank, 64) == narrow
+    assert tals.resolve_solve_path(cfg, rank, tals.SPLIT_WIDTH * 2) == wide
+
+
+def test_rank_320_fit_matches_reference(tmp_path):
+    """``ALS(rank=320).fit`` (above K3/K4's rank: 'auto' takes the einsum
+    route and K6's plain version here) from one injected init — a shared
+    checkpoint both estimators resume from — against the reference's
+    fit, two iterations, within ATOL/RTOL."""
+    data = _frame(seed=3)
+    uids, iids = np.unique(data["user"]), np.unique(data["item"])
+    rng = np.random.default_rng(320)
+    U0, V0 = _unit_rows(rng, len(uids), 320), _unit_rows(rng, len(iids), 320)
+    params = {"regParam": 0.1, "implicitPrefs": False, "alpha": 1.0,
+              "nonnegative": False, "cgIters": 0, "cgMode": "matfree"}
+    ck = str(tmp_path / "ck")
+    jsave(ck, uids, U0, iids, V0, params=params, iteration=0)
+    kw = dict(rank=320, maxIter=2, regParam=0.1, resumeFrom=ck)
+    jm = tpu_als.ALS(**kw).fit(data)
+    tm = tpu_als_torch.ALS(device="cpu", **kw).fit(data)
+    np.testing.assert_array_equal(tm._user_map.ids, jm._user_map.ids)
+    assert tm._U.shape == (len(uids), 320)
+    _assert_close((tm._U.numpy(), tm._V.numpy()),
+                  (np.asarray(jm._U), np.asarray(jm._V)))
 
 
 @pytest.mark.parametrize("backend", ["auto", "unfused"])

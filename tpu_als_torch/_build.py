@@ -46,10 +46,11 @@ SIGNATURES = {
     #             two_sided, bf16, stream)
     "gather_gram": ("gather_gram", [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
                                     _LL, _I, _LL, _I, _I, _P]),
-    # gather_solve(V, cols, aw, bw, cw, YtY, x, n, w, r, reg_w, jitter,
-    #              two_sided, bf16, stream)
-    "gather_solve": ("gather_solve", [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                                      _I, _F, _F, _I, _I, _P]),
+    # gather_solve(V, cols, aw, bw, cw, YtY, x, sums, n, w, r, reg_w,
+    #              jitter, two_sided, bf16, row0, nrows, stream)
+    "gather_solve": ("gather_solve", [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                      _LL, _I, _F, _F, _I, _I, _LL, _LL,
+                                      _P]),
     # chol_lanes_blocked_f32(A, n, r, stream): L written over A
     "chol_lanes_blocked": ("chol_lanes_blocked_f32", [_P, _LL, _I, _P]),
     # gather_solve_ring(bases, per, cols, aw, bw, cw, YtY, x, D, S, n, w, r,

@@ -414,6 +414,19 @@ class ALSModel:
             self._params[name] = v
         return self
 
+    @property
+    def userFactors(self):
+        """Frame(id, features): the original user ids in the model's
+        order, each with its factor row (a float32 numpy array)."""
+        return ColumnarFrame({"id": self._user_map.ids,
+                              "features": _to_object_rows(self._U)})
+
+    @property
+    def itemFactors(self):
+        """Frame(id, features) of the items, as :attr:`userFactors`."""
+        return ColumnarFrame({"id": self._item_map.ids,
+                              "features": _to_object_rows(self._V)})
+
     # -- prediction ----------------------------------------------------
     def transform(self, dataset):
         frame = as_frame(dataset)
@@ -558,6 +571,16 @@ class ALSModel:
         return cls(rank=manifest["rank"], user_map=IdMap(ids=u_ids),
                    item_map=IdMap(ids=i_ids), user_factors=U,
                    item_factors=V, params=manifest["params"], device=device)
+
+
+def _to_object_rows(table):
+    """The rows of a factor table as a numpy object array of float32
+    rows, the reference's ``features`` column."""
+    mat = table.cpu().numpy()
+    out = np.empty(mat.shape[0], dtype=object)
+    for i in range(mat.shape[0]):
+        out[i] = mat[i].copy()
+    return out
 
 
 def _attach_model_accessors(cls):

@@ -7,14 +7,18 @@ half-step) and the single-device ``train`` loop, plus ``predict``.
 
 Routes, with the reference's labels.  Under ``solve_backend='auto'`` a
 bucket of width <= :data:`SPLIT_WIDTH` goes through kernel K4
-(``gatherfused_solve``: gather, Gram, tail and solve in one kernel, one
-block per row); a wider bucket goes through kernel K3 with its width
-split over blocks, the ``normal_eq`` tail, and a solve kernel: K1 up to
-rank 128 (``gatherfused+pallas_cholesky``; it solves those systems
-faster than K2, PERF.md), K6 and two triangular solves above
-(``gatherfused+pallas_lanes_blocked``).  K3 and K4 hold rank <= 256:
-above it their wrappers raise on the card and 'auto' does not step
-around them; ``'unfused'`` is the explicit choice at such a rank.
+(``gatherfused_solve``: gather, Gram, tail and solve in one call, a
+row's Gram and its solve each in a block); a wider bucket goes through
+kernel K3 with its width split over blocks, the ``normal_eq`` tail, and
+a solve kernel: K1 up to rank 128 (``gatherfused+pallas_cholesky``), K6
+and two triangular solves above (``gatherfused+pallas_lanes_blocked``).
+K3 and K4 hold rank <= :data:`~tpu_als_torch.ops.cuda_gather_ne.MAX_RANK`
+(256): above it
+'auto' resolves, from the rank alone, to the einsum route (``V[cols]``,
+the torch normal equations, K6 and two triangular solves:
+``einsum+pallas_lanes_blocked``), as the reference's 'auto' does where
+its fused kernel does not fit; forced to K3 or K4 there, their wrappers
+raise on the card.
 ``'gather_fused_solve'`` forces K4 on every bucket, and so does
 ``'gather_fused_ring'`` on this local path (``gatherfused_ring``, the
 one-shard ring: under the sharded 'ring' strategies it is kernel K7,
@@ -122,10 +126,13 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
                 if cfg.cg_mode == "matfree"
                 else f"einsum+cg{cfg.cg_iters}_warmstart")
     if cfg.solve_backend == "auto":
+        if rank > gne.MAX_RANK:
+            return "einsum+" + solver
         if width <= SPLIT_WIDTH:
             return "gatherfused_solve"
-        # the wide rows' systems: K1 where K2 would be auto's solver (K1
-        # solves them faster, PERF.md), K6 above rank 128
+        # the wide rows' systems: K1 where K2 would be auto's solver (a
+        # few hundred systems a half-step, ~0.2 ms at the ML-25M shape,
+        # PERF.md), K6 above rank 128
         return "gatherfused+" + ("pallas_cholesky" if solver == "pallas_lanes"
                                  else solver)
     return "einsum+" + solver

@@ -1,9 +1,9 @@
 // Blocked Cholesky factorize-and-solve of one SPD system in shared memory.
 //
-// Device routines of kernel K1 (chol_blocked.cu), also called in-kernel
-// by the fused gather-and-solve kernel K4 (gather_solve.cu), the way the
-// TPU's fused kernel calls pallas_solve.factorize/substitute.  One thread
-// block owns one system; every routine is called by all its threads.
+// Device routines of kernel K1 (chol_blocked.cu); K6
+// (chol_lanes_blocked.cu) factorizes its diagonal blocks with
+// factorize().  One thread block owns one system; every routine is
+// called by all its threads.
 //
 // Layout: the lower triangle of the r x r matrix, packed by rows: row i
 // starts at S + tri(i), tri(i) = i(i+1)/2, so entry (i, c), c <= i, is

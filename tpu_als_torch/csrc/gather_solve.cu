@@ -1,88 +1,111 @@
 // Kernel K4: the fused half-step — gather, Gram, ridge/YᵀY tail and the
-// Cholesky solve in one kernel, for Hopper (sm_90a).
+// Cholesky solve, for Hopper (sm_90a).
 //
 // Replaces: tpu_als/ops/pallas_gather_ne.py::gather_solve (body
 // _gather_solve_kernel), behind gather_fused_solve_explicit/implicit —
 // the kernel the JAX main path resolves to on a TPU.  Same contract:
 // V [N, r] (f32 or bf16), cols [n, w] int32, aw/bw/cw [n, w] in V's type,
-// YᵀY [r, r] f32 (null: zero) -> x [n, r] f32; the per-row arithmetic is
+// YᵀY [r, r] f32 (null: zero) -> x [n, r] f32; the per-row tail is
 // gather_solve.cuh's (shared with the ring kernel K7).
 //
-// What bounds it on this card: operations.  Per padded entry the Gram
-// takes r(r+1) + 2r flops (16,768 at rank 128) against r·4 + 16 bytes
-// gathered (528); per row the solve adds r³/3 + 2r² flops.
+// What bounds it on this card: operations.  Per real entry the Gram
+// takes r(r+1) + 2r flops (16,768 at rank 128) against r·4 bytes
+// gathered; on the tensor cores in the 3xTF32 form that is about a third
+// of the f32 FMA time.  Per row the solve adds r³/3 + 2r² flops at the
+// FMA rate, which at rank 256 outweighs the Gram of a row of width 128.
 //
-// What the design does about it: one block per row, gram.cuh's
-// register-tiled accumulation, then the tail and the solve on the packed
-// lower triangle in shared memory.  Rows wider than the trainer's split
+// What the design does about it: two passes over a tile of rows, within
+// one call.  Pass 1 is K3's Gram (gram_sm90.cuh): the rows gathered by
+// cp.async into a 4-stage ring, the lower triangle on the tensor cores in
+// 3xTF32 (f32 accuracy), all-padding stages skipped, and above rank 128
+// the triangle cut over blocks; it writes each row's S, b and count to
+// scratch (E = r·r + r + 1 floats a row).  Pass 2 is gather_solve.cuh's
+// tail and chol_tiled.cuh's solve, a block of 8 warps per row at rank
+// <= 128 and 16 above.  Two passes, because the two halves want other
+// blocks: the Gram one block of up to 12 warps at ~150 registers a thread
+// (its triangle cut over blocks above rank 128), the solve several small
+// blocks an SM to hide its barriers.  Rows wider than the trainer's split
 // width do not come here: kernel K3 spreads their width over blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gather_solve.cuh"
+#include "gram_sm90.cuh"
 
 namespace {
 
-template <typename T, bool kTwoSided, int kMaxRank>
-__global__ void __launch_bounds__(gram::Acc<kMaxRank>::kThreads,
-                                  kMaxRank <= 128 ? 2 : 1)
-gather_solve_kernel(const T* __restrict__ V, const int* __restrict__ cols,
-                    const T* __restrict__ aw, const T* __restrict__ bw,
-                    const T* __restrict__ cw, const float* __restrict__ YtY,
-                    float* __restrict__ x, int r, long long w, float reg_w,
-                    float jitter) {
-  extern __shared__ __align__(16) float smem[];
-  const long long row = blockIdx.x;
+// Pass 1: the Gram, b and count of rows [row0, row0 + gridDim.x) into
+// sums [gridDim.x, E]; grid (rows, 1, parts).
+template <typename T, bool kTwoSided>
+__global__ void __launch_bounds__(g90::kMaxThreads, 1)
+row_gram_kernel(const T* __restrict__ V, const int* __restrict__ cols,
+                const T* __restrict__ aw, const T* __restrict__ bw,
+                const T* __restrict__ cw, float* __restrict__ sums, int r,
+                long long w, long long row0) {
+  extern __shared__ __align__(16) float smem[];  // as the solve pass's
+  const long long row = row0 + blockIdx.x;
   const gram::RowEntries<T> src{V, cols + row * w, aw + row * w,
                                 bw + row * w, cw + row * w, r};
-  gsolve::solve_row<T, kTwoSided, kMaxRank>(src, w, YtY, x + row * r, r,
-                                            reg_w, jitter, smem);
+  g90::Acc acc;
+  g90::gram<T, kTwoSided>(src, r, 0, w, blockIdx.z,
+                          reinterpret_cast<unsigned char*>(smem), acc);
+  float* o = sums + blockIdx.x * gsolve::row_floats(r);
+  g90::store(acc, r, blockIdx.z, o, o + r * r, o + r * r + r);
 }
 
-// the instantiation for rank r: 128 up to rank 128, 256 above
 template <typename T, bool kTwoSided>
-cudaError_t launch_rank(const void* V, const int* cols, const void* aw,
-                        const void* bw, const void* cw, const float* YtY,
-                        float* x, long long n, long long w, int r,
-                        float reg_w, float jitter, cudaStream_t stream) {
-  const T* v = static_cast<const T*>(V);
-  const T* a = static_cast<const T*>(aw);
-  const T* b = static_cast<const T*>(bw);
-  const T* c = static_cast<const T*>(cw);
-  return r <= 128
-      ? gsolve::launch<128>(gather_solve_kernel<T, kTwoSided, 128>, n, r,
-                            stream, v, cols, a, b, c, YtY, x, r, w, reg_w,
-                            jitter)
-      : gsolve::launch<256>(gather_solve_kernel<T, kTwoSided, 256>, n, r,
-                            stream, v, cols, a, b, c, YtY, x, r, w, reg_w,
-                            jitter);
+cudaError_t launch(const void* V, const int* cols, const void* aw,
+                   const void* bw, const void* cw, const float* YtY,
+                   float* x, float* sums, long long n, long long w, int r,
+                   float reg_w, float jitter, long long row0,
+                   long long nrows, cudaStream_t stream) {
+  auto gk = row_gram_kernel<T, kTwoSided>;
+  const size_t smem = g90::smem_bytes<T>(r);
+  cudaError_t e = cudaFuncSetAttribute(
+      gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid(static_cast<unsigned>(nrows), 1,
+            static_cast<unsigned>(g90::parts(r)));
+  gk<<<grid, 32 * g90::warps(r), smem, stream>>>(
+      static_cast<const T*>(V), cols, static_cast<const T*>(aw),
+      static_cast<const T*>(bw), static_cast<const T*>(cw), sums, r, w,
+      row0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return gsolve::launch_tail_solve<T>(sums, YtY, x, 1, n, r, row0, nrows,
+                                      reg_w, jitter, stream);
 }
 
 }  // namespace
 
-// reg_w: the ridge coefficient already rounded to the weight type.
+// Rows [row0, row0 + nrows) of the n: sums is scratch of nrows·(r·r + r +
+// 1) floats; reg_w: the ridge coefficient already rounded to the weight
+// type.
 extern "C" int gather_solve(const void* V, const int* cols, const void* aw,
                             const void* bw, const void* cw, const float* YtY,
-                            float* x, long long n, long long w, int r,
-                            float reg_w, float jitter, int two_sided,
-                            int bf16, void* stream) {
-  if (n <= 0) return 0;
-  if (r < 1 || r > gram::kRankLimit || w < 1 || n > 0x7fffffffLL)
+                            float* x, float* sums, long long n, long long w,
+                            int r, float reg_w, float jitter, int two_sided,
+                            int bf16, long long row0, long long nrows,
+                            void* stream) {
+  if (n <= 0 || nrows <= 0) return 0;
+  if (r < 1 || r > gram::kRankLimit || w < 1 || n > 0x7fffffffLL ||
+      row0 < 0 || row0 + nrows > n || !sums)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bf16)
     e = two_sided
-        ? launch_rank<__nv_bfloat16, true>(V, cols, aw, bw, cw, YtY, x, n, w,
-                                           r, reg_w, jitter, st)
-        : launch_rank<__nv_bfloat16, false>(V, cols, aw, bw, cw, YtY, x, n,
-                                            w, r, reg_w, jitter, st);
+        ? launch<__nv_bfloat16, true>(V, cols, aw, bw, cw, YtY, x, sums, n,
+                                      w, r, reg_w, jitter, row0, nrows, st)
+        : launch<__nv_bfloat16, false>(V, cols, aw, bw, cw, YtY, x, sums, n,
+                                       w, r, reg_w, jitter, row0, nrows, st);
   else
     e = two_sided
-        ? launch_rank<float, true>(V, cols, aw, bw, cw, YtY, x, n, w, r,
-                                   reg_w, jitter, st)
-        : launch_rank<float, false>(V, cols, aw, bw, cw, YtY, x, n, w, r,
-                                    reg_w, jitter, st);
+        ? launch<float, true>(V, cols, aw, bw, cw, YtY, x, sums, n, w, r,
+                              reg_w, jitter, row0, nrows, st)
+        : launch<float, false>(V, cols, aw, bw, cw, YtY, x, sums, n, w, r,
+                               reg_w, jitter, row0, nrows, st);
   return static_cast<int>(e);
 }

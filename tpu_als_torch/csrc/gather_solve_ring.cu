@@ -12,10 +12,9 @@
 // [r, r] f32 (null: zero) -> x [D, n, r] f32.  Owner d's row walks the
 // sources src = (d - t) mod S for t = 0 .. S-1 (the shard the TPU ring
 // holds after t rotations), each source's w entries in order, as ONE
-// stream of S·w entries through gram.cuh's two-level sums; then
-// gather_solve.cuh's tail (the ridge rounded in the weight type, YᵀY,
-// jitter, the empty-row guard) and K1's solve.  At S = 1 the stream is
-// K4's row and the result is K4's bit for bit.
+// stream of S·w entries; then gather_solve.cuh's tail (the ridge rounded
+// in the weight type, YᵀY, jitter, the empty-row guard) and solve.  At
+// S = 1 the stream is K4's row and the result is K4's bit for bit.
 //
 // The transport: on the TPU each chip holds one shard, and the shards
 // rotate between chips by in-kernel remote DMA.  Here every shard is
@@ -25,25 +24,21 @@
 // device code would not change.
 //
 // What bounds it on this card: operations, as K4: r(r+1) + 2r flops per
-// real entry, r³/3 + 2r² per row.  A power-law catalog adds a long tail:
-// the widest rows' streams are millions of entries, and one block per
-// (owner, row) made them run alone at the end of a launch while the other
-// SMs idled (PERF.md: the widest bucket took half the launch).
+// real entry (the Gram on the tensor cores), r³/3 + 2r² per row.  A
+// power-law catalog adds a long tail: the widest rows' streams are
+// millions of entries, and one block per (owner, row) made them run
+// alone at the end of a launch while the other SMs idled.
 //
-// What the design does about the tail: the rows of a bucket all have the
-// same stream length S·w.  A bucket with S·w <= `split` keeps the one-block
-// body above (at S = 1 it is K4 bit for bit).  A longer one is split over
-// blocks in three passes:
-//   1. grid (owner·row, chunk, part): chunk k takes entries
-//      [k·split, (k+1)·split) of the row's ring stream (a chunk may cross
-//      a source boundary) through gram_sm90.cuh's Gram, K3's block body
-//      fed by the ring entry source, and writes the partial S, b and
-//      count to scratch;
-//   2. the partials summed in chunk order (deterministic, no atomics);
-//   3. a block per row: gather_solve.cuh's tail unchanged (the ridge
-//      rounded in the weight type, YᵀY, jitter, the empty-row guard) and
-//      K1's factorization and substitutions in shared memory; only x is
-//      written.
+// What the design does: K4's two passes, the Gram fed by the ring entry
+// source.  The rows of a bucket all have the same stream length S·w; a
+// stream longer than `split` is cut into chunks of `split` entries (a
+// chunk may cross a source boundary), one block each:
+//   1. grid (owner·row, chunk, part): gram_sm90.cuh's Gram of the chunk,
+//      its S, b and count to scratch;
+//   2. (more than one chunk) the partials summed in chunk order
+//      (deterministic, no atomics);
+//   3. a block per row: gather_solve.cuh's tail and chol_tiled.cuh's
+//      solve in shared memory; only x is written.
 // The wrapper launches the passes on row tiles that keep the scratch
 // within a fixed budget.
 
@@ -84,30 +79,10 @@ struct RingEntries {
   }
 };
 
-template <typename T, bool kTwoSided, int kMaxRank>
-__global__ void __launch_bounds__(gram::Acc<kMaxRank>::kThreads,
-                                  kMaxRank <= 128 ? 2 : 1)
-gather_solve_ring_kernel(const T* const* __restrict__ bases, int per,
-                         const int* __restrict__ cols,
-                         const T* __restrict__ aw, const T* __restrict__ bw,
-                         const T* __restrict__ cw,
-                         const float* __restrict__ YtY, float* __restrict__ x,
-                         int S, long long n, long long w, int r, float reg_w,
-                         float jitter) {
-  extern __shared__ __align__(16) float smem[];
-  const long long blk = blockIdx.x;  // owner-major: blk = me·n + row
-  const int me = static_cast<int>(blk / n);
-  const long long row = blk - static_cast<long long>(me) * n;
-  const size_t own = static_cast<size_t>(me) * S * n * w;
-  const RingEntries<T> src{bases, cols + own, aw + own, bw + own, cw + own,
-                           n, w, row, per, S, me, r};
-  gsolve::solve_row<T, kTwoSided, kMaxRank>(src, S * w, YtY, x + blk * r, r,
-                                            reg_w, jitter, smem);
-}
-
-// Pass 1 of the split: the partial Gram, b and count of chunk blockIdx.y
-// of rows [row0, row0 + nrows) of every owner; part [D·nrows, nchunk, E],
-// E = r·r + r + 1.
+// Pass 1: the partial Gram, b and count of chunk blockIdx.y (entries
+// [k·split, (k+1)·split) of the stream; the whole stream when split
+// covers it) of rows [row0, row0 + nrows) of every owner; part
+// [D·nrows, nchunk, E], E = r·r + r + 1.
 template <typename T, bool kTwoSided>
 __global__ void __launch_bounds__(g90::kMaxThreads, 1)
 ring_gram_kernel(const T* const* __restrict__ bases, int per,
@@ -115,7 +90,7 @@ ring_gram_kernel(const T* const* __restrict__ bases, int per,
                  const T* __restrict__ bw, const T* __restrict__ cw,
                  float* __restrict__ part, int S, long long n, long long w,
                  int r, long long row0, long long nrows, long long split) {
-  extern __shared__ __align__(16) float smem[];  // as the one-block body's
+  extern __shared__ __align__(16) float smem[];  // as the solve pass's
   const long long blk = blockIdx.x;  // owner-major: blk = me·nrows + i
   const int me = static_cast<int>(blk / nrows);
   const long long row = row0 + blk - static_cast<long long>(me) * nrows;
@@ -128,64 +103,20 @@ ring_gram_kernel(const T* const* __restrict__ bases, int per,
   g90::Acc acc;
   g90::gram<T, kTwoSided>(src, r, w0, w1, blockIdx.z,
                           reinterpret_cast<unsigned char*>(smem), acc);
-  const long long E = static_cast<long long>(r) * r + r + 1;
-  float* o = part + (blk * nchunk + k) * E;
+  float* o = part + (blk * nchunk + k) * gsolve::row_floats(r);
   g90::store(acc, r, blockIdx.z, o, o + r * r, o + r * r + r);
 }
 
-constexpr int kTailThreads = 256;
-
-// floats of shared memory of pass 3: the packed triangle, K1's panel, the
-// substitution vector and b
-__host__ __device__ inline int tail_floats(int r) {
-  return cholb::smem_floats(r) + r;
-}
-
-// Pass 3: per row, gather_solve.cuh's tail on the summed Gram (sums
-// [D·nrows, E]), then K1's solve in place; x [D, n, r].
-template <typename T>
-__global__ void __launch_bounds__(kTailThreads)
-ring_tail_solve_kernel(const float* __restrict__ sums,
-                       const float* __restrict__ YtY, float* __restrict__ x,
-                       long long n, int r, long long row0, long long nrows,
-                       float reg_w, float jitter) {
-  extern __shared__ __align__(16) float smem[];
-  const long long blk = blockIdx.x;
-  const int me = static_cast<int>(blk / nrows);
-  const long long row = row0 + blk - static_cast<long long>(me) * nrows;
-  const long long E = static_cast<long long>(r) * r + r + 1;
-  const float* Sg = sums + blk * E;
-  const float cnt = Sg[r * r + r];
-  float* S = smem;  // the packed lower triangle
-  float* Lp = S + cholb::tri(r);
-  float* res = Lp + cholb::kPanel * r;
-  float* bs = res + r;
-  const float ridge = gram::round_w<T>(gram::round_w<T>(cnt) * reg_w);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < r; i += kTailThreads / 32) {
-    float* Si = S + cholb::tri(i);
-    for (int c = lane; c <= i; c += 32) {
-      float a = Sg[i * r + c];
-      if (YtY != nullptr) a += YtY[i * r + c];
-      if (i == c) a = (a + ridge) + jitter;
-      if (cnt <= 0.f) a = (i == c) ? 1.f + jitter : 0.f;
-      Si[c] = a;
-    }
-  }
-  for (int i = threadIdx.x; i < r; i += kTailThreads) bs[i] = Sg[r * r + i];
-  cholb::factorize(S, Lp, r);  // opens and closes with a barrier
-  cholb::substitute(S, r, res, bs, x + (me * n + row) * r);
-}
-
+// The passes on rows [row0, row0 + nrows) of every owner; the stream is
+// cut into nchunk chunks of `split` entries (one chunk: `split` >= S·w).
 template <typename T, bool kTwoSided>
-cudaError_t launch_split(const void* const* bases, int per, const int* cols,
-                         const void* aw, const void* bw, const void* cw,
-                         const float* YtY, float* x, long long D, int S,
-                         long long n, long long w, int r, float reg_w,
-                         float jitter, long long split, long long row0,
-                         long long nrows, float* part, float* sums,
-                         cudaStream_t stream) {
-  const int nchunk = static_cast<int>((S * w + split - 1) / split);
+cudaError_t launch(const void* const* bases, int per, const int* cols,
+                   const void* aw, const void* bw, const void* cw,
+                   const float* YtY, float* x, long long D, int S,
+                   long long n, long long w, int r, float reg_w,
+                   float jitter, long long split, int nchunk, long long row0,
+                   long long nrows, float* part, float* sums,
+                   cudaStream_t stream) {
   const long long rows = D * nrows;
   auto gk = ring_gram_kernel<T, kTwoSided>;
   const size_t smem = g90::smem_bytes<T>(r);
@@ -198,66 +129,28 @@ cudaError_t launch_split(const void* const* bases, int per, const int* cols,
   gk<<<grid, 32 * g90::warps(r), smem, stream>>>(
       reinterpret_cast<const T* const*>(bases), per, cols,
       static_cast<const T*>(aw), static_cast<const T*>(bw),
-      static_cast<const T*>(cw), part, S, n, w, r, row0, nrows, split);
+      static_cast<const T*>(cw), nchunk > 1 ? part : sums, S, n, w, r, row0,
+      nrows, split);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long long E = static_cast<long long>(r) * r + r + 1;
-  e = g90::launch_sum(part, sums, rows, E, nchunk, stream);
-  if (e != cudaSuccess) return e;
-  auto tk = ring_tail_solve_kernel<T>;
-  const size_t tsmem = tail_floats(r) * sizeof(float);
-  e = cudaFuncSetAttribute(tk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(tsmem));
-  if (e != cudaSuccess) return e;
-  tk<<<static_cast<unsigned>(rows), kTailThreads, tsmem, stream>>>(
-      sums, YtY, x, n, r, row0, nrows, reg_w, jitter);
-  return cudaGetLastError();
-}
-
-template <typename T, bool kTwoSided>
-cudaError_t launch_rank(const void* const* bases, int per, const int* cols,
-                        const void* aw, const void* bw, const void* cw,
-                        const float* YtY, float* x, long long D, int S,
-                        long long n, long long w, int r, float reg_w,
-                        float jitter, cudaStream_t stream) {
-  const T* const* p = reinterpret_cast<const T* const*>(bases);
-  const T* a = static_cast<const T*>(aw);
-  const T* b = static_cast<const T*>(bw);
-  const T* c = static_cast<const T*>(cw);
-  return r <= 128
-      ? gsolve::launch<128>(gather_solve_ring_kernel<T, kTwoSided, 128>,
-                            D * n, r, stream, p, per, cols, a, b, c, YtY, x,
-                            S, n, w, r, reg_w, jitter)
-      : gsolve::launch<256>(gather_solve_ring_kernel<T, kTwoSided, 256>,
-                            D * n, r, stream, p, per, cols, a, b, c, YtY, x,
-                            S, n, w, r, reg_w, jitter);
-}
-
-template <typename T, bool kTwoSided>
-cudaError_t launch_either(const void* const* bases, int per, const int* cols,
-                          const void* aw, const void* bw, const void* cw,
-                          const float* YtY, float* x, long long D, int S,
-                          long long n, long long w, int r, float reg_w,
-                          float jitter, long long split, long long row0,
-                          long long nrows, float* part, float* sums,
-                          cudaStream_t stream) {
-  if (split > 0 && S * w > split)
-    return launch_split<T, kTwoSided>(bases, per, cols, aw, bw, cw, YtY, x,
-                                      D, S, n, w, r, reg_w, jitter, split,
-                                      row0, nrows, part, sums, stream);
-  return launch_rank<T, kTwoSided>(bases, per, cols, aw, bw, cw, YtY, x, D,
-                                   S, n, w, r, reg_w, jitter, stream);
+  if (nchunk > 1) {
+    e = g90::launch_sum(part, sums, rows, gsolve::row_floats(r), nchunk,
+                        stream);
+    if (e != cudaSuccess) return e;
+  }
+  return gsolve::launch_tail_solve<T>(sums, YtY, x, D, n, r, row0, nrows,
+                                      reg_w, jitter, stream);
 }
 
 }  // namespace
 
 // bases: a device array of S pointers, shard s's `per` rows of r values;
-// reg_w: the ridge coefficient already rounded to the weight type.
-// split: when the rows' streams are longer (S·w > split > 0), the rows
-// [row0, row0 + nrows) of every owner take the three passes, with scratch
-// part [D·nrows, nchunk, r·r + r + 1] (nchunk = ceil(S·w / split)) and
-// sums [D·nrows, r·r + r + 1]; otherwise every row runs the one-block
-// body, and row0, nrows, part and sums are not used.
+// reg_w: the ridge coefficient already rounded to the weight type.  The
+// rows [row0, row0 + nrows) of every owner are solved, with scratch sums
+// [D·nrows, r·r + r + 1].  split: when the rows' streams are longer
+// (S·w > split > 0), they are cut into nchunk = ceil(S·w / split) chunks
+// with scratch part [D·nrows, nchunk, r·r + r + 1]; otherwise (one chunk)
+// part is not used.
 extern "C" int gather_solve_ring(const void* const* bases, int per,
                                  const int* cols, const void* aw,
                                  const void* bw, const void* cw,
@@ -271,27 +164,31 @@ extern "C" int gather_solve_ring(const void* const* bases, int per,
   if (r < 1 || r > gram::kRankLimit || w < 1 || S < 1 || per < 1 ||
       D * n > 0x7fffffffLL || static_cast<long long>(S) * per > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (split > 0 && S * w > split &&
-      (row0 < 0 || nrows < 1 || row0 + nrows > n || !part || !sums ||
-       (S * w + split - 1) / split > 65535))
+  const long long len = S * w;
+  const bool cut = split > 0 && len > split;
+  const long long chunk = cut ? split : len;
+  const long long nchunk = (len + chunk - 1) / chunk;
+  if (row0 < 0 || nrows < 1 || row0 + nrows > n || !sums ||
+      (cut && !part) || nchunk > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = static_cast<int>(nchunk);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bf16)
     e = two_sided
-        ? launch_either<__nv_bfloat16, true>(
-              bases, per, cols, aw, bw, cw, YtY, x, D, S, n, w, r, reg_w,
-              jitter, split, row0, nrows, part, sums, st)
-        : launch_either<__nv_bfloat16, false>(
-              bases, per, cols, aw, bw, cw, YtY, x, D, S, n, w, r, reg_w,
-              jitter, split, row0, nrows, part, sums, st);
+        ? launch<__nv_bfloat16, true>(bases, per, cols, aw, bw, cw, YtY, x,
+                                      D, S, n, w, r, reg_w, jitter, chunk,
+                                      nc, row0, nrows, part, sums, st)
+        : launch<__nv_bfloat16, false>(bases, per, cols, aw, bw, cw, YtY, x,
+                                       D, S, n, w, r, reg_w, jitter, chunk,
+                                       nc, row0, nrows, part, sums, st);
   else
     e = two_sided
-        ? launch_either<float, true>(bases, per, cols, aw, bw, cw, YtY, x, D,
-                                     S, n, w, r, reg_w, jitter, split, row0,
-                                     nrows, part, sums, st)
-        : launch_either<float, false>(bases, per, cols, aw, bw, cw, YtY, x,
-                                      D, S, n, w, r, reg_w, jitter, split,
-                                      row0, nrows, part, sums, st);
+        ? launch<float, true>(bases, per, cols, aw, bw, cw, YtY, x, D, S, n,
+                              w, r, reg_w, jitter, chunk, nc, row0, nrows,
+                              part, sums, st)
+        : launch<float, false>(bases, per, cols, aw, bw, cw, YtY, x, D, S,
+                               n, w, r, reg_w, jitter, chunk, nc, row0,
+                               nrows, part, sums, st);
   return static_cast<int>(e);
 }

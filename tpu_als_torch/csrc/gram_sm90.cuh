@@ -1,16 +1,16 @@
 // The gathered weighted Gram of one width chunk, for Hopper (sm_90a).
 //
-// The block body of kernel K3 (gather_gram.cu) and of pass 1 of kernel
-// K7's width split (gather_solve_ring.cu).  For the entries [w0, w1) of
-// one row of an entry source (gram.cuh's RowEntries, or K7's ring
-// source):
+// The block body of kernel K3 (gather_gram.cu) and of the first pass of
+// kernels K4 (gather_solve.cu) and K7 (gather_solve_ring.cu).  For the
+// entries [w0, w1) of one row of an entry source (gram.cuh's RowEntries,
+// or K7's ring source):
 //
 //   S = Σ (aw·v) (aw·v)ᵀ   (two-sided)   or   Σ (aw·v) vᵀ   (one-sided)
 //   b = Σ bw·v             cnt = Σ cw      with v the entry's factor row
 //
-// aw·v is formed in f32 as gram.cuh forms it, everything accumulates in
-// f32.  Kernel K4 keeps gram.cuh; this is the Gram redesigned for the
-// card:
+// aw·v is formed in f32 (exact for a bf16 table and bf16 weights: the
+// reference's XLA lowering keeps that product in f32 too), everything
+// accumulates in f32.  The design:
 //
 // - Async gather.  The rows of kT entries at a time are copied into a
 //   ring of kStages stages in shared memory by cp.async (16 bytes a lane
@@ -32,7 +32,8 @@
 //   wholly above it are skipped); its sums stay in registers.  The
 //   tensor cores' f32 accumulation truncates, so each stage's 12 mma
 //   steps go into a zeroed partial that is then added to the running
-//   sums with round-to-nearest f32 adds: the two-level sums of gram.cuh.
+//   sums with round-to-nearest f32 adds: two-level sums, so a long row's
+//   running sums see w/kT additions rather than w.
 // - Rank <= 256 in one instantiation.  The triangle has T(T+1)/2 warp
 //   tiles, T = ceil(r/32): 10 at rank 128, 36 at rank 256.  A block has
 //   at most kMaxWarps = 12 warps; a larger triangle is cut over `parts`
@@ -40,8 +41,8 @@
 //   the tiles (3 parts at ranks 200 and 256).  Sixty-four accumulator
 //   registers a thread (partial and running) leave room for the
 //   operands at 384 threads; holding three warp tiles in one warp would
-//   not, and a running triangle in shared memory (gram.cuh's rank-256
-//   layout) would put shared-memory traffic back into the hot loop.
+//   not, and a running triangle in shared memory would put
+//   shared-memory traffic back into the hot loop.
 //   Part 0 also sums b (a thread per column) and the count.
 
 #pragma once

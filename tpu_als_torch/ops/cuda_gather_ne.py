@@ -12,12 +12,13 @@ inside the kernels and never materialized; the weights, the count and
 the ridge/YᵀY tail are the reference builders' exact expressions.
 
 The kernels take the table in float32 or bfloat16, weights in the
-table's type, and rank <= 256 (K4 and K7's one-block rows accumulate the
-Gram in register tiles, and above rank 128 into a packed triangle in
-shared memory; K3 and K7's split rows on the tensor cores in the 3xTF32
-form, ``csrc/gram_sm90.cuh``; above rank 256 a CUDA tensor raises, and
-the plain versions take any rank).  S is symmetric: its lower triangle
-``S[i, c] = Σ (aw·v_i)·v_c`` (c <= i) is mirrored.
+table's type, and rank <= 256: all three build the Gram on the tensor
+cores in the 3xTF32 form (``csrc/gram_sm90.cuh``); K4 and K7 write each
+row's Gram, b and count to scratch and solve it in a second pass
+(``csrc/gather_solve.cuh``, ``csrc/chol_tiled.cuh``: K2's routines).
+Above rank 256 a CUDA tensor raises, and the plain versions take any
+rank.  S is symmetric: its lower triangle ``S[i, c] = Σ (aw·v_i)·v_c``
+(c <= i) is mirrored.
 
 A CUDA tensor goes to a kernel (or raises); only CPU tensors take the
 plain versions :func:`gather_gram_plain`, :func:`gather_solve_plain` and
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from tpu_als_torch import _build
-from tpu_als_torch.ops.cuda_solve import chol_blocked_plain
+from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
 
 MAX_RANK = 256
@@ -41,9 +42,15 @@ GRAM_LAUNCHES = 0   # K3
 SOLVE_LAUNCHES = 0  # K4
 RING_LAUNCHES = 0   # K7
 
-# K7's width split keeps its partial Grams within this many f32 elements
-# a launch (1 GiB, the trainer's per-launch budget)
+# K4's and K7's scratch (each row's Gram, b and count, and K7's width
+# chunks' partials) is kept within this many f32 elements a launch (1
+# GiB, the trainer's per-launch budget): the rows go in tiles
 _SCRATCH_ELEMS = 1 << 28
+
+
+def _row_floats(r):
+    """Scratch floats a row takes: its Gram, b and count."""
+    return r * r + r + 1
 
 
 def _chunks(w, split_width):
@@ -77,7 +84,7 @@ def _round(x, dtype):
 def _tail_solve(S, b, cnt, dt, YtY, reg, jitter):
     """The tail of ``gather_solve.cuh`` on a summed Gram (A += YᵀY; diag
     += ridge, then + jitter; rows with count <= 0 become (1 + jitter)·I),
-    then K1's plain solve."""
+    then the solve of ``chol_tiled.cuh`` (K2's plain version)."""
     ridge = _round(_round(cnt, dt) * _round(torch.tensor(reg), dt), dt)
     r = S.shape[-1]
     eye = torch.eye(r, dtype=torch.float32, device=S.device)
@@ -85,14 +92,14 @@ def _tail_solve(S, b, cnt, dt, YtY, reg, jitter):
     A = A + torch.diag_embed(ridge[:, None].expand(-1, r))
     A = A + jitter * eye
     A = torch.where((cnt <= 0)[:, None, None], eye + jitter * eye, A)
-    return chol_blocked_plain(A.contiguous(), b)
+    return chol_solve_plain(A.contiguous(), b)
 
 
 def gather_solve_plain(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
                        jitter=DEFAULT_JITTER):
     """K4's function in plain PyTorch: K3's plain Gram, then the tail of
-    ``gather_solve.cu`` (A += YᵀY; diag += ridge, then + jitter; rows
-    with count <= 0 become (1 + jitter)·I), then K1's plain solve."""
+    ``gather_solve.cuh`` (A += YᵀY; diag += ridge, then + jitter; rows
+    with count <= 0 become (1 + jitter)·I), then K2's plain solve."""
     S, b = gather_gram_plain(V, cols, aw, bw, two_sided=two_sided)
     return _tail_solve(S, b, cw.float().sum(-1), V.dtype, YtY, reg, jitter)
 
@@ -121,11 +128,11 @@ def _cuda_ready(name, V, *tensors):
     r = V.shape[-1]
     if r > MAX_RANK:
         raise NotImplementedError(
-            f"{name}: rank {r} > {MAX_RANK}: the Gram's register tiles and "
-            "its packed triangle in shared memory hold at most rank 256; a "
-            "Gram streamed through device memory (as K6 streams its blocks) "
-            "is not written yet; solve_backend='unfused' is the explicit "
-            "choice above it")
+            f"{name}: rank {r} > {MAX_RANK}: the tensor-core Gram's warp "
+            "tiles and the solve's tiles in shared memory hold at most rank "
+            "256; a Gram streamed through device memory (as K6 streams its "
+            "blocks) is not written yet; 'auto' takes the einsum route "
+            "above it")
     if not all(t.is_contiguous() for t in (V,) + tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
@@ -223,7 +230,9 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
                  jitter=DEFAULT_JITTER):
     """``x [n, r]`` f32: kernel K4 for CUDA tensors, the plain version for
     CPU tensors.  ``reg`` and ``jitter`` are the ridge coefficient and the
-    jitter of the in-kernel tail; ``YtY`` [r, r] f32 or None (zero)."""
+    jitter of the in-kernel tail; ``YtY`` [r, r] f32 or None (zero).  The
+    kernel's two passes run on row tiles whose scratch stays within
+    :data:`_SCRATCH_ELEMS`; ``SOLVE_LAUNCHES`` counts one per call."""
     global SOLVE_LAUNCHES
     _check("gather_solve", V, cols, aw, bw, cw)
     if V.device.type == "cpu":
@@ -239,13 +248,20 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
         return x
     if w == 0:
         return x.zero_()
+    step = max(1, min(n, _SCRATCH_ELEMS // _row_floats(r)))
+    sums = torch.empty(step * _row_floats(r), dtype=torch.float32,
+                       device=V.device)
     fn = _build.load("gather_solve")
     with torch.cuda.device(V.device):
-        err = fn(V.data_ptr(), cols.data_ptr(), aw.data_ptr(), bw.data_ptr(),
-                 cw.data_ptr(), None if YtY is None else YtY.data_ptr(),
-                 x.data_ptr(), n, w, r, _reg_w(reg, V.dtype), float(jitter),
-                 int(two_sided), int(V.dtype == torch.bfloat16), _stream(V))
-    _build.check(err, "gather_solve")
+        for row0 in range(0, n, step):
+            err = fn(V.data_ptr(), cols.data_ptr(), aw.data_ptr(),
+                     bw.data_ptr(), cw.data_ptr(),
+                     None if YtY is None else YtY.data_ptr(), x.data_ptr(),
+                     sums.data_ptr(), n, w, r, _reg_w(reg, V.dtype),
+                     float(jitter), int(two_sided),
+                     int(V.dtype == torch.bfloat16), row0,
+                     min(step, n - row0), _stream(V))
+            _build.check(err, "gather_solve")
     SOLVE_LAUNCHES += 1
     return x
 
@@ -305,10 +321,11 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     ``reg``, ``jitter``, ``YtY`` as :func:`gather_solve`.
     ``split_width``: when a row's stream (S·w entries) is longer, the
     kernel splits it over blocks in chunks of that many entries (partial
-    Grams, summed in order, then the tail and the solve per row), on row
-    tiles that keep the partials within a fixed budget; otherwise one
-    block per row.  ``RING_LAUNCHES`` counts one per call, whatever the
-    number of passes and row tiles."""
+    Grams, summed in order); otherwise one Gram block per row (and part).
+    Then the tail and the solve per row, as K4's; the passes run on row
+    tiles that keep the scratch within :data:`_SCRATCH_ELEMS`.
+    ``RING_LAUNCHES`` counts one per call, whatever the number of passes
+    and row tiles."""
     global RING_LAUNCHES
     if V_shards.dim() != 3 or cols.dim() != 4 \
             or cols.shape[1] != V_shards.shape[0]:
@@ -343,21 +360,20 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     bases = torch.tensor([V_shards[s].data_ptr() for s in range(S)],
                          dtype=torch.int64, device=V_shards.device)
     split = 0 if split_width is None else max(1, int(split_width))
-    tiles = [(0, n, None, None)]
-    if split and S * w > split:
-        # per row of every owner: its chunks' partials and their sum
-        E = r * r + r + 1
-        nchunk = -(-S * w // split)
-        step = max(1, min(n, _SCRATCH_ELEMS // (D * (nchunk + 1) * E)))
+    # per row of every owner: its sum (and, split, its chunks' partials)
+    E = _row_floats(r)
+    nchunk = -(-S * w // split) if split and S * w > split else 0
+    step = max(1, min(n, _SCRATCH_ELEMS // (D * (nchunk + 1) * E)))
+    sums = torch.empty(D * step * E, dtype=torch.float32,
+                       device=V_shards.device)
+    part = None
+    if nchunk:
         part = torch.empty(D * step * nchunk * E, dtype=torch.float32,
                            device=V_shards.device)
-        sums = torch.empty(D * step * E, dtype=torch.float32,
-                           device=V_shards.device)
-        tiles = [(s0, min(step, n - s0), part, sums)
-                 for s0 in range(0, n, step)]
     fn = _build.load("gather_solve_ring")
     with torch.cuda.device(V_shards.device):
-        for row0, nrows, part, sums in tiles:
+        for row0 in range(0, n, step):
+            nrows = min(step, n - row0)
             err = fn(bases.data_ptr(), per, cols.data_ptr(), aw.data_ptr(),
                      bw.data_ptr(), cw.data_ptr(),
                      None if YtY is None else YtY.data_ptr(), x.data_ptr(),
@@ -365,8 +381,7 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
                      float(jitter), int(two_sided),
                      int(V_shards.dtype == torch.bfloat16), split, row0,
                      nrows, None if part is None else part.data_ptr(),
-                     None if sums is None else sums.data_ptr(),
-                     _stream(V_shards))
+                     sums.data_ptr(), _stream(V_shards))
             _build.check(err, "gather_solve_ring")
     RING_LAUNCHES += 1
     return x

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpu_als/ops/pallas_lanes.py::spd_solve_lanes``.  The
 CUDA source is ``tpu_als_torch/csrc/chol_solve.cu`` (device routines in
-``csrc/chol.cuh``).  Same contract: A [N, r, r] f32 already regularized
-by :func:`tpu_als_torch.ops.solve.solve_spd`, b [N, r] f32 -> x [N, r]
+``csrc/chol_tiled.cuh``, which the solve pass of kernels K4 and K7 also
+runs).  Same contract: A [N, r, r] f32 already regularized by
+:func:`tpu_als_torch.ops.solve.solve_spd`, b [N, r] f32 -> x [N, r]
 f32; only the lower triangle of A is read; a row with b = 0 solves to
 x = 0; pivots are scaled by ``rsqrt(max(d, 1e-30))``.
 
@@ -16,40 +17,58 @@ from __future__ import annotations
 import torch
 
 from tpu_als_torch import _build
+from tpu_als_torch.ops.cuda_solve import substitute_plain
 
 MAX_RANK = 128
 PIVOT_FLOOR = 1e-30
+TILE = 32  # the kernel's tile side and block column width
 
 # kernel launches in this process; a run reads it to show that its path
 # went through the kernel
 LAUNCHES = 0
 
 
-def chol_solve_plain(A, b):
-    """The kernel's arithmetic in plain PyTorch, batched over N.
-
-    Right-looking column Cholesky of the lower triangle with the clamped
-    pivot, then column-oriented forward and back substitution — the order
-    of ``csrc/chol.cuh``.  Element-wise products only (no matmul), so no
-    TF32 rounding can enter on the card.
-    """
-    r = A.shape[-1]
+def factorize_plain(A):
+    """L with A = L Lᵀ, in the order of ``csrc/chol_tiled.cuh``: per block
+    column of :data:`TILE` columns, the diagonal tile column by column
+    (right-looking inside it; the pivot scaled by ``rsqrt(max(d,
+    1e-30))``), the rows below it column by column with the same scale,
+    then one trailing update Σ_q P[:, q] P[:, q]ᵀ over the block column's
+    columns q in order.  Element-wise products only (no matmul), so no
+    TF32 rounding can enter on the card."""
+    N, r = A.shape[0], A.shape[-1]
     L = torch.tril(A)
-    for j in range(r):
-        inv = torch.rsqrt(torch.clamp(L[:, j, j], min=PIVOT_FLOOR))
-        L[:, j:, j] *= inv[:, None]
-        col = L[:, j + 1:, j]
-        L[:, j + 1:, j + 1:] -= torch.tril(col[:, :, None] * col[:, None, :])
-    res = b.clone()
-    y = torch.empty_like(b)
-    for j in range(r):
-        y[:, j] = res[:, j] / L[:, j, j]
-        res[:, j + 1:] -= y[:, j, None] * L[:, j + 1:, j]
-    x = torch.empty_like(b)
-    for j in range(r - 1, -1, -1):
-        x[:, j] = y[:, j] / L[:, j, j]
-        y[:, :j] -= x[:, j, None] * L[:, j, :j]
-    return x
+    for k0 in range(0, r, TILE):
+        k1 = min(k0 + TILE, r)
+        inv = []
+        for j in range(k0, k1):  # the diagonal tile
+            iv = torch.rsqrt(torch.clamp(L[:, j, j], min=PIVOT_FLOOR))
+            inv.append(iv)
+            col = L[:, j:k1, j] * iv[:, None]
+            L[:, j:k1, j] = col
+            L[:, j + 1:k1, j + 1:k1] -= torch.tril(col[:, 1:, None]
+                                                   * col[:, None, 1:])
+        if k1 == r:
+            break
+        for j in range(k0, k1):  # the rows below it
+            l = L[:, k1:, j] * inv[j - k0][:, None]
+            L[:, k1:, j] = l
+            L[:, k1:, j + 1:k1] -= l[:, :, None] * L[:, None, j + 1:k1, j]
+        P = L[:, k1:, k0:k1]
+        acc = torch.zeros(N, r - k1, r - k1, dtype=A.dtype, device=A.device)
+        for q in range(k1 - k0):
+            acc += P[:, :, q, None] * P[:, None, :, q]
+        L[:, k1:, k1:] -= torch.tril(acc)
+    return L
+
+
+def chol_solve_plain(A, b):
+    """The kernel's arithmetic in plain PyTorch, batched over N (any
+    rank: it is also the solve of K4's and K7's plain versions): the
+    tiled factorization, then K1's substitutions (column-oriented
+    forward and back, dividing by L_jj), whose order the kernel's warp
+    follows."""
+    return substitute_plain(factorize_plain(A), b)
 
 
 def _check(A, b):

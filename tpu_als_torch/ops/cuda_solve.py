@@ -2,8 +2,8 @@
 
 Counterpart of ``tpu_als/ops/pallas_solve.py::spd_solve_pallas``.  The
 CUDA source is ``tpu_als_torch/csrc/chol_blocked.cu`` (device routines in
-``csrc/chol_blocked.cuh``, which kernel K4 also calls).  Same contract:
-A [N, r, r] f32 already regularized by
+``csrc/chol_blocked.cuh``, whose factorization kernel K6 also calls).
+Same contract: A [N, r, r] f32 already regularized by
 :func:`tpu_als_torch.ops.solve.solve_spd`, b [N, r] f32 -> x [N, r] f32;
 only the lower triangle of A is read; a row with b = 0 solves to x = 0;
 pivots are scaled by ``rsqrt(max(d, 1e-30))``.  It takes any rank whose

@@ -7,7 +7,12 @@ K5 :func:`topk_scores`: counterpart of
 :func:`tpu_als_torch.ops.topk.chunked_topk_scores`, which is its plain
 version: U [n, r] f32, V [Ni, r] f32, item_valid [Ni] bool, k <= 128 ->
 (scores [n, k] f32 descending, ids [n, k] int64); surplus slots hold
-exactly ``NEG_INF``; tie order is not promised.
+exactly ``NEG_INF``; tie order is not promised.  :func:`topk_scores` is
+also the reference's ``topk_scores`` dispatch, routed by k alone
+(:func:`topk_route`): k = 0 returns empty results, k <= 128 goes to K5,
+a larger k to ``chunked_topk_scores`` (``torch.matmul`` + a stable
+top-k per item chunk), the counterpart of the reference's XLA scan, not
+of a Pallas kernel.
 
 K8 :func:`topk_merge_ring`: counterpart of
 ``tpu_als/ops/pallas_topk.py::topk_merge_ring``, source
@@ -38,6 +43,8 @@ _TILE_U = 64
 # went through the kernels
 LAUNCHES = 0        # K5
 MERGE_LAUNCHES = 0  # K8
+# calls of topk_scores on the card that the scan route served (k > MAX_K)
+SCAN_CALLS = 0
 
 
 def _check(U, V, item_valid, k):
@@ -53,28 +60,43 @@ def _check(U, V, item_valid, k):
                          f"{tuple(item_valid.shape)}")
     if not (U.device == V.device == item_valid.device):
         raise ValueError("U, V and item_valid must share a device")
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+
+
+def topk_route(k):
+    """The route :func:`topk_scores` takes on the card for ``k``:
+    ``'empty'`` (k = 0), ``'kernel'`` (K5, k <= MAX_K) or ``'scan'``
+    (``chunked_topk_scores``, as the reference's dispatch)."""
+    if k == 0:
+        return "empty"
+    return "kernel" if k <= MAX_K else "scan"
 
 
 def topk_scores(U, V, item_valid, k, item_chunk=8192):
-    """Top-k per row of U: kernel K5 for CUDA tensors, the plain chunked
-    version (``item_chunk`` items per step) for CPU tensors."""
-    global LAUNCHES
+    """Top-k per row of U: on CUDA tensors the route :func:`topk_route`
+    names (K5, or the scan for k > MAX_K), the plain chunked version
+    (``item_chunk`` items per step) for CPU tensors; k = 0 gives empty
+    [n, 0] results and calls nothing."""
+    global LAUNCHES, SCAN_CALLS
     _check(U, V, item_valid, k)
+    n, r = U.shape
+    route = topk_route(k)
+    if route == "empty":
+        return (torch.empty((n, 0), dtype=torch.float32, device=U.device),
+                torch.empty((n, 0), dtype=torch.int64, device=U.device))
     if U.device.type == "cpu":
         return chunked_topk_scores(U, V, item_valid, k,
                                    item_chunk=item_chunk)
     if U.device.type != "cuda":
         raise ValueError(f"top-k runs on cuda or cpu, not {U.device}")
-    if k > MAX_K:
-        raise NotImplementedError(
-            f"k = {k} > {MAX_K}: the fused top-k kernel keeps at most "
-            f"{MAX_K} candidates per row, as the TPU kernel does")
+    if route == "scan":
+        SCAN_CALLS += 1
+        return chunked_topk_scores(U, V, item_valid, k,
+                                   item_chunk=item_chunk)
     if not (U.is_contiguous() and V.is_contiguous()
             and item_valid.is_contiguous()):
         raise ValueError("top-k takes contiguous U, V and item_valid")
-    n, r = U.shape
     scores = torch.empty((n, k), dtype=torch.float32, device=U.device)
     ids = torch.empty((n, k), dtype=torch.int64, device=U.device)
     if n == 0:

@@ -16,6 +16,10 @@ of ni_loc; global item id = s·ni_loc + local.
   order, bitwise ``chunked_topk_scores`` over the whole catalog, tie
   order included.
 
+``'all_gather'`` and ``'ring'`` reach K5 through ``topk_scores``, which
+sends a k above 128 to its scan route (``chunked_topk_scores``), as the
+reference's dispatch does.
+
 The reference's degraded mode (answering from a last-good catalog when
 the sharded call raises) is not ported: it would hide a kernel failure;
 it belongs with the resilience slice, and here the call raises.
@@ -51,7 +55,7 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
     U, V = _as_f32(U, dev), _as_f32(V, dev)
     Nu, r = U.shape
     Ni = V.shape[0]
-    if Ni == 0 or Nu == 0:
+    if Ni == 0 or Nu == 0 or k == 0:
         kk = min(k, Ni)
         return (torch.zeros(Nu, kk, dtype=torch.float32, device=dev),
                 torch.zeros(Nu, kk, dtype=torch.int64, device=dev))

@@ -15,9 +15,13 @@ Phases (any failure exits non-zero before the final line):
    at 136, 256 and 384, past K1's 323, its storage holding L afterwards,
    and x through ``spd_solve_lanes_blocked`` against a float64 solve),
    with b = 0 rows and a near-singular row;
-3. K5 (fused score GEMM + top-k) against its plain version over the full
-   59,047-item catalog with ~10 % of items invalid, at k = 10 and 128,
-   and on a catalog smaller than k;
+3. K5 (fused score GEMM + top-k, ``csrc/topk.cuh``'s scan) against its
+   plain version over the full 59,047-item catalog with ~10 % of items
+   invalid, at ranks 40, 128, 256 and 320 (the query rows resident in
+   shared memory at all four), k = 1, 10 and 128, n = 4,096 and 8,229
+   (not a multiple of the 64-row user tile), the catalog split in the
+   parts ``topk_parts`` picks, in 1 and in 7; then on a catalog smaller
+   than k (sentinel slots exact) at 1 and 3 parts;
 4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
    their plain versions (``V[cols]`` + ``torch.bmm``, K2's plain solve)
    at rank 128, then at ranks 200 and 256: two- and one-sided, f32 and
@@ -30,7 +34,8 @@ Phases (any failure exits non-zero before the final line):
    below S·w (the width split's three passes, the plain version chunked
    the same way), and at S = 1 and no split against K4 bit for bit; K8 (the cross-shard top-k merge) against its plain version and
    the whole-catalog plain top-k, bitwise, on the integer tie corpus at
-   4,096 users x 59,047 items, S = 1, 3, 4 and 8, k = 10 and 128, with a
+   4,096 users x 59,047 items, S = 1, 3, 4 and 8, k = 10 and 128, each
+   shard in the parts ``topk_parts`` picks, in 1 and in 32 // S, with a
    sparse validity mask and an all-invalid shard;
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
@@ -65,7 +70,12 @@ Phases (any failure exits non-zero before the final line):
    with K6 above K3/K4's rank) with one more item half-step against a
    float64 solve;
 7. timings at the slices' shapes (CUDA events), each kernel beside its
-   plain version, its library yardstick and its bound; K4 and K3 held
+   plain version, its library yardstick and its bound (K5 at ranks 128
+   and 256); recommend-all three ways at both ranks (host clock, results
+   on the host): ``recommend_arrays(10)`` (one K5 call),
+   ``recommendForAllUsers(10)`` (blocks of ``blockSize`` 4,096 users, a
+   K5 call each) and the fold-in batch's ``recommendForUserSubset``; K4
+   and K3 held
    against their plain versions once more on the item half-step's
    buckets (widths up to 2^13, and the wide rows split), at ranks 128
    and 256; K6 on the rank-256 fold-in systems and on the fit's wide
@@ -88,8 +98,9 @@ Phases (any failure exits non-zero before the final line):
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
 in float32 outside the tensor cores, and for the Gram that K3, K4 and
-K7 run on the tensor cores in the 3xTF32 form, three TF32
-products per f32 product at 495 TFLOP/s (dense TF32).
+K7 run and the score GEMM that K5 and K8 run on the tensor cores in the
+3xTF32 form, three TF32 products per f32 product at 495 TFLOP/s (dense
+TF32).
 """
 
 from __future__ import annotations
@@ -357,33 +368,53 @@ def earns_scores(U, V, valid, s, ix, where):
 
 
 def check_k5(rng, dev):
-    U = torch.from_numpy(unit_rows(rng, 8192, RANK)).to(dev)
-    V = torch.from_numpy(unit_rows(rng, N_ITEMS, RANK)).to(dev)
-    valid = torch.from_numpy(rng.random(N_ITEMS) >= 0.1).to(dev)
-    worst = 0.0
-    for k in (10, 128):
-        sk, ik = cuda_topk.topk_scores(U, V, valid, k)
-        sp, _ = chunked_topk_scores(U, V, valid, k)
-        torch.cuda.synchronize()
-        err = (sk - sp).abs().max().item()
-        if not torch.allclose(sk, sp, rtol=K5_TOL, atol=K5_TOL):
-            fail(f"K5 k={k}: kernel vs plain scores max |diff| {err:.3e}")
-        earns_scores(U, V, valid, sk, ik, f"K5 k={k}")
-        log(f"k5 n=8192 Ni={N_ITEMS} k={k}: max |kernel - plain| "
-            f"{err:.3e} (tol {K5_TOL})")
-        if k == 10:
-            worst = err
-    # a catalog smaller than k: exactly n_valid real slots, then NEG_INF
-    Vs, vs = V[:50].contiguous(), valid[:50].contiguous()
-    n_valid = int(vs.sum())
-    sk, ik = cuda_topk.topk_scores(U[:256].contiguous(), Vs, vs, 128)
-    if not bool((sk[:, n_valid:] == NEG_INF32).all()):
-        fail("K5 small catalog: surplus slots are not exactly NEG_INF")
-    if not bool((sk[:, :n_valid] > NEG_INF32).all()):
-        fail("K5 small catalog: a valid item is missing")
-    earns_scores(U[:256], Vs, vs, sk, ik, "K5 small catalog")
-    log(f"k5 small catalog Ni=50 ({n_valid} valid) k=128: sentinel slots "
-        "exact")
+    """K5 against its plain version (scores within K5_TOL, each id
+    earning its score) at ranks 40, 128, 256 and 320, k = 1, 10 and 128,
+    n = 4,096 and 8,229, in the parts ``topk_parts`` picks, in 1 and in
+    7; then the sentinel slots of a catalog smaller than k.  Returns the
+    largest |score - score_plain| at rank 128 and at rank 256."""
+    worst = {RANK: 0.0, RANK256: 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r in (40, RANK, RANK256, 320):
+        V = torch.from_numpy(unit_rows(rng, N_ITEMS, r)).to(dev)
+        valid = torch.from_numpy(rng.random(N_ITEMS) >= 0.1).to(dev)
+        for n in (4096, 8192 + 37):
+            U = torch.from_numpy(unit_rows(rng, n, r)).to(dev)
+            auto = cuda_topk.topk_parts(n, N_ITEMS, 1, sms)
+            group = 0.0
+            for k in (1, 10, 128):
+                sp, _ = chunked_topk_scores(U, V, valid, k)
+                for P in (None, 1, 7):
+                    sk, ik = cuda_topk.topk_scores(U, V, valid, k, parts=P)
+                    torch.cuda.synchronize()
+                    err = (sk - sp).abs().max().item()
+                    where = f"K5 r={r} n={n} k={k} parts={P or auto}"
+                    if not torch.allclose(sk, sp, rtol=K5_TOL, atol=K5_TOL):
+                        fail(f"{where}: kernel vs plain scores max |diff| "
+                             f"{err:.3e}")
+                    earns_scores(U, V, valid, sk, ik, where)
+                    group = max(group, err)
+            if r in worst:
+                worst[r] = max(worst[r], group)
+            log(f"k5 r={r} n={n} Ni={N_ITEMS} k=1, 10, 128, parts {auto} "
+                f"(topk_parts), 1 and 7: max |kernel - plain| {group:.3e} "
+                f"(tol {K5_TOL}), ids earn their scores")
+        # a catalog smaller than k: exactly n_valid real slots, then
+        # (NEG_INF, 0)
+        Vs, vs = V[:50].contiguous(), valid[:50].contiguous()
+        n_valid = int(vs.sum())
+        for P in (1, 3):
+            sk, ik = cuda_topk.topk_scores(U[:256].contiguous(), Vs, vs, 128,
+                                           parts=P)
+            if not (bool((sk[:, n_valid:] == NEG_INF32).all())
+                    and bool((ik[:, n_valid:] == 0).all())):
+                fail(f"K5 r={r} small catalog parts={P}: surplus slots are "
+                     "not exactly (NEG_INF, 0)")
+            if not bool((sk[:, :n_valid] > NEG_INF32).all()):
+                fail(f"K5 r={r} small catalog: a valid item is missing")
+            earns_scores(U[:256], Vs, vs, sk, ik, "K5 small catalog")
+        log(f"k5 r={r} small catalog Ni=50 ({n_valid} valid) k=128, parts 1 "
+            "and 3: sentinel slots exact")
     return worst
 
 
@@ -590,10 +621,12 @@ def check_k8(rng, dev):
     """K8 vs its plain version, bitwise (scores and ids), and both vs the
     plain top-k over the whole concatenated catalog, on the integer tie
     corpus at 4,096 users x the 59,047-item catalog, r = 16, S = 1, 3, 4
-    and 8 shards, k = 10 and 128, ~30 % of items valid and (S > 1) shard 1
+    and 8 shards, k = 10 and 128, each shard in the parts ``topk_parts``
+    picks, in 1 and in 32 // S, ~30 % of items valid and (S > 1) shard 1
     all invalid.  Returns the largest |score - score_plain| (0.0)."""
     U, V = tie_corpus(rng, 4096, N_ITEMS, 16)
     U, V = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for S in (1, 3, SHARDS, 8):
         ni_loc = -(-N_ITEMS // S)
         Vp = torch.zeros(S * ni_loc, 16, device=dev)
@@ -604,22 +637,27 @@ def check_k8(rng, dev):
             validp[ni_loc:2 * ni_loc] = False
         Vs, vs = Vp.reshape(S, ni_loc, 16), validp.reshape(S, ni_loc)
         for k in (10, 128):
-            sk, ik = cuda_topk.topk_merge_ring(U, Vs, vs, k)
-            sp, ip = cuda_topk.topk_merge_ring_plain(U, Vs, vs, k)
+            sp, ip = cuda_topk.topk_merge_ring_plain(U, Vs, vs, k, 32 // S)
             sc, ic = chunked_topk_scores(U, Vp, validp, k)
-            torch.cuda.synchronize()
-            for what, (s, i) in (("plain", (sp, ip)),
-                                 ("the whole-catalog top-k", (sc, ic))):
-                if not (torch.equal(sk, s) and torch.equal(ik, i)):
-                    bad = int((ik != i).any(dim=1).sum())
-                    fail(f"K8 S={S} k={k}: not bitwise {what} (scores max "
-                         f"|diff| {(sk - s).abs().max().item():.3e}, "
-                         f"{bad} rows with other ids)")
-            if S > 1 and bool(((ik >= ni_loc) & (ik < 2 * ni_loc)
-                               & (sk > NEG_INF32)).any()):
-                fail(f"K8 S={S}: an item of the all-invalid shard came back")
-        log(f"k8 S={S} n=4096 Ni={N_ITEMS} r=16 k=10 and 128: bitwise plain "
-            "and the whole-catalog top-k (tie corpus)")
+            for P in (None, 1, 32 // S):
+                sk, ik = cuda_topk.topk_merge_ring(U, Vs, vs, k, parts=P)
+                torch.cuda.synchronize()
+                for what, (s, i) in (("plain", (sp, ip)),
+                                     ("the whole-catalog top-k", (sc, ic))):
+                    if not (torch.equal(sk, s) and torch.equal(ik, i)):
+                        bad = int((ik != i).any(dim=1).sum())
+                        fail(f"K8 S={S} k={k} parts={P}: not bitwise {what} "
+                             f"(scores max |diff| "
+                             f"{(sk - s).abs().max().item():.3e}, {bad} rows "
+                             "with other ids)")
+                if S > 1 and bool(((ik >= ni_loc) & (ik < 2 * ni_loc)
+                                   & (sk > NEG_INF32)).any()):
+                    fail(f"K8 S={S}: an item of the all-invalid shard came "
+                         "back")
+        log(f"k8 S={S} n=4096 Ni={N_ITEMS} r=16 k=10 and 128, parts "
+            f"{cuda_topk.topk_parts(4096, ni_loc, S, sms)} "
+            f"(topk_parts), 1 and {32 // S}: bitwise plain and the "
+            "whole-catalog top-k (tie corpus)")
     return 0.0
 
 
@@ -992,7 +1030,7 @@ def run_slice(rng, dev):
         "(host clock, results on the host)")
     log(f"fold-in p50 latency: {p50 * 1e3:.1f} ms over "
         f"{n_user_batches} user batches of 4096 users")
-    return model, launches, A_slice, b_slice
+    return model, launches, A_slice, b_slice, users1
 
 
 def check_recommend_all(model, rec_ids, rec_scores, rng, dev, where):
@@ -1091,7 +1129,7 @@ def serve_slice_256(fitted, rng, dev):
         f"{rec_wall * 1e3:.1f} ms (host clock, results on the host)")
     log(f"rank 256 fold-in p50 latency: {p50 * 1e3:.1f} ms over "
         f"{len(srv.stats)} user batches of 4096 users")
-    return model, launches, A_slice, b_slice
+    return model, launches, A_slice, b_slice, users1
 
 
 def sharded_serve_slice(model, mesh, dev):
@@ -1280,34 +1318,76 @@ def timings(model, launches, A, b, errs, dev):
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": by, "library_ms": l_ms})
 
+    log(f"timing K2 N={N} r={r}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+        f"launches={launches['k2']}")
+    log(f"timing K1 on the same systems: kernel_ms="
+        f"{cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 20):.4f}")
+    out.append(k5_timing(model, launches["k5"], errs["k5"], dev))
+    return out
+
+
+def topk_bound(n, Ni, r, k):
+    """K5's and K8's bound: the factor tables, the validity mask and the
+    [n, k] result against the score GEMM as three TF32 products each on
+    the tensor cores; and its note with the f32-FMA time beside."""
+    nbytes = (n * r + Ni * r) * 4 + Ni + n * k * (4 + 8)
+    return bound(nbytes, 0.0, 2 * n * Ni * r), bound_note(nbytes, 0.0,
+                                                          2 * n * Ni * r)
+
+
+def k5_timing(model, launches, err, dev):
+    """K5 for every user of ``model`` against its catalog, k = 10, beside
+    its plain version, a blocked ``matmul`` + ``topk`` and its bound."""
     U, V = model._U, model._V
-    n, Ni, k = U.shape[0], V.shape[0], 10
+    (n, r), Ni, k = U.shape, V.shape[0], 10
     valid = torch.ones(Ni, dtype=torch.bool, device=dev)
 
     def library():
         for s in range(0, n, 16384):
             torch.topk(U[s:s + 16384] @ V.T, k, dim=1)
 
-    k_ms5 = cuda_ms(lambda: cuda_topk.topk_scores(U, V, valid, k), 3)
-    p_ms5 = cuda_ms(lambda: chunked_topk_scores(U, V, valid, k), 1)
-    l_ms5 = cuda_ms(library, 1)
-    b_ms5, by5 = bound((n * r + Ni * r) * 4 + Ni + n * k * (4 + 8),
-                       2 * n * Ni * r)
-    out.append({"name": "topk_scores_pallas (K5)", "route": "cuda",
-                "source": "tpu_als_torch/csrc/topk.cu",
-                "replaces": "tpu_als/ops/pallas_topk.py:119",
-                "launches": launches["k5"], "max_abs_err": errs["k5"],
-                "ms": k_ms5, "plain_ms": p_ms5, "bound_ms": b_ms5,
-                "bound_by": by5, "library_ms": l_ms5})
-    log(f"timing K2 N={N} r={r}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-        f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
-        f"launches={launches['k2']}")
-    log(f"timing K1 on the same systems: kernel_ms="
-        f"{cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 20):.4f}")
-    log(f"timing K5 n={n} Ni={Ni} r={r} k={k}: kernel_ms={k_ms5:.4f} "
-        f"plain_ms={p_ms5:.4f} library_ms={l_ms5:.4f} bound_ms={b_ms5:.4f} "
-        f"({by5}) launches={launches['k5']}")
-    return out
+    k_ms = cuda_ms(lambda: cuda_topk.topk_scores(U, V, valid, k), 3)
+    p_ms = cuda_ms(lambda: chunked_topk_scores(U, V, valid, k), 1)
+    l_ms = cuda_ms(library, 1)
+    (b_ms, by), note = topk_bound(n, Ni, r, k)
+    tag = "" if r == RANK else f", rank {r}"
+    log(f"timing K5{tag} n={n} Ni={Ni} r={r} k={k}: kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({by}; {note}) launches={launches}")
+    return {"name": f"topk_scores_pallas (K5{tag})", "route": "cuda",
+            "source": "tpu_als_torch/csrc/topk.cu",
+            "replaces": "tpu_als/ops/pallas_topk.py:119",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": l_ms}
+
+
+def sweep_timings(model, users):
+    """recommend-all three ways on the card, each the host clock around
+    the call with its results on the host (the second of two calls):
+    ``recommend_arrays(10)`` (one K5 call over every user),
+    ``recommendForAllUsers(10)`` (``blockSize`` users a K5 call) and
+    ``recommendForUserSubset`` of the fold-in batch's ``users``; with
+    K5's launches per call."""
+    calls = (("recommend_arrays(10)", lambda: model.recommend_arrays(10)),
+             (f"recommendForAllUsers(10), blockSize "
+              f"{model._get('blockSize')}",
+              lambda: model.recommendForAllUsers(10)),
+             (f"recommendForUserSubset({len(users)} fold-in users, 10)",
+              lambda: model.recommendForUserSubset({"user": users}, 10)))
+    base = None
+    for what, fn in calls:
+        for _ in range(2):
+            before = cuda_topk.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        base = base or ms
+        log(f"sweep rank {model.rank} {what}: {ms:.3f} ms wall "
+            f"({ms / base:.3f}x recommend_arrays), K5 launches "
+            f"{cuda_topk.LAUNCHES - before}")
 
 
 def train_timings(tr, errs, dev):
@@ -1762,12 +1842,14 @@ def merge_timings(model, launches, dev):
                        stable=True)
 
     l8 = cuda_ms(library, 1)
-    b8, by8 = bound((n * r + Ni * r) * 4 + Ni + n * k * (4 + 8),
-                    2 * n * Ni * r)
-    log(f"timing K8 n={n} Ni={Ni} ({SHARDS} shards) r={r} k={k}: "
-        f"kernel_ms={ms8:.4f} plain_ms={p8:.4f} library_ms={l8:.4f} "
-        f"(matmul + stable sort) bound_ms={b8:.4f} ({by8}) "
-        f"launches={launches['k8']}; max |kernel - plain| {e8:.3e}")
+    (b8, by8), note = topk_bound(n, Ni, r, k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"timing K8 n={n} Ni={Ni} ({SHARDS} shards, parts "
+        f"{cuda_topk.topk_parts(n, ni_loc, SHARDS, sms)}) "
+        f"r={r} k={k}: kernel_ms={ms8:.4f} plain_ms={p8:.4f} "
+        f"library_ms={l8:.4f} (matmul + stable sort) bound_ms={b8:.4f} "
+        f"({by8}; {note}) launches={launches['k8']}; max |kernel - plain| "
+        f"{e8:.3e}")
     return {"name": "topk_merge_ring (K8)", "route": "cuda",
             "source": "tpu_als_torch/csrc/topk_merge_ring.cu",
             "replaces": "tpu_als/ops/pallas_topk.py:346",
@@ -1879,8 +1961,10 @@ def main():
     rng = np.random.default_rng(args.seed)
     split = core_als.SPLIT_WIDTH
     errs = {"k2": check_k2(rng, dev), "k1": check_k1(rng, dev),
-            "k6": check_k6(rng, dev), "k5": check_k5(rng, dev),
-            "k3": check_k3(rng, dev), "k4": check_k4(rng, dev)}
+            "k6": check_k6(rng, dev)}
+    k5 = check_k5(rng, dev)
+    errs.update(k5=k5[RANK], k5_256=k5[RANK256], k3=check_k3(rng, dev),
+                k4=check_k4(rng, dev))
     for r in (200, RANK256):   # the larger error of the two ranks
         for k, e in (("k3", check_k3(rng, dev, r, (24, 512))),
                      ("k4", check_k4(rng, dev, r, ((256, 24), (64, 512),
@@ -1893,14 +1977,18 @@ def main():
     tr256 = train_slice(data, RANK256, args.seed, dev)
     sh = sharded_train_slice(data, args.seed, dev)
     del data
-    model, launches, A, b = run_slice(rng, dev)
-    model256, launches256, A256, b256 = serve_slice_256(tr256["model"], rng,
-                                                        dev)
+    model, launches, A, b, users = run_slice(rng, dev)
+    model256, launches256, A256, b256, users256 = serve_slice_256(
+        tr256["model"], rng, dev)
     launches8 = sharded_serve_slice(tr["model"], sh["mesh"], dev)
     topk_k200(tr["model"], sh["mesh"], rng, dev)
     recommend_zero(model)
     rank320_fit(args.seed, dev)
     kernels = timings(model, launches, A, b, errs, dev)
+    kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
+                             dev))
+    sweep_timings(model, users)
+    sweep_timings(model256, users256)
     kernels += train_timings(tr, errs, dev)
     kernels += train_timings(tr256, errs, dev)
     k4_split(tr, smi)

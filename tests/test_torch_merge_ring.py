@@ -32,7 +32,7 @@ import tpu_als_torch
 from tpu_als_torch.ops import cuda_topk
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores, merge_topk
 from tpu_als_torch.parallel.mesh import make_mesh
-from tpu_als_torch.parallel.serve import topk_sharded
+from tpu_als_torch.parallel.serve import STRATEGIES, topk_sharded
 
 NEG_INF32 = np.float32(NEG_INF)
 
@@ -201,3 +201,82 @@ def test_recommend_for_all_users_over_a_mesh_matches_reference(strategy):
                                      gatherStrategy=strategy)
     np.testing.assert_array_equal(sc, rr["rating"])
     np.testing.assert_array_equal(q, uids)
+
+
+def _surface_models(U, V):
+    params = {"userCol": "user", "itemCol": "item", "ratingCol": "rating",
+              "predictionCol": "prediction", "coldStartStrategy": "nan",
+              "blockSize": 8, "regParam": 0.1}
+    uids, iids = 5 + 3 * np.arange(len(U)), 2 + np.arange(len(V))
+    tm = tpu_als_torch.model_from_arrays(U.shape[1], uids, U, iids, V,
+                                         params, device="cpu")
+    jm = tpu_als.ALSModel(U.shape[1], tpu_als.core.ratings.IdMap(ids=uids),
+                          tpu_als.core.ratings.IdMap(ids=iids), U, V, params)
+    return tm, jm
+
+
+@pytest.mark.parametrize("k", [0, 1, 10, 128, 200])
+def test_topk_surface_matches_reference(k):
+    """Every top-k entry point against the reference on the tie corpus
+    (exact scores), at k from 0 to above K5's 128 and above the catalog's
+    90 items: ``recommend_arrays`` both ways, ``recommendForAllUsers`` /
+    ``recommendForAllItems`` / ``recommendForUserSubset`` (blocks of 8
+    rows), all bitwise; ``topk_sharded`` on 3 shards with every strategy
+    and shard 1 all invalid: bitwise scores, 'merge_ring' bitwise ids,
+    the others' ids earning their scores."""
+    rng = np.random.default_rng(70 + k)
+    U, V = _tie_corpus(rng, 23, 90, 8)
+    tm, jm = _surface_models(U, V)
+    for for_users in (True, False):
+        got, ref = (m.recommend_arrays(k, for_users=for_users)
+                    for m in (tm, jm))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, np.asarray(r))
+    subset = {"user": tm._user_map.ids[::3]}
+    for call in (lambda m: m.recommendForAllUsers(k),
+                 lambda m: m.recommendForAllItems(k),
+                 lambda m: m.recommendForUserSubset(subset, k)):
+        got, ref = call(tm), call(jm)
+        assert got.columns == ref.columns
+        for col in got.columns:
+            np.testing.assert_array_equal(got[col], ref[col])
+    valid = rng.random(90) < 0.8
+    valid[30:60] = False  # shard 1 of 3 entirely masked
+    for strategy in STRATEGIES:
+        s, ix = topk_sharded(U, V, k, _mesh(3), strategy=strategy,
+                             item_valid=valid)
+        js, ji = j_topk_sharded(U, V, k, j_make_mesh(3), strategy=strategy,
+                                item_valid=valid)
+        s, ix = s.numpy(), ix.numpy()
+        assert s.shape == np.shape(js) == (23, min(k, 90))
+        np.testing.assert_array_equal(s, js)
+        if strategy == "merge_ring":
+            np.testing.assert_array_equal(ix, ji)
+        real = s > NEG_INF32
+        assert valid[ix[real]].all()
+        np.testing.assert_array_equal(
+            np.einsum("nr,nkr->nk", U, V[ix])[real], s[real])
+
+
+@pytest.mark.parametrize("S,P", [(1, 3), (3, 2), (4, 8)])
+def test_merge_ring_parts_bitwise_equal_to_reference(S, P):
+    """K8's function with each shard cut in P parts as the kernel cuts it
+    (whole 128-item tiles; 1,000 items), the sets merged in shard and
+    part order: bitwise the reference's merge_ring, and the K8 wrapper on
+    CPU tensors with ``parts=P`` is that plain version."""
+    rng = np.random.default_rng(60 + 7 * S + P)
+    U, V = _tie_corpus(rng, 19, 1000, 16)
+    valid = rng.random(1000) < 0.7
+    ref = j_topk_sharded(U, V, 10, j_make_mesh(S), strategy="merge_ring",
+                         item_valid=valid)
+    ni_loc = -(-1000 // S)
+    Vp = np.zeros((S * ni_loc, 16), np.float32)
+    Vp[:1000] = V
+    vp = np.zeros(S * ni_loc, bool)
+    vp[:1000] = valid
+    args = (torch.from_numpy(U), torch.from_numpy(Vp).reshape(S, ni_loc, 16),
+            torch.from_numpy(vp).reshape(S, ni_loc), 10)
+    _equal(cuda_topk.topk_merge_ring_plain(*args, P), ref)
+    before = cuda_topk.MERGE_LAUNCHES
+    _equal(cuda_topk.topk_merge_ring(*args, parts=P), ref)
+    assert cuda_topk.MERGE_LAUNCHES == before

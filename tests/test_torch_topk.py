@@ -192,3 +192,129 @@ def test_recommend_arrays_k200_matches_reference():
             devices=["cpu"] * 2), gatherStrategy=strategy)
         np.testing.assert_allclose(sc, jsc, rtol=TOL, atol=TOL)
         _earns_scores(U, V, valid, sc, tm._item_map.to_dense(ids))
+
+
+def _tie_corpus(seed, n, Ni, r, pool=7):
+    """The reference's integer tie corpus: every f32 score exact."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-3, 4, size=(pool, r)).astype(np.float32)
+    V = base[rng.integers(0, pool, Ni)]
+    U = rng.integers(-3, 4, size=(n, r)).astype(np.float32)
+    return U, V, rng.random(Ni) < 0.8
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 7])
+def test_topk_parts_plain_bitwise_on_tie_corpus(P):
+    """The catalog cut in P parts as the kernel cuts it (1,000 items: 8
+    item tiles), each part's stable top-k merged in part order: bitwise
+    the port's and the reference's chunked scan, scores and ids."""
+    U, V, valid = _tie_corpus(30 + P, 29, 1000, 16)
+    args = [torch.from_numpy(a) for a in (U, V, valid)]
+    for k in (1, 10, 128):
+        s, ix = cuda_topk.topk_parts_plain(*args, k, P)
+        cs, ci = ttopk.chunked_topk_scores(*args, k)
+        js, ji = jtopk.chunked_topk_scores(jnp.asarray(U), jnp.asarray(V),
+                                           jnp.asarray(valid), k=k)
+        for want in ((cs.numpy(), ci.numpy()),
+                     (np.asarray(js), np.asarray(ji))):
+            np.testing.assert_array_equal(s.numpy(), want[0])
+            np.testing.assert_array_equal(ix.numpy(), want[1])
+        # the wrapper on CPU tensors with parts= is this plain version
+        ws, wi = cuda_topk.topk_scores(*args, k, parts=P)
+        assert torch.equal(ws, s) and torch.equal(wi, ix)
+
+
+@pytest.mark.parametrize("n,Ni,k,P", [(24, 700, 10, 3), (24, 700, 128, 6),
+                                      (16, 60, 32, 2)])
+def test_topk_parts_plain_matches_pallas_topk_interpret(n, Ni, k, P):
+    U, V, valid = _factors(n + Ni + P, n, Ni, 16, 0.7)
+    js, _ = pallas_topk.topk_scores_pallas(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(valid), k, tile_u=16,
+        tile_i=128, interpret=True)
+    s, ix = cuda_topk.topk_parts_plain(torch.from_numpy(U),
+                                       torch.from_numpy(V),
+                                       torch.from_numpy(valid), k, P)
+    s, ix = s.numpy(), ix.numpy()
+    np.testing.assert_allclose(s, np.asarray(js), rtol=TOL, atol=TOL)
+    _earns_scores(U, V, valid, s, ix)
+
+
+def test_topk_parts_properties():
+    """S·P <= 32 (one merge lane per set); P = 1 when the (user tile,
+    shard) blocks already give two waves; every part at least one item
+    tile, the parts whole tiles in id order covering the shard."""
+    T_U, T_I = cuda_topk.TILE_U, cuda_topk.TILE_I
+    for sms in (1, 8, 132):
+        for S in (1, 2, 3, 4, 8, 32):
+            for n in (1, 63, 64, 4096, 8229, 172_781):
+                for ni in (1, 50, 128, 129, 1000, 59_047):
+                    P = cuda_topk.topk_parts(n, ni, S, sms)
+                    assert 1 <= P and S * P <= cuda_topk.MAX_SHARDS
+                    blocks = -(-n // T_U) * S
+                    if blocks >= 2 * sms:
+                        assert P == 1
+                    bounds = cuda_topk.part_bounds(ni, P)
+                    assert bounds[0][0] == 0 and bounds[-1][1] == ni
+                    for (lo, hi), nxt in zip(bounds, bounds[1:] + [None]):
+                        assert hi - lo >= 1 and lo % T_I == 0
+                        assert nxt is None or nxt[0] == hi
+    # a small call on a large card is cut; a large one is not
+    assert cuda_topk.topk_parts(4096, 59_047, 1, 132) == 4
+    assert cuda_topk.topk_parts(172_781, 59_047, 1, 132) == 1
+    assert cuda_topk.topk_parts(4096, 14_762, 4, 132) == 1
+    assert cuda_topk.topk_parts(1024, 14_762, 4, 132) == 4
+    assert cuda_topk.topk_parts(100, 59_047, 1, 132) == 32
+
+
+def _split_tf32(x):
+    """csrc/topk.cuh::split_trunc on a float32 tensor, as the tensor cores
+    read it: big = x with its low 13 bits cleared, small = x - big read
+    as TF32 (its low 13 bits cleared too)."""
+    mask = torch.tensor(-8192, dtype=torch.int32)  # 0xffffe000
+    big = (x.view(torch.int32) & mask).view(torch.float32)
+    small = ((x - big).view(torch.int32) & mask).view(torch.float32)
+    return big, small
+
+
+def _scores_3xtf32(U, V):
+    """The kernel's score in torch: the rank padded to a multiple of 8,
+    each operand split in two TF32 values, per 32-rank chunk a zeroed
+    partial of small·big + big·small + big·big (each TF32 product exact
+    in f32), added to the running score by f32 adds."""
+    r8 = -(-U.shape[1] // 8) * 8
+    U = torch.nn.functional.pad(U, (0, r8 - U.shape[1]))
+    V = torch.nn.functional.pad(V, (0, r8 - V.shape[1]))
+    (ub, us), (vb, vs) = _split_tf32(U), _split_tf32(V)
+    run = torch.zeros(U.shape[0], V.shape[0], dtype=torch.float32)
+    for d in range(0, r8, 32):
+        c = slice(d, d + 32)
+        run += (us[:, c] @ vb[:, c].T + ub[:, c] @ vs[:, c].T) \
+            + ub[:, c] @ vb[:, c].T
+    return run
+
+
+def test_3xtf32_score_exact_on_tie_corpus():
+    U, V, _ = _tie_corpus(5, 40, 300, 40)
+    s = _scores_3xtf32(torch.from_numpy(U), torch.from_numpy(V))
+    np.testing.assert_array_equal(s.numpy(), U.astype(np.float64)
+                                  @ V.astype(np.float64).T)
+
+
+# |3xTF32 score - float64| on unit rows: each operand loses < 2^-20 of
+# itself and the dropped small·small term is < 2^-20 of a product, so
+# each product is off by < 3·2^-20 of itself and the score by < 3·2^-20
+# of Σ|u_d v_d| <= 1, plus the f32 sums' rounding: held to 3e-6, below
+# chip_smoke.py's K5_TOL (1e-5)
+TF32_BOUND = 3e-6
+
+
+@pytest.mark.parametrize("r", [128, 256])
+def test_3xtf32_score_within_bound_of_float64(r):
+    rng = np.random.default_rng(r)
+    U = rng.standard_normal((64, r))
+    V = rng.standard_normal((2048, r))
+    U = (U / np.linalg.norm(U, axis=1, keepdims=True)).astype(np.float32)
+    V = (V / np.linalg.norm(V, axis=1, keepdims=True)).astype(np.float32)
+    s = _scores_3xtf32(torch.from_numpy(U), torch.from_numpy(V)).numpy()
+    err = np.abs(s - U.astype(np.float64) @ V.astype(np.float64).T).max()
+    assert err <= TF32_BOUND

@@ -38,8 +38,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # chol_solve_f32(A, b, x, n, r, stream)
     "chol_solve": ("chol_solve_f32", [_P, _P, _P, _LL, _I, _P]),
-    # topk_f32(U, V, valid, out_s, out_i, n, ni, r, k, stream)
-    "topk": ("topk_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P]),
+    # topk_f32(U, V, valid, coll_s, coll_i, tickets, out_s, out_i, n, ni,
+    #          r, k, P, stream)
+    "topk": ("topk_f32", [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                          _I, _P]),
     # chol_blocked_f32(A, b, x, n, r, stream)
     "chol_blocked": ("chol_blocked_f32", [_P, _P, _P, _LL, _I, _P]),
     # gather_gram(V, cols, aw, bw, S, b, part_S, part_b, n, w, r, split,
@@ -61,9 +63,9 @@ SIGNATURES = {
                                                 _F, _F, _I, _I, _LL, _LL,
                                                 _LL, _P, _P, _P]),
     # topk_merge_ring_f32(U, V, valid, coll_s, coll_i, tickets, out_s,
-    #                     out_i, n, ni_loc, S, r, k, stream)
+    #                     out_i, n, ni_loc, S, r, k, P, stream)
     "topk_merge_ring": ("topk_merge_ring_f32", [_P, _P, _P, _P, _P, _P, _P,
-                                                _P, _LL, _LL, _I, _I, _I,
+                                                _P, _LL, _LL, _I, _I, _I, _I,
                                                 _P]),
 }
 

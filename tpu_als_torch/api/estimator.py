@@ -512,13 +512,18 @@ class ALSModel:
             block = max(1, int(self._get("blockSize")))
             valid = torch.ones(other.shape[0], dtype=torch.bool,
                                device=self.device)
-            ids_out = np.empty((Q.shape[0], k), dtype=other_ids.dtype)
-            scores_out = np.empty((Q.shape[0], k), dtype=np.float32)
-            for s in range(0, Q.shape[0], block):
-                sc, ix = topk_scores(Q[s:s + block].contiguous(), other,
-                                     valid, k, item_chunk=block)
-                ids_out[s:s + block] = other_ids[ix.cpu().numpy()]
-                scores_out[s:s + block] = sc.cpu().numpy()
+            # the blocks' results stay on the device until the last one
+            # is launched: one copy to the host, no wait between blocks
+            sc = torch.empty((0, k), dtype=torch.float32, device=self.device)
+            ix = torch.empty((0, k), dtype=torch.int64, device=self.device)
+            blocks = [topk_scores(Q[s:s + block].contiguous(), other, valid,
+                                  k, item_chunk=block)
+                      for s in range(0, Q.shape[0], block)]
+            if blocks:
+                sc = torch.cat([b[0] for b in blocks])
+                ix = torch.cat([b[1] for b in blocks])
+            ids_out = other_ids[ix.cpu().numpy()]
+            scores_out = sc.cpu().numpy()
         # one [n, k] structured array with the reference's struct field
         # names ((itemCol|userCol), 'rating'): column[row] is a [k] record
         # view whose elements unpack like (id, score) tuples

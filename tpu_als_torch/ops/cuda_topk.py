@@ -21,6 +21,13 @@ shard's stable top-k, then their stable merge in shard order — bitwise
 ``chunked_topk_scores`` over the concatenated catalog, tie order
 included; plain version :func:`topk_merge_ring_plain`.
 
+Both run one kernel, ``csrc/topk.cuh``'s scan, whose grid is (user tile,
+set): each shard's items are cut into P contiguous parts of whole item
+tiles (:func:`part_bounds`), a block per (user tile, shard, part), and
+the sets merge in order.  :func:`topk_parts` picks P from the shapes and
+the card's multiprocessor count; :func:`topk_parts_plain` is K5's
+function computed that way in plain PyTorch.
+
 A CUDA tensor goes to a kernel (or raises); only a CPU tensor takes a
 plain version.
 """
@@ -33,11 +40,14 @@ from tpu_als_torch import _build
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores, merge_topk
 
 MAX_K = 128
-# K8's merge holds one shard per lane of a warp
+# the scan's merge holds one set (a part of a shard) per lane of a warp:
+# S·P <= MAX_SHARDS
 MAX_SHARDS = 32
-# user rows per block in csrc/topk.cuh (kTU): K8's scratch holds one
-# candidate set per (tile of this many users, shard)
-_TILE_U = 64
+# csrc/topk.cuh's tile: user rows per block (kTU; the scratch holds one
+# candidate set per tile of this many users and set) and items per tile
+# (kTI; a part is whole tiles)
+TILE_U = 64
+TILE_I = 128
 
 # kernel launches in this process; a run reads them to show that its path
 # went through the kernels
@@ -73,11 +83,81 @@ def topk_route(k):
     return "kernel" if k <= MAX_K else "scan"
 
 
-def topk_scores(U, V, item_valid, k, item_chunk=8192):
+def topk_parts(n, ni_loc, S, sms):
+    """P, the parts each of S shards of ``ni_loc`` items is cut into for
+    ``n`` query rows on a card of ``sms`` multiprocessors: as many as keep
+    the (user tile, shard, part) blocks at most two a multiprocessor — 1
+    when the user tiles alone come to that — at most MAX_SHARDS // S (one
+    merge lane per set) and at most one part per item tile."""
+    blocks = -(-n // TILE_U) * S
+    if blocks == 0:
+        return 1
+    return max(1, min(2 * sms // blocks, MAX_SHARDS // S,
+                      -(-ni_loc // TILE_I)))
+
+
+def part_bounds(ni_loc, P):
+    """The item ranges [lo, hi) of the P parts of a shard of ``ni_loc``
+    items, as the kernel cuts it: part p takes the item tiles
+    [T·p // P, T·(p+1) // P) of the T = ceil(ni_loc / TILE_I)."""
+    T = -(-ni_loc // TILE_I)
+    return [(T * p // P * TILE_I, min(ni_loc, T * (p + 1) // P * TILE_I))
+            for p in range(P)]
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _parts(parts, n, ni_loc, S, device):
+    if parts is None:
+        return topk_parts(n, ni_loc, S, _sms(device))
+    if not 1 <= parts <= MAX_SHARDS // S:
+        raise ValueError(f"parts must be in [1, {MAX_SHARDS // S}] for {S} "
+                         f"shard(s), got {parts}")
+    return parts
+
+
+def _launch(name, U, V, valid, n, ni_loc, S, P, k):
+    """Scores and ids [n, k] of the scan over S shards of ``ni_loc``
+    items cut in P parts (``csrc/topk.cuh``), launched through the C entry
+    point of ``csrc/<name>.cu``."""
+    r = U.shape[1]
+    dev = U.device
+    scores = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, k), dtype=torch.int64, device=dev)
+    tiles = -(-n // TILE_U)
+    if S * P > 1:
+        coll_s = torch.empty(tiles * S * P * TILE_U * k, dtype=torch.float32,
+                             device=dev)
+        coll_i = torch.empty(tiles * S * P * TILE_U * k, dtype=torch.int64,
+                             device=dev)
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        scratch = (coll_s.data_ptr(), coll_i.data_ptr(), tickets.data_ptr())
+    else:
+        scratch = (None, None, None)
+    fn = _build.load(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if name == "topk":
+            err = fn(U.data_ptr(), V.data_ptr(), valid.data_ptr(), *scratch,
+                     scores.data_ptr(), ids.data_ptr(), n, ni_loc, r, k, P,
+                     stream)
+        else:
+            err = fn(U.data_ptr(), V.data_ptr(), valid.data_ptr(), *scratch,
+                     scores.data_ptr(), ids.data_ptr(), n, ni_loc, S, r, k,
+                     P, stream)
+    _build.check(err, f"{name}_f32")
+    return scores, ids
+
+
+def topk_scores(U, V, item_valid, k, item_chunk=8192, parts=None):
     """Top-k per row of U: on CUDA tensors the route :func:`topk_route`
-    names (K5, or the scan for k > MAX_K), the plain chunked version
-    (``item_chunk`` items per step) for CPU tensors; k = 0 gives empty
-    [n, 0] results and calls nothing."""
+    names (K5, its catalog cut in ``parts`` parts, by default
+    :func:`topk_parts`'s; or the scan for k > MAX_K), for CPU tensors the
+    plain chunked version (``item_chunk`` items per step), or with
+    ``parts`` :func:`topk_parts_plain`; k = 0 gives empty [n, 0] results
+    and calls nothing."""
     global LAUNCHES, SCAN_CALLS
     _check(U, V, item_valid, k)
     n, r = U.shape
@@ -86,6 +166,8 @@ def topk_scores(U, V, item_valid, k, item_chunk=8192):
         return (torch.empty((n, 0), dtype=torch.float32, device=U.device),
                 torch.empty((n, 0), dtype=torch.int64, device=U.device))
     if U.device.type == "cpu":
+        if parts is not None:
+            return topk_parts_plain(U, V, item_valid, k, parts)
         return chunked_topk_scores(U, V, item_valid, k,
                                    item_chunk=item_chunk)
     if U.device.type != "cuda":
@@ -97,41 +179,50 @@ def topk_scores(U, V, item_valid, k, item_chunk=8192):
     if not (U.is_contiguous() and V.is_contiguous()
             and item_valid.is_contiguous()):
         raise ValueError("top-k takes contiguous U, V and item_valid")
-    scores = torch.empty((n, k), dtype=torch.float32, device=U.device)
-    ids = torch.empty((n, k), dtype=torch.int64, device=U.device)
-    if n == 0:
-        return scores, ids
-    fn = _build.load("topk")
-    with torch.cuda.device(U.device):
-        stream = torch.cuda.current_stream(U.device).cuda_stream
-        err = fn(U.data_ptr(), V.data_ptr(), item_valid.data_ptr(),
-                 scores.data_ptr(), ids.data_ptr(), n, V.shape[0], r, k,
-                 stream)
-    _build.check(err, "topk_f32")
+    if n == 0 or V.shape[0] == 0:
+        return (torch.full((n, k), NEG_INF, dtype=torch.float32,
+                           device=U.device),
+                torch.zeros((n, k), dtype=torch.int64, device=U.device))
+    P = _parts(parts, n, V.shape[0], 1, U.device)
+    out = _launch("topk", U, V, item_valid, n, V.shape[0], 1, P, k)
     LAUNCHES += 1
-    return scores, ids
+    return out
 
 
-def topk_merge_ring_plain(U, V_shards, valid_shards, k):
-    """K8's function in plain PyTorch: the stable chunked top-k of every
-    shard (ids globalized, s·ni_loc + local), folded into the running set
-    in shard order by the stable merge, the carried set first."""
+def topk_merge_ring_plain(U, V_shards, valid_shards, k, parts=1):
+    """K8's function in plain PyTorch, its catalog cut as the kernel cuts
+    it: the stable chunked top-k of every part of every shard (ids
+    globalized, s·ni_loc + local), folded into the running set in shard
+    and part order by the stable merge, the carried set first.  Any
+    ``parts`` gives the same result."""
     S, ni_loc = V_shards.shape[:2]
     n = U.shape[0]
     best_s = torch.full((n, k), NEG_INF, dtype=torch.float32,
                         device=U.device)
     best_i = torch.zeros((n, k), dtype=torch.int64, device=U.device)
     for s in range(S):
-        cs, ci = chunked_topk_scores(U, V_shards[s], valid_shards[s], k)
-        best_s, best_i = merge_topk(best_s, best_i, cs, ci + s * ni_loc, k)
+        for lo, hi in part_bounds(ni_loc, parts):
+            cs, ci = chunked_topk_scores(U, V_shards[s, lo:hi],
+                                         valid_shards[s, lo:hi], k)
+            best_s, best_i = merge_topk(best_s, best_i, cs,
+                                        ci + s * ni_loc + lo, k)
     return best_s, best_i
 
 
-def topk_merge_ring(U, V_shards, valid_shards, k):
+def topk_parts_plain(U, V, item_valid, k, P):
+    """K5's function computed as the kernel splits it: P contiguous parts
+    of the catalog (:func:`part_bounds`), each part's stable top-k,
+    merged in part order — the stable order, so bitwise
+    ``chunked_topk_scores`` wherever the two compute the same scores."""
+    return topk_merge_ring_plain(U, V[None], item_valid[None], k, P)
+
+
+def topk_merge_ring(U, V_shards, valid_shards, k, parts=None):
     """Top-k over a catalog in S shards: U [n, r] f32, V_shards
     [S, ni_loc, r] f32, valid_shards [S, ni_loc] bool, 1 <= k <= 128 ->
     (scores [n, k] f32, ids [n, k] int64, global id s·ni_loc + local).
-    Kernel K8 for CUDA tensors, :func:`topk_merge_ring_plain` for CPU
+    Kernel K8 for CUDA tensors, each shard cut in ``parts`` parts (by
+    default :func:`topk_parts`'s); :func:`topk_merge_ring_plain` for CPU
     tensors."""
     global MERGE_LAUNCHES
     if V_shards.dim() != 3 or valid_shards.shape != V_shards.shape[:2]:
@@ -146,7 +237,8 @@ def topk_merge_ring(U, V_shards, valid_shards, k):
                          "merged candidate sets hold at most that many, as "
                          "the TPU kernel's do")
     if U.device.type == "cpu":
-        return topk_merge_ring_plain(U, V_shards, valid_shards, k)
+        return topk_merge_ring_plain(U, V_shards, valid_shards, k,
+                                     1 if parts is None else parts)
     if U.device.type != "cuda":
         raise ValueError(f"top-k runs on cuda or cpu, not {U.device}")
     if S > MAX_SHARDS:
@@ -157,24 +249,12 @@ def topk_merge_ring(U, V_shards, valid_shards, k):
             and valid_shards.is_contiguous()):
         raise ValueError("topk_merge_ring takes contiguous tensors")
     n = U.shape[0]
-    scores = torch.full((n, k), NEG_INF, dtype=torch.float32,
-                        device=U.device)
-    ids = torch.zeros((n, k), dtype=torch.int64, device=U.device)
     if n == 0 or ni_loc == 0:
-        return scores, ids
-    tiles = -(-n // _TILE_U)
-    coll_s = torch.empty(tiles * S * _TILE_U * k, dtype=torch.float32,
-                         device=U.device)
-    coll_i = torch.empty(tiles * S * _TILE_U * k, dtype=torch.int64,
-                         device=U.device)
-    tickets = torch.zeros(tiles, dtype=torch.int32, device=U.device)
-    fn = _build.load("topk_merge_ring")
-    with torch.cuda.device(U.device):
-        stream = torch.cuda.current_stream(U.device).cuda_stream
-        err = fn(U.data_ptr(), V_shards.data_ptr(), valid_shards.data_ptr(),
-                 coll_s.data_ptr(), coll_i.data_ptr(), tickets.data_ptr(),
-                 scores.data_ptr(), ids.data_ptr(), n, ni_loc, S, r, k,
-                 stream)
-    _build.check(err, "topk_merge_ring_f32")
+        return (torch.full((n, k), NEG_INF, dtype=torch.float32,
+                           device=U.device),
+                torch.zeros((n, k), dtype=torch.int64, device=U.device))
+    P = _parts(parts, n, ni_loc, S, U.device)
+    out = _launch("topk_merge_ring", U, V_shards, valid_shards, n, ni_loc,
+                  S, P, k)
     MERGE_LAUNCHES += 1
-    return scores, ids
+    return out

@@ -8,13 +8,16 @@ Phases (any failure exits non-zero before the final line):
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel of the port from ``tpu_als_torch/csrc`` (one nvcc per
    source, all started together);
-2. K2 (batched SPD solve, rank <= 128), K1 (blocked SPD solve) and K6
-   (blocked factorization above rank 128, written over its input)
-   against their plain versions on random SPD batches ``M Mᵀ/r + 0.5·I``
-   (K2 at ranks 10, 64, 128; K1 at 10, 128, 256; K6's L entry by entry
-   at 136, 256 and 384, past K1's 323, its storage holding L afterwards,
-   and x through ``spd_solve_lanes_blocked`` against a float64 solve),
-   with b = 0 rows and a near-singular row;
+2. K2 (batched SPD solve, rank <= 128), K1 (tiled SPD solve, any rank)
+   and K6 (tiled factorization above rank 128, written over its input,
+   and its fused solve) against their plain versions on random SPD
+   batches ``M Mᵀ/r + 0.5·I``, with b = 0 rows and a near-singular row,
+   and x against a float64 solve: K2 at ranks 10, 64, 128; K1 at 10,
+   128, 256, 288 (the most one block's shared memory holds), 323 and 384
+   (streamed), in batches of 1, 27 and 4,096; K6's L entry by entry at
+   136, 256, 288, 289 and 384 (on chip, then streamed), its storage
+   holding L afterwards, then the fused entry (the same L in A's storage,
+   x against its plain version and float64);
 3. K5 (fused score GEMM + top-k, ``csrc/topk.cuh``'s scan) against its
    plain version over the full 59,047-item catalog with ~10 % of items
    invalid, at ranks 40, 128, 256 and 320 (the query rows resident in
@@ -78,8 +81,12 @@ Phases (any failure exits non-zero before the final line):
    and K3 held
    against their plain versions once more on the item half-step's
    buckets (widths up to 2^13, and the wide rows split), at ranks 128
-   and 256; K6 on the rank-256 fold-in systems and on the fit's wide
-   rows, beside K1 on the same systems and the two substitutions; K7 over
+   and 256; K1 (rank 128) and K6's fused entry (rank 256) launch by
+   launch on the item half-step's wide buckets, as the fit launches them,
+   summed per half-step, and K6's fused entry on the rank-256 fold-in
+   batch, each beside the first port's route (K6's factor, then two
+   ``solve_triangular``), ``linalg.cholesky`` + ``cholesky_solve`` and K1
+   on the same systems; K7 over
    the sharded item half-step's ring grid (each bucket's time, every
    bucket held to K4's band against its plain version chunked the same
    way) beside the unfused ring half-step, after K7 == K4 bitwise at one
@@ -87,14 +94,16 @@ Phases (any failure exits non-zero before the final line):
    K4's band of the wide route (K3 + tail + K1) on its K3 buckets; K8 at
    the sharded serving shape beside its plain version and a matmul +
    stable sort; where K4's time goes on its buckets at both ranks (K3's
-   Gram, K1, K6 + the two substitutions, K2 at rank 128, and K4 itself,
-   bucket by bucket); each bucket's time in both half-steps, and one
+   Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
+   bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
 8. where the time goes: one training iteration, one more fold-in batch
    and one all-users recommend, and one rank-256 iteration and fold-in
    batch, under ``torch.profiler`` (wall, device busy, idle share, top
    kernels); then one JSON line with every kernel's numbers (K3, K4 and
-   K6 at rank 256 named so), and the final ``{"ok": true, ...}`` line.
+   K5 at rank 256 named so; K1's and K6's fit rows in ms per item
+   half-step, K6's fold-in row per batch), and the final ``{"ok": true,
+   ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
 in float32 outside the tensor cores, and for the Gram that K3, K4 and
@@ -271,26 +280,54 @@ def spd_batch(rng, N, r, dev):
     return A.contiguous(), b
 
 
+def spd_shape(rng, N, r, dev):
+    """``spd_batch`` of N systems; below 9 systems, N regular ones (cut
+    from a larger batch past its b = 0 rows and near-singular row)."""
+    if N >= 9:
+        return spd_batch(rng, N, r, dev)
+    A, b = spd_batch(rng, N + 9, r, dev)
+    return A[9:].contiguous(), b[9:].contiguous()
+
+
+def x64_err(x, A, b, ok):
+    """max |x - x64| on the rows ``ok``, x64 a float64 solve, and whether
+    it is within K2_RTOL/K2_ATOL."""
+    x64 = torch.linalg.solve(A[ok].double(), b[ok].double()[..., None])[
+        ..., 0]
+    return ((x[ok].double() - x64).abs().max().item(),
+            torch.allclose(x[ok].double(), x64, rtol=K2_RTOL, atol=K2_ATOL))
+
+
 def check_spd(name, solve, plain, shapes, rng, dev):
-    """Kernel vs plain on ``spd_batch``; returns the error at RANK."""
+    """Kernel vs plain on ``spd_shape``, and x against float64; the
+    caller's A must be left as it was; returns the largest error at
+    RANK."""
     worst = 0.0
     for r, N in shapes:
-        A, b = spd_batch(rng, N, r, dev)
+        A, b = spd_shape(rng, N, r, dev)
+        A0 = A.clone()
         xk = solve(A, b)
         xp = plain(A, b)
         torch.cuda.synchronize()
-        if not (torch.all(xk[:8] == 0) and torch.all(xp[:8] == 0)):
-            fail(f"{name} r={r}: b = 0 rows did not solve to 0")
-        if not torch.isfinite(xk[8]).all():
-            fail(f"{name} r={r}: near-singular row is not finite")
-        ok = slice(9, None)
+        ok = slice(9, None) if N >= 9 else slice(None)
+        if N >= 9:
+            if not (torch.all(xk[:8] == 0) and torch.all(xp[:8] == 0)):
+                fail(f"{name} r={r}: b = 0 rows did not solve to 0")
+            if not torch.isfinite(xk[8]).all():
+                fail(f"{name} r={r}: near-singular row is not finite")
+        if not torch.equal(A, A0):
+            fail(f"{name} r={r}: the caller's A was written")
         err = (xk[ok] - xp[ok]).abs().max().item()
         if not torch.allclose(xk[ok], xp[ok], rtol=K2_RTOL, atol=K2_ATOL):
-            fail(f"{name} r={r}: kernel vs plain max |diff| {err:.3e}")
-        log(f"{name.lower()} r={r} N={N}: max |kernel - plain| {err:.3e} "
-            f"(rtol {K2_RTOL}, atol {K2_ATOL})")
+            fail(f"{name} r={r} N={N}: kernel vs plain max |diff| {err:.3e}")
+        e64, fine = x64_err(xk, A, b, ok)
+        if not fine:
+            fail(f"{name} r={r} N={N}: x vs float64 max |diff| {e64:.3e}")
+        log(f"{name.lower()} r={r} N={N}: max |kernel - plain| {err:.3e}, "
+            f"|x - x64| {e64:.3e} (rtol {K2_RTOL}, atol {K2_ATOL})")
         if r == RANK:
-            worst = err
+            worst = max(worst, err)
+        del A, A0, b, xk, xp
     return worst
 
 
@@ -301,18 +338,26 @@ def check_k2(rng, dev):
 
 
 def check_k1(rng, dev):
+    """K1 at ranks 10, 128, 256, the 288 one block holds, 323 (the first
+    port's reach) and 384 (streamed), in batches of 1, 27 and 4,096."""
     return check_spd("K1", cuda_solve.spd_solve_blocked,
-                     cuda_solve.chol_blocked_plain,
-                     ((10, 4096), (128, 4096), (256, 512)), rng, dev)
+                     cuda_lanes.chol_solve_plain,
+                     ((10, 4096), (128, 4096), (128, 27), (128, 1),
+                      (256, 512), (256, 1), (288, 27), (323, 256),
+                      (384, 27), (384, 1)), rng, dev)
 
 
 def check_k6(rng, dev):
-    """K6 vs plain on ``spd_batch``, L entry by entry (it is written over
-    A, so A's storage must hold L afterwards), then x through
-    ``spd_solve_lanes_blocked`` against a float64 solve; returns the
-    error of L at rank 256."""
+    """K6's two entries vs their plain versions on ``spd_batch``: the
+    factor, L entry by entry (it is written over A, so A's storage must
+    hold L afterwards, zeros above the diagonal), then the fused solve:
+    the same L in A's storage, x against its plain version and a float64
+    solve.  Ranks 136, 256, the on-chip limit 288, one past it (289,
+    streamed) and 384; returns the largest error of L at rank 256."""
     worst = 0.0
-    for r, N in ((136, 512), (256, 4096), (384, 256)):
+    lim = cuda_solve.ONCHIP_MAX_RANK
+    for r, N in ((136, 512), (256, 4096), (lim, 512), (lim + 1, 256),
+                 (384, 256)):
         A, b = spd_batch(rng, N, r, dev)
         Ak = A.clone()
         ptr = Ak.untyped_storage().data_ptr()
@@ -329,21 +374,30 @@ def check_k6(rng, dev):
         err = (Ak[ok] - Lp[ok]).abs().max().item()
         if not torch.allclose(Ak[ok], Lp[ok], rtol=K2_RTOL, atol=K2_ATOL):
             fail(f"K6 r={r}: kernel vs plain max |diff| of L {err:.3e}")
-        x = cuda_lanes_blocked.spd_solve_lanes_blocked(A.clone(), b)
-        x64 = torch.linalg.solve(A.double(), b.double()[..., None])[..., 0]
+        del Lp
+        Af = A.clone()
+        x = cuda_lanes_blocked.spd_solve_lanes_blocked(Af, b)
+        xp = cuda_lanes_blocked.chol_lanes_blocked_solve_plain(A.clone(), b)
         torch.cuda.synchronize()
+        if not torch.equal(Af, Ak):
+            fail(f"K6 r={r}: the fused entry's L in A's storage differs "
+                 "from the factor entry's")
         if not torch.all(x[:8] == 0) or not torch.isfinite(x[8]).all():
             fail(f"K6 r={r}: b = 0 rows not 0, or the near-singular row "
                  "not finite")
-        e64 = (x[ok].double() - x64[ok]).abs().max().item()
-        if not torch.allclose(x[ok].double(), x64[ok], rtol=K2_RTOL,
-                              atol=K2_ATOL):
+        ex = (x[ok] - xp[ok]).abs().max().item()
+        if not torch.allclose(x[ok], xp[ok], rtol=K2_RTOL, atol=K2_ATOL):
+            fail(f"K6 r={r}: fused x vs plain max |diff| {ex:.3e}")
+        e64, fine = x64_err(x, A, b, ok)
+        if not fine:
             fail(f"K6 r={r}: x vs float64 max |diff| {e64:.3e}")
-        log(f"k6 r={r} N={N}: max |L - L_plain| {err:.3e}; x max |x - x64| "
-            f"{e64:.3e} (rtol {K2_RTOL}, atol {K2_ATOL}); L in A's storage")
+        log(f"k6 r={r} N={N} ({'on chip' if r <= lim else 'streamed'}): "
+            f"max |L - L_plain| {err:.3e}; fused: the same L in A's "
+            f"storage, max |x - x_plain| {ex:.3e}, |x - x64| {e64:.3e} "
+            f"(rtol {K2_RTOL}, atol {K2_ATOL})")
         if r == RANK256:
             worst = err
-        del A, Ak, L, Lp, x, x64
+        del A, Ak, Af, L, x, xp
     return worst
 
 
@@ -1083,9 +1137,8 @@ def serve_slice_256(fitted, rng, dev):
         REG, implicit_prefs=True, alpha=ALPHA, YtY=compute_yty(model._V))
     A_slice, b_slice = regularize(A, count), b.contiguous()
     del A, b
-    x_ref = cuda_lanes_blocked.substitute(
-        cuda_lanes_blocked.chol_lanes_blocked_plain(A_slice.clone()),
-        b_slice)
+    x_ref = cuda_lanes_blocked.chol_lanes_blocked_solve_plain(
+        A_slice.clone(), b_slice)
 
     srv = FoldInServer(model)
     _zero_launches()
@@ -1244,7 +1297,7 @@ def recommend_zero(model):
 
 def rank320_fit(seed, dev):
     """``ALS(rank=320).fit`` on the card, above K3/K4's rank: 'auto'
-    takes the einsum route, whose solves are K6 and two substitutions.
+    takes the einsum route, whose solves are K6's fused entry (streamed).
     Then one more item half-step on the card against a float64 solve of
     the same normal equations, row by row."""
     frame = synthetic_movielens(2000, 800, 40_000, seed=seed)
@@ -1528,54 +1581,85 @@ def train_timings(tr, errs, dev):
         f"bound_ms={b3:.4f} ({by3}: {bound_note(by_3, *fl_3)}) "
         f"launches/fit={tr['launches']['k3']}")
 
-    # the regularized systems of those wide rows (real rows only): K1 at
-    # rank 128; K6 (with K1 beside it) at rank 256
-    As, bs = [], []
+    # the solve launches of those wide buckets, as local_half_step issues
+    # them at this shape (a bucket a launch, its padding rows included):
+    # K1 at rank 128, K6's fused entry at rank 256
+    launches = []
     for b in k3_b:
         A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
             U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY, split_width=split)
-        real = b.rows < n_items
-        As.append(regularize(A, count)[real])
-        bs.append(rhs[real])
-    A1, b1 = torch.cat(As).contiguous(), torch.cat(bs).contiguous()
+        launches.append((regularize(A, count), rhs.contiguous(),
+                         int((b.rows < n_items).sum())))
+        del A, count
     if r > RANK:
-        out.append(k6_timings(A1, b1, tr["launches"]["k6"], errs["k6"],
-                              "the fit's wide rows"))
+        out.append(k6_timings(launches, tr["launches"]["k6"], errs["k6"],
+                              "fit"))
         return out
-    N1 = A1.shape[0]
-    ms1 = cuda_ms(lambda: cuda_solve.spd_solve_blocked(A1, b1), 20)
-    p1 = cuda_ms(lambda: cuda_solve.chol_blocked_plain(A1, b1), 2)
-    l1 = cuda_ms(lambda: torch.cholesky_solve(
-        b1[..., None], torch.linalg.cholesky(A1)), 20)
-    b1_ms, by1 = bound((N1 * r * (r + 1) // 2 + 2 * N1 * r) * 4,
-                       N1 * (r ** 3 / 3 + 2 * r * r))
-    out.append({"name": "spd_solve_pallas (K1)", "route": "cuda",
-                "source": "tpu_als_torch/csrc/chol_blocked.cu",
-                "replaces": "tpu_als/ops/pallas_solve.py:199",
-                "launches": tr["launches"]["k1"], "max_abs_err": errs["k1"],
-                "ms": ms1, "plain_ms": p1, "bound_ms": b1_ms,
-                "bound_by": by1, "library_ms": l1})
-    log(f"timing K1 N={N1} r={r} (the wide buckets' real rows): "
-        f"kernel_ms={ms1:.4f} "
-        f"plain_ms={p1:.4f} library_ms={l1:.4f} bound_ms={b1_ms:.4f} "
-        f"({by1}) launches/fit={tr['launches']['k1']}")
+    out.append(k1_timings(launches, tr["launches"]["k1"], errs["k1"]))
     return out
+
+
+def solve_bound(rows, r, store_l=False):
+    """(ms, by) of solving ``rows`` systems of rank r: reading A's lower
+    triangle and b, writing x (and, with ``store_l``, L's whole square
+    over A); r³/3 + 2r² flops each at the f32 FMA rate."""
+    nbytes = rows * (r * (r + 1) // 2 + 2 * r + (r * r if store_l else 0))
+    return bound(nbytes * 4, rows * (r ** 3 / 3 + 2 * r * r))
+
+
+def per_launch(launches, fn, reps):
+    """Each launch's ms (``fn(A, b)`` over ``reps`` calls, CUDA events)."""
+    return [cuda_ms(lambda A=A, b=b: fn(A, b), reps)
+            for A, b, _ in launches]
+
+
+def k1_timings(launches, fit_launches, err):
+    """K1 on the item half-step's wide buckets, launch by launch (a few
+    dozen systems each: the latency of one system), beside its plain
+    version, ``linalg.cholesky`` + ``cholesky_solve`` and K2 on the same
+    systems, summed per half-step.  Returns K1's row: the kernel's time
+    per half-step on the card (``kernel_ms_each``, primed)."""
+    r = launches[0][1].shape[1]
+    ms, ev = ([kernel_ms_each(lambda: None, lambda A=A, b=b:
+                              cuda_solve.spd_solve_blocked(A, b), 20,
+                              primed=p) for A, b, _ in launches]
+              for p in (True, False))
+    k2 = per_launch(launches, cuda_lanes.spd_solve_lanes, 20)
+    lib = per_launch(launches, lambda A, b: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky(A)), 20)
+    plain = per_launch(launches, cuda_lanes.chol_solve_plain, 1)
+    rows = sum(n for _, _, n in launches)
+    b_ms, by = solve_bound(rows, r)
+    sizes = [b.shape[0] for _, b, _ in launches]
+    log(f"timing K1 r={r} item half-step, {len(launches)} launches "
+        f"(systems {sizes}, {rows} real): kernel_ms={sum(ms):.4f} per "
+        f"half-step on the card ({sum(ms) / len(ms):.4f} a launch; by "
+        "launch " + ", ".join(f"{t:.4f}" for t in ms) + f"); with the "
+        f"host's enqueue {sum(ev):.4f} (CUDA events; "
+        + ", ".join(f"{t:.4f}" for t in ev) + f") plain_ms={sum(plain):.4f} "
+        f"library_ms={sum(lib):.4f} K2_ms={sum(k2):.4f} "
+        f"bound_ms={b_ms:.4f} ({by}) launches/fit={fit_launches}")
+    return {"name": "spd_solve_pallas (K1)", "route": "cuda",
+            "source": "tpu_als_torch/csrc/chol_blocked.cu",
+            "replaces": "tpu_als/ops/pallas_solve.py:199",
+            "launches": fit_launches, "max_abs_err": err,
+            "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": b_ms,
+            "bound_by": by, "library_ms": sum(lib)}
 
 
 def k4_split(tr, smi):
     """Where K4's time goes, on the rows it times (the item half-step's
     K4 buckets from the seeded init), bucket by bucket: (a) K3's Gram on
     those rows (one block a row, no width split), (b) K1 on their
-    regularized systems, (c) K6 plus the two substitutions on the same
-    systems, (d) K4 itself; at rank <= 128 also (e) K2 on the systems.
+    regularized systems, (c) K6's fused factorization and solve on the
+    same systems, (d) K4 itself; at rank <= 128 also (e) K2 on them.
     Each bucket's systems are built, timed and freed in turn, so the
     rank-256 systems (15 GB in all) never sit on the card together.
     Returns the sums in ms by name."""
     ib, U0, cfg = tr["ib"], tr["U0"], tr["cfg"]
     r = U0.shape[1]
     YtY = compute_yty(U0)
-    t = {"gram (K3)": 0.0, "K1": 0.0, "K6": 0.0, "substitutions": 0.0,
-         "K4": 0.0}
+    t = {"gram (K3)": 0.0, "K1": 0.0, "K6 fused": 0.0, "K4": 0.0}
     if r <= cuda_lanes.MAX_RANK:
         t["K2"] = 0.0
     for b in ib:
@@ -1594,27 +1678,31 @@ def k4_split(tr, smi):
         if "K2" in t:
             t["K2"] += cuda_ms(lambda: cuda_lanes.spd_solve_lanes(A, rhs), 1)
         Aw = torch.empty_like(A)
-        t["K6"] += kernel_ms_each(
+        t["K6 fused"] += kernel_ms_each(
             lambda: Aw.copy_(A),
-            lambda: cuda_lanes_blocked.chol_lanes_blocked(Aw), 1)
-        del A
-        t["substitutions"] += cuda_ms(
-            lambda: cuda_lanes_blocked.substitute(Aw, rhs), 1)
-        del Aw, rhs
+            lambda: cuda_lanes_blocked.spd_solve_lanes_blocked(Aw, rhs), 1)
+        del A, Aw, rhs
         t["K4"] += cuda_ms(lambda: cuda_gather_ne.gather_fused_solve_implicit(
             U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY), 1)
     log(f"k4 split r={r} (the item half-step's K4 buckets; {smi}): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-        + f"; K6 + substitutions {t['K6'] + t['substitutions']:.4f} ms; "
-        f"K3's Gram + K6 + substitutions "
-        f"{t['gram (K3)'] + t['K6'] + t['substitutions']:.4f} ms")
+        + f"; K3's Gram + K6 fused {t['gram (K3)'] + t['K6 fused']:.4f} ms")
     return t
 
 
-def kernel_ms_each(setup, fn, reps):
+# cycles the card spins before a primed timed call: ~50 µs at the
+# H100's 1.98 GHz, longer than the host takes to enqueue the call
+PRIME_CYCLES = 100_000
+
+
+def kernel_ms_each(setup, fn, reps, primed=True):
     """Mean milliseconds of ``fn`` alone over ``reps`` calls, each after
     an untimed ``setup()`` (K6 writes over its input, which is restored
-    before every call), after one warm-up."""
+    before every call), after one warm-up.  ``primed``: the card spins
+    (``torch.cuda._sleep``) while the host enqueues the call, so its CUDA
+    events time the card's work alone; else they also hold the host's
+    enqueue, as a caller waits for it (a launch of a few systems takes
+    about as long as the enqueue)."""
     setup()
     fn()
     total = 0.0
@@ -1622,6 +1710,8 @@ def kernel_ms_each(setup, fn, reps):
         setup()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        if primed:
+            torch.cuda._sleep(PRIME_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -1630,54 +1720,86 @@ def kernel_ms_each(setup, fn, reps):
     return total / reps
 
 
-def k6_timings(A, b, launches, err, what):
-    """K6 on the systems A [N, r, r] (regularized), b [N, r]: its time
-    beside its plain version's, ``torch.linalg.cholesky``'s and its bound
-    (reading the lower triangle once, writing the whole square: L with
-    zeros above the diagonal goes over A's symmetric input), the two
-    substitutions beside theirs, and K1 on the same systems; K6 is held
-    against its plain version here too (K6_REL).  Returns K6's row."""
-    N, r = b.shape
-    Aw = torch.empty_like(A)
+def triangular(L, b):
+    """The first port's substitutions after K6: two batched
+    ``torch.linalg.solve_triangular`` (a yardstick; the port runs K6's
+    fused entry)."""
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(1, 2), y,
+                                         upper=True)[..., 0]
 
-    def restore():
-        Aw.copy_(A)
 
-    L = cuda_lanes_blocked.chol_lanes_blocked(A.clone())
-    Lp = cuda_lanes_blocked.chol_lanes_blocked_plain(A.clone())
-    torch.cuda.synchronize()
-    e6 = (L - Lp).abs().max().item()
-    rel = e6 / Lp.abs().max().item()
-    if not (torch.isfinite(L).all() and rel <= K6_REL):
-        fail(f"K6 on {what}: max |L - L_plain| {e6:.3e}, {rel:.3e} of "
-             "max |L|")
-    del Lp
-    ms6 = kernel_ms_each(
-        restore, lambda: cuda_lanes_blocked.chol_lanes_blocked(Aw), 10)
-    p6 = cuda_ms(lambda: cuda_lanes_blocked.chol_lanes_blocked_plain(
-        A.clone()), 1)
-    l6 = cuda_ms(lambda: torch.linalg.cholesky(A), 10)
-    b6, by6 = bound(N * (r * (r + 1) // 2 + r * r) * 4, N * r ** 3 / 3)
-    ms_s = cuda_ms(lambda: cuda_lanes_blocked.substitute(L, b), 10)
-    bs_, bys = bound(N * (r * (r + 1) // 2 + 2 * r) * 4, N * 2 * r * r)
-    ms1 = cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 10)
-    b1, by1 = bound((N * r * (r + 1) // 2 + 2 * N * r) * 4,
-                    N * (r ** 3 / 3 + 2 * r * r))
-    log(f"timing K6 N={N} r={r} ({what}): kernel_ms={ms6:.4f} "
-        f"plain_ms={p6:.4f} library_ms={l6:.4f} (linalg.cholesky) "
-        f"bound_ms={b6:.4f} ({by6}) launches={launches}; max |L - L_plain| "
-        f"{e6:.3e} ({rel:.3e} of max |L|)")
-    log(f"timing substitutions N={N} r={r} ({what}, two solve_triangular): "
-        f"ms={ms_s:.4f} bound_ms={bs_:.4f} ({bys}); K6 + substitutions "
-        f"{ms6 + ms_s:.4f} ms")
-    log(f"timing K1 on the same systems N={N} r={r} ({what}): "
-        f"kernel_ms={ms1:.4f} bound_ms={b1:.4f} ({by1})")
-    return {"name": "chol_lanes_blocked (K6, rank 256)", "route": "cuda",
+def k6_timings(launches, fit_launches, err, what):
+    """K6 on the regularized systems ``launches`` [(A, b, real rows)]
+    ('fit': the rank-256 item half-step's wide buckets, a launch each;
+    'fold-in': one batch of 4,096 users): the fused entry (what the
+    routes run), launch by launch, beside the first port's route (the
+    factor entry, then two ``solve_triangular``), ``linalg.cholesky`` +
+    ``cholesky_solve``, K1 and the plain version, summed over the
+    launches, and its bound (the lower triangle and b read once, L's
+    square and x written once).  The fused entry and the first port's
+    route are timed on a primed card (``kernel_ms_each``), the fused
+    entry also as a caller waits for it.  The fused entry is held
+    against its plain version: L within K6_REL of max |L|, x within
+    FOLDIN_REL a row.  Returns K6's row."""
+    r = launches[0][1].shape[1]
+    e6 = ex = 0.0
+    t = {"fused": [], "fused, events": [], "factor + solve_triangular": [],
+         "library": [], "K1": [], "plain": []}
+    for A, b, _ in launches:
+        L = A.clone()
+        x = cuda_lanes_blocked.spd_solve_lanes_blocked(L, b)
+        Lp = A.clone()
+        xp, p = timed(
+            lambda: cuda_lanes_blocked.chol_lanes_blocked_solve_plain(Lp, b))
+        e = (L - Lp).abs().max().item()
+        rel, rx = e / Lp.abs().max().item(), row_rel(x, xp)
+        if not (torch.isfinite(L).all() and torch.isfinite(x).all()
+                and rel <= K6_REL and rx <= FOLDIN_REL):
+            fail(f"K6 on the {what} systems (N={b.shape[0]}): max |L - "
+                 f"L_plain| {e:.3e}, {rel:.3e} of max |L|; x {rx:.3e} of "
+                 "|x| a row")
+        e6, ex = max(e6, e), max(ex, rx)
+        del L, Lp, x, xp
+        Aw = torch.empty_like(A)
+        t["plain"].append(p)
+        for key, primed in (("fused", True), ("fused, events", False)):
+            t[key].append(kernel_ms_each(
+                lambda: Aw.copy_(A),
+                lambda: cuda_lanes_blocked.spd_solve_lanes_blocked(Aw, b), 10,
+                primed=primed))
+        t["factor + solve_triangular"].append(kernel_ms_each(
+            lambda: Aw.copy_(A),
+            lambda: triangular(cuda_lanes_blocked.chol_lanes_blocked(Aw), b),
+            10))
+        t["library"].append(cuda_ms(lambda: torch.cholesky_solve(
+            b[..., None], torch.linalg.cholesky(A)), 10))
+        t["K1"].append(cuda_ms(
+            lambda: cuda_solve.spd_solve_blocked(A, b), 10))
+        del Aw
+    rows = sum(n for _, _, n in launches)
+    b6, by6 = solve_bound(rows, r, store_l=True)
+    ms = {k: sum(v) for k, v in t.items()}
+    per = "" if len(launches) == 1 else (
+        f" ({ms['fused'] / len(launches):.4f} a launch; by launch "
+        + ", ".join(f"{v:.4f}" for v in t["fused"]) + ")")
+    log(f"timing K6 r={r} ({what}: {len(launches)} launch(es), systems "
+        f"{[b.shape[0] for _, b, _ in launches]}, {rows} real): fused "
+        f"kernel_ms={ms['fused']:.4f} on the card{per}; with the host's "
+        f"enqueue {ms['fused, events']:.4f} (CUDA events) "
+        f"plain_ms={ms['plain']:.4f} "
+        f"library_ms={ms['library']:.4f} (linalg.cholesky + "
+        f"cholesky_solve) factor + two solve_triangular "
+        f"{ms['factor + solve_triangular']:.4f} K1 {ms['K1']:.4f} "
+        f"bound_ms={b6:.4f} ({by6}) launches={fit_launches}; max |L - "
+        f"L_plain| {e6:.3e}, x {ex:.3e} of |x| a row")
+    return {"name": f"chol_lanes_blocked (K6, rank {r}, {what})",
+            "route": "cuda",
             "source": "tpu_als_torch/csrc/chol_lanes_blocked.cu",
             "replaces": "tpu_als/ops/pallas_lanes_blocked.py:181",
-            "launches": launches, "max_abs_err": max(err, e6),
-            "ms": ms6, "plain_ms": p6, "bound_ms": b6, "bound_by": by6,
-            "library_ms": l6}
+            "launches": fit_launches, "max_abs_err": max(err, e6),
+            "ms": ms["fused"], "plain_ms": ms["plain"], "bound_ms": b6,
+            "bound_by": by6, "library_ms": ms["library"]}
 
 
 def ring_timings(sh, tr, errs, dev):
@@ -1996,8 +2118,8 @@ def main():
     kernels.append(ring_timings(sh, tr, errs, dev))
     del sh
     kernels.append(merge_timings(tr["model"], launches8, dev))
-    k6_timings(A256, b256, launches256["k6"], errs["k6"],
-               "the rank-256 fold-in batch")
+    kernels.append(k6_timings([(A256, b256, b256.shape[0])],
+                              launches256["k6"], errs["k6"], "fold-in"))
     del A256, b256
     kernels.sort(key=lambda k: k["name"].split("(K")[1])
     bucket_times(tr)

@@ -124,7 +124,7 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
     m.recommend_arrays(3)
     np.testing.assert_array_equal(
         cuda_solve.spd_solve_blocked(A, b).numpy(),
-        cuda_solve.chol_blocked_plain(A, b).numpy())
+        cuda_lanes.chol_solve_plain(A, b).numpy())
     V = torch.from_numpy(rng.normal(size=(20, 5)).astype(np.float32))
     cols = torch.from_numpy(rng.integers(0, 20, (4, 8)).astype(np.int32))
     w = torch.ones(4, 8)
@@ -140,7 +140,7 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
         A.clone()))
     assert torch.equal(
         cuda_lanes_blocked.spd_solve_lanes_blocked(A.clone(), b),
-        cuda_lanes_blocked.substitute(L, b))
+        cuda_lanes_blocked.chol_lanes_blocked_solve_plain(A.clone(), b))
     model = tpu_als_torch.ALS(rank=4, maxIter=2, implicitPrefs=True,
                               device="cpu").fit(_ratings())
     assert torch.isfinite(model._U).all()

@@ -1,5 +1,5 @@
-"""Parity of kernel K6 (blocked Cholesky factor above rank 128) with
-``tpu_als/ops/pallas_lanes_blocked.py``.
+"""Parity of kernel K6 (blocked Cholesky factor above rank 128, and its
+fused solve) with ``tpu_als/ops/pallas_lanes_blocked.py``.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 port runs on the CPU, where the wrapper takes the kernel's plain version;
@@ -51,10 +51,11 @@ def test_plain_matches_pallas_kernel_interpret(reference_256):
     assert np.all(np.triu(L, 1) == 0) and np.all(np.triu(ref, 1) == 0)
 
 
-@pytest.mark.parametrize("r", [136, 200, 384])
+@pytest.mark.parametrize("r", [136, 200, 256, 384])
 def test_plain_matches_float64_cholesky(r):
-    """Ranks that leave a last block column narrower than 64 (136, 200)
-    and one past K1's shared-memory limit (384)."""
+    """Ranks that leave a last tile narrower than 32 (136, 200), the
+    fold-in's rank (256) and one the kernel streams, past the 288 that
+    one block's shared memory holds (384)."""
     A, _ = _spd(r, 4, r)
     L = k6.chol_lanes_blocked(torch.from_numpy(A.copy())).numpy()
     np.testing.assert_allclose(L, np.linalg.cholesky(A.astype(np.float64)),
@@ -69,16 +70,17 @@ def test_factor_is_written_over_the_input():
     assert L.data_ptr() == tA.data_ptr()
     np.testing.assert_allclose(L.numpy() @ np.swapaxes(L.numpy(), 1, 2), A,
                                rtol=RTOL, atol=ATOL)
-    # spd_solve_lanes_blocked factors its A in place, then substitutes
+    # the fused spd_solve_lanes_blocked leaves the same L in A's storage
     tA = torch.from_numpy(A.copy())
     x = k6.spd_solve_lanes_blocked(tA, torch.from_numpy(b)).numpy()
+    assert torch.equal(tA, L)
     assert np.all(np.triu(tA.numpy(), 1) == 0)
     np.testing.assert_allclose(x, np.linalg.solve(
         A.astype(np.float64), b.astype(np.float64)[..., None])[..., 0],
         rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("r", [136, 256])
+@pytest.mark.parametrize("r", [136, 256, 320])
 def test_solve_spd_lanes_blocked_matches_reference(r):
     """``solve_spd(backend='lanes_blocked')`` (and 'auto', which is K6
     above rank 128) against the reference's XLA solve, with empty rows
@@ -106,6 +108,23 @@ def test_solve_spd_lanes_blocked_matches_reference(r):
     assert torch.equal(tA, torch.from_numpy(A))  # the caller's A is intact
     np.testing.assert_array_equal(
         tsolve.solve_spd(tA, tb, tc).numpy(), x)
+
+
+@pytest.mark.parametrize("r", [136, 384])
+def test_fused_plain_matches_float64_solve(r):
+    """The fused entry's plain version: x against a float64 solve, b = 0
+    rows exactly 0, and L over A as :func:`chol_lanes_blocked_plain`
+    writes it."""
+    A, b = _spd(500 + r, 4, r)
+    b[1] = 0.0
+    tA = torch.from_numpy(A.copy())
+    x = k6.chol_lanes_blocked_solve_plain(tA, torch.from_numpy(b)).numpy()
+    ref = np.linalg.solve(A.astype(np.float64),
+                          b.astype(np.float64)[..., None])[..., 0]
+    np.testing.assert_allclose(x, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(x[1], 0.0)
+    assert torch.equal(tA, k6.chol_lanes_blocked_plain(
+        torch.from_numpy(A.copy())))
 
 
 def test_wrapper_checks():

@@ -245,9 +245,10 @@ def test_k2_wrapper_rejects_bad_inputs():
 
 @pytest.mark.parametrize("r", [10, 24, 128])
 def test_k1_plain_matches_pallas_solve_interpret(r):
-    """The blocked factorization (panel 16) against the TPU kernel; r = 10
-    and 24 exercise a last panel narrower than 16 (the TPU side pads the
-    rank to a panel multiple with an identity block)."""
+    """K1's plain version (the tiled order of ``chol_tiled.cuh``, 32 x 32
+    tiles) against the TPU kernel (panels of 16); r = 10 and 24 exercise
+    a last panel narrower than 16 on the TPU side (padded with an
+    identity block) and a single partial tile here."""
     A, b = _spd(30 + r, 9, r)
     A = A + jsolve.DEFAULT_JITTER * np.eye(r, dtype=np.float32)
     b[:2] = 0.0
@@ -258,9 +259,28 @@ def test_k1_plain_matches_pallas_solve_interpret(r):
     np.testing.assert_array_equal(x[:2], 0.0)
 
 
+@pytest.mark.parametrize("r", [256, 320])
+def test_k1_plain_matches_xla_backend_at_wide_ranks(r):
+    """K1 takes any rank: on chip up to rank 288 (256), streamed above
+    it (320), with one arithmetic, so one plain version; against the
+    reference's XLA solve, with b = 0 rows solving to 0."""
+    A, b = _spd(60 + r, 6, r)
+    b[:2] = 0.0
+    ref = np.asarray(jsolve.solve_spd(jnp.asarray(A), jnp.asarray(b),
+                                      jnp.ones(6), jitter=0.0,
+                                      backend="xla"))
+    x = cuda_solve.spd_solve_blocked(*_t(A, b)).numpy()
+    _close_rowwise(x, ref)
+    np.testing.assert_array_equal(x[:2], 0.0)
+
+
 def test_k1_wrapper_limits_and_checks():
-    assert cuda_solve.MAX_RANK == 323
-    assert cuda_solve.smem_bytes(256) == (256 * 257 // 2 + 17 * 256) * 4
+    """K1's reach is any rank; the pins are the on-chip limit (9 tiles
+    of 32 a side) and the shared memory of its layout: T(T+1)/2 tiles of
+    32 x 36 floats and three vectors of 32·T floats."""
+    assert cuda_solve.ONCHIP_MAX_RANK == 288
+    assert cuda_solve.smem_bytes(256) == (36 * 32 * 36 + 3 * 32 * 8) * 4
+    assert cuda_solve.smem_bytes(289) > cuda_solve.SMEM_BYTES
     A, b = _spd(8, 4, 3)
     with pytest.raises(TypeError):
         cuda_solve.spd_solve_blocked(torch.from_numpy(A).double(),
@@ -272,8 +292,9 @@ def test_k1_wrapper_limits_and_checks():
 
 @pytest.mark.parametrize("r", [16, 136])
 def test_solve_spd_backends_agree(r):
-    """'lanes' (K2), 'lanes_blocked' (K6) and 'pallas' (K1) solve the
-    same guarded systems; 'auto' is K2 up to rank 128 and K6 above."""
+    """'lanes' (K2), 'lanes_blocked' (K6's fused solve) and 'pallas' (K1)
+    solve the same guarded systems; 'auto' is K2 up to rank 128 and K6
+    above."""
     A, b = _spd(40 + r, 12, r)
     count = np.ones(12, np.float32)
     count[3] = 0.0

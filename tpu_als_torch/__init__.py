@@ -24,9 +24,9 @@ version.
 
 Package map:
   ops/     normal equations, CG, the SPD solves (kernels K1 and K2, and
-           K6's factorization above rank 128), the fused gather + Gram
-           (K3) and gather + solve (K4) and its ring over shards (K7),
-           top-k (K5) and the cross-shard top-k merge (K8)
+           K6's factorization and fused solve above rank 128), the
+           fused gather + Gram (K3) and gather + solve (K4) and its ring
+           over shards (K7), top-k (K5) and the cross-shard top-k merge (K8)
   core/    id maps and bucketed CSR, the training loop, fold-in, predict
   stream/  the micro-batch fold-in server
   parallel/  the mesh, sharded layouts, the sharded trainer and server

@@ -13,7 +13,8 @@ or imported when this module is imported.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; the
-wrappers raise when that is non-zero.
+wrappers raise when that is non-zero.  An entry point is named after its
+source unless :data:`SIGNATURES` names the source beside it.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 
-# C entry point and its argument types, per source
+# per entry point: its C name, its argument types and, where the source
+# is not ``csrc/<name>.cu``, the source's name
 SIGNATURES = {
     # chol_solve_f32(A, b, x, n, r, stream)
     "chol_solve": ("chol_solve_f32", [_P, _P, _P, _LL, _I, _P]),
@@ -55,6 +57,11 @@ SIGNATURES = {
                                       _P]),
     # chol_lanes_blocked_f32(A, n, r, stream): L written over A
     "chol_lanes_blocked": ("chol_lanes_blocked_f32", [_P, _LL, _I, _P]),
+    # chol_lanes_blocked_solve_f32(A, b, x, n, r, stream): L written over
+    # A, and x
+    "chol_lanes_blocked_solve": ("chol_lanes_blocked_solve_f32",
+                                 [_P, _P, _P, _LL, _I, _P],
+                                 "chol_lanes_blocked"),
     # gather_solve_ring(bases, per, cols, aw, bw, cw, YtY, x, D, S, n, w, r,
     #                   reg_w, jitter, two_sided, bf16, split, row0, nrows,
     #                   part, sums, stream)
@@ -93,6 +100,11 @@ def _lib_path(name):
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()}.so")
 
 
+def _source(name):
+    """The source an entry point is built from."""
+    return SIGNATURES[name][2] if len(SIGNATURES[name]) > 2 else name
+
+
 def _start(name):
     """Start the nvcc build of one source; None when already built."""
     out = _lib_path(name)
@@ -122,19 +134,22 @@ def load_all():
     """:func:`load` every source, with all the nvcc builds started
     together, so a cold build takes as long as its slowest source rather
     than their sum; returns the C entry points by name."""
-    for started in [_start(name) for name in SIGNATURES]:
+    sources = dict.fromkeys(_source(name) for name in SIGNATURES)
+    for started in [_start(src) for src in sources]:
         _finish(started)
     return {name: load(name) for name in SIGNATURES}
 
 
 def load(name):
-    """The C entry point of ``csrc/<name>.cu``, built if needed."""
+    """The C entry point ``name`` (of ``csrc/<name>.cu`` unless
+    :data:`SIGNATURES` names another source), built if needed."""
     fn = _LIBS.get(name)
     if fn is not None:
         return fn
-    _finish(_start(name))
-    sym, argtypes = SIGNATURES[name]
-    fn = getattr(ctypes.CDLL(_lib_path(name)), sym)
+    src = _source(name)
+    _finish(_start(src))
+    sym, argtypes = SIGNATURES[name][:2]
+    fn = getattr(ctypes.CDLL(_lib_path(src)), sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _LIBS[name] = fn

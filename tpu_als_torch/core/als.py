@@ -10,12 +10,12 @@ bucket of width <= :data:`SPLIT_WIDTH` goes through kernel K4
 (``gatherfused_solve``: gather, Gram, tail and solve in one call, a
 row's Gram and its solve each in a block); a wider bucket goes through
 kernel K3 with its width split over blocks, the ``normal_eq`` tail, and
-a solve kernel: K1 up to rank 128 (``gatherfused+pallas_cholesky``), K6
-and two triangular solves above (``gatherfused+pallas_lanes_blocked``).
+a solve kernel: K1 up to rank 128 (``gatherfused+pallas_cholesky``), K6's
+fused factorization and solve above (``gatherfused+pallas_lanes_blocked``).
 K3 and K4 hold rank <= :data:`~tpu_als_torch.ops.cuda_gather_ne.MAX_RANK`
 (256): above it
 'auto' resolves, from the rank alone, to the einsum route (``V[cols]``,
-the torch normal equations, K6 and two triangular solves:
+the torch normal equations and K6's fused solve:
 ``einsum+pallas_lanes_blocked``), as the reference's 'auto' does where
 its fused kernel does not fit; forced to K3 or K4 there, their wrappers
 raise on the card.
@@ -130,9 +130,9 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
             return "einsum+" + solver
         if width <= SPLIT_WIDTH:
             return "gatherfused_solve"
-        # the wide rows' systems: K1 where K2 would be auto's solver (a
-        # few hundred systems a half-step, ~0.2 ms at the ML-25M shape,
-        # PERF.md), K6 above rank 128
+        # the wide rows' systems: K1 where K2 would be auto's solver (1
+        # to 128 systems a launch at the ML-25M shape: K1 is built for the
+        # latency of one system, PERF.md), K6 above rank 128
         return "gatherfused+" + ("pallas_cholesky" if solver == "pallas_lanes"
                                  else solver)
     return "einsum+" + solver

@@ -7,8 +7,8 @@ entity u with ratings against the fixed factor table V,
 
 — one half-step restricted to the touched rows.  The gather and the
 normal equations are PyTorch ops; on the card the SPD solve is kernel K2
-up to rank 128 and kernel K6 (then two triangular solves) above
-(:func:`tpu_als_torch.ops.solve.solve_spd`).
+up to rank 128 and kernel K6 (factorization and both substitutions in
+one call) above (:func:`tpu_als_torch.ops.solve.solve_spd`).
 """
 
 from __future__ import annotations

@@ -131,8 +131,8 @@ def _cuda_ready(name, V, *tensors):
             f"{name}: rank {r} > {MAX_RANK}: the tensor-core Gram's warp "
             "tiles and the solve's tiles in shared memory hold at most rank "
             "256; a Gram streamed through device memory (as K6 streams its "
-            "blocks) is not written yet; 'auto' takes the einsum route "
-            "above it")
+            "block columns above rank 288) is not written yet; 'auto' takes "
+            "the einsum route above it")
     if not all(t.is_contiguous() for t in (V,) + tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 

@@ -2,11 +2,11 @@
 
 Counterpart of ``tpu_als/ops/pallas_lanes.py::spd_solve_lanes``.  The
 CUDA source is ``tpu_als_torch/csrc/chol_solve.cu`` (device routines in
-``csrc/chol_tiled.cuh``, which the solve pass of kernels K4 and K7 also
-runs).  Same contract: A [N, r, r] f32 already regularized by
-:func:`tpu_als_torch.ops.solve.solve_spd`, b [N, r] f32 -> x [N, r]
-f32; only the lower triangle of A is read; a row with b = 0 solves to
-x = 0; pivots are scaled by ``rsqrt(max(d, 1e-30))``.
+``csrc/chol_tiled.cuh``, which kernels K1 and K6 and the solve pass of
+kernels K4 and K7 also run).  Same contract: A [N, r, r] f32 already
+regularized by :func:`tpu_als_torch.ops.solve.solve_spd`, b [N, r] f32
+-> x [N, r] f32; only the lower triangle of A is read; a row with b = 0
+solves to x = 0; pivots are scaled by ``rsqrt(max(d, 1e-30))``.
 
 A CUDA tensor goes to the kernel (or raises); only a CPU tensor takes
 :func:`chol_solve_plain`.
@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 from tpu_als_torch import _build
-from tpu_als_torch.ops.cuda_solve import substitute_plain
 
 MAX_RANK = 128
 PIVOT_FLOOR = 1e-30
@@ -28,14 +27,15 @@ TILE = 32  # the kernel's tile side and block column width
 LAUNCHES = 0
 
 
-def factorize_plain(A):
+def factorize_plain(A, divide=False):
     """L with A = L Lᵀ, in the order of ``csrc/chol_tiled.cuh``: per block
     column of :data:`TILE` columns, the diagonal tile column by column
     (right-looking inside it; the pivot scaled by ``rsqrt(max(d,
-    1e-30))``), the rows below it column by column with the same scale,
-    then one trailing update Σ_q P[:, q] P[:, q]ᵀ over the block column's
-    columns q in order.  Element-wise products only (no matmul), so no
-    TF32 rounding can enter on the card."""
+    1e-30))``), the rows below it column by column with the same scale
+    (``divide``: divided by ``max(L_jj, 1e-30)``, K6's rule), then one
+    trailing update Σ_q P[:, q] P[:, q]ᵀ over the block column's columns
+    q in order.  Element-wise products only (no matmul), so no TF32
+    rounding can enter on the card."""
     N, r = A.shape[0], A.shape[-1]
     L = torch.tril(A)
     for k0 in range(0, r, TILE):
@@ -51,7 +51,11 @@ def factorize_plain(A):
         if k1 == r:
             break
         for j in range(k0, k1):  # the rows below it
-            l = L[:, k1:, j] * inv[j - k0][:, None]
+            if divide:
+                l = L[:, k1:, j] / torch.clamp(L[:, j, j],
+                                               min=PIVOT_FLOOR)[:, None]
+            else:
+                l = L[:, k1:, j] * inv[j - k0][:, None]
             L[:, k1:, j] = l
             L[:, k1:, j + 1:k1] -= l[:, :, None] * L[:, None, j + 1:k1, j]
         P = L[:, k1:, k0:k1]
@@ -62,10 +66,29 @@ def factorize_plain(A):
     return L
 
 
+def substitute_plain(L, b, divide=False):
+    """x with L Lᵀ x = b: column-oriented forward, row-oriented back
+    substitution, each dividing by L_jj (``divide``: by ``max(L_jj,
+    1e-30)``), the order of ``chol_tiled.cuh``'s substitutions."""
+    r = L.shape[-1]
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    if divide:
+        d = torch.clamp(d, min=PIVOT_FLOOR)
+    res = b.clone()
+    for j in range(r):
+        res[:, j] = res[:, j] / d[:, j]
+        res[:, j + 1:] -= res[:, j, None] * L[:, j + 1:, j]
+    x = torch.empty_like(b)
+    for j in range(r - 1, -1, -1):
+        x[:, j] = res[:, j] / d[:, j]
+        res[:, :j] -= x[:, j, None] * L[:, j, :j]
+    return x
+
+
 def chol_solve_plain(A, b):
     """The kernel's arithmetic in plain PyTorch, batched over N (any
-    rank: it is also the solve of K4's and K7's plain versions): the
-    tiled factorization, then K1's substitutions (column-oriented
+    rank: it is also the solve of K1's, K4's and K7's plain versions):
+    the tiled factorization, then the substitutions (column-oriented
     forward and back, dividing by L_jj), whose order the kernel's warp
     follows."""
     return substitute_plain(factorize_plain(A), b)
@@ -96,9 +119,10 @@ def spd_solve_lanes(A, b):
     N, r = b.shape
     if r > MAX_RANK:
         raise NotImplementedError(
-            f"rank {r} > {MAX_RANK}: the rank-256 solve kernel "
-            "(tpu_als/ops/pallas_lanes_blocked.py::chol_lanes_blocked, "
-            "K6) is not ported to CUDA yet")
+            f"rank {r} > {MAX_RANK}: K2 takes ranks up to {MAX_RANK}; "
+            "solve_spd sends larger ranks to K6 (backend 'lanes_blocked', "
+            "ops/cuda_lanes_blocked.py) and K1 ('pallas', "
+            "ops/cuda_solve.py) takes any rank")
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("spd_solve_lanes takes contiguous A and b")
     x = torch.empty_like(b)

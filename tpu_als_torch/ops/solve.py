@@ -6,9 +6,9 @@ contract, ``solve_nnls`` and the warm-started CG solvers of inexact
 ALS.  The normal-equation contractions and CG stay PyTorch ops, as the
 JAX package leaves them to XLA; the SPD solve is kernel K2
 (:mod:`tpu_als_torch.ops.cuda_lanes`, rank <= 128), kernel K6
-(:mod:`tpu_als_torch.ops.cuda_lanes_blocked`, the factorization above
-rank 128, then two triangular solves) or, by name, kernel K1
-(:mod:`tpu_als_torch.ops.cuda_solve`, blocked, rank <= 323) on a CUDA
+(:mod:`tpu_als_torch.ops.cuda_lanes_blocked`, above rank 128: the
+factorization and both substitutions in one call) or, by name, kernel K1
+(:mod:`tpu_als_torch.ops.cuda_solve`, tiled, any rank) on a CUDA
 tensor, and their plain versions on a CPU tensor.  The ``adaptive=``
 jitter ladder belongs to the guardrails slice and is not here.
 
@@ -136,8 +136,8 @@ def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
     """Batched SPD solve x = A⁻¹ b after :func:`regularize`.
 
     ``backend``: 'auto' (:func:`auto_solve_backend`), or a name of
-    :data:`SOLVERS`: 'lanes' forces K2, 'lanes_blocked' K6 and the two
-    triangular solves, 'pallas' K1.  bfloat16 input is upcast to float32
+    :data:`SOLVERS`: 'lanes' forces K2, 'lanes_blocked' K6's fused
+    solve, 'pallas' K1.  bfloat16 input is upcast to float32
     before the guard, solved, and the answer cast back (there is no bf16
     factorization).
     """

@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the final line):
 
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel of the port from ``tpu_als_torch/csrc`` (one nvcc per
-   source, all started together);
+   source, all started together), then the native bucketizer and CSV
+   reader from ``tpu_als_torch/io/native`` (g++), all into
+   ``tpu_als_torch/_build/``;
 2. K2 (batched SPD solve, rank <= 128), K1 (tiled SPD solve, any rank)
    and K6 (tiled factorization above rank 128, written over its input,
    and its fused solve) against their plain versions on random SPD
@@ -17,7 +19,13 @@ Phases (any failure exits non-zero before the final line):
    (streamed), in batches of 1, 27 and 4,096; K6's L entry by entry at
    136, 256, 288, 289 and 384 (on chip, then streamed), its storage
    holding L afterwards, then the fused entry (the same L in A's storage,
-   x against its plain version and float64);
+   x against its plain version and float64); then the adaptive ladder
+   (``solve_spd(adaptive=True)``, ``solve_spd_checked``, jitter 0)
+   through K2 and K1 at rank 128 and K6 at rank 256 on 4,096 systems, 512
+   of them hostile (rank-deficient, or indefinite within the last rung):
+   the healthy rows bitwise the plain solve, every row within the
+   residual rule, 7 NaN rows raising ``SolveUnstable(7, 4096)``, and the
+   ladder's time beside the plain solve's on a healthy batch;
 3. K5 (fused score GEMM + top-k, ``csrc/topk.cuh``'s scan) against its
    plain version over the full 59,047-item catalog with ~10 % of items
    invalid, at ranks 40, 128, 256 and 320 (the query rows resident in
@@ -42,7 +50,11 @@ Phases (any failure exits non-zero before the final line):
    sparse validity mask and an all-invalid shard;
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
-   layout both ways (host seconds), each bucket's route, then
+   layout both ways, by the native bucketizer and by numpy (host
+   seconds each, array-equal; the fits train on the native layout), each
+   bucket's route; the frame written as a 25M-line ``ratings.csv`` and
+   read back by the native reader (equal to the frame) and, on its first
+   1M rows, by the Python twin (equal), rows a second each; then
    ``ALS(rank=128, implicitPrefs=True, alpha=40.0, regParam=0.01,
    maxIter=3).fit`` on the card with K1/K3/K4 launch counts read around
    it, per-iteration wall time, finite factors, and one iteration from
@@ -55,7 +67,17 @@ Phases (any failure exits non-zero before the final line):
    source grid (host seconds, padded entries), ``train_sharded(...,
    strategy='ring')`` with ``solve_backend='gather_fused_ring'`` (K7) for
    2 iterations from the init of a 2-iteration single-device fit, row by
-   row against it, and one iteration of the unfused ring (K2);
+   row against it, and one iteration of the unfused ring (K2); then the
+   guardrails at rank 128: ``guardrails='recover'`` under
+   ``solve.gram=corrupt@nth=2`` (one rollback, finite factors, the
+   implicit objective within RECOVER_OBJ_REL of the clean fit's, the
+   factors row by row against the rollback replayed without the
+   guardrails, and two faulty replays shown to fall outside; K3 +
+   K1/K2 launched, no K4), ``'warn'`` under the same fault (a trip, no
+   rollback; K4 + K3 + K1), a clean ``'recover'`` fit against the
+   guardrails-off fit row by row, the iteration wall of each mode, and a
+   fit on ratings poisoned with NaN, inf, 1e9 and -2e6, quarantined with
+   the exact count;
 6. the serving slice at the ML-25M shape (rank 128, implicit, alpha 40,
    regParam 0.01) from seeded random factors: save/load,
    ``FoldInServer.update`` on hourly-style batches of 4,096 users (half
@@ -117,6 +139,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import tempfile
 import time
@@ -124,15 +147,19 @@ import time
 import numpy as np
 import torch
 
-from tpu_als_torch import _build
+from tpu_als_torch import _build, obs
 from tpu_als_torch.api.estimator import ALS, ALSModel
 from tpu_als_torch.convert import entity_rows, model_from_arrays, slot_rows
 from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
 from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
-from tpu_als_torch.io.movielens import ML25M_SHAPE, synthetic_movielens
+from tpu_als_torch.io import _native_build, fastbucket, fastcsv
+from tpu_als_torch.io.movielens import (ML25M_SHAPE, load_movielens_csv,
+                                        synthetic_movielens)
+from tpu_als_torch.io.ratings_csv import load_ratings_csv as csv_twin
 from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
 from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
+from tpu_als_torch.ops import solve as ops_solve
 from tpu_als_torch.ops.solve import (compute_yty, implicit_weights,
                                      regularize, solve_spd)
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
@@ -140,6 +167,7 @@ from tpu_als_torch.parallel.comm import ring_half_step, shard_csr_grid
 from tpu_als_torch.parallel.data import partition_balanced
 from tpu_als_torch.parallel.mesh import make_mesh
 from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
+from tpu_als_torch.resilience import faults, guardrails
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.utils.platform import pin_fp32
 
@@ -176,6 +204,20 @@ TRAIN_REL = 1e-3                    # 'auto' vs 'unfused', per row / ||x||
 SERVE_ULPS = 4
 REG, ALPHA = 0.01, 40.0             # the slice's implicit configuration
 FOLDIN_REL = 1e-3                   # per row, relative to ||x||
+# the adaptive ladder's own rule: x finite and ||(A0 + rung·I)x - b|| <=
+# 1e-2·(||b|| + 1) for some rung (ops.solve._ADAPTIVE_TOL)
+LADDER_TOL = 1e-2
+# the 'recover' fit (one rollback at iteration 2: perturbed last-good
+# factors, regParam x 10 for that iteration) against the clean fit: the
+# implicit objective after 3 iterations, relative; the retried iteration
+# starts 1e-3 off the clean one and ALS pulls both to the same fixed point.
+# A coarse bound only: a recovery without the bump reads closer to the
+# clean fit than the sound one, so replay_recovery holds the recovery row
+# by row and this bound catches only a recovery that went astray
+RECOVER_OBJ_REL = 1e-2
+FIT_SEED = 0                        # the guarded fits' ALS(seed=)
+CSV_TWIN_ROWS = 1_000_000           # the Python twin parses this prefix
+CSV_HEADER = b"userId,movieId,rating,timestamp\n"
 
 
 def fail(msg):
@@ -399,6 +441,123 @@ def check_k6(rng, dev):
             worst = err
         del A, Ak, Af, L, x, xp
     return worst
+
+
+LADDER_N = 4096       # systems a ladder batch
+LADDER_NAN = 7        # rows poisoned with NaN in the SolveUnstable check
+
+
+def ladder_batch(g, N, r, dev, hostile):
+    """``M Mᵀ/r + 0.5·I`` systems with b ~ N(0, 1), rows 0-1 empty (count
+    0, b 0); with ``hostile``, every 16th row from 3 on rank-deficient
+    (rank r/4, no ridge) and every 16th from 11 on indefinite (r/8
+    eigenvalues in [-5e-3, -1e-3], the rest in [0.1, 2]: within the last
+    rung's 1e-2).  Returns A, b, count and the hostile rows' index."""
+    M = torch.randn(N, r, r, generator=g, device=dev) / r ** 0.5
+    A = M @ M.transpose(1, 2) + 0.5 * torch.eye(r, device=dev)
+    del M
+    b = torch.randn(N, r, generator=g, device=dev)
+    count = torch.ones(N, device=dev)
+    count[:2] = 0.0
+    b[:2] = 0.0
+    bad = torch.zeros(0, dtype=torch.long, device=dev)
+    if hostile:
+        deficient = torch.arange(3, N, 16, device=dev)
+        indefinite = torch.arange(11, N, 16, device=dev)
+        q, m = r // 4, max(1, r // 8)
+        Md = torch.randn(len(deficient), r, q, generator=g, device=dev)
+        A[deficient] = Md @ Md.transpose(1, 2)
+        Q, _ = torch.linalg.qr(torch.randn(len(indefinite), r, r,
+                                           generator=g, device=dev))
+        ev = 0.1 + 1.9 * torch.rand(len(indefinite), r, generator=g,
+                                    device=dev)
+        ev[:, :m] = -(1e-3 + 4e-3 * torch.rand(len(indefinite), m,
+                                               generator=g, device=dev))
+        A[indefinite] = (Q * ev[:, None, :]) @ Q.transpose(1, 2)
+        bad = torch.cat([deficient, indefinite])
+    return A.contiguous(), b, count, bad
+
+
+def ladder_passes(A, b, count, x, rungs):
+    """Rows whose x satisfies the ladder's rule for some rung, in
+    float64: finite, and ||(A0 + rung·I)x - b|| <= 1e-2·(||b|| + 1)."""
+    r = A.shape[-1]
+    A0 = torch.where((count <= 0)[:, None, None],
+                     torch.eye(r, device=A.device), A).double()
+    x64, b64 = x.double(), b.double()
+    bound = LADDER_TOL * (b64.norm(dim=-1) + 1.0)
+    ok = torch.zeros(len(x), dtype=torch.bool, device=x.device)
+    for rung in rungs:
+        res = (A0 @ x64[..., None])[..., 0] + rung * x64 - b64
+        ok |= torch.isfinite(x).all(-1) & (res.norm(dim=-1) <= bound)
+    return ok
+
+
+def check_ladder(dev):
+    """The adaptive ladder (``solve_spd(adaptive=True)`` and
+    ``solve_spd_checked``, jitter 0) on the card through K2 (rank 128),
+    K1 (``backend='pallas'``) and K6 (rank 256): on a batch with hostile
+    rows the healthy rows equal the plain solve bit for bit and every
+    row passes the rule, the hostile rows escalating through the same
+    kernel; NaN rows raise ``SolveUnstable`` with their exact count; the
+    ladder's time against the plain solve on a healthy batch."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    rungs = (0.0,) + ops_solve.ADAPTIVE_JITTER_RUNGS
+    counter = {"lanes": (cuda_lanes, "K2"), "pallas": (cuda_solve, "K1"),
+               "lanes_blocked": (cuda_lanes_blocked, "K6")}
+    for r, backend in ((RANK, "lanes"), (RANK, "pallas"),
+                       (RANK256, "lanes_blocked")):
+        mod, name = counter[backend]
+        A, b, count, bad = ladder_batch(g, LADDER_N, r, dev, hostile=True)
+        plain = solve_spd(A, b, count, jitter=0.0, backend=backend)
+        before = mod.LAUNCHES
+        x = solve_spd(A, b, count, jitter=0.0, backend=backend,
+                      adaptive=True)
+        torch.cuda.synchronize()
+        launches = mod.LAUNCHES - before
+        healthy = torch.ones(LADDER_N, dtype=torch.bool, device=dev)
+        healthy[bad] = False
+        if not torch.equal(x[healthy], plain[healthy]):
+            fail(f"ladder {name} r={r}: healthy rows differ from the plain "
+                 "solve")
+        at_base = ladder_passes(A, b, count, plain, rungs[:1])[bad]
+        ok = ladder_passes(A, b, count, x, rungs)
+        if not bool(ok.all()):
+            fail(f"ladder {name} r={r}: {int((~ok).sum())} rows fail the "
+                 "residual rule after the ladder")
+        if launches < 2 or bool(at_base.all()):
+            fail(f"ladder {name} r={r}: no row escalated ({launches} "
+                 "launches)")
+        xc = ops_solve.solve_spd_checked(A, b, count, jitter=0.0,
+                                         backend=backend)
+        if not torch.equal(xc, x):
+            fail(f"ladder {name} r={r}: solve_spd_checked differs")
+        Anan = A.clone()
+        Anan[torch.arange(LADDER_NAN, device=dev) * (LADDER_N // LADDER_NAN)
+             + 5, 1, 1] = np.nan
+        try:
+            ops_solve.solve_spd_checked(Anan, b, count, jitter=0.0,
+                                        backend=backend)
+        except ops_solve.SolveUnstable as e:
+            if (e.bad_rows, e.total_rows) != (LADDER_NAN, LADDER_N):
+                fail(f"ladder {name} r={r}: SolveUnstable({e.bad_rows}, "
+                     f"{e.total_rows}), expected ({LADDER_NAN}, "
+                     f"{LADDER_N})")
+        else:
+            fail(f"ladder {name} r={r}: NaN rows did not raise")
+        del Anan, A, plain, xc
+        Ah, bh, ch, _ = ladder_batch(g, LADDER_N, r, dev, hostile=False)
+        t_plain = cuda_ms(lambda: solve_spd(Ah, bh, ch, backend=backend), 5)
+        t_ladder = cuda_ms(lambda: solve_spd(Ah, bh, ch, backend=backend,
+                                             adaptive=True), 5)
+        log(f"ladder {name} r={r} ({backend}): {len(bad)} hostile rows of "
+            f"{LADDER_N} ({int((~at_base).sum())} failed the base jitter, "
+            f"{launches} {name} launches), every row within the rule "
+            f"(tol {LADDER_TOL}), healthy rows equal to the plain solve bit "
+            f"for bit; {LADDER_NAN} NaN rows -> SolveUnstable; healthy "
+            f"batch: plain {t_plain:.4f} ms, ladder {t_ladder:.4f} ms "
+            "(CUDA events around the call, its host sync included)")
+        del Ah, bh, ch
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -764,6 +923,89 @@ def f64_rel(x, V, csr):
     return worst
 
 
+def same_layout(a, b, side):
+    """Fail unless two bucketed layouts are array-equal: counts, bucket
+    order, and every bucket's rows, cols, vals and mask with dtypes."""
+    if len(a.buckets) != len(b.buckets) or not np.array_equal(a.counts,
+                                                              b.counts):
+        fail(f"native and numpy blocking differ ({side}): buckets or counts")
+    for x, y in zip(a.buckets, b.buckets):
+        for name in ("rows", "cols", "vals", "mask"):
+            p, q = getattr(x, name), getattr(y, name)
+            if p.dtype != q.dtype or not np.array_equal(p, q):
+                fail(f"native and numpy blocking differ ({side}): {name} "
+                     f"of the width-{x.width} bucket")
+
+
+def digits(x, width):
+    """Zero-padded decimal digits of non-negative ints, [n, width] uint8."""
+    x = np.asarray(x, dtype=np.int64)
+    if len(x) and (x.min() < 0 or x.max() >= 10 ** width):
+        fail(f"digits: values outside [0, 1e{width})")
+    out = np.empty((len(x), width), dtype=np.uint8)
+    for k in range(width):
+        out[:, width - 1 - k] = (x // 10 ** k) % 10 + ord("0")
+    return out
+
+
+def write_ratings_csv(path, frame):
+    """The frame as a MovieLens ``ratings.csv``: the header, then
+    ``user,item,rating,timestamp`` a line, ids and stamps zero-padded to
+    fixed widths, the half-star rating as ``d.d``; vectorized, so the
+    25M lines take seconds."""
+    r2 = np.asarray(frame["rating"], np.float64) * 2
+    if not np.array_equal(r2, np.round(r2)) or r2.min() < 0 or r2.max() > 18:
+        fail("write_ratings_csv: ratings off the half-star grid")
+    r2 = r2.astype(np.int64)
+    n = len(r2)
+    col = lambda ch: np.full((n, 1), ord(ch), np.uint8)  # noqa: E731
+    body = np.concatenate([
+        digits(frame["user"], 6), col(","), digits(frame["item"], 6),
+        col(","), digits(r2 // 2, 1), col("."), digits(r2 % 2 * 5, 1),
+        col(","), digits(frame["timestamp"], 10), col("\n")], axis=1)
+    with open(path, "wb") as f:
+        f.write(CSV_HEADER)
+        body.tofile(f)
+    return body.shape[1]   # bytes a line
+
+
+def csv_phase(frame):
+    """Parse a ``ratings.csv`` written from the synthetic frame with the
+    native reader (``load_movielens_csv``, every row) and with its Python
+    twin (the first CSV_TWIN_ROWS rows): each equal to the frame, rows a
+    second on the host's clock."""
+    n = len(frame["user"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ratings.csv"
+        t0 = time.perf_counter()
+        line = write_ratings_csv(path, frame)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        got = load_movielens_csv(path)
+        t_native = time.perf_counter() - t0
+        for c in ("user", "item", "rating", "timestamp"):
+            want = np.asarray(frame[c]).astype(got[c].dtype)
+            if not np.array_equal(got[c], want):
+                fail(f"native CSV reader: column {c} differs from the frame")
+        prefix = f"{tmp}/prefix.csv"
+        with open(path, "rb") as f, open(prefix, "wb") as g:
+            g.write(f.read(len(CSV_HEADER) + CSV_TWIN_ROWS * line))
+        t0 = time.perf_counter()
+        twin = csv_twin(prefix)
+        t_twin = time.perf_counter() - t0
+        for c in ("user", "item", "rating", "timestamp"):
+            if not np.array_equal(twin[c], got[c][:CSV_TWIN_ROWS]) \
+                    or twin[c].dtype != got[c].dtype:
+                fail(f"CSV twin: column {c} differs from the native reader")
+    log(f"ratings.csv of {n} rows ({size / 1e6:.1f} MB) written in "
+        f"{t_write:.2f} s; native reader {t_native:.2f} s "
+        f"({n / t_native:.4g} rows/s), equal to the frame; Python twin on "
+        f"the first {CSV_TWIN_ROWS} rows {t_twin:.2f} s "
+        f"({CSV_TWIN_ROWS / t_twin:.4g} rows/s), equal to the native "
+        "reader's (host clock)")
+
+
 def prepare(seed, dev):
     """The ML-25M-shaped ratings and their bucketed layout both ways,
     made once for the training slices at both ranks."""
@@ -774,12 +1016,24 @@ def prepare(seed, dev):
     u_idx, umap = remap_ids(frame["user"])
     i_idx, imap = remap_ids(frame["item"])
     r = frame["rating"]
-    t0 = time.perf_counter()
-    ucsr = build_csr_buckets(u_idx, i_idx, r, len(umap))
-    t1 = time.perf_counter()
-    icsr = build_csr_buckets(i_idx, u_idx, r, len(imap))
-    t2 = time.perf_counter()
-    log(f"host blocking: users {t1 - t0:.2f} s, items {t2 - t1:.2f} s")
+    secs = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        u = build_csr_buckets(u_idx, i_idx, r, len(umap), native=native)
+        t1 = time.perf_counter()
+        i = build_csr_buckets(i_idx, u_idx, r, len(imap), native=native)
+        t2 = time.perf_counter()
+        secs[native] = (t1 - t0, t2 - t1)
+        if native:
+            ucsr, icsr = u, i
+        else:
+            same_layout(ucsr, u, "users")
+            same_layout(icsr, i, "items")
+        del u, i
+    log(f"host blocking (native, threaded C++): users {secs[True][0]:.2f} "
+        f"s, items {secs[True][1]:.2f} s; numpy: users {secs[False][0]:.2f}"
+        f" s, items {secs[False][1]:.2f} s; array-equal; the fits train "
+        "on the native layout")
     layout(ucsr, "users")
     layout(icsr, "items")
     return {"frame": frame, "ucsr": ucsr, "icsr": icsr,
@@ -972,6 +1226,208 @@ def sharded_train_slice(data, seed, dev):
     return {"launches": launches, "iter_s": iter_s, "ish": ish,
             "icounts": counts[1], "U0": slot_rows(upart, U0.to(dev)),
             "mesh": mesh}
+
+
+def implicit_objective(model, frame, factors=None, chunk=1 << 21):
+    """The implicit ALS objective (Hu–Koren–Volinsky, weighted λ, the
+    quantity the fit's normal equations minimize), in float64 on the
+    card: Σ over all pairs of (u·v)², plus over each rating c·(p - u·v)²
+    - (u·v)² with c = 1 + α|r| and p = [r > 0], plus λ·(Σ n_u |u|² +
+    Σ n_i |v|²) with n counting the positive ratings.  ``factors``:
+    ``(U, V)`` in the model's row order instead of the model's own."""
+    U, V = factors if factors is not None else (model._U, model._V)
+    U, V = U.double(), V.double()
+    dev = U.device
+    u = torch.from_numpy(model._user_map.to_dense(frame["user"])).to(dev)
+    i = torch.from_numpy(model._item_map.to_dense(frame["item"])).to(dev)
+    r = torch.from_numpy(np.asarray(frame["rating"])).to(dev).double()
+    total = ((U.T @ U) * (V.T @ V)).sum()
+    for s0 in range(0, len(r), chunk):
+        sl = slice(s0, s0 + chunk)
+        sc = (U[u[sl]] * V[i[sl]]).sum(1)
+        c = 1.0 + ALPHA * r[sl].abs()
+        total += (c * ((r[sl] > 0).double() - sc) ** 2 - sc ** 2).sum()
+    pos = r > 0
+    nu = torch.bincount(u[pos], minlength=U.shape[0]).double()
+    ni = torch.bincount(i[pos], minlength=V.shape[0]).double()
+    total += REG * ((nu * (U * U).sum(1)).sum()
+                    + (ni * (V * V).sum(1)).sum())
+    return float(total)
+
+
+def guarded_fit(frame, mode, spec, max_iter=3, keep=None):
+    """``ALS(rank=128, implicit, alpha 40, regParam 0.01, seed FIT_SEED)
+    .fit`` with ``guardrails=mode`` under the fault ``spec``, on a fresh
+    obs registry, its launches counted: (model, launches, iteration walls
+    in ms between fitCallback calls, obs registry).  ``keep``: a dict
+    that receives a copy of the factors after iteration 1 as
+    ``keep["it1"]``."""
+    ticks = []
+
+    def tick(it, U, V):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+        if keep is not None and it == 1:
+            keep["it1"] = (U.clone(), V.clone())
+
+    faults.clear()
+    if spec:
+        faults.install(spec)
+    reg = obs.reset()
+    est = ALS(rank=RANK, implicitPrefs=True, alpha=ALPHA, regParam=REG,
+              maxIter=max_iter, seed=FIT_SEED, guardrails=mode,
+              fitCallback=tick)
+    _zero_launches()
+    try:
+        model = est.fit(frame)
+        torch.cuda.synchronize()
+    finally:
+        faults.clear()
+    walls = [(b - a) * 1e3 for a, b in zip(ticks, ticks[1:])]
+    return model, _launch_counts(), walls, reg
+
+
+def replay_recovery(model, it1, data, frame, clean_obj):
+    """The 'recover' fit's rollback replayed without the guardrails, row
+    by row: the factors after iteration 1 (the clean snapshot) perturbed
+    by the rollback's seeded draw, then iteration 2 at regParam x
+    REG_BUMP_FACTOR and iteration 3 at regParam, through 'auto' (K4).
+    The recovered factors must lie within TRAIN_REL of that replay, and
+    two faulty recoveries (the bump left in place for iteration 3; no
+    bump at all) must not: they show what the check and the objective
+    tell apart."""
+    U1, V1 = it1
+    dev = U1.device
+    g = torch.Generator(device=dev).manual_seed(
+        (FIT_SEED * 1_000_003 + 2 * 101 + 1) & 0x7FFFFFFF)
+    Up = U1 + guardrails.PERTURB_SCALE * torch.randn(
+        U1.shape, generator=g, device=dev, dtype=U1.dtype)
+    Vp = V1 + guardrails.PERTURB_SCALE * torch.randn(
+        V1.shape, generator=g, device=dev, dtype=V1.dtype)
+    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True, alpha=ALPHA,
+                             reg_param=REG)
+    bump = REG * guardrails.REG_BUMP_FACTOR
+    dist = {}
+    for name, regs in (("sound", (bump, REG)),
+                       ("bump kept for iteration 3", (bump, bump)),
+                       ("no bump", (REG, REG))):
+        U, V = Up, Vp
+        for reg in regs:
+            U, V = core_als.als_step(
+                U, V, data["ub"], data["ib"], data["n_users"],
+                data["n_items"], dataclasses.replace(cfg, reg_param=reg))
+        torch.cuda.synchronize()
+        obj = implicit_objective(model, frame, factors=(U, V))
+        dist[name] = (max(row_rel(model._U, U), row_rel(model._V, V)),
+                      abs(obj - clean_obj) / clean_obj)
+        del U, V
+    log("recover fit vs its replay without the guardrails (max per-row "
+        "|diff|/|x|; the replay's objective off the clean fit's): "
+        + "; ".join(f"{k} {d:.3e}, objective {o:.3e}"
+                    for k, (d, o) in dist.items())
+        + f" (tol {TRAIN_REL}, the faulty ones must exceed it)")
+    if not dist["sound"][0] <= TRAIN_REL:
+        fail(f"recover: the factors are {dist['sound'][0]:.3e} off the "
+             "replayed recovery")
+    for k, (d, _) in dist.items():
+        if k != "sound" and not d > TRAIN_REL:
+            fail(f"recover: the row check cannot tell the faulty recovery "
+                 f"'{k}' ({d:.3e}) from the sound one")
+
+
+def guardrail_fits(data, tr, dev):
+    """The guardrails at the ML-25M shape, rank 128: 'recover' under
+    ``solve.gram=corrupt@nth=2`` (exactly one rollback, finite factors,
+    the implicit objective within RECOVER_OBJ_REL of the clean fit's);
+    'warn' under the same fault (a trip and no rollback); a clean
+    'recover' fit (the armed iteration: K3 + the laddered K2 for K4's
+    buckets, against the clean fit row by row); then ratings poisoned
+    with NaN, inf, 1e9 and 2e6 quarantined with the exact count.  Each
+    fit's launches are counted from 0."""
+    frame = data["frame"]
+    spec = "solve.gram=corrupt@nth=2"
+    clean_obj = implicit_objective(tr["model"], frame)
+    off_walls = [x * 1e3 for x in tr["iter_s"]]
+
+    keep = {}
+    model, launches, rec_walls, reg = guarded_fit(frame, "recover", spec,
+                                                  keep=keep)
+    trips = [(e["iteration"], e["sentinel"])
+             for e in reg.events("guardrail_tripped")]
+    rollbacks = reg.counter_value("train.rollbacks")
+    log(f"recover + {spec}: launches " + ", ".join(
+        f"{k.upper()} {v}" for k, v in launches.items() if v)
+        + f"; trips {trips}, rollbacks {rollbacks}; iterations (ms) "
+        + ", ".join(f"{w:.1f}" for w in rec_walls))
+    if rollbacks != 1 or trips != [(2, "nonfinite")] or \
+            len(reg.events("train_rollback")) != 1:
+        fail(f"recover: expected one rollback at iteration 2, got trips "
+             f"{trips}, {rollbacks} rollbacks")
+    if min(launches[k] for k in ("k1", "k2", "k3")) == 0 or launches["k4"]:
+        fail(f"recover: the armed path is K3 + K1/K2, not K4: {launches}")
+    if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
+        fail("recover: the factors are not finite")
+    obj = implicit_objective(model, frame)
+    rel = abs(obj - clean_obj) / clean_obj
+    log(f"implicit objective: clean fit {clean_obj:.8e}, recover fit "
+        f"{obj:.8e}, relative difference {rel:.3e} (tol {RECOVER_OBJ_REL})")
+    if not rel <= RECOVER_OBJ_REL:
+        fail(f"recover: objective {rel:.3e} off the clean fit's")
+    replay_recovery(model, keep["it1"], data, frame, clean_obj)
+    del model, keep
+
+    model, launches, warn_walls, reg = guarded_fit(frame, "warn", spec)
+    trips = [(e["iteration"], e["sentinel"])
+             for e in reg.events("guardrail_tripped")]
+    log(f"warn + {spec}: launches " + ", ".join(
+        f"{k.upper()} {v}" for k, v in launches.items() if v)
+        + f"; trips {trips}, rollbacks "
+        f"{reg.counter_value('train.rollbacks')}; iterations (ms) "
+        + ", ".join(f"{w:.1f}" for w in warn_walls)
+        + " (iteration 3 runs on the poisoned factors)")
+    if not trips or trips[0] != (2, "nonfinite") or \
+            reg.counter_value("train.rollbacks") or \
+            reg.events("train_rollback"):
+        fail(f"warn: expected a trip at iteration 2 and no rollback: {trips}")
+    if min(launches[k] for k in ("k1", "k3", "k4")) == 0:
+        fail(f"warn: the fit's path is K4 + K3 + K1: {launches}")
+    del model
+
+    model, launches, arm_walls, reg = guarded_fit(frame, "recover", None)
+    if reg.events("guardrail_tripped") or \
+            min(launches[k] for k in ("k1", "k2", "k3")) == 0:
+        fail(f"clean recover fit: trips or launches {launches}")
+    eu = row_rel(model._U, tr["model"]._U)
+    ev = row_rel(model._V, tr["model"]._V)
+    log(f"clean recover fit vs the guardrails-off fit: max per-row "
+        f"|diff|/|x| users {eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+        fail(f"clean recover fit off the plain fit: {eu:.3e}, {ev:.3e}")
+    del model
+    log(f"iteration wall by guardrails mode, rank {RANK}, iterations 2-3 "
+        "(ms): "
+        f"off {', '.join(f'{w:.1f}' for w in off_walls)}; warn "
+        f"{warn_walls[0]:.1f} (iteration 2); recover "
+        f"{', '.join(f'{w:.1f}' for w in arm_walls)} (armed cost "
+        f"{np.mean(arm_walls) - np.mean(off_walls):+.1f} ms an iteration)")
+
+    # poisoned ratings: quarantined, not fit
+    r = np.array(frame["rating"], dtype=np.float32)
+    bad = np.arange(17, len(r), 1_000_003)
+    r[bad] = np.resize(np.array([np.nan, np.inf, 1e9, -2e6], np.float32),
+                       len(bad))
+    poisoned = {"user": frame["user"], "item": frame["item"], "rating": r}
+    model, launches, _, reg = guarded_fit(poisoned, "warn", None,
+                                          max_iter=1)
+    got = reg.counter_value("ingest.quarantined_rows")
+    ev = reg.events("ingest_quarantined")
+    log(f"poisoned fit ({len(bad)} of {len(r)} ratings NaN/inf/1e9/-2e6, "
+        f"guardrails='warn', 1 iteration): quarantined {got}, reasons "
+        f"{ev[0]['reasons'] if ev else None}")
+    if got != len(bad) or len(ev) != 1:
+        fail(f"poisoned fit: quarantined {got}, expected {len(bad)}")
+    if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
+        fail("poisoned fit: the factors are not finite")
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -2070,6 +2526,9 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
+    if not _native_build.have_compiler():
+        fail("g++ is not on the PATH: the native bucketizer and CSV reader "
+             "are built with it")
     pin_fp32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2079,6 +2538,11 @@ def main():
     t0 = time.perf_counter()
     libs = _build.load_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fastbucket.load()
+    fastcsv.load()
+    log(f"built the native bucketizer and CSV reader (g++) in "
+        f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     split = core_als.SPLIT_WIDTH
@@ -2094,10 +2558,13 @@ def main():
             errs[f"{k}_256"] = max(errs.get(f"{k}_256", 0.0), e)
     errs["k7"] = check_k7(rng, dev)[RANK]
     errs["k8"] = check_k8(rng, dev)
+    check_ladder(dev)
     data = prepare(args.seed, dev)
+    csv_phase(data["frame"])
     tr = train_slice(data, RANK, args.seed, dev)
     tr256 = train_slice(data, RANK256, args.seed, dev)
     sh = sharded_train_slice(data, args.seed, dev)
+    guardrail_fits(data, tr, dev)
     del data
     model, launches, A, b, users = run_slice(rng, dev)
     model256, launches256, A256, b256, users256 = serve_slice_256(
@@ -2126,6 +2593,7 @@ def main():
     where_time_goes(model, rng, tr, np.arange(N_USERS), np.arange(N_ITEMS))
     where_time_goes(model256, rng, tr256, tr256["model"]._user_map.ids,
                     model256._item_map.ids)
+    log(f"device: {smi}")   # again, beside the results at the tail
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

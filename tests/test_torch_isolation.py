@@ -13,6 +13,11 @@
   ``NotImplementedError`` naming what is missing.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
   when it stands in a directory without the rest of the repository.
+- The input path and the guardrails (the native bucketizer and CSV
+  reader, the MovieLens loaders, ``obs``, ``resilience``, the adaptive
+  ladder) run with ``jax`` and ``tpu_als`` unimportable, and the native
+  libraries are built from the port's own sources into
+  ``tpu_als_torch/_build/``.
 """
 
 import contextlib
@@ -57,6 +62,42 @@ assert not bad, bad
 print(len(names), "modules")
 """
 
+_DRIVE_NEW_MODULES = r"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np, torch
+from tpu_als_torch import _build, obs
+from tpu_als_torch.core.ratings import build_csr_buckets
+from tpu_als_torch.io import fastbucket, fastcsv, movielens
+from tpu_als_torch.ops.solve import solve_spd_checked
+from tpu_als_torch.resilience import faults, guardrails
+rng = np.random.default_rng(0)
+u, i = rng.integers(0, 50, 4000), rng.integers(0, 30, 4000)
+r = rng.uniform(0.5, 5, 4000).astype(np.float32)
+a = build_csr_buckets(u, i, r, 50, native=True)
+b = build_csr_buckets(u, i, r, 50, native=False)
+assert all(np.array_equal(x, y) for p, q in zip(a.buckets, b.buckets)
+           for x, y in zip(p, q))
+path = sys.argv[1]
+with open(path, "w") as f:
+    f.write("userId,movieId,rating,timestamp\n1,2,3.5,4\n5,6,1,7\n")
+assert movielens.load_movielens_csv(path)["rating"].tolist() == [3.5, 1.0]
+A = torch.eye(4).repeat(3, 1, 1)
+assert solve_spd_checked(A, torch.ones(3, 4), torch.ones(3)).shape == (3, 4)
+faults.install("solve.gram=corrupt@nth=1")
+with guardrails.scoped("recover"):
+    assert faults.check("solve.gram") == "corrupt"
+assert obs.events("fault_injected")
+# the libraries loaded are the port's, built into its own directory
+for lib in (fastbucket._lib, fastcsv._lib):
+    assert os.path.dirname(lib._name) == _build.BUILD_DIR, lib._name
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
 
 def _env():
     return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -67,7 +108,16 @@ def test_port_imports_without_jax_or_the_reference():
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 27
+    assert int(out.stdout.split()[0]) >= 46
+
+
+def test_input_path_and_guardrails_run_without_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _DRIVE_NEW_MODULES,
+                          str(tmp_path / "ratings.csv")], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def _model(device="cpu"):

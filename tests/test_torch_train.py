@@ -160,8 +160,21 @@ def test_resolve_solve_path_labels():
     assert tals.resolve_solve_path(c(solve_backend="gather_fused_ring"),
                                    16, tals.SPLIT_WIDTH * 2) == \
         "gatherfused_ring"
-    with pytest.raises(NotImplementedError):
-        tals.resolve_solve_path(c(adaptive_solve=True), 16, 8)
+    # armed, 'auto' hands K4's buckets to K3 + the laddered solve (K2 up
+    # to rank 128, K6 above); the wide buckets, the einsum route above
+    # rank 256 and a forced K4 keep their routes
+    assert tals.resolve_solve_path(c(adaptive_solve=True), 16, 8) == \
+        "gatherfused+pallas_lanes"
+    assert tals.resolve_solve_path(c(adaptive_solve=True), 256, 64) == \
+        "gatherfused+pallas_lanes_blocked"
+    assert tals.resolve_solve_path(c(adaptive_solve=True), 16,
+                                   tals.SPLIT_WIDTH * 2) == \
+        "gatherfused+pallas_cholesky"
+    assert tals.resolve_solve_path(c(adaptive_solve=True), 320, 8) == \
+        "einsum+pallas_lanes_blocked"
+    assert tals.resolve_solve_path(
+        c(adaptive_solve=True, solve_backend="gather_fused_solve"), 16,
+        8) == "gatherfused_solve"
     with pytest.raises(ValueError):
         tals.resolve_solve_path(c(solve_backend="bogus"), 16, 8)
 
@@ -308,7 +321,7 @@ def test_fit_callback_and_later_slice_knobs():
                       fitCallback=lambda it, U, V: seen.append(it)).fit(
         _frame())
     assert seen == [1, 2]
-    for knob in ({"guardrails": "warn"}, {"elastic": True},
+    for knob in ({"elastic": True},
                  {"dataMode": "per_host"}, {"checkpointSharded": True},
                  {"gatherStrategy": "all_to_all"},
                  {"gatherStrategy": "all_gather_chunked"}):

@@ -7,7 +7,9 @@ CUDA C++ kernels written by hand for Hopper (``sm_90a``, sources under
 
 The slices ported so far: single-device training
 (:class:`~tpu_als_torch.api.estimator.ALS` ``.fit``, the ``train``
-command) and the serving path — fold-in of new ratings
+command) with its input path (the native bucketizer and CSV reader, the
+MovieLens loaders) and numerical guardrails (``ALS(guardrails=)``, the
+adaptive solve ladder), and the serving path — fold-in of new ratings
 (:class:`~tpu_als_torch.stream.microbatch.FoldInServer`), then top-k
 recommendation (:class:`~tpu_als_torch.api.estimator.ALSModel`) — the
 sharded path over a mesh of logical shards on one device
@@ -32,7 +34,11 @@ Package map:
   parallel/  the mesh, sharded layouts, the sharded trainer and server
   api/     ALS, ALSModel, the sharded fit, params, regression evaluators
   io/      checkpoint persistence (same on-disk format as tpu_als), the
-           ratings CSV reader, synthetic MovieLens-shaped data
+           MovieLens loaders, the native CSV reader and bucketizer
+           (``native/*.cc``, built with g++ into ``_build/``) and the
+           CSV reader's Python twin, synthetic MovieLens-shaped data
+  obs/     the metrics registry, its vocabulary and the run manifest
+  resilience/  fault injection, retry policies, the fit's guardrails
   utils/   device resolution, the columnar frame
 """
 

@@ -13,9 +13,11 @@ checkpoints in the shared format (``checkpointDir``/``checkpointInterval``,
 params; its factor tables are float32 tensors on the model's device, id
 maps stay numpy.  Sharded training and serving (``mesh=`` with a
 ``gatherStrategy``) run over a mesh of logical shards on one device
-(:mod:`tpu_als_torch.parallel`).  Guardrails, elastic training, per-host
-data and preemption belong to later slices and raise
-``NotImplementedError``.
+(:mod:`tpu_als_torch.parallel`).  ``guardrails='warn'|'recover'`` arms
+the fit's numerical guardrails (:mod:`tpu_als_torch.resilience.
+guardrails`) and quarantines poisoned ratings instead of refusing them.
+Elastic training, per-host data and preemption belong to later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,16 +28,23 @@ import shutil
 import numpy as np
 import torch
 
+from tpu_als_torch import obs
 from tpu_als_torch.api.fitting import fit_sharded
 from tpu_als_torch.api.params import Estimator, Params, TypeConverters
 from tpu_als_torch.core.als import AlsConfig, predict as _predict
 from tpu_als_torch.core.als import train as _train
-from tpu_als_torch.core.ratings import IdMap, build_csr_buckets, remap_ids
+from tpu_als_torch.core.ratings import (
+    IdMap,
+    build_csr_buckets,
+    invalid_rating_mask,
+    remap_ids,
+)
 from tpu_als_torch.io.checkpoint import load_factors, save_factors
 from tpu_als_torch.ops.cuda_topk import topk_scores
 from tpu_als_torch.parallel.mesh import Mesh
 from tpu_als_torch.parallel.serve import topk_sharded
 from tpu_als_torch.parallel.trainer import check_strategy
+from tpu_als_torch.resilience import guardrails as _guardrails
 from tpu_als_torch.utils.frame import ColumnarFrame, as_frame
 from tpu_als_torch.utils.platform import resolve_device
 
@@ -201,10 +210,16 @@ class ALS(_ALSParams, Estimator):
     ``mesh`` — a :class:`~tpu_als_torch.parallel.mesh.Mesh` to fit over
     (its shards share one device; the fit runs there), with
     ``gatherStrategy`` a row of
-    ``tpu_als_torch.parallel.trainer.GATHER_STRATEGIES``.
-    ``dataMode='per_host'``, ``checkpointSharded``, ``guardrails``,
-    ``elastic`` and the strategies not ported yet raise
-    ``NotImplementedError``: they belong to later slices.
+    ``tpu_als_torch.parallel.trainer.GATHER_STRATEGIES``;
+    ``guardrails`` — 'off', 'warn' or 'recover' for this fit (None: the
+    process's mode, ``TPU_ALS_GUARDRAILS``); armed, ratings that are
+    non-finite or beyond ``RATING_ABS_MAX`` are dropped and counted in
+    ``ingest.quarantined_rows`` instead of failing the fit, and the
+    single-device fit judges its sentinels (the sharded trainer has no
+    monitor, as in the reference).
+    ``dataMode='per_host'``, ``checkpointSharded``, ``elastic`` and the
+    strategies not ported yet raise ``NotImplementedError``: they belong
+    to later slices.
     """
 
     def __init__(self, *, mesh=None, gatherStrategy="all_gather",
@@ -224,11 +239,9 @@ class ALS(_ALSParams, Estimator):
                              "'replicated' or 'per_host')")
         if checkpointSharded:
             _later_slice("checkpointSharded=True", "multi-GPU")
-        if guardrails not in (None, "off"):
-            if guardrails not in ("warn", "recover"):
-                raise ValueError(f"unknown guardrails mode {guardrails!r} "
-                                 "(expected 'off', 'warn' or 'recover')")
-            _later_slice(f"guardrails={guardrails!r}", "resilience")
+        if guardrails is not None and guardrails not in _guardrails.MODES:
+            raise ValueError(f"unknown guardrails mode {guardrails!r} "
+                             "(expected 'off', 'warn' or 'recover')")
         if elastic:
             _later_slice("elastic=True", "resilience")
         if int(cgIters) < 0:
@@ -247,6 +260,7 @@ class ALS(_ALSParams, Estimator):
         self.resumeFrom = resumeFrom
         self.fitCallback = fitCallback
         self.fitCallbackInterval = int(fitCallbackInterval)
+        self.guardrails = guardrails
         self.device = device
         self.setParams(**kwargs)
 
@@ -267,8 +281,9 @@ class ALS(_ALSParams, Estimator):
             cg_mode=self.cgMode)
 
     def _extract_columns(self, frame):
-        """(u_raw, i_raw, r) with the reference's schema checks: integer
-        ids, ``ratingCol=''`` meaning unit ratings, no nan/inf rating."""
+        """(u_raw, i_raw, r, nonfinite) with the reference's schema checks:
+        integer ids, ``ratingCol=''`` meaning unit ratings; ``nonfinite``
+        counts the nan/inf ratings."""
         userCol, itemCol = self.getUserCol(), self.getItemCol()
         ratingCol = self.getRatingCol()
         for c in (userCol, itemCol):
@@ -287,12 +302,31 @@ class ALS(_ALSParams, Estimator):
             raise ValueError(f"column {ratingCol!r} not in dataset "
                              f"(columns: {frame.columns}); set ratingCol='' "
                              "for unit ratings")
-        nonfinite = int((~np.isfinite(r)).sum())
-        if nonfinite:
-            raise ValueError(
-                f"ratingCol {ratingCol!r} contains {nonfinite} non-finite "
-                "value(s) (nan/inf); clean the input before fit")
-        return frame[userCol], frame[itemCol], r
+        return (frame[userCol], frame[itemCol], r,
+                int((~np.isfinite(r)).sum()))
+
+    def _screen(self, u_raw, i_raw, r, nonfinite, gmode):
+        """Disarmed, a nan/inf rating fails the fit; armed, every rating
+        :func:`invalid_rating_mask` flags is dropped, counted in
+        ``ingest.quarantined_rows`` and reported by an
+        ``ingest_quarantined`` event."""
+        if gmode == "off":
+            if nonfinite:
+                raise ValueError(
+                    f"ratingCol {self.getRatingCol()!r} contains "
+                    f"{nonfinite} non-finite value(s) (nan/inf); clean the "
+                    "input before fit")
+            return u_raw, i_raw, r
+        bad = invalid_rating_mask(r)
+        nbad = int(bad.sum())
+        if not nbad:
+            return u_raw, i_raw, r
+        keep = ~bad
+        obs.counter("ingest.quarantined_rows", nbad)
+        obs.emit("ingest_quarantined", path="<api>", rows=nbad,
+                 reasons={"malformed": 0, "nonfinite": nonfinite,
+                          "out_of_range": nbad - nonfinite}, sink=None)
+        return np.asarray(u_raw)[keep], np.asarray(i_raw)[keep], r[keep]
 
     def _resume(self, cfg, user_map, item_map):
         """``(init, start_iter)`` from ``resumeFrom``, after the
@@ -326,7 +360,10 @@ class ALS(_ALSParams, Estimator):
                              "runs on its shards' device")
         device = resolve_device(self.device if self.mesh is None
                                 else self.mesh.device)
-        u_raw, i_raw, r = self._extract_columns(as_frame(dataset))
+        gmode = (self.guardrails if self.guardrails is not None
+                 else _guardrails.guardrails_mode())
+        u_raw, i_raw, r = self._screen(*self._extract_columns(
+            as_frame(dataset)), gmode)
         u_idx, user_map = remap_ids(u_raw)
         i_idx, item_map = remap_ids(i_raw)
         cfg = self._config()
@@ -334,14 +371,15 @@ class ALS(_ALSParams, Estimator):
         if self.resumeFrom is not None:
             init, start_iter = self._resume(cfg, user_map, item_map)
         callback = self._callback(user_map, item_map)
-        if self.mesh is not None:
-            U, V = fit_sharded(self, u_idx, i_idx, r, user_map, item_map,
-                               cfg, init, start_iter, callback=callback)
-            return self._make_model(user_map, item_map, U, V, device)
-        ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
-        icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
-        U, V = _train(ucsr, icsr, cfg, callback=callback, init=init,
-                      start_iter=start_iter, device=device)
+        with _guardrails.scoped(gmode):
+            if self.mesh is not None:
+                U, V = fit_sharded(self, u_idx, i_idx, r, user_map, item_map,
+                                   cfg, init, start_iter, callback=callback)
+            else:
+                ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
+                icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
+                U, V = _train(ucsr, icsr, cfg, callback=callback, init=init,
+                              start_iter=start_iter, device=device)
         return self._make_model(user_map, item_map, U, V, device)
 
     def _make_model(self, user_map, item_map, U, V, device):

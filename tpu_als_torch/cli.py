@@ -1,19 +1,25 @@
 """Command line: ``python -m tpu_als_torch.cli train|recommend ...``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
-device: load ``--data`` (``csv:PATH``, strict ``int,int,float,int`` with
-a header, or ``synthetic:UxIxN``, MovieLens-shaped from ``--seed``),
-hold out ``--holdout`` of it with the seeded ``randomSplit``, fit ``ALS``
+device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
+``dat:PATH`` an ml-1m/ml-10m ``ratings.dat``, ``csv:PATH`` a
+``ratings.csv`` with a header, strict ``int,int,float,int``, or
+``synthetic:UxIxN``, MovieLens-shaped from ``--seed``), hold out
+``--holdout`` of it with the seeded ``randomSplit``, fit ``ALS``
 (``--checkpoint-dir``/``--checkpoint-interval`` write resumable
-checkpoints, ``--resume PATH`` continues one), print
+checkpoints, ``--resume PATH`` continues one, ``--guardrails
+off|warn|recover`` arms the numerical guardrails), print
 ``{"holdout_rmse": ...}`` and save the model to ``--output`` (replacing
-it).
+it), with the run's events, metrics and manifest under ``--output/obs``.
+A ``TPU_ALS_FAULT_SPEC`` that does not parse exits 2 before any work.
 
 ``recommend`` is the counterpart of ``cmd_recommend``: load a saved model
 (either package's save), optionally fold new ratings in — items first
 (``--foldin-items-data``), then users (``--foldin-data``) — and print one
 JSON line per user, ``{"user": id, "items": [[item, score], ...]}`` with
-scores rounded to 4 decimals.  Fold-in data is ``csv:PATH``.
+scores rounded to 4 decimals, and with ``--titles`` (``u.item``,
+``movies.dat``, ``movies.csv`` or their directory) the items' titles
+under ``"titles"``.  Fold-in data is ``csv:PATH``.
 
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -39,22 +46,40 @@ def _load_foldin(spec):
 
 
 def _load_train_data(spec):
+    from tpu_als_torch.io import movielens
+
     kind, _, arg = spec.partition(":")
+    if kind == "ml-100k":
+        return movielens.load_movielens_100k(arg)
+    if kind == "dat":
+        return movielens.load_movielens_dat(arg)
     if kind == "csv":
-        from tpu_als_torch.io.ratings_csv import load_ratings_csv
-
-        return load_ratings_csv(arg)
+        return movielens.load_movielens_csv(arg)
     if kind == "synthetic":
-        from tpu_als_torch.io.movielens import synthetic_movielens
-
         try:
             nu, ni, nnz = (int(x) for x in arg.split("x"))
         except ValueError:
             raise SystemExit(f"synthetic data takes UxIxN, got {arg!r}") \
                 from None
-        return synthetic_movielens(nu, ni, nnz)
-    raise SystemExit(f"unknown data spec {spec!r} (use csv:PATH | "
+        return movielens.synthetic_movielens(nu, ni, nnz)
+    raise SystemExit(f"unknown data spec {spec!r} (use ml-100k:PATH | "
+                     "dat:PATH (ml-1m/10m ratings.dat) | csv:PATH | "
                      "synthetic:UxIxN)")
+
+
+def _arm_fault_spec():
+    """Arm ``TPU_ALS_FAULT_SPEC`` when it is set; one that does not parse
+    exits 2 with the typed error."""
+    from tpu_als_torch.resilience import faults
+
+    if not os.environ.get(faults.ENV_VAR, "").strip():
+        return
+    try:
+        faults.install_from_env()
+    except faults.FaultSpecError as e:
+        print(f"tpu_als_torch: FaultSpecError: {faults.ENV_VAR} is "
+              f"unparseable: {e}", file=sys.stderr)
+        raise SystemExit(2) from e
 
 
 def cmd_train(args):
@@ -70,7 +95,8 @@ def cmd_train(args):
               coldStartStrategy="drop", cgIters=args.cg_iters,
               checkpointDir=args.checkpoint_dir,
               checkpointInterval=args.checkpoint_interval,
-              resumeFrom=args.resume, device=args.device)
+              resumeFrom=args.resume, guardrails=args.guardrails,
+              device=args.device)
     print(f"training on {len(train):,} ratings ({len(test):,} held out)",
           file=sys.stderr)
     model = als.fit(train)
@@ -110,13 +136,22 @@ def cmd_recommend(args):
             ColumnarFrame({model._params["userCol"]: ids}), args.k)
     else:
         recs = model.recommendForAllUsers(args.k)
+    titles = None
+    if args.titles:
+        from tpu_als_torch.io.movielens import load_movielens_movies
+
+        t = load_movielens_movies(args.titles)
+        titles = dict(zip(t["item"].tolist(), t["title"].tolist()))
     key = recs.columns[0]
     limit = args.limit if args.limit > 0 else len(recs)
     for row in range(min(limit, len(recs))):
-        print(json.dumps({
-            "user": int(recs[key][row]),
-            "items": [[int(i), round(float(s), 4)]
-                      for i, s in recs["recommendations"][row]]}))
+        out = {"user": int(recs[key][row]),
+               "items": [[int(i), round(float(s), 4)]
+                         for i, s in recs["recommendations"][row]]}
+        if titles is not None:
+            out["titles"] = [titles.get(int(i))
+                             for i, _ in recs["recommendations"][row]]
+        print(json.dumps(out))
 
 
 def main(argv=None):
@@ -124,7 +159,8 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train", help="fit an ALS model on one device")
     t.add_argument("--data", required=True,
-                   help="csv:PATH | synthetic:UxIxN")
+                   help="ml-100k:PATH | dat:PATH | csv:PATH | "
+                        "synthetic:UxIxN")
     t.add_argument("--rank", type=int, default=10)
     t.add_argument("--max-iter", type=int, default=10)
     t.add_argument("--reg-param", type=float, default=0.1)
@@ -143,6 +179,13 @@ def main(argv=None):
     t.add_argument("--checkpoint-interval", type=int, default=10)
     t.add_argument("--resume", default=None, metavar="PATH",
                    help="warm-start from this checkpoint directory")
+    t.add_argument("--guardrails", default=None,
+                   choices=("off", "warn", "recover"),
+                   help="numerical-health guardrails: 'warn' reads the "
+                        "divergence sentinels each iteration and reports a "
+                        "trip; 'recover' adds the adaptive solve and "
+                        "bounded rollback to the last good factors; "
+                        "default: TPU_ALS_GUARDRAILS (unset = off)")
     t.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -157,6 +200,9 @@ def main(argv=None):
     r.add_argument("--foldin-data", default=None,
                    help="ratings (csv:PATH) to fold into the user factors "
                         "before recommending")
+    r.add_argument("--titles", default=None,
+                   help="movie metadata (u.item, movies.dat, movies.csv, "
+                        "or their directory): print each item's title")
     r.add_argument("--foldin-items-data", default=None,
                    help="ratings (csv:PATH) whose items are folded in "
                         "against the fixed user factors; applied before "
@@ -166,7 +212,24 @@ def main(argv=None):
                         "kernels' plain versions)")
     r.set_defaults(fn=cmd_recommend)
     args = parser.parse_args(argv)
-    return args.fn(args)
+    _arm_fault_spec()
+    from tpu_als_torch import obs
+
+    run_dir = (os.path.join(args.output, "obs")
+               if getattr(args, "output", None) else None)
+    if run_dir is not None:
+        argl = list(argv) if argv is not None else sys.argv[1:]
+        obs.configure(run_dir, config={k: v for k, v in vars(args).items()
+                                       if k != "fn"}, argv=argl)
+        obs.emit("command", cmd=args.cmd, argv=argl)
+    try:
+        return args.fn(args)
+    finally:
+        if run_dir is not None:
+            # after the command: the model save replaces --output, so the
+            # run directory under it is written once the model is in place
+            obs.finalize()
+            obs.deconfigure()
 
 
 if __name__ == "__main__":

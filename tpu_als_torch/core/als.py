@@ -28,11 +28,26 @@ normal equations + ``solve_spd`` (K2 up to rank 128, K6 above:
 ``einsum+pallas_lanes`` / ``einsum+pallas_lanes_blocked``); nonnegative
 runs NNLS and ``cg_iters > 0`` inexact CG, as in the reference.  No
 route has a probe: on the card each kernel launches or raises.
+
+``adaptive_solve=True`` puts :func:`~tpu_als_torch.ops.solve.solve_spd`'s
+residual-checked ladder on every route that solves through it.  The
+ladder sits above the solve dispatch, as in the reference, so it needs
+A and b in hand: under 'auto' the buckets K4 would take
+(``gatherfused_solve``, which returns only x) go through K3 and the
+laddered solve instead (``gatherfused+pallas_lanes``, K2, up to rank 128;
+``gatherfused+pallas_lanes_blocked``, K6, above).  A forced
+'gather_fused_solve' keeps K4 and has no ladder, as the reference's
+whole-iteration kernel has none.
+
+:func:`train` carries the guardrails (:mod:`tpu_als_torch.resilience.
+guardrails`): disarmed, one mode check; armed, a sentinel read at each
+iteration boundary and, in 'recover', the adaptive solve and a rollback
+to the last good factors when a sentinel trips.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -50,6 +65,8 @@ from tpu_als_torch.ops.solve import (
     solve_nnls,
     solve_spd,
 )
+from tpu_als_torch.resilience import faults
+from tpu_als_torch.resilience.guardrails import Monitor, guardrails_mode
 from tpu_als_torch.utils.platform import resolve_device
 
 # Rows wider than this many padded entries are split over blocks (K3)
@@ -96,22 +113,25 @@ class AlsConfig:
     cg_iters: int = 0               # > 0: inexact ALS, warm-started CG
     cg_mode: str = "matfree"        # or "dense"
     jitter: float = DEFAULT_JITTER
-    adaptive_solve: bool = False    # the guardrails ladder: not ported
+    adaptive_solve: bool = False    # solve_spd's residual-checked ladder
 
 
 def resolve_solve_path(cfg: AlsConfig, rank, width):
     """The route label of one bucket of ``width`` at ``rank``, from the
-    config and the shapes alone."""
+    config and the shapes alone.
+
+    With ``adaptive_solve`` under 'auto', a bucket of width <=
+    :data:`SPLIT_WIDTH` resolves to K3 + the laddered ``solve_spd``
+    (``gatherfused+pallas_lanes`` up to rank 128, ``gatherfused+
+    pallas_lanes_blocked`` above) instead of K4, which solves in place
+    and returns only x, leaving the ladder nothing to check; the wider
+    buckets keep their route (K3 + K1 or K6, now laddered)."""
     if cfg.solve_backend not in SOLVE_BACKENDS:
         raise ValueError(f"unknown solve_backend {cfg.solve_backend!r} "
                          f"(expected one of {SOLVE_BACKENDS})")
     if cfg.cg_mode not in ("matfree", "dense"):
         raise ValueError(f"unknown cg_mode {cfg.cg_mode!r} "
                          "(expected 'matfree' or 'dense')")
-    if cfg.adaptive_solve:
-        raise NotImplementedError(
-            "adaptive_solve (the residual-checked jitter ladder of "
-            "solve_spd) comes with the guardrails slice of the port")
     solver = _SOLVER_LABEL[auto_solve_backend(rank)]
     if cfg.nonnegative:
         return "einsum+nnls"
@@ -129,7 +149,8 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
         if rank > gne.MAX_RANK:
             return "einsum+" + solver
         if width <= SPLIT_WIDTH:
-            return "gatherfused_solve"
+            return ("gatherfused+" + solver if cfg.adaptive_solve
+                    else "gatherfused_solve")
         # the wide rows' systems: K1 where K2 would be auto's solver (1
         # to 128 systems a launch at the ML-25M shape: K1 is built for the
         # latency of one system, PERF.md), K6 above rank 128
@@ -177,7 +198,8 @@ def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
         else:
             A, rhs, count = gne.gather_normal_eq_explicit(
                 V_comp, c, v, m, reg, split_width=SPLIT_WIDTH)
-        return solve_spd(A, rhs, count, jitter=cfg.jitter, backend=backend)
+        return solve_spd(A, rhs, count, jitter=cfg.jitter, backend=backend,
+                         adaptive=cfg.adaptive_solve)
     Vg = V_comp[c.long()]
     cg = "cg" in path
     # warm start of the inexact solvers: the solved side's current rows
@@ -200,7 +222,8 @@ def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
     if cg:
         return solve_cg(A, rhs, count, x0=x0, iters=cfg.cg_iters,
                         jitter=cfg.jitter)
-    return solve_spd(A, rhs, count, jitter=cfg.jitter, backend=backend)
+    return solve_spd(A, rhs, count, jitter=cfg.jitter, backend=backend,
+                     adaptive=cfg.adaptive_solve)
 
 
 def local_half_step(V_full, buckets, num_rows, cfg: AlsConfig, YtY=None,
@@ -266,6 +289,16 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
     runs after each iteration.  ``init``: an optional ``(U0, V0)`` warm
     start (a resumed checkpoint): the loop then runs iterations
     ``start_iter + 1 .. cfg.max_iter``.  Returns ``(U, V)`` on the device.
+
+    The guardrails' mode (:func:`~tpu_als_torch.resilience.guardrails.
+    guardrails_mode`) is read once: 'off' leaves the loop as it is;
+    'warn' judges the sentinels after each iteration and reports a trip;
+    'recover' also trains with the adaptive solve, keeps the last good
+    factors, and on a trip retries the iteration from them (perturbed,
+    with regParam × 10 for that iteration only), raising
+    ``TrainDiverged`` when the rollback budget is spent.  The fault point
+    ``solve.gram`` (``corrupt``: a NaN factor row) is checked after each
+    iteration when armed.
     """
     device = resolve_device(device)
     num_users, num_items = user_csr.num_rows, item_csr.num_rows
@@ -276,10 +309,37 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
         U = init_factors(num_users, cfg.rank, g).to(device)
         V = init_factors(num_items, cfg.rank, g).to(device)
     ub, ib = user_csr.to(device), item_csr.to(device)
+    gmode = guardrails_mode()
+    monitor = None
+    step_cfg = cfg
+    if gmode != "off":
+        monitor = Monitor(cfg, gmode)
+        if gmode == "recover":
+            step_cfg = replace(cfg, adaptive_solve=True)
+    gram_fault = faults.armed("solve.gram")
     it = start_iter
+    retry = False
     while it < cfg.max_iter:
-        U, V = als_step(U, V, ub, ib, num_users, num_items, cfg,
+        if monitor is not None:
+            monitor.keep_last_good(U, V, retry=retry)
+        U, V = als_step(U, V, ub, ib, num_users, num_items, step_cfg,
                         user_csr.chunk_elems, item_csr.chunk_elems)
+        if gram_fault and faults.check("solve.gram") == "corrupt":
+            U[0] = torch.nan  # what a blown Gram solve leaves behind
+        if monitor is not None:
+            trip = monitor.judge(it + 1, U, V)
+            if trip is not None and monitor.mode == "recover":
+                U, V, reg_scale = monitor.rollback(it + 1, trip)
+                step_cfg = replace(cfg, adaptive_solve=True,
+                                   reg_param=cfg.reg_param * reg_scale)
+                retry = True
+                continue
+            if retry and monitor.reg_scale != 1.0:
+                # the bump is transient: the retried iteration cleared,
+                # so back to the configured regularization
+                monitor.reg_scale = 1.0
+                step_cfg = replace(cfg, adaptive_solve=True)
+        retry = False
         it += 1
         if callback is not None:
             callback(it, U, V)

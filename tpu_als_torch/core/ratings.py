@@ -7,10 +7,11 @@ are grouped by rating count into width buckets (next power of two,
 floored at ``min_width``; ``width_growth=1.5`` adds the 0.75·2^k rungs),
 each padded to its width, and each bucket's row count padded to its scan
 chunk; padding rows carry ``rows == num_rows``.  The layout is built on
-the host with numpy, bit-identical to the reference's numpy path (and so
-to its C++ bucketizer, which is not ported), then moved to the device
-once with :meth:`CsrBuckets.to`.  ``_next_pow2`` is not carried over,
-since it only bounded JAX's compile cache.
+the host — by the threaded C++ bucketizer
+(:mod:`tpu_als_torch.io.fastbucket`) or by numpy, array-equal to each
+other and to the reference's numpy path — then moved to the device once
+with :meth:`CsrBuckets.to`.  ``_next_pow2`` is not carried over, since it
+only bounded JAX's compile cache.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from tpu_als_torch.io import _native_build, fastbucket
 
 # |rating| above this is data corruption, not signal: past 1e6 the f32
 # normal-equation sums (r² terms reach 1e12) are overwhelmed
@@ -171,16 +174,35 @@ def trainer_chunk(nb_padded, width, rank, chunk_elems, mem_elems=1 << 28,
 
 
 def build_csr_buckets(row_idx, col_idx, vals, num_rows, min_width=8,
-                      chunk_elems=1 << 19, dtype=np.float32,
+                      chunk_elems=1 << 19, dtype=np.float32, native=None,
                       width_growth=2.0):
-    """Degree-bucketed padded CSR from COO triples (numpy).
+    """Degree-bucketed padded CSR from COO triples.
 
     Duplicate (row, col) entries are kept (they contribute twice).  Within
     a row, entries keep their input order; rows per bucket are padded to a
     multiple of the bucket's scan chunk, padding rows carrying
-    ``rows == num_rows``.
+    ``rows == num_rows``.  A row index outside ``[0, num_rows)`` raises
+    ``ValueError``.
+
+    ``native``: True takes the threaded C++ bucketizer
+    (:mod:`tpu_als_torch.io.fastbucket`, array-equal output) and raises
+    when ``dtype`` is not float32 or there is no ``g++``; False takes
+    numpy; None (default) takes C++ when ``dtype`` is float32 and ``g++``
+    is on the PATH, numpy otherwise.  The choice is made before anything
+    runs: a native build that then fails raises.
     """
     row_idx = np.asarray(row_idx, dtype=np.int64)
+    fastbucket.check_rows(row_idx, num_rows)
+    if native or native is None:
+        ok = (np.dtype(dtype) == np.float32
+              and _native_build.have_compiler())
+        if native and not ok:
+            raise RuntimeError("the native bucketizer needs float32 vals "
+                               "and g++ on the PATH")
+        if ok:
+            return _build_csr_buckets_native(row_idx, col_idx, vals,
+                                             num_rows, min_width,
+                                             chunk_elems, width_growth)
     col_idx = np.asarray(col_idx, dtype=np.int64)
     vals = np.asarray(vals, dtype=dtype)
     nnz = len(row_idx)
@@ -220,3 +242,29 @@ def build_csr_buckets(row_idx, col_idx, vals, num_rows, min_width=8,
 
     return CsrBuckets(buckets=buckets, num_rows=num_rows, counts=counts,
                       nnz=nnz, chunk_elems=chunk_elems)
+
+
+def _build_csr_buckets_native(row_idx, col_idx, vals, num_rows, min_width,
+                              chunk_elems, width_growth=2.0):
+    """The threaded C++ path of :func:`build_csr_buckets`: the counts and
+    the fill in C++, the bucket layout from the same width rule as the
+    numpy path."""
+    counts = fastbucket.counts(row_idx, num_rows)
+    w_all = entity_widths(counts, min_width, width_growth)
+    rated = counts > 0
+    bucket_widths = sorted(set(w_all[rated].tolist()))
+    layout = []
+    for w in bucket_widths:
+        nb = int((rated & (w_all == w)).sum())
+        layout.append((int(w), nb, padded_bucket_rows(nb, w, chunk_elems)))
+    # per-entity bucket index (exact width match; -1 for unrated entities)
+    ebucket = np.searchsorted(np.asarray(bucket_widths, dtype=np.int64),
+                              w_all).astype(np.int32)
+    ebucket[~rated] = -1
+    raw = fastbucket.fill_buckets(row_idx, col_idx, vals, num_rows, counts,
+                                  ebucket, layout)
+    return CsrBuckets(
+        buckets=[Bucket(rows=r, cols=c, vals=v, mask=m)
+                 for r, c, v, m in raw],
+        num_rows=num_rows, counts=counts, nnz=len(row_idx),
+        chunk_elems=chunk_elems)

@@ -1,22 +1,127 @@
-"""MovieLens-shaped synthetic ratings at any scale.
+"""MovieLens loaders and MovieLens-shaped synthetic ratings at any scale.
 
-Counterpart of ``tpu_als/io/movielens.py``: ``ML25M_SHAPE`` and
-``synthetic_movielens`` (an own copy; pure numpy, so the same seed gives
-the same frame as the reference's).  Degrees follow truncated zipf-like
-power laws (users shallower than items), and ratings are a planted
-low-rank structure on the 0.5..5.0 half-star grid.  The file loaders of
-the reference are not ported; the port's CSV reader is
-:mod:`tpu_als_torch.io.ratings_csv`.
+Counterpart of ``tpu_als/io/movielens.py`` (an own copy): ml-100k
+``u.data`` (tab-separated user/item/rating/ts), ml-1m/ml-10m
+``ratings.dat`` (``'::'``-separated), ml-latest/ml-25m ``ratings.csv``
+(header ``userId,movieId,rating,timestamp``), the movie-title tables of
+all three formats, and :func:`synthetic_movielens` (pure numpy, so the
+same seed gives the same frame as the reference's).  ``u.data`` and
+``ratings.csv`` are read by the native reader
+(:mod:`tpu_als_torch.io.fastcsv`) when ``g++`` is on the PATH, and by its
+Python twin (:mod:`tpu_als_torch.io.ratings_csv`, the same output and the
+same ``ValueError`` on a malformed line) otherwise; the choice is made
+before reading, and a native build that then fails raises.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 
+from tpu_als_torch.io import fastcsv, ratings_csv
+from tpu_als_torch.io._native_build import have_compiler
 from tpu_als_torch.utils.frame import ColumnarFrame
 
-# MovieLens-25M's published shape (users, items, ratings)
+# MovieLens' published shapes (users, items, ratings)
 ML25M_SHAPE = (162_541, 59_047, 25_000_095)
+ML100K_SHAPE = (943, 1_682, 100_000)
+
+
+def _frame(u, i, r, t):
+    return ColumnarFrame({"user": u, "item": i, "rating": r,
+                          "timestamp": t})
+
+
+def load_movielens_100k(path):
+    """Read ml-100k ``u.data`` (or a directory containing it)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "u.data")
+    if have_compiler():
+        return _frame(*fastcsv.load_u_data(path))
+    return ratings_csv.load_u_data(path)
+
+
+def load_movielens_dat(path):
+    """Read ml-1m / ml-10m ``ratings.dat`` (or a directory containing it):
+    ``UserID::MovieID::Rating::Timestamp``, no header; ml-10m ratings come
+    in half-star steps, so the rating column is parsed as float.
+
+    Splitting ``a::b::c::d`` on single ``':'`` yields empty fields at odd
+    positions, so ``usecols=(0, 2, 4, 6)`` reads the format exactly (its
+    fields are bare numbers, never quoted) and stays in numpy."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "ratings.dat")
+    try:
+        raw = np.loadtxt(path, dtype=np.float64, delimiter=":",
+                         usecols=(0, 2, 4, 6), ndmin=2)
+    except (ValueError, IndexError) as e:
+        raise ValueError(f"{path}: malformed ratings line ({e})") from None
+    return _frame(raw[:, 0].astype(np.int64), raw[:, 1].astype(np.int64),
+                  raw[:, 2].astype(np.float32), raw[:, 3].astype(np.int64))
+
+
+def load_movielens_csv(path):
+    """Read a ``ratings.csv`` (ml-latest / ml-25m style, with header, or
+    a directory containing it); a malformed line raises ``ValueError``."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "ratings.csv")
+    if have_compiler():
+        return _frame(*fastcsv.load_ratings_csv(path))
+    return ratings_csv.load_ratings_csv(path)
+
+
+def load_movielens_movies(path):
+    """Read the id -> title table: ml-100k ``u.item`` (``|``-separated,
+    latin-1), ml-1m/ml-10m ``movies.dat`` (``'::'``-separated) or
+    ml-latest/ml-25m ``movies.csv`` (quoted CSV with header), told apart
+    by the file name; a directory resolves to whichever of the three it
+    holds.  Returns a frame with ``item`` (int64) and ``title`` (object)
+    columns."""
+    if os.path.isdir(path):
+        for name in ("movies.csv", "movies.dat", "u.item"):
+            cand = os.path.join(path, name)
+            if os.path.exists(cand):
+                path = cand
+                break
+        else:
+            raise FileNotFoundError(
+                f"{path} contains none of movies.csv / movies.dat / u.item")
+    base = os.path.basename(path)
+    ids, titles = [], []
+    if base.endswith(".csv"):
+        with open(path, newline="", encoding="utf-8") as f:
+            reader = csv.reader(f)
+            next(reader, None)  # header: movieId,title,genres
+            for row in reader:
+                if len(row) >= 2:
+                    ids.append(int(row[0]))
+                    titles.append(row[1])
+    elif base.endswith(".dat"):
+        # ml-10m ships movies.dat in UTF-8, ml-1m in latin-1: strict UTF-8
+        # first (every byte string is valid latin-1, so latin-1 first would
+        # garble UTF-8 titles), latin-1 for ml-1m
+        try:
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+        except UnicodeDecodeError:
+            with open(path, encoding="latin-1") as f:
+                text = f.read()
+        for line in text.splitlines():
+            parts = line.split("::")
+            if len(parts) >= 2:
+                ids.append(int(parts[0]))
+                titles.append(parts[1])
+    else:  # u.item
+        with open(path, encoding="latin-1") as f:
+            for line in f:
+                parts = line.rstrip("\n").split("|")
+                if len(parts) >= 2:
+                    ids.append(int(parts[0]))
+                    titles.append(parts[1])
+    return ColumnarFrame({"item": np.asarray(ids, dtype=np.int64),
+                          "title": np.asarray(titles, dtype=object)})
 
 
 def synthetic_movielens(num_users, num_items, num_ratings, seed=0,

@@ -9,8 +9,11 @@ JAX package leaves them to XLA; the SPD solve is kernel K2
 (:mod:`tpu_als_torch.ops.cuda_lanes_blocked`, above rank 128: the
 factorization and both substitutions in one call) or, by name, kernel K1
 (:mod:`tpu_als_torch.ops.cuda_solve`, tiled, any rank) on a CUDA
-tensor, and their plain versions on a CPU tensor.  The ``adaptive=``
-jitter ladder belongs to the guardrails slice and is not here.
+tensor, and their plain versions on a CPU tensor.  ``adaptive=True``
+(the guardrails' ladder, :func:`solve_spd`) checks each row's residual
+and re-solves the rows that fail with more jitter through the same
+kernel, then with CG; :func:`solve_spd_checked` raises the typed
+:class:`SolveUnstable` for rows nothing saves.
 
 Shapes use the padded-row convention of the reference:
 
@@ -24,8 +27,33 @@ from __future__ import annotations
 import torch
 
 from tpu_als_torch.ops import cuda_lanes, cuda_lanes_blocked, cuda_solve
+from tpu_als_torch.utils.platform import pin_fp32
 
 DEFAULT_JITTER = 1e-6
+
+# The adaptive solve's ladder: absolute jitter levels tried after the
+# configured jitter, in order, before the CG fallback.  A row passes when
+# its solution is finite and its residual is within _ADAPTIVE_TOL of
+# ||b|| + 1: loose enough that a healthy float32 Cholesky clears it at
+# once (the armed cost is then one residual product), tight enough that
+# a numerically singular factorization (non-finite x, or a wild x from a
+# near-zero pivot) fails it.
+ADAPTIVE_JITTER_RUNGS = (1e-4, 1e-2)
+_ADAPTIVE_TOL = 1e-2
+
+
+class SolveUnstable(ArithmeticError):
+    """Every rung of the adaptive ladder failed on some rows: their
+    systems are beyond what jitter and the CG fallback can stabilize (the
+    data is numerically hostile, not the program wrong)."""
+
+    def __init__(self, bad_rows, total_rows):
+        super().__init__(
+            f"adaptive SPD solve failed on {bad_rows} of {total_rows} rows "
+            f"after jitter escalation {ADAPTIVE_JITTER_RUNGS} and the CG "
+            "fallback — the Gram systems are numerically unsalvageable")
+        self.bad_rows = bad_rows
+        self.total_rows = total_rows
 
 # Rows wider than this are contracted in width chunks of this many
 # entries, and the chunk sums added.  A batched GEMM on the card sums a
@@ -108,21 +136,43 @@ def compute_yty(V):
     return V.T @ V
 
 
+def _guard(A, count):
+    """Rows with ``count <= 0`` get ``A := I`` (their b is 0, so x is
+    exactly 0); a fresh tensor."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.where((count <= 0)[:, None, None], eye, A)
+
+
+def _plus_jitter(A0, jitter):
+    """``A0 + jitter·I``, a fresh contiguous tensor (a solver may write
+    over it)."""
+    eye = torch.eye(A0.shape[-1], dtype=A0.dtype, device=A0.device)
+    return (A0 + jitter * eye).contiguous()
+
+
 def regularize(A, count, jitter=DEFAULT_JITTER):
     """``solve_spd``'s pre-regularization: rows with ``count <= 0`` get
     ``A := I`` (their b is 0, so x is exactly 0), then ``+ jitter·I``.
     The result is always a fresh contiguous tensor: K6 writes its factor
     over it, and the caller's A is left as it was."""
-    r = A.shape[-1]
-    eye = torch.eye(r, dtype=A.dtype, device=A.device)
-    A = torch.where((count <= 0)[:, None, None], eye, A)
-    return (A + jitter * eye).contiguous()
+    return _plus_jitter(_guard(A, count), jitter)
 
 
 # the solve kernels by backend name
 SOLVERS = {"lanes": cuda_lanes.spd_solve_lanes,
            "lanes_blocked": cuda_lanes_blocked.spd_solve_lanes_blocked,
            "pallas": cuda_solve.spd_solve_blocked}
+
+
+def _backend(A, backend):
+    """``backend`` with 'auto' resolved from A's rank; raises for a name
+    outside :data:`SOLVERS`."""
+    if backend == "auto":
+        backend = auto_solve_backend(A.shape[-1])
+    if backend not in SOLVERS:
+        raise ValueError(f"unknown solve backend {backend!r} (expected "
+                         f"'auto' or one of {sorted(SOLVERS)})")
+    return backend
 
 
 def auto_solve_backend(rank):
@@ -132,7 +182,8 @@ def auto_solve_backend(rank):
     return "lanes" if rank <= cuda_lanes.MAX_RANK else "lanes_blocked"
 
 
-def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
+def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto",
+              adaptive=False):
     """Batched SPD solve x = A⁻¹ b after :func:`regularize`.
 
     ``backend``: 'auto' (:func:`auto_solve_backend`), or a name of
@@ -140,16 +191,96 @@ def solve_spd(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
     solve, 'pallas' K1.  bfloat16 input is upcast to float32
     before the guard, solved, and the answer cast back (there is no bf16
     factorization).
+
+    ``adaptive=True`` (the guardrails' 'recover' mode, or
+    ``AlsConfig(adaptive_solve=True)``): the same solve, then each row's
+    residual ``(A0 + jitter·I)·x − b`` is checked against A0, the guarded
+    A (never against a tensor a solver was given: K6 writes L over its
+    input).  When every row passes — the healthy case — that residual
+    product and one host sync are the whole cost, and x is the plain
+    solve's, bit for bit.  Otherwise the failing rows alone are solved
+    again at each jitter of :data:`ADAPTIVE_JITTER_RUNGS`, through the
+    same kernel, a row keeping the first answer that passes; the rows
+    that pass no rung get ``min(2r, 32)`` Jacobi-CG steps on
+    ``A0 + 1e-2·I`` from their last finite answer, and keep that answer
+    whatever it is (:func:`solve_spd_checked` raises for them).
     """
     if A.dtype == torch.bfloat16:
         return solve_spd(A.float(), b.float(), count, jitter=jitter,
-                         backend=backend).to(torch.bfloat16)
-    if backend == "auto":
-        backend = auto_solve_backend(A.shape[-1])
-    if backend not in SOLVERS:
-        raise ValueError(f"unknown solve backend {backend!r} (expected "
-                         f"'auto' or one of {sorted(SOLVERS)})")
-    return SOLVERS[backend](regularize(A, count, jitter), b.contiguous())
+                         backend=backend,
+                         adaptive=adaptive).to(torch.bfloat16)
+    backend = _backend(A, backend)
+    if not adaptive:
+        return SOLVERS[backend](regularize(A, count, jitter), b.contiguous())
+    return _adaptive(A, b, count, jitter, backend)[0]
+
+
+def _residual_ok(A0, rung, x, b):
+    """Rows whose x is finite and solves ``(A0 + rung·I)·x = b`` within
+    :data:`_ADAPTIVE_TOL` of ``||b|| + 1``; ``A0 + rung·I`` is applied as
+    ``A0·x + rung·x``."""
+    res = torch.bmm(A0, x[:, :, None])[..., 0] + rung * x - b
+    bound = _ADAPTIVE_TOL * (torch.linalg.vector_norm(b, dim=-1) + 1.0)
+    return (torch.isfinite(x).all(-1)
+            & (torch.linalg.vector_norm(res, dim=-1) <= bound))
+
+
+def _adaptive(A, b, count, jitter, backend):
+    """The ladder of :func:`solve_spd`; returns ``(x, A0, cg_rows)``, the
+    guarded A and the index of the rows no rung settled."""
+    pin_fp32()
+    solve = SOLVERS[backend]
+    b = b.contiguous()
+    A0 = _guard(A, count)
+    x = solve(_plus_jitter(A0, jitter), b)
+    ok = _residual_ok(A0, jitter, x, b)
+    if bool(ok.all()):
+        return x, A0, torch.empty(0, dtype=torch.long, device=x.device)
+    rows = (~ok).nonzero()[:, 0]
+    for rung in ADAPTIVE_JITTER_RUNGS:
+        Ar, br = A0[rows], b[rows]
+        xr = solve(_plus_jitter(Ar, rung), br)
+        ok = _residual_ok(Ar, rung, xr, br)
+        x[rows[ok]] = xr[ok]
+        rows, xr = rows[~ok], xr[~ok]
+        if not len(rows):
+            return x, A0, rows
+    # the last rung: CG on the heaviest-jittered system, factorization-
+    # free, so a Cholesky that breaks down on every rung still gets a
+    # descent answer
+    rung = ADAPTIVE_JITTER_RUNGS[-1]
+    Ac, bc = A0[rows], b[rows]
+    diag = torch.diagonal(Ac, dim1=-2, dim2=-1) + rung
+
+    def matvec(p):
+        return torch.bmm(Ac, p[:, :, None])[..., 0] + rung * p
+
+    warm = torch.where(torch.isfinite(xr), xr, torch.zeros_like(xr))
+    x[rows] = pcg(matvec, bc, diag, x0=warm,
+                  iters=min(2 * A.shape[-1], 32))
+    return x, A0, rows
+
+
+def solve_spd_checked(A, b, count, jitter=DEFAULT_JITTER, backend="auto"):
+    """The adaptive solve with a host-side verdict: raises
+    :class:`SolveUnstable` when rows stay non-finite or fail the residual
+    rule after every rung; returns x otherwise.  A row is saved when its
+    answer satisfies any rung's system (the configured jitter's or a
+    ladder rung's): a row solved at the base jitter is not judged against
+    a heavier rung it never needed."""
+    if A.dtype == torch.bfloat16:
+        return solve_spd_checked(A.float(), b.float(), count, jitter=jitter,
+                                 backend=backend).to(torch.bfloat16)
+    x, A0, rows = _adaptive(A, b, count, jitter, _backend(A, backend))
+    if len(rows):
+        xc, Ac, bc = x[rows], A0[rows], b[rows].contiguous()
+        ok = torch.zeros(len(rows), dtype=torch.bool, device=x.device)
+        for rung in (jitter,) + ADAPTIVE_JITTER_RUNGS:
+            ok |= _residual_ok(Ac, rung, xc, bc)
+        nbad = int((~ok).sum())
+        if nbad:
+            raise SolveUnstable(nbad, int(x.shape[0]))
+    return x
 
 
 def solve_nnls(A, b, count, sweeps=32, jitter=DEFAULT_JITTER):

@@ -241,6 +241,7 @@ def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
                     x = solve_cg(A, bb, cnt, x0=x0, iters=cfg.cg_iters,
                                  jitter=cfg.jitter)
                 else:
-                    x = solve_spd(A, bb, cnt, jitter=cfg.jitter)
+                    x = solve_spd(A, bb, cnt, jitter=cfg.jitter,
+                                  adaptive=cfg.adaptive_solve)
                 out[d, rows] = x
     return out[:, :num_rows].reshape(D * num_rows, r)

@@ -1,0 +1,149 @@
+"""Retry policies: jittered exponential backoff with timeouts and budgets.
+
+Counterpart of ``tpu_als/resilience/retry.py`` (stdlib only): the one
+retry implementation of the port.  A transient failure is retried at the
+call site under a :class:`RetryPolicy`; every failed attempt emits a
+``retry_attempt`` event and an exhausted budget a ``retry_exhausted``
+event through :mod:`tpu_als_torch.obs`.  The guardrails' rollback budget
+is a :class:`RetryPolicy` (``max_attempts`` rollbacks).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+
+from tpu_als_torch import obs
+
+
+class RetryExhausted(RuntimeError):
+    """Every attempt failed.  ``last`` is the final exception,
+    ``attempts`` how many were made."""
+
+    def __init__(self, what, attempts, last):
+        super().__init__(
+            f"{what}: all {attempts} attempt(s) failed; last error: "
+            f"{type(last).__name__}: {last}")
+        self.what = what
+        self.attempts = attempts
+        self.last = last
+
+
+class AttemptTimeout(TimeoutError):
+    """One attempt exceeded the policy's per-call timeout.  The worker
+    thread may still be running (Python cannot kill it); the attempt is
+    abandoned and counted as failed."""
+
+
+class RetryPolicy:
+    """Backoff schedule + budgets.
+
+    ``max_attempts``: total tries (1 = no retry).
+    ``base_delay`` / ``factor`` / ``max_delay``: attempt k (0-based)
+    sleeps ``min(max_delay, base_delay * factor**k)`` before attempt
+    k+1, scaled by the jitter draw.  ``factor=1`` gives a constant
+    wait.
+    ``jitter``: fraction of the delay drawn uniformly in
+    ``[1-jitter, 1+jitter]`` from a dedicated ``random.Random(seed)`` —
+    deterministic per policy instance, never global RNG state.
+    ``timeout``: per-attempt wall-clock budget; the attempt runs on a
+    daemon thread and :class:`AttemptTimeout` counts as a failure (a
+    hung call becomes a retryable error instead of wedging the caller).
+    ``None`` calls inline.
+    ``retry_on``: exception classes that count as transient.  Anything
+    else propagates immediately — a ``ValueError`` is a fact about the
+    data, not the weather.
+    ``sleep``: injectable for tests.
+
+    The reference's ``deterministic`` schedules (keyed on the
+    ``TPU_ALS_TRACE`` tracing switch) are not ported: they serve its
+    tracing, which the port does not have yet.
+    """
+
+    def __init__(self, max_attempts=3, base_delay=0.05, factor=2.0,
+                 max_delay=5.0, jitter=0.25, timeout=None,
+                 retry_on=(OSError, TimeoutError), seed=0,
+                 sleep=time.sleep):
+        if max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if base_delay < 0 or max_delay < 0:
+            raise ValueError("delays must be >= 0")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError("jitter must be in [0, 1]")
+        self.max_attempts = int(max_attempts)
+        self.base_delay = float(base_delay)
+        self.factor = float(factor)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self.timeout = timeout
+        self.retry_on = tuple(retry_on)
+        self.seed = seed
+        self.sleep = sleep
+        self._rng = random.Random(seed)
+
+    def delay(self, attempt):
+        """Backoff before attempt ``attempt + 1`` (0-based), jittered."""
+        d = min(self.max_delay, self.base_delay * self.factor ** attempt)
+        if self.jitter:
+            d *= 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+        return d
+
+
+def _call_with_timeout(fn, args, kwargs, seconds, what):
+    """Run ``fn`` on a daemon thread, bounding this caller's wait."""
+    box = {}
+
+    def run():
+        try:
+            box["v"] = fn(*args, **kwargs)
+        except BaseException as e:  # re-raised on the caller's thread
+            box["e"] = e
+
+    t = threading.Thread(target=run, daemon=True, name=f"retry:{what}")
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise AttemptTimeout(
+            f"{what}: attempt exceeded {seconds}s timeout")
+    if "e" in box:
+        raise box["e"]
+    return box["v"]
+
+
+def retry_call(fn, *args, policy=None, what=None, on_attempt=None,
+               **kwargs):
+    """Call ``fn(*args, **kwargs)`` under ``policy``.
+
+    On each failed attempt emits a ``retry_attempt`` obs event and calls
+    ``on_attempt(info_dict)`` if given.  When the budget is exhausted
+    emits ``retry_exhausted`` and raises :class:`RetryExhausted` from the
+    last error.
+    """
+    policy = policy or RetryPolicy()
+    what = what or getattr(fn, "__name__", "call")
+    last = None
+    for attempt in range(policy.max_attempts):
+        t0 = time.monotonic()
+        try:
+            if policy.timeout is not None:
+                return _call_with_timeout(fn, args, kwargs,
+                                          policy.timeout, what)
+            return fn(*args, **kwargs)
+        except policy.retry_on as e:
+            last = e
+            info = {
+                "what": what,
+                "attempt": attempt + 1,
+                "attempts": policy.max_attempts,
+                "elapsed_seconds": round(time.monotonic() - t0, 6),
+                "reason": f"{type(e).__name__}: {e}",
+            }
+            obs.emit("retry_attempt", **info)
+            if on_attempt is not None:
+                on_attempt(dict(info))
+            if attempt + 1 < policy.max_attempts:
+                policy.sleep(policy.delay(attempt))
+    obs.emit("retry_exhausted", what=what, attempts=policy.max_attempts,
+             reason=f"{type(last).__name__}: {last}")
+    raise RetryExhausted(what, policy.max_attempts, last) from last

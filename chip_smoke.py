@@ -94,7 +94,29 @@ Phases (any failure exits non-zero before the final line):
    ``ALS(rank=320).fit`` on a 2000 x 800 x 40000 frame (the einsum route
    with K6 above K3/K4's rank) with one more item half-step against a
    float64 solve;
-7. timings at the slices' shapes (CUDA events), each kernel beside its
+7. model selection and evaluation (the Spark ML surface and the fit's
+   checkpoint lifecycle): (a) examples/02's workflow at BASELINE config
+   1's shape (943 x 1,682 x 100,000, string ids): ``Pipeline([
+   StringIndexer, StringIndexer, ALS(maxIter=10)])`` under
+   ``CrossValidator(numFolds=3)`` over rank {10, 128} x regParam {0.05,
+   1.0} on the card and with ``device='cpu'`` (every fold's metric within
+   SELECT_METRIC_REL, the same best index), the CrossValidatorModel saved
+   and loaded back as a PipelineModel (transform equal bit for bit),
+   ``recommendForAllUsers(10)`` mapped back by ``IndexToString``; (b) the
+   headline, RMSE on MovieLens-25M: ``TrainValidationSplit(0.8)`` over
+   explicit ``ALS(rank=128, maxIter=3)`` x regParam {0.05, 0.1} on phase
+   5's frame (both RMSEs finite and below the training mean's, the best
+   the argmin, each fit's log-to-model time), then ``evaluate``'s ranking
+   protocol on the validation split (precision@10 above a random
+   ranking's); (c) ``legacy.ALS.train(rank=10, iterations=10)`` on the
+   card against the CPU, and ``recommendProductsForUsers(10)``; (d) the
+   ``tune`` and ``evaluate`` commands, their JSON against this process's;
+   (e) ``train`` at rank 128 stopped by ``TPU_ALS_PREEMPT_AT=3`` (exit
+   43) and finished by ``--resume auto``, and a torn save
+   (``checkpoint.write=corrupt``) quarantined with ``.old`` resumed, both
+   against an uninterrupted fit.  K1/K3/K4/K5 launches are counted from 0
+   around (a), (b) and (c);
+8. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -119,7 +141,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-8. where the time goes: one training iteration, one more fold-in batch
+9. where the time goes: one training iteration, one more fold-in batch
    and one all-users recommend, and one rank-256 iteration and fold-in
    batch, under ``torch.profiler`` (wall, device busy, idle share, top
    kernels); then one JSON line with every kernel's numbers (K3, K4 and
@@ -140,7 +162,9 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -148,7 +172,14 @@ import numpy as np
 import torch
 
 from tpu_als_torch import _build, obs
+from tpu_als_torch.api import legacy
 from tpu_als_torch.api.estimator import ALS, ALSModel
+from tpu_als_torch.api.evaluation import RegressionEvaluator
+from tpu_als_torch.api.pipeline import (IndexToString, Pipeline,
+                                        PipelineModel, StringIndexer)
+from tpu_als_torch.api.tuning import (CrossValidator, CrossValidatorModel,
+                                      ParamGridBuilder, TrainValidationSplit)
+from tpu_als_torch.cli import ranking_eval
 from tpu_als_torch.convert import entity_rows, model_from_arrays, slot_rows
 from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
@@ -169,6 +200,7 @@ from tpu_als_torch.parallel.mesh import make_mesh
 from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
 from tpu_als_torch.resilience import faults, guardrails
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
+from tpu_als_torch.utils.frame import ColumnarFrame
 from tpu_als_torch.utils.platform import pin_fp32
 
 N_USERS, N_ITEMS, RANK = 162_541, 59_047, 128   # ML-25M serving shape
@@ -1809,7 +1841,433 @@ def rank320_fit(seed, dev):
         fail(f"rank 320: the half-step is {err:.3e} off float64")
 
 
-# -- phase 7 ---------------------------------------------------------------
+# -- phase 7: model selection and evaluation ---------------------------------
+ML100K_SHAPE = (943, 1682, 100_000)     # BASELINE config 1's shape
+SELECT_RANKS, SELECT_REGS = (10, 128), (0.05, 1.0)
+# the card's fold metrics against the CPU's (the same port, the same init
+# from a CPU generator; the kernels against their plain versions)
+SELECT_METRIC_REL = 1e-4
+# the legacy fit (rank 10, 10 iterations at its default lambda 0.01) on
+# the card against the CPU: max over rows of |x - x_cpu| / |x_cpu|, and
+# the recommendation scores relative to the CPU's; the repo's band for
+# two solve routes (rtol 5e-3): this fit amplifies the routes' f32
+# rounding over its 10 iterations
+LEGACY_ROW_REL = 5e-3
+LEGACY_SCORE_REL = 5e-3
+# a resumed fit against the uninterrupted one when the kernels are not
+# run-to-run deterministic
+RESUME_ABS = 1e-5
+
+
+def string_frame(seed):
+    """ML-100K-shaped ratings with the ids turned into strings, the
+    shape of a production log (examples/02_pipeline_string_ids.py)."""
+    raw = synthetic_movielens(*ML100K_SHAPE, seed=seed)
+    return ColumnarFrame({
+        "userName": np.array([f"u{k:05d}" for k in raw["user"]], object),
+        "movie": np.array([f"m{k:05d}" for k in raw["item"]], object),
+        "rating": raw["rating"]})
+
+
+def selection_cv(frame, seed, device):
+    """``Pipeline([StringIndexer, StringIndexer, ALS])`` cross-validated
+    over rank x regParam in 3 folds on ``device``."""
+    als = ALS(userCol="user", itemCol="item", maxIter=10,
+              coldStartStrategy="drop", seed=seed, device=device)
+    pipe = Pipeline(stages=[
+        StringIndexer(inputCol="userName", outputCol="user",
+                      handleInvalid="skip"),
+        StringIndexer(inputCol="movie", outputCol="item",
+                      handleInvalid="skip"),
+        als])
+    grid = (ParamGridBuilder().addGrid(als.rank, list(SELECT_RANKS))
+            .addGrid(als.regParam, list(SELECT_REGS)).build())
+    cv = CrossValidator(estimator=pipe, estimatorParamMaps=grid,
+                        evaluator=RegressionEvaluator(labelCol="rating"),
+                        numFolds=3, seed=seed)
+    t0 = time.perf_counter()
+    model = cv.fit(frame)
+    return model, time.perf_counter() - t0
+
+
+def pipeline_selection(seed, dev, tmp):
+    """(a) examples/02's workflow at BASELINE config 1's scale: the
+    pipeline cross-validated on the card and on the CPU (every fold's
+    metric within SELECT_METRIC_REL, the same best index), the
+    CrossValidatorModel saved and loaded back as a PipelineModel
+    (transform equal bit for bit), recommendForAllUsers(10) (K5) mapped
+    back with IndexToString.  Launches counted from 0 around the card's
+    part."""
+    frame = string_frame(seed)
+    _zero_launches()
+    cvm, wall = selection_cv(frame, seed, dev)
+    best = cvm.bestModel
+    recs_t0 = time.perf_counter()
+    als_model = best.stages[-1]
+    recs = als_model.recommendForAllUsers(10)
+    recs_s = time.perf_counter() - recs_t0
+    launches = _launch_counts()
+    cpu, cpu_wall = selection_cv(frame, seed, "cpu")
+    fold = np.asarray(cvm.foldMetrics)
+    fold_cpu = np.asarray(cpu.foldMetrics)
+    rel = float(np.max(np.abs(fold - fold_cpu) / np.abs(fold_cpu)))
+    bi, bi_cpu = int(np.argmin(cvm.avgMetrics)), int(np.argmin(cpu.avgMetrics))
+    log(f"(a) CrossValidator(3 folds) over rank {SELECT_RANKS} x regParam "
+        f"{SELECT_REGS}, Pipeline(StringIndexer x2, ALS(maxIter=10)) at "
+        f"ML-100K {ML100K_SHAPE}: card {wall:.2f} s, CPU {cpu_wall:.2f} s "
+        f"(host clock, 12 fits + the refit); avg RMSE card "
+        + ", ".join(f"{m:.6f}" for m in cvm.avgMetrics) + "; CPU "
+        + ", ".join(f"{m:.6f}" for m in cpu.avgMetrics)
+        + f"; fold metrics max rel diff {rel:.3e} (tol {SELECT_METRIC_REL});"
+        f" best index card {bi}, CPU {bi_cpu}")
+    if not rel <= SELECT_METRIC_REL:
+        fail(f"(a) the card's fold metrics are {rel:.3e} off the CPU's")
+    if bi != bi_cpu:
+        fail(f"(a) best index {bi} on the card, {bi_cpu} on the CPU")
+    path = os.path.join(tmp, "cv")
+    cvm.save(path)
+    back = PipelineModel.load(os.path.join(path, "bestModel"), device=dev)
+    back_cv = CrossValidatorModel.load(path, device=dev)
+    pred = best.transform(frame)["prediction"]
+    pred_back = back.transform(frame)["prediction"]
+    if back_cv.avgMetrics != cvm.avgMetrics or \
+            not np.array_equal(pred, pred_back):
+        fail("(a) the saved CrossValidatorModel does not load back to the "
+             "same predictions")
+    users = IndexToString(inputCol="user", outputCol="userName",
+                          labels=best.stages[0].labels).transform(
+        ColumnarFrame({"user": recs["user"]}))["userName"]
+    items = IndexToString(inputCol="item", outputCol="movie",
+                          labels=best.stages[1].labels).transform(
+        ColumnarFrame({"item": recs["recommendations"]["item"].ravel()})
+    )["movie"]
+    if set(users) != set(frame["userName"]) or \
+            not set(items) <= set(frame["movie"]) or \
+            recs["recommendations"].shape != (len(users), 10):
+        fail("(a) recommendForAllUsers mapped back to labels the fit "
+             "never saw")
+    log(f"(a) saved and loaded: transform equal bit for bit on "
+        f"{len(pred):,} rows; recommendForAllUsers(10) for {len(users)} "
+        f"users {recs_s * 1e3:.1f} ms, mapped back by IndexToString; "
+        "launches " + ", ".join(f"{k.upper()} {launches[k]}"
+                                for k in ("k1", "k3", "k4", "k5")))
+    if launches["k4"] == 0 or launches["k5"] == 0:
+        fail(f"(a) the card's path did not launch K4 and K5: {launches}")
+    return {"launches": launches, "wall": wall, "best": bi,
+            "params": best.stages[-1]._params}
+
+
+class TimedALS(ALS):
+    """``ALS`` whose every fit records its log-to-model wall (host clock,
+    ending in a device sync) in the class list ``walls``."""
+    walls = []
+
+    def _fit(self, dataset):
+        t0 = time.perf_counter()
+        model = super()._fit(dataset)
+        torch.cuda.synchronize()
+        TimedALS.walls.append(time.perf_counter() - t0)
+        return model
+
+
+def headline_rmse(frame, seed, dev):
+    """(b) The headline, RMSE on MovieLens-25M: TrainValidationSplit(0.8)
+    over explicit ALS(rank=128, maxIter=3) x regParam {0.05, 0.1} on the
+    phase-5 frame; both RMSEs finite and below the training mean's, the
+    best model the argmin, the refit finite; then the ranking protocol of
+    ``evaluate`` on the validation split (recommendForUserSubset, K5)."""
+    TimedALS.walls = []
+    als = TimedALS(rank=RANK, maxIter=3, coldStartStrategy="drop",
+                   seed=seed, device=dev)
+    grid = ParamGridBuilder().addGrid(als.regParam, [0.05, 0.1]).build()
+    tvs = TrainValidationSplit(
+        estimator=als, estimatorParamMaps=grid, trainRatio=0.8, seed=seed,
+        evaluator=RegressionEvaluator(labelCol="rating"))
+    _zero_launches()
+    t0 = time.perf_counter()
+    model = tvs.fit(frame)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    train, val = frame.randomSplit([0.8, 0.2], seed=seed)
+    mean = float(np.mean(train["rating"], dtype=np.float64))
+    base = float(np.sqrt(np.mean(
+        (val["rating"].astype(np.float64) - mean) ** 2)))
+    rmse = model.validationMetrics
+    best = model.bestModel
+    log(f"(b) TrainValidationSplit(0.8) over ALS(rank={RANK}, maxIter=3) "
+        f"x regParam (0.05, 0.1) at ML-25M: validation RMSE "
+        + ", ".join(f"{m:.6f}" for m in rmse)
+        + f"; the training mean's {base:.6f}; best regParam "
+        f"{best._params['regParam']}; fits (log-to-model, s) "
+        + ", ".join(f"{w:.2f}" for w in TimedALS.walls)
+        + f"; tuner {wall:.2f} s; launches " + ", ".join(
+            f"{k.upper()} {launches[k]}" for k in ("k1", "k3", "k4", "k5")))
+    if not all(np.isfinite(m) and m < base for m in rmse):
+        fail(f"(b) validation RMSE {rmse} not finite or not below the "
+             f"training mean's {base:.4f}")
+    if best._params["regParam"] != [0.05, 0.1][int(np.argmin(rmse))]:
+        fail("(b) the best model is not the argmin")
+    if not (torch.isfinite(best._U).all() and torch.isfinite(best._V).all()):
+        fail("(b) the refit's factors are not finite")
+    if launches["k4"] == 0:
+        fail(f"(b) the fits did not launch K4: {launches}")
+    _zero_launches()
+    t0 = time.perf_counter()
+    rk = ranking_eval(best, val, 10, 3.5)
+    ev_s = time.perf_counter() - t0
+    k5 = _launch_counts()["k5"]
+    # a random ranking of the catalog's expected precision@10: each
+    # user's share of positive items in the catalog, averaged.  The
+    # synthetic frame draws which items a user rates from popularity
+    # alone, independent of the planted factors, so no model's top 10 of
+    # the catalog beats this by more than noise: it is printed, and the
+    # rankings' signal is checked on each user's own validation items
+    pos = val["rating"] >= 3.5
+    per_user = np.bincount(val["user"][pos])
+    per_user = per_user[per_user > 0]
+    chance = float(np.mean(per_user / best._V.shape[0]))
+    own, own_chance = own_items_precision(best, val, 10, 3.5)
+    log(f"(b) ranking on the validation split (rated >= 3.5 is the truth, "
+        f"{rk['ranking_users']:,} users, {rk['ranking_users_cold']} cold): "
+        f"precision@10 {rk['precision_at_10']:.6f} (a random ranking of "
+        f"the catalog's {chance:.6f}), recall@10 {rk['recall_at_10']:.6f}, "
+        f"MAP {rk['map']:.6f}, NDCG@10 {rk['ndcg_at_10']:.6f}; wall "
+        f"{ev_s:.2f} s, K5 launches {k5}; each user's own validation items "
+        f"ranked by the model: precision@10 {own:.6f}, a random order's "
+        f"{own_chance:.6f}")
+    if not all(0.0 <= rk[k] <= 1.0 for k in
+               ("precision_at_10", "recall_at_10", "map", "ndcg_at_10")):
+        fail(f"(b) a ranking metric outside [0, 1]: {rk}")
+    if not own > own_chance:
+        fail(f"(b) the model's order of each user's own items ({own:.6f}) "
+             f"is not above a random order's ({own_chance:.6f})")
+    if k5 == 0:
+        fail("(b) the ranking protocol did not launch K5")
+    return {"launches": launches, "walls": list(TimedALS.walls),
+            "tuner": wall, "eval_s": ev_s, "k5": k5}
+
+
+def own_items_precision(model, val, k, threshold):
+    """(precision@k, a random order's expectation) when each validation
+    user's own validation items are ranked by the model's score, the
+    truth being those rated >= ``threshold``; users with no positive item
+    and rows the model cannot score are left out."""
+    out = model.transform(val)
+    u = out["user"]
+    pos = (out["rating"] >= threshold).astype(np.float64)
+    order = np.lexsort((-out["prediction"], u))
+    u, pos = u[order], pos[order]
+    start = np.r_[0, np.flatnonzero(np.diff(u)) + 1]
+    n = np.diff(np.r_[start, len(u)])
+    rank = np.arange(len(u)) - np.repeat(start, n)
+    hits = np.add.reduceat(np.where(rank < k, pos, 0.0), start)
+    npos = np.add.reduceat(pos, start)
+    keep = npos > 0
+    prec = hits[keep] / k
+    chance = npos[keep] / n[keep] * np.minimum(n[keep], k) / k
+    return float(prec.mean()), float(chance.mean())
+
+
+def legacy_fits(seed, dev):
+    """(c) ``legacy.ALS.train(rank=10, iterations=10)`` at the ML-100K
+    shape on the card and on the CPU: the factors row by row, and
+    ``recommendProductsForUsers(10)`` (K5) against the CPU's."""
+    raw = synthetic_movielens(*ML100K_SHAPE, seed=seed)
+    ratings = list(zip(raw["user"].tolist(), raw["item"].tolist(),
+                       raw["rating"].tolist()))
+    _zero_launches()
+    t0 = time.perf_counter()
+    card = legacy.ALS.train(ratings, rank=10, iterations=10, seed=seed,
+                            device=dev)
+    recs = card.recommendProductsForUsers(10)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    cpu = legacy.ALS.train(ratings, rank=10, iterations=10, seed=seed,
+                           device="cpu")
+    recs_cpu = cpu.recommendProductsForUsers(10)
+    worst = 0.0
+    for get in ("userFeatures", "productFeatures"):
+        a, b = getattr(card, get)(), getattr(cpu, get)()
+        if [i for i, _ in a] != [i for i, _ in b]:
+            fail(f"(c) {get}: the ids differ")
+        x = np.stack([f for _, f in a]).astype(np.float64)
+        y = np.stack([f for _, f in b]).astype(np.float64)
+        worst = max(worst, float(np.max(np.linalg.norm(x - y, axis=1)
+                                        / np.linalg.norm(y, axis=1))))
+    U = dict(card.userFeatures())
+    P = dict(card.productFeatures())
+    score_err, earn_err = 0.0, 0.0
+    for (u, rs), (u2, rs2) in zip(recs, recs_cpu):
+        if u != u2 or len(rs) != 10:
+            fail("(c) recommendProductsForUsers: users or lengths differ")
+        score_err = max(score_err, max(abs(a.rating - b.rating)
+                                       / abs(b.rating)
+                                       for a, b in zip(rs, rs2)))
+        earn_err = max(earn_err, max(abs(float(U[u] @ P[a.product])
+                                         - a.rating) for a in rs))
+    log(f"(c) legacy ALS.train(rank=10, iterations=10) at ML-100K: card "
+        f"{wall:.2f} s with recommendProductsForUsers(10); factors vs CPU "
+        f"max row rel {worst:.3e} (tol {LEGACY_ROW_REL}); scores vs CPU "
+        f"rel {score_err:.3e} (tol {LEGACY_SCORE_REL}), each id's own score "
+        f"{earn_err:.3e}; launches " + ", ".join(
+            f"{k.upper()} {launches[k]}" for k in ("k1", "k3", "k4", "k5")))
+    if not worst <= LEGACY_ROW_REL:
+        fail(f"(c) legacy factors {worst:.3e} off the CPU's")
+    if not (score_err <= LEGACY_SCORE_REL and earn_err <= 1e-4):
+        fail(f"(c) legacy recommendations off: {score_err:.3e}, "
+             f"{earn_err:.3e}")
+    if launches["k4"] == 0 or launches["k5"] == 0:
+        fail(f"(c) the legacy path did not launch K4 and K5: {launches}")
+    return {"launches": launches}
+
+
+def run_cli(args, timeout=600):
+    """``python -m tpu_als_torch.cli ARGS`` from the repository root;
+    its last stdout line parsed as JSON."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tpu_als_torch.cli", *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        fail(f"cli {args[0]} exited {out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), \
+        time.perf_counter() - t0
+
+
+def cli_selection(seed, tmp, dev):
+    """(d) ``tune`` at (a)'s shape and grid, then ``evaluate --ranking-k
+    10`` on its best model; both exit 0, and their JSON agrees with the
+    saved CrossValidatorModel's metrics and with the same evaluation
+    computed in this process."""
+    spec = "synthetic:{}x{}x{}".format(*ML100K_SHAPE)
+    out = os.path.join(tmp, "tune")
+    tune, tune_s = run_cli(["tune", "--data", spec, "--ranks",
+                            ",".join(map(str, SELECT_RANKS)),
+                            "--reg-params", ",".join(map(str, SELECT_REGS)),
+                            "--folds", "3", "--max-iter", "10", "--seed",
+                            str(seed), "--output", out, "--device", str(dev)])
+    ev, ev_s = run_cli(["evaluate", "--model", os.path.join(out, "bestModel"),
+                        "--data", spec, "--ranking-k", "10", "--device",
+                        str(dev)])
+    cvm = CrossValidatorModel.load(out, device=dev)
+    best = cvm.bestModel
+    mine = {"best_rank": int(best._params["rank"]),
+            "best_regParam": float(best._params["regParam"]),
+            "avg_metrics": [round(float(m), 4) for m in cvm.avgMetrics],
+            "grid_size": len(SELECT_RANKS) * len(SELECT_REGS)}
+    frame = synthetic_movielens(*ML100K_SHAPE)
+    pred = best.transform(frame)
+    mine_ev = {m: round(RegressionEvaluator(labelCol="rating",
+                                            metricName=m).evaluate(pred), 4)
+               for m in ("rmse", "mae", "r2")}
+    mine_ev.update({k: v if isinstance(v, int) else round(v, 4)
+                    for k, v in ranking_eval(best, frame, 10).items()})
+    log(f"(d) cli tune {tune_s:.1f} s: {json.dumps(tune)}; cli evaluate "
+        f"{ev_s:.1f} s: {json.dumps(ev)}")
+    if tune != mine or ev != mine_ev:
+        fail(f"(d) the CLI's JSON disagrees with this process: tune "
+             f"{tune} vs {mine}, evaluate {ev} vs {mine_ev}")
+
+
+def checkpoint_lifecycle(seed, tmp, dev):
+    """(e) ``train`` at the ML-100K shape, rank 128, 6 iterations, a
+    checkpoint every 2: TPU_ALS_PREEMPT_AT=3 exits 43 with a checkpoint
+    at iteration 3, ``--resume auto`` finishes it; then a torn save
+    (``checkpoint.write=corrupt@nth=2``, iteration 4) beside an
+    iteration-2 ``.old`` is quarantined to ``.corrupt/`` and ``.old``
+    resumed.  Both resumed fits against an uninterrupted one, row by
+    row: bit for bit, or within RESUME_ABS."""
+    from tpu_als_torch.cli import main as cli_main
+    from tpu_als_torch.io.checkpoint import load_factors
+    from tpu_als_torch.resilience import preempt
+
+    spec = "synthetic:{}x{}x{}".format(*ML100K_SHAPE)
+    base = ["train", "--data", spec, "--rank", str(RANK), "--max-iter", "6",
+            "--seed", str(seed), "--device", str(dev)]
+
+    def train(*extra, env=None):
+        os.environ.update(env or {})
+        try:
+            cli_main(base + list(extra))
+            return 0
+        except SystemExit as e:
+            return e.code
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+            faults.clear()
+
+    def factors(d):
+        return [np.load(os.path.join(d, s))["factors"]
+                for s in ("user_factors.npz", "item_factors.npz")]
+
+    d = {k: os.path.join(tmp, k) for k in ("full", "ck", "res", "ck2",
+                                           "ck3", "res2")}
+    t0 = time.perf_counter()
+    if train("--output", d["full"]) != 0:
+        fail("(e) the uninterrupted fit failed")
+    rc = train("--checkpoint-dir", d["ck"], "--checkpoint-interval", "2",
+               env={preempt.ENV_PREEMPT_AT: "3"})
+    ck = os.path.join(d["ck"], "als_checkpoint")
+    it = load_factors(ck)[0]["iteration"] if os.path.isdir(ck) else None
+    if rc != preempt.EXIT_PREEMPTED or it != 3:
+        fail(f"(e) TPU_ALS_PREEMPT_AT=3: exit {rc}, checkpoint at {it}")
+    if train("--checkpoint-dir", d["ck"], "--resume", "auto",
+             "--output", d["res"]) != 0:
+        fail("(e) --resume auto failed")
+    rc = train("--checkpoint-dir", d["ck2"], "--checkpoint-interval", "2",
+               env={preempt.ENV_PREEMPT_AT: "4",
+                    faults.ENV_VAR: "checkpoint.write=corrupt@nth=2"})
+    if rc != preempt.EXIT_PREEMPTED:
+        fail(f"(e) the torn run exited {rc}")
+    train("--max-iter", "2", "--checkpoint-dir", d["ck3"],
+          "--checkpoint-interval", "2")
+    primary = os.path.join(d["ck2"], "als_checkpoint")
+    shutil.move(os.path.join(d["ck3"], "als_checkpoint"), primary + ".old")
+    obs.reset()
+    if train("--checkpoint-dir", d["ck2"], "--resume", "auto",
+             "--output", d["res2"]) != 0:
+        fail("(e) --resume auto after the torn save failed")
+    quarantined = obs.events("checkpoint_quarantined")
+    qdir = os.path.join(d["ck2"], ".corrupt")
+    loaded = [e["path"] for e in obs.events("checkpoint_load")]
+    if len(quarantined) != 1 or not os.listdir(qdir) or \
+            not any(p.endswith("als_checkpoint.old") for p in loaded):
+        fail(f"(e) the torn save was not quarantined and .old loaded: "
+             f"{quarantined}, {loaded}")
+    full = factors(d["full"])
+    diffs = []
+    for res in (d["res"], d["res2"]):
+        diffs.append(max(float(np.max(np.abs(a - b)))
+                         for a, b in zip(factors(res), full)))
+    exact = all(x == 0.0 for x in diffs)
+    log(f"(e) train at ML-100K, rank {RANK}, 6 iterations: preempted at 3 "
+        f"(exit {preempt.EXIT_PREEMPTED}), resumed; torn save at 4 "
+        f"quarantined to .corrupt/, resumed from .old (iteration 2); "
+        f"resumed vs uninterrupted max |diff| "
+        + ", ".join(f"{x:.3e}" for x in diffs)
+        + (" (bit for bit)" if exact else f" (tol {RESUME_ABS})")
+        + f"; {time.perf_counter() - t0:.1f} s for the 6 runs")
+    if not max(diffs) <= RESUME_ABS:
+        fail(f"(e) a resumed fit is {max(diffs):.3e} off the uninterrupted")
+    return exact
+
+
+def model_selection_phase(frame, seed, dev):
+    """The Spark ML surface and the fit's checkpoint lifecycle on the
+    card, (a)-(e)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = pipeline_selection(seed, dev, tmp)
+        b = headline_rmse(frame, seed, dev)
+        c = legacy_fits(seed, dev)
+        cli_selection(seed, tmp, dev)
+        exact = checkpoint_lifecycle(seed, tmp, dev)
+    log(f"model selection and evaluation: {time.perf_counter() - t0:.1f} s")
+    return {"a": a, "b": b, "c": c, "resume_exact": exact}
+
+
+# -- phase 8 ---------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -2565,6 +3023,7 @@ def main():
     tr256 = train_slice(data, RANK256, args.seed, dev)
     sh = sharded_train_slice(data, args.seed, dev)
     guardrail_fits(data, tr, dev)
+    frame25m = data["frame"]
     del data
     model, launches, A, b, users = run_slice(rng, dev)
     model256, launches256, A256, b256, users256 = serve_slice_256(
@@ -2573,6 +3032,8 @@ def main():
     topk_k200(tr["model"], sh["mesh"], rng, dev)
     recommend_zero(model)
     rank320_fit(args.seed, dev)
+    model_selection_phase(frame25m, args.seed, dev)
+    del frame25m
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
                              dev))

@@ -64,3 +64,63 @@ def test_als_params_and_defaults_match_reference():
     assert t.explainParam("rank") == j.explainParam("rank")
     with pytest.raises(TypeError):
         tpu_als_torch.ALS(bogus=1)
+
+
+# -- ranking metrics: pure Python on the host, the same arithmetic in the
+# same order, so the bar is 1e-12 relative
+
+def _ranking_cases():
+    rng = np.random.default_rng(11)
+    rand = []
+    for _ in range(40):
+        pred = rng.permutation(30)[:rng.integers(0, 15)].tolist()
+        rel = rng.choice(30, rng.integers(0, 8), replace=False).tolist()
+        rand.append((pred, rel))
+    return {
+        # the reference's own cases (tests/test_evaluation_tuning.py)
+        "hand": [([1, 2, 3], [1, 3])],
+        "empty_truth": [([1, 2], []), ([1, 2], [1])],
+        "all_empty_truth": [([1, 2], []), ([], [])],
+        "short_lists": [([4], [4, 5, 6]), ([], [1])],
+        "random": rand,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ranking_cases()))
+def test_ranking_metrics_match_reference(case):
+    from tpu_als.api.evaluation import RankingMetrics as JRank
+    from tpu_als_torch.api.evaluation import RankingMetrics as TRank
+
+    pairs = _ranking_cases()[case]
+    t, j = TRank(pairs), JRank(pairs)
+    # k = 20 and 50 lie beyond every list
+    for k in (1, 2, 3, 5, 20, 50):
+        for name in ("precisionAt", "recallAt", "meanAveragePrecisionAt",
+                     "ndcgAt"):
+            np.testing.assert_allclose(getattr(t, name)(k),
+                                       getattr(j, name)(k), rtol=1e-12)
+    np.testing.assert_allclose(t.meanAveragePrecision,
+                               j.meanAveragePrecision, rtol=1e-12)
+    assert TRank([]).precisionAt(3) == JRank([]).precisionAt(3) == 0.0
+    for name in ("precisionAt", "recallAt", "ndcgAt"):
+        with pytest.raises(ValueError):
+            getattr(t, name)(0)
+
+
+@pytest.mark.parametrize("metric", [
+    "meanAveragePrecision", "meanAveragePrecisionAtK", "precisionAtK",
+    "ndcgAtK", "recallAtK"])
+def test_ranking_evaluator_matches_reference(metric):
+    from tpu_als.api.evaluation import RankingEvaluator as JRankEval
+
+    pairs = _ranking_cases()["random"]
+    frame = {"prediction": np.array([p for p, _ in pairs], dtype=object),
+             "label": np.array([l for _, l in pairs], dtype=object)}
+    for k in (3, 40):
+        t = tpu_als_torch.RankingEvaluator(metricName=metric, k=k)
+        j = JRankEval(metricName=metric, k=k)
+        np.testing.assert_allclose(t.evaluate(frame), j.evaluate(frame),
+                                   rtol=1e-12)
+        assert t.isLargerBetter() and j.isLargerBetter()
+    with pytest.raises(ValueError):
+        tpu_als_torch.RankingEvaluator(metricName="bogus").evaluate(frame)

@@ -18,6 +18,11 @@
   ladder) run with ``jax`` and ``tpu_als`` unimportable, and the native
   libraries are built from the port's own sources into
   ``tpu_als_torch/_build/``.
+- The Spark ML surface (pipeline, tuners, legacy API) and the checkpoint
+  lifecycle (preemption, ``discover_resume``) run with ``jax`` and
+  ``tpu_als`` unimportable; ``tune``, ``evaluate`` and
+  ``legacy.ALS.train`` with no device raise without a CUDA device; a
+  ``stream:`` data spec raises ``NotImplementedError``.
 """
 
 import contextlib
@@ -321,3 +326,100 @@ def test_ring_kernel_wrappers_raise_rather_than_run_plain(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("topk_merge_ring")
     assert cuda_gather_ne.RING_LAUNCHES == before
+
+
+_DRIVE_USER_SURFACE = r"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np
+import tpu_als_torch as t
+from tpu_als_torch.api import legacy
+from tpu_als_torch.cli import main
+from tpu_als_torch.io.checkpoint import discover_resume
+from tpu_als_torch.resilience import preempt
+rng = np.random.default_rng(0)
+n = 600
+frame = {"u": np.array([f"u{k}" for k in rng.integers(0, 40, n)], object),
+         "i": np.array([f"i{k}" for k in rng.integers(0, 20, n)], object),
+         "rating": rng.uniform(1, 5, n).astype(np.float32)}
+als = t.ALS(userCol="uid", itemCol="iid", rank=2, maxIter=2,
+            coldStartStrategy="drop", device="cpu")
+pipe = t.Pipeline(stages=[
+    t.StringIndexer(inputCol="u", outputCol="uid", handleInvalid="skip"),
+    t.StringIndexer(inputCol="i", outputCol="iid", handleInvalid="skip"),
+    als])
+grid = t.ParamGridBuilder().addGrid(als.regParam, [0.01, 1.0]).build()
+for tuner in (t.CrossValidator(numFolds=2, seed=1, estimator=pipe,
+                               estimatorParamMaps=grid,
+                               evaluator=t.RegressionEvaluator(labelCol="rating")),
+              t.TrainValidationSplit(seed=1, estimator=pipe,
+                                     estimatorParamMaps=grid,
+                                     evaluator=t.RegressionEvaluator(labelCol="rating"))):
+    m = tuner.fit(frame)
+    m.save(os.path.join(sys.argv[1], type(m).__name__))
+back = t.PipelineModel.load(os.path.join(sys.argv[1], "CrossValidatorModel",
+                                         "bestModel"), device="cpu")
+assert len(back.transform(frame)) == n
+mf = legacy.ALS.train([(0, 1, 3.0), (1, 2, 4.0), (2, 1, 1.0)], rank=2,
+                      iterations=2, device="cpu")
+assert len(mf.recommendProducts(0, 2)) == 2
+assert t.RankingMetrics([([1, 2], [2])]).precisionAt(1) == 0.0
+ck = os.path.join(sys.argv[1], "ck")
+os.environ[preempt.ENV_PREEMPT_AT] = "2"
+try:
+    main(["train", "--data", "synthetic:60x30x900", "--rank", "2",
+          "--max-iter", "3", "--device", "cpu", "--checkpoint-dir", ck])
+    raise AssertionError("not preempted")
+except SystemExit as e:
+    assert e.code == preempt.EXIT_PREEMPTED, e.code
+del os.environ[preempt.ENV_PREEMPT_AT]
+assert discover_resume(ck).endswith("als_checkpoint")
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_user_surface_and_checkpoint_lifecycle_run_without_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _DRIVE_USER_SURFACE,
+                          str(tmp_path)], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_user_surface_without_cuda_raises(tmp_path, monkeypatch):
+    """``tune``, ``evaluate`` and ``legacy.ALS.train`` with no device
+    given raise without a CUDA device instead of running on the CPU."""
+    from tpu_als_torch.api import legacy
+    from tpu_als_torch.cli import main
+
+    path = str(tmp_path / "m")
+    _model().save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["tune", "--data", "synthetic:40x20x400", "--ranks", "2",
+              "--reg-params", "0.1", "--folds", "2", "--max-iter", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["evaluate", "--model", path, "--data",
+              "synthetic:40x20x400"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        legacy.ALS.train([(0, 1, 3.0), (1, 2, 4.0)], rank=2, iterations=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        legacy.ALS.trainImplicit([(0, 1, 3.0), (1, 2, 4.0)], rank=2,
+                                 iterations=1)
+
+
+@pytest.mark.parametrize("cmd", [
+    ["train"], ["tune", "--device", "cpu"],
+    ["evaluate", "--model", "unused", "--device", "cpu"]])
+def test_stream_data_spec_is_not_ported(cmd, tmp_path):
+    from tpu_als_torch.cli import main
+
+    if cmd[0] == "evaluate":
+        cmd = ["evaluate", "--model", str(tmp_path / "m"), "--device", "cpu"]
+        _model().save(str(tmp_path / "m"))
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        main(cmd + ["--data", "stream:/nonexistent.csv"])

@@ -15,9 +15,14 @@ recommendation (:class:`~tpu_als_torch.api.estimator.ALSModel`) — the
 sharded path over a mesh of logical shards on one device
 (:mod:`tpu_als_torch.parallel`: ``ALS(mesh=...)``,
 ``recommendFor*(mesh=...)``), plus
-the shared checkpoint format, the ``recommend`` command
-(``python -m tpu_als_torch.cli train|recommend``) and
-:class:`~tpu_als_torch.api.evaluation.RegressionEvaluator`.
+the shared checkpoint format with its retried writes, ``.old``
+fallback, ``.corrupt/`` quarantine and ``--resume auto``, preemption at
+an iteration boundary, and the Spark ML surface around ``ALS``:
+``Pipeline``, ``StringIndexer`` / ``IndexToString``,
+``ParamGridBuilder`` with ``CrossValidator`` and
+``TrainValidationSplit``, the regression and ranking evaluators, the
+``mllib`` legacy API (:mod:`tpu_als_torch.api.legacy`) and the commands
+``python -m tpu_als_torch.cli train|recommend|evaluate|tune``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a CUDA tensor always goes through the hand-written
@@ -32,20 +37,42 @@ Package map:
   core/    id maps and bucketed CSR, the training loop, fold-in, predict
   stream/  the micro-batch fold-in server
   parallel/  the mesh, sharded layouts, the sharded trainer and server
-  api/     ALS, ALSModel, the sharded fit, params, regression evaluators
+  api/     ALS, ALSModel, the sharded fit, params, the evaluators, the
+           pipeline stages, the tuners, the legacy API, and the table of
+           class names that saves record
   io/      checkpoint persistence (same on-disk format as tpu_als), the
            MovieLens loaders, the native CSV reader and bucketizer
            (``native/*.cc``, built with g++ into ``_build/``) and the
            CSV reader's Python twin, synthetic MovieLens-shaped data
   obs/     the metrics registry, its vocabulary and the run manifest
-  resilience/  fault injection, retry policies, the fit's guardrails
+  resilience/  fault injection, retry policies, the fit's guardrails,
+           preemption
   utils/   device resolution, the columnar frame
 """
 
 __version__ = "0.1.0"
 
 from tpu_als_torch.api.estimator import ALS, ALSModel  # noqa: F401
-from tpu_als_torch.api.evaluation import RegressionEvaluator  # noqa: F401
+from tpu_als_torch.api.pipeline import (  # noqa: F401
+    IndexToString,
+    Pipeline,
+    PipelineModel,
+    StringIndexer,
+    StringIndexerModel,
+)
+from tpu_als_torch.api.evaluation import (  # noqa: F401
+    RankingEvaluator,
+    RankingMetrics,
+    RegressionMetrics,
+    RegressionEvaluator,
+)
+from tpu_als_torch.api.tuning import (  # noqa: F401
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
 from tpu_als_torch.convert import model_from_arrays  # noqa: F401
 from tpu_als_torch.stream.microbatch import FoldInServer  # noqa: F401
 from tpu_als_torch.utils.frame import ColumnarFrame  # noqa: F401

@@ -11,17 +11,23 @@ checkpoints in the shared format (``checkpointDir``/``checkpointInterval``,
 ``recommendations`` dtype, the ``coldStartStrategy`` semantics,
 ``save``/``load`` in the shared format, and the settable serving-time
 params; its factor tables are float32 tensors on the model's device, id
-maps stay numpy.  Sharded training and serving (``mesh=`` with a
-``gatherStrategy``) run over a mesh of logical shards on one device
+maps stay numpy.  The estimator itself saves and loads its params in the
+reference's format (an unfitted ``ALS`` stage of a saved ``Pipeline``).
+Sharded training and serving (``mesh=`` with a ``gatherStrategy``) run
+over a mesh of logical shards on one device
 (:mod:`tpu_als_torch.parallel`).  ``guardrails='warn'|'recover'`` arms
 the fit's numerical guardrails (:mod:`tpu_als_torch.resilience.
 guardrails`) and quarantines poisoned ratings instead of refusing them.
-Elastic training, per-host data and preemption belong to later slices
-and raise ``NotImplementedError``.
+Under a :class:`~tpu_als_torch.resilience.preempt.PreemptionGuard` (or
+``TPU_ALS_PREEMPT_AT``) a fit stops at an iteration boundary, writes its
+resume point to ``checkpointDir`` and raises ``Preempted``.  Elastic
+training and per-host data belong to later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 
@@ -45,6 +51,7 @@ from tpu_als_torch.parallel.mesh import Mesh
 from tpu_als_torch.parallel.serve import topk_sharded
 from tpu_als_torch.parallel.trainer import check_strategy
 from tpu_als_torch.resilience import guardrails as _guardrails
+from tpu_als_torch.resilience import preempt
 from tpu_als_torch.utils.frame import ColumnarFrame, as_frame
 from tpu_als_torch.utils.platform import resolve_device
 
@@ -219,7 +226,8 @@ class ALS(_ALSParams, Estimator):
     monitor, as in the reference).
     ``dataMode='per_host'``, ``checkpointSharded``, ``elastic`` and the
     strategies not ported yet raise ``NotImplementedError``: they belong
-    to later slices.
+    to later slices.  ``copy(extra)`` keeps every runtime knob, so the
+    inner fits of a tuner run where this estimator was told to.
     """
 
     def __init__(self, *, mesh=None, gatherStrategy="all_gather",
@@ -395,22 +403,102 @@ class ALS(_ALSParams, Estimator):
         params["cgMode"] = self.cgMode
         return params
 
-    def _callback(self, user_map, item_map):
+    # -- estimator persistence (the reference's DefaultParamsWritable) ---
+    def write(self):
+        return MLWriter(self)
+
+    def save(self, path):
+        """Params-only JSON save in the reference's format.  The knobs
+        bound to a process (device, mesh, callbacks, checkpoint dirs) are
+        not saved; ``cgIters`` and ``cgMode`` change the result and are."""
+        self.write().save(path)
+
+    def _save_to(self, path):
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "class": "tpu_als.api.estimator.ALS",
+            "paramMap": {p.name: v for p, v in self._paramMap.items()},
+            "defaultParamMap": {p.name: v
+                                for p, v in self._defaultParamMap.items()},
+            "gatherStrategy": self.gatherStrategy,
+            "cgIters": self.cgIters,
+            "cgMode": self.cgMode,
+        }
+        tmp = os.path.join(path, "estimator.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1, sort_keys=True)
+        os.replace(tmp, os.path.join(path, "estimator.json"))
+
+    @classmethod
+    def load(cls, path, device=None):
+        """An estimator saved by either package; ``device``: where its
+        fits run (None -> the card)."""
+        recover_interrupted_overwrite(path)
+        with open(os.path.join(path, "estimator.json")) as f:
+            meta = json.load(f)
+        if meta.get("class") != "tpu_als.api.estimator.ALS":
+            raise ValueError(
+                f"{path} holds a {meta.get('class')!r} save, not an ALS "
+                "estimator")
+        est = cls(gatherStrategy=meta.get("gatherStrategy", "all_gather"),
+                  cgIters=meta.get("cgIters", 0),
+                  cgMode=meta.get("cgMode", "matfree"), device=device)
+        # the saved defaults too: a class default changed after the save
+        # must not apply to the loaded instance
+        for name, v in meta.get("defaultParamMap", {}).items():
+            est._defaultParamMap[est.getParam(name)] = v
+        est.setParams(**meta.get("paramMap", {}))
+        return est
+
+    # -- the per-iteration callback --------------------------------------
+    def _save_checkpoint(self, user_map, item_map, iteration, U, V):
+        save_factors(
+            os.path.join(self.checkpointDir, "als_checkpoint"),
+            user_map.ids, U.cpu().numpy(), item_map.ids, V.cpu().numpy(),
+            params=self._ckpt_params(), iteration=iteration)
+
+    def _due(self, iteration):
+        """(fitCallback due, checkpoint due) at this iteration."""
         interval = self.getCheckpointInterval()
-        ckpt = self.checkpointDir is not None and interval >= 1
-        if not ckpt and self.fitCallback is None:
+        due_cb = (self.fitCallback is not None
+                  and iteration % self.fitCallbackInterval == 0)
+        due_ck = (self.checkpointDir is not None and interval >= 1
+                  and iteration % interval == 0)
+        return due_cb, due_ck
+
+    def _callback_due(self, iteration):
+        """True when the callback has work at this iteration (fitCallback,
+        a checkpoint or a pending preemption); on a quiet iteration the
+        factors stay on the device, untouched."""
+        due_cb, due_ck = self._due(iteration)
+        return due_cb or due_ck or preempt.pending(iteration)
+
+    def _callback(self, user_map, item_map):
+        ckpt = (self.checkpointDir is not None
+                and self.getCheckpointInterval() >= 1)
+        if not ckpt and self.fitCallback is None and not preempt.enabled():
             return None
 
         def cb(iteration, U, V):
-            if self.fitCallback is not None \
-                    and iteration % self.fitCallbackInterval == 0:
+            due_cb, due_ck = self._due(iteration)
+            if due_cb:
                 self.fitCallback(iteration, U, V)
-            if ckpt and iteration % interval == 0:
-                save_factors(
-                    os.path.join(self.checkpointDir, "als_checkpoint"),
-                    user_map.ids, U.cpu().numpy(), item_map.ids,
-                    V.cpu().numpy(), params=self._ckpt_params(),
-                    iteration=iteration)
+            if due_ck:
+                self._save_checkpoint(user_map, item_map, iteration, U, V)
+            if preempt.pending(iteration):
+                # the iteration is complete: write the resume point, then
+                # stop with the distinct exit status
+                path = None
+                if self.checkpointDir is not None:
+                    if not due_ck:  # no second write of the same save
+                        self._save_checkpoint(user_map, item_map,
+                                              iteration, U, V)
+                    path = os.path.join(self.checkpointDir,
+                                        "als_checkpoint")
+                g = preempt.installed()
+                signum = g.signum if g is not None else None
+                obs.emit("preempted", iteration=iteration, signum=signum)
+                raise preempt.Preempted(iteration, path, signum)
 
         return cb
 

@@ -1,11 +1,12 @@
-"""Regression evaluators: ``RegressionEvaluator`` and ``RegressionMetrics``.
+"""Evaluators: regression metrics and ranking metrics.
 
 Counterpart of ``tpu_als/api/evaluation.py`` (an own copy): the
 ``pyspark.ml.evaluation.RegressionEvaluator`` surface (rmse, mse, mae,
 r2, var; NaN predictions excluded, as after
-``coldStartStrategy='drop'``) and the legacy ``RegressionMetrics``.  Plain
-numpy on the host — these run once per evaluation.  The ranking metrics
-are not ported yet.
+``coldStartStrategy='drop'``), the legacy ``RegressionMetrics``, the
+``pyspark.mllib.evaluation.RankingMetrics`` (precision@k, recall@k, MAP,
+MAP@k, NDCG@k) and ``pyspark.ml.evaluation.RankingEvaluator``.  Plain
+numpy on the host — these run once per evaluation.
 """
 
 from __future__ import annotations
@@ -108,3 +109,128 @@ class RegressionMetrics:
         # var(obs) - var(residuals) form, which coincides only for
         # unbiased OLS-style fits
         return float(np.mean((self._pred - np.mean(self._obs)) ** 2))
+
+
+class RankingMetrics:
+    """Ranking quality over (predicted ranking, ground-truth set) pairs.
+
+    ``pred_and_labels``: iterable of (predicted_ids_in_rank_order,
+    relevant_ids) — the exact input shape of the reference's
+    ``mllib.evaluation.RankingMetrics`` (SURVEY.md §4 'Ranking metrics').
+    """
+
+    def __init__(self, pred_and_labels):
+        self._pairs = [
+            (list(p), set(l)) for p, l in pred_and_labels  # noqa: E741
+        ]
+
+    def precisionAt(self, k):
+        if k <= 0:
+            raise ValueError("k must be > 0")
+        vals = []
+        for pred, rel in self._pairs:
+            if not rel:
+                vals.append(0.0)
+                continue
+            topk = pred[:k]
+            vals.append(sum(1 for p in topk if p in rel) / k)
+        return float(np.mean(vals)) if vals else 0.0
+
+    def recallAt(self, k):
+        if k <= 0:
+            raise ValueError("k must be > 0")
+        vals = []
+        for pred, rel in self._pairs:
+            if not rel:
+                vals.append(0.0)
+                continue
+            topk = pred[:k]
+            vals.append(sum(1 for p in topk if p in rel) / len(rel))
+        return float(np.mean(vals)) if vals else 0.0
+
+    @property
+    def meanAveragePrecision(self):
+        return self._map(None)
+
+    def meanAveragePrecisionAt(self, k):
+        return self._map(k)
+
+    def _map(self, k):
+        vals = []
+        for pred, rel in self._pairs:
+            if not rel:
+                vals.append(0.0)
+                continue
+            cut = pred if k is None else pred[:k]
+            hits, s = 0, 0.0
+            for rank, p in enumerate(cut, start=1):
+                if p in rel:
+                    hits += 1
+                    s += hits / rank
+            denom = len(rel) if k is None else min(len(rel), k)
+            vals.append(s / denom)
+        return float(np.mean(vals)) if vals else 0.0
+
+    def ndcgAt(self, k):
+        if k <= 0:
+            raise ValueError("k must be > 0")
+        vals = []
+        for pred, rel in self._pairs:
+            if not rel:
+                vals.append(0.0)
+                continue
+            dcg = sum(
+                1.0 / np.log2(rank + 1)
+                for rank, p in enumerate(pred[:k], start=1) if p in rel
+            )
+            ideal = sum(
+                1.0 / np.log2(rank + 1)
+                for rank in range(1, min(len(rel), k) + 1)
+            )
+            vals.append(dcg / ideal)
+        return float(np.mean(vals)) if vals else 0.0
+
+
+class RankingEvaluator(Params):
+    """DataFrame-style wrapper over RankingMetrics, like
+    ``pyspark.ml.evaluation.RankingEvaluator``: expects a prediction column
+    of id arrays (rank order) and a label column of relevant-id arrays."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self._declareParam("predictionCol", "ranked prediction id arrays",
+                           TypeConverters.toString, "prediction")
+        self._declareParam("labelCol", "relevant id arrays",
+                           TypeConverters.toString, "label")
+        self._declareParam(
+            "metricName",
+            "meanAveragePrecision|meanAveragePrecisionAtK|precisionAtK|"
+            "ndcgAtK|recallAtK", TypeConverters.toString,
+            "meanAveragePrecision")
+        self._declareParam("k", "cutoff for @K metrics",
+                           TypeConverters.toInt, 10)
+        self._set(**kwargs)
+
+    def evaluate(self, dataset, params=None):
+        if params:
+            return self.copy(params).evaluate(dataset)
+        frame = as_frame(dataset)
+        pairs = list(zip(frame[self.getOrDefault("predictionCol")],
+                         frame[self.getOrDefault("labelCol")]))
+        m = RankingMetrics(pairs)
+        k = self.getOrDefault("k")
+        name = self.getOrDefault("metricName")
+        if name == "meanAveragePrecision":
+            return m.meanAveragePrecision
+        if name == "meanAveragePrecisionAtK":
+            return m.meanAveragePrecisionAt(k)
+        if name == "precisionAtK":
+            return m.precisionAt(k)
+        if name == "ndcgAtK":
+            return m.ndcgAt(k)
+        if name == "recallAtK":
+            return m.recallAt(k)
+        raise ValueError(f"unknown metricName {name!r}")
+
+    def isLargerBetter(self):
+        return True

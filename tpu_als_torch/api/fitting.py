@@ -49,8 +49,9 @@ def fit_sharded(est, u_idx, i_idx, r, user_map, item_map, cfg, init,
     sharded_cb = None
     if callback is not None:
         def sharded_cb(iteration, U, V):  # slot space -> entity space
-            callback(iteration, entity_rows(upart, U),
-                     entity_rows(ipart, V))
+            if est._callback_due(iteration):
+                callback(iteration, entity_rows(upart, U),
+                         entity_rows(ipart, V))
     U, V = train_sharded(mesh, upart, ipart, ush, ish, cfg,
                          callback=sharded_cb, strategy=strategy,
                          ring_counts=ring_counts, init=init,

@@ -6,9 +6,11 @@ trips and rollbacks, the estimator's quarantine of poisoned ratings, the
 fault points, the retry helper and the run's final snapshot.  The
 registry (:mod:`tpu_als_torch.obs.metrics`) checks every name against
 these tables when it is written, so an undeclared name raises instead of
-minting a series nothing downstream reads.  The other rows of the
-reference (serving, live, tenancy, soak, scenario, tracing) arrive with
-the modules that write them.
+minting a series nothing downstream reads.  The checkpoint rows carry the
+bytes and events of the reference; its ``checkpoint.*_seconds``
+histograms wait for the port's first histogram (each event carries its
+``seconds``).  The other rows of the reference (serving, live, tenancy,
+soak, scenario, tracing) arrive with the modules that write them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ METRICS = {
         "guardrail rollbacks: iterations retried from the last-good "
         "factor snapshot after a sentinel trip (resilience.guardrails, "
         "recover mode)"),
+    "checkpoint.save_bytes": (
+        "counter", "bytes", "bytes written by save_factors"),
+    "checkpoint.load_bytes": (
+        "counter", "bytes", "bytes read by load_factors"),
     "ingest.quarantined_rows": (
         "counter", "rows",
         "rating records the estimator's input scrub set aside (non-"
@@ -38,6 +44,22 @@ EVENTS = {
     "command": (
         ("cmd", "argv"),
         "one per CLI invocation: the subcommand and its argv"),
+    "checkpoint_save": (
+        ("path", "seconds", "bytes"),
+        "one per save_factors call"),
+    "checkpoint_load": (
+        ("path", "seconds", "bytes"),
+        "one per load_factors call"),
+    "checkpoint_quarantined": (
+        ("path", "reason"),
+        "load_factors or discover_resume moved a corrupt checkpoint "
+        "generation aside to .corrupt/ (and load_factors fell back to "
+        ".old when present)"),
+    "preempted": (
+        ("iteration", "signum"),
+        "a fit stopped at an iteration boundary after SIGTERM/SIGINT or "
+        "TPU_ALS_PREEMPT_AT; a resumable checkpoint was written if a "
+        "checkpoint dir is configured"),
     "retry_attempt": (
         ("what", "attempt", "attempts", "elapsed_seconds", "reason"),
         "one per failed attempt inside resilience.retry.retry_call (the "

@@ -1,3 +1,3 @@
 """Resilience of the port: fault injection (:mod:`.faults`), retry
-policies (:mod:`.retry`) and the fit's numerical guardrails
-(:mod:`.guardrails`)."""
+policies (:mod:`.retry`), the fit's numerical guardrails
+(:mod:`.guardrails`) and preemption (:mod:`.preempt`)."""

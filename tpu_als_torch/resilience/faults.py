@@ -5,10 +5,17 @@ switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
 
-The port wires one point so far (the others of the reference arrive with
-their modules):
+The port wires three points so far (the others of the reference arrive
+with their modules):
 
 ========================  ====================================================
+``checkpoint.write``      inside ``io.checkpoint.save_factors``' write body,
+                          before the atomic install (raise = a transient
+                          write error, retried; corrupt = a torn npz that
+                          the writer lets through and the digest catches
+                          at load)
+``checkpoint.rename``     inside ``io.checkpoint.atomic_install``, between
+                          the two renames (a crash mid-swap)
 ``solve.gram``            per training iteration of ``core.als.train``
                           (host-level, after the iteration's half-steps;
                           corrupt = NaN-poison a factor row, what a blown
@@ -43,7 +50,7 @@ import warnings
 
 from tpu_als_torch import obs
 
-FAULT_POINTS = ("solve.gram",)
+FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "solve.gram")
 
 MODES = ("raise", "corrupt", "hang")
 
@@ -227,6 +234,16 @@ def armed(point):
     to skip its hook entirely when disarmed."""
     r = _rules
     return r is not None and point in r
+
+
+def hits(point):
+    """(times reached, times fired) for an armed point; (0, 0) when
+    disarmed."""
+    r = _rules
+    if r is None or point not in r:
+        return (0, 0)
+    rule = r[point]
+    return (rule.hits, rule.fired)
 
 
 def check(point):

@@ -116,7 +116,29 @@ Phases (any failure exits non-zero before the final line):
    (``checkpoint.write=corrupt``) quarantined with ``.old`` resumed, both
    against an uninterrupted fit.  K1/K3/K4/K5 launches are counted from 0
    around (a), (b) and (c);
-8. timings at the slices' shapes (CUDA events), each kernel beside its
+8. the serving engine (``tpu_als_torch/serving``) at the rank-128 fit's
+   full width (162,541 users x 59,047 items): the operand shapes
+   ``torch._int_mm`` takes on the card; (a) the int8 candidate index
+   (shortlist 64) against the exact top-10 on 4,096 users (every id
+   earning its score, the surviving rows within SERVE_ULPS of the plain
+   f32 top-k and within K5_TOL of K5, the share of K5's top-10 that
+   survives; the whole catalog as the shortlist on 8 users), then the
+   shortlist GEMM's time beside its bound and the int8 and K5 top-10
+   times at 4,096 and 128 users; (b) ``with_updates`` on 512 touched
+   and 64 appended items and ``compact``, bitwise a rebuild; (c)
+   ``ServingEngine`` ('local'): publish, warmup and the serve-bench
+   open loop in process, 3,000 requests at 1,500 a
+   second on the int8 route (no K5 launch), then 1,000 on the exact
+   route (K5 launched), p50/p99 of ``serving.e2e_seconds`` and
+   ``serving.score_seconds`` and the shed count; (d) a torn second
+   publish (``serving.publish=corrupt``) answered exact with
+   ``serving.fallback_exact`` counted, ``serving.score=raise`` failing
+   the waiting ticket; (e) 'sharded' and 'merge_ring' on 4 logical
+   shards against the local engines (K8 launched), then one
+   ``publish_update`` through the merge-ring scatter; (f)
+   ``foldin-bench`` on phase 6's served model (K2 counted in its process)
+   and a short ``serve-bench``, as processes, their JSON parsed;
+9. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -141,19 +163,21 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-9. where the time goes: one training iteration, one more fold-in batch
-   and one all-users recommend, and one rank-256 iteration and fold-in
-   batch, under ``torch.profiler`` (wall, device busy, idle share, top
-   kernels); then one JSON line with every kernel's numbers (K3, K4 and
-   K5 at rank 256 named so; K1's and K6's fit rows in ms per item
-   half-step, K6's fold-in row per batch), and the final ``{"ok": true,
-   ...}`` line.
+10. where the time goes: one training iteration, one more fold-in
+    batch and one all-users recommend, and one rank-256 iteration and
+    fold-in batch, then the serving engine's batches of 8 on its int8
+    and exact routes, under ``torch.profiler`` (wall, device busy, idle
+    share, top kernels); then one JSON line with every kernel's numbers
+    (K3, K4 and K5 at rank 256 named so; K1's and K6's fit rows in ms
+    per item half-step, K6's fold-in row per batch), and the final
+    ``{"ok": true, ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
 in float32 outside the tensor cores, and for the Gram that K3, K4 and
 K7 run and the score GEMM that K5 and K8 run on the tensor cores in the
 3xTF32 form, three TF32 products per f32 product at 495 TFLOP/s (dense
-TF32).
+TF32); the int8 shortlist GEMM (a library call, not a kernel of the
+port) at 1,979 TOP/s (dense int8).
 """
 
 from __future__ import annotations
@@ -179,7 +203,7 @@ from tpu_als_torch.api.pipeline import (IndexToString, Pipeline,
                                         PipelineModel, StringIndexer)
 from tpu_als_torch.api.tuning import (CrossValidator, CrossValidatorModel,
                                       ParamGridBuilder, TrainValidationSplit)
-from tpu_als_torch.cli import ranking_eval
+from tpu_als_torch.cli import open_loop, ranking_eval
 from tpu_als_torch.convert import entity_rows, model_from_arrays, slot_rows
 from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
@@ -199,6 +223,7 @@ from tpu_als_torch.parallel.data import partition_balanced
 from tpu_als_torch.parallel.mesh import make_mesh
 from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
 from tpu_als_torch.resilience import faults, guardrails
+from tpu_als_torch.serving import ServingEngine, build_index
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.utils.frame import ColumnarFrame
 from tpu_als_torch.utils.platform import pin_fp32
@@ -2267,7 +2292,361 @@ def model_selection_phase(frame, seed, dev):
     return {"a": a, "b": b, "c": c, "resume_exact": exact}
 
 
-# -- phase 8 ---------------------------------------------------------------
+# -- phase 8: the serving engine ---------------------------------------------
+SERVE_USERS = 4096          # (a)/(b): users scored at once
+SERVE_SK = 64               # the engine's default shortlist
+SERVE_REQS, SERVE_QPS = 3000, 1500.0    # (c): the int8 open loop, 2 s
+EXACT_REQS = 1000                       # (c): the exact open loop, 0.67 s
+INT8_OPS_PER_S = 1979e12    # H100 SXM, dense int8 tensor-core peak
+
+
+def ulps_off(a, b):
+    """Max |a - b| in units in the last place of ``b`` (float32)."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float((np.abs(a - b) / np.spacing(np.abs(b))).max()) \
+        if a.size else 0.0
+
+
+def int_mm_shapes(dev):
+    """Which operand shapes ``torch._int_mm`` takes on this card: the
+    padding in ``serving/index.py::_int8_mm`` rests on these."""
+    def takes(m, k, n):
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        b = torch.ones((n, k), dtype=torch.int8, device=dev)
+        try:
+            out = torch._int_mm(a, b.T)
+        except RuntimeError:
+            return False
+        torch.cuda.synchronize()
+        if not bool((out == k).all()):
+            fail(f"torch._int_mm({m}x{k} @ {k}x{n}) gave a wrong sum")
+        return True
+
+    probes = {"m=16": (16, 32, 64), "m=17": (17, 32, 64),
+              "m=24": (24, 32, 64), "k=12": (32, 12, 64),
+              "n=12": (32, 32, 12), "k=n=8": (32, 8, 8)}
+    got = {name: takes(*shape) for name, shape in probes.items()}
+    log(f"torch._int_mm on the card takes {got}")
+    if not (got["m=24"] and got["k=n=8"]):
+        fail("torch._int_mm refuses the shapes the index pads to")
+    return got
+
+
+def max_abs(a, b):
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def index_vs_k5(U, V, valid, rng, dev):
+    """(a) the int8 index against the exact top-10 on 4,096 users: every
+    id earns its score; on the rows whose top-10 survived the shortlist,
+    the scores within SERVE_ULPS of the plain f32 top-k (cuBLAS f32, as
+    the rescore) and within K5_TOL of K5 (3xTF32: K5's own band against
+    that plain top-k); the share of K5's top-10 that survived; with the
+    shortlist the whole catalog (8 users), the same score sets."""
+    idx = build_index(V, shortlist_k=SERVE_SK)
+    users = torch.from_numpy(rng.choice(U.shape[0], SERVE_USERS,
+                                        replace=False)).to(dev)
+    Uq = U[users].contiguous()
+    k5_before = cuda_topk.LAUNCHES
+    s8, i8 = idx.topk(Uq, 10)
+    if cuda_topk.LAUNCHES != k5_before:
+        fail("the int8 index launched K5")
+    se, ie = cuda_topk.topk_scores(Uq, V, valid, 10)
+    sp, _ = chunked_topk_scores(Uq, V, valid, 10)
+    earns_scores(Uq, V, valid, s8, i8, "int8 index")
+    same = (torch.sort(i8, 1).values == torch.sort(ie, 1).values).all(1)
+    survived = float(np.mean([len(set(a) & set(b)) for a, b in
+                              zip(ie.tolist(), i8.tolist())])) / 10
+    ulp_p, ulp_k5 = ulps_off(s8[same], sp[same]), ulps_off(s8[same],
+                                                           se[same])
+    err_k5 = max_abs(s8[same], se[same])
+    full = build_index(V, shortlist_k=V.shape[0])
+    fs, _ = full.topk(Uq[:8], 10)
+    ulp_full, err_full = ulps_off(fs, sp[:8]), max_abs(fs, se[:8])
+    log(f"int8 index (shortlist {SERVE_SK}) vs the exact top-10 on "
+        f"{SERVE_USERS} users: share of K5's top-10 that survives the "
+        f"shortlist {survived:.4f}, rows with the whole top-10 "
+        f"{int(same.sum())}; their scores {ulp_p:.2f} ulp off the plain "
+        f"f32 top-k (tol {SERVE_ULPS}), {ulp_k5:.2f} ulp / {err_k5:.3e} "
+        f"off K5 (tol {K5_TOL}); shortlist = catalog (8 users): "
+        f"{ulp_full:.2f} ulp off plain, {err_full:.3e} off K5")
+    if ulp_p > SERVE_ULPS or ulp_full > SERVE_ULPS:
+        fail("int8 index scores off the plain f32 top-k beyond "
+             f"{SERVE_ULPS} ulp")
+    if err_k5 > K5_TOL or err_full > K5_TOL:
+        fail(f"int8 index scores off K5's beyond {K5_TOL}")
+    return idx, Uq, survived
+
+
+def int8_gemm_line(idx, Uq, V, valid, smi):
+    """The shortlist GEMM at the full catalog (a library call, not a
+    kernel of the port) beside its bound and K5 on the same users, and
+    the whole int8 top-k beside K5, at 4,096 users and at the largest
+    bucket (128)."""
+    import torch.nn.functional as F
+
+    from tpu_als_torch.serving.index import _quantize_rows
+
+    Ni, r = idx.Vq.shape
+    # the operands as serving/index.py::_int8_mm pads them (Ni to a
+    # multiple of 8), padded outside the timed call
+    rhs = F.pad(idx.Vq, (0, 0, 0, -Ni % 8))
+    for n in (SERVE_USERS, 128):
+        Q = Uq[:n].contiguous()
+        Qq, _ = _quantize_rows(Q)
+        g_ms = cuda_ms(lambda: torch._int_mm(Qq, rhs.T), 20)
+        nbytes = n * r + Ni * r + n * Ni * 4
+        b_ms = max(nbytes / HBM_BYTES_PER_S, 2 * n * Ni * r
+                   / INT8_OPS_PER_S) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S
+              >= 2 * n * Ni * r / INT8_OPS_PER_S else "operations")
+        t_ms = cuda_ms(lambda: idx.topk(Q, 10), 5)
+        k_ms = cuda_ms(lambda: cuda_topk.topk_scores(Q, V, valid, 10), 5)
+        log(f"int8 shortlist GEMM ({smi}): {n} users x {Ni} items x rank "
+            f"{r}: {g_ms:.4f} ms (bound {b_ms:.4f} ms by {by}); int8 top-10 "
+            f"whole {t_ms:.4f} ms; K5 top-10 on the same users "
+            f"{k_ms:.4f} ms")
+
+
+def delta_vs_rebuild(idx, Uq, V, rng, dev):
+    """(b) ``with_updates`` on 512 touched and 64 appended items, then
+    ``compact``: both bitwise a ``build_index`` of the updated catalog."""
+    touched = rng.choice(V.shape[0], 512, replace=False)
+    new = unit_rows(rng, 64, V.shape[1])
+    V2 = torch.cat([V, torch.from_numpy(new).to(dev)])
+    V2[torch.from_numpy(touched).to(dev)] = torch.from_numpy(
+        unit_rows(rng, 512, V.shape[1])).to(dev)
+    rows = np.concatenate([touched, V.shape[0] + np.arange(64)])
+    t0 = time.perf_counter()
+    delta = idx.with_updates(rows, V2[torch.from_numpy(rows).to(dev)]
+                             .cpu().numpy(), seq=1)
+    t_delta = time.perf_counter() - t0
+    compact = delta.compact()
+    t0 = time.perf_counter()
+    rebuilt = build_index(V2, shortlist_k=SERVE_SK)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    ref_s, ref_i = rebuilt.topk(Uq, 10)
+    for name, ix in (("delta", delta), ("compact", compact)):
+        s, i = ix.topk(Uq, 10)
+        if not torch.equal(s, ref_s):
+            fail(f"{name} index top-10 scores differ from a rebuild")
+        tied = (ref_s[:, 1:] == ref_s[:, :-1]).any(1)
+        if not torch.equal(i[~tied], ref_i[~tied]):
+            fail(f"{name} index ids differ from a rebuild on untied rows")
+    for a in ("V", "Vq", "sv", "valid"):
+        if not torch.equal(getattr(compact, a), getattr(rebuilt, a)):
+            fail(f"compacted index {a} differs from a rebuild")
+    log(f"delta index (512 touched + 64 appended) and its compaction: "
+        f"top-10 bitwise a rebuild on {SERVE_USERS} users; with_updates "
+        f"{t_delta * 1e3:.2f} ms vs build_index {t_full * 1e3:.2f} ms "
+        "(host clock)")
+    return V2, touched
+
+
+def serve_quantiles(path):
+    return {"e2e_p50_ms": obs.histogram_quantile("serving.e2e_seconds",
+                                                 0.5) * 1e3,
+            "e2e_p99_ms": obs.histogram_quantile("serving.e2e_seconds",
+                                                 0.99) * 1e3,
+            "score_p50_ms": obs.histogram_quantile(
+                "serving.score_seconds", 0.5, path=path) * 1e3,
+            "score_p99_ms": obs.histogram_quantile(
+                "serving.score_seconds", 0.99, path=path) * 1e3,
+            "scored": obs.histogram_count("serving.e2e_seconds"),
+            "shed": obs.counter_value("serving.shed")}
+
+
+def engine_open_loop(U, V, rng, dev, smi):
+    """(c) ``ServingEngine`` ('local'): publish, warmup, then the
+    serve-bench open loop in process: int8 (no K5 launch), then exact
+    (K5) after a ``quantize=False`` publish."""
+    out = {}
+    for path, n_req, quantize in (("int8", SERVE_REQS, True),
+                                  ("exact", EXACT_REQS, False)):
+        eng = ServingEngine(k=10, shortlist_k=SERVE_SK, max_wait_s=0.002,
+                            device=dev)
+        eng.publish(U, V, quantize=quantize)
+        eng.warmup()
+        uids = rng.integers(0, U.shape[0], n_req)
+        obs.reset()
+        cuda_topk.LAUNCHES = 0
+        with eng:
+            shed = open_loop(eng, [int(u) for u in uids], SERVE_QPS, 30.0)
+        k5 = cuda_topk.LAUNCHES
+        q = serve_quantiles(path)
+        if q["scored"] + shed != n_req or \
+                obs.counter_value("serving.expired"):
+            fail(f"engine ({path}): {q['scored']} scored + {shed} shed of "
+                 f"{n_req} requests")
+        if (path == "int8") != (k5 == 0):
+            fail(f"engine ({path}) launched K5 {k5} times")
+        log(f"engine 'local' {path} ({smi}): {n_req} requests at "
+            f"{SERVE_QPS:g} rps open loop over {U.shape[0]} users x "
+            f"{V.shape[0]} items, rank {U.shape[1]}: e2e p50 "
+            f"{q['e2e_p50_ms']:.3f} / p99 {q['e2e_p99_ms']:.3f} ms, score "
+            f"p50 {q['score_p50_ms']:.3f} / p99 {q['score_p99_ms']:.3f} ms "
+            f"(bucketed upper bounds), shed {shed}, K5 launches {k5}")
+        out[path] = q
+    return out
+
+
+def engine_faults(U, V, dev):
+    """(d) ``serving.publish=corrupt`` on the second publish answers
+    exact with ``fallback_exact`` counted; ``serving.score=raise`` fails
+    the waiting tickets and the loop serves on."""
+    obs.reset()
+    eng = ServingEngine(k=10, shortlist_k=SERVE_SK, max_wait_s=0.0,
+                        device=dev)
+    eng.publish(U, V)
+    first = eng.published_index
+    faults.install("serving.publish=corrupt@nth=1")
+    try:
+        eng.publish(U, V)
+        if eng.published_index is not first:
+            fail("a torn publish did not carry the previous index")
+        t = eng.submit(5)
+        eng.serve_batch(eng.batcher.next_batch(timeout=1.0))
+        s, ix = t.result(timeout=5.0)
+        valid = torch.ones(V.shape[0], dtype=torch.bool, device=dev)
+        se, _ = cuda_topk.topk_scores(U[5:6], V, valid, 10)
+        s = torch.from_numpy(s[None]).to(dev)
+        earns_scores(U[5:6], V, valid, s, torch.from_numpy(ix[None]).to(
+            dev).long(), "torn publish")
+        if ulps_off(s, se) > SERVE_ULPS:
+            fail("a torn publish was not answered on the exact route")
+        if obs.counter_value("serving.fallback_exact") != 1:
+            fail("the torn publish's exact answer was not counted")
+    finally:
+        faults.clear()
+    faults.install("serving.score=raise@nth=1")
+    try:
+        with eng:
+            try:
+                eng.submit(0).result(timeout=10.0)
+                fail("serving.score=raise did not fail the waiting ticket")
+            except faults.InjectedFault:
+                pass
+            eng.recommend(1, timeout=10.0)
+    finally:
+        faults.clear()
+    log("engine faults: a torn publish answered exact (fallback_exact 1); "
+        "serving.score=raise failed the waiting ticket, the next was served")
+
+
+def engine_mesh(U, V, V2, touched, rng, dev):
+    """(e) 'sharded' and 'merge_ring' on 4 logical shards against the
+    local engines: K8 launched, scores by the ulp rule; then one
+    ``publish_update`` of (b)'s 512 touched items through the merge-ring
+    scatter (the 64 appended would outgrow the padded shards: a full
+    re-place)."""
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    users = rng.choice(U.shape[0], 128, replace=False)
+
+    def answer(eng):
+        tickets = [eng.submit(int(u)) for u in users]
+        eng.serve_batch(eng.batcher.next_batch(timeout=1.0))
+        res = [t.result(timeout=5.0) for t in tickets]
+        return (torch.from_numpy(np.stack([r[0] for r in res])).to(dev),
+                torch.from_numpy(np.stack([r[1] for r in res])).to(dev)
+                .long())
+
+    def engine(**kw):
+        eng = ServingEngine(k=10, shortlist_k=SERVE_SK, max_wait_s=0.0,
+                            buckets=(128,), device=dev, **kw)
+        eng.publish(U, V)
+        return eng
+
+    Uu = U[torch.from_numpy(users).to(dev)]
+    valid = torch.ones(V.shape[0], dtype=torch.bool, device=dev)
+    loc_s, loc_i = answer(engine())
+    ex_s, _ = cuda_topk.topk_scores(Uu, V, valid, 10)
+    sh_s, sh_i = answer(engine(mesh=mesh, serve_backend="sharded"))
+    earns_scores(Uu, V, valid, sh_s, sh_i, "engine 'sharded'")
+    same = (torch.sort(sh_i, 1).values == torch.sort(loc_i, 1).values).all(1)
+    ulp_sh = ulps_off(sh_s[same], loc_s[same])
+    cuda_topk.MERGE_LAUNCHES = 0
+    mr = engine(mesh=mesh, serve_backend="merge_ring")
+    mr_s, mr_i = answer(mr)
+    k8 = cuda_topk.MERGE_LAUNCHES
+    if k8 == 0:
+        fail("engine 'merge_ring' never launched K8")
+    earns_scores(Uu, V, valid, mr_s, mr_i, "engine 'merge_ring'")
+    ulp_mr = ulps_off(mr_s, ex_s)
+    if max(ulp_sh, ulp_mr) > SERVE_ULPS:
+        fail(f"mesh engines off: sharded {ulp_sh:.1f}, merge_ring "
+             f"{ulp_mr:.1f} ulp")
+    V3 = V2[:V.shape[0]].contiguous()        # touched rows, no appends
+    seq, mode = mr.publish_update(U, V3, touched_items=touched)
+    if mode != "delta":
+        fail(f"merge-ring publish_update took mode {mode!r}, not 'delta'")
+    up_s, up_i = answer(mr)
+    ex2, _ = cuda_topk.topk_scores(Uu, V3, valid, 10)
+    earns_scores(Uu, V3, valid, up_s, up_i, "merge_ring after the delta")
+    ulp_up = ulps_off(up_s, ex2)
+    if ulp_up > SERVE_ULPS:
+        fail(f"merge_ring after the delta publish: {ulp_up:.1f} ulp off K5")
+    log(f"mesh engines ({SHARDS} logical shards, 128 users): 'sharded' "
+        f"{ulp_sh:.2f} ulp off 'local' on {int(same.sum())} rows with the "
+        f"same top-10; 'merge_ring' {ulp_mr:.2f} ulp off K5, K8 launches "
+        f"{k8}; publish_update (512 touched) seq {seq} mode "
+        f"{mode}, then {ulp_up:.2f} ulp off K5 on the new catalog")
+
+
+def serving_clis(model, tmp):
+    """(f) ``foldin-bench`` on phase 6's saved model (K2 counted in its
+    process) and a short ``serve-bench``, as processes; JSON parsed."""
+    path = os.path.join(tmp, "served_model")
+    model.save(path)
+    probe = ("import json, sys\n"
+             "from tpu_als_torch import cli\n"
+             "from tpu_als_torch.ops import cuda_lanes\n"
+             "cli.main(sys.argv[1:])\n"
+             "print(json.dumps({'k2_launches': cuda_lanes.LAUNCHES}))\n")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", probe, "foldin-bench", "--model", path],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        fail(f"foldin-bench exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    fb, k2 = json.loads(lines[-2]), json.loads(lines[-1])["k2_launches"]
+    if k2 == 0 or fb["metric"] != "foldin_p50_latency":
+        fail(f"foldin-bench: {fb}, K2 launches {k2}")
+    fb_s = time.perf_counter() - t0
+    sb, sb_s = run_cli(["serve-bench", "--users", str(N_USERS), "--items",
+                        str(N_ITEMS), "--rank", str(RANK), "--qps", "1000",
+                        "--duration", "1", "--slo-ms", "50"])
+    if sb["scored"] == 0 or sb["config"]["path"] != "int8":
+        fail(f"serve-bench: {sb}")
+    log(f"foldin-bench: p50 {fb['value']} s over {fb['batches']} batches "
+        f"of {fb['batch_size']}, K2 launches {k2} ({fb_s:.1f} s process); "
+        f"serve-bench: {json.dumps(sb)} ({sb_s:.1f} s process)")
+
+
+def serving_engine_phase(fitted, served, rng, dev, smi):
+    """Phase 8, (a)-(f), on the rank-128 fit's factors (162,541 users x
+    59,047 items) and phase 6's served model."""
+    t0 = time.perf_counter()
+    log(f"serving engine phase on {smi}")
+    U, V = fitted._U, fitted._V
+    valid = torch.ones(V.shape[0], dtype=torch.bool, device=dev)
+    int_mm_shapes(dev)
+    idx, Uq, _ = index_vs_k5(U, V, valid, rng, dev)
+    int8_gemm_line(idx, Uq, V, valid, smi)
+    V2, touched = delta_vs_rebuild(idx, Uq, V, rng, dev)
+    del idx
+    engine_open_loop(U, V, rng, dev, smi)
+    engine_faults(U, V, dev)
+    engine_mesh(U, V, V2, touched, rng, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        serving_clis(served, tmp)
+    obs.reset()
+    log(f"serving engine phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 9 ---------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -2978,6 +3357,53 @@ def where_time_goes(model, rng, tr, users, items):
                 f" {e.key[:90]}")
 
 
+def profile_engine_batches(fitted, rng, dev, reps=20):
+    """Phase 10's serving rows: for the int8 and the exact route of a
+    'local' engine on the rank-128 fit, ``reps`` synchronous
+    ``serve_batch`` calls of 8 requests (one bucket) under the profiler:
+    wall and device busy time per batch, the device's idle share and the
+    top kernels.  Last of the profiles, so the earlier ones read as they
+    did before the serving phase existed."""
+    users = rng.integers(0, fitted._U.shape[0], 8 * (reps + 1))
+    for path, quantize in (("int8", True), ("exact", False)):
+        eng = ServingEngine(k=10, shortlist_k=SERVE_SK, max_wait_s=0.0,
+                            device=dev)
+        eng.publish(fitted._U, fitted._V, quantize=quantize)
+        eng.warmup()
+        profile_engine_batch(eng, users, path, reps)
+
+
+def profile_engine_batch(eng, users, path, reps):
+    """One route's profiled batches (:func:`profile_engine_batches`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def batch(j):
+        for u in users[8 * j:8 * j + 8]:
+            eng.submit(int(u))
+        eng.serve_batch(eng.batcher.next_batch(timeout=1.0))
+
+    batch(reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(reps):
+            batch(j)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    log(f"profile engine {path} batch of 8: wall_ms={wall:.3f} "
+        f"device_busy_ms={busy:.3f} device_idle_share={1 - busy / wall:.3f}"
+        f" kernels_per_batch={sum(e.count for e in ev) / reps:.1f}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
+            f"x{e.count / reps:<5.1f} {e.key[:90]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3034,6 +3460,7 @@ def main():
     rank320_fit(args.seed, dev)
     model_selection_phase(frame25m, args.seed, dev)
     del frame25m
+    serving_engine_phase(tr["model"], model, rng, dev, smi)
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
                              dev))
@@ -3054,6 +3481,7 @@ def main():
     where_time_goes(model, rng, tr, np.arange(N_USERS), np.arange(N_ITEMS))
     where_time_goes(model256, rng, tr256, tr256["model"]._user_map.ids,
                     model256._item_map.ids)
+    profile_engine_batches(tr["model"], rng, dev)
     log(f"device: {smi}")   # again, beside the results at the tail
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

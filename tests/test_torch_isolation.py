@@ -23,6 +23,11 @@
   ``tpu_als`` unimportable; ``tune``, ``evaluate`` and
   ``legacy.ALS.train`` with no device raise without a CUDA device; a
   ``stream:`` data spec raises ``NotImplementedError``.
+- The serving engine (``serving``, ``plan``, ``obs.tracing``,
+  ``serve-bench``) runs with ``jax`` and ``tpu_als`` unimportable;
+  ``ServingEngine()`` and ``serve-bench`` with no device raise without a
+  CUDA device; on the CPU the engine's exact and merge-ring routes run
+  K5's and K8's plain versions and launch nothing.
 """
 
 import contextlib
@@ -423,3 +428,83 @@ def test_stream_data_spec_is_not_ported(cmd, tmp_path):
         _model().save(str(tmp_path / "m"))
     with pytest.raises(NotImplementedError, match="serving slice"):
         main(cmd + ["--data", "stream:/nonexistent.csv"])
+
+
+_DRIVE_SERVING = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np
+from tpu_als_torch import obs, plan
+from tpu_als_torch.cli import main
+from tpu_als_torch.obs import tracing
+from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.serving import ServingEngine
+rng = np.random.default_rng(0)
+U = rng.normal(size=(20, 4)).astype(np.float32)
+V = rng.normal(size=(90, 4)).astype(np.float32)
+assert plan.resolve_serving_buckets() == (8, 32, 128)
+with tracing.traced():
+    for kw in ({"device": "cpu"},
+               {"mesh": make_mesh(devices=["cpu"] * 3)}):
+        eng = ServingEngine(k=3, shortlist_k=16, **kw)
+        eng.publish(U, V)
+        eng.warmup()
+        with eng:
+            s, ix = eng.recommend(2, timeout=10.0)
+        assert s.shape == (3,)
+assert obs.events("trace_span")
+main(["serve-bench", "--users", "30", "--items", "90", "--rank", "4",
+      "--qps", "200", "--duration", "0.1", "--device", "cpu"])
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_serving_engine_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", _DRIVE_SERVING], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_serving_without_cuda_raises(monkeypatch):
+    from tpu_als_torch.cli import main
+    from tpu_als_torch.serving import ServingEngine, build_index
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index(np.ones((5, 3), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["serve-bench", "--users", "10", "--items", "20", "--rank",
+              "2", "--duration", "0.01"])
+
+
+@pytest.mark.parametrize("backend", ["exact", "merge_ring"])
+def test_engine_routes_on_cpu_take_plain_versions_without_launching(
+        backend):
+    from tpu_als_torch.serving import ServingEngine
+
+    cuda_topk.LAUNCHES = cuda_topk.MERGE_LAUNCHES = 0
+    rng = np.random.default_rng(4)
+    U = rng.normal(size=(12, 4)).astype(np.float32)
+    V = rng.normal(size=(50, 4)).astype(np.float32)
+    if backend == "exact":
+        eng = ServingEngine(k=3, buckets=(8,), device="cpu")
+        eng.publish(U, V, quantize=False)
+    else:
+        eng = ServingEngine(k=3, buckets=(8,),
+                            mesh=pmesh.make_mesh(devices=["cpu"] * 3))
+        eng.publish(U, V)
+    t = eng.submit(5)
+    eng.serve_batch(eng.batcher.next_batch(timeout=1.0))
+    s, ix = t.result(timeout=1.0)
+    ref = U[5].astype(np.float64) @ V.astype(np.float64).T
+    np.testing.assert_allclose(s, np.sort(ref)[::-1][:3], rtol=1e-5)
+    np.testing.assert_array_equal(ix, np.argsort(-ref)[:3])
+    assert cuda_topk.LAUNCHES == cuda_topk.MERGE_LAUNCHES == 0

@@ -244,3 +244,13 @@ def test_stage_outside_the_table_is_refused(tmp_path):
 def test_frame_helpers_keep_the_reference_contract():
     f = ColumnarFrame(_strings())
     assert len(f.filter(np.asarray(f["n"]) > 0)) == 9
+
+
+def test_frame_count_matches_reference():
+    """Spark's ``df.count()``: the reference aliases ``__len__``."""
+    from tpu_als.utils.frame import ColumnarFrame as JFrame
+
+    data = _strings()
+    for n in (len(data["n"]), 0):
+        sub = {k: v[:n] for k, v in data.items()}
+        assert ColumnarFrame(sub).count() == JFrame(sub).count() == n

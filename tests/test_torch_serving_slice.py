@@ -137,6 +137,32 @@ def test_foldin_server_matches_reference(saved, implicit):
                 "user", "item")
 
 
+def test_foldin_server_p50_latency_matches_reference(saved):
+    """``p50_latency`` is ``latency(0.5)``, as the reference's."""
+    jm, tm = _both(saved, implicit=False)
+    user_batch, _ = _foldin_batches(jm)
+    for srv in (JFoldInServer(jm), tpu_als_torch.FoldInServer(tm)):
+        srv.update(user_batch)
+        srv.update(user_batch)
+        assert srv.p50_latency() == srv.latency(0.5) > 0
+
+
+def test_foldin_server_prewarm_growth_matches_reference(saved):
+    """``prewarm`` takes ``growth`` (both sides, the fixed table padded to
+    further doublings) and leaves the model as it was; the fold-ins after
+    it match the reference's."""
+    jm, tm = _both(saved, implicit=True)
+    user_batch, _ = _foldin_batches(jm)
+    js, ts = JFoldInServer(jm), tpu_als_torch.FoldInServer(tm)
+    kw = dict(rows=(4,), widths=(2,), sides=("user", "item"), growth=2)
+    js.prewarm(**kw)
+    ts.prewarm(**kw)
+    _same_model(tm, jm)
+    np.testing.assert_array_equal(ts.update(user_batch),
+                                  js.update(user_batch))
+    _same_model(tm, jm)
+
+
 def test_item_side_recommend_matches_reference(saved):
     jm, tm = _both(saved, implicit=False)
     items = {"item": np.concatenate([jm._item_map.ids[5:12], [31337]])}

@@ -356,3 +356,18 @@ def test_cli_train_writes_a_model_the_reference_loads(tmp_path):
     tm = tpu_als_torch.ALSModel.load(out, device="cpu")
     assert jm.rank == tm.rank == 4
     np.testing.assert_array_equal(jm._U, tm._U.numpy())
+
+
+def test_fit_sets_the_model_parent_like_the_reference(tmp_path):
+    """``ALS.fit`` builds its model with ``parent=self`` (Spark's
+    ``Model.parent``); the save format does not carry it."""
+    u, i, r, _, _ = _problem()
+    frame = {"user": u, "item": i, "rating": r}
+    jals = tpu_als.ALS(rank=2, maxIter=1, seed=0)
+    tals_ = tpu_als_torch.ALS(rank=2, maxIter=1, seed=0, device="cpu")
+    jm, tm = jals.fit(frame), tals_.fit(frame)
+    assert jm.parent is jals and tm.parent is tals_
+    tm.save(str(tmp_path / "m"))
+    assert tpu_als_torch.ALSModel.load(str(tmp_path / "m"),
+                                       device="cpu").parent is None
+    assert tpu_als.ALSModel.load(str(tmp_path / "m")).parent is None

@@ -21,8 +21,12 @@ an iteration boundary, and the Spark ML surface around ``ALS``:
 ``Pipeline``, ``StringIndexer`` / ``IndexToString``,
 ``ParamGridBuilder`` with ``CrossValidator`` and
 ``TrainValidationSplit``, the regression and ranking evaluators, the
-``mllib`` legacy API (:mod:`tpu_als_torch.api.legacy`) and the commands
-``python -m tpu_als_torch.cli train|recommend|evaluate|tune``.
+``mllib`` legacy API (:mod:`tpu_als_torch.api.legacy`), the online
+serving engine (:mod:`tpu_als_torch.serving`: admission, micro-batching,
+deadlines, the int8 candidate index, atomic and incremental publishes,
+the exact, int8 and merge-ring routes) and the commands
+``python -m tpu_als_torch.cli train|recommend|evaluate|tune|foldin-bench|
+serve-bench``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a CUDA tensor always goes through the hand-written
@@ -36,6 +40,9 @@ Package map:
            over shards (K7), top-k (K5) and the cross-shard top-k merge (K8)
   core/    id maps and bucketed CSR, the training loop, fold-in, predict
   stream/  the micro-batch fold-in server
+  serving/ the online serving engine, its admission queue and the int8
+           candidate index
+  plan/    the planner's serving resolvers (disarmed: no plan cache)
   parallel/  the mesh, sharded layouts, the sharded trainer and server
   api/     ALS, ALSModel, the sharded fit, params, the evaluators, the
            pipeline stages, the tuners, the legacy API, and the table of
@@ -44,7 +51,8 @@ Package map:
            MovieLens loaders, the native CSV reader and bucketizer
            (``native/*.cc``, built with g++ into ``_build/``) and the
            CSV reader's Python twin, synthetic MovieLens-shaped data
-  obs/     the metrics registry, its vocabulary and the run manifest
+  obs/     the metrics registry, its vocabulary, the run manifest, causal
+           tracing and the serving flight recorder
   resilience/  fault injection, retry policies, the fit's guardrails,
            preemption
   utils/   device resolution, the columnar frame

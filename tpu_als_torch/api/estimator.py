@@ -393,7 +393,8 @@ class ALS(_ALSParams, Estimator):
     def _make_model(self, user_map, item_map, U, V, device):
         return ALSModel(rank=self.getRank(), user_map=user_map,
                         item_map=item_map, user_factors=U, item_factors=V,
-                        params=self._ckpt_params(), device=device)
+                        params=self._ckpt_params(), device=device,
+                        parent=self)
 
     def _ckpt_params(self):
         """The param map plus the trajectory-changing runtime knobs,
@@ -516,7 +517,7 @@ class ALSModel:
     _TRANSFORM_CHUNK = 1 << 20
 
     def __init__(self, rank, user_map, item_map, user_factors, item_factors,
-                 params, device=None):
+                 params, device=None, parent=None):
         self.device = resolve_device(device)
         self.rank = rank
         self._user_map = user_map
@@ -524,6 +525,8 @@ class ALSModel:
         self._U = _factor_table(user_factors, self.device)
         self._V = _factor_table(item_factors, self.device)
         self._params = dict(params)
+        # the ALS that fitted this model (Spark's Model.parent); not saved
+        self.parent = parent
 
     def _get(self, name):
         return self._params[name]

@@ -1,4 +1,5 @@
-"""Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune``.
+"""Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune|
+foldin-bench|serve-bench``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
@@ -38,6 +39,22 @@ scores rounded to 4 decimals, and with ``--titles`` (``u.item``,
 ``movies.dat``, ``movies.csv`` or their directory) the items' titles
 under ``"titles"``.  Fold-in data is ``csv:PATH``.
 
+``foldin-bench`` (``cmd_foldin_bench``) folds ``--batches`` seeded
+batches of ``--batch-size`` ratings of new users into a saved model and
+prints the reference's JSON line, the p50 of the batches after the first
+(``FoldInServer.latency``).
+
+``serve-bench`` (``cmd_serve_bench``) is the single-tenant open-loop
+serving benchmark: seeded factors published into a ``ServingEngine``
+(int8 index unless ``--exact``; ``--mesh-devices N`` serves from N
+logical shards of the one device with ``--serve-backend``), requests at a
+fixed ``--qps`` for ``--duration`` seconds scheduled by the clock, and
+p50/p99/shed read back from the obs histograms and judged against
+``--slo-ms``; ``--bench-json`` banks the JSON with a ``banked_at`` UTC
+stamp.  ``--update-qps > 0`` and ``--tenants`` raise
+``NotImplementedError``: the live loop and tenancy are not ported (ROADMAP
+Queue 1 item 4).
+
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
 """
@@ -49,6 +66,7 @@ import json
 import math
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -70,7 +88,8 @@ def _load_train_data(spec):
     if kind == "stream":
         raise NotImplementedError(
             f"data spec {spec!r}: the stream: reader (io/stream.py) is not "
-            "ported yet: it comes with the serving slice of the port")
+            "ported yet: it comes after the serving slice, with the live "
+            "loop (ROADMAP Queue 1 item 4)")
     if kind == "ml-100k":
         return movielens.load_movielens_100k(arg)
     if kind == "dat":
@@ -326,6 +345,183 @@ def cmd_recommend(args):
         print(json.dumps(out))
 
 
+def cmd_foldin_bench(args):
+    from tpu_als_torch.api.estimator import ALSModel
+    from tpu_als_torch.stream.microbatch import FoldInServer
+    from tpu_als_torch.utils.frame import ColumnarFrame
+
+    model = ALSModel.load(args.model, device=args.device)
+    srv = FoldInServer(model)
+    rng = np.random.default_rng(0)
+    item_ids = model._item_map.ids
+    p = model._params
+    base_user = int(model._user_map.ids.max()) + 1
+    for b in range(args.batches):
+        n = args.batch_size
+        batch = ColumnarFrame({
+            p["userCol"]: rng.integers(base_user, base_user + 1000, n),
+            p["itemCol"]: rng.choice(item_ids, n),
+            p["ratingCol"]: rng.uniform(0.5, 5.0, n).astype(np.float32),
+        })
+        t0 = time.perf_counter()
+        srv.update(batch)
+        if b == 0:
+            print(f"warmup batch: {time.perf_counter()-t0:.3f}s",
+                  file=sys.stderr)
+    print(json.dumps({
+        "metric": "foldin_p50_latency",
+        "value": round(srv.latency(0.5, skip_warmup=True), 4),
+        "unit": "seconds",
+        "batches": args.batches,
+        "batch_size": args.batch_size,
+    }))
+
+
+def open_loop(engine, payloads, qps, wait_s):
+    """Submit ``payloads`` to a started ``engine`` at ``qps`` requests a
+    second, scheduled by the clock (open loop: arrivals do not wait for
+    completions), then wait up to ``wait_s`` for each admitted ticket.
+    Returns the number shed at admission."""
+    from tpu_als_torch.serving import Overloaded
+
+    tickets, shed = [], 0
+    t0 = time.perf_counter()
+    for j, payload in enumerate(payloads):
+        delay = t0 + j / qps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            tickets.append(engine.submit(payload))
+        except Overloaded:
+            shed += 1
+    for t in tickets:
+        try:
+            t.result(timeout=wait_s)
+        except Exception:  # noqa: BLE001 — expired/failed: counted by obs
+            pass
+    return shed
+
+
+def cmd_serve_bench(args):
+    """Open-loop serving latency benchmark: seeded factors, a fixed
+    request rate for a fixed window, p50/p99/shed read back from the obs
+    histograms and judged against ``--slo-ms``."""
+    import datetime as _dt
+
+    from tpu_als_torch import obs, plan
+    from tpu_als_torch.serving import ServingEngine
+    from tpu_als_torch.utils.platform import resolve_device
+
+    if args.update_qps > 0 or args.tenants:
+        raise NotImplementedError(
+            "serve-bench --update-qps/--tenants: the live loop (live/) and "
+            "tenancy (tenancy/) are not ported yet (ROADMAP Queue 1 item 4)")
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(args.seed)
+    U = rng.normal(size=(args.users, args.rank)).astype(np.float32)
+    V = rng.normal(size=(args.items, args.rank)).astype(np.float32)
+    # no --buckets: the planner's ladder (DEFAULT_BUCKETS, disarmed)
+    buckets = (tuple(int(b) for b in args.buckets.split(","))
+               if args.buckets else None)
+    mesh = None
+    if args.mesh_devices:
+        from tpu_als_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=[dev] * args.mesh_devices)
+    engine = ServingEngine(
+        k=args.k, buckets=buckets, shortlist_k=args.shortlist_k,
+        mesh=mesh, serve_backend=args.serve_backend,
+        max_queue=args.max_queue, max_wait_s=args.max_wait_ms / 1e3,
+        default_deadline_s=(args.deadline_ms / 1e3
+                            if args.deadline_ms else None),
+        # the SLO is also the flight recorder's breach trigger
+        slo_s=args.slo_ms / 1e3, device=dev)
+    engine.publish(U, V, quantize=not args.exact)
+    with obs.span("serve_bench.warmup"):
+        engine.warmup()
+
+    path = "exact" if args.exact else "int8"
+    n_req = max(1, int(args.qps * args.duration))
+    print(f"serve-bench: {n_req} requests at {args.qps:g} rps over "
+          f"{args.duration:g}s ({path} path, {args.items:,} items, rank "
+          f"{args.rank}, device {dev})", file=sys.stderr)
+    foldin_ids = rng.random(n_req) < args.foldin_frac
+    uids = rng.integers(0, args.users, n_req)
+    payloads = [U[uids[j]] if foldin_ids[j] else int(uids[j])
+                for j in range(n_req)]
+    engine.start()
+    try:
+        with obs.span("serve_bench.drive"):
+            shed = open_loop(engine, payloads, args.qps,
+                             max(5.0, 10 * args.slo_ms / 1e3))
+    finally:
+        engine.stop()
+
+    p50 = obs.histogram_quantile("serving.e2e_seconds", 0.5)
+    p99 = obs.histogram_quantile("serving.e2e_seconds", 0.99)
+    scored = obs.histogram_count("serving.e2e_seconds")
+    admitted = obs.counter_value("serving.requests")
+    shed_obs = obs.counter_value("serving.shed")
+    expired = obs.counter_value("serving.expired")
+    attempted = admitted + shed_obs
+    if scored == 0:
+        raise SystemExit("serve-bench: no request completed — the "
+                         "latency histograms are empty")
+    if shed != shed_obs:
+        raise RuntimeError(f"serve-bench: the driver counted {shed} shed "
+                           f"requests, obs {shed_obs}")
+    result = {
+        "metric": "serve_e2e_p99_ms",
+        "value": round(p99 * 1e3, 3),
+        "unit": "ms",
+        "slo_ms": args.slo_ms,
+        "slo_met": bool(p99 * 1e3 <= args.slo_ms),
+        "p50_ms": round(p50 * 1e3, 3),
+        "shed_rate": round(shed_obs / attempted, 4) if attempted else 0.0,
+        "expired": int(expired),
+        "scored": int(scored),
+        "queue_wait_p99_ms": round(
+            obs.histogram_quantile("serving.enqueue_seconds", 0.99) * 1e3,
+            3),
+        "flight_records": len(obs.events("flight_record")),
+        "config": {
+            "path": path, "users": args.users, "items": args.items,
+            "rank": args.rank, "k": args.k,
+            "shortlist_k": args.shortlist_k, "qps": args.qps,
+            "duration_s": args.duration,
+            "buckets": list(engine.batcher.buckets),
+            "max_queue": args.max_queue, "max_wait_ms": args.max_wait_ms,
+            "deadline_ms": args.deadline_ms,
+            "foldin_frac": args.foldin_frac,
+        },
+    }
+    if mesh is not None:
+        result["backend"] = engine._backend
+        result["config"]["mesh_devices"] = int(args.mesh_devices)
+        result["config"]["serve_backend"] = args.serve_backend
+    # the observed request-size mix, as the planner would bank it: the
+    # batch_rows histogram's {p50, p90, p99, max} weighted back into a
+    # sample
+    if obs.histogram_count("serving.batch_rows"):
+        bq = [obs.histogram_quantile("serving.batch_rows", q)
+              for q in (0.5, 0.9, 0.99, 1.0)]
+        sample = [bq[0]] * 50 + [bq[1]] * 40 + [bq[2]] * 9 + [bq[3]]
+        result["derived_buckets"] = list(plan.resolve_serving_buckets(
+            rank=args.rank, observed=sample))
+    print(json.dumps(result))
+    if args.bench_json:
+        with open(args.bench_json, "w") as f:
+            json.dump({
+                **result,
+                "banked_by": "tpu_als_torch serve-bench",
+                "banked_at": _dt.datetime.now(
+                    _dt.timezone.utc).isoformat(timespec="seconds"),
+            }, f, indent=2)
+            f.write("\n")
+        print(f"result banked to {args.bench_json}", file=sys.stderr)
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="tpu_als_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -420,6 +616,73 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
     g.set_defaults(fn=cmd_tune)
+    f = sub.add_parser("foldin-bench",
+                       help="fold-in latency micro-benchmark")
+    f.add_argument("--model", required=True)
+    f.add_argument("--batches", type=int, default=20)
+    f.add_argument("--batch-size", type=int, default=512)
+    f.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the "
+                        "kernels' plain versions)")
+    f.set_defaults(fn=cmd_foldin_bench)
+    sb = sub.add_parser(
+        "serve-bench",
+        help="open-loop serving latency benchmark against an SLO "
+             "(micro-batched engine, int8 index unless --exact)")
+    sb.add_argument("--users", type=int, default=20_000)
+    sb.add_argument("--items", type=int, default=50_000)
+    sb.add_argument("--rank", type=int, default=64)
+    sb.add_argument("--k", type=int, default=10)
+    sb.add_argument("--shortlist-k", type=int, default=64,
+                    help="int8 shortlist rescored exactly in f32 "
+                         "(>= items makes the shortlist the catalog)")
+    sb.add_argument("--exact", action="store_true",
+                    help="skip the int8 index; score every request on "
+                         "the exact route (K5 on the card)")
+    sb.add_argument("--qps", type=float, default=200.0,
+                    help="open-loop arrival rate (requests/second)")
+    sb.add_argument("--duration", type=float, default=5.0,
+                    help="measured window in seconds")
+    sb.add_argument("--slo-ms", type=float, default=50.0,
+                    help="end-to-end p99 target the report is judged "
+                         "against")
+    sb.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline; requests that exceed it "
+                         "while queued fail instead of being scored")
+    sb.add_argument("--max-queue", type=int, default=1024,
+                    help="admission-queue depth beyond which requests "
+                         "are shed (typed Overloaded)")
+    sb.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="micro-batch coalescing window")
+    sb.add_argument("--buckets", default=None,
+                    help="comma-separated padded batch sizes; default: "
+                         "the planner's ladder (8,32,128)")
+    sb.add_argument("--foldin-frac", type=float, default=0.0,
+                    help="fraction of requests carrying a fold-in "
+                         "factor row instead of a user id")
+    sb.add_argument("--mesh-devices", type=int, default=0,
+                    help="> 0 serves from this many logical shards of "
+                         "the one device")
+    sb.add_argument("--serve-backend", default="auto",
+                    choices=("auto", "local", "sharded", "merge_ring"),
+                    help="scoring backend on the mesh: the sharded int8 "
+                         "index, the merge-ring top-k (K8), or auto "
+                         "(merge_ring for k <= 128); local ignores the "
+                         "mesh")
+    sb.add_argument("--update-qps", type=float, default=0.0,
+                    help="the live update stream: not ported yet "
+                         "(> 0 raises NotImplementedError)")
+    sb.add_argument("--tenants", type=int, default=0,
+                    help="the multi-tenant variant: not ported yet "
+                         "(raises NotImplementedError)")
+    sb.add_argument("--seed", type=int, default=0)
+    sb.add_argument("--bench-json", default=None, metavar="PATH",
+                    help="also bank the result JSON (with banked_at "
+                         "provenance) here")
+    sb.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    sb.set_defaults(fn=cmd_serve_bench)
     args = parser.parse_args(argv)
     _arm_fault_spec()
     from tpu_als_torch import obs

@@ -125,6 +125,11 @@ def remap_ids(raw):
 
 
 
+def _next_pow2(x):
+    """The least power of two >= x (1 for x <= 1), as the reference's."""
+    return 1 << int(max(0, int(np.ceil(np.log2(max(1, x))))))
+
+
 def entity_widths(counts, min_width, growth=2.0):
     """Bucket width per entity, floored at ``min_width``: the next power of
     two (growth 2.0), or with growth < 2 also the 0.75·2^k rungs that are

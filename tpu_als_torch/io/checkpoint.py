@@ -152,6 +152,7 @@ def save_factors(path, user_ids, user_factors, item_ids, item_factors,
                what="checkpoint.save")
     dt = time.perf_counter() - t0
     nbytes = nbytes_box["n"]
+    obs.histogram("checkpoint.save_seconds", dt)
     obs.counter("checkpoint.save_bytes", nbytes)
     obs.emit("checkpoint_save", path=str(path), seconds=round(dt, 6),
              bytes=nbytes, iteration=iteration)
@@ -172,6 +173,7 @@ def load_factors(path, retry_policy=None):
                      what="checkpoint.load")
     dt = time.perf_counter() - t0
     nbytes = _tree_bytes(path)
+    obs.histogram("checkpoint.load_seconds", dt)
     obs.counter("checkpoint.load_bytes", nbytes)
     obs.emit("checkpoint_load", path=str(path), seconds=round(dt, 6),
              bytes=nbytes)

@@ -1,29 +1,35 @@
 """``tpu_als_torch.obs`` — the port's metrics registry and run sinks.
 
 Counterpart of ``tpu_als/obs/__init__.py`` (stdlib only).  The
-guardrails, the fault points, the retry helper and the estimator's
-quarantine write through the module-level default registry:
+instrumented paths (guardrails, fault points, retry, checkpoints, the
+fold-in server, the serving engine) write through the module-level
+default registry:
 
     from tpu_als_torch import obs
 
+    with obs.span("serve_bench.warmup"):
+        ...
     obs.counter("train.rollbacks", 1)
-    obs.emit("guardrail_tripped", iteration=2, sentinel="nonfinite",
-             mode="warn")
-    obs.counter_value("train.rollbacks")
+    obs.histogram("serving.e2e_seconds", dt)
+    obs.gauge("serving.queue_depth", depth)
+    obs.histogram_quantile("serving.e2e_seconds", 0.99)
 
     obs.configure(run_dir)      # start of a run (the CLI's --output)
     obs.finalize()              # events.jsonl, metrics.prom,
                                 # run_manifest.json into run_dir
 
 Until ``finalize`` everything is in-memory bookkeeping, bounded, so
-library use and the tests need no run directory.  The reference's
-spans and tracing, ``regress``, ``explain`` and report are not ported yet.
+library use and the tests need no run directory.  Causal tracing is
+:mod:`tpu_als_torch.obs.tracing`, the serving flight recorder
+:mod:`tpu_als_torch.obs.trace`.  The reference's ``regress``,
+``explain`` and report are not ported yet.
 """
 
 from __future__ import annotations
 
 from tpu_als_torch.obs import schema  # noqa: F401
-from tpu_als_torch.obs.metrics import MetricsRegistry  # noqa: F401
+from tpu_als_torch.obs.metrics import (BUCKET_BOUNDS,  # noqa: F401
+                                       MetricsRegistry)
 
 _default = MetricsRegistry()
 
@@ -43,6 +49,22 @@ def counter(name, value=1, **labels):
     _default.counter(name, value, **labels)
 
 
+def gauge(name, value, **labels):
+    _default.gauge(name, value, **labels)
+
+
+def histogram(name, value, **labels):
+    _default.histogram(name, value, **labels)
+
+
+def histogram_quantile(name, q, **labels):
+    return _default.histogram_quantile(name, q, **labels)
+
+
+def histogram_count(name, **labels):
+    return _default.histogram_count(name, **labels)
+
+
 def counter_value(name, **labels):
     return _default.counter_value(name, **labels)
 
@@ -55,12 +77,24 @@ def events(etype=None):
     return _default.events(etype)
 
 
+def span(name, **labels):
+    return _default.span(name, **labels)
+
+
 def configure(run_dir, config=None, argv=None):
     _default.configure(run_dir, config=config, argv=argv)
 
 
 def deconfigure():
     _default.deconfigure()
+
+
+def snapshot():
+    return _default.snapshot()
+
+
+def prometheus_text():
+    return _default.prometheus_text()
 
 
 def finalize():

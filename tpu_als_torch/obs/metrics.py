@@ -1,30 +1,41 @@
-"""Process-wide metrics registry and the JSONL/Prometheus sinks.
+"""Process-wide metrics registry, spans and the JSONL/Prometheus sinks.
 
 Counterpart of ``tpu_als/obs/metrics.py`` (stdlib only): one in-process
 registry that the instrumented paths write to with dict operations under
 one lock, and that a run drains to disk once, at :meth:`finalize`:
 
-- ``events.jsonl``      — the append-only event log (guardrail trips,
-  rollbacks, quarantines, fault firings, a final ``snapshot``),
+- ``events.jsonl``      — the append-only event log (spans, gauge sets,
+  guardrail trips, quarantines, fault firings, a final ``snapshot``),
 - ``metrics.prom``      — the Prometheus text exposition of the counters,
+  gauges and histograms,
 - ``run_manifest.json`` — config, versions, git, device
   (:mod:`tpu_als_torch.obs.manifest`).
 
-Names are checked against :mod:`tpu_als_torch.obs.schema` when written.
-The port's metrics are all counters so far; the reference's gauges and
-fixed-bucket histograms arrive with the first metric of their kind (its
-serving rows), and its rotation of long event logs, its spans and its
-device-trace scopes are not ported.
+Histograms use the reference's FIXED log-scale buckets (4 per decade,
+1e-6..1e6), so two runs' exposition files share one ``le`` grid, and
+their quantiles are the same bucketed estimates the reference reports.
+``span(name)`` records wall-clock tree-structured spans and, when torch
+is already imported, opens ``torch.profiler.record_function(name)`` so a
+profiler trace carries the same names.  Names are checked against
+:mod:`tpu_als_torch.obs.schema` when written.  The reference's rotation
+of long event logs is not ported.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import json
 import os
+import sys
 import threading
 import time
 
 from tpu_als_torch.obs import schema
+
+# 4 buckets per decade over 1e-6 .. 1e6 (49 upper bounds; the 50th
+# bucket is +Inf), as the reference's: fixed, never derived from data
+BUCKET_BOUNDS = tuple(10.0 ** (e / 4.0) for e in range(-24, 25))
 
 # in-memory event cap: a registry that is never finalized (library use,
 # the tests) must not grow without bound; finalize() reports the drops
@@ -49,18 +60,64 @@ def _fmt(v):
     return f"{v:.10g}"
 
 
+class _Hist:
+    __slots__ = ("counts", "sum", "count", "min", "max")
+
+    def __init__(self):
+        self.counts = [0] * (len(BUCKET_BOUNDS) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self.min = float("inf")
+        self.max = float("-inf")
+
+    def observe(self, v):
+        self.counts[bisect.bisect_left(BUCKET_BOUNDS, v)] += 1
+        self.sum += v
+        self.count += 1
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
+
+    def quantile(self, q):
+        """Upper bucket bound at quantile ``q`` (0..1), the bucketed
+        estimate; the overflow bucket reports the observed max."""
+        if self.count == 0:
+            return float("nan")
+        target = q * self.count
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            # acc > 0: at q = 0 an empty prefix is not the minimum
+            if acc >= target and acc > 0:
+                if i < len(BUCKET_BOUNDS):
+                    return BUCKET_BOUNDS[i]
+                return self.max
+        return self.max
+
+    def state(self):
+        return {"count": self.count, "sum": self.sum,
+                "min": self.min if self.count else None,
+                "max": self.max if self.count else None,
+                "p50": self.quantile(0.5) if self.count else None,
+                "p95": self.quantile(0.95) if self.count else None}
+
+
 class MetricsRegistry:
-    """Counters and events under one lock; nothing touches the
-    filesystem until :meth:`finalize`."""
+    """Counters, gauges, histograms, events and spans under one lock;
+    nothing touches the filesystem until :meth:`finalize`."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters = {}     # (name, labels_key) -> float
+        self._gauges = {}       # (name, labels_key) -> float
+        self._hists = {}        # (name, labels_key) -> _Hist
         self._events = []
         self._dropped = 0
         self._flushed = 0       # events already written to disk
         self._run_dir = None
         self._manifest = None
+        self._local = threading.local()
 
     # -- instruments ---------------------------------------------------
     def counter(self, name, value=1, **labels):
@@ -69,6 +126,39 @@ class MetricsRegistry:
         key = (name, _labels_key(labels))
         with self._lock:
             self._counters[key] = self._counters.get(key, 0) + value
+
+    def gauge(self, name, value, **labels):
+        schema.check_metric(name, "gauge")
+        schema.check_labels(name, labels)
+        key = (name, _labels_key(labels))
+        with self._lock:
+            self._gauges[key] = value
+        # a gauge is point-in-time: each set is also an event, so the
+        # JSONL alone carries its history
+        self.emit("metric", kind="gauge", name=name, value=value,
+                  labels=dict(labels))
+
+    def histogram(self, name, value, **labels):
+        schema.check_metric(name, "histogram")
+        schema.check_labels(name, labels)
+        key = (name, _labels_key(labels))
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = _Hist()
+            h.observe(float(value))
+
+    def histogram_quantile(self, name, q, **labels):
+        """Bucketed quantile of a recorded histogram series (exact label
+        match; NaN when the series has no observations)."""
+        with self._lock:
+            h = self._hists.get((name, _labels_key(labels)))
+            return h.quantile(q) if h is not None else float("nan")
+
+    def histogram_count(self, name, **labels):
+        with self._lock:
+            h = self._hists.get((name, _labels_key(labels)))
+            return h.count if h is not None else 0
 
     def counter_value(self, name, **labels):
         with self._lock:
@@ -91,6 +181,31 @@ class MetricsRegistry:
             return [e for e in self._events
                     if etype is None or e["type"] == etype]
 
+    # -- span tracing --------------------------------------------------
+    @contextlib.contextmanager
+    def span(self, name, **labels):
+        """Record a wall-clock span; nest for tree structure (the event's
+        ``path`` is the '/'-joined stack).  Opens
+        ``torch.profiler.record_function(name)`` when torch is already
+        imported, and never imports it."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        stack.append(name)
+        path = "/".join(stack)
+        torch = sys.modules.get("torch")
+        scope = (torch.profiler.record_function(name) if torch is not None
+                 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        try:
+            with scope:
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            stack.pop()
+            self.emit("span", name=name, path=path, seconds=round(dt, 6),
+                      **labels)
+
     # -- run lifecycle -------------------------------------------------
     def configure(self, run_dir, config=None, argv=None):
         """Point the registry at a run directory and capture the start
@@ -110,27 +225,50 @@ class MetricsRegistry:
             self._manifest = None
 
     def snapshot(self):
-        """Registry state as plain JSON-ready dicts (the reference's
-        layout: no gauge or histogram is declared yet)."""
+        """Registry state as plain JSON-ready dicts."""
         with self._lock:
             return {
                 "counters": {n + _render_labels(lk): v
                              for (n, lk), v in sorted(self._counters.items())},
-                "gauges": {}, "histograms": {}}
+                "gauges": {n + _render_labels(lk): v
+                           for (n, lk), v in sorted(self._gauges.items())},
+                "histograms": {n + _render_labels(lk): h.state()
+                               for (n, lk), h in sorted(self._hists.items())},
+            }
 
     def prometheus_text(self):
-        """Prometheus text exposition of the counters (names prefixed
-        ``tpu_als_``, dots to underscores, suffixed ``_total``)."""
+        """Prometheus text exposition of the whole registry (names
+        prefixed ``tpu_als_``, dots to underscores, counters suffixed
+        ``_total``, histograms as cumulative ``le`` buckets with
+        ``+Inf``, ``_sum`` and ``_count``)."""
         with self._lock:
-            counters = sorted(self._counters.items())
-        out, seen = [], set()
-        for (n, lk), v in counters:
-            pn = _prom_name(n) + "_total"
-            if n not in seen:
-                seen.add(n)
-                out.append(f"# HELP {pn} {schema.METRICS[n][2]}")
-                out.append(f"# TYPE {pn} counter")
-            out.append(f"{pn}{_render_labels(lk)} {_fmt(v)}")
+            series = {}
+            for (n, lk), v in self._counters.items():
+                series.setdefault((n, "counter"), []).append((lk, v))
+            for (n, lk), v in self._gauges.items():
+                series.setdefault((n, "gauge"), []).append((lk, v))
+            for (n, lk), h in self._hists.items():
+                series.setdefault((n, "histogram"), []).append(
+                    (lk, (list(h.counts), h.sum, h.count)))
+        out = []
+        for (n, kind), rows in sorted(series.items()):
+            pn = _prom_name(n) + ("_total" if kind == "counter" else "")
+            out.append(f"# HELP {pn} {schema.METRICS[n][2]}")
+            out.append(f"# TYPE {pn} {kind}")
+            for lk, v in sorted(rows):
+                if kind != "histogram":
+                    out.append(f"{pn}{_render_labels(lk)} {_fmt(v)}")
+                    continue
+                counts, hsum, count = v
+                acc = 0
+                for bound, c in zip(BUCKET_BOUNDS, counts):
+                    acc += c
+                    lab = _render_labels(lk + (("le", _fmt(bound)),))
+                    out.append(f"{pn}_bucket{lab} {acc}")
+                lab = _render_labels(lk + (("le", "+Inf"),))
+                out.append(f"{pn}_bucket{lab} {count}")
+                out.append(f"{pn}_sum{_render_labels(lk)} {_fmt(hsum)}")
+                out.append(f"{pn}_count{_render_labels(lk)} {count}")
         return "\n".join(out) + "\n"
 
     def finalize(self):

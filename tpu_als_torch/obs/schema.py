@@ -1,24 +1,78 @@
 """The declared observability vocabulary of the port.
 
 Counterpart of ``tpu_als/obs/schema.py`` (stdlib only), holding the rows
-of the metrics and events the port's modules write: the guardrails'
-trips and rollbacks, the estimator's quarantine of poisoned ratings, the
-fault points, the retry helper and the run's final snapshot.  The
-registry (:mod:`tpu_als_torch.obs.metrics`) checks every name against
-these tables when it is written, so an undeclared name raises instead of
-minting a series nothing downstream reads.  The checkpoint rows carry the
-bytes and events of the reference; its ``checkpoint.*_seconds``
-histograms wait for the port's first histogram (each event carries its
-``seconds``).  The other rows of the reference (serving, live, tenancy,
-soak, scenario, tracing) arrive with the modules that write them.
+of the metrics, events and trace spans the port's modules write: the
+guardrails' trips and rollbacks, the estimator's quarantine of poisoned
+ratings, the fault points, the retry helper, the checkpoints, the
+fold-in server, the serving engine (its histograms, gauge and counters,
+publishes, backend and flight records, and the causal-trace hops of a
+request) and the run's final snapshot and spans.  The registry
+(:mod:`tpu_als_torch.obs.metrics`) checks every name against these
+tables when it is written, so an undeclared name raises instead of
+minting a series nothing downstream reads.  Help texts are the
+reference's, so the two packages' Prometheus texts agree.  The other
+rows of the reference (live, tenancy, soak, scenario, plan, elastic)
+arrive with the modules that write them.
 """
 
 from __future__ import annotations
 
 # metric name -> (kind, unit, help text); kind in {counter, gauge,
-# histogram} (the port writes counters so far), and a name written as
-# another kind raises
+# histogram}, and a name written as another kind raises
 METRICS = {
+    "foldin.update_seconds": (
+        "histogram", "seconds",
+        "FoldInServer micro-batch latency, labeled side=user|item"),
+    "foldin.ratings": (
+        "counter", "rows", "ratings folded in by FoldInServer"),
+    "foldin.batch_rows": (
+        "histogram", "rows",
+        "entities solved per FoldInServer micro-batch (the padded "
+        "bucket is the next pow2 above this)"),
+    "checkpoint.save_seconds": (
+        "histogram", "seconds", "save_factors wall-clock duration"),
+    "checkpoint.load_seconds": (
+        "histogram", "seconds", "load_factors wall-clock duration"),
+    "serving.enqueue_seconds": (
+        "histogram", "seconds",
+        "time a request waited in the admission queue "
+        "(serving.batcher: enqueue -> dequeue)"),
+    "serving.score_seconds": (
+        "histogram", "seconds",
+        "device scoring time per serving micro-batch, labeled "
+        "path=int8|exact"),
+    "serving.e2e_seconds": (
+        "histogram", "seconds",
+        "end-to-end serving request latency (submit -> completion)"),
+    "serving.batch_rows": (
+        "histogram", "rows",
+        "real (unpadded) requests per dequeued serving micro-batch — "
+        "shows bucket fill under the offered load"),
+    "serving.queue_depth": (
+        "gauge", "requests",
+        "admission-queue backlog sampled after each batch dequeue"),
+    "serving.requests": (
+        "counter", "requests", "requests admitted by the serving engine"),
+    "serving.shed": (
+        "counter", "requests",
+        "requests refused at admission (queue at capacity; the typed "
+        "Overloaded the caller sees)"),
+    "serving.expired": (
+        "counter", "requests",
+        "requests whose deadline passed while queued (failed with "
+        "DeadlineExceeded instead of being scored)"),
+    "serving.fallback_exact": (
+        "counter", "requests",
+        "requests scored on the exact path because the int8 index was "
+        "stale (publish without requantize, or injected staleness)"),
+    "serving.publishes": (
+        "counter", "publishes",
+        "model generations atomically swapped into the serving engine"),
+    "serving.publish_seconds": (
+        "histogram", "seconds",
+        "wall-clock cost of one model publish, labeled "
+        "mode=full|retag|delta|compact|none — the O(touched)-vs-"
+        "O(catalog) incremental-publish claim is measured here"),
     "train.rollbacks": (
         "counter", "rollbacks",
         "guardrail rollbacks: iterations retried from the last-good "
@@ -36,7 +90,38 @@ METRICS = {
 
 # metric name -> label keys its writers may attach; a metric absent from
 # this table takes no labels
-LABELS = {}
+LABELS = {
+    "foldin.update_seconds": ("side",),
+    "foldin.batch_rows": ("side",),
+    "serving.enqueue_seconds": ("tenant",),
+    "serving.score_seconds": ("path", "tenant"),
+    "serving.e2e_seconds": ("tenant",),
+    "serving.batch_rows": ("tenant",),
+    "serving.queue_depth": ("tenant",),
+    "serving.requests": ("tenant",),
+    "serving.shed": ("tenant",),
+    "serving.expired": ("tenant",),
+    "serving.fallback_exact": ("tenant",),
+    "serving.publishes": ("tenant",),
+    "serving.publish_seconds": ("mode", "tenant"),
+}
+
+# -- causal-trace vocabulary (tpu_als_torch/obs/tracing.py) ----------------
+# every hop a request takes is one named span, validated when recorded;
+# the live, tenancy and elastic hops arrive with their modules
+TRACE_SPANS = (
+    "serve.admit",        # request admitted at the serving front door
+    "serve.queue",        # waited in the MicroBatcher admission queue
+    "serve.score",        # scored on device (path=int8|exact|...)
+    "serve.expired",      # deadline passed while queued
+)
+
+# per-span outcome vocabulary: "ok", or the typed refusal/failure
+TRACE_STATUSES = ("ok", "shed", "expired", "failed", "quarantined")
+
+# the serving flight recorder's per-record span breakdown
+SERVE_SPAN_KEYS = ("admission", "queue_wait", "score", "rescore",
+                   "respond")
 
 # event type -> (required fields beyond ts/type, help text).  Extra
 # fields are allowed; a missing required field raises when emitted.
@@ -44,6 +129,39 @@ EVENTS = {
     "command": (
         ("cmd", "argv"),
         "one per CLI invocation: the subcommand and its argv"),
+    "span": (
+        ("name", "path", "seconds"),
+        "one per closed span(): wall-clock duration; path is the "
+        "'/'-joined stack of enclosing span names (the tree structure)"),
+    "metric": (
+        ("kind", "name", "value"),
+        "a gauge set (gauges are point-in-time, so each set is an "
+        "event; counters/histograms appear only in the final snapshot)"),
+    "warning": (
+        ("what", "reason"),
+        "a degraded-but-continuing condition (e.g. a delta publish the "
+        "index could not express, rebuilt in full)"),
+    "serving_publish": (
+        ("seq", "items", "quantized"),
+        "one per ServingEngine.publish: the generation sequence number, "
+        "catalog size, and whether an int8 index was built for it"),
+    "serving_backend": (
+        ("backend", "n_shards"),
+        "one per ServingEngine, at first publish: the scoring backend "
+        "the engine resolved (local / sharded / merge_ring)"),
+    "flight_record": (
+        ("seq", "trigger", "status", "spans"),
+        "one per-request trace dumped by the serving flight recorder "
+        "on an SLO breach, shed, or degraded-mode answer: spans is the "
+        "admission/queue_wait/score/rescore/respond breakdown in "
+        "seconds (serving.engine.FlightRecorder)"),
+    "trace_span": (
+        ("trace_id", "span_id", "parent_id", "name", "status",
+         "seconds"),
+        "one causal-trace hop (obs.tracing): deterministic trace/span/"
+        "parent ids link admission -> queue -> score (name in "
+        "TRACE_SPANS, status in TRACE_STATUSES; seconds may be null "
+        "for instantaneous hops)"),
     "checkpoint_save": (
         ("path", "seconds", "bytes"),
         "one per save_factors call"),
@@ -115,6 +233,18 @@ def check_labels(name, labels):
     if unknown:
         raise ValueError(f"metric {name!r} does not declare label key(s) "
                          f"{unknown} (declared: {list(allowed)})")
+
+
+def check_trace_span(name, status="ok"):
+    """Raise if a causal-trace span names an undeclared hop or ends in
+    an undeclared status."""
+    if name not in TRACE_SPANS:
+        raise KeyError(f"trace span {name!r} is not declared in "
+                       "tpu_als_torch.obs.schema.TRACE_SPANS — declare it "
+                       "there before recording it")
+    if status not in TRACE_STATUSES:
+        raise ValueError(f"trace span {name!r} carries undeclared status "
+                         f"{status!r} (declared: {list(TRACE_STATUSES)})")
 
 
 def check_event(etype, fields):

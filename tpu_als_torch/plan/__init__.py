@@ -1,0 +1,64 @@
+"""The execution planner's serving resolvers, disarmed.
+
+Counterpart of ``resolve_serving_buckets`` and ``resolve_live_cadence``
+in ``tpu_als/plan/planner.py`` as they resolve with the reference's plan
+cache off: an explicit request passes through, an observed request-size
+mix gives a power-of-two quantile ladder, and the default is the
+built-in constant.  The port has no plan cache yet (nothing is banked,
+nothing is read back, no ``plan_*`` event is emitted), and no
+``resolve_tenant_plan`` (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from tpu_als_torch.core.ratings import _next_pow2
+
+# live-pipeline cadence: micro-batch accumulation + index compaction
+# (the reference's constants)
+DEFAULT_LIVE_CADENCE = {
+    "max_batch": 256,
+    "max_wait_ms": 50.0,
+    "compact_delta_frac": 0.25,
+    "compact_min_rows": 64,
+}
+
+
+def _ladder_from_observed(observed):
+    """One bucket per {p50, p90, p99, max} of the observed batch sizes,
+    each rounded up to the next power of two; None when there is nothing
+    to learn from."""
+    xs = sorted(int(s) for s in observed if int(s) > 0)
+    if not xs:
+        return None
+    rungs = {int(_next_pow2(xs[min(len(xs) - 1,
+                                   int(round(q * (len(xs) - 1))))]))
+             for q in (0.50, 0.90, 0.99, 1.0)}
+    return tuple(sorted(rungs))
+
+
+def resolve_serving_buckets(*, rank=0, requested=None, observed=None):
+    """Serving batch-bucket ladder: ``requested`` passes through;
+    ``observed`` (served batch sizes, e.g. read back from the
+    ``serving.batch_rows`` histogram) gives :func:`_ladder_from_observed`'s
+    ladder; else ``serving.batcher.DEFAULT_BUCKETS``.  ``rank`` keys the
+    reference's cache and is unused here."""
+    from tpu_als_torch.serving.batcher import DEFAULT_BUCKETS
+
+    if requested is not None:
+        return tuple(int(b) for b in requested)
+    if observed is not None:
+        return _ladder_from_observed(observed) or tuple(DEFAULT_BUCKETS)
+    return tuple(DEFAULT_BUCKETS)
+
+
+def resolve_live_cadence(*, rank=0, requested=None):
+    """Live fold-in -> publish cadence: micro-batch bounds and the delta
+    index's compaction threshold; ``requested`` overrides entries of
+    :data:`DEFAULT_LIVE_CADENCE`."""
+    out = dict(DEFAULT_LIVE_CADENCE)
+    if requested is not None:
+        out.update(requested)
+    return {"max_batch": int(out["max_batch"]),
+            "max_wait_ms": float(out["max_wait_ms"]),
+            "compact_delta_frac": float(out["compact_delta_frac"]),
+            "compact_min_rows": int(out["compact_min_rows"])}

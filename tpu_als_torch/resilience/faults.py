@@ -5,7 +5,7 @@ switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
 
-The port wires three points so far (the others of the reference arrive
+The port wires five points so far (the others of the reference arrive
 with their modules):
 
 ========================  ====================================================
@@ -20,6 +20,13 @@ with their modules):
                           (host-level, after the iteration's half-steps;
                           corrupt = NaN-poison a factor row, what a blown
                           Gram solve leaves behind)
+``serving.publish``       inside ``serving.ServingEngine.publish`` (corrupt
+                          = a torn publish: the fresh index or shard
+                          placement is dropped before the swap, and the
+                          score path answers exact)
+``serving.score``         per micro-batch in ``ServingEngine.serve_batch``
+                          (corrupt = treat the index as stale for the
+                          batch; raise = fail the batch's tickets)
 ========================  ====================================================
 
 Spec grammar (``TPU_ALS_FAULT_SPEC`` env var, or :func:`install`)::
@@ -50,7 +57,8 @@ import warnings
 
 from tpu_als_torch import obs
 
-FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "solve.gram")
+FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "solve.gram",
+                "serving.publish", "serving.score")
 
 MODES = ("raise", "corrupt", "hang")
 

@@ -10,6 +10,7 @@ is a :class:`RetryPolicy` (``max_attempts`` rollbacks).
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -55,16 +56,18 @@ class RetryPolicy:
     else propagates immediately — a ``ValueError`` is a fact about the
     data, not the weather.
     ``sleep``: injectable for tests.
-
-    The reference's ``deterministic`` schedules (keyed on the
-    ``TPU_ALS_TRACE`` tracing switch) are not ported: they serve its
-    tracing, which the port does not have yet.
+    ``deterministic``: when True the jitter for attempt k is a pure
+    function of ``(seed, k)`` (a fresh ``random.Random`` keyed on both)
+    instead of a draw from the policy's stateful stream, so a traced run
+    replays its retry timeline exactly.  ``None`` (the default) resolves
+    from the ``TPU_ALS_TRACE`` env var at construction, as the
+    reference's (:mod:`tpu_als_torch.obs.tracing` reads the same switch).
     """
 
     def __init__(self, max_attempts=3, base_delay=0.05, factor=2.0,
                  max_delay=5.0, jitter=0.25, timeout=None,
                  retry_on=(OSError, TimeoutError), seed=0,
-                 sleep=time.sleep):
+                 sleep=time.sleep, deterministic=None):
         if max_attempts < 1:
             raise ValueError("max_attempts must be >= 1")
         if base_delay < 0 or max_delay < 0:
@@ -80,13 +83,23 @@ class RetryPolicy:
         self.retry_on = tuple(retry_on)
         self.seed = seed
         self.sleep = sleep
+        if deterministic is None:
+            deterministic = bool(os.environ.get("TPU_ALS_TRACE"))
+        self.deterministic = bool(deterministic)
         self._rng = random.Random(seed)
 
     def delay(self, attempt):
         """Backoff before attempt ``attempt + 1`` (0-based), jittered."""
         d = min(self.max_delay, self.base_delay * self.factor ** attempt)
         if self.jitter:
-            d *= 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+            if self.deterministic:
+                # int-mix the (seed, attempt) pair: stable across
+                # processes and a legal Random seed, as the reference's
+                u = random.Random(
+                    int(self.seed) * 1_000_003 + attempt).random()
+            else:
+                u = self._rng.random()
+            d *= 1.0 + self.jitter * (2.0 * u - 1.0)
         return d
 
 

@@ -1,0 +1,204 @@
+"""Micro-batching admission queue — the request-shaping front of serving.
+
+Counterpart of ``tpu_als/serving/batcher.py`` (stdlib + obs, no torch).
+The scoring routes want fixed batch shapes, fed as full as possible;
+online traffic is single requests at arbitrary times with deadlines.
+This queue converts one into the other:
+
+- requests are coalesced for at most ``max_wait_s`` (or until the
+  largest bucket fills, whichever is first), so light traffic pays a
+  bounded latency tax and heavy traffic gets full batches;
+- the engine pads each dequeued batch up to the smallest bucket that
+  fits (``bucket_for``), so it reuses one staging buffer and one set of
+  shapes per bucket;
+- when queue depth reaches ``max_queue`` the submit is refused with a
+  typed :class:`Overloaded` (counted as ``serving.shed``);
+- each request carries an absolute deadline; the engine expires
+  requests whose deadline passed while queued (``serving.expired``)
+  instead of spending device time on answers nobody is waiting for.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+
+from tpu_als_torch import obs
+from tpu_als_torch.obs import tracing
+
+DEFAULT_BUCKETS = (8, 32, 128)
+
+
+class Overloaded(RuntimeError):
+    """Admission refused: queue depth is at ``max_queue``.  Callers that
+    can retry should back off; load balancers should route elsewhere."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline passed before it was scored (expired in
+    the queue, or the caller's ``result(timeout=...)`` ran out)."""
+
+
+def bucket_for(n, buckets):
+    """Smallest bucket >= n (the padded batch shape ``n`` rides in).
+    ``n`` never exceeds ``max(buckets)`` — the batcher caps dequeues at
+    the largest bucket."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"batch of {n} exceeds the largest bucket "
+                     f"{buckets[-1]} (batcher dequeues are capped there)")
+
+
+class Ticket:
+    """One admitted request: payload + deadline + a completion event.
+
+    ``payload`` is either an int user index into the published user
+    table or a rank-length float vector (a fold-in factor row for a
+    user the table doesn't hold yet); ``k`` trims the engine-wide top-k
+    per request.  ``trace`` is the admitting causal-trace context
+    (``obs.tracing``, None when disarmed): the ticket carries it into
+    the batch, and each hop replaces it with the child context so the
+    chain admission -> queue -> round -> score is one linked trail.
+    """
+
+    __slots__ = ("payload", "k", "deadline", "trace", "t_submit",
+                 "t_dequeue", "t_admit", "_event", "_result", "_error")
+
+    def __init__(self, payload, k, deadline, trace=None):
+        self.payload = payload
+        self.k = k
+        self.deadline = deadline        # absolute perf_counter time, or None
+        self.trace = trace              # TraceContext of the last hop, or None
+        self.t_submit = time.perf_counter()
+        self.t_dequeue = None
+        self.t_admit = None    # admission DURATION (engine submit -> queued)
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+
+    def complete(self, result):
+        self._result = result
+        self._event.set()
+
+    def fail(self, error):
+        self._error = error
+        self._event.set()
+
+    def done(self):
+        return self._event.is_set()
+
+    def result(self, timeout=None):
+        """Block until the engine answers; raises the typed error the
+        engine failed the request with (Overloaded never reaches here —
+        it raises at submit)."""
+        if not self._event.wait(timeout):
+            raise DeadlineExceeded(
+                f"no result within {timeout}s (request still queued or "
+                "in flight)")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class MicroBatcher:
+    """Bounded FIFO admission queue with coalescing dequeues.
+
+    One producer-side method (:meth:`submit`) and one consumer-side
+    method (:meth:`next_batch`, called by the engine loop).  A single
+    condition variable guards the deque; the submit fast path is one
+    lock round-trip.
+    """
+
+    def __init__(self, buckets=DEFAULT_BUCKETS, max_queue=1024,
+                 max_wait_s=0.002, default_deadline_s=None, labels=None):
+        if not buckets or list(buckets) != sorted(set(buckets)):
+            raise ValueError(f"buckets must be sorted and unique, got "
+                             f"{buckets!r}")
+        self.buckets = tuple(int(b) for b in buckets)
+        self.max_queue = int(max_queue)
+        self.max_wait_s = float(max_wait_s)
+        self.default_deadline_s = default_deadline_s
+        # obs attribution (e.g. tenant=<name> from the multi-tenant
+        # control plane); every serving.* series this queue writes
+        # carries these label keys, validated by obs.schema.LABELS
+        self.labels = dict(labels) if labels else {}
+        self._q = collections.deque()
+        self._cond = threading.Condition()
+        self._closed = False
+
+    def depth(self):
+        with self._cond:
+            return len(self._q)
+
+    def submit(self, payload, k=None, deadline_s=None, trace=None):
+        """Admit one request; returns its :class:`Ticket`.
+
+        Raises :class:`Overloaded` (and counts ``serving.shed``) when
+        the queue is full — the caller gets the refusal in microseconds
+        instead of a deadline miss in milliseconds.  ``trace`` is the
+        admitting trace context (created BEFORE enqueue so the consumer
+        thread never races an unset ``Ticket.trace``).
+        """
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        deadline = (time.perf_counter() + deadline_s
+                    if deadline_s is not None else None)
+        t = Ticket(payload, k, deadline, trace=trace)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if len(self._q) >= self.max_queue:
+                obs.counter("serving.shed", **self.labels)
+                raise Overloaded(
+                    f"admission queue at capacity ({self.max_queue}); "
+                    "shedding")
+            self._q.append(t)
+            self._cond.notify()
+        return t
+
+    def next_batch(self, timeout=None):
+        """Dequeue the next micro-batch (engine loop only).
+
+        Blocks up to ``timeout`` for the first request, then coalesces
+        arrivals for ``max_wait_s`` or until the largest bucket fills.
+        Returns a list of tickets (``t_dequeue`` stamped), or ``None``
+        on timeout with an empty queue.  Also sets the
+        ``serving.queue_depth`` gauge to the post-dequeue backlog.
+        """
+        cap = self.buckets[-1]
+        with self._cond:
+            if not self._q and not self._cond.wait_for(
+                    lambda: self._q or self._closed, timeout):
+                return None
+            if not self._q:            # closed and drained
+                return None
+            # coalesce: wait out the batching window unless full
+            t_first = time.perf_counter()
+            while len(self._q) < cap:
+                remaining = self.max_wait_s - (time.perf_counter() - t_first)
+                if remaining <= 0 or self._closed:
+                    break
+                self._cond.wait(remaining)
+            batch = [self._q.popleft()
+                     for _ in range(min(len(self._q), cap))]
+            depth_after = len(self._q)
+        now = time.perf_counter()
+        for t in batch:
+            t.t_dequeue = now
+            obs.histogram("serving.enqueue_seconds", now - t.t_submit,
+                          **self.labels)
+            # the queue owns the queue-wait hop: chain it here so the
+            # span's seconds are the histogram's sample, not a re-read
+            if t.trace is not None:
+                t.trace = tracing.record_span(
+                    t.trace, "serve.queue", seconds=now - t.t_submit)
+        obs.gauge("serving.queue_depth", depth_after, **self.labels)
+        return batch
+
+    def close(self):
+        """Stop admitting; wake the engine loop so it can drain + exit."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()

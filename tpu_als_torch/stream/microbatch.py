@@ -26,8 +26,9 @@ import time
 import numpy as np
 import torch
 
+from tpu_als_torch import obs
 from tpu_als_torch.core.foldin import fold_in
-from tpu_als_torch.core.ratings import IdMap
+from tpu_als_torch.core.ratings import IdMap, _next_pow2
 from tpu_als_torch.ops.solve import compute_yty
 from tpu_als_torch.utils.frame import as_frame
 
@@ -88,22 +89,34 @@ class FoldInServer:
     def device(self):
         return self.model.device
 
-    def prewarm(self, rows=(256,), widths=(8,), sides=("user",)):
+    def prewarm(self, rows=(256,), widths=(8,), sides=("user",), growth=0):
         """Run one fold-in per (rows, width) shape and side on zeros, so the
-        kernels are built and loaded before the first real batch."""
+        kernels are built and loaded before the first real batch.
+
+        ``growth`` also runs them against the fixed table padded with zero
+        rows to ``growth`` further doublings of its power-of-two size, as
+        the reference does for a stream that appends entities (zero rows
+        change neither the gathered rows nor ``FᵀF``).  The defaults of
+        ``rows`` and ``widths`` are the port's own, smaller than the
+        reference's grid: the port builds no program per shape, so one
+        shape builds and loads every kernel the fold-in runs."""
         dev = self.device
         for side in sides:
-            F = self._V if side == "user" else self.model._U
-            YtY = compute_yty(F) if self._implicit else None
-            for n in rows:
-                for w in widths:
-                    fold_in(F, torch.zeros((n, w), dtype=torch.int64,
-                                           device=dev),
-                            torch.zeros((n, w), device=dev),
-                            torch.zeros((n, w), device=dev),
-                            self._reg, implicit_prefs=self._implicit,
-                            alpha=self._alpha,
-                            nonnegative=self._nonnegative, YtY=YtY)
+            F0 = self._V if side == "user" else self.model._U
+            for g in range(int(growth) + 1):
+                n_pad = _next_pow2(F0.shape[0]) << g
+                F = F0 if g == 0 else torch.cat(
+                    [F0, F0.new_zeros((n_pad - F0.shape[0], F0.shape[1]))])
+                YtY = compute_yty(F) if self._implicit else None
+                for n in rows:
+                    for w in widths:
+                        fold_in(F, torch.zeros((n, w), dtype=torch.int64,
+                                               device=dev),
+                                torch.zeros((n, w), device=dev),
+                                torch.zeros((n, w), device=dev),
+                                self._reg, implicit_prefs=self._implicit,
+                                alpha=self._alpha,
+                                nonnegative=self._nonnegative, YtY=YtY)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -167,8 +180,12 @@ class FoldInServer:
                 self._YtY = compute_yty(self._V)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # the update is visible: stop here
-        self.stats.append((len(solved_raw), len(touched),
-                           time.perf_counter() - t0))
+        dt = time.perf_counter() - t0
+        side = "item" if items_side else "user"
+        self.stats.append((len(solved_raw), len(touched), dt))
+        obs.histogram("foldin.update_seconds", dt, side=side)
+        obs.histogram("foldin.batch_rows", len(touched), side=side)
+        obs.counter("foldin.ratings", len(solved_raw))
         return touched
 
     def _write_back(self, touched_raw_ids, new_rows, items_side=False):
@@ -200,3 +217,6 @@ class FoldInServer:
         if not lat:
             return float("nan")
         return lat[min(len(lat) - 1, int(len(lat) * q))]
+
+    def p50_latency(self):
+        return self.latency(0.5)

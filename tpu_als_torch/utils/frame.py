@@ -2,7 +2,7 @@
 
 Counterpart of ``tpu_als/utils/frame.py`` (an own copy: the port imports
 nothing of the JAX package): construction from a dict, another frame or
-a pandas DataFrame, column access and membership, ``to_dict``,
+a pandas DataFrame, column access and membership, ``count``, ``to_dict``,
 ``select``, ``withColumn``, ``filter``, ``dropna`` and the seeded
 ``randomSplit``.
 """
@@ -34,6 +34,8 @@ class ColumnarFrame:
         if not self._data:
             return 0
         return len(next(iter(self._data.values())))
+
+    count = __len__  # Spark's df.count()
 
     def __contains__(self, col):
         return col in self._data

@@ -138,7 +138,39 @@ Phases (any failure exits non-zero before the final line):
    ``publish_update`` through the merge-ring scatter; (f)
    ``foldin-bench`` on phase 6's served model (K2 counted in its process)
    and a short ``serve-bench``, as processes, their JSON parsed;
-9. timings at the slices' shapes (CUDA events), each kernel beside its
+9. the stream and the live loop: (a) and (b) run inside phase 5, while
+   its ``ratings.csv`` exists: (a) the 25M-row file through the string-id
+   stream reader (``io/stream.py``) as one host and as 4 byte-range hosts
+   (``ingest_per_host`` + ``merge_vocabularies``), both equal to the
+   native reader's columns row for row once the labels are decoded back
+   to integers, rows a second; (b) ``train --data stream:PREFIX`` (the
+   first 1M rows) at rank 128, K4 and, on its rows wider than the split
+   width, K3 + K1 counted in the process, its ``stream_labels.npz``
+   equal to the stream's vocabularies, then ``evaluate`` through the
+   sidecar and ``recommend --foldin-data stream:`` on new string ids
+   (string ids out, K2 and K5 counted), side by side.  After phase 8:
+   (c) ``LiveUpdater`` over ``FoldInServer(keep_history=False)`` on the
+   rank-128 fit's factors beside the engine's open loop of 4,500 requests
+   at 1,500 a second, 600 rating events at 200 a second, 1 % NaN, once on
+   an engine started exact (its first live publish builds the int8
+   index, as the reference's ``publish_update`` does) and once on int8
+   with ``fold_items`` (every publish a delta): every event folded or
+   quarantined, nothing shed, no ``warning`` event, K2 (and on the exact
+   start K5) launched, the published U/V bitwise the fold-in model's, 256
+   touched users' top-10 ids equal to K5's on the new factors with scores
+   within K5_TOL of K5 and SERVE_ULPS of the plain f32 top-k, freshness
+   and serving e2e p50/p99 beside phase 8's; (d) two same-shaped tenants
+   (the fit's factors, weight 3, and seeded unit rows, weight 1) on the
+   exact route behind ``MultiTenantEngine``: one shape class,
+   ``serving.score=raise`` failing only the first-picked tenant's
+   tickets, then 2,048 requests each under contention (served rows equal,
+   virtual time 1:3, K5 launched, each tenant's answers K5's on its own
+   catalog, no other batch error or warning); (e) ``serve-bench
+   --update-qps 200 --update-items`` and ``serve-bench --tenants 2
+   --update-qps 100`` at the full catalog, as processes side by side,
+   their JSON keys the reference's (``LIVE_BENCH_SHAPE``,
+   ``TENANT_BENCH_SHAPE``);
+10. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -163,7 +195,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-10. where the time goes: one training iteration, one more fold-in
+11. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, and one rank-256 iteration and
     fold-in batch, then the serving engine's batches of 8 on its int8
     and exact routes, under ``torch.profiler`` (wall, device busy, idle
@@ -185,11 +217,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -207,11 +241,13 @@ from tpu_als_torch.cli import open_loop, ranking_eval
 from tpu_als_torch.convert import entity_rows, model_from_arrays, slot_rows
 from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.foldin import normal_eqs
-from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
+from tpu_als_torch.core.ratings import IdMap, build_csr_buckets, remap_ids
 from tpu_als_torch.io import _native_build, fastbucket, fastcsv
 from tpu_als_torch.io.movielens import (ML25M_SHAPE, load_movielens_csv,
                                         synthetic_movielens)
 from tpu_als_torch.io.ratings_csv import load_ratings_csv as csv_twin
+from tpu_als_torch.io.stream import ingest_per_host, stream_ingest
+from tpu_als_torch.live import LiveUpdater
 from tpu_als_torch.ops import cuda_gather_ne, cuda_lanes, cuda_solve
 from tpu_als_torch.ops import cuda_lanes_blocked, cuda_topk
 from tpu_als_torch.ops import solve as ops_solve
@@ -225,6 +261,7 @@ from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
 from tpu_als_torch.resilience import faults, guardrails
 from tpu_als_torch.serving import ServingEngine, build_index
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
+from tpu_als_torch.tenancy import MultiTenantEngine, TenantSpec
 from tpu_als_torch.utils.frame import ColumnarFrame
 from tpu_als_torch.utils.platform import pin_fp32
 
@@ -1026,11 +1063,12 @@ def write_ratings_csv(path, frame):
     return body.shape[1]   # bytes a line
 
 
-def csv_phase(frame):
+def csv_phase(frame, seed):
     """Parse a ``ratings.csv`` written from the synthetic frame with the
     native reader (``load_movielens_csv``, every row) and with its Python
     twin (the first CSV_TWIN_ROWS rows): each equal to the frame, rows a
-    second on the host's clock."""
+    second on the host's clock.  Phase 9's (a) and (b) run here, on the
+    same file and prefix while they exist; returns their seconds."""
     n = len(frame["user"])
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/ratings.csv"
@@ -1055,12 +1093,20 @@ def csv_phase(frame):
             if not np.array_equal(twin[c], got[c][:CSV_TWIN_ROWS]) \
                     or twin[c].dtype != got[c].dtype:
                 fail(f"CSV twin: column {c} differs from the native reader")
+        del twin
+        t9 = time.perf_counter()
+        stream_ingest_phase(path, got)
+        del got
+        stream_cli_phase(prefix, tmp, seed)
+        t9 = time.perf_counter() - t9
     log(f"ratings.csv of {n} rows ({size / 1e6:.1f} MB) written in "
         f"{t_write:.2f} s; native reader {t_native:.2f} s "
         f"({n / t_native:.4g} rows/s), equal to the frame; Python twin on "
         f"the first {CSV_TWIN_ROWS} rows {t_twin:.2f} s "
         f"({CSV_TWIN_ROWS / t_twin:.4g} rows/s), equal to the native "
         "reader's (host clock)")
+    log(f"stream phase (a)-(b): {t9:.1f} s")
+    return t9
 
 
 def prepare(seed, dev):
@@ -2159,6 +2205,42 @@ def run_cli(args, timeout=600):
         time.perf_counter() - t0
 
 
+_PROBE = (
+    "import json, sys\n"
+    "from tpu_als_torch import cli\n"
+    "from tpu_als_torch.ops import (cuda_gather_ne, cuda_lanes,\n"
+    "    cuda_lanes_blocked, cuda_solve, cuda_topk)\n"
+    "cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'k1': cuda_solve.LAUNCHES,\n"
+    "    'k2': cuda_lanes.LAUNCHES, 'k3': cuda_gather_ne.GRAM_LAUNCHES,\n"
+    "    'k4': cuda_gather_ne.SOLVE_LAUNCHES, 'k5': cuda_topk.LAUNCHES,\n"
+    "    'k6': cuda_lanes_blocked.LAUNCHES}))\n")
+
+
+def start_probe(args):
+    """``python -m tpu_als_torch.cli ARGS`` as a process that prints the
+    kernels' launch counts after the command's own output."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _PROBE, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def finish_probe(p, what, timeout=600):
+    """The command's stdout lines and its launch counts; a failure, or a
+    process past ``timeout``, fails the run (the process is killed)."""
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail(f"{what}: no exit within {timeout} s")
+    if p.returncode != 0:
+        fail(f"{what} exited {p.returncode}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    return lines[:-1], json.loads(lines[-1])
+
+
 def cli_selection(seed, tmp, dev):
     """(d) ``tune`` at (a)'s shape and grid, then ``evaluate --ranking-k
     10`` on its best model; both exit 0, and their JSON agrees with the
@@ -2598,20 +2680,11 @@ def serving_clis(model, tmp):
     process) and a short ``serve-bench``, as processes; JSON parsed."""
     path = os.path.join(tmp, "served_model")
     model.save(path)
-    probe = ("import json, sys\n"
-             "from tpu_als_torch import cli\n"
-             "from tpu_als_torch.ops import cuda_lanes\n"
-             "cli.main(sys.argv[1:])\n"
-             "print(json.dumps({'k2_launches': cuda_lanes.LAUNCHES}))\n")
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-c", probe, "foldin-bench", "--model", path],
-        capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    if out.returncode != 0:
-        fail(f"foldin-bench exited {out.returncode}: {out.stderr[-2000:]}")
-    lines = out.stdout.strip().splitlines()
-    fb, k2 = json.loads(lines[-2]), json.loads(lines[-1])["k2_launches"]
+    lines, launches = finish_probe(
+        start_probe(["foldin-bench", "--model", path]), "foldin-bench",
+        timeout=300)
+    fb, k2 = json.loads(lines[-1]), launches["k2"]
     if k2 == 0 or fb["metric"] != "foldin_p50_latency":
         fail(f"foldin-bench: {fb}, K2 launches {k2}")
     fb_s = time.perf_counter() - t0
@@ -2637,16 +2710,437 @@ def serving_engine_phase(fitted, served, rng, dev, smi):
     int8_gemm_line(idx, Uq, V, valid, smi)
     V2, touched = delta_vs_rebuild(idx, Uq, V, rng, dev)
     del idx
-    engine_open_loop(U, V, rng, dev, smi)
+    p8 = engine_open_loop(U, V, rng, dev, smi)
     engine_faults(U, V, dev)
     engine_mesh(U, V, V2, touched, rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving_clis(served, tmp)
     obs.reset()
     log(f"serving engine phase: {time.perf_counter() - t0:.1f} s")
+    return p8
 
 
-# -- phase 9 ---------------------------------------------------------------
+# -- phase 9: the stream and the live loop ----------------------------------
+STREAM_HOSTS = 4                    # (a): byte-range hosts of one file
+LIVE_EVENTS_QPS, LIVE_SECONDS = 200.0, 3.0   # (c): the rating stream
+LIVE_POISON = 0.01                  # (c): share of NaN ratings
+LIVE_CHECK_USERS = 256              # (c): touched users held to K5
+FRESHNESS_SLO_S = 5.0               # serve-bench's default freshness SLO
+TENANT_REQS = 2048                  # (d): requests per tenant, contended
+NEW_STREAM_USERS = 8                # (b): new string ids folded in
+def key_shape(d):
+    """The key structure of a ``serve-bench`` JSON line: nested dicts by
+    key, leaves None; ``publish_modes`` (keyed by the modes a run saw)
+    left out, ``shape_classes`` (keyed by class) a leaf, the per-tenant
+    dicts merged under ``"*"``."""
+    out = {}
+    for k, v in d.items():
+        if k == "publish_modes":
+            continue
+        if k == "shape_classes":
+            out[k] = None
+            continue
+        if k == "tenants" and isinstance(v, dict):
+            merged = {}
+            for t in v.values():
+                merged.update(key_shape(t))
+            out[k] = {"*": merged}
+        else:
+            out[k] = key_shape(v) if isinstance(v, dict) else None
+    return out
+
+
+_SB_CONFIG = dict.fromkeys(
+    ("path", "users", "items", "rank", "k", "shortlist_k", "qps",
+     "duration_s", "buckets", "max_queue", "max_wait_ms", "deadline_ms",
+     "foldin_frac"))
+# the reference's serve-bench JSON (tpu_als/cli.py), as key_shape gives
+# it; tests/test_torch_cli_live.py holds these to the reference's output
+LIVE_BENCH_SHAPE = {
+    **dict.fromkeys(("metric", "value", "unit", "slo_ms", "slo_met",
+                     "p50_ms", "shed_rate", "expired", "scored",
+                     "queue_wait_p99_ms", "flight_records",
+                     "derived_buckets")),
+    "config": {**_SB_CONFIG, **dict.fromkeys(
+        ("update_qps", "update_items", "update_poison_frac",
+         "update_max_batch", "update_max_wait_ms"))},
+    "serve": dict.fromkeys(("p99_ms", "p50_ms", "slo_ms", "slo_met")),
+    "live": dict.fromkeys(("events_scored", "updates_shed",
+                           "quarantined_rows", "publish_delta_ms",
+                           "publish_full_ms", "publish_speedup",
+                           "probe_rows", "catalog_rows")),
+}
+TENANT_BENCH_SHAPE = {
+    **dict.fromkeys(("metric", "value", "unit", "slo_ms", "fairness_ratio",
+                     "fairness_bound", "fairness_judged", "slo_met")),
+    "tenants": {"*": dict.fromkeys(("p50_ms", "p99_ms", "slo_met",
+                                    "scored", "shed_rate", "served_rows",
+                                    "weight"))},
+    "shape_classes": None,
+    "config": dict.fromkeys(
+        ("path", "tenants", "tenant_weights", "users", "items", "rank",
+         "k", "shortlist_k", "qps", "qps_per_tenant", "duration_s",
+         "max_queue", "max_wait_ms", "deadline_ms", "update_qps")),
+}
+
+
+def stream_ingest_phase(path, got):
+    """9(a) the ML-25M ``ratings.csv`` through the string-id stream
+    reader, as one host and as STREAM_HOSTS byte-range hosts
+    (``ingest_per_host`` + ``merge_vocabularies``): after the labels are
+    decoded back to integers, both equal the native reader's columns
+    (``got``) row for row; rows a second on the host's clock."""
+    n = len(got["user"])
+    t0 = time.perf_counter()
+    u, i, r, ul, il = stream_ingest(path, require_cols=4, skip_header=1)
+    t_one = time.perf_counter() - t0
+    one = (ul.astype(np.int64)[u], il.astype(np.int64)[i], r)
+    del u, i, r
+    t0 = time.perf_counter()
+    splits, gul, gil = ingest_per_host(path, STREAM_HOSTS, require_cols=4,
+                                       skip_header=1)
+    t_hosts = time.perf_counter() - t0
+    hosts = (gul.astype(np.int64)[np.concatenate([s[0] for s in splits])],
+             gil.astype(np.int64)[np.concatenate([s[1] for s in splits])],
+             np.concatenate([s[2] for s in splits]))
+    del splits
+    for name, cols in (("one host", one), (f"{STREAM_HOSTS} hosts", hosts)):
+        for c, x in zip(("user", "item", "rating"), cols):
+            if not np.array_equal(x, got[c]):
+                fail(f"stream ingest ({name}): column {c} differs from the "
+                     "native CSV reader's")
+    log(f"(a) stream ingest of {n} rows (string ids): one host "
+        f"{t_one:.2f} s ({n / t_one:.4g} rows/s); {STREAM_HOSTS} byte-range "
+        f"hosts + merge_vocabularies {t_hosts:.2f} s ({n / t_hosts:.4g} "
+        f"rows/s); both equal the native reader row for row, "
+        f"{len(gul)} users x {len(gil)} items (host clock)")
+    return {"rows": n, "one_s": t_one, "hosts_s": t_hosts}
+
+
+def stream_cli_phase(prefix, tmp, seed):
+    """9(b) ``train --data stream:PREFIX`` at rank 128 (the first
+    CSV_TWIN_ROWS rows), then ``evaluate`` through the model's
+    ``stream_labels.npz`` and ``recommend --foldin-data stream:`` on new
+    string ids, as processes (the last two side by side)."""
+    from tpu_als_torch.cli import _load_stream
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "stream_model")
+    spec = f"stream:{prefix}"
+    _, tl = finish_probe(start_probe(
+        ["train", "--data", spec, "--rank", str(RANK), "--max-iter", "3",
+         "--reg-param", "0.05", "--seed", str(seed), "--output", out]),
+        "train --data stream:")
+    side = np.load(os.path.join(out, "stream_labels.npz"))
+    frame, g_ul, g_il = _load_stream(prefix)
+    if not (np.array_equal(side["users"], g_ul)
+            and np.array_equal(side["items"], g_il)):
+        fail("stream_labels.npz differs from the stream's vocabularies")
+    train, _ = frame.randomSplit([0.8, 0.2], seed=seed)
+    widest = max(np.bincount(train["user"]).max(),
+                 np.bincount(train["item"]).max())
+    wide = widest > core_als.SPLIT_WIDTH
+    if tl["k4"] == 0 or (wide and (tl["k3"] == 0 or tl["k1"] == 0)):
+        fail(f"train --data stream: launches {tl} (widest row {widest})")
+    rng = np.random.default_rng(seed)
+    new = os.path.join(tmp, "new_users.csv")
+    items = rng.choice(side["items"], 5 * NEW_STREAM_USERS)
+    with open(new, "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        for k, it in enumerate(items):
+            f.write(f"newcomer-{k % NEW_STREAM_USERS},{it.decode()},"
+                    f"{rng.integers(1, 11) * 0.5},1700000000\n")
+        f.write("newcomer-0,no-such-item,4.0,1700000000\n")
+    asked = ["newcomer-0", "newcomer-5", side["users"][3].decode()]
+    pe = start_probe(["evaluate", "--model", out, "--data", spec])
+    pr = start_probe(["recommend", "--model", out, "--foldin-data",
+                      f"stream:{new}", "--users", ",".join(asked), "--k",
+                      "10"])
+    ev_lines, el = finish_probe(pe, "evaluate --data stream:")
+    rec_lines, rl = finish_probe(pr, "recommend --foldin-data stream:")
+    ev = json.loads(ev_lines[-1])
+    recs = [json.loads(x) for x in rec_lines if x.startswith("{")]
+    known = set(side["items"].tolist())
+    if not (ev["rmse"] is not None and math.isfinite(ev["rmse"])):
+        fail(f"evaluate --data stream: {ev}")
+    if sorted(x["user_id"] for x in recs) != sorted(asked) or any(
+            len(x["item_ids"]) != 10 or not all(
+                s.encode() in known for s in x["item_ids"]) for x in recs):
+        fail(f"recommend --foldin-data stream: {recs}")
+    if rl["k2"] == 0 or rl["k5"] == 0:
+        fail(f"recommend --foldin-data stream: launches {rl}")
+    log(f"(b) stream CLI on the first {CSV_TWIN_ROWS} rows: train rank "
+        f"{RANK} launches K4 {tl['k4']}, K3 {tl['k3']}, K1 {tl['k1']} "
+        f"(widest row {widest}); sidecar {len(side['users'])} users x "
+        f"{len(side['items'])} items; evaluate {json.dumps(ev)}; recommend "
+        f"for {asked}: string ids, K2 {rl['k2']}, K5 {rl['k5']} launches "
+        f"({time.perf_counter() - t0:.1f} s, three processes)")
+
+
+def live_route(fitted, route, rng, dev):
+    """One open loop of 1,500 requests a second for LIVE_SECONDS beside a
+    LiveUpdater stream of LIVE_EVENTS_QPS rating events a second
+    (LIVE_POISON of them NaN), on 'route': 'exact' (a quantize=False
+    publish; the first live publish builds the index, as the reference's
+    publish_update does) or 'int8' with fold_items (delta publishes)."""
+    fold_items = route == "int8"
+    eng = ServingEngine(k=10, shortlist_k=SERVE_SK, max_wait_s=0.002,
+                        device=dev)
+    eng.publish(fitted._U.clone(), fitted._V.clone(),
+                quantize=route == "int8")
+    eng.warmup()
+    # the fold-in writes its tables in place: the model holds copies
+    model = ALSModel(fitted.rank, IdMap(ids=fitted._user_map.ids),
+                     IdMap(ids=fitted._item_map.ids), fitted._U.clone(),
+                     fitted._V.clone(), fitted._params, device=dev)
+    srv = FoldInServer(model, keep_history=False)
+    upd = LiveUpdater(eng, srv, slo_s=FRESHNESS_SLO_S,
+                      fold_items=fold_items, device=dev)
+    from tpu_als_torch.cli import _prewarm_ladder
+
+    n_ev = int(LIVE_EVENTS_QPS * LIVE_SECONDS)
+    srv.prewarm(rows=_prewarm_ladder(upd.max_batch), widths=(1, 2),
+                sides=("user", "item") if fold_items else ("user",))
+    if fold_items:
+        eng.warmup_live(max_delta_rows=n_ev)
+    ev_u = rng.choice(model._user_map.ids, n_ev)
+    ev_i = rng.choice(model._item_map.ids, n_ev)
+    ev_r = (rng.integers(1, 11, n_ev) * 0.5).astype(np.float32)
+    ev_r[rng.random(n_ev) < LIVE_POISON] = np.nan
+    n_req = int(SERVE_QPS * LIVE_SECONDS)
+    uids = rng.integers(0, N_USERS, n_req)
+    obs.reset()
+    _zero_launches()
+    shed_ev = []
+
+    def stream():
+        t0 = time.perf_counter()
+        for j in range(n_ev):
+            delay = t0 + j / LIVE_EVENTS_QPS - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                upd.submit(int(ev_u[j]), int(ev_i[j]), float(ev_r[j]))
+            except Exception as e:  # noqa: BLE001 — counted, then failed
+                shed_ev.append(repr(e))
+
+    t0 = time.perf_counter()
+    eng.start()
+    upd.start()
+    th = threading.Thread(target=stream, name="chip-smoke-live-events")
+    th.start()
+    shed = open_loop(eng, [int(u) for u in uids], SERVE_QPS, 30.0)
+    th.join()
+    upd.stop(drain_timeout_s=60.0)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    folded = sum(e["events"] for e in obs.events("live_update"))
+    quarantined = obs.counter_value("ingest.quarantined_rows")
+    warnings = obs.events("warning")
+    if shed_ev or obs.counter_value("live.shed"):
+        fail(f"live ({route}): rating events shed: {shed_ev[:3]}")
+    if folded + quarantined != n_ev or \
+            obs.histogram_count("live.freshness_seconds") != folded:
+        fail(f"live ({route}): {folded} folded + {quarantined} quarantined "
+             f"of {n_ev} events")
+    if quarantined != int(np.isnan(ev_r).sum()):
+        fail(f"live ({route}): {quarantined} quarantined, "
+             f"{int(np.isnan(ev_r).sum())} NaN events")
+    if warnings:
+        fail(f"live ({route}): warning events {warnings[:3]}")
+    if launches["k2"] == 0 or (route == "exact" and launches["k5"] == 0):
+        fail(f"live ({route}): launches {launches}")
+    modes = {m: obs.histogram_count("serving.publish_seconds", mode=m)
+             for m in ("full", "retag", "delta", "compact", "none")}
+    modes = {m: c for m, c in modes.items() if c}
+    if route == "int8" and set(modes) != {"delta"}:
+        fail(f"live (int8, fold_items): publish modes {modes}, not only "
+             "delta")
+    m = eng._model
+    if not (torch.equal(m.U, model._U) and torch.equal(m.V, model._V)):
+        fail(f"live ({route}): the published generation is not the "
+             "fold-in model's factors")
+    touched = model._user_map.to_dense(np.unique(ev_u[~np.isnan(ev_r)]))
+    users = rng.choice(touched, LIVE_CHECK_USERS, replace=False)
+    tickets = [eng.submit(int(u)) for u in users]
+    res = [t.result(timeout=30.0) for t in tickets]
+    eng.stop()
+    s = torch.from_numpy(np.stack([x[0] for x in res])).to(dev)
+    ix = torch.from_numpy(np.stack([x[1] for x in res])).to(dev).long()
+    Uq = model._U[torch.from_numpy(users).to(dev)]
+    valid = torch.ones(model._V.shape[0], dtype=torch.bool, device=dev)
+    earns_scores(Uq, model._V, valid, s, ix, f"live ({route})")
+    se, ie = cuda_topk.topk_scores(Uq, model._V, valid, 10)
+    sp, _ = chunked_topk_scores(Uq, model._V, valid, 10)
+    same = (torch.sort(ix, 1).values == torch.sort(ie, 1).values).all(1)
+    if not bool(same.all()):
+        fail(f"live ({route}): {int((~same).sum())} of {LIVE_CHECK_USERS} "
+             "touched users' top-10 differ from K5's")
+    ulp_k5, err_k5 = ulps_off(s, se), max_abs(s, se)
+    ulp_p = ulps_off(s, sp)
+    if err_k5 > K5_TOL or ulp_p > SERVE_ULPS:
+        fail(f"live ({route}): scores {err_k5:.3e} off K5 (tol {K5_TOL}), "
+             f"{ulp_p:.2f} ulp off the plain f32 top-k")
+    q = {"fresh_p50_ms": obs.histogram_quantile("live.freshness_seconds",
+                                                0.5) * 1e3,
+         "fresh_p99_ms": obs.histogram_quantile("live.freshness_seconds",
+                                                0.99) * 1e3,
+         **serve_quantiles(route), "modes": modes, "launches": launches,
+         "folded": folded, "quarantined": quarantined, "shed": shed,
+         "ulp_k5": ulp_k5, "err_k5": err_k5, "ulp_plain": ulp_p,
+         "wall_s": wall}
+    return q
+
+
+def live_loop_phase(fitted, rng, dev, smi, p8):
+    """9(c) the live loop at the rank-128 fit's full width on both
+    routes; phase 8's open loop (``p8``) is the same traffic without the
+    update stream."""
+    for route in ("exact", "int8"):
+        q = live_route(fitted, route, rng, dev)
+        b = p8[route]
+        log(f"(c) live loop, engine '{route}' start ({smi}): "
+            f"{int(SERVE_QPS * LIVE_SECONDS)} requests at {SERVE_QPS:g} rps "
+            f"beside {int(LIVE_EVENTS_QPS * LIVE_SECONDS)} rating events "
+            f"at {LIVE_EVENTS_QPS:g}/s ({LIVE_POISON:.0%} NaN): folded "
+            f"{q['folded']} + quarantined {q['quarantined']}, requests shed "
+            f"{q['shed']}; freshness p50 {q['fresh_p50_ms']:.3f} / p99 "
+            f"{q['fresh_p99_ms']:.3f} ms; serving e2e p50 "
+            f"{q['e2e_p50_ms']:.3f} / p99 {q['e2e_p99_ms']:.3f} ms with the "
+            f"stream, {b['e2e_p50_ms']:.3f} / {b['e2e_p99_ms']:.3f} ms "
+            f"without (phase 8) (bucketed upper bounds); publish modes "
+            f"{q['modes']}; launches K2 {q['launches']['k2']}, K5 "
+            f"{q['launches']['k5']}; published U/V bitwise the fold-in "
+            f"model's; {LIVE_CHECK_USERS} touched users' top-10 = K5's ids, "
+            f"{q['ulp_k5']:.2f} ulp / {q['err_k5']:.3e} off K5, "
+            f"{q['ulp_plain']:.2f} ulp off the plain f32 top-k "
+            f"({q['wall_s']:.1f} s)")
+
+
+def tenancy_phase(fitted, rng, dev, smi):
+    """9(d) two same-shaped tenants on the exact route (K5), weights 3
+    and 1: the fit's factors and a seeded catalog of unit rows.  First a
+    ``serving.score`` fault on the first pick (tenant 'fit', by name at
+    equal virtual time) fails only its tickets; then TENANT_REQS
+    requests per tenant under contention."""
+    U2 = torch.from_numpy(unit_rows(rng, N_USERS, RANK)).to(dev)
+    V2 = torch.from_numpy(unit_rows(rng, N_ITEMS, RANK)).to(dev)
+    cats = {"fit": (fitted._U, fitted._V), "second": (U2, V2)}
+    eng = MultiTenantEngine(device=dev)
+    for name, w in (("fit", 3.0), ("second", 1.0)):
+        eng.add_tenant(TenantSpec(name=name, weight=w, k=10,
+                                  max_queue=2 * TENANT_REQS),
+                       *cats[name], quantize=False)
+    eng.warmup()
+    classes = eng.registry.shape_classes()
+    if list(classes.values()) != [["fit", "second"]]:
+        fail(f"tenancy: shape classes {classes}")
+    obs.reset()
+    faults.install("serving.score=raise@nth=1")
+    try:
+        ta = [eng.submit("fit", u) for u in range(8)]
+        tb = [eng.submit("second", u) for u in range(8)]
+        eng._drain_round()
+    finally:
+        faults.clear()
+    for t in ta:
+        try:
+            t.result(timeout=10.0)
+            fail("tenancy: serving.score=raise did not fail tenant 'fit'")
+        except faults.InjectedFault:
+            pass
+    for t in tb:
+        t.result(timeout=10.0)
+    errs = {n: obs.counter_value("tenancy.batch_errors", tenant=n)
+            for n in cats}
+    if errs != {"fit": 1, "second": 0}:
+        fail(f"tenancy: batch errors {errs} after one injected fault")
+    _zero_launches()
+    users = rng.integers(0, N_USERS, TENANT_REQS)
+    t0 = time.perf_counter()
+    with eng:
+        tickets = [(n, eng.submit(n, int(u))) for u in users
+                   for n in cats]
+        res = {n: [] for n in cats}
+        for n, t in tickets:
+            res[n].append(t.result(timeout=60.0))
+    wall = time.perf_counter() - t0
+    k5 = cuda_topk.LAUNCHES
+    warnings = obs.events("warning")
+    if warnings or obs.counter_value("tenancy.batch_errors", tenant="fit") \
+            != 1 or obs.counter_value("tenancy.batch_errors",
+                                      tenant="second"):
+        fail(f"tenancy: warnings {warnings[:3]}, batch errors beyond the "
+             "injected one")
+    fit, sec = eng.tenant("fit"), eng.tenant("second")
+    if fit.served_rows != sec.served_rows or \
+            abs(3.0 * fit.vtime - sec.vtime) > 1e-9 * sec.vtime:
+        fail(f"tenancy: served rows {fit.served_rows} / {sec.served_rows},"
+             f" vtime {fit.vtime} / {sec.vtime} (want equal rows, 1:3)")
+    if k5 == 0:
+        fail("tenancy: the exact route never launched K5")
+    uq = torch.from_numpy(users).to(dev)
+    worst = {}
+    for n, (U, V) in cats.items():
+        s = torch.from_numpy(np.stack([x[0] for x in res[n]])).to(dev)
+        ix = torch.from_numpy(np.stack([x[1] for x in res[n]])).to(
+            dev).long()
+        valid = torch.ones(V.shape[0], dtype=torch.bool, device=dev)
+        earns_scores(U[uq], V, valid, s, ix, f"tenant {n!r}")
+        se, ie = cuda_topk.topk_scores(U[uq], V, valid, 10)
+        if not torch.equal(torch.sort(ix, 1).values,
+                           torch.sort(ie, 1).values):
+            fail(f"tenant {n!r}: ids differ from K5 on its own catalog")
+        worst[n] = (ulps_off(s, se), max_abs(s, se))
+        if worst[n][1] > K5_TOL:
+            fail(f"tenant {n!r}: scores {worst[n][1]:.3e} off K5")
+    log(f"(d) tenancy ({smi}): 2 tenants x {N_USERS} users x {N_ITEMS} "
+        f"items, one shape class; serving.score=raise failed only tenant "
+        f"'fit' (batch errors {errs}); {TENANT_REQS} requests each under "
+        f"contention: served rows {fit.served_rows} / {sec.served_rows}, "
+        f"vtime {fit.vtime:.4f} / {sec.vtime:.4f} (weights 3:1), K5 "
+        f"launches {k5}; each tenant's answers = K5 on its own catalog "
+        f"(ulp / abs: {worst}) ({wall:.2f} s)")
+
+
+def live_bench_clis():
+    """9(e) ``serve-bench --update-qps 200 --update-items`` and
+    ``serve-bench --tenants 2 --update-qps 100`` at the full catalog, as
+    processes side by side; the reference's key sets, ``slo_met``."""
+    t0 = time.perf_counter()
+    base = ["serve-bench", "--users", str(N_USERS), "--items",
+            str(N_ITEMS), "--rank", str(RANK), "--duration", "2"]
+    runs = {"live": (base + ["--update-qps", "200", "--update-items"],
+                     LIVE_BENCH_SHAPE),
+            "tenants": (base + ["--tenants", "2", "--update-qps", "100"],
+                        TENANT_BENCH_SHAPE)}
+    procs = {k: start_probe(a) for k, (a, _) in runs.items()}
+    for k, (_, shape) in runs.items():
+        lines, launches = finish_probe(procs[k], f"serve-bench ({k})")
+        out = json.loads(lines[-1])
+        if key_shape(out) != shape or "slo_met" not in out:
+            fail(f"serve-bench ({k}): keys {key_shape(out)}")
+        if launches["k2"] == 0:
+            fail(f"serve-bench ({k}): no K2 launch")
+        log(f"(e) serve-bench {' '.join(runs[k][0][1:])}: "
+            f"{json.dumps(out)}; launches {launches}")
+    log(f"(e) {time.perf_counter() - t0:.1f} s (two processes)")
+
+
+def live_tenancy_phase(fitted, rng, dev, smi, p8):
+    """Phase 9 (c)-(e); (a) and (b) run inside phase 5's csv_phase, while
+    its ratings.csv exists."""
+    t0 = time.perf_counter()
+    live_loop_phase(fitted, rng, dev, smi, p8)
+    tenancy_phase(fitted, rng, dev, smi)
+    live_bench_clis()
+    obs.reset()
+    secs = time.perf_counter() - t0
+    log(f"live loop and tenancy phase (c)-(e): {secs:.1f} s")
+    return secs
+
+
+# -- phase 10 --------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -3444,7 +3938,7 @@ def main():
     errs["k8"] = check_k8(rng, dev)
     check_ladder(dev)
     data = prepare(args.seed, dev)
-    csv_phase(data["frame"])
+    s9 = csv_phase(data["frame"], args.seed)
     tr = train_slice(data, RANK, args.seed, dev)
     tr256 = train_slice(data, RANK256, args.seed, dev)
     sh = sharded_train_slice(data, args.seed, dev)
@@ -3460,7 +3954,9 @@ def main():
     rank320_fit(args.seed, dev)
     model_selection_phase(frame25m, args.seed, dev)
     del frame25m
-    serving_engine_phase(tr["model"], model, rng, dev, smi)
+    p8 = serving_engine_phase(tr["model"], model, rng, dev, smi)
+    s9 += live_tenancy_phase(tr["model"], rng, dev, smi, p8)
+    log(f"phase 9 (the stream, the live loop and tenancy): {s9:.1f} s")
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
                              dev))

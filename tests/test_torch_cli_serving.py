@@ -4,14 +4,20 @@ the reference's, in one process (JAX on the CPU, ``--device cpu``).
 The JSON lines must carry the reference's keys (nested ``config``
 included); the numbers are wall-clock readings of two different
 programs, so only their types and ranges are held.  ``serve-bench
---update-qps`` and ``--tenants`` raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+--update-qps`` (the live loop) and ``--tenants`` (the multi-tenant
+engine) run on the CPU with ``jax`` and ``tpu_als`` unimportable and
+print the reference's key set; with no ``--device`` they raise without
+a CUDA device.
 """
 
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_als import obs as jobs
 from tpu_als.cli import main as jmain
@@ -93,8 +99,38 @@ def test_serve_bench_forced_breach_emits_flight_records(capsys):
     assert got["flight_records"] >= min(got["scored"], 8)
 
 
+_SERVE_BENCH_NO_JAX = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+from tpu_als_torch.cli import main
+out = main(sys.argv[1:])
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+"""
+
+
 @pytest.mark.parametrize("extra", [["--update-qps", "1"],
                                    ["--tenants", "2"]])
-def test_serve_bench_live_and_tenants_are_not_ported(extra):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tmain(["serve-bench", *TINY, *extra, "--device", "cpu"])
+def test_serve_bench_live_and_tenants_are_not_ported(extra, capsys,
+                                                     monkeypatch):
+    """The two variants that once raised ``NotImplementedError``: now
+    ported, run here with ``jax`` and ``tpu_als`` unimportable, the
+    reference's key set; ``device=None`` raises without CUDA."""
+    jmain(["serve-bench", *TINY, *extra])
+    ref = _last_json(capsys)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVE_BENCH_NO_JAX, "serve-bench", *TINY,
+         *extra, "--device", "cpu"], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert _keys(got) == _keys(ref)
+    assert got["metric"] == ("live_freshness_p99_ms" if extra[0] ==
+                             "--update-qps" else "tenancy_worst_p99_ms")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmain(["serve-bench", *TINY, *extra])

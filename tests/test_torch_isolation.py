@@ -21,8 +21,13 @@
 - The Spark ML surface (pipeline, tuners, legacy API) and the checkpoint
   lifecycle (preemption, ``discover_resume``) run with ``jax`` and
   ``tpu_als`` unimportable; ``tune``, ``evaluate`` and
-  ``legacy.ALS.train`` with no device raise without a CUDA device; a
-  ``stream:`` data spec raises ``NotImplementedError``.
+  ``legacy.ALS.train`` with no device raise without a CUDA device.
+- The stream and the live loop: ``train``, ``tune`` and ``evaluate``
+  on a ``stream:`` data spec (the byte-range reader, its native interner
+  built from the port's own source) run with ``jax`` and ``tpu_als``
+  unimportable, and raise without a CUDA device when no device is
+  given; ``io.stream``, ``live`` and ``tenancy`` are in the import sweep
+  (``pkgutil.walk_packages`` finds every module of the port).
 - The serving engine (``serving``, ``plan``, ``obs.tracing``,
   ``serve-bench``) runs with ``jax`` and ``tpu_als`` unimportable;
   ``ServingEngine()`` and ``serve-bench`` with no device raise without a
@@ -31,6 +36,7 @@
 """
 
 import contextlib
+import json
 import os
 import shutil
 import subprocess
@@ -417,17 +423,71 @@ def test_user_surface_without_cuda_raises(tmp_path, monkeypatch):
                                  iterations=1)
 
 
+_DRIVE_STREAM_SPEC = r"""
+import json, os, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np
+from tpu_als_torch.cli import main
+from tpu_als_torch.io import stream
+from tpu_als_torch import _build
+tmp, cmd = sys.argv[1], sys.argv[2]
+data = os.path.join(tmp, "ratings.csv")
+# not seed 0: the CV folds draw from default_rng(0) too, and the same
+# stream would put each user in one fold
+rng = np.random.default_rng(11)
+with open(data, "w") as f:
+    f.write("user_id,parent_asin,rating,timestamp\n")
+    for u, i, r in zip(rng.integers(0, 40, 900), rng.integers(0, 25, 900),
+                       rng.integers(1, 11, 900) * 0.5):
+        f.write(f"user-{u},item-{i},{r},1\n")
+spec = "stream:" + data
+model = os.path.join(tmp, "m")
+if cmd == "tune":
+    main(["tune", "--data", spec, "--ranks", "2", "--reg-params", "0.1",
+          "--folds", "2", "--max-iter", "2", "--device", "cpu",
+          "--output", model])
+    model = os.path.join(model, "bestModel")
+else:
+    main(["train", "--data", spec, "--rank", "2", "--max-iter", "2",
+          "--device", "cpu", "--output", model])
+side = np.load(os.path.join(os.path.dirname(model) if cmd == "tune"
+                            else model, "stream_labels.npz"))
+assert side["users"][0] == b"user-0" and len(side["items"]) == 25
+if cmd == "evaluate":
+    main(["evaluate", "--model", model, "--data", spec, "--device", "cpu"])
+assert os.path.dirname(stream._lib._name) == _build.BUILD_DIR
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
 @pytest.mark.parametrize("cmd", [
     ["train"], ["tune", "--device", "cpu"],
     ["evaluate", "--model", "unused", "--device", "cpu"]])
-def test_stream_data_spec_is_not_ported(cmd, tmp_path):
+def test_stream_data_spec_is_not_ported(cmd, tmp_path, monkeypatch):
+    """Each command that once refused ``stream:``: now ported, run on the
+    CPU with ``jax`` and ``tpu_als`` unimportable (``train`` and ``tune``
+    write the ``stream_labels.npz`` sidecar, ``evaluate`` reads it); with
+    no ``--device`` each raises without a CUDA device."""
     from tpu_als_torch.cli import main
 
+    out = subprocess.run([sys.executable, "-c", _DRIVE_STREAM_SPEC,
+                          str(tmp_path), cmd[0]], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
     if cmd[0] == "evaluate":
-        cmd = ["evaluate", "--model", str(tmp_path / "m"), "--device", "cpu"]
-        _model().save(str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        main(cmd + ["--data", "stream:/nonexistent.csv"])
+        assert json.loads(out.stdout.strip().splitlines()[-2])["rmse"] > 0
+    data = tmp_path / "ratings.csv"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bare = {"train": ["train"],
+            "tune": ["tune", "--ranks", "2", "--folds", "2"],
+            "evaluate": ["evaluate", "--model", str(tmp_path / "m")]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(bare[cmd[0]] + ["--data", f"stream:{data}"])
 
 
 _DRIVE_SERVING = r"""

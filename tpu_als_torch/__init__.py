@@ -24,9 +24,12 @@ an iteration boundary, and the Spark ML surface around ``ALS``:
 ``mllib`` legacy API (:mod:`tpu_als_torch.api.legacy`), the online
 serving engine (:mod:`tpu_als_torch.serving`: admission, micro-batching,
 deadlines, the int8 candidate index, atomic and incremental publishes,
-the exact, int8 and merge-ring routes) and the commands
-``python -m tpu_als_torch.cli train|recommend|evaluate|tune|foldin-bench|
-serve-bench``.
+the exact, int8 and merge-ring routes), the byte-range string-id stream
+reader behind the ``stream:`` data spec (:mod:`tpu_als_torch.io.stream`),
+the live fold-in -> publish loop (:mod:`tpu_als_torch.live`), multi-tenant
+serving with weighted fair share (:mod:`tpu_als_torch.tenancy`) and the
+commands ``python -m tpu_als_torch.cli train|recommend|evaluate|tune|
+foldin-bench|serve-bench``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a CUDA tensor always goes through the hand-written
@@ -42,15 +45,20 @@ Package map:
   stream/  the micro-batch fold-in server
   serving/ the online serving engine, its admission queue and the int8
            candidate index
-  plan/    the planner's serving resolvers (disarmed: no plan cache)
+  live/    the live updater: rating events -> fold-in -> incremental
+           publish, freshness measured per event
+  tenancy/ the tenant registry and the fair-share multi-tenant engine
+  plan/    the planner's serving, live and tenant resolvers (disarmed:
+           no plan cache)
   parallel/  the mesh, sharded layouts, the sharded trainer and server
   api/     ALS, ALSModel, the sharded fit, params, the evaluators, the
            pipeline stages, the tuners, the legacy API, and the table of
            class names that saves record
   io/      checkpoint persistence (same on-disk format as tpu_als), the
-           MovieLens loaders, the native CSV reader and bucketizer
-           (``native/*.cc``, built with g++ into ``_build/``) and the
-           CSV reader's Python twin, synthetic MovieLens-shaped data
+           MovieLens loaders, the native CSV reader, bucketizer and
+           string-id stream interner (``native/*.cc``, built with g++
+           into ``_build/``), the byte-range stream reader, the CSV
+           reader's Python twin, synthetic MovieLens-shaped data
   obs/     the metrics registry, its vocabulary, the run manifest, causal
            tracing and the serving flight recorder
   resilience/  fault injection, retry policies, the fit's guardrails,

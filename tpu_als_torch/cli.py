@@ -5,16 +5,20 @@ foldin-bench|serve-bench``.
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
 ``dat:PATH`` an ml-1m/ml-10m ``ratings.dat``, ``csv:PATH`` a
 ``ratings.csv`` with a header, strict ``int,int,float,int``, or
-``synthetic:UxIxN``, MovieLens-shaped from ``--seed``; ``stream:PATH``
-raises ``NotImplementedError``: it comes with the serving slice), hold
-out ``--holdout`` of it with the seeded ``randomSplit``, fit ``ALS``
+``synthetic:UxIxN``, MovieLens-shaped from ``--seed``, or ``stream:PATH``
+a ``user_id,item_id,rating,timestamp`` file with a header and STRING ids,
+read by the byte-range stream reader, its ids densified in lexicographic
+order), hold out ``--holdout`` of it with the seeded ``randomSplit``, fit
+``ALS``
 (``--checkpoint-dir``/``--checkpoint-interval`` write resumable
 checkpoints, ``--resume PATH|auto`` continues one, ``auto`` the newest
 valid generation under ``--checkpoint-dir``; ``--guardrails
 off|warn|recover`` arms the numerical guardrails), print
 ``{"holdout_rmse": ...}`` and save the model to ``--output`` (replacing
-it), with the run's events, metrics and manifest under ``--output/obs``.
-SIGTERM, SIGINT or ``TPU_ALS_PREEMPT_AT=N`` stop the fit at an iteration
+it), with the run's events, metrics and manifest under ``--output/obs``;
+a ``stream:`` fit also saves ``stream_labels.npz`` beside the model (the
+string id behind each dense id, the reference's format).  SIGTERM,
+SIGINT or ``TPU_ALS_PREEMPT_AT=N`` stop the fit at an iteration
 boundary, write the resume point to ``--checkpoint-dir`` and exit 43.
 A ``TPU_ALS_FAULT_SPEC`` that does not parse exits 2 before any work.
 
@@ -24,7 +28,9 @@ A ``TPU_ALS_FAULT_SPEC`` that does not parse exits 2 before any work.
 recall@K, MAP and NDCG@K: each test user's items rated at least
 ``--positive-threshold`` are the truth, the model's top K the ranking,
 and a test user the model cannot serve counts as an empty ranking
-(``ranking_users_cold``).
+(``ranking_users_cold``).  A ``stream:`` spec is densified in the MODEL's
+id space through its ``stream_labels.npz``; rows with ids the model never
+saw are dropped.
 
 ``tune`` (``cmd_tune``) cross-validates ``ALS`` over ``--ranks`` x
 ``--reg-params`` (x ``--alphas``) in ``--folds`` folds and prints the
@@ -37,7 +43,11 @@ best map and the average RMSEs; ``--output`` saves the
 JSON line per user, ``{"user": id, "items": [[item, score], ...]}`` with
 scores rounded to 4 decimals, and with ``--titles`` (``u.item``,
 ``movies.dat``, ``movies.csv`` or their directory) the items' titles
-under ``"titles"``.  Fold-in data is ``csv:PATH``.
+under ``"titles"``.  Fold-in data is ``csv:PATH`` or ``stream:PATH``: a
+stream batch maps known string ids through the model's
+``stream_labels.npz`` and gives new ones fresh dense ids after the
+model's; ``--users`` then takes string ids, and each line also names
+``"user_id"`` and ``"item_ids"``.
 
 ``foldin-bench`` (``cmd_foldin_bench``) folds ``--batches`` seeded
 batches of ``--batch-size`` ratings of new users into a saved model and
@@ -51,9 +61,13 @@ logical shards of the one device with ``--serve-backend``), requests at a
 fixed ``--qps`` for ``--duration`` seconds scheduled by the clock, and
 p50/p99/shed read back from the obs histograms and judged against
 ``--slo-ms``; ``--bench-json`` banks the JSON with a ``banked_at`` UTC
-stamp.  ``--update-qps > 0`` and ``--tenants`` raise
-``NotImplementedError``: the live loop and tenancy are not ported (ROADMAP
-Queue 1 item 4).
+stamp.  ``--update-qps > 0`` also drives the live loop: seeded rating
+events (``--update-poison-frac`` of them NaN) through a ``LiveUpdater``
+(fold-in, ``--update-items`` for the item side, incremental publish), and
+the headline becomes ``live_freshness_p99_ms`` against
+``--freshness-slo-ms``.  ``--tenants N`` serves N same-shaped models
+behind one ``MultiTenantEngine`` (``--tenant-weights``), headline
+``tenancy_worst_p99_ms`` with the weighted ``fairness_ratio``.
 
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
@@ -71,25 +85,70 @@ import time
 import numpy as np
 
 
-def _load_foldin(spec):
-    from tpu_als_torch.io.ratings_csv import load_ratings_csv
+def _vocab_lookup(labels, g):
+    """Positions of ``labels`` in the sorted vocabulary ``g`` and a
+    known-mask, with both widths normalized once."""
+    w = max(labels.dtype.itemsize, g.dtype.itemsize, 1)
+    lw = labels.astype(f"S{w}")
+    gw = g.astype(f"S{w}")
+    pos = np.searchsorted(gw, lw)
+    known = np.zeros(len(labels), dtype=bool)
+    inb = pos < len(g)
+    known[inb] = gw[pos[inb]] == lw[inb]
+    return pos, known
 
-    kind, _, arg = spec.partition(":")
-    if kind != "csv":
-        raise SystemExit(f"unknown fold-in data spec {spec!r} (use "
-                         "csv:PATH)")
-    return load_ratings_csv(arg)
+
+def _load_stream(path, vocab=None):
+    """``stream:PATH``: a STRING-id ``user_id,item_id,rating,timestamp``
+    file with a header, read by the byte-range stream reader and
+    densified in the lexicographic entity space.  Returns ``(frame,
+    user_labels, item_labels)`` (labels: numpy ``S`` arrays).
+
+    The port has one process, so one host reads the whole file: the
+    vocabulary union is ``np.unique`` (what the reference's
+    ``global_vocab_union`` is in one process), and the host's split claim
+    rides it and is validated, as the reference does when every host is
+    present.  ``vocab``: ``(user_labels,
+    item_labels)`` of a trained model's ``stream_labels.npz``; the data is
+    then densified in the MODEL's id space, and rows with ids the model
+    never saw are dropped with a count on stderr.
+    """
+    from tpu_als_torch.io.stream import (split_claim, stream_ingest,
+                                         validate_split_claims)
+    from tpu_als_torch.utils.frame import ColumnarFrame
+
+    u_loc, i_loc, r, ul, il = stream_ingest(path, require_cols=4,
+                                            skip_header=1)
+    if vocab is None:
+        claim = np.array([split_claim(0, 1)])
+        w = max(ul.dtype.itemsize, claim.dtype.itemsize, 1)
+        claimed = np.concatenate([ul.astype(f"S{w}"),
+                                  claim.astype(f"S{w}")])
+        g_ul, _ = validate_split_claims(np.unique(claimed))
+        g_il = np.unique(il)
+        u = np.searchsorted(g_ul, ul)[u_loc]
+        i = np.searchsorted(g_il, il)[i_loc]
+    else:
+        g_ul, g_il = vocab
+        pu, ku = _vocab_lookup(ul, g_ul)
+        pi, ki = _vocab_lookup(il, g_il)
+        keep = ku[u_loc] & ki[i_loc]
+        dropped = int(len(u_loc) - keep.sum())
+        if dropped:
+            print(f"stream eval: dropped {dropped:,}/{len(u_loc):,} "
+                  "rows with user/item ids unknown to the model",
+                  file=sys.stderr)
+        u = pu[u_loc][keep]
+        i = pi[i_loc][keep]
+        r = r[keep]
+    return (ColumnarFrame({"user": u, "item": i, "rating": r}),
+            g_ul, g_il)
 
 
-def _load_train_data(spec):
+def _load_data(spec):
     from tpu_als_torch.io import movielens
 
     kind, _, arg = spec.partition(":")
-    if kind == "stream":
-        raise NotImplementedError(
-            f"data spec {spec!r}: the stream: reader (io/stream.py) is not "
-            "ported yet: it comes after the serving slice, with the live "
-            "loop (ROADMAP Queue 1 item 4)")
     if kind == "ml-100k":
         return movielens.load_movielens_100k(arg)
     if kind == "dat":
@@ -105,7 +164,103 @@ def _load_train_data(spec):
         return movielens.synthetic_movielens(nu, ni, nnz)
     raise SystemExit(f"unknown data spec {spec!r} (use ml-100k:PATH | "
                      "dat:PATH (ml-1m/10m ratings.dat) | csv:PATH | "
-                     "synthetic:UxIxN)")
+                     "stream:PATH | synthetic:UxIxN)")
+
+
+def _load_train_data(spec):
+    """``(frame, stream_labels or None)``: a ``stream:`` spec also
+    returns the ``(user_labels, item_labels)`` the model's sidecar
+    keeps."""
+    kind, _, arg = spec.partition(":")
+    if kind != "stream":
+        return _load_data(spec), None
+    frame, g_ul, g_il = _load_stream(arg)
+    return frame, (g_ul, g_il)
+
+
+def _model_vocab(model_dir):
+    side = os.path.join(model_dir, "stream_labels.npz")
+    if not os.path.exists(side):
+        raise SystemExit(
+            "stream: eval data needs the model's stream_labels.npz "
+            "sidecar (present when the model was trained with "
+            "--data stream:...); this model has none")
+    z = np.load(side)
+    return z["users"], z["items"]
+
+
+def _load_eval_data(spec, model_dir):
+    """A ``stream:`` spec densified in the MODEL's id space through its
+    ``stream_labels.npz``; any other spec as ``train`` loads it."""
+    kind, _, arg = spec.partition(":")
+    if kind != "stream":
+        return _load_data(spec)
+    frame, _, _ = _load_stream(arg, vocab=_model_vocab(model_dir))
+    return frame
+
+
+def _load_foldin_data(spec, model_dir, new_side):
+    """Fold-in data: ``csv:PATH`` (strict ``int,int,float,int``), or
+    ``stream:PATH``, where the ``new_side`` ("user" for --foldin-data,
+    "item" for --foldin-items-data) maps known labels through the model's
+    sidecar and gives FRESH dense ids (after the model's, first-seen
+    order) to new ones; the opposite side must be known (its factors do
+    the folding), and its unknown rows are dropped with a count.
+
+    Returns ``(frame, new_labels)``: ``new_labels[j]`` is the string id
+    behind dense id ``len(model side) + j``.
+    """
+    kind, _, arg = spec.partition(":")
+    if kind == "csv":
+        from tpu_als_torch.io.ratings_csv import load_ratings_csv
+
+        return load_ratings_csv(arg), []
+    if kind != "stream":
+        raise SystemExit(f"unknown fold-in data spec {spec!r} (use "
+                         "csv:PATH | stream:PATH)")
+    from tpu_als_torch.io.stream import stream_ingest
+    from tpu_als_torch.utils.frame import ColumnarFrame
+
+    g_ul, g_il = _model_vocab(model_dir)
+    u_loc, i_loc, r, ul, il = stream_ingest(arg, require_cols=4,
+                                            skip_header=1)
+    pu, ku = _vocab_lookup(ul, g_ul)
+    pi, ki = _vocab_lookup(il, g_il)
+    # the keep-filter (opposite side known) runs FIRST: a new entity
+    # whose every row is dropped gets no fresh id (it would resolve in
+    # --users to a row the fold-in never solved)
+    if new_side == "user":
+        keep, loc, base, labels_side = ki[i_loc], u_loc, g_ul, ul
+        pos, unknown = pu, ~ku
+    else:
+        keep, loc, base, labels_side = ku[u_loc], i_loc, g_il, il
+        pos, unknown = pi, ~ki
+    surviving = np.zeros(len(labels_side), dtype=bool)
+    surviving[np.unique(loc[keep])] = True
+    fresh = unknown & surviving
+    pos[fresh] = len(base) + np.arange(int(fresh.sum()))
+    new_labels = [s.decode() for s in labels_side[fresh].tolist()]
+    dropped = int(len(u_loc) - keep.sum())
+    if dropped:
+        opp = "item" if new_side == "user" else "user"
+        print(f"stream fold-in: dropped {dropped:,}/{len(u_loc):,} "
+              f"rows with {opp} ids unknown to the model (the known "
+              f"{opp} factors are what fold the new {new_side}s in)",
+              file=sys.stderr)
+    frame = ColumnarFrame({"user": pu[u_loc][keep],
+                           "item": pi[i_loc][keep], "rating": r[keep]})
+    if new_labels:
+        print(f"stream fold-in: {len(new_labels)} new {new_side} ids "
+              f"-> dense {len(base)}+ (first-seen): {new_labels[:5]}"
+              f"{'...' if len(new_labels) > 5 else ''}", file=sys.stderr)
+    return frame, new_labels
+
+
+def _save_stream_labels(out_dir, user_labels, item_labels):
+    """The sidecar mapping dense ids to the original string ids, beside
+    the model (the reference's ``stream_labels.npz``)."""
+    np.savez(os.path.join(out_dir, "stream_labels.npz"),
+             users=user_labels, items=item_labels)
 
 
 def _load_model_any(path, device=None):
@@ -165,7 +320,7 @@ def cmd_train(args):
     from tpu_als_torch.api.evaluation import RegressionEvaluator
     from tpu_als_torch.resilience import preempt
 
-    frame = _load_train_data(args.data)
+    frame, stream_labels = _load_train_data(args.data)
     train, test = frame.randomSplit([1 - args.holdout, args.holdout],
                                     seed=args.seed)
     als = ALS(rank=args.rank, maxIter=args.max_iter, regParam=args.reg_param,
@@ -193,6 +348,8 @@ def cmd_train(args):
         print(json.dumps({"holdout_rmse": round(rmse, 4)}))
     if args.output:
         model.write().overwrite().save(args.output)
+        if stream_labels is not None:
+            _save_stream_labels(args.output, *stream_labels)
 
 
 def ranking_eval(model, frame, k, positive_threshold=3.5):
@@ -243,9 +400,7 @@ def cmd_evaluate(args):
             "runs recommendForUserSubset on raw ids); evaluate the "
             "pipeline's ALS stage directly, or drop --ranking-k for "
             "regression metrics through the full pipeline")
-    # the reference's eval loader differs only for a stream: spec (read in
-    # the model's id space), which _load_train_data refuses
-    frame = _load_train_data(args.data)
+    frame = _load_eval_data(args.data, args.model)
     out = model.transform(frame)
     result = {}
     for metric in ("rmse", "mae", "r2"):
@@ -268,7 +423,7 @@ def cmd_tune(args):
     from tpu_als_torch.api.evaluation import RegressionEvaluator
     from tpu_als_torch.api.tuning import CrossValidator, ParamGridBuilder
 
-    frame = _load_train_data(args.data)
+    frame, stream_labels = _load_train_data(args.data)
     als = ALS(maxIter=args.max_iter, implicitPrefs=args.implicit,
               alpha=args.alpha, seed=args.seed, coldStartStrategy="drop",
               cgIters=args.cg_iters, device=args.device)
@@ -296,6 +451,8 @@ def cmd_tune(args):
     print(json.dumps(out))
     if args.output:
         cv_model.write().overwrite().save(args.output)
+        if stream_labels is not None:
+            _save_stream_labels(args.output, *stream_labels)
         print(f"best model saved to {args.output}", file=sys.stderr)
 
 
@@ -305,24 +462,43 @@ def cmd_recommend(args):
     from tpu_als_torch.utils.frame import ColumnarFrame
 
     model = ALSModel.load(args.model, device=args.device)
+    new_user_labels, new_item_labels = [], []
     if args.foldin_data or args.foldin_items_data:
         srv = FoldInServer(model)
         if args.foldin_items_data:
-            batch = _load_foldin(args.foldin_items_data)
+            batch, new_item_labels = _load_foldin_data(
+                args.foldin_items_data, args.model, "item")
             touched = srv.update_items(batch)
             print(f"folded in {len(batch)} ratings touching "
                   f"{len(touched)} items", file=sys.stderr)
         if args.foldin_data:
-            batch = _load_foldin(args.foldin_data)
+            batch, new_user_labels = _load_foldin_data(
+                args.foldin_data, args.model, "user")
             touched = srv.update(batch)
             print(f"folded in {len(batch)} ratings touching "
                   f"{len(touched)} users", file=sys.stderr)
+    stream_names = None   # (dense user -> label, item labels) for output
     if args.users:
+        toks = args.users.split(",")
         try:
-            ids = np.array([int(x) for x in args.users.split(",")])
+            ids = np.array([int(x) for x in toks])
         except ValueError:
-            raise SystemExit(f"--users takes comma-separated integer ids, "
-                             f"got {args.users!r}") from None
+            # string ids: the stream-trained model's sidecar, plus the
+            # users folded in by this invocation
+            g_ul, g_il = _model_vocab(args.model)
+            index = {s.decode(): k for k, s in enumerate(g_ul.tolist())}
+            for j, lab in enumerate(new_user_labels):
+                index.setdefault(lab, len(g_ul) + j)
+
+            def resolve(t):
+                if t not in index:
+                    raise SystemExit(
+                        f"unknown user id {t!r} (not in the model's "
+                        "stream_labels sidecar nor in --foldin-data)")
+                return index[t]
+
+            ids = np.array([resolve(t) for t in toks])
+            stream_names = ({v: k for k, v in index.items()}, g_il)
         recs = model.recommendForUserSubset(
             ColumnarFrame({model._params["userCol"]: ids}), args.k)
     else:
@@ -339,6 +515,19 @@ def cmd_recommend(args):
         out = {"user": int(recs[key][row]),
                "items": [[int(i), round(float(s), 4)]
                          for i, s in recs["recommendations"][row]]}
+        if stream_names is not None:
+            rev_u, g_il = stream_names
+
+            def item_name(i):
+                if i < len(g_il):
+                    return g_il[i].decode()
+                j = i - len(g_il)   # an item folded in by this call
+                return (new_item_labels[j]
+                        if j < len(new_item_labels) else None)
+
+            out["user_id"] = rev_u.get(int(recs[key][row]))
+            out["item_ids"] = [item_name(int(i))
+                               for i, _ in recs["recommendations"][row]]
         if titles is not None:
             out["titles"] = [titles.get(int(i))
                              for i, _ in recs["recommendations"][row]]
@@ -402,21 +591,294 @@ def open_loop(engine, payloads, qps, wait_s):
     return shed
 
 
+def _live_server(U, V, rank, dev):
+    """The fold-in server the live branches run over: seeded factors in
+    a model whose ids are the row numbers (the reference's params),
+    ``keep_history=False`` so a row's width stays the batch's own
+    multiplicity (1-2) and the prewarm covers every shape."""
+    from tpu_als_torch.convert import model_from_arrays
+    from tpu_als_torch.stream.microbatch import FoldInServer
+
+    model = model_from_arrays(
+        rank, np.arange(U.shape[0]), U.copy(), np.arange(V.shape[0]),
+        V.copy(), {"userCol": "user", "itemCol": "item",
+                   "ratingCol": "rating", "regParam": 0.05,
+                   "implicitPrefs": False, "alpha": 1.0,
+                   "nonnegative": False}, device=dev)
+    return FoldInServer(model, keep_history=False)
+
+
+def _prewarm_ladder(max_batch):
+    """The fold-in row counts a live stream of micro-batches up to
+    ``max_batch`` events produces, as powers of two."""
+    from tpu_als_torch.core.ratings import _next_pow2
+
+    return tuple(sorted({int(_next_pow2(max(1, max_batch >> s)))
+                         for s in range(max_batch.bit_length())}))
+
+
+def _bank(args, result, by):
+    import datetime as _dt
+
+    with open(args.bench_json, "w") as f:
+        json.dump({**result, "banked_by": by,
+                   "banked_at": _dt.datetime.now(
+                       _dt.timezone.utc).isoformat(timespec="seconds")},
+                  f, indent=2)
+        f.write("\n")
+    print(f"result banked to {args.bench_json}", file=sys.stderr)
+
+
+def _serve_bench_tenants(args, dev):
+    """The ``--tenants N`` branch: N same-shaped models behind one
+    :class:`MultiTenantEngine`, equal open-loop load per tenant, judged
+    per tenant from the tenant-labeled obs series.  The headline is
+    ``tenancy_worst_p99_ms``; ``slo_met`` needs every tenant's p99 within
+    ``--slo-ms`` and, when some tenant shed (the scheduler arbitrated),
+    the weighted goodput ratio within ``--fairness-bound``.
+    ``--update-qps > 0`` gives every tenant its own live stream."""
+    import threading
+
+    from tpu_als_torch import obs
+    from tpu_als_torch.tenancy import (MultiTenantEngine, TenantOverloaded,
+                                       TenantSpec)
+
+    if args.tenants < 2:
+        raise SystemExit("serve-bench: --tenants needs >= 2")
+    rng = np.random.default_rng(args.seed)
+    names = [f"t{i}" for i in range(args.tenants)]
+    weights = ([float(w) for w in args.tenant_weights.split(",")]
+               if args.tenant_weights else [1.0] * args.tenants)
+    if len(weights) != args.tenants:
+        raise SystemExit("serve-bench: --tenant-weights needs exactly "
+                         f"{args.tenants} comma-separated weights")
+    buckets = (tuple(int(b) for b in args.buckets.split(","))
+               if args.buckets else None)
+
+    eng = MultiTenantEngine(device=dev)
+    factors = {}
+    for name, w in zip(names, weights):
+        U = rng.normal(size=(args.users, args.rank)).astype(np.float32)
+        V = rng.normal(size=(args.items, args.rank)).astype(np.float32)
+        factors[name] = (U, V)
+        eng.add_tenant(
+            TenantSpec(name=name, weight=w, k=args.k,
+                       shortlist_k=args.shortlist_k, buckets=buckets,
+                       max_queue=args.max_queue,
+                       max_wait_s=args.max_wait_ms / 1e3,
+                       default_deadline_s=(args.deadline_ms / 1e3
+                                           if args.deadline_ms else None),
+                       slo_s=args.slo_ms / 1e3),
+            U, V, quantize=not args.exact)
+    with obs.span("serve_bench.warmup"):
+        eng.warmup()
+
+    updaters = {}
+    if args.update_qps > 0:
+        with obs.span("serve_bench.live_prewarm"):
+            for name in names:
+                srv = _live_server(*factors[name], args.rank, dev)
+                upd = eng.attach_live(
+                    name, srv, max_batch=args.update_max_batch,
+                    max_wait_ms=args.update_max_wait_ms,
+                    slo_s=args.freshness_slo_ms / 1e3)
+                if name == names[0]:
+                    srv.prewarm(rows=_prewarm_ladder(upd.max_batch),
+                                widths=(1, 2), sides=("user",))
+                updaters[name] = upd
+
+    per_qps = args.qps / args.tenants
+    n_req = max(1, int(per_qps * args.duration))
+    path = "exact" if args.exact else "int8"
+    print(f"serve-bench: {args.tenants} tenants x {n_req} requests at "
+          f"{per_qps:g} rps each over {args.duration:g}s ({path} path, "
+          f"{args.items:,} items, rank {args.rank}, device {dev})",
+          file=sys.stderr)
+    shed = {name: 0 for name in names}
+
+    def _drive(name, seed):
+        trng = np.random.default_rng(seed)
+        uids = trng.integers(0, args.users, n_req)
+        tickets = []
+        t0 = time.perf_counter()
+        for j in range(n_req):
+            delay = (t0 + j / per_qps) - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                tickets.append(eng.submit(name, int(uids[j])))
+            except TenantOverloaded:
+                shed[name] += 1
+        for t in tickets:
+            try:
+                t.result(timeout=max(5.0, 10 * args.slo_ms / 1e3))
+            except Exception:  # noqa: BLE001 — counted from obs below
+                pass
+
+    def _drive_updates(name, seed):
+        urng = np.random.default_rng(seed)
+        rate = args.update_qps / args.tenants
+        n_upd = max(1, int(rate * args.duration))
+        uu = urng.integers(0, args.users, n_upd)
+        ii = urng.integers(0, args.items, n_upd)
+        rr = urng.uniform(0.5, 5.0, n_upd).astype(np.float32)
+        tu = time.perf_counter()
+        for j in range(n_upd):
+            delay = tu + j / rate - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                updaters[name].submit(int(uu[j]), int(ii[j]), float(rr[j]))
+            except Exception:  # noqa: BLE001 — live.shed counts it
+                pass
+
+    eng.start()
+    try:
+        with obs.span("serve_bench.drive"):
+            threads = [threading.Thread(
+                target=_drive, args=(name, args.seed + 100 + i),
+                name=f"serve-bench-{name}")
+                for i, name in enumerate(names)]
+            threads += [threading.Thread(
+                target=_drive_updates, args=(name, args.seed + 200 + i),
+                name=f"serve-bench-upd-{name}")
+                for i, name in enumerate(updaters)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            deadline = time.perf_counter() + 30.0
+            while (any(u.queue_depth for u in updaters.values())
+                   and time.perf_counter() < deadline):
+                time.sleep(0.02)
+    finally:
+        eng.stop()
+
+    per_tenant, worst_p99, modes_all, goodput = {}, 0.0, {}, []
+    events = obs.events("live_update")
+    for name, w in zip(names, weights):
+        p50 = obs.histogram_quantile("serving.e2e_seconds", 0.5,
+                                     tenant=name)
+        p99 = obs.histogram_quantile("serving.e2e_seconds", 0.99,
+                                     tenant=name)
+        scored = obs.histogram_count("serving.e2e_seconds", tenant=name)
+        if scored == 0:
+            raise SystemExit(f"serve-bench: tenant {name!r} completed no "
+                             "request — its histogram is empty")
+        shed_obs = obs.counter_value("serving.shed", tenant=name)
+        admitted = obs.counter_value("serving.requests", tenant=name)
+        if shed[name] != shed_obs:
+            raise RuntimeError(f"serve-bench: tenant {name!r}: the load loop "
+                               f"counted {shed[name]} shed, obs {shed_obs}")
+        served = obs.counter_value("tenancy.served_rows", tenant=name)
+        goodput.append(served / w)
+        modes = {}
+        for e in events:
+            if e.get("tenant") == name:
+                modes[e["mode"]] = modes.get(e["mode"], 0) + 1
+        for m, c in modes.items():
+            modes_all[m] = modes_all.get(m, 0) + c
+        worst_p99 = max(worst_p99, p99)
+        per_tenant[name] = {
+            "p50_ms": round(p50 * 1e3, 3),
+            "p99_ms": round(p99 * 1e3, 3),
+            "slo_met": bool(p99 * 1e3 <= args.slo_ms),
+            "scored": int(scored),
+            "shed_rate": (round(shed_obs / (admitted + shed_obs), 4)
+                          if admitted + shed_obs else 0.0),
+            "served_rows": int(served),
+            "weight": w,
+            **({"publish_modes": modes} if modes else {}),
+        }
+    fairness = (max(goodput) / min(goodput)) if min(goodput) else None
+    all_in_slo = all(t["slo_met"] for t in per_tenant.values())
+    # fairness is a property of contention: judged only when some tenant
+    # shed (always reported)
+    contended = any(shed[name] > 0 for name in names)
+    fair_ok = (not contended or (fairness is not None
+                                 and fairness <= args.fairness_bound))
+    result = {
+        "metric": "tenancy_worst_p99_ms",
+        "value": round(worst_p99 * 1e3, 3),
+        "unit": "ms",
+        "slo_ms": args.slo_ms,
+        "fairness_ratio": (round(fairness, 3)
+                           if fairness is not None else None),
+        "fairness_bound": args.fairness_bound,
+        "fairness_judged": contended,
+        "slo_met": bool(all_in_slo and fairness is not None and fair_ok),
+        "tenants": per_tenant,
+        "shape_classes": {k: sorted(v) for k, v in
+                          eng.registry.shape_classes().items()},
+        **({"publish_modes": modes_all} if modes_all else {}),
+        "config": {
+            "path": path, "tenants": args.tenants,
+            "tenant_weights": weights, "users": args.users,
+            "items": args.items, "rank": args.rank, "k": args.k,
+            "shortlist_k": args.shortlist_k, "qps": args.qps,
+            "qps_per_tenant": per_qps, "duration_s": args.duration,
+            "max_queue": args.max_queue,
+            "max_wait_ms": args.max_wait_ms,
+            "deadline_ms": args.deadline_ms,
+            "update_qps": args.update_qps,
+        },
+    }
+    print(json.dumps(result))
+    if args.bench_json:
+        _bank(args, result, "tpu_als_torch serve-bench --tenants")
+    return result
+
+
+def _publish_probe(engine, model, dev):
+    """The incremental publish priced against a rebuild: min of 3 of
+    ``with_updates`` on 64 rows and of ``build_index`` of the catalog
+    (host clock, the device synchronized), or {} when serving exact."""
+    import torch
+
+    from tpu_als_torch.serving import build_index
+
+    idx = engine.published_index
+    if idx is None:
+        return {}
+    Vcur = model._V.detach().to("cpu", torch.float32).numpy()
+    pr = np.arange(min(64, idx.n_items), dtype=np.int64)
+    vr = np.ascontiguousarray(Vcur[pr])
+
+    def _min3(fn):
+        best = float("inf")
+        for _ in range(3):
+            tp = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - tp)
+        return best
+
+    d_s = _min3(lambda: idx.with_updates(pr, vr, seq=idx.seq + 1))
+    f_s = _min3(lambda: build_index(Vcur, shortlist_k=idx.shortlist_k,
+                                    device=dev))
+    return {"publish_delta_ms": round(d_s * 1e3, 3),
+            "publish_full_ms": round(f_s * 1e3, 3),
+            "publish_speedup": round(f_s / d_s, 2) if d_s else None,
+            "probe_rows": int(pr.size),
+            "catalog_rows": int(idx.n_items)}
+
+
 def cmd_serve_bench(args):
     """Open-loop serving latency benchmark: seeded factors, a fixed
     request rate for a fixed window, p50/p99/shed read back from the obs
-    histograms and judged against ``--slo-ms``."""
-    import datetime as _dt
+    histograms and judged against ``--slo-ms``.  ``--update-qps > 0``
+    adds the live stream (headline ``live_freshness_p99_ms``);
+    ``--tenants N`` is :func:`_serve_bench_tenants`."""
+    import threading
 
     from tpu_als_torch import obs, plan
-    from tpu_als_torch.serving import ServingEngine
+    from tpu_als_torch.serving import Overloaded, ServingEngine
     from tpu_als_torch.utils.platform import resolve_device
 
-    if args.update_qps > 0 or args.tenants:
-        raise NotImplementedError(
-            "serve-bench --update-qps/--tenants: the live loop (live/) and "
-            "tenancy (tenancy/) are not ported yet (ROADMAP Queue 1 item 4)")
     dev = resolve_device(args.device)
+    if args.tenants:
+        return _serve_bench_tenants(args, dev)
     rng = np.random.default_rng(args.seed)
     U = rng.normal(size=(args.users, args.rank)).astype(np.float32)
     V = rng.normal(size=(args.items, args.rank)).astype(np.float32)
@@ -440,6 +902,27 @@ def cmd_serve_bench(args):
     with obs.span("serve_bench.warmup"):
         engine.warmup()
 
+    updater, srv, upd_stats = None, None, {"shed": 0}
+    if args.update_qps > 0:
+        from tpu_als_torch.live import LiveUpdater
+
+        srv = _live_server(U, V, args.rank, dev)
+        updater = LiveUpdater(
+            engine, srv, max_batch=args.update_max_batch,
+            max_wait_ms=args.update_max_wait_ms,
+            slo_s=args.freshness_slo_ms / 1e3,
+            fold_items=args.update_items, device=dev)
+        with obs.span("serve_bench.live_prewarm"):
+            srv.prewarm(rows=_prewarm_ladder(updater.max_batch),
+                        widths=(1, 2),
+                        sides=(("user", "item") if args.update_items
+                               else ("user",)))
+            if args.update_items and not args.exact:
+                # each event touches one item: the delta segment never
+                # outgrows the stream's own event count
+                engine.warmup_live(max_delta_rows=max(
+                    1, int(args.update_qps * args.duration)))
+
     path = "exact" if args.exact else "int8"
     n_req = max(1, int(args.qps * args.duration))
     print(f"serve-bench: {n_req} requests at {args.qps:g} rps over "
@@ -449,12 +932,49 @@ def cmd_serve_bench(args):
     uids = rng.integers(0, args.users, n_req)
     payloads = [U[uids[j]] if foldin_ids[j] else int(uids[j])
                 for j in range(n_req)]
+
+    upd_thread = None
+    if updater is not None:
+        n_upd = max(1, int(args.update_qps * args.duration))
+        upd_u = rng.integers(0, args.users, n_upd)
+        upd_i = rng.integers(0, args.items, n_upd)
+        upd_r = rng.uniform(0.5, 5.0, n_upd).astype(np.float32)
+        upd_r[rng.random(n_upd) < args.update_poison_frac] = np.nan
+        print(f"serve-bench: +{n_upd} rating events at "
+              f"{args.update_qps:g}/s (live fold-in -> publish, "
+              f"freshness SLO {args.freshness_slo_ms:g}ms)",
+              file=sys.stderr)
+
+        def _drive_updates():
+            tu = time.perf_counter()
+            for j in range(n_upd):
+                delay = tu + j / args.update_qps - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                try:
+                    updater.submit(int(upd_u[j]), int(upd_i[j]),
+                                   float(upd_r[j]))
+                except Overloaded:
+                    upd_stats["shed"] += 1
+
+        updater.start()
+        upd_thread = threading.Thread(target=_drive_updates,
+                                      name="serve-bench-updates")
     engine.start()
     try:
         with obs.span("serve_bench.drive"):
+            if upd_thread is not None:
+                upd_thread.start()
             shed = open_loop(engine, payloads, args.qps,
                              max(5.0, 10 * args.slo_ms / 1e3))
+            if upd_thread is not None:
+                upd_thread.join()
+                # freshness is judged on a DRAINED queue
+                updater.stop(drain_timeout_s=max(
+                    30.0, 10 * args.freshness_slo_ms / 1e3))
     finally:
+        if updater is not None:
+            updater.stop()
         engine.stop()
 
     p50 = obs.histogram_quantile("serving.e2e_seconds", 0.5)
@@ -468,7 +988,7 @@ def cmd_serve_bench(args):
         raise SystemExit("serve-bench: no request completed — the "
                          "latency histograms are empty")
     if shed != shed_obs:
-        raise RuntimeError(f"serve-bench: the driver counted {shed} shed "
+        raise RuntimeError(f"serve-bench: the load loop counted {shed} shed "
                            f"requests, obs {shed_obs}")
     result = {
         "metric": "serve_e2e_p99_ms",
@@ -508,17 +1028,47 @@ def cmd_serve_bench(args):
         sample = [bq[0]] * 50 + [bq[1]] * 40 + [bq[2]] * 9 + [bq[3]]
         result["derived_buckets"] = list(plan.resolve_serving_buckets(
             rank=args.rank, observed=sample))
+    if updater is not None:
+        fr_p50 = obs.histogram_quantile("live.freshness_seconds", 0.5)
+        fr_p99 = obs.histogram_quantile("live.freshness_seconds", 0.99)
+        fr_n = obs.histogram_count("live.freshness_seconds")
+        if fr_n == 0:
+            raise SystemExit("serve-bench: no update event reached a "
+                             "publish — the freshness histogram is empty")
+        modes = {}
+        for e in obs.events("live_update"):
+            modes[e["mode"]] = modes.get(e["mode"], 0) + 1
+        result.update({
+            "metric": "live_freshness_p99_ms",
+            "value": round(fr_p99 * 1e3, 3),
+            "slo_ms": args.freshness_slo_ms,
+            "slo_met": bool(fr_p99 * 1e3 <= args.freshness_slo_ms),
+            "p50_ms": round(fr_p50 * 1e3, 3),
+            "serve": {
+                "p99_ms": round(p99 * 1e3, 3),
+                "p50_ms": round(p50 * 1e3, 3),
+                "slo_ms": args.slo_ms,
+                "slo_met": bool(p99 * 1e3 <= args.slo_ms),
+            },
+            "live": {
+                "events_scored": int(fr_n),
+                "updates_shed": int(upd_stats["shed"]),
+                "quarantined_rows": int(
+                    obs.counter_value("ingest.quarantined_rows")),
+                "publish_modes": modes,
+                **_publish_probe(engine, srv.model, dev),
+            },
+        })
+        result["config"].update({
+            "update_qps": args.update_qps,
+            "update_items": bool(args.update_items),
+            "update_poison_frac": args.update_poison_frac,
+            "update_max_batch": updater.max_batch,
+            "update_max_wait_ms": updater.max_wait_s * 1e3,
+        })
     print(json.dumps(result))
     if args.bench_json:
-        with open(args.bench_json, "w") as f:
-            json.dump({
-                **result,
-                "banked_by": "tpu_als_torch serve-bench",
-                "banked_at": _dt.datetime.now(
-                    _dt.timezone.utc).isoformat(timespec="seconds"),
-            }, f, indent=2)
-            f.write("\n")
-        print(f"result banked to {args.bench_json}", file=sys.stderr)
+        _bank(args, result, "tpu_als_torch serve-bench")
     return result
 
 
@@ -528,7 +1078,7 @@ def main(argv=None):
     t = sub.add_parser("train", help="fit an ALS model on one device")
     t.add_argument("--data", required=True,
                    help="ml-100k:PATH | dat:PATH | csv:PATH | "
-                        "synthetic:UxIxN")
+                        "stream:PATH | synthetic:UxIxN")
     t.add_argument("--rank", type=int, default=10)
     t.add_argument("--max-iter", type=int, default=10)
     t.add_argument("--reg-param", type=float, default=0.1)
@@ -581,13 +1131,15 @@ def main(argv=None):
     r.add_argument("--limit", type=int, default=20,
                    help="max users to print (0 = all)")
     r.add_argument("--foldin-data", default=None,
-                   help="ratings (csv:PATH) to fold into the user factors "
+                   help="ratings (csv:PATH | stream:PATH) to fold into "
+                        "the user factors "
                         "before recommending")
     r.add_argument("--titles", default=None,
                    help="movie metadata (u.item, movies.dat, movies.csv, "
                         "or their directory): print each item's title")
     r.add_argument("--foldin-items-data", default=None,
-                   help="ratings (csv:PATH) whose items are folded in "
+                   help="ratings (csv:PATH | stream:PATH) whose items "
+                        "are folded in "
                         "against the fixed user factors; applied before "
                         "--foldin-data")
     r.add_argument("--device", default=None,
@@ -670,11 +1222,38 @@ def main(argv=None):
                          "(merge_ring for k <= 128); local ignores the "
                          "mesh")
     sb.add_argument("--update-qps", type=float, default=0.0,
-                    help="the live update stream: not ported yet "
-                         "(> 0 raises NotImplementedError)")
+                    help="concurrent rating-event rate through the live "
+                         "fold-in -> publish pipeline; > 0 makes the "
+                         "headline metric live_freshness_p99_ms")
+    sb.add_argument("--freshness-slo-ms", type=float, default=5000.0,
+                    help="arrival -> servable p99 target for the live "
+                         "stream (a breach dumps the updater's flight "
+                         "ring)")
+    sb.add_argument("--update-poison-frac", type=float, default=0.0,
+                    help="fraction of update events with a non-finite "
+                         "rating: quarantined, never folded")
+    sb.add_argument("--update-items", action="store_true",
+                    help="also fold the ITEM side of each micro-batch "
+                         "(the index's incremental delta re-quantization)")
+    sb.add_argument("--update-max-batch", type=int, default=None,
+                    help="live micro-batch cap (default: the planner's "
+                         "live cadence)")
+    sb.add_argument("--update-max-wait-ms", type=float, default=None,
+                    help="live micro-batch deadline (default: the "
+                         "planner's live cadence)")
     sb.add_argument("--tenants", type=int, default=0,
-                    help="the multi-tenant variant: not ported yet "
-                         "(raises NotImplementedError)")
+                    help=">= 2 runs the multi-tenant variant: N "
+                         "same-shaped models behind one MultiTenantEngine, "
+                         "equal open-loop load per tenant, headline "
+                         "tenancy_worst_p99_ms judged per tenant plus a "
+                         "goodput fairness ratio")
+    sb.add_argument("--tenant-weights", default=None,
+                    help="comma-separated fair-share weights, one per "
+                         "tenant (default: all 1.0); the fairness ratio is "
+                         "computed on served rows per weight")
+    sb.add_argument("--fairness-bound", type=float, default=1.5,
+                    help="max/min weighted-goodput ratio above which the "
+                         "multi-tenant report fails its SLO")
     sb.add_argument("--seed", type=int, default=0)
     sb.add_argument("--bench-json", default=None, metavar="PATH",
                     help="also bank the result JSON (with banked_at "

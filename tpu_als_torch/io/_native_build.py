@@ -1,7 +1,8 @@
 """Build the host C++ sources under ``io/native/`` with ``g++`` at first use.
 
 Counterpart of ``tpu_als/io/_native_build.py``: one build-if-stale rule
-for the native IO libraries (the bucketizer and the CSV reader).  A
+for the native IO libraries (the bucketizer, the CSV reader and the
+stream reader's interner).  A
 library is compiled to a private temporary file and renamed into place,
 so two processes racing to build on a clean checkout can never load a
 half-written ``.so``: the rename is atomic within a directory, and the

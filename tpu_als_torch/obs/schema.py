@@ -6,13 +6,14 @@ guardrails' trips and rollbacks, the estimator's quarantine of poisoned
 ratings, the fault points, the retry helper, the checkpoints, the
 fold-in server, the serving engine (its histograms, gauge and counters,
 publishes, backend and flight records, and the causal-trace hops of a
-request) and the run's final snapshot and spans.  The registry
+request), the stream reader, the live updater, the tenancy control
+plane and the run's final snapshot and spans.  The registry
 (:mod:`tpu_als_torch.obs.metrics`) checks every name against these
 tables when it is written, so an undeclared name raises instead of
 minting a series nothing downstream reads.  Help texts are the
 reference's, so the two packages' Prometheus texts agree.  The other
-rows of the reference (live, tenancy, soak, scenario, plan, elastic)
-arrive with the modules that write them.
+rows of the reference (soak, scenario, plan, elastic, the training
+stage and comm gauges) arrive with the modules that write them.
 """
 
 from __future__ import annotations
@@ -84,8 +85,48 @@ METRICS = {
         "counter", "bytes", "bytes read by load_factors"),
     "ingest.quarantined_rows": (
         "counter", "rows",
-        "rating records the estimator's input scrub set aside (non-"
-        "finite or out of range) instead of aborting the fit"),
+        "rating records routed to the quarantine sink by stream_ingest "
+        "or the estimator's input scrub (malformed, non-finite, or "
+        "out-of-range) instead of aborting the ingest"),
+    "ingest.rows": (
+        "counter", "rows", "rating rows parsed by stream_ingest"),
+    "ingest.bytes": (
+        "counter", "bytes", "file bytes read by stream_ingest"),
+    "ingest.stall_seconds": (
+        "counter", "seconds",
+        "time stream_ingest spent blocked in file reads (I/O stall, "
+        "as opposed to parse/intern time)"),
+    "live.freshness_seconds": (
+        "histogram", "seconds",
+        "rating-arrival -> servable: from the event entering the live "
+        "updater's admission queue to its fold-in's publish seq being "
+        "visible to the score path (tpu_als.live.updater)"),
+    "live.batch_rows": (
+        "histogram", "rows",
+        "rating events per live-updater micro-batch (accumulation "
+        "bounded by the planner's max_batch/max_wait_ms cadence)"),
+    "live.shed": (
+        "counter", "events",
+        "rating events refused at the live updater's admission queue "
+        "(queue at capacity; the typed Overloaded the producer sees)"),
+    "live.queue_depth": (
+        "gauge", "events",
+        "live-updater admission backlog sampled after each micro-batch "
+        "dequeue"),
+    "tenancy.tenants": (
+        "gauge", "tenants",
+        "models currently registered with the multi-tenant control "
+        "plane (tpu_als.tenancy.registry)"),
+    "tenancy.served_rows": (
+        "counter", "rows",
+        "requests completed per tenant by the fair-share scheduler "
+        "(labeled tenant=<name>; the goodput series the fairness "
+        "ratio is computed from)"),
+    "tenancy.batch_errors": (
+        "counter", "batches",
+        "micro-batches whose scoring raised, failed in isolation "
+        "(labeled tenant=<name>: the failing tenant's tickets erred, "
+        "every other tenant kept serving)"),
 }
 
 # metric name -> label keys its writers may attach; a metric absent from
@@ -104,16 +145,34 @@ LABELS = {
     "serving.fallback_exact": ("tenant",),
     "serving.publishes": ("tenant",),
     "serving.publish_seconds": ("mode", "tenant"),
+    "live.freshness_seconds": ("tenant",),
+    "live.batch_rows": ("tenant",),
+    "live.shed": ("tenant",),
+    "live.queue_depth": ("tenant",),
+    "tenancy.served_rows": ("tenant",),
+    "tenancy.batch_errors": ("tenant",),
 }
 
+# every metric allowed to carry the multi-tenant attribution label,
+# derived from LABELS so it can never drift from the table above
+TENANT_LABELED = tuple(sorted(
+    n for n, keys in LABELS.items() if "tenant" in keys))
+
 # -- causal-trace vocabulary (tpu_als_torch/obs/tracing.py) ----------------
-# every hop a request takes is one named span, validated when recorded;
-# the live, tenancy and elastic hops arrive with their modules
+# every hop a request or rating event takes is one named span, validated
+# when recorded; the elastic hops arrive with their module
 TRACE_SPANS = (
     "serve.admit",        # request admitted at the serving front door
     "serve.queue",        # waited in the MicroBatcher admission queue
+    "tenancy.round",      # drained by one fair-share scheduler round
     "serve.score",        # scored on device (path=int8|exact|...)
     "serve.expired",      # deadline passed while queued
+    "live.admit",         # rating event admitted by the live updater
+    "live.queue",         # waited in the live admission queue
+    "live.quarantine",    # poisoned event dropped before the factors
+    "live.foldin",        # folded into the touched factor rows
+    "live.publish",       # rode an incremental publish_update
+    "live.visible",       # its publish seq became score-path visible
 )
 
 # per-span outcome vocabulary: "ok", or the typed refusal/failure
@@ -122,6 +181,8 @@ TRACE_STATUSES = ("ok", "shed", "expired", "failed", "quarantined")
 # the serving flight recorder's per-record span breakdown
 SERVE_SPAN_KEYS = ("admission", "queue_wait", "score", "rescore",
                    "respond")
+# the live updater's flight recorder's per-batch span breakdown
+LIVE_SPAN_KEYS = ("queue_wait", "quarantine", "foldin", "publish")
 
 # event type -> (required fields beyond ts/type, help text).  Extra
 # fields are allowed; a missing required field raises when emitted.
@@ -199,11 +260,37 @@ EVENTS = {
         "recover-mode guardrails restored the last-good factor snapshot "
         "(seeded perturbation + regularization bump) and are retrying "
         "the iteration"),
+    "ingest": (
+        ("path", "rows", "bytes", "seconds", "stall_seconds"),
+        "one per stream_ingest call: this host's parsed totals"),
     "ingest_quarantined": (
         ("path", "rows", "reasons"),
-        "one per ingest call that quarantined records: total rows set "
-        "aside and the per-reason breakdown (malformed/nonfinite/"
-        "out_of_range)"),
+        "one per ingest call that quarantined records: total rows "
+        "routed to the sink and the per-reason breakdown "
+        "(malformed/nonfinite/out_of_range); mirrors checkpoint's "
+        ".corrupt/ convention"),
+    "live_update": (
+        ("seq", "events", "touched", "mode"),
+        "one per live-updater micro-batch published: the resulting "
+        "publish seq, rating events folded, catalog rows touched, and "
+        "the publish mode (retag|delta|compact|full|none) "
+        "(tpu_als.live.updater)"),
+    "live_freshness_breach": (
+        ("seq", "freshness_seconds", "slo_s"),
+        "a live update's arrival->servable freshness exceeded the SLO; "
+        "the updater's flight-recorder tail (queue_wait/quarantine/"
+        "foldin/publish spans) is dumped alongside with "
+        "trigger='freshness_breach'"),
+    "tenant_registered": (
+        ("tenant", "users", "items", "shape_class"),
+        "one per TenantRegistry.register: the tenant's published table "
+        "sizes and its planner shape-class (tenants sharing a "
+        "shape-class share the plan-cache entry and, with equal "
+        "rank/buckets, the compiled scoring executables)"),
+    "tenant_removed": (
+        ("tenant",),
+        "a tenant was deregistered from the control plane; its engine "
+        "was stopped and its device buffers released"),
     "snapshot": (
         ("counters", "gauges", "histograms"),
         "final registry state, appended once by finalize() so the JSONL "

@@ -1,15 +1,17 @@
 """The execution planner's serving resolvers, disarmed.
 
-Counterpart of ``resolve_serving_buckets`` and ``resolve_live_cadence``
-in ``tpu_als/plan/planner.py`` as they resolve with the reference's plan
+Counterpart of ``shape_class``, ``resolve_serving_buckets``,
+``resolve_live_cadence`` and ``resolve_tenant_plan`` in
+``tpu_als/plan/planner.py`` as they resolve with the reference's plan
 cache off: an explicit request passes through, an observed request-size
 mix gives a power-of-two quantile ladder, and the default is the
 built-in constant.  The port has no plan cache yet (nothing is banked,
-nothing is read back, no ``plan_*`` event is emitted), and no
-``resolve_tenant_plan`` (ROADMAP Queue 1).
+nothing is read back, no ``plan_*`` event is emitted; ROADMAP Queue 1).
 """
 
 from __future__ import annotations
+
+import math
 
 from tpu_als_torch.core.ratings import _next_pow2
 
@@ -62,3 +64,30 @@ def resolve_live_cadence(*, rank=0, requested=None):
             "max_wait_ms": float(out["max_wait_ms"]),
             "compact_delta_frac": float(out["compact_delta_frac"]),
             "compact_min_rows": int(out["compact_min_rows"])}
+
+
+def shape_class(n_users=None, n_items=None, nnz=None):
+    """Coarse log2 bucketing of a problem's sizes, so near-identical
+    sizes share a plan; ``"generic"`` when no size is given."""
+    if n_users is None and n_items is None and nnz is None:
+        return "generic"
+
+    def b(x):
+        return "?" if not x else f"2^{int(math.log2(max(1, int(x))))}"
+
+    return f"u{b(n_users)}.i{b(n_items)}.nnz{b(nnz)}"
+
+
+def resolve_tenant_plan(*, rank, n_users=None, n_items=None,
+                        requested_buckets=None, requested_cadence=None):
+    """One tenant's plan for the multi-tenant control plane: its serving
+    bucket ladder, its live cadence and its ``shape_class``.  Neither
+    component keys on the tenant's name, so same-shaped tenants resolve
+    to the same plan."""
+    return {
+        "shape_class": shape_class(n_users=n_users, n_items=n_items),
+        "buckets": resolve_serving_buckets(rank=rank,
+                                           requested=requested_buckets),
+        "cadence": resolve_live_cadence(rank=rank,
+                                        requested=requested_cadence),
+    }

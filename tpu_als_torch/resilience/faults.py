@@ -5,7 +5,7 @@ switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
 
-The port wires five points so far (the others of the reference arrive
+The port wires seven points so far (the others of the reference arrive
 with their modules):
 
 ========================  ====================================================
@@ -27,6 +27,13 @@ with their modules):
 ``serving.score``         per micro-batch in ``ServingEngine.serve_batch``
                           (corrupt = treat the index as stale for the
                           batch; raise = fail the batch's tickets)
+``ingest.read_chunk``     per chunk read in ``io.stream.stream_ingest``
+                          (raise = a transient read error, retried;
+                          corrupt = a stray newline tears a line, which
+                          the strict parser rejects)
+``ingest.record``         per record of a chunk in ``io.stream``, walked
+                          only when armed (corrupt = the record's rating
+                          rewritten to ``nan`` before parsing)
 ========================  ====================================================
 
 Spec grammar (``TPU_ALS_FAULT_SPEC`` env var, or :func:`install`)::
@@ -58,7 +65,8 @@ import warnings
 from tpu_als_torch import obs
 
 FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "solve.gram",
-                "serving.publish", "serving.score")
+                "serving.publish", "serving.score", "ingest.read_chunk",
+                "ingest.record")
 
 MODES = ("raise", "corrupt", "hang")
 

@@ -170,7 +170,29 @@ Phases (any failure exits non-zero before the final line):
    --update-qps 100`` at the full catalog, as processes side by side,
    their JSON keys the reference's (``LIVE_BENCH_SHAPE``,
    ``TENANT_BENCH_SHAPE``);
-10. timings at the slices' shapes (CUDA events), each kernel beside its
+10. the two-tower model (BASELINE config 5, ``bench.py::run_twotower``'s
+   workload) and the rest of ``train``'s command line: 20,000 users x
+   4,000 items x 800,000 synthetic ratings, the positives (r >= 3.5) with
+   10 % held out; (a) the ALS warm start through ``core.als.train``
+   (rank 32, 8 iterations, implicit, alpha 20, regParam 0.005; K4, and
+   K3 + K1 on rows wider than the split width, counted); (b)
+   ``train_two_tower`` (embed 32 -> hidden 64 -> out 32, batch 4,096)
+   warm, then cold, 20 epochs each: filtered recall@10 at epochs 1, 3,
+   5, 10 and 20 (warm also with ``serving_bias``), each epoch's wall
+   without the evaluation, then the warm model's unfiltered recall@10
+   through K5 (counted), and the same users' top-10 by K5 and by the
+   plain chunked scan on the card, every id earning its score; (c) the
+   warm run's first epoch again on the CPU from the same init and
+   permutation, per-step losses within TT_LOSS_RTOL, after one more
+   epoch under the profiler (kernels, busy and idle a step); (d)
+   ``tt-train`` at that shape (5 epochs, its keys the reference's, its
+   save loaded) and ``train --log-file --profile-dir`` at rank 128 on
+   phase 9's 1M-row prefix, side by side, then ``observe summarize
+   --json`` (three iterations with finite ``probe_rmse``; the
+   ``cli.train``, ``data.load``, ``train.block`` and ``train.fit``
+   phases) and ``observe tail``, as processes; the profiler's trace
+   names K4's kernel;
+11. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -195,7 +217,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-11. where the time goes: one training iteration, one more fold-in
+12. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, and one rank-256 iteration and
     fold-in batch, then the serving engine's batches of 8 on its int8
     and exact routes, under ``torch.profiler`` (wall, device busy, idle
@@ -215,6 +237,7 @@ port) at 1,979 TOP/s (dense int8).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1063,12 +1086,13 @@ def write_ratings_csv(path, frame):
     return body.shape[1]   # bytes a line
 
 
-def csv_phase(frame, seed):
+def csv_phase(frame, seed, keep):
     """Parse a ``ratings.csv`` written from the synthetic frame with the
     native reader (``load_movielens_csv``, every row) and with its Python
     twin (the first CSV_TWIN_ROWS rows): each equal to the frame, rows a
     second on the host's clock.  Phase 9's (a) and (b) run here, on the
-    same file and prefix while they exist; returns their seconds."""
+    same file and prefix while they exist; returns their seconds.  The
+    prefix is copied to ``keep/prefix.csv`` for phase 10(d)."""
     n = len(frame["user"])
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/ratings.csv"
@@ -1094,6 +1118,7 @@ def csv_phase(frame, seed):
                     or twin[c].dtype != got[c].dtype:
                 fail(f"CSV twin: column {c} differs from the native reader")
         del twin
+        shutil.copy(prefix, os.path.join(keep, "prefix.csv"))
         t9 = time.perf_counter()
         stream_ingest_phase(path, got)
         del got
@@ -1854,6 +1879,34 @@ def recommend_zero(model):
         f"{recs['recommendations'].shape}; no launch")
 
 
+def dense_half_step_f64(F, rows, cols, vals, n_rows, reg, alpha):
+    """One implicit half-step against the factors ``F`` in float64,
+    densely, on F's device: W[i, u] sums the confidences of row i's
+    ratings by column u (duplicates add, as the gathered entries do)."""
+    dev, r = F.device, F.shape[1]
+    F64 = F.double()
+    rows = torch.as_tensor(np.asarray(rows), device=dev).long()
+    cols = torch.as_tensor(np.asarray(cols), device=dev).long()
+    vals = torch.as_tensor(np.asarray(vals), device=dev).double()
+    conf, pref = alpha * vals.abs(), (vals > 0).double()
+    W = torch.zeros(n_rows, F.shape[0], dtype=torch.float64, device=dev)
+    P = torch.zeros_like(W)
+    W.index_put_((rows, cols), conf, accumulate=True)
+    P.index_put_((rows, cols), (1.0 + conf) * pref, accumulate=True)
+    cnt = torch.zeros(n_rows, dtype=torch.float64, device=dev)
+    cnt.index_put_((rows,), pref, accumulate=True)
+    eye = torch.eye(r, dtype=torch.float64, device=dev)
+    FtF = F64.T @ F64
+    x64 = torch.empty(n_rows, r, dtype=torch.float64, device=dev)
+    step = max(1, (1 << 26) // (F.shape[0] * r))   # 512 MB of W * F a step
+    for s0 in range(0, n_rows, step):
+        sl = slice(s0, s0 + step)
+        A = (W[sl, :, None] * F64[None]).transpose(1, 2) @ F64 \
+            + FtF + (reg * cnt[sl] + 1e-6)[:, None, None] * eye
+        x64[sl] = torch.linalg.solve(A, (P[sl] @ F64)[..., None])[..., 0]
+    return x64
+
+
 def rank320_fit(seed, dev):
     """``ALS(rank=320).fit`` on the card, above K3/K4's rank: 'auto'
     takes the einsum route, whose solves are K6's fused entry (streamed).
@@ -1883,28 +1936,8 @@ def rank320_fit(seed, dev):
                              reg_param=REG)
     x = core_als.local_half_step(U, icsr.to(dev), len(imap), cfg,
                                  compute_yty(U))
-    # the same normal equations in float64, densely: W[i, u] sums the
-    # confidences of item i's ratings by user u (duplicates add, as the
-    # gathered entries do)
-    n_items, n_users = len(imap), U.shape[0]
-    U64 = U.double()
-    rows = torch.from_numpy(i_idx).to(dev)
-    cols = torch.from_numpy(u_idx).to(dev)
-    vals = torch.from_numpy(frame["rating"]).to(dev).double()
-    conf, pref = ALPHA * vals.abs(), (vals > 0).double()
-    W = torch.zeros(n_items, n_users, dtype=torch.float64, device=dev)
-    P = torch.zeros_like(W)
-    W.index_put_((rows, cols), conf, accumulate=True)
-    P.index_put_((rows, cols), (1.0 + conf) * pref, accumulate=True)
-    cnt = torch.zeros(n_items, dtype=torch.float64, device=dev)
-    cnt.index_put_((rows,), pref, accumulate=True)
-    eye = torch.eye(320, dtype=torch.float64, device=dev)
-    x64 = torch.empty(n_items, 320, dtype=torch.float64, device=dev)
-    for s0 in range(0, n_items, 100):
-        sl = slice(s0, s0 + 100)
-        A = (W[sl, :, None] * U64[None]).transpose(1, 2) @ U64 \
-            + U64.T @ U64 + (REG * cnt[sl] + 1e-6)[:, None, None] * eye
-        x64[sl] = torch.linalg.solve(A, (P[sl] @ U64)[..., None])[..., 0]
+    x64 = dense_half_step_f64(U, i_idx, u_idx, frame["rating"], len(imap),
+                              REG, ALPHA)
     err = row_rel(x.double(), x64)
     log(f"rank 320: one item half-step on the card vs float64: max "
         f"per-row |diff|/|x| {err:.3e} (tol {TRAIN_REL})")
@@ -3140,7 +3173,404 @@ def live_tenancy_phase(fitted, rng, dev, smi, p8):
     return secs
 
 
-# -- phase 10 --------------------------------------------------------------
+# -- phase 10: the two-tower model and train's observability ---------------
+TT_SHAPE = (20_000, 4_000, 800_000)     # bench.py run_twotower (config 5)
+TT_EPOCHS = 20
+TT_MILESTONES = (1, 3, 5, 10, 20)       # the recall curve's epochs
+TT_CLI_EPOCHS = 5                       # (d): tt-train as a process
+TT_ALS = dict(rank=32, max_iter=8, reg_param=0.005, implicit_prefs=True,
+              alpha=20.0)               # the warm start, as tt-train's
+# (c): the first epoch's per-step losses, the card against the CPU from
+# one init and one permutation, relative: tests/test_torch_two_tower.py's
+# band for the port against the reference (epoch losses, 1e-5)
+TT_LOSS_RTOL = 1e-5
+TT_KEYS = {"filtered_recall_at_10", "train_pairs", "test_pairs", "users",
+           "items", "epochs", "warm_start", "saved"}
+TRAIN_PHASES = {"cli.train", "cli.train/data.load",
+                "cli.train/train.block", "cli.train/train.fit"}
+K4_KERNEL = "row_gram_kernel"           # K4's first pass, csrc/gather_solve.cu
+
+
+def tt_data(seed):
+    """bench.py's config-5 data: positives (r >= 3.5) of the synthetic
+    ratings, 10 % held out by ``default_rng(2)``, the held-out pairs that
+    are also training pairs dropped."""
+    nU, nI, nnz = TT_SHAPE
+    frame = synthetic_movielens(nU, nI, nnz, seed=seed)
+    u, i, r = (np.asarray(frame[c]) for c in ("user", "item", "rating"))
+    pos = r >= 3.5
+    u, i, r = u[pos], i[pos], r[pos]
+    test = np.random.default_rng(2).random(len(u)) < 0.1
+    ut, it_ = u[test], i[test]
+    u2, i2, r2 = u[~test], i[~test], r[~test]
+    fresh = ~np.isin(ut.astype(np.int64) * nI + it_,
+                     np.unique(u2.astype(np.int64) * nI + i2))
+    return {"u2": u2, "i2": i2, "r2": r2, "ut": ut[fresh],
+            "it": it_[fresh], "nU": nU, "nI": nI}
+
+
+def tt_half_steps_vs_f64(U, V, ucsr, icsr, d, dev):
+    """(a) the warm start's kernels at rank 32, against float64: one item
+    half-step from the fitted U and one user half-step from the fitted V,
+    through the same route as the fit (K4; K3 and K1 on a side with a
+    row wider than SPLIT_WIDTH), each row held to its dense float64 solve
+    of the same normal equations within TRAIN_REL."""
+    cfg = core_als.AlsConfig(**TT_ALS)
+    for side, F, csr, rows, cols, n in (
+            ("item", U, icsr, d["i2"], d["u2"], d["nI"]),
+            ("user", V, ucsr, d["u2"], d["i2"], d["nU"])):
+        _zero_launches()
+        x = core_als.local_half_step(F, csr.to(dev), n, cfg, compute_yty(F))
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        wide = int(np.bincount(rows).max()) > core_als.SPLIT_WIDTH
+        if got["k4"] == 0 or (wide and (got["k3"] == 0 or got["k1"] == 0)):
+            fail(f"two-tower {side} half-step: launches {got}")
+        err = row_rel(x.double(), dense_half_step_f64(
+            F, rows, cols, d["r2"], n, TT_ALS["reg_param"],
+            TT_ALS["alpha"]))
+        log(f"(a) one {side} half-step at rank {TT_ALS['rank']} (K4 "
+            f"{got['k4']}, K3 {got['k3']}, K1 {got['k1']} launches) vs "
+            f"float64: max per-row |diff|/|x| {err:.3e} (tol {TRAIN_REL})")
+        if not err <= TRAIN_REL:
+            fail(f"two-tower {side} half-step: {err:.3e} off float64")
+
+
+@contextlib.contextmanager
+def recording_losses(out):
+    """Append every step's loss of ``train_two_tower`` (detached) to
+    ``out`` while the block runs."""
+    from tpu_als_torch.models import two_tower as tt
+
+    orig = tt.in_batch_softmax_loss
+
+    def recorded(*a, **k):
+        loss = orig(*a, **k)
+        out.append(loss.detach())
+        return loss
+
+    tt.in_batch_softmax_loss = recorded
+    try:
+        yield out
+    finally:
+        tt.in_batch_softmax_loss = orig
+
+
+def tt_fit(d, cfg, init, dev, tag, step_losses):
+    """``train_two_tower`` on the card from ``init``: each epoch's wall
+    (host clock, evaluation excluded), filtered recall@10 at the
+    milestones (and for the warm run with ``serving_bias``), the
+    per-step losses of every step into ``step_losses``."""
+    from tpu_als_torch.models import two_tower as tt
+
+    excl = (d["u2"], d["i2"])
+    bias = tt.serving_bias(np.bincount(d["i2"], minlength=d["nI"]),
+                           cfg.temperature)
+    walls, curve = [], {}
+    clock = [0.0]
+
+    def cb(epoch, loss, params):
+        walls.append(time.perf_counter() - clock[0])
+        if epoch in TT_MILESTONES:
+            rec = tt.recall_at_k(params, d["ut"], d["it"], k=10,
+                                 exclude=excl)
+            prior = (tt.recall_at_k(params, d["ut"], d["it"], k=10,
+                                    exclude=excl, item_bias=bias)
+                     if tag == "warm" else None)
+            curve[epoch] = (rec, prior)
+            log(f"(b) {tag} epoch {epoch}: loss {loss:.6f}, filtered "
+                f"recall@10 {rec:.4f}"
+                + (f" (with serving_bias {prior:.4f})" if prior is not None
+                   else "")
+                + f", epoch wall {walls[-1] * 1e3:.1f} ms")
+        clock[0] = time.perf_counter()
+
+    with recording_losses(step_losses):
+        clock[0] = time.perf_counter()
+        params = tt.train_two_tower(d["u2"], d["i2"], d["nU"], d["nI"], cfg,
+                                    callback=cb, init=init, device=dev)
+    return params, walls, curve
+
+
+def tt_top10_vs_plain(params, d, dev, rec):
+    """The users of the unfiltered recall (``rec``, through K5): their
+    top-10 by K5 and by the plain chunked scan on the card, every id of
+    both earning its score, the sorted scores within K5_TOL, the recall
+    of each."""
+    from tpu_als_torch.models import two_tower as tt
+
+    users, inv = np.unique(d["ut"], return_inverse=True)
+    with torch.no_grad():
+        zu = tt.user_repr(params, torch.as_tensor(users, device=dev))
+        zi = tt.item_repr(params, torch.arange(d["nI"], device=dev))
+    valid = torch.ones(d["nI"], dtype=torch.bool, device=dev)
+    recs = {}
+    for name, fn in (("K5", cuda_topk.topk_scores),
+                     ("plain scan", chunked_topk_scores)):
+        s, ix = fn(zu, zi, valid, 10)
+        err = earns_scores(zu, zi, valid, s, ix, f"two-tower top-10 ({name})")
+        hits = (ix.cpu().numpy()[inv] == d["it"][:, None]).any(axis=1)
+        recs[name] = (float(hits.mean()), err, s)
+    if recs["K5"][0] != rec:
+        fail(f"two-tower unfiltered recall {rec} != K5's own ids' "
+             f"{recs['K5'][0]}")
+    gap = (recs["K5"][2] - recs["plain scan"][2]).abs().max().item()
+    if gap > K5_TOL:
+        fail(f"two-tower top-10 scores: K5 vs the plain scan {gap:.3e}")
+    return recs, gap
+
+
+def tt_first_epoch_cpu(d, cfg, init, card_losses):
+    """(c) the warm run's first epoch on the CPU from the same init and
+    permutation: its per-step losses against the card's."""
+    from tpu_als_torch.models import two_tower as tt
+
+    cpu_losses = []
+    t0 = time.perf_counter()
+    with recording_losses(cpu_losses):
+        tt.train_two_tower(d["u2"], d["i2"], d["nU"], d["nI"],
+                           dataclasses.replace(cfg, epochs=1),
+                           init=init, device="cpu")
+    cpu = np.array([x.item() for x in cpu_losses])
+    card = np.array([x.item() for x in card_losses[:len(cpu)]])
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    if len(card) != len(cpu) or not np.isfinite(card).all() \
+            or rel.max() > TT_LOSS_RTOL:
+        fail(f"two-tower first epoch: card vs CPU losses off by "
+             f"{rel.max():.3e} relative (step {int(rel.argmax())}), "
+             f"band {TT_LOSS_RTOL}")
+    log(f"(c) the warm run's first epoch on the CPU ({len(cpu)} steps, "
+        f"{time.perf_counter() - t0:.1f} s): per-step losses within "
+        f"{rel.max():.3e} relative of the card's (band {TT_LOSS_RTOL}; "
+        f"step 1 {cpu[0]:.6f}, step {len(cpu)} {cpu[-1]:.6f})")
+
+
+def _trace_kernels(prof_dir, name):
+    """Kernel events in the Chrome traces under ``prof_dir`` whose name
+    holds ``name``."""
+    import glob
+
+    n, files = 0, sorted(glob.glob(os.path.join(prof_dir, "*.json")))
+    for path in files:
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+        n += sum(1 for e in evs if e.get("cat") == "kernel"
+                 and name in e.get("name", ""))
+    return n, files
+
+
+def start_tt_clis(keep, tmp, seed):
+    """(d) ``tt-train`` at config 5's shape and ``train --log-file
+    --profile-dir`` on phase 9's 1M-row prefix at rank 128, started side
+    by side (:func:`check_tt_clis` waits for them)."""
+    T, O = os.path.join(tmp, "tt"), os.path.join(tmp, "tt_obs")
+    M, L, P = (os.path.join(tmp, x) for x in ("m", "log.jsonl", "prof"))
+    nU, nI, nnz = TT_SHAPE
+    pt = start_probe(["tt-train", "--data", f"synthetic:{nU}x{nI}x{nnz}",
+                      "--epochs", str(TT_CLI_EPOCHS), "--seed", str(seed),
+                      "--output", T, "--obs-dir", O])
+    pm = start_probe(["train", "--data",
+                      f"csv:{os.path.join(keep, 'prefix.csv')}",
+                      "--rank", str(RANK), "--max-iter", "3", "--seed",
+                      str(seed), "--log-file", L, "--profile-dir", P,
+                      "--output", M])
+    return pt, pm, (T, M, L, P), time.perf_counter()
+
+
+def check_tt_clis(pt, pm, paths, t0):
+    """(d) the two processes' results, then ``observe summarize --json``
+    and ``observe tail`` on the train run, as processes."""
+    from tpu_als_torch.models import two_tower as tt
+
+    T, M, L, P = paths
+    tl, tk = finish_probe(pt, "tt-train")
+    ml, mk = finish_probe(pm, "train --log-file --profile-dir")
+    out = json.loads(tl[-1])
+    if set(out) != TT_KEYS or out["epochs"] != TT_CLI_EPOCHS \
+            or out["warm_start"] is not True \
+            or not 0.0 <= out["filtered_recall_at_10"] <= 1.0:
+        fail(f"tt-train: {out}")
+    m, cfg, nu, ni = tt.load_two_tower(T)
+    with torch.no_grad():
+        z = tt.user_repr(m, torch.arange(nu, device=m.user_embed.device))
+    if (nu, ni) != (out["users"], out["items"]) or cfg.epochs != \
+            TT_CLI_EPOCHS or not bool(torch.isfinite(z).all()):
+        fail(f"tt-train's save: {(nu, ni)}, {cfg}")
+    if tk["k4"] == 0 or mk["k4"] == 0:
+        fail(f"tt-train / train launches {tk} / {mk}: no K4")
+    holdout = json.loads(ml[-1])["holdout_rmse"]
+    procs = {"summarize": ["observe", "summarize", M, "--json"],
+             "tail": ["observe", "tail", M, "-n", "5"]}
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "tpu_als_torch.cli", *a],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for k, a in procs.items()}
+    res = {}
+    for k, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"observe {k}: no exit within 120 s")
+        if p.returncode != 0:
+            fail(f"observe {k} exited {p.returncode}: {se[-2000:]}")
+        res[k] = so
+    summ = json.loads(res["summarize"])
+    its = summ["iterations"]
+    if [e["iteration"] for e in its] != [1, 2, 3] or not all(
+            math.isfinite(e.get("probe_rmse", math.nan)) for e in its):
+        fail(f"observe summarize: iterations {its}")
+    if not TRAIN_PHASES <= set(summ["phases"]):
+        fail(f"observe summarize: phases {sorted(summ['phases'])}")
+    tail = [json.loads(x) for x in res["tail"].splitlines()]
+    if len(tail) != 5 or tail[-1]["type"] != "snapshot":
+        fail(f"observe tail: {tail}")
+    with open(L) as f:
+        logged = [json.loads(x) for x in f]
+    if [r["iteration"] for r in logged] != [1, 2, 3]:
+        fail(f"--log-file: {logged}")
+    k4_events, files = _trace_kernels(P, K4_KERNEL)
+    if k4_events == 0:
+        fail(f"--profile-dir: no {K4_KERNEL} kernel in {files}")
+    size = sum(os.path.getsize(f) for f in files)
+    log(f"(d) tt-train (config 5's shape, {TT_CLI_EPOCHS} epochs): "
+        f"{json.dumps(out)}; launches {tk}; its save loads")
+    log(f"(d) train --log-file --profile-dir (rank {RANK}, 3 iterations, "
+        f"{CSV_TWIN_ROWS} rows): holdout_rmse {holdout}, launches {mk}; "
+        f"probe_rmse {[round(e['probe_rmse'], 4) for e in its]}; phases "
+        + ", ".join(f"{p} {summ['phases'][p]['total_seconds']:.3f} s"
+                    for p in sorted(TRAIN_PHASES))
+        + f"; the trace ({len(files)} file, {size / 1e6:.1f} MB under "
+        f"--profile-dir) holds {k4_events} {K4_KERNEL} (K4) kernels; "
+        f"observe tail ends with a snapshot ({time.perf_counter() - t0:.1f}"
+        " s, four processes, beside (c))")
+
+
+def tt_profile_epoch(d, cfg, params, dev):
+    """One more epoch from the warm model under the profiler: the wall
+    and device busy time a step, the device's idle share, the kernels a
+    step and the top kernels (eager torch: no kernel of the port runs in
+    a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_als_torch.models import two_tower as tt
+
+    steps = len(d["u2"]) // cfg.batch_size
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tt.train_two_tower(d["u2"], d["i2"], d["nU"], d["nI"],
+                           dataclasses.replace(cfg, epochs=1), init=params,
+                           device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    # kernels and copies only: the optimizer's record_function range
+    # also lands on the device's timeline, over its kernels
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not getattr(e, "is_user_annotation", False)
+          and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    log(f"profile two-tower epoch ({steps} steps): wall_ms a step "
+        f"{wall:.3f}, device_busy_ms {busy:.3f}, device_idle_share "
+        f"{1 - busy / wall:.3f}, kernels a step "
+        f"{sum(e.count for e in ev) / steps:.1f}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms  "
+            f"x{e.count / steps:<5.1f} {e.key[:90]}")
+
+
+def two_tower_phase(dev, keep, seed, smi):
+    """Phase 10: config 5 on the card, then train's observability and the
+    run-directory readers as processes."""
+    from tpu_als_torch.models import two_tower as tt
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    d = tt_data(seed)
+    log(f"two-tower data {TT_SHAPE}: {len(d['u2'])} training pairs, "
+        f"{len(d['ut'])} test pairs ({time.perf_counter() - t0:.1f} s, "
+        "host)")
+    _zero_launches()
+    # (a) the ALS warm start through the port's trainer (K4)
+    t0 = time.perf_counter()
+    ucsr = build_csr_buckets(d["u2"], d["i2"], d["r2"], d["nU"])
+    icsr = build_csr_buckets(d["i2"], d["u2"], d["r2"], d["nI"])
+    t_block = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    U, V = core_als.train(ucsr, icsr, core_als.AlsConfig(seed=seed, **TT_ALS),
+                          device=dev)
+    torch.cuda.synchronize()
+    t_als = time.perf_counter() - t0
+    if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())):
+        fail("two-tower warm start: non-finite ALS factors")
+    widest = int(max(np.bincount(d["u2"]).max(), np.bincount(d["i2"]).max()))
+    als_launches = _launch_counts()
+    wide = widest > core_als.SPLIT_WIDTH
+    if als_launches["k4"] == 0 or (wide and (als_launches["k3"] == 0
+                                             or als_launches["k1"] == 0)):
+        fail(f"two-tower warm start: launches {als_launches} (widest row "
+             f"{widest})")
+    log(f"(a) ALS warm start (rank {TT_ALS['rank']}, {TT_ALS['max_iter']} "
+        f"iterations, implicit, alpha {TT_ALS['alpha']}): blocking "
+        f"{t_block:.2f} s (host), fit {t_als:.2f} s; K4 "
+        f"{als_launches['k4']}, K3 {als_launches['k3']}, K1 "
+        f"{als_launches['k1']} launches (widest row {widest})")
+    tt_half_steps_vs_f64(U, V, ucsr, icsr, d, dev)
+    _zero_launches()
+    # (b) warm, then cold, 20 epochs each
+    cfg = tt.TwoTowerConfig(embed_dim=32, hidden=(64,), out_dim=32,
+                            batch_size=4096, epochs=TT_EPOCHS, seed=seed)
+    init = tt.init_params(d["nU"], d["nI"], cfg, U.cpu().numpy(),
+                          V.cpu().numpy(), device="cpu")
+    card_losses = []
+    warm, walls_w, curve_w = tt_fit(d, cfg, init, dev, "warm", card_losses)
+    k5 = cuda_topk.LAUNCHES
+    rec_unf = tt.recall_at_k(warm, d["ut"], d["it"], k=10)
+    k5_main = cuda_topk.LAUNCHES - k5
+    cold_init = tt.init_params(d["nU"], d["nI"], cfg, device="cpu")
+    _, walls_c, curve_c = tt_fit(d, cfg, cold_init, dev, "cold", [])
+    launches = _launch_counts()
+    if launches["k5"] == 0 or k5_main == 0:
+        fail(f"two-tower phase: launches {launches}, K5 in recall "
+             f"{k5_main}")
+    recs, gap = tt_top10_vs_plain(warm, d, dev, rec_unf)
+    steps = len(d["u2"]) // cfg.batch_size
+    for tag, walls in (("warm", walls_w), ("cold", walls_c)):
+        w = np.array(walls[1:]) * 1e3   # epoch 1 also builds the optimizer
+        log(f"(b) {tag}: {TT_EPOCHS} epochs of {steps} steps, epoch wall "
+            f"first {walls[0] * 1e3:.1f} ms, then median {np.median(w):.1f}"
+            f" (min {w.min():.1f}, max {w.max():.1f}) ms, "
+            f"{np.median(w) / steps:.3f} ms a step; {sum(walls):.2f} s "
+            "of training (host clock, evaluation excluded)")
+    log(f"(b) filtered recall@10 at epochs {TT_MILESTONES}: warm "
+        f"{[round(curve_w[e][0], 4) for e in TT_MILESTONES]}, with "
+        f"serving_bias {[round(curve_w[e][1], 4) for e in TT_MILESTONES]}"
+        f", cold {[round(curve_c[e][0], 4) for e in TT_MILESTONES]}")
+    log(f"(b) unfiltered warm recall@10 through K5 {rec_unf:.4f} (K5 "
+        f"{k5_main} launch), the plain chunked scan on the card "
+        f"{recs['plain scan'][0]:.4f}; ids earn their scores (K5 "
+        f"{recs['K5'][1]:.2e}, plain {recs['plain scan'][1]:.2e}), sorted "
+        f"scores within {gap:.2e}; launches in (b) {launches}")
+    tt_profile_epoch(d, cfg, warm, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        clis = start_tt_clis(keep, tmp, seed)
+        # (c) on this process's CPU while (d)'s processes run
+        tt_first_epoch_cpu(d, cfg, init, card_losses)
+        check_tt_clis(*clis)
+    obs.reset()
+    secs = time.perf_counter() - t_phase
+    log(f"phase 10 (the two-tower model and train's observability): "
+        f"{secs:.1f} s on {smi}")
+    return secs
+
+
+# -- phase 11 --------------------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -3432,6 +3862,34 @@ def k1_timings(launches, fit_launches, err):
             "launches": fit_launches, "max_abs_err": err,
             "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": b_ms,
             "bound_by": by, "library_ms": sum(lib)}
+
+
+def iteration_logger_cost(tr, rng, smi, reps=3):
+    """What ``train --log-file`` (or any ``train`` with a live run
+    directory) adds to an iteration at the ML-25M shape: the
+    ``IterationLogger`` record ``_iteration_cb`` takes between two
+    iterations (U and V to the host, their norms, a probe of the CLI's
+    100,000-row cap), beside the fit's own iteration wall."""
+    from tpu_als_torch.utils.observe import IterationLogger
+
+    U, V = tr["model"]._U, tr["model"]._V
+    n = 100_000
+    probe = (rng.integers(0, U.shape[0], n), rng.integers(0, V.shape[0], n),
+             rng.uniform(0.5, 5.0, n).astype(np.float32))
+    logger = IterationLogger(probe=probe, stream=None)
+    walls = []
+    for it in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logger(it + 1, U, V)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    it_ms = float(np.median(tr["iter_s"])) * 1e3
+    mb = (U.numel() + V.numel()) * 4 / 1e6
+    log(f"rank {U.shape[1]}: the iteration logger's record (U and V, "
+        f"{mb:.1f} MB, to the host, norms, probe of {n} rows): "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+        f"{np.median(walls):.1f} ms beside an iteration wall of "
+        f"{it_ms:.1f} ms (logger off) on {smi}")
 
 
 def k4_split(tr, smi):
@@ -3852,7 +4310,7 @@ def where_time_goes(model, rng, tr, users, items):
 
 
 def profile_engine_batches(fitted, rng, dev, reps=20):
-    """Phase 10's serving rows: for the int8 and the exact route of a
+    """Phase 12's serving rows: for the int8 and the exact route of a
     'local' engine on the rank-128 fit, ``reps`` synchronous
     ``serve_batch`` calls of 8 requests (one bucket) under the profiler:
     wall and device busy time per batch, the device's idle share and the
@@ -3938,7 +4396,8 @@ def main():
     errs["k8"] = check_k8(rng, dev)
     check_ladder(dev)
     data = prepare(args.seed, dev)
-    s9 = csv_phase(data["frame"], args.seed)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    s9 = csv_phase(data["frame"], args.seed, work.name)
     tr = train_slice(data, RANK, args.seed, dev)
     tr256 = train_slice(data, RANK256, args.seed, dev)
     sh = sharded_train_slice(data, args.seed, dev)
@@ -3957,6 +4416,8 @@ def main():
     p8 = serving_engine_phase(tr["model"], model, rng, dev, smi)
     s9 += live_tenancy_phase(tr["model"], rng, dev, smi, p8)
     log(f"phase 9 (the stream, the live loop and tenancy): {s9:.1f} s")
+    two_tower_phase(dev, work.name, args.seed, smi)
+    work.cleanup()
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
                              dev))
@@ -3966,6 +4427,7 @@ def main():
     kernels += train_timings(tr256, errs, dev)
     k4_split(tr, smi)
     k4_split(tr256, smi)
+    iteration_logger_cost(tr, rng, smi)
     kernels.append(ring_timings(sh, tr, errs, dev))
     del sh
     kernels.append(merge_timings(tr["model"], launches8, dev))

@@ -28,6 +28,13 @@
   unimportable, and raise without a CUDA device when no device is
   given; ``io.stream``, ``live`` and ``tenancy`` are in the import sweep
   (``pkgutil.walk_packages`` finds every module of the port).
+- The two-tower model and the rest of ``train``'s command line
+  (``models.two_tower``, ``utils.observe``, ``utils.debug``,
+  ``obs.report``, ``obs.explain``): ``tt-train``, ``train --log-file
+  --profile-dir --obs-dir`` and ``observe summarize|tail|explain`` run
+  with ``jax`` and ``tpu_als`` unimportable, ``obs/explain.py`` runs as
+  a file on its own, and ``tt-train`` and ``train --log-file
+  --profile-dir`` with no device raise without a CUDA device.
 - The serving engine (``serving``, ``plan``, ``obs.tracing``,
   ``serve-bench``) runs with ``jax`` and ``tpu_als`` unimportable;
   ``ServingEngine()`` and ``serve-bench`` with no device raise without a
@@ -124,7 +131,7 @@ def test_port_imports_without_jax_or_the_reference():
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 46
+    assert int(out.stdout.split()[0]) >= 70
 
 
 def test_input_path_and_guardrails_run_without_jax(tmp_path):
@@ -568,3 +575,62 @@ def test_engine_routes_on_cpu_take_plain_versions_without_launching(
     np.testing.assert_allclose(s, np.sort(ref)[::-1][:3], rtol=1e-5)
     np.testing.assert_array_equal(ix, np.argsort(-ref)[:3])
     assert cuda_topk.LAUNCHES == cuda_topk.MERGE_LAUNCHES == 0
+
+
+_DRIVE_TWO_TOWER = r"""
+import json, os, subprocess, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np, torch
+from tpu_als_torch.cli import main
+from tpu_als_torch.models import two_tower
+from tpu_als_torch.utils import debug, observe
+tmp = sys.argv[1]
+main(["tt-train", "--data", "synthetic:120x60x3000", "--epochs", "1",
+      "--als-rank", "4", "--als-iters", "1", "--embed-dim", "8",
+      "--device", "cpu", "--output", os.path.join(tmp, "tt")])
+m, cfg, nu, ni = two_tower.load_two_tower(os.path.join(tmp, "tt"),
+                                          device="cpu")
+assert m.user_embed.shape == (nu, 8)
+run = os.path.join(tmp, "obs")
+main(["train", "--data", "synthetic:60x30x900", "--rank", "2",
+      "--max-iter", "2", "--device", "cpu", "--log-file",
+      os.path.join(tmp, "log.jsonl"), "--profile-dir",
+      os.path.join(tmp, "prof"), "--obs-dir", run])
+assert len(open(os.path.join(tmp, "log.jsonl")).readlines()) == 2
+assert os.listdir(os.path.join(tmp, "prof"))
+main(["observe", "summarize", run, "--json"])
+main(["observe", "tail", run, "-n", "2"])
+main(["observe", "explain", run])
+with debug.debug_mode():
+    debug.assert_all_finite(1, torch.ones(2, 2), np.ones((2, 2)))
+out = subprocess.run([sys.executable, "tpu_als_torch/obs/explain.py", run],
+                     capture_output=True, text=True)
+assert out.returncode == 0 and "no trace_span events" in out.stdout, out
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_two_tower_and_train_observability_run_without_jax(tmp_path,
+                                                           monkeypatch):
+    from tpu_als_torch.cli import main
+
+    out = subprocess.run([sys.executable, "-c", _DRIVE_TWO_TOWER,
+                          str(tmp_path)], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["tt-train", "--data", "synthetic:40x20x400", "--cold"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["train", "--data", "synthetic:40x20x400", "--max-iter", "1",
+              "--log-file", str(tmp_path / "l.jsonl"), "--profile-dir",
+              str(tmp_path / "p")])
+    from tpu_als_torch.models import two_tower
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        two_tower.train_two_tower(np.arange(4), np.arange(4), 4, 4)

@@ -27,9 +27,12 @@ deadlines, the int8 candidate index, atomic and incremental publishes,
 the exact, int8 and merge-ring routes), the byte-range string-id stream
 reader behind the ``stream:`` data spec (:mod:`tpu_als_torch.io.stream`),
 the live fold-in -> publish loop (:mod:`tpu_als_torch.live`), multi-tenant
-serving with weighted fair share (:mod:`tpu_als_torch.tenancy`) and the
-commands ``python -m tpu_als_torch.cli train|recommend|evaluate|tune|
-foldin-bench|serve-bench``.
+serving with weighted fair share (:mod:`tpu_als_torch.tenancy`), the
+two-tower retrieval model warm-started from ALS factors
+(:mod:`tpu_als_torch.models.two_tower`), the fit's observability
+(:mod:`tpu_als_torch.utils.observe`, :mod:`tpu_als_torch.utils.debug`)
+and the commands ``python -m tpu_als_torch.cli train|recommend|evaluate|
+tune|foldin-bench|serve-bench|tt-train|observe``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a CUDA tensor always goes through the hand-written
@@ -60,10 +63,13 @@ Package map:
            into ``_build/``), the byte-range stream reader, the CSV
            reader's Python twin, synthetic MovieLens-shaped data
   obs/     the metrics registry, its vocabulary, the run manifest, causal
-           tracing and the serving flight recorder
+           tracing, the serving flight recorder, and the run
+           directory's readers (report, explain)
+  models/  the two-tower retrieval model
   resilience/  fault injection, retry policies, the fit's guardrails,
            preemption
-  utils/   device resolution, the columnar frame
+  utils/   device resolution, the columnar frame, the per-iteration
+           logger and profiler trace, the numerical-safety tools
 """
 
 __version__ = "0.1.0"

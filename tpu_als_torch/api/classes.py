@@ -2,10 +2,11 @@
 
 A save of either package records the reference's dotted class names
 (``"tpu_als.api.estimator.ALSModel"``, the stages of a pipeline, a
-tuner's best model), so that each package loads the other's saves.  The
-port writes those names for its own classes and resolves a name read
-from disk through the fixed table below: it never imports a dotted path
-read from disk, and never imports the JAX package.
+tuner's best model, ``"tpu_als.models.two_tower"``), so that each
+package loads the other's saves.  The port writes those names for its
+own classes and resolves a name read from disk through the fixed table
+below: it never imports a dotted path read from disk, and never imports
+the JAX package.
 """
 
 from __future__ import annotations
@@ -24,17 +25,22 @@ _TABLE = {
         ("tuning", "CrossValidatorModel"),
     "tpu_als.api.tuning.TrainValidationSplitModel":
         ("tuning", "TrainValidationSplitModel"),
+    # the reference's two-tower saves name the module, not a class
+    "tpu_als.models.two_tower": ("two_tower", "TwoTower"),
 }
 
 # the classes whose load takes device= (they hold, or fit, factors)
 _DEVICE_BOUND = {"ALS", "ALSModel", "Pipeline", "PipelineModel",
-                 "CrossValidatorModel", "TrainValidationSplitModel"}
+                 "CrossValidatorModel", "TrainValidationSplitModel",
+                 "TwoTower"}
 
 
 def _classes():
     from tpu_als_torch.api import estimator, pipeline, tuning
+    from tpu_als_torch.models import two_tower
 
-    mods = {"estimator": estimator, "pipeline": pipeline, "tuning": tuning}
+    mods = {"estimator": estimator, "pipeline": pipeline, "tuning": tuning,
+            "two_tower": two_tower}
     return {name: getattr(mods[m], cls) for name, (m, cls) in _TABLE.items()}
 
 

@@ -384,10 +384,17 @@ class ALS(_ALSParams, Estimator):
                 U, V = fit_sharded(self, u_idx, i_idx, r, user_map, item_map,
                                    cfg, init, start_iter, callback=callback)
             else:
-                ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
-                icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
-                U, V = _train(ucsr, icsr, cfg, callback=callback, init=init,
-                              start_iter=start_iter, device=device)
+                with obs.span("train.block"):
+                    ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
+                    icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
+                with obs.span("train.fit"):
+                    U, V = _train(ucsr, icsr, cfg, callback=callback,
+                                  init=init, start_iter=start_iter,
+                                  device=device)
+                    if U.is_cuda:
+                        # the span ends when the factors are done, as the
+                        # reference's ends with their host copy
+                        torch.cuda.synchronize(U.device)
         return self._make_model(user_map, item_map, U, V, device)
 
     def _make_model(self, user_map, item_map, U, V, device):

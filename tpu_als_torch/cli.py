@@ -1,5 +1,5 @@
 """Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune|
-foldin-bench|serve-bench``.
+foldin-bench|serve-bench|tt-train|observe``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
@@ -21,6 +21,24 @@ string id behind each dense id, the reference's format).  SIGTERM,
 SIGINT or ``TPU_ALS_PREEMPT_AT=N`` stop the fit at an iteration
 boundary, write the resume point to ``--checkpoint-dir`` and exit 43.
 A ``TPU_ALS_FAULT_SPEC`` that does not parse exits 2 before any work.
+``--log-file`` writes one JSON line per iteration (``IterationLogger``:
+factor norms and the RMSE of a held-out probe of at most 100,000 rows),
+and ``--profile-dir`` a ``torch.profiler`` trace of the fit.
+
+Every command that runs something writes its run directory (events,
+metrics, manifest) to ``--obs-dir``, by default ``<--output>/obs``,
+with a ``cli.<cmd>`` span around the command (``train`` adds
+``data.load``, ``train.block``, ``train.fit`` and an ``iteration``
+event per iteration).  ``observe summarize|tail|explain RUN`` read such
+a directory and write none; ``observe roofline|attribution|regress``
+are not ported yet and raise.
+
+``tt-train`` (``cmd_tt_train``) trains the two-tower retrieval model
+(BASELINE config 5) on ``--data``'s positives (rating >=
+``--positive-threshold``), ``--holdout`` of them held out, warm-started
+from an implicit ALS fit (``--als-rank``, ``--als-iters``) unless
+``--cold``, prints the reference's JSON (filtered recall@k and the
+counts) and saves the towers to ``--output`` in the reference's format.
 
 ``evaluate`` (``cmd_evaluate``) scores ``--data`` with a saved model (an
 ``ALSModel`` or a ``PipelineModel`` save of either package) and prints
@@ -315,19 +333,71 @@ def _arm_fault_spec():
         raise SystemExit(2) from e
 
 
+def _train_probe(train, test, max_rows=100_000):
+    """Held-out (u_idx, i_idx, rating) triple in the DENSE id space the
+    fitted model will use (``remap_ids`` over the train columns, the
+    first-seen order ``fit`` derives), for the per-iteration probe RMSE.
+    Test rows whose user or item never appears in train are dropped;
+    more than ``max_rows`` are thinned by a stride.  None when nothing
+    survives."""
+    from tpu_als_torch.core.ratings import remap_ids
+
+    if not len(test):
+        return None
+    _, umap = remap_ids(np.asarray(train["user"]))
+    _, imap = remap_ids(np.asarray(train["item"]))
+    u = umap.to_dense(np.asarray(test["user"]))
+    i = imap.to_dense(np.asarray(test["item"]))
+    keep = (u >= 0) & (i >= 0)
+    u, i = u[keep], i[keep]
+    r = np.asarray(test["rating"], dtype=np.float32)[keep]
+    if not len(u):
+        return None
+    if len(u) > max_rows:
+        step = len(u) // max_rows + 1
+        u, i, r = u[::step], i[::step], r[::step]
+    return u, i, r
+
+
+def _iteration_cb(logger):
+    """Wrap an IterationLogger so each record also lands in the metrics
+    registry as an ``iteration`` event (what ``observe summarize``
+    tables)."""
+    from tpu_als_torch import obs
+
+    def cb(iteration, U, V):
+        logger(iteration, U, V)
+        rec = logger.records[-1]
+        obs.emit("iteration",
+                 **{k: v for k, v in rec.items() if k != "tag"})
+    return cb
+
+
 def cmd_train(args):
+    from tpu_als_torch import obs
     from tpu_als_torch.api.estimator import ALS
     from tpu_als_torch.api.evaluation import RegressionEvaluator
     from tpu_als_torch.resilience import preempt
+    from tpu_als_torch.utils.observe import IterationLogger
 
-    frame, stream_labels = _load_train_data(args.data)
+    with obs.span("data.load"):
+        frame, stream_labels = _load_train_data(args.data)
     train, test = frame.randomSplit([1 - args.holdout, args.holdout],
                                     seed=args.seed)
+    # per-iteration records when asked for (--log-file) or when a run
+    # directory is live: its iteration events are the convergence table
+    # of `observe summarize`
+    logger = fit_cb = None
+    if args.log_file or obs.active():
+        logger = IterationLogger(
+            probe=_train_probe(train, test), path=args.log_file,
+            stream=sys.stderr if args.log_file else None)
+        fit_cb = _iteration_cb(logger)
     als = ALS(rank=args.rank, maxIter=args.max_iter, regParam=args.reg_param,
               implicitPrefs=args.implicit, alpha=args.alpha,
               nonnegative=args.nonnegative, seed=args.seed,
-              coldStartStrategy="drop", cgIters=args.cg_iters,
-              checkpointDir=args.checkpoint_dir,
+              coldStartStrategy="drop", fitCallback=fit_cb,
+              cgIters=args.cg_iters, checkpointDir=args.checkpoint_dir,
               checkpointInterval=args.checkpoint_interval,
               resumeFrom=_resolve_resume(args), guardrails=args.guardrails,
               device=args.device)
@@ -337,11 +407,22 @@ def cmd_train(args):
         # SIGTERM/SIGINT: finish the iteration in flight, checkpoint, and
         # exit with EXIT_PREEMPTED (rerun with --resume auto)
         with preempt.PreemptionGuard():
-            model = als.fit(train)
+            if args.profile_dir:
+                from tpu_als_torch.utils.observe import trace
+
+                with trace(args.profile_dir):
+                    model = als.fit(train)
+                print(f"profiler trace written to {args.profile_dir}",
+                      file=sys.stderr)
+            else:
+                model = als.fit(train)
     except preempt.Preempted as p:
         print(f"preempted — {p}; rerun with --resume auto to continue",
               file=sys.stderr)
         raise  # SystemExit(EXIT_PREEMPTED); main still finalizes obs
+    finally:
+        if logger is not None:
+            logger.close()
     if len(test):
         rmse = RegressionEvaluator(labelCol="rating").evaluate(
             model.transform(test))
@@ -564,6 +645,107 @@ def cmd_foldin_bench(args):
         "batches": args.batches,
         "batch_size": args.batch_size,
     }))
+
+
+def cmd_tt_train(args):
+    """Train the two-tower retrieval model (BASELINE config 5) from a
+    ratings file: the ALS warm start (unless --cold) through the port's
+    trainer, the filtered-recall holdout report, the towers saved in the
+    reference's format."""
+    from tpu_als_torch.core.als import AlsConfig, train as als_train
+    from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
+    from tpu_als_torch.models.two_tower import (TwoTowerConfig,
+                                                recall_at_k,
+                                                save_two_tower,
+                                                train_two_tower)
+    from tpu_als_torch.utils.platform import resolve_device
+
+    dev = resolve_device(args.device)
+    frame, _ = _load_train_data(args.data)
+    u_raw = np.asarray(frame["user"])
+    i_raw = np.asarray(frame["item"])
+    r = np.asarray(frame["rating"], dtype=np.float32)
+    u, umap = remap_ids(u_raw)
+    i, imap = remap_ids(i_raw)
+    nU, nI = len(umap), len(imap)
+    pos = r >= args.positive_threshold
+    u, i, r = u[pos], i[pos], r[pos]
+    rng = np.random.default_rng(args.seed)
+    test = rng.random(len(u)) < args.holdout
+    ut, it_ = u[test], i[test]
+    u2, i2 = u[~test], i[~test]
+
+    warm_kw = {}
+    if not args.cold:
+        als_cfg = AlsConfig(rank=args.als_rank, max_iter=args.als_iters,
+                            reg_param=0.005, implicit_prefs=True,
+                            alpha=20.0, seed=args.seed)
+        ucsr = build_csr_buckets(u2, i2, r[~test], nU)
+        icsr = build_csr_buckets(i2, u2, r[~test], nI)
+        U, V = als_train(ucsr, icsr, als_cfg, device=dev)
+        warm_kw = {"als_user_factors": U.cpu().numpy(),
+                   "als_item_factors": V.cpu().numpy()}
+        print("ALS warm-start factors trained", file=sys.stderr)
+
+    cfg = TwoTowerConfig(embed_dim=args.embed_dim, out_dim=args.embed_dim,
+                         epochs=args.epochs, seed=args.seed)
+    params = train_two_tower(u2, i2, nU, nI, cfg, device=dev, **warm_kw)
+    # None, not NaN: json.dumps would write the non-standard NaN token
+    rec = (round(recall_at_k(params, ut, it_, k=args.k, exclude=(u2, i2)),
+                 4) if len(ut) else None)
+    out = {"filtered_recall_at_%d" % args.k: rec,
+           "train_pairs": int(len(u2)), "test_pairs": int(len(ut)),
+           "users": nU, "items": nI, "epochs": cfg.epochs,
+           "warm_start": not args.cold}
+    if args.output:
+        save_two_tower(args.output, params, cfg, nU, nI)
+        out["saved"] = args.output
+    print(json.dumps(out))
+
+
+# the observe tools that need perf/ and obs/regress.py; they take the
+# reference's arguments and raise
+_OBSERVE_LATER = ("roofline", "attribution", "regress")
+
+
+def cmd_observe(args):
+    """Read a run directory written by the other commands:
+    ``summarize`` (phases, iterations, gauges, counters, histograms),
+    ``tail`` (the last raw events, filtered) and ``explain`` (causal
+    trees).  ``roofline``, ``attribution`` and ``regress`` need the
+    port's ``perf/`` closed forms and bench gate, not ported yet."""
+    if args.action in _OBSERVE_LATER:
+        raise NotImplementedError(
+            f"observe {args.action} is not ported yet: it comes with the "
+            "ops-infrastructure slice of the port (perf/ and "
+            "obs/regress.py, ROADMAP Queue 1 item 9)")
+    if args.action == "explain":
+        from tpu_als_torch.obs import explain as explain_mod
+
+        try:
+            print(explain_mod.explain(args.run_dir, trace=args.trace,
+                                      breach=args.breach))
+        except (FileNotFoundError, ValueError) as err:
+            raise SystemExit(str(err)) from err
+        except BrokenPipeError:
+            # `observe explain RUN | head` closing the pipe early is
+            # normal; point stdout at devnull so the exit-time flush
+            # does not raise again
+            os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return
+    from tpu_als_torch.obs import report
+
+    try:
+        if args.action == "summarize":
+            print(report.cmd_summarize(args.run_dir, as_json=args.as_json,
+                                       since=args.since,
+                                       window=args.window))
+        else:
+            print(report.cmd_tail(args.run_dir, n=args.lines,
+                                  event=args.event, tenant=args.tenant,
+                                  trace=args.trace))
+    except (FileNotFoundError, ValueError) as err:
+        raise SystemExit(str(err)) from err
 
 
 def open_loop(engine, payloads, qps, wait_s):
@@ -1075,7 +1257,16 @@ def cmd_serve_bench(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="tpu_als_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="fit an ALS model on one device")
+    # every run-producing command can write a metrics/events run dir;
+    # the default (when only --output is given) is <output>/obs
+    obs_common = argparse.ArgumentParser(add_help=False)
+    obs_common.add_argument(
+        "--obs-dir", default=None,
+        help="write metrics/tracing events for this run here "
+             "(default: <--output>/obs when --output is set; "
+             "inspect with `tpu_als_torch observe summarize DIR`)")
+    t = sub.add_parser("train", help="fit an ALS model on one device",
+                       parents=[obs_common])
     t.add_argument("--data", required=True,
                    help="ml-100k:PATH | dat:PATH | csv:PATH | "
                         "stream:PATH | synthetic:UxIxN")
@@ -1088,6 +1279,11 @@ def main(argv=None):
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--holdout", type=float, default=0.2)
     t.add_argument("--output", default=None)
+    t.add_argument("--log-file", default=None,
+                   help="write per-iteration JSON log lines here")
+    t.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the fit "
+                        "(Chrome/Perfetto JSON) under this directory")
     t.add_argument("--cg-iters", type=int, default=0,
                    help="> 0: inexact ALS, warm-started CG with this many "
                         "steps per half-step (0 = exact Cholesky)")
@@ -1111,7 +1307,8 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
     t.set_defaults(fn=cmd_train)
-    e = sub.add_parser("evaluate", help="score a dataset with a saved model")
+    e = sub.add_parser("evaluate", help="score a dataset with a saved model",
+                       parents=[obs_common])
     e.add_argument("--model", required=True)
     e.add_argument("--data", required=True)
     e.add_argument("--ranking-k", type=int, default=0,
@@ -1123,7 +1320,8 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
     e.set_defaults(fn=cmd_evaluate)
-    r = sub.add_parser("recommend", help="top-k recommendations")
+    r = sub.add_parser("recommend", help="top-k recommendations",
+                       parents=[obs_common])
     r.add_argument("--model", required=True)
     r.add_argument("--users", default=None,
                    help="comma-separated original user ids (default: all)")
@@ -1146,7 +1344,8 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
     r.set_defaults(fn=cmd_recommend)
-    g = sub.add_parser("tune", help="cross-validated grid search")
+    g = sub.add_parser("tune", help="cross-validated grid search",
+                       parents=[obs_common])
     g.add_argument("--data", required=True)
     g.add_argument("--ranks", default="8,16,32",
                    help="comma-separated rank grid")
@@ -1169,7 +1368,8 @@ def main(argv=None):
                         "kernels' plain versions)")
     g.set_defaults(fn=cmd_tune)
     f = sub.add_parser("foldin-bench",
-                       help="fold-in latency micro-benchmark")
+                       help="fold-in latency micro-benchmark",
+                       parents=[obs_common])
     f.add_argument("--model", required=True)
     f.add_argument("--batches", type=int, default=20)
     f.add_argument("--batch-size", type=int, default=512)
@@ -1180,7 +1380,8 @@ def main(argv=None):
     sb = sub.add_parser(
         "serve-bench",
         help="open-loop serving latency benchmark against an SLO "
-             "(micro-batched engine, int8 index unless --exact)")
+             "(micro-batched engine, int8 index unless --exact)",
+        parents=[obs_common])
     sb.add_argument("--users", type=int, default=20_000)
     sb.add_argument("--items", type=int, default=50_000)
     sb.add_argument("--rank", type=int, default=64)
@@ -1262,25 +1463,101 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     sb.set_defaults(fn=cmd_serve_bench)
+    tt = sub.add_parser("tt-train",
+                        help="train + persist the two-tower retrieval "
+                             "model (ALS warm start by default)",
+                        parents=[obs_common])
+    tt.add_argument("--data", required=True)
+    tt.add_argument("--output", default=None,
+                    help="save the trained towers here")
+    tt.add_argument("--epochs", type=int, default=5)
+    tt.add_argument("--embed-dim", type=int, default=32)
+    tt.add_argument("--als-rank", type=int, default=32)
+    tt.add_argument("--als-iters", type=int, default=8)
+    tt.add_argument("--cold", action="store_true",
+                    help="skip the ALS warm start")
+    tt.add_argument("--holdout", type=float, default=0.1)
+    tt.add_argument("--positive-threshold", type=float, default=3.5)
+    tt.add_argument("--k", type=int, default=10)
+    tt.add_argument("--seed", type=int, default=0)
+    tt.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    tt.set_defaults(fn=cmd_tt_train)
+    o = sub.add_parser("observe",
+                       help="inspect a run directory's metrics/events")
+    osub = o.add_subparsers(dest="action", required=True)
+    os1 = osub.add_parser("summarize",
+                          help="per-phase timings, per-iteration RMSE, "
+                               "gauges, counters, histograms")
+    os1.add_argument("run_dir",
+                     help="run dir (--output / --obs-dir of a past run)")
+    os1.add_argument("--json", dest="as_json", action="store_true",
+                     help="emit the summary as one JSON object")
+    os1.add_argument("--since", type=float, default=None, metavar="S",
+                     help="only events at/after S seconds into the "
+                          "trail (relative to its first event)")
+    os1.add_argument("--window", default=None, metavar="A:B",
+                     help="only events in [A, B) seconds into the trail "
+                          "(either side may be empty)")
+    os2 = osub.add_parser("tail", help="print the last N raw events")
+    os2.add_argument("run_dir")
+    os2.add_argument("-n", "--lines", type=int, default=20)
+    os2.add_argument("--event", default=None, metavar="TYPE",
+                     help="only events of this type — the last N AFTER "
+                          "filtering")
+    os2.add_argument("--tenant", default=None, metavar="NAME",
+                     help="only events labeled tenant=NAME — the last N "
+                          "AFTER filtering")
+    os2.add_argument("--trace", default=None, metavar="ID",
+                     help="only events of one causal trace (trace_id "
+                          "match, or membership in an event's trace_ids)")
+    os3 = osub.add_parser(
+        "explain",
+        help="reconstruct a request/event's causal tree from the trail's "
+             "trace_span events; --breach last starts from the latest "
+             "freshness/SLO breach")
+    os3.add_argument("run_dir", help="run dir / obs dir / events.jsonl")
+    os3.add_argument("--trace", default=None, metavar="ID",
+                     help="render one trace's tree")
+    os3.add_argument("--breach", default=None, choices=("last",),
+                     help="start from the trail's last breach event and "
+                          "render the trace it names")
+    for name in _OBSERVE_LATER:
+        # no option prefix: every argument, dashed or not, lands in rest
+        osub.add_parser(name, help="not ported yet (raises)",
+                        prefix_chars="+", add_help=False).add_argument(
+            "rest", nargs="*")
+    o.set_defaults(fn=cmd_observe)
     args = parser.parse_args(argv)
     _arm_fault_spec()
+    if args.cmd == "observe":
+        return args.fn(args)  # read-only: writes no run directory
     from tpu_als_torch import obs
 
-    run_dir = (os.path.join(args.output, "obs")
-               if getattr(args, "output", None) else None)
+    run_dir = args.obs_dir
+    if run_dir is None and getattr(args, "output", None):
+        run_dir = os.path.join(args.output, "obs")
     if run_dir is not None:
         argl = list(argv) if argv is not None else sys.argv[1:]
         obs.configure(run_dir, config={k: v for k, v in vars(args).items()
                                        if k != "fn"}, argv=argl)
         obs.emit("command", cmd=args.cmd, argv=argl)
     try:
-        return args.fn(args)
+        with obs.span("cli." + args.cmd):
+            return args.fn(args)
     finally:
         if run_dir is not None:
             # after the command: the model save replaces --output, so the
-            # run directory under it is written once the model is in place
-            obs.finalize()
+            # run directory under it is written once the model is in
+            # place; deconfigure so a later command in this process
+            # writes nothing here
+            out = obs.finalize()
             obs.deconfigure()
+            if out is not None:
+                print(f"run metrics written to {out} "
+                      f"(tpu_als_torch observe summarize {out})",
+                      file=sys.stderr)
 
 
 if __name__ == "__main__":

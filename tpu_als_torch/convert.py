@@ -7,6 +7,12 @@ across the slot space of a sharded fit.
 without touching disk.  The other road across is the shared checkpoint
 format (:mod:`tpu_als_torch.io.checkpoint`).
 
+``two_tower_from_arrays`` turns the reference's two-tower params pytree
+(``{"user_embed", "item_embed", "user_tower": [{"w", "b"}, ...],
+"item_tower": [...]}``, numpy arrays, weights ``(din, dout)``) into the
+port's :class:`~tpu_als_torch.models.two_tower.TwoTower` on a device
+(``TwoTower.leaves`` gives the reference's leaves back).
+
 A sharded fit keeps factors in slot space: entity e's row is row
 ``part.slot[e]`` of a ``[part.padded_rows, r]`` table (``part`` a
 ``Partition`` of either package; both deal entities the same way).
@@ -64,3 +70,33 @@ def entity_rows(part, table):
     if not isinstance(table, torch.Tensor):
         table = np.asarray(table)
     return table[_slots(part, table)]
+
+
+def two_tower_from_arrays(params, cfg=None, device=None):
+    """The port's ``TwoTower`` on ``device`` (None -> the CUDA device)
+    holding the reference pytree ``params``' values; ``cfg`` (default:
+    a ``TwoTowerConfig`` with the widths the arrays have) is the config
+    the module records."""
+    from tpu_als_torch.models.two_tower import TwoTower, TwoTowerConfig
+    from tpu_als_torch.utils.platform import resolve_device
+
+    tower = [(np.asarray(lyr["w"]), np.asarray(lyr["b"]))
+             for lyr in params["user_tower"]]
+    if cfg is None:
+        dims = [tower[0][0].shape[0]] + [w.shape[1] for w, _ in tower]
+        cfg = TwoTowerConfig(embed_dim=dims[0], hidden=tuple(dims[1:-1]),
+                             out_dim=dims[-1])
+    m = TwoTower(len(params["user_embed"]), len(params["item_embed"]), cfg)
+    m.set_leaves([np.asarray(x) for x in _tree_leaves(params)])
+    return m.to(resolve_device(device))
+
+
+def _tree_leaves(tree):
+    """``jax.tree_util.tree_leaves``' order for dicts and lists: a dict's
+    values by sorted key, a list's in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+

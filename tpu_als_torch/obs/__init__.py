@@ -21,8 +21,10 @@ default registry:
 Until ``finalize`` everything is in-memory bookkeeping, bounded, so
 library use and the tests need no run directory.  Causal tracing is
 :mod:`tpu_als_torch.obs.tracing`, the serving flight recorder
-:mod:`tpu_als_torch.obs.trace`.  The reference's ``regress``,
-``explain`` and report are not ported yet.
+:mod:`tpu_als_torch.obs.trace`, and the run directory's readers
+(``observe summarize|tail|explain``) :mod:`tpu_als_torch.obs.report` and
+:mod:`tpu_als_torch.obs.explain`.  The reference's ``regress`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -85,8 +87,16 @@ def configure(run_dir, config=None, argv=None):
     _default.configure(run_dir, config=config, argv=argv)
 
 
+def active():
+    return _default.active()
+
+
 def deconfigure():
     _default.deconfigure()
+
+
+def update_manifest(**fields):
+    _default.update_manifest(**fields)
 
 
 def snapshot():

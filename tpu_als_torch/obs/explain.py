@@ -1,0 +1,240 @@
+"""Reconstruct causal span trees from a run directory's JSONL trail.
+
+Counterpart of ``tpu_als/obs/explain.py``: ``python -m tpu_als_torch.cli
+observe explain [--trace ID | --breach last]``, the read side of
+:mod:`tpu_als_torch.obs.tracing`.  Every hop a request or rating event
+took landed in ``events.jsonl`` as a ``trace_span`` event (``serve.*``,
+``live.*``, ``tenancy.*``), and this module rebuilds the admission ->
+queue -> scheduler round -> score -> publish -> visible tree from those
+events alone, so a breach is explainable from a run directory copied
+off the serving machine.
+
+``--breach last`` starts from the trail's last breach-shaped event (a
+``live_freshness_breach``, or a ``flight_record`` dumped with a breach
+trigger) and renders the trace it names; ``--trace ID`` renders one
+trace; no selector lists every trace with its hop count and outcome.
+
+Pure stdlib with no import of the package, so the file also runs on its
+own: ``python tpu_als_torch/obs/explain.py RUN_DIR``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+# flight_record triggers that mean "something breached" — the events
+# --breach walks backwards over, alongside live_freshness_breach
+BREACH_TRIGGERS = ("slo_breach", "freshness_breach")
+
+
+def resolve_events_path(target):
+    """Accept a run dir (``<output>``), its obs dir, or the events file
+    itself (the same as report.py's: this module imports nothing of the
+    package)."""
+    if os.path.isfile(target):
+        return target
+    for cand in (os.path.join(target, "obs", "events.jsonl"),
+                 os.path.join(target, "events.jsonl")):
+        if os.path.isfile(cand):
+            return cand
+    raise FileNotFoundError(
+        f"no events.jsonl under {target!r} (expected <run>/obs/"
+        "events.jsonl — was the command run with --output/--obs-dir?)")
+
+
+def resolve_events_paths(target):
+    """The full rotated trail in emission order (``events.NNN.jsonl``
+    rotations sorted, then the live file), as report.py reads it."""
+    live = resolve_events_path(target)
+    d = os.path.dirname(live)
+    if os.path.basename(live) != "events.jsonl":
+        return [live]
+    rotated = sorted(
+        f for f in os.listdir(d)
+        if f.startswith("events.") and f.endswith(".jsonl")
+        and f != "events.jsonl")
+    return [os.path.join(d, f) for f in rotated] + [live]
+
+
+def load_events(target):
+    events = []
+    for path in resolve_events_paths(target):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    events.append(json.loads(line))
+    return events
+
+
+def build_traces(events):
+    """Index the trail's ``trace_span`` events: trace_id -> spans in
+    emission order (emission order IS causal order — ids are a process
+    counter, never a clock)."""
+    traces = {}
+    for ev in events:
+        if ev.get("type") == "trace_span" and ev.get("trace_id"):
+            traces.setdefault(ev["trace_id"], []).append(ev)
+    return traces
+
+
+def publishes_for(events, trace_id):
+    """The ``serving_publish`` events whose ``trace_ids`` name this
+    trace — which published seq(s) this event's fold-in rode."""
+    return [ev for ev in events
+            if ev.get("type") == "serving_publish"
+            and trace_id in (ev.get("trace_ids") or ())]
+
+
+def find_breach(events):
+    """The LAST breach-shaped event carrying a trace id, or None.
+    Walks ``live_freshness_breach`` (trace_id of the worst event) and
+    breach-triggered ``flight_record`` dumps (trace_id / trace_ids)."""
+    for ev in reversed(events):
+        t = ev.get("type")
+        if t == "live_freshness_breach" and ev.get("trace_id"):
+            return ev, ev["trace_id"]
+        if t == "flight_record" \
+                and ev.get("trigger") in BREACH_TRIGGERS:
+            if ev.get("trace_id"):
+                return ev, ev["trace_id"]
+            ids = ev.get("trace_ids") or []
+            if ids:
+                return ev, ids[-1]
+    return None
+
+
+def _fmt_span(ev):
+    parts = [ev.get("name", "?"), ev.get("status", "?")]
+    secs = ev.get("seconds")
+    if secs is not None:
+        parts.append(f"{secs:.6f}s")
+    for k in ("tenant", "path", "mode", "seq", "round", "batch_rows",
+              "error"):
+        if ev.get(k) is not None:
+            parts.append(f"{k}={ev[k]}")
+    return "  ".join(str(p) for p in parts)
+
+
+def render_trace(trace_id, spans, publishes=()):
+    """One trace as an indented causal tree (children under parents by
+    ``parent_id``; orphans — a span whose parent predates the trail —
+    surface as extra roots rather than vanishing)."""
+    by_parent = {}
+    by_id = {}
+    for ev in spans:
+        by_id[ev.get("span_id")] = ev
+        by_parent.setdefault(ev.get("parent_id"), []).append(ev)
+    roots = list(by_parent.get(None, []))
+    roots += [ev for pid, evs in sorted(
+        by_parent.items(), key=lambda kv: str(kv[0]))
+        for ev in evs if pid is not None and pid not in by_id]
+    statuses = [ev.get("status") for ev in spans]
+    worst = next((s for s in ("failed", "shed", "expired", "quarantined")
+                  if s in statuses), "ok")
+    lines = [f"trace {trace_id}: {len(spans)} span(s), outcome {worst}"]
+
+    def walk(ev, depth):
+        pad = "  " + "   " * depth + ("└─ " if depth else "")
+        lines.append(pad + _fmt_span(ev))
+        for child in by_parent.get(ev.get("span_id"), []):
+            walk(child, depth + 1)
+
+    for root in roots:
+        walk(root, 0)
+    for pub in publishes:
+        lines.append(
+            f"  publish: seq={pub.get('seq')} mode={pub.get('mode')} "
+            f"items={pub.get('items')} (serving_publish names this "
+            "trace)")
+    return "\n".join(lines)
+
+
+def render_index(traces):
+    lines = [f"{len(traces)} trace(s) in the trail "
+             "(use --trace ID for one tree, --breach last for the "
+             "latest breach):"]
+    for tid in sorted(traces):
+        spans = traces[tid]
+        names = [ev.get("name") for ev in spans]
+        statuses = {ev.get("status") for ev in spans}
+        bad = sorted(statuses - {"ok"})
+        lines.append(
+            f"  {tid}: {len(spans)} span(s)  "
+            f"{names[0]} -> {names[-1]}"
+            + (f"  [{', '.join(bad)}]" if bad else ""))
+    return "\n".join(lines)
+
+
+def explain(target, trace=None, breach=None):
+    """The command core: returns the rendered text (raises
+    SystemExit-friendly ValueError/FileNotFoundError on bad input)."""
+    events = load_events(target)
+    traces = build_traces(events)
+    if breach is not None:
+        if breach != "last":
+            raise ValueError(f"--breach takes 'last', got {breach!r}")
+        hit = find_breach(events)
+        if hit is None:
+            raise ValueError(
+                "no breach-shaped event carrying a trace id in the "
+                "trail (live_freshness_breach, or a flight_record "
+                f"with trigger in {'/'.join(BREACH_TRIGGERS)}) — "
+                "was tracing armed (TPU_ALS_TRACE=1)?")
+        ev, trace = hit
+        head = (f"breach: {ev.get('type')}"
+                + (f" trigger={ev['trigger']}" if ev.get("trigger")
+                   else "")
+                + (f" tenant={ev['tenant']}" if ev.get("tenant") else "")
+                + (f" freshness={ev['freshness_seconds']:.4f}s "
+                   f"slo={ev['slo_s']}s"
+                   if ev.get("freshness_seconds") is not None else ""))
+        body = explain_one(traces, events, trace)
+        return head + "\n" + body
+    if trace is not None:
+        return explain_one(traces, events, trace)
+    if not traces:
+        return ("no trace_span events in the trail — was tracing armed "
+                "(TPU_ALS_TRACE=1 / tracing.enable_tracing())?")
+    return render_index(traces)
+
+
+def explain_one(traces, events, trace_id):
+    spans = traces.get(trace_id)
+    if not spans:
+        raise ValueError(
+            f"trace {trace_id!r} not in the trail "
+            f"({len(traces)} trace(s) present)")
+    return render_trace(trace_id, spans,
+                        publishes=publishes_for(events, trace_id))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="explain",
+        description="reconstruct causal span trees from a run dir's "
+                    "trace_span trail (stdlib only)")
+    ap.add_argument("run_dir", help="run dir / obs dir / events.jsonl")
+    ap.add_argument("--trace", default=None, metavar="ID",
+                    help="render one trace's tree")
+    ap.add_argument("--breach", default=None, choices=("last",),
+                    help="start from the trail's last breach event")
+    args = ap.parse_args(argv)
+    try:
+        print(explain(args.run_dir, trace=args.trace,
+                      breach=args.breach))
+    except (FileNotFoundError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    except BrokenPipeError:
+        # `explain RUN | head` closing the pipe early is normal; point
+        # stdout at devnull so the exit-time flush doesn't raise again
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,8 +17,9 @@ their quantiles are the same bucketed estimates the reference reports.
 ``span(name)`` records wall-clock tree-structured spans and, when torch
 is already imported, opens ``torch.profiler.record_function(name)`` so a
 profiler trace carries the same names.  Names are checked against
-:mod:`tpu_als_torch.obs.schema` when written.  The reference's rotation
-of long event logs is not ported.
+:mod:`tpu_als_torch.obs.schema` when written.  A full ``events.jsonl``
+rotates to ``events.NNN.jsonl`` at finalize (:func:`maybe_rotate`), as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -40,6 +41,48 @@ BUCKET_BOUNDS = tuple(10.0 ** (e / 4.0) for e in range(-24, 25))
 # in-memory event cap: a registry that is never finalized (library use,
 # the tests) must not grow without bound; finalize() reports the drops
 _MAX_EVENTS = 100_000
+
+# events.jsonl rotation bound (bytes), as the reference's: when it is
+# reached, finalize renames the file to the next events.NNN.jsonl and
+# starts a fresh one.  Env-overridable; 0 disables rotation.
+ROTATE_ENV = "TPU_ALS_OBS_ROTATE_BYTES"
+_ROTATE_BYTES = 8 << 20
+
+
+def _rotate_bound():
+    raw = os.environ.get(ROTATE_ENV)
+    if raw is None:
+        return _ROTATE_BYTES
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return _ROTATE_BYTES
+
+
+def maybe_rotate(run_dir, bound=None):
+    """Rotate ``<run_dir>/events.jsonl`` to ``events.NNN.jsonl`` when it
+    has reached ``bound`` bytes (default: ``TPU_ALS_OBS_ROTATE_BYTES``,
+    else 8 MiB).  Returns the rotated-to path or None.  The readers
+    (:mod:`tpu_als_torch.obs.report`, :mod:`~tpu_als_torch.obs.explain`)
+    read the ``events.*.jsonl`` files sorted before the live one."""
+    if bound is None:
+        bound = _rotate_bound()
+    if not bound:
+        return None
+    live = os.path.join(run_dir, "events.jsonl")
+    try:
+        if os.path.getsize(live) < bound:
+            return None
+    except OSError:
+        return None
+    n = 0
+    while True:
+        cand = os.path.join(run_dir, f"events.{n:03d}.jsonl")
+        if not os.path.exists(cand):
+            break
+        n += 1
+    os.replace(live, cand)
+    return cand
 
 
 def _labels_key(labels):
@@ -218,11 +261,19 @@ class MetricsRegistry:
             self._run_dir = run_dir
             self._manifest = build_manifest(config=config, argv=argv)
 
+    def active(self):
+        return self._run_dir is not None
+
     def deconfigure(self):
         """Detach the run directory (the accumulated state stays)."""
         with self._lock:
             self._run_dir = None
             self._manifest = None
+
+    def update_manifest(self, **fields):
+        with self._lock:
+            if self._manifest is not None:
+                self._manifest.update(fields)
 
     def snapshot(self):
         """Registry state as plain JSON-ready dicts."""
@@ -275,8 +326,9 @@ class MetricsRegistry:
         """Drain the registry to the configured run directory: append the
         new events (and a final ``snapshot``) to ``events.jsonl``,
         rewrite ``metrics.prom`` and ``run_manifest.json``.  A second call
-        appends only the events recorded since the first.  Returns the
-        run directory, or None when none is configured."""
+        appends only the events recorded since the first; a full
+        ``events.jsonl`` rotates first (:func:`maybe_rotate`).  Returns
+        the run directory, or None when none is configured."""
         with self._lock:
             run_dir = self._run_dir
         if run_dir is None:
@@ -294,6 +346,7 @@ class MetricsRegistry:
 
         manifest["finished_at"] = round(time.time(), 6)
         manifest.update(late_device_info())
+        maybe_rotate(run_dir)
         with open(os.path.join(run_dir, "events.jsonl"), "a") as f:
             for ev in pending:
                 f.write(json.dumps(ev) + "\n")

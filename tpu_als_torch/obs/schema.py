@@ -7,7 +7,8 @@ ratings, the fault points, the retry helper, the checkpoints, the
 fold-in server, the serving engine (its histograms, gauge and counters,
 publishes, backend and flight records, and the causal-trace hops of a
 request), the stream reader, the live updater, the tenancy control
-plane and the run's final snapshot and spans.  The registry
+plane, the CLI's per-iteration records and the run's final snapshot
+and spans.  The registry
 (:mod:`tpu_als_torch.obs.metrics`) checks every name against these
 tables when it is written, so an undeclared name raises instead of
 minting a series nothing downstream reads.  Help texts are the
@@ -198,6 +199,10 @@ EVENTS = {
         ("kind", "name", "value"),
         "a gauge set (gauges are point-in-time, so each set is an "
         "event; counters/histograms appear only in the final snapshot)"),
+    "iteration": (
+        ("iteration", "seconds", "total_seconds"),
+        "one per training iteration observed by the CLI's "
+        "IterationLogger (factor norms, optional probe_rmse)"),
     "warning": (
         ("what", "reason"),
         "a degraded-but-continuing condition (e.g. a delta publish the "

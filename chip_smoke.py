@@ -35,15 +35,19 @@ Phases (any failure exits non-zero before the final line):
    than k (sentinel slots exact) at 1 and 3 parts;
 4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
    their plain versions (``V[cols]`` + ``torch.bmm``, K2's plain solve)
-   at rank 128, then at ranks 200 and 256: two- and one-sided, f32 and
-   bf16 tables, widths 24, 100 (rank 128), 512 and a row wider than the
-   trainer's split width (K3's split path; K4 at ranks 200 and 256 too);
-   empty rows, duplicate columns and an implicit row with no positive
-   rating (K4: exactly 0); K7 (K4 over S shards in ring order) against
+   at rank 128, then at ranks 200 and 256, then above 256 (the Gram
+   staged by strips, the solve streamed above 288) at 257, 320, 333, 384
+   and 512 and K3 also at 640: two- and one-sided, f32 and bf16 tables, widths
+   24, 100 (rank 128), 512 and a row wider than the trainer's split
+   width (K3's split path; K4 above rank 128 too); empty rows, duplicate
+   columns and an implicit row with no positive rating (K4: exactly 0);
+   K4 and K7 at rank 640 raising ValueError (the reference's
+   TileBudgetError bound); K7 (K4 over S shards in ring order) against
    its plain version at ranks 128, 200 and 256, S = 1, 3 and 4 shards,
-   explicit and implicit, f32 and bf16, also with a split width of 64
-   below S·w (the width split's three passes, the plain version chunked
-   the same way), and at S = 1 and no split against K4 bit for bit; K8 (the cross-shard top-k merge) against its plain version and
+   and at 512, S = 1 and 4, explicit and implicit, f32 and bf16, also
+   with a split width of 64 below S·w (the width split's three passes,
+   the plain version chunked the same way), and at S = 1 and no split
+   against K4 bit for bit; K8 (the cross-shard top-k merge) against its plain version and
    the whole-catalog plain top-k, bitwise, on the integer tie corpus at
    4,096 users x 59,047 items, S = 1, 3, 4 and 8, k = 10 and 128, each
    shard in the parts ``topk_parts`` picks, in 1 and in 32 // S, with a
@@ -67,8 +71,15 @@ Phases (any failure exits non-zero before the final line):
    source grid (host seconds, padded entries), ``train_sharded(...,
    strategy='ring')`` with ``solve_backend='gather_fused_ring'`` (K7) for
    2 iterations from the init of a 2-iteration single-device fit, row by
-   row against it, and one iteration of the unfused ring (K2); then the
-   guardrails at rank 128: ``guardrails='recover'`` under
+   row against it, and one iteration of the unfused ring (K2); then rank
+   512, the widest the reference's K4 takes: ``ALS(rank=512, ...,
+   maxIter=2).fit`` (K4 on every narrow bucket, K3 + K6 streamed on the
+   wide ones, no K1 or K2: no einsum route, counted), one iteration
+   'auto' against 'unfused' (torch + K6), the item half-step's widest
+   rows against float64, and K7's item half-step on the 4-shard ring
+   grid against K4's from the same init; then ``ALS(rank=320).fit`` on
+   a 2000 x 800 x 40000 frame (K4 alone) with one more item half-step
+   against a float64 solve; then the guardrails at rank 128: ``guardrails='recover'`` under
    ``solve.gram=corrupt@nth=2`` (one rollback, finite factors, the
    implicit objective within RECOVER_OBJ_REL of the clean fit's, the
    factors row by row against the rollback replayed without the
@@ -90,10 +101,7 @@ Phases (any failure exits non-zero before the final line):
    gatherStrategy='merge_ring')`` (K8) for every user of the rank-128
    fit, against the single-device K5 sweep; then k = 200, above K5's
    128 (the scan route, counted), single-device and over the mesh, each
-   id earning its score; k = 0 (empty results, no launch); and
-   ``ALS(rank=320).fit`` on a 2000 x 800 x 40000 frame (the einsum route
-   with K6 above K3/K4's rank) with one more item half-step against a
-   float64 solve;
+   id earning its score; and k = 0 (empty results, no launch);
 7. model selection and evaluation (the Spark ML surface and the fit's
    checkpoint lifecycle): (a) examples/02's workflow at BASELINE config
    1's shape (943 x 1,682 x 100,000, string ids): ``Pipeline([
@@ -200,16 +208,16 @@ Phases (any failure exits non-zero before the final line):
    K5 call each) and the fold-in batch's ``recommendForUserSubset``; K4
    and K3 held
    against their plain versions once more on the item half-step's
-   buckets (widths up to 2^13, and the wide rows split), at ranks 128
-   and 256; K1 (rank 128) and K6's fused entry (rank 256) launch by
-   launch on the item half-step's wide buckets, as the fit launches them,
+   buckets (widths up to 2^13, and the wide rows split), at ranks 128,
+   256 and 512; K1 (rank 128) and K6's fused entry (ranks 256 and 512)
+   launch by launch on the item half-step's wide buckets, as the fit launches them,
    summed per half-step, and K6's fused entry on the rank-256 fold-in
    batch, each beside the first port's route (K6's factor, then two
    ``solve_triangular``), ``linalg.cholesky`` + ``cholesky_solve`` and K1
    on the same systems; K7 over
    the sharded item half-step's ring grid (each bucket's time, every
    bucket held to K4's band against its plain version chunked the same
-   way) beside the unfused ring half-step, after K7 == K4 bitwise at one
+   way) beside the unfused ring half-step, at ranks 128 and 512, after K7 == K4 bitwise at one
    shard on the single-device item half-step's K4 buckets and K7 within
    K4's band of the wide route (K3 + tail + K1) on its K3 buckets; K8 at
    the sharded serving shape beside its plain version and a matmul +
@@ -218,12 +226,14 @@ Phases (any failure exits non-zero before the final line):
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
 12. where the time goes: one training iteration, one more fold-in
-    batch and one all-users recommend, and one rank-256 iteration and
-    fold-in batch, then the serving engine's batches of 8 on its int8
+    batch and one all-users recommend, one rank-256 iteration and
+    fold-in batch, and one rank-512 iteration, then the serving engine's
+    batches of 8 on its int8
     and exact routes, under ``torch.profiler`` (wall, device busy, idle
     share, top kernels); then one JSON line with every kernel's numbers
-    (K3, K4 and K5 at rank 256 named so; K1's and K6's fit rows in ms
-    per item half-step, K6's fold-in row per batch), and the final
+    (K3, K4 and K5 at rank 256 named so, and K3, K4, K6 and K7 at rank
+    512; K1's and K6's fit rows in ms per item half-step, K6's fold-in
+    row per batch), and the final
     ``{"ok": true, ...}`` line.
 
 Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
@@ -277,7 +287,8 @@ from tpu_als_torch.ops import solve as ops_solve
 from tpu_als_torch.ops.solve import (compute_yty, implicit_weights,
                                      regularize, solve_spd)
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
-from tpu_als_torch.parallel.comm import ring_half_step, shard_csr_grid
+from tpu_als_torch.parallel.comm import (ring_fused_half_step,
+                                         ring_half_step, shard_csr_grid)
 from tpu_als_torch.parallel.data import partition_balanced
 from tpu_als_torch.parallel.mesh import make_mesh
 from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
@@ -290,6 +301,8 @@ from tpu_als_torch.utils.platform import pin_fp32
 
 N_USERS, N_ITEMS, RANK = 162_541, 59_047, 128   # ML-25M serving shape
 RANK256 = 256                                   # BASELINE config 3's width
+RANK512 = 512                   # the widest rank the reference's K4 takes
+SOLVE_BOUND_RANK = 640          # r_pad 640: past the fused solve's bound
 SHARDS = 4                                      # logical shards on the card
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                         # H100 SXM, non-tensor f32
@@ -870,18 +883,18 @@ def ring_problem(rng, dev, S, per, n, w, dtype, r):
             torch.from_numpy(mask).to(dev).to(dtype))
 
 
-def check_k7(rng, dev):
+def check_k7(rng, dev, ranks=(RANK, 200, RANK256), shards=(1, 3, SHARDS)):
     """K7 vs its plain version (K4's plain Gram, tail and solve over each
-    owner's ring-ordered stream) at ranks 128, 200 and 256, S = 1, 3 and
-    4 shards, explicit and implicit, f32 and bf16, within K4's band; at
-    S = 1, K7 == K4 bit for bit; and with a split width of 64 below S·w
-    (100, 300 and 400 entries a row: the width split's three passes,
-    chunks crossing the sources' boundaries) against the plain version
-    chunked the same way, within K4's band.  Returns the largest
-    |x - x_plain| at f32 by rank class (128, 256)."""
-    worst = {RANK: 0.0, RANK256: 0.0}
-    for r in (RANK, 200, RANK256):
-        for S in (1, 3, SHARDS):
+    owner's ring-ordered stream) at ``ranks``, S in ``shards``, explicit
+    and implicit, f32 and bf16, within K4's band; at S = 1, K7 == K4 bit
+    for bit; and with a split width of 64 below S·w (100, 300 and 400
+    entries a row: the width split's three passes, chunks crossing the
+    sources' boundaries) against the plain version chunked the same way,
+    within K4's band.  Returns the largest |x - x_plain| at f32 by
+    rank."""
+    worst = dict.fromkeys(ranks, 0.0)
+    for r in ranks:
+        for S in shards:
             for dtype in (torch.float32, torch.bfloat16):
                 for n, w, split in ((64, 24, None), (16, 100, None),
                                     (16, 100, 64)):
@@ -919,8 +932,7 @@ def check_k7(rng, dev):
                                  f"w={w} split={split}: kernel vs plain max "
                                  f"|diff| {err:.3e}")
                         if dtype == torch.float32:
-                            key = RANK if r <= RANK else RANK256
-                            worst[key] = max(worst[key], err)
+                            worst[r] = max(worst[r], err)
                         if S == 1 and split is None:
                             fused = (cuda_gather_ne.gather_fused_solve_implicit
                                      if name == "implicit" else
@@ -936,6 +948,32 @@ def check_k7(rng, dev):
                 f"{K4_RTOL}, atol {K4_ATOL} of plain"
                 + ("; unsplit == K4 bitwise" if S == 1 else ""))
     return worst
+
+
+def check_solve_bound(rng, dev):
+    """Past the fused solve's rank 512 (the reference's TileBudgetError
+    bound) K4 and K7 raise on the card, naming it, rather than fall back
+    to a plain version or the einsum route; K3 takes the rank
+    (:func:`check_k3` at SOLVE_BOUND_RANK)."""
+    r = SOLVE_BOUND_RANK
+    V, cols, vals, mask = gather_problem(rng, dev, 8, 24, torch.float32,
+                                         r=r)
+    one = (V[None], cols[None, None], vals[None, None], mask[None, None])
+    for name, call in (
+            ("K4", lambda: cuda_gather_ne.gather_fused_solve_explicit(
+                V, cols, vals, mask, REG)),
+            ("K7", lambda: cuda_gather_ne.gather_fused_ring_explicit(
+                *one, REG))):
+        try:
+            call()
+        except ValueError as e:
+            if "TileBudgetError" not in str(e):
+                fail(f"{name} at rank {r} raised, but not the fused "
+                     f"solve's bound: {e}")
+        else:
+            fail(f"{name} at rank {r} did not raise")
+    log(f"k4, k7 at rank {r}: ValueError (the reference's TileBudgetError "
+        "bound, r_pad 512); K3 takes the rank")
 
 
 def tie_corpus(rng, n, ni, r, pool=7):
@@ -998,7 +1036,7 @@ def layout(csr, side):
     log(f"{side}: {csr.num_rows} rows, padded nnz {csr.padded_nnz}, "
         f"{len(csr.buckets)} buckets, widest (width, rows) {widths[-4:]}, "
         f"max degree {int(csr.counts.max())}")
-    for r in (RANK, RANK256):
+    for r in (RANK, RANK256, RANK512):
         cfg = core_als.AlsConfig(rank=r, implicit_prefs=True)
         routes = {}
         for w, _ in widths:
@@ -1186,12 +1224,22 @@ def _zero_launches():
     cuda_gather_ne.RING_LAUNCHES = cuda_topk.MERGE_LAUNCHES = 0
 
 
-def train_slice(data, r, seed, dev):
+def train_slice(data, r, seed, dev, max_iter=3):
     """The training slice at the full ML-25M shape and rank r (the
-    kernels of the path: K4, K3 and K1 at rank 128; K4, K3 and K6 above);
-    returns what the timings and the profile reuse."""
+    kernels of the path: K4, K3 and K1 at rank 128; K4, K3 and K6 above):
+    ``ALS.fit`` for ``max_iter`` iterations, K4 launched once per narrow
+    bucket and iteration and nothing outside the path launched (no
+    einsum route); one iteration from one init through 'auto' and
+    'unfused', row by row, and each route's heaviest rows against
+    float64.  Returns what the timings and the profile reuse, with the
+    two routes' item half-steps."""
     path = ("k1", "k3", "k4") if r <= 128 else ("k3", "k4", "k6")
     n_users, n_items = data["n_users"], data["n_items"]
+    cfg = core_als.AlsConfig(rank=r, implicit_prefs=True, alpha=ALPHA,
+                             reg_param=REG)
+    narrow = sum(core_als.resolve_solve_path(cfg, r, b.width)
+                 == "gatherfused_solve"
+                 for csr in (data["ucsr"], data["icsr"]) for b in csr.buckets)
     ticks = []
 
     def tick(it, U, V):
@@ -1199,7 +1247,7 @@ def train_slice(data, r, seed, dev):
         ticks.append(time.perf_counter())
 
     est = ALS(rank=r, implicitPrefs=True, alpha=ALPHA, regParam=REG,
-              maxIter=3, fitCallback=tick)
+              maxIter=max_iter, fitCallback=tick)
     _zero_launches()
     t0 = time.perf_counter()
     model = est.fit(data["frame"])
@@ -1208,13 +1256,19 @@ def train_slice(data, r, seed, dev):
     counts = _launch_counts()
     launches = {k: counts[k] for k in path}
     log(f"rank {r} fit launches: " + ", ".join(
-        f"{k.upper()} {v}" for k, v in counts.items() if v))
+        f"{k.upper()} {v}" for k, v in counts.items() if v)
+        + f" ({narrow} narrow buckets on the two sides)")
     if min(launches.values()) == 0:
         fail(f"a kernel of the rank-{r} training path never launched: "
              f"{launches}")
+    if counts["k4"] != max_iter * narrow or sum(launches.values()) != sum(
+            counts.values()):
+        fail(f"rank {r}: not K4 on every narrow bucket and only the path's "
+             f"kernels: {counts}")
     iter_s = [b - a for a, b in zip(ticks, ticks[1:])]
     log(f"rank {r} fit: {fit_s:.2f} s wall (host remap and blocking "
-        f"included); iterations 2-3 wall "
+        f"included); iteration{'s' if max_iter > 2 else ''} "
+        f"2{f'-{max_iter}' if max_iter > 2 else ''} wall "
         f"{', '.join(f'{x * 1e3:.1f}' for x in iter_s)} ms")
     if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
         fail(f"the rank-{r} fitted factors are not finite")
@@ -1227,17 +1281,19 @@ def train_slice(data, r, seed, dev):
     g = torch.Generator().manual_seed(seed)
     U0 = core_als.init_factors(n_users, r, g).to(dev)
     V0 = core_als.init_factors(n_items, r, g).to(dev)
-    cfg = core_als.AlsConfig(rank=r, implicit_prefs=True, alpha=ALPHA,
-                             reg_param=REG)
-    out = {}
+    out, wall = {}, {}
     for backend in ("auto", "unfused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out[backend] = core_als.als_step(
             U0, V0, ub, ib, n_users, n_items,
             dataclasses.replace(cfg, solve_backend=backend))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        wall[backend] = time.perf_counter() - t0
     (Ua, Va), (Uu, Vu) = out["auto"], out["unfused"]
     eu, ev = row_rel(Ua, Uu), row_rel(Va, Vu)
-    log(f"rank {r}: one iteration 'auto' vs 'unfused': max per-row "
+    log(f"rank {r}: one iteration 'auto' ({wall['auto'] * 1e3:.1f} ms) vs "
+        f"'unfused' ({wall['unfused'] * 1e3:.1f} ms): max per-row "
         f"|diff|/|x| users {eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
     icsr, ucsr = data["icsr"], data["ucsr"]
     e64 = {"items auto": f64_rel(Va, U0, icsr),
@@ -1254,7 +1310,8 @@ def train_slice(data, r, seed, dev):
         fail(f"rank {r}: a route is off the float64 solution: {e64}")
     return {"launches": launches, "iter_s": iter_s, "ub": ub, "ib": ib,
             "U0": U0, "V0": V0, "cfg": cfg, "n_items": n_items,
-            "n_users": n_users, "model": model}
+            "n_users": n_users, "model": model,
+            "items": {"auto": Va, "unfused": Vu}}
 
 
 def sharded_train_slice(data, seed, dev):
@@ -1353,7 +1410,92 @@ def sharded_train_slice(data, seed, dev):
         fail(f"the unfused and fused rings disagree: {eu1:.3e}, {ev1:.3e}")
     return {"launches": launches, "iter_s": iter_s, "ish": ish,
             "icounts": counts[1], "U0": slot_rows(upart, U0.to(dev)),
-            "mesh": mesh}
+            "mesh": mesh, "upart": upart, "ipart": ipart}
+
+
+def widest_rows_f64(xs, F, data, n_widest=4):
+    """``({name: max per-row |x - x64| / |x64|}, rows)`` for the item
+    half-steps ``xs`` [n_items, r] against the user factors F, over every
+    real row of the ``n_widest`` widest item buckets and the heaviest row
+    of every other bucket; x64 is the dense float64 half-step
+    (:func:`dense_half_step_f64`) on those rows' ratings alone."""
+    icsr = data["icsr"]
+    pick = set()
+    for k, b in enumerate(icsr.buckets):
+        real = b.rows[b.rows < icsr.num_rows]
+        if k >= len(icsr.buckets) - n_widest:
+            pick.update(int(i) for i in real)
+        elif len(real):
+            pick.add(int(real[np.argmax(icsr.counts[real])]))
+    pick = np.asarray(sorted(pick))
+    local = np.full(icsr.num_rows, -1, dtype=np.int64)
+    local[pick] = np.arange(len(pick))
+    li = local[data["i_idx"]]
+    sel = li >= 0
+    x64 = dense_half_step_f64(F, li[sel], data["u_idx"][sel], data["r"][sel],
+                              len(pick), REG, ALPHA)
+    rows = torch.from_numpy(pick).to(F.device)
+    return ({k: row_rel(x[rows].double(), x64) for k, x in xs.items()},
+            len(pick))
+
+
+def rank512_slice(data, sh, seed, dev):
+    """Phase 5 at rank 512, the widest rank the reference's K4 takes
+    (r_pad 512): :func:`train_slice` for 2 iterations (K4 on every narrow
+    bucket, K3 + K6 streamed on the wide ones, nothing else: no einsum
+    route), then the item half-step's widest rows
+    (:func:`widest_rows_f64`) against float64, and K7's item half-step
+    on phase 5's 4-shard ring grid against K4's (every bucket forced
+    through K4) from the same init.  Then :func:`rank320_fit`.  Returns
+    what the timings reuse."""
+    r = RANK512
+    tr = train_slice(data, r, seed, dev, max_iter=2)
+    items = tr.pop("items")
+    U0, ib, cfg = tr["U0"], tr["ib"], tr["cfg"]
+    e64, nrows = widest_rows_f64(items, U0, data)
+    log(f"rank {r}: the item half-step's widest rows ({nrows}: every row of "
+        "the 4 widest buckets, the heaviest of the others) vs dense "
+        "float64: " + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+        + f" (tol {TRAIN_REL})")
+    if max(e64.values()) > TRAIN_REL:
+        fail(f"rank {r}: a route is off the float64 solution: {e64}")
+
+    # K7's item half-step on the ring grid, against K4's
+    YtY = compute_yty(U0)
+    Us = slot_rows(sh["upart"], U0)
+    ish = sh["ish"].to(dev)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x7 = ring_fused_half_step(
+        Us, ish, sh["ish"].rows_per_shard, SHARDS,
+        dataclasses.replace(cfg, solve_backend="gather_fused_ring"), YtY)
+    torch.cuda.synchronize()
+    w7 = time.perf_counter() - t0
+    k7 = _launch_counts()
+    if not k7["k7"] or sum(k7.values()) != k7["k7"]:
+        fail(f"rank {r}: the ring half-step's launches: {k7}")
+    V7 = entity_rows(sh["ipart"], x7)
+    del x7, ish
+    t0 = time.perf_counter()
+    V4 = core_als.local_half_step(
+        U0, ib, tr["n_items"],
+        dataclasses.replace(cfg, solve_backend="gather_fused_solve"), YtY)
+    torch.cuda.synchronize()
+    w4 = time.perf_counter() - t0
+    e7, e4 = row_rel(V7, V4), row_rel(V4, items["auto"])
+    log(f"rank {r}: K7's item half-step on the {SHARDS}-shard ring grid "
+        f"({k7['k7']} launches, {w7 * 1e3:.1f} ms) vs K4's on every "
+        f"bucket ({w4 * 1e3:.1f} ms): max per-row |diff|/|x| {e7:.3e}; K4's "
+        f"vs 'auto' {e4:.3e} (tol {TRAIN_REL})")
+    if not (torch.isfinite(V7).all() and e7 <= TRAIN_REL
+            and e4 <= TRAIN_REL):
+        fail(f"rank {r}: K7's half-step is off K4's: {e7:.3e} ({e4:.3e})")
+    del V4, V7, items
+    rank320_fit(seed, dev)
+    tr["ring"] = {"ish": sh["ish"], "icounts": sh["icounts"], "U0": Us,
+                  "launches": {"k7": k7["k7"]}}
+    return tr
 
 
 def implicit_objective(model, frame, factors=None, chunk=1 << 21):
@@ -1908,10 +2050,11 @@ def dense_half_step_f64(F, rows, cols, vals, n_rows, reg, alpha):
 
 
 def rank320_fit(seed, dev):
-    """``ALS(rank=320).fit`` on the card, above K3/K4's rank: 'auto'
-    takes the einsum route, whose solves are K6's fused entry (streamed).
-    Then one more item half-step on the card against a float64 solve of
-    the same normal equations, row by row."""
+    """``ALS(rank=320).fit`` on the card: every bucket of this frame is
+    narrow, so 'auto' takes K4 (its Gram staged by strips, its solve
+    streamed above rank 288) and nothing else.  Then one more item
+    half-step on the card against a float64 solve of the same normal
+    equations, row by row."""
     frame = synthetic_movielens(2000, 800, 40_000, seed=seed)
     _zero_launches()
     t0 = time.perf_counter()
@@ -1923,8 +2066,8 @@ def rank320_fit(seed, dev):
     log(f"rank 320 fit (2000 x 800 x 40000, 2 iterations): {wall:.2f} s "
         "wall; launches " + ", ".join(f"{k.upper()} {v}"
                                       for k, v in launches.items() if v))
-    if launches["k6"] == 0 or launches["k3"] or launches["k4"]:
-        fail(f"rank 320 did not take the einsum route with K6: {launches}")
+    if launches["k4"] == 0 or sum(launches.values()) != launches["k4"]:
+        fail(f"rank 320 did not take K4 alone: {launches}")
     U, V = model._U, model._V
     if not (torch.isfinite(U).all() and torch.isfinite(V).all()) \
             or U.shape[1] != 320:
@@ -4058,8 +4201,12 @@ def ring_timings(sh, tr, errs, dev):
     tensor cores.  First, at one shard on the single-device
     item half-step: K7 against K4 bit for bit on its K4 buckets, and
     against the wide route (K3 + tail + K1) within K4's band on its K3
-    buckets."""
-    U1, r = tr["U0"], RANK
+    buckets.  The rank is the single-device slice's ``tr``; ``sh``'s
+    init is the same one in slot space."""
+    U1 = tr["U0"]
+    r = U1.shape[1]
+    tag = "" if r == RANK else f", rank {r}"
+    sfx = "" if r == RANK else f"_{r}"
     Y1 = compute_yty(U1)
     split = core_als.SPLIT_WIDTH
 
@@ -4091,7 +4238,7 @@ def ring_timings(sh, tr, errs, dev):
             fail(f"K7 at one shard vs the wide route (K3 + tail + K1) on "
                  f"the bucket of width {b.width}: max |diff| "
                  f"{(x7 - xw).abs().max():.3e}")
-    log(f"k7 at one shard == K4 bitwise on the item half-step's "
+    log(f"k7 r={r} at one shard == K4 bitwise on the item half-step's "
         f"{len(k4_b)} K4 buckets; vs the wide route (K3 + tail + K1) on its "
         f"{len(k3_b)} K3 buckets max |diff| {e_wide:.3e} (rtol {K4_RTOL}, "
         f"atol {K4_ATOL})")
@@ -4170,11 +4317,11 @@ def ring_timings(sh, tr, errs, dev):
         f"{ms7:.4f} plain_ms={p7:.4f} library_ms={l7:.4f} (unfused ring "
         f"half-step) bound_ms={b7:.4f} ({by7}: {bound_note(nb7, *fl7)}) "
         f"launches/fit={sh['launches']['k7']}")
-    return {"name": "gather_solve_ring (K7)", "route": "cuda",
+    return {"name": f"gather_solve_ring (K7{tag})", "route": "cuda",
             "source": "tpu_als_torch/csrc/gather_solve_ring.cu",
             "replaces": "tpu_als/ops/pallas_gather_ne.py:708",
             "launches": sh["launches"]["k7"],
-            "max_abs_err": max(errs["k7"], *e7.values()),
+            "max_abs_err": max(errs["k7" + sfx], *e7.values()),
             "ms": ms7, "plain_ms": p7, "bound_ms": b7, "bound_by": by7,
             "library_ms": l7}
 
@@ -4260,15 +4407,46 @@ def bucket_times(tr):
         f"({ms / iter_bound:.1f}x its bound {iter_bound:.2f} ms)")
 
 
-def where_time_goes(model, rng, tr, users, items):
-    """One training iteration, one more fold-in batch (of ``users`` and
-    new ones, rating ``items``) and one all-users recommend under the
-    profiler, at the rank of ``tr`` and ``model``: wall time, device
-    busy time (sum of kernel times), the device's idle share, the host's
-    packing time, and the top kernels."""
+def profiled(r, what, fn, note=""):
+    """``fn()`` once under the profiler: wall time, device busy time (sum
+    of kernel times), the device's idle share and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): a CPU op's self device
+    # time repeats its kernels' time
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0
+          and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"profile rank {r} {what}: wall_ms={wall:.3f} "
+        f"device_busy_ms={busy:.3f} device_idle_share={1 - busy / wall:.3f}"
+        + note)
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d}"
+            f" {e.key[:90]}")
+
+
+def training_iteration(tr):
+    """One 'auto' iteration from the slice ``tr``'s seeded init."""
+    return lambda: core_als.als_step(tr["U0"], tr["V0"], tr["ub"], tr["ib"],
+                                     tr["n_users"], tr["n_items"], tr["cfg"])
+
+
+def where_time_goes(model, rng, tr, users, items):
+    """One training iteration, one more fold-in batch (of ``users`` and
+    new ones, rating ``items``) and one all-users recommend under the
+    profiler (:func:`profiled`), at the rank of ``tr`` and ``model``,
+    and the host's packing time of the batch."""
     r = model.rank
     batch, _ = foldin_batch(rng, 4096, users,
                             int(model._user_map.ids.max()) + 1, items)
@@ -4277,36 +4455,10 @@ def where_time_goes(model, rng, tr, users, items):
     pack_rows(batch["user"], fixed, batch["rating"])
     pack_ms = (time.perf_counter() - t0) * 1e3
     srv = FoldInServer(model)
-    def iteration():
-        core_als.als_step(tr["U0"], tr["V0"], tr["ub"], tr["ib"],
-                          tr["n_users"], tr["n_items"], tr["cfg"])
-
-    for what, fn in (("training iteration", iteration),
-                     ("fold-in update", lambda: srv.update(batch)),
-                     ("recommend_arrays", lambda: model.recommend_arrays(10))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies): a CPU op's self
-        # device time repeats its kernels' time
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and not e.key.startswith("Activity Buffer")]
-        busy = sum(e.self_device_time_total for e in ev) / 1e3
-        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"profile rank {r} {what}: wall_ms={wall:.3f} "
-            f"device_busy_ms={busy:.3f} "
-            f"device_idle_share={1 - busy / wall:.3f}"
-            + (f" host_pack_ms={pack_ms:.3f}" if what.startswith("fold")
-               else ""))
-        for e in top:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d}"
-                f" {e.key[:90]}")
+    profiled(r, "training iteration", training_iteration(tr))
+    profiled(r, "fold-in update", lambda: srv.update(batch),
+             f" host_pack_ms={pack_ms:.3f}")
+    profiled(r, "recommend_arrays", lambda: model.recommend_arrays(10))
 
 
 def profile_engine_batches(fitted, rng, dev, reps=20):
@@ -4387,12 +4539,24 @@ def main():
     k5 = check_k5(rng, dev)
     errs.update(k5=k5[RANK], k5_256=k5[RANK256], k3=check_k3(rng, dev),
                 k4=check_k4(rng, dev))
-    for r in (200, RANK256):   # the larger error of the two ranks
-        for k, e in (("k3", check_k3(rng, dev, r, (24, 512))),
-                     ("k4", check_k4(rng, dev, r, ((256, 24), (64, 512),
-                                                  (3, 2 * split))))):
-            errs[f"{k}_256"] = max(errs.get(f"{k}_256", 0.0), e)
+    # the larger error of the ranks of a class: 200 and 256 (gram_sm90.cuh
+    # cut over blocks), 257 to 512 (gram_strips.cuh; 257: the solve's 9
+    # tiles on chip, a one-column last strip in a one-strip group; above
+    # 288 the solve streamed; 333: 4- and 2-byte copies, the streamed
+    # solve's scalar loads; K3 also at 640)
+    for cls, ranks in (("256", (200, RANK256)),
+                       ("512", (257, 320, 333, 384, RANK512,
+                                SOLVE_BOUND_RANK))):
+        for r in ranks:
+            e = {"k3": check_k3(rng, dev, r, (24, 512))}
+            if r <= RANK512:
+                e["k4"] = check_k4(rng, dev, r, ((256, 24), (64, 512),
+                                                 (3, 2 * split)))
+            for k, v in e.items():
+                errs[f"{k}_{cls}"] = max(errs.get(f"{k}_{cls}", 0.0), v)
+    check_solve_bound(rng, dev)
     errs["k7"] = check_k7(rng, dev)[RANK]
+    errs["k7_512"] = check_k7(rng, dev, (RANK512,), (1, SHARDS))[RANK512]
     errs["k8"] = check_k8(rng, dev)
     check_ladder(dev)
     data = prepare(args.seed, dev)
@@ -4400,7 +4564,9 @@ def main():
     s9 = csv_phase(data["frame"], args.seed, work.name)
     tr = train_slice(data, RANK, args.seed, dev)
     tr256 = train_slice(data, RANK256, args.seed, dev)
+    del tr["items"], tr256["items"]
     sh = sharded_train_slice(data, args.seed, dev)
+    tr512 = rank512_slice(data, sh, args.seed, dev)
     guardrail_fits(data, tr, dev)
     frame25m = data["frame"]
     del data
@@ -4410,7 +4576,6 @@ def main():
     launches8 = sharded_serve_slice(tr["model"], sh["mesh"], dev)
     topk_k200(tr["model"], sh["mesh"], rng, dev)
     recommend_zero(model)
-    rank320_fit(args.seed, dev)
     model_selection_phase(frame25m, args.seed, dev)
     del frame25m
     p8 = serving_engine_phase(tr["model"], model, rng, dev, smi)
@@ -4425,10 +4590,12 @@ def main():
     sweep_timings(model256, users256)
     kernels += train_timings(tr, errs, dev)
     kernels += train_timings(tr256, errs, dev)
+    kernels += train_timings(tr512, errs, dev)
     k4_split(tr, smi)
     k4_split(tr256, smi)
     iteration_logger_cost(tr, rng, smi)
     kernels.append(ring_timings(sh, tr, errs, dev))
+    kernels.append(ring_timings(tr512.pop("ring"), tr512, errs, dev))
     del sh
     kernels.append(merge_timings(tr["model"], launches8, dev))
     kernels.append(k6_timings([(A256, b256, b256.shape[0])],
@@ -4439,6 +4606,7 @@ def main():
     where_time_goes(model, rng, tr, np.arange(N_USERS), np.arange(N_ITEMS))
     where_time_goes(model256, rng, tr256, tr256["model"]._user_map.ids,
                     model256._item_map.ids)
+    profiled(RANK512, "training iteration", training_iteration(tr512))
     profile_engine_batches(tr["model"], rng, dev)
     log(f"device: {smi}")   # again, beside the results at the tail
     print(json.dumps({"kernels": kernels}))

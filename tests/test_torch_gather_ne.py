@@ -248,3 +248,68 @@ def test_k4_plain_at_rank_320_matches_the_einsum_route():
     assert x.shape == (6, 320) and torch.isfinite(x).all()
     np.testing.assert_allclose(x.numpy(), xe.numpy(), atol=5e-5, rtol=5e-4)
     assert np.all(x.numpy()[[0, 2]] == 0)
+
+
+@pytest.mark.parametrize("r,implicit", [(320, False), (512, True)])
+def test_k4_plain_above_rank_256_matches_reference(r, implicit):
+    """Above rank 256 (the kernels' strip-staged Gram; the solve pass
+    streamed above rank 288) K4's plain version against the reference's
+    fused solve in interpret mode, up to its own bound r_pad 512, with
+    K4's tolerance (atol 5e-5, rtol 5e-4)."""
+    n, w = 8, 24
+    V, cols, vals, mask, YtY = _problem(r + implicit, n, w, r, N=100,
+                                        implicit=implicit)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    if implicit:
+        ref = jg.gather_fused_solve_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                             jnp.asarray(YtY),
+                                             interpret=True)
+        got = tg.gather_fused_solve_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                             torch.from_numpy(YtY))
+    else:
+        ref = jg.gather_fused_solve_explicit(jV, jc, jv, jm, 0.05,
+                                             interpret=True)
+        got = tg.gather_fused_solve_explicit(tV, tc, tv, tm, 0.05)
+    assert got.shape == (n, r)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                               rtol=5e-4)
+    zero = [0, 2] if implicit else [0]
+    assert np.all(got.numpy()[zero] == 0)
+
+
+def test_k3_plain_at_rank_384_matches_reference():
+    """K3's plain version against the reference's gather_gram in
+    interpret mode at rank 384 (12 strips, 9 parts on the card), with
+    K3's tolerance (5e-6 of each entry's Σ|terms|)."""
+    n, w, r = 8, 24, 384
+    V, cols, vals, mask, YtY = _problem(r, n, w, r, N=100, implicit=True)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    ref = jg.gather_normal_eq_implicit(jV, jc, jv, jm, 0.1, 4.0,
+                                       jnp.asarray(YtY), interpret=True)
+    got = tg.gather_normal_eq_implicit(tV, tc, tv, tm, 0.1, 4.0,
+                                       torch.from_numpy(YtY))
+    _assert_within_scale(got, ref, tV, tc, tv, tm, True, YtY)
+
+
+def test_fused_solve_bound_at_rank_640_is_the_reference_s():
+    """At rank 640 (r_pad 640) the reference's fused solve raises
+    TileBudgetError; the port's K4 and K7 wrappers raise ValueError (of
+    which TileBudgetError is one) on any device, while K3 takes the rank
+    (its plain version here, within 5e-6 of Σ|terms| of the reference's
+    einsum builder)."""
+    from tpu_als.ops import solve as jsolve
+
+    n, w, r = 4, 8, 640
+    V, cols, vals, mask, YtY = _problem(r, n, w, r, N=40)
+    (jV, jc, jv, jm), (tV, tc, tv, tm) = _both((V, cols, vals, mask))
+    assert issubclass(jg.TileBudgetError, ValueError)
+    with pytest.raises(jg.TileBudgetError):
+        jg.gather_fused_solve_explicit(jV, jc, jv, jm, 0.05, interpret=True)
+    with pytest.raises(ValueError, match="TileBudgetError"):
+        tg.gather_fused_solve_explicit(tV, tc, tv, tm, 0.05)
+    with pytest.raises(ValueError, match="TileBudgetError"):
+        tg.gather_fused_ring_explicit(tV[None], tc[None, None],
+                                      tv[None, None], tm[None, None], 0.05)
+    got = tg.gather_normal_eq_explicit(tV, tc, tv, tm, 0.05)
+    ref = jsolve.normal_eq_explicit(jV[jc], jv, jm, 0.05)
+    _assert_within_scale(got, ref, tV, tc, tv, tm, False, YtY)

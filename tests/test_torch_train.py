@@ -161,8 +161,8 @@ def test_resolve_solve_path_labels():
                                    16, tals.SPLIT_WIDTH * 2) == \
         "gatherfused_ring"
     # armed, 'auto' hands K4's buckets to K3 + the laddered solve (K2 up
-    # to rank 128, K6 above); the wide buckets, the einsum route above
-    # rank 256 and a forced K4 keep their routes
+    # to rank 128, K6 above, at every rank K4 takes); the wide buckets
+    # and a forced K4 keep their routes
     assert tals.resolve_solve_path(c(adaptive_solve=True), 16, 8) == \
         "gatherfused+pallas_lanes"
     assert tals.resolve_solve_path(c(adaptive_solve=True), 256, 64) == \
@@ -171,7 +171,7 @@ def test_resolve_solve_path_labels():
                                    tals.SPLIT_WIDTH * 2) == \
         "gatherfused+pallas_cholesky"
     assert tals.resolve_solve_path(c(adaptive_solve=True), 320, 8) == \
-        "einsum+pallas_lanes_blocked"
+        "gatherfused+pallas_lanes_blocked"
     assert tals.resolve_solve_path(
         c(adaptive_solve=True, solve_backend="gather_fused_solve"), 16,
         8) == "gatherfused_solve"
@@ -180,19 +180,22 @@ def test_resolve_solve_path_labels():
 
 
 def test_auto_above_rank_128_keeps_the_gather_kernels():
-    """Up to K3/K4's rank 256, 'auto' routes through them; above it
-    'auto' resolves to the einsum route (torch Gram, K6), and the gather
-    kernels' wrappers, forced there, raise on the card (saying what is
-    missing) rather than fall back to the torch Gram; on the CPU 'auto'
-    agrees with the explicit 'unfused' route."""
+    """Up to K4's rank 512, 'auto' routes through K3/K4; above it K4's
+    wrapper, forced there, raises (naming the reference's
+    TileBudgetError bound) on any device rather than fall back to the
+    torch Gram, while K3 takes the rank; on the CPU 'auto' agrees with
+    the explicit 'unfused' route."""
     from tpu_als_torch.ops import cuda_gather_ne as gne
 
-    class OnCard:
-        device = torch.device("cuda")
-        shape = (30, 264)
-
-    with pytest.raises(NotImplementedError, match="at most rank 256"):
-        gne._cuda_ready("gather_solve", OnCard())
+    rng = np.random.default_rng(640)
+    V = torch.from_numpy(_unit_rows(rng, 40, 640))
+    cols = torch.from_numpy(rng.integers(0, 40, (3, 5)).astype(np.int32))
+    ones = torch.ones(3, 5)
+    with pytest.raises(ValueError, match="TileBudgetError"):
+        gne.gather_solve(V, cols, ones, ones, ones, two_sided=True,
+                         reg=0.1)
+    S, b = gne.gather_gram(V, cols, ones, ones, two_sided=True)
+    assert S.shape == (3, 640, 640) and b.shape == (3, 640)
     u, i, r, _, _ = _problem()
     g = torch.Generator().manual_seed(3)
     init = (tals.init_factors(NU, 264, g), tals.init_factors(NI, 264, g))
@@ -210,20 +213,24 @@ def test_auto_above_rank_128_keeps_the_gather_kernels():
 @pytest.mark.parametrize("rank,narrow,wide", [
     (128, "gatherfused_solve", "gatherfused+pallas_cholesky"),
     (256, "gatherfused_solve", "gatherfused+pallas_lanes_blocked"),
-    (320, "einsum+pallas_lanes_blocked", "einsum+pallas_lanes_blocked"),
+    (320, "gatherfused_solve", "gatherfused+pallas_lanes_blocked"),
+    (512, "gatherfused_solve", "gatherfused+pallas_lanes_blocked"),
+    (640, "gatherfused+pallas_lanes_blocked",
+     "gatherfused+pallas_lanes_blocked"),
 ])
 def test_auto_route_follows_the_rank(rank, narrow, wide):
-    """'auto' picks K4 / K3 while the rank fits them
-    (``cuda_gather_ne.MAX_RANK``), and the einsum route with K6 above,
-    from the shapes alone, for narrow and wide buckets alike."""
+    """'auto' picks K4 for narrow buckets while the rank fits it
+    (``cuda_gather_ne.SOLVE_MAX_RANK``, 512) and K3 + a solve kernel for
+    wide ones; above K4's rank every bucket takes K3 + K6, from the
+    shapes alone."""
     cfg = tals.AlsConfig(rank=rank)
     assert tals.resolve_solve_path(cfg, rank, 64) == narrow
     assert tals.resolve_solve_path(cfg, rank, tals.SPLIT_WIDTH * 2) == wide
 
 
 def test_rank_320_fit_matches_reference(tmp_path):
-    """``ALS(rank=320).fit`` (above K3/K4's rank: 'auto' takes the einsum
-    route and K6's plain version here) from one injected init — a shared
+    """``ALS(rank=320).fit`` ('auto' takes K4, whose solve pass streams
+    above rank 288; its plain version here) from one injected init — a shared
     checkpoint both estimators resume from — against the reference's
     fit, two iterations, within ATOL/RTOL."""
     data = _frame(seed=3)

@@ -11,14 +11,12 @@ bucket of width <= :data:`SPLIT_WIDTH` goes through kernel K4
 row's Gram and its solve each in a block); a wider bucket goes through
 kernel K3 with its width split over blocks, the ``normal_eq`` tail, and
 a solve kernel: K1 up to rank 128 (``gatherfused+pallas_cholesky``), K6's
-fused factorization and solve above (``gatherfused+pallas_lanes_blocked``).
-K3 and K4 hold rank <= :data:`~tpu_als_torch.ops.cuda_gather_ne.MAX_RANK`
-(256): above it
-'auto' resolves, from the rank alone, to the einsum route (``V[cols]``,
-the torch normal equations and K6's fused solve:
-``einsum+pallas_lanes_blocked``), as the reference's 'auto' does where
-its fused kernel does not fit; forced to K3 or K4 there, their wrappers
-raise on the card.
+fused factorization and solve above (``gatherfused+pallas_lanes_blocked``,
+streamed above rank 288).  K3 takes every rank; K4 takes rank <=
+:data:`~tpu_als_torch.ops.cuda_gather_ne.SOLVE_MAX_RANK` (512, the
+reference's fused-solve bound): above it 'auto' sends every bucket to K3
++ K6, from the rank alone, as the reference's 'auto' does where its
+fused kernel does not fit; forced to K4 there, its wrapper raises.
 ``'gather_fused_solve'`` forces K4 on every bucket, and so does
 ``'gather_fused_ring'`` on this local path (``gatherfused_ring``, the
 one-shard ring: under the sharded 'ring' strategies it is kernel K7,
@@ -146,14 +144,13 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
                 if cfg.cg_mode == "matfree"
                 else f"einsum+cg{cfg.cg_iters}_warmstart")
     if cfg.solve_backend == "auto":
-        if rank > gne.MAX_RANK:
-            return "einsum+" + solver
-        if width <= SPLIT_WIDTH:
+        if width <= SPLIT_WIDTH and rank <= gne.SOLVE_MAX_RANK:
             return ("gatherfused+" + solver if cfg.adaptive_solve
                     else "gatherfused_solve")
-        # the wide rows' systems: K1 where K2 would be auto's solver (1
-        # to 128 systems a launch at the ML-25M shape: K1 is built for the
-        # latency of one system, PERF.md), K6 above rank 128
+        # the wide rows' systems (above K4's rank 512 every bucket's):
+        # K1 where K2 would be auto's solver (1 to 128 systems a launch at
+        # the ML-25M shape: K1 is built for the latency of one system,
+        # PERF.md), K6 above rank 128
         return "gatherfused+" + ("pallas_cholesky" if solver == "pallas_lanes"
                                  else solver)
     return "einsum+" + solver

@@ -23,7 +23,10 @@
 // into two TF32 halves, three mma products, the sums in f32 registers,
 // two-level) at every rank <= 256; above 12 warp tiles (rank > 128) the
 // triangle is cut over blocks; a stage of 32 entries whose weights are
-// all zero (padding) is skipped.  On the TPU a wide row's width chunks ran
+// all zero (padding) is skipped.  Above rank 256, gram_strips.cuh's body:
+// the same warp tiles, grouped into parts that each stage only the
+// 32-column strips they read (at most 6, any rank), a row's parts in
+// neighbouring blocks.  On the TPU a wide row's width chunks ran
 // in order on one core; here a row wider than `split` is cut into width
 // chunks of `split` entries, one block each (grid (n, nsplit, parts)),
 // so the few rows of a power-law catalog's widest buckets spread over
@@ -35,26 +38,40 @@
 #include <cuda_runtime.h>
 
 #include "gram_sm90.cuh"
+#include "gram_strips.cuh"
 
 namespace {
 
-template <typename T, bool kTwoSided>
-__global__ void __launch_bounds__(g90::kMaxThreads, 1)
+// Grid (n, nsplit, parts) at rank <= 256 (gram_sm90.cuh); above it
+// (kStrips, gram_strips.cuh) grid (parts·n, nsplit), a row's parts side
+// by side.
+template <typename T, bool kTwoSided, bool kStrips>
+__global__ void __launch_bounds__(kStrips ? gstrips::kThreads
+                                          : g90::kMaxThreads, 1)
 gather_gram_kernel(const T* __restrict__ V, const int* __restrict__ cols,
                    const T* __restrict__ aw, const T* __restrict__ bw,
                    float* __restrict__ S, float* __restrict__ b, int r,
                    long long w, long long split) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const long long row = blockIdx.x;
-  const int k = blockIdx.y, nsplit = gridDim.y, part = blockIdx.z;
+  const int np = kStrips ? gstrips::parts(r) : 1;
+  const long long row = kStrips ? blockIdx.x / np : blockIdx.x;
+  const int part = kStrips ? static_cast<int>(blockIdx.x - row * np)
+                           : static_cast<int>(blockIdx.z);
+  const int k = blockIdx.y, nsplit = gridDim.y;
   const long long w0 = k * split;
   const long long w1 = w0 + split < w ? w0 + split : w;
   const gram::RowEntries<T> src{V, cols + row * w, aw + row * w,
                                 bw + row * w, nullptr, r};
-  g90::Acc acc;
-  g90::gram<T, kTwoSided>(src, r, w0, w1, part, smem, acc);
   const long long out = row * nsplit + k;
-  g90::store(acc, r, part, S + out * r * r, b + out * r, nullptr);
+  if constexpr (kStrips) {
+    gstrips::Acc acc;
+    gstrips::gram<T, kTwoSided>(src, r, w0, w1, part, smem, acc);
+    gstrips::store(acc, r, S + out * r * r, b + out * r, nullptr);
+  } else {
+    g90::Acc acc;
+    g90::gram<T, kTwoSided>(src, r, w0, w1, part, smem, acc);
+    g90::store(acc, r, part, S + out * r * r, b + out * r, nullptr);
+  }
 }
 
 template <typename T, bool kTwoSided>
@@ -62,15 +79,22 @@ cudaError_t launch(const void* V, const int* cols, const void* aw,
                    const void* bw, float* S, float* b, long long n,
                    long long w, int r, long long split, int nsplit,
                    cudaStream_t stream) {
-  auto kern = gather_gram_kernel<T, kTwoSided>;
-  const size_t smem = g90::smem_bytes<T>(r);
+  const bool strips = r > gram::kRankLimit;
+  auto kern = strips ? gather_gram_kernel<T, kTwoSided, true>
+                     : gather_gram_kernel<T, kTwoSided, false>;
+  const size_t smem =
+      strips ? gstrips::smem_bytes<T>() : g90::smem_bytes<T>(r);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(nsplit),
-            static_cast<unsigned>(g90::parts(r)));
-  kern<<<grid, 32 * g90::warps(r), smem, stream>>>(
+  const dim3 grid =
+      strips ? dim3(static_cast<unsigned>(n * gstrips::parts(r)),
+                    static_cast<unsigned>(nsplit), 1)
+             : dim3(static_cast<unsigned>(n), static_cast<unsigned>(nsplit),
+                    static_cast<unsigned>(g90::parts(r)));
+  const int threads = strips ? gstrips::kThreads : 32 * g90::warps(r);
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(V), cols, static_cast<const T*>(aw),
       static_cast<const T*>(bw), S, b, r, w, split);
   return cudaGetLastError();
@@ -86,8 +110,9 @@ extern "C" int gather_gram(const void* V, const int* cols, const void* aw,
                            long long split, int two_sided, int bf16,
                            void* stream) {
   if (n <= 0) return 0;
-  if (r < 1 || r > gram::kRankLimit || w < 1 || split < 1 ||
-      n > 0x7fffffffLL)
+  if (r < 1 || r > gram::kGramRankLimit || w < 1 || split < 1 ||
+      n > 0x7fffffffLL ||
+      (r > gram::kRankLimit && n * gstrips::parts(r) > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nsplit = (w + split - 1) / split;
   if (nsplit > 65535 || (nsplit > 1 && (!part_S || !part_b)))

@@ -18,10 +18,13 @@
 // one call.  Pass 1 is K3's Gram (gram_sm90.cuh): the rows gathered by
 // cp.async into a 4-stage ring, the lower triangle on the tensor cores in
 // 3xTF32 (f32 accuracy), all-padding stages skipped, and above rank 128
-// the triangle cut over blocks; it writes each row's S, b and count to
-// scratch (E = r·r + r + 1 floats a row).  Pass 2 is gather_solve.cuh's
-// tail and chol_tiled.cuh's solve, a block of 8 warps per row at rank
-// <= 128 and 16 above.  Two passes, because the two halves want other
+// the triangle cut over blocks (above rank 256 gram_strips.cuh's parts,
+// each staging only the strips it reads); it writes each row's S, b and
+// count to scratch (gsolve::row_floats(r) floats a row).  Pass 2 is
+// gather_solve.cuh's tail and chol_tiled.cuh's solve, a block of 8 warps
+// per row at rank <= 128, 16 up to rank 288, and above it stream_solve()
+// on A formed in place in the row's scratch.  Rank <= 512, the
+// reference's bound.  Two passes, because the two halves want other
 // blocks: the Gram one block of up to 12 warps at ~150 registers a thread
 // (its triangle cut over blocks above rank 128), the solve several small
 // blocks an SM to hide its barriers.  Rows wider than the trainer's split
@@ -32,26 +35,40 @@
 
 #include "gather_solve.cuh"
 #include "gram_sm90.cuh"
+#include "gram_strips.cuh"
 
 namespace {
 
-// Pass 1: the Gram, b and count of rows [row0, row0 + gridDim.x) into
-// sums [gridDim.x, E]; grid (rows, 1, parts).
-template <typename T, bool kTwoSided>
-__global__ void __launch_bounds__(g90::kMaxThreads, 1)
+// Pass 1: the Gram, b and count of rows [row0, row0 + nrows) into
+// sums [nrows, E]; grid (nrows, 1, parts) at rank <= 256 (gram_sm90.cuh),
+// above it (kStrips, gram_strips.cuh) grid (parts·nrows), a row's parts
+// side by side.
+template <typename T, bool kTwoSided, bool kStrips>
+__global__ void __launch_bounds__(kStrips ? gstrips::kThreads
+                                          : g90::kMaxThreads, 1)
 row_gram_kernel(const T* __restrict__ V, const int* __restrict__ cols,
                 const T* __restrict__ aw, const T* __restrict__ bw,
                 const T* __restrict__ cw, float* __restrict__ sums, int r,
                 long long w, long long row0) {
   extern __shared__ __align__(16) float smem[];  // as the solve pass's
-  const long long row = row0 + blockIdx.x;
+  const int np = kStrips ? gstrips::parts(r) : 1;
+  const long long i = kStrips ? blockIdx.x / np : blockIdx.x;
+  const int part = kStrips ? static_cast<int>(blockIdx.x - i * np)
+                           : static_cast<int>(blockIdx.z);
+  const long long row = row0 + i;
   const gram::RowEntries<T> src{V, cols + row * w, aw + row * w,
                                 bw + row * w, cw + row * w, r};
-  g90::Acc acc;
-  g90::gram<T, kTwoSided>(src, r, 0, w, blockIdx.z,
-                          reinterpret_cast<unsigned char*>(smem), acc);
-  float* o = sums + blockIdx.x * gsolve::row_floats(r);
-  g90::store(acc, r, blockIdx.z, o, o + r * r, o + r * r + r);
+  float* o = sums + i * gsolve::row_floats(r);
+  auto* sm = reinterpret_cast<unsigned char*>(smem);
+  if constexpr (kStrips) {
+    gstrips::Acc acc;
+    gstrips::gram<T, kTwoSided>(src, r, 0, w, part, sm, acc);
+    gstrips::store(acc, r, o, o + r * r, o + r * r + r);
+  } else {
+    g90::Acc acc;
+    g90::gram<T, kTwoSided>(src, r, 0, w, part, sm, acc);
+    g90::store(acc, r, part, o, o + r * r, o + r * r + r);
+  }
 }
 
 template <typename T, bool kTwoSided>
@@ -60,15 +77,21 @@ cudaError_t launch(const void* V, const int* cols, const void* aw,
                    float* x, float* sums, long long n, long long w, int r,
                    float reg_w, float jitter, long long row0,
                    long long nrows, cudaStream_t stream) {
-  auto gk = row_gram_kernel<T, kTwoSided>;
-  const size_t smem = g90::smem_bytes<T>(r);
+  const bool strips = r > gram::kRankLimit;
+  auto gk = strips ? row_gram_kernel<T, kTwoSided, true>
+                   : row_gram_kernel<T, kTwoSided, false>;
+  const size_t smem =
+      strips ? gstrips::smem_bytes<T>() : g90::smem_bytes<T>(r);
   cudaError_t e = cudaFuncSetAttribute(
       gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(static_cast<unsigned>(nrows), 1,
-            static_cast<unsigned>(g90::parts(r)));
-  gk<<<grid, 32 * g90::warps(r), smem, stream>>>(
+  const dim3 grid =
+      strips ? dim3(static_cast<unsigned>(nrows * gstrips::parts(r)))
+             : dim3(static_cast<unsigned>(nrows), 1,
+                    static_cast<unsigned>(g90::parts(r)));
+  const int threads = strips ? gstrips::kThreads : 32 * g90::warps(r);
+  gk<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(V), cols, static_cast<const T*>(aw),
       static_cast<const T*>(bw), static_cast<const T*>(cw), sums, r, w,
       row0);
@@ -80,9 +103,10 @@ cudaError_t launch(const void* V, const int* cols, const void* aw,
 
 }  // namespace
 
-// Rows [row0, row0 + nrows) of the n: sums is scratch of nrows·(r·r + r +
-// 1) floats; reg_w: the ridge coefficient already rounded to the weight
-// type.
+// Rows [row0, row0 + nrows) of the n: sums is scratch of
+// nrows·gsolve::row_floats(r) floats (r·r + r + 1, rounded up to a
+// multiple of 4 above rank 288); reg_w: the ridge coefficient already
+// rounded to the weight type.
 extern "C" int gather_solve(const void* V, const int* cols, const void* aw,
                             const void* bw, const void* cw, const float* YtY,
                             float* x, float* sums, long long n, long long w,
@@ -90,8 +114,9 @@ extern "C" int gather_solve(const void* V, const int* cols, const void* aw,
                             int bf16, long long row0, long long nrows,
                             void* stream) {
   if (n <= 0 || nrows <= 0) return 0;
-  if (r < 1 || r > gram::kRankLimit || w < 1 || n > 0x7fffffffLL ||
-      row0 < 0 || row0 + nrows > n || !sums)
+  if (r < 1 || r > gram::kSolveRankLimit || w < 1 || n > 0x7fffffffLL ||
+      row0 < 0 || row0 + nrows > n || !sums ||
+      (r > gram::kRankLimit && nrows * gstrips::parts(r) > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;

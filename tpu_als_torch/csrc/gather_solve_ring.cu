@@ -33,12 +33,13 @@
 // source.  The rows of a bucket all have the same stream length S·w; a
 // stream longer than `split` is cut into chunks of `split` entries (a
 // chunk may cross a source boundary), one block each:
-//   1. grid (owner·row, chunk, part): gram_sm90.cuh's Gram of the chunk,
-//      its S, b and count to scratch;
+//   1. grid (owner·row, chunk, part): gram_sm90.cuh's Gram of the chunk
+//      (above rank 256 gram_strips.cuh's), its S, b and count to scratch;
 //   2. (more than one chunk) the partials summed in chunk order
 //      (deterministic, no atomics);
 //   3. a block per row: gather_solve.cuh's tail and chol_tiled.cuh's
-//      solve in shared memory; only x is written.
+//      solve, in shared memory up to rank 288 and streamed through the
+//      row's scratch above; only x is written.
 // The wrapper launches the passes on row tiles that keep the scratch
 // within a fixed budget.
 
@@ -47,6 +48,7 @@
 
 #include "gather_solve.cuh"
 #include "gram_sm90.cuh"
+#include "gram_strips.cuh"
 
 namespace {
 
@@ -82,16 +84,23 @@ struct RingEntries {
 // Pass 1: the partial Gram, b and count of chunk blockIdx.y (entries
 // [k·split, (k+1)·split) of the stream; the whole stream when split
 // covers it) of rows [row0, row0 + nrows) of every owner; part
-// [D·nrows, nchunk, E], E = r·r + r + 1.
-template <typename T, bool kTwoSided>
-__global__ void __launch_bounds__(g90::kMaxThreads, 1)
+// [D·nrows, nchunk, E], E = gsolve::row_floats(r).  Grid (D·nrows,
+// nchunk, parts) at rank <= 256 (gram_sm90.cuh), above it (kStrips,
+// gram_strips.cuh) (parts·D·nrows, nchunk), a row's parts side by side.
+template <typename T, bool kTwoSided, bool kStrips>
+__global__ void __launch_bounds__(kStrips ? gstrips::kThreads
+                                          : g90::kMaxThreads, 1)
 ring_gram_kernel(const T* const* __restrict__ bases, int per,
                  const int* __restrict__ cols, const T* __restrict__ aw,
                  const T* __restrict__ bw, const T* __restrict__ cw,
                  float* __restrict__ part, int S, long long n, long long w,
                  int r, long long row0, long long nrows, long long split) {
   extern __shared__ __align__(16) float smem[];  // as the solve pass's
-  const long long blk = blockIdx.x;  // owner-major: blk = me·nrows + i
+  const int np = kStrips ? gstrips::parts(r) : 1;
+  // owner-major: blk = me·nrows + i
+  const long long blk = kStrips ? blockIdx.x / np : blockIdx.x;
+  const int z = kStrips ? static_cast<int>(blockIdx.x - blk * np)
+                        : static_cast<int>(blockIdx.z);
   const int me = static_cast<int>(blk / nrows);
   const long long row = row0 + blk - static_cast<long long>(me) * nrows;
   const size_t own = static_cast<size_t>(me) * S * n * w;
@@ -100,11 +109,17 @@ ring_gram_kernel(const T* const* __restrict__ bases, int per,
   const int k = blockIdx.y, nchunk = gridDim.y;
   const long long len = S * w, w0 = k * split;
   const long long w1 = w0 + split < len ? w0 + split : len;
-  g90::Acc acc;
-  g90::gram<T, kTwoSided>(src, r, w0, w1, blockIdx.z,
-                          reinterpret_cast<unsigned char*>(smem), acc);
   float* o = part + (blk * nchunk + k) * gsolve::row_floats(r);
-  g90::store(acc, r, blockIdx.z, o, o + r * r, o + r * r + r);
+  auto* sm = reinterpret_cast<unsigned char*>(smem);
+  if constexpr (kStrips) {
+    gstrips::Acc acc;
+    gstrips::gram<T, kTwoSided>(src, r, w0, w1, z, sm, acc);
+    gstrips::store(acc, r, o, o + r * r, o + r * r + r);
+  } else {
+    g90::Acc acc;
+    g90::gram<T, kTwoSided>(src, r, w0, w1, z, sm, acc);
+    g90::store(acc, r, z, o, o + r * r, o + r * r + r);
+  }
 }
 
 // The passes on rows [row0, row0 + nrows) of every owner; the stream is
@@ -118,15 +133,23 @@ cudaError_t launch(const void* const* bases, int per, const int* cols,
                    long long nrows, float* part, float* sums,
                    cudaStream_t stream) {
   const long long rows = D * nrows;
-  auto gk = ring_gram_kernel<T, kTwoSided>;
-  const size_t smem = g90::smem_bytes<T>(r);
+  const bool strips = r > gram::kRankLimit;
+  auto gk = strips ? ring_gram_kernel<T, kTwoSided, true>
+                   : ring_gram_kernel<T, kTwoSided, false>;
+  const size_t smem =
+      strips ? gstrips::smem_bytes<T>() : g90::smem_bytes<T>(r);
   cudaError_t e = cudaFuncSetAttribute(
       gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(nchunk),
-            static_cast<unsigned>(g90::parts(r)));
-  gk<<<grid, 32 * g90::warps(r), smem, stream>>>(
+  const dim3 grid =
+      strips ? dim3(static_cast<unsigned>(rows * gstrips::parts(r)),
+                    static_cast<unsigned>(nchunk), 1)
+             : dim3(static_cast<unsigned>(rows),
+                    static_cast<unsigned>(nchunk),
+                    static_cast<unsigned>(g90::parts(r)));
+  const int threads = strips ? gstrips::kThreads : 32 * g90::warps(r);
+  gk<<<grid, threads, smem, stream>>>(
       reinterpret_cast<const T* const*>(bases), per, cols,
       static_cast<const T*>(aw), static_cast<const T*>(bw),
       static_cast<const T*>(cw), nchunk > 1 ? part : sums, S, n, w, r, row0,
@@ -147,10 +170,10 @@ cudaError_t launch(const void* const* bases, int per, const int* cols,
 // bases: a device array of S pointers, shard s's `per` rows of r values;
 // reg_w: the ridge coefficient already rounded to the weight type.  The
 // rows [row0, row0 + nrows) of every owner are solved, with scratch sums
-// [D·nrows, r·r + r + 1].  split: when the rows' streams are longer
-// (S·w > split > 0), they are cut into nchunk = ceil(S·w / split) chunks
-// with scratch part [D·nrows, nchunk, r·r + r + 1]; otherwise (one chunk)
-// part is not used.
+// [D·nrows, E], E = gsolve::row_floats(r).  split: when the rows'
+// streams are longer (S·w > split > 0), they are cut into nchunk =
+// ceil(S·w / split) chunks with scratch part [D·nrows, nchunk, E];
+// otherwise (one chunk) part is not used.  Rank <= 512, as K4.
 extern "C" int gather_solve_ring(const void* const* bases, int per,
                                  const int* cols, const void* aw,
                                  const void* bw, const void* cw,
@@ -161,7 +184,7 @@ extern "C" int gather_solve_ring(const void* const* bases, int per,
                                  long long nrows, float* part, float* sums,
                                  void* stream) {
   if (D <= 0 || n <= 0) return 0;
-  if (r < 1 || r > gram::kRankLimit || w < 1 || S < 1 || per < 1 ||
+  if (r < 1 || r > gram::kSolveRankLimit || w < 1 || S < 1 || per < 1 ||
       D * n > 0x7fffffffLL || static_cast<long long>(S) * per > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long len = S * w;
@@ -169,7 +192,9 @@ extern "C" int gather_solve_ring(const void* const* bases, int per,
   const long long chunk = cut ? split : len;
   const long long nchunk = (len + chunk - 1) / chunk;
   if (row0 < 0 || nrows < 1 || row0 + nrows > n || !sums ||
-      (cut && !part) || nchunk > 65535)
+      (cut && !part) || nchunk > 65535 ||
+      (r > gram::kRankLimit &&
+       D * nrows * gstrips::parts(r) > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = static_cast<int>(nchunk);
   auto st = static_cast<cudaStream_t>(stream);

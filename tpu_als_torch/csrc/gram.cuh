@@ -15,7 +15,14 @@
 
 namespace gram {
 
-constexpr int kRankLimit = 256;  // the Gram's largest rank (gram_sm90.cuh)
+// gram_sm90.cuh's largest rank; above it gram_strips.cuh's body
+constexpr int kRankLimit = 256;
+// K3's largest rank: S's entries indexed by int (r·r < 2^31)
+constexpr int kGramRankLimit = 46340;
+// K4's and K7's largest rank, the reference's fused solve's: its row
+// tile's cap 2^17 / (32·r_pad) falls below 8 rows above r_pad = 512
+// (TileBudgetError)
+constexpr int kSolveRankLimit = 512;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

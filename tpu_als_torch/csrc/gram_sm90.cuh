@@ -43,7 +43,8 @@
 //   operands at 384 threads; holding three warp tiles in one warp would
 //   not, and a running triangle in shared memory would put
 //   shared-memory traffic back into the hot loop.
-//   Part 0 also sums b (a thread per column) and the count.
+//   Part 0 also sums b (a thread per column) and the count.  Above rank
+//   256 the kernels run gram_strips.cuh's body instead.
 
 #pragma once
 

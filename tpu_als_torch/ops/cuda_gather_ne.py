@@ -11,14 +11,20 @@ its wrappers ``gather_normal_eq_explicit`` / ``gather_normal_eq_implicit``
 inside the kernels and never materialized; the weights, the count and
 the ridge/YᵀY tail are the reference builders' exact expressions.
 
-The kernels take the table in float32 or bfloat16, weights in the
-table's type, and rank <= 256: all three build the Gram on the tensor
-cores in the 3xTF32 form (``csrc/gram_sm90.cuh``); K4 and K7 write each
-row's Gram, b and count to scratch and solve it in a second pass
-(``csrc/gather_solve.cuh``, ``csrc/chol_tiled.cuh``: K2's routines).
-Above rank 256 a CUDA tensor raises, and the plain versions take any
-rank.  S is symmetric: its lower triangle ``S[i, c] = Σ (aw·v_i)·v_c``
-(c <= i) is mirrored.
+The kernels take the table in float32 or bfloat16 and weights in the
+table's type.  All three build the Gram on the tensor cores in the
+3xTF32 form: up to rank 256 by ``csrc/gram_sm90.cuh``'s body, above it
+by ``csrc/gram_strips.cuh``'s (the same warp tiles, each block staging
+only the 32-column strips its tiles read), so K3 takes any rank (up to
+:data:`GRAM_MAX_RANK`, where S's entries outgrow an int index).  K4 and
+K7 write each row's Gram, b and count to scratch and solve it in a
+second pass (``csrc/gather_solve.cuh``, ``csrc/chol_tiled.cuh``: K2's
+routines in shared memory up to rank 288, K1's streamed solve above),
+up to :data:`SOLVE_MAX_RANK` = 512, the reference's own bound (its
+``TileBudgetError``); above it their wrappers raise ``ValueError`` on
+any device, and 'auto' takes K3 + K6 there.  The plain versions take
+any rank.  S is symmetric: its lower triangle ``S[i, c] = Σ
+(aw·v_i)·v_c`` (c <= i) is mirrored.
 
 A CUDA tensor goes to a kernel (or raises); only CPU tensors take the
 plain versions :func:`gather_gram_plain`, :func:`gather_solve_plain` and
@@ -31,9 +37,15 @@ import torch
 
 from tpu_als_torch import _build
 from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
+from tpu_als_torch.ops.cuda_solve import ONCHIP_MAX_RANK
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
 
-MAX_RANK = 256
+# K3's largest rank: S's entries are indexed by a 32-bit int (r·r < 2^31)
+GRAM_MAX_RANK = 46340
+# K4's and K7's largest rank, the reference's: its fused solve's row tile
+# is capped at 2^17 / (32·r_pad) rows, below 8 above r_pad = 512, where
+# it raises TileBudgetError (tpu_als/ops/pallas_gather_ne.py::_tiles_solve)
+SOLVE_MAX_RANK = 512
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches in this process, per kernel; a run reads them to show
@@ -49,8 +61,11 @@ _SCRATCH_ELEMS = 1 << 28
 
 
 def _row_floats(r):
-    """Scratch floats a row takes: its Gram, b and count."""
-    return r * r + r + 1
+    """Scratch floats a row takes: its Gram, b and count; above the
+    on-chip solve's rank, rounded up to a multiple of 4 (the streamed
+    solve reads each row's A by 16-byte loads): gsolve::row_floats."""
+    e = r * r + r + 1
+    return e + -e % 4 if r > ONCHIP_MAX_RANK else e
 
 
 def _chunks(w, split_width):
@@ -122,17 +137,23 @@ def _check(name, V, cols, *weights):
                              f"{t.device}")
 
 
+def _solve_rank(name, r):
+    """K4's and K7's rank bound, on every device (the plain versions
+    themselves take any rank)."""
+    if r > SOLVE_MAX_RANK:
+        raise ValueError(
+            f"{name}: rank {r} > {SOLVE_MAX_RANK}, the fused solve's bound "
+            "(the reference raises TileBudgetError above r_pad 512: its "
+            "row tile's cap 2^17 / (32·r_pad) falls below 8); 'auto' takes "
+            "K3 + K6 there")
+
+
 def _cuda_ready(name, V, *tensors):
     if V.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {V.device}")
-    r = V.shape[-1]
-    if r > MAX_RANK:
-        raise NotImplementedError(
-            f"{name}: rank {r} > {MAX_RANK}: the tensor-core Gram's warp "
-            "tiles and the solve's tiles in shared memory hold at most rank "
-            "256; a Gram streamed through device memory (as K6 streams its "
-            "block columns above rank 288) is not written yet; 'auto' takes "
-            "the einsum route above it")
+    if V.shape[-1] > GRAM_MAX_RANK:
+        raise ValueError(f"{name}: rank {V.shape[-1]} > {GRAM_MAX_RANK}: "
+                         "S's entries would outgrow an int index")
     if not all(t.is_contiguous() for t in (V,) + tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
@@ -229,12 +250,15 @@ def _reg_w(reg, dtype):
 def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
                  jitter=DEFAULT_JITTER):
     """``x [n, r]`` f32: kernel K4 for CUDA tensors, the plain version for
-    CPU tensors.  ``reg`` and ``jitter`` are the ridge coefficient and the
+    CPU tensors, rank <= :data:`SOLVE_MAX_RANK` on both (``ValueError``
+    above).  ``reg`` and ``jitter`` are the ridge coefficient and the
     jitter of the in-kernel tail; ``YtY`` [r, r] f32 or None (zero).  The
     kernel's two passes run on row tiles whose scratch stays within
-    :data:`_SCRATCH_ELEMS`; ``SOLVE_LAUNCHES`` counts one per call."""
+    :data:`_SCRATCH_ELEMS` (1,021 rows a tile at rank 512);
+    ``SOLVE_LAUNCHES`` counts one per call."""
     global SOLVE_LAUNCHES
     _check("gather_solve", V, cols, aw, bw, cw)
+    _solve_rank("gather_solve", V.shape[1])
     if V.device.type == "cpu":
         return gather_solve_plain(V, cols, aw, bw, cw, YtY,
                                   two_sided=two_sided, reg=reg,
@@ -325,7 +349,7 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     Then the tail and the solve per row, as K4's; the passes run on row
     tiles that keep the scratch within :data:`_SCRATCH_ELEMS`.
     ``RING_LAUNCHES`` counts one per call, whatever the number of passes
-    and row tiles."""
+    and row tiles.  Rank <= :data:`SOLVE_MAX_RANK`, as K4."""
     global RING_LAUNCHES
     if V_shards.dim() != 3 or cols.dim() != 4 \
             or cols.shape[1] != V_shards.shape[0]:
@@ -335,6 +359,7 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     S, per, r = V_shards.shape
     _check("gather_solve_ring", V_shards.reshape(S * per, r), cols[0, 0],
            *(t[0, 0] for t in (aw, bw, cw)))
+    _solve_rank("gather_solve_ring", r)
     for t in (aw, bw, cw):
         if t.shape != cols.shape:
             raise TypeError(f"gather_solve_ring: weights must be "

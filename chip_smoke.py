@@ -51,7 +51,9 @@ Phases (any failure exits non-zero before the final line):
    the whole-catalog plain top-k, bitwise, on the integer tie corpus at
    4,096 users x 59,047 items, S = 1, 3, 4 and 8, k = 10 and 128, each
    shard in the parts ``topk_parts`` picks, in 1 and in 32 // S, with a
-   sparse validity mask and an all-invalid shard;
+   sparse validity mask and an all-invalid shard; then past 32 shards (S
+   = 33 and 64, a shard a part, the merge's lanes holding several
+   shards' heads), launched each time (``MERGE_LAUNCHES``);
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
    layout both ways, by the native bucketizer and by numpy (host
@@ -89,6 +91,26 @@ Phases (any failure exits non-zero before the final line):
    guardrails-off fit row by row, the iteration wall of each mode, and a
    fit on ratings poisoned with NaN, inf, 1e9 and -2e6, quarantined with
    the exact count;
+5b. elastic training and the rest of the sharded path on phase 5's 4
+   logical shards at ML-25M, rank 128, implicit (budget 100 s): (a) one
+   iteration each of 'all_gather', 'all_gather_chunked' (K2) and
+   'all_to_all' (K4, K3 + K1; its plans built with
+   ``on_degenerate='build'``, R, padding ratio and degeneracy logged)
+   from one injected init, the latter two row by row within TRAIN_REL of
+   'all_gather', with 'auto''s pick and each strategy's
+   ``comm_bytes_per_iter``; (b) ``ALS(rank=128, maxIter=3, mesh=...,
+   gatherStrategy='all_to_all', elastic=True, checkpointDir=...,
+   checkpointInterval=1)`` under ``mesh.device_lost=corrupt@nth=3``:
+   one ``device_lost``, ``mesh_reformed`` and ``elastic_resume`` each,
+   ``train.reformations`` 1, ``lastFitStrategy`` logged, the recovery's
+   wall, K4 launched, and the result bitwise (or within RESUME_ABS) a
+   fault-free 3-shard fit resumed from the same checkpoint; (c) K7's
+   ring step under ``comm.ring_step``: ``FactorsCorrupt`` (corrupt),
+   ``InjectedFault`` (raise), the raw step disarmed, the armed wrapper's
+   extra wall; (d) ``topk_sharded`` over the full catalog clean (K8),
+   then under ``serve.gather=raise@once`` degraded through K5 within
+   K5_TOL, ``serve.degraded`` 1, and a fresh mesh (other logical ids)
+   raising ``ServeShardLost``;
 6. the serving slice at the ML-25M shape (rank 128, implicit, alpha 40,
    regParam 0.01) from seeded random factors: save/load,
    ``FoldInServer.update`` on hourly-style batches of 4,096 users (half
@@ -258,11 +280,12 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from tpu_als_torch import _build, obs
+from tpu_als_torch import _build, obs, plan
 from tpu_als_torch.api import legacy
 from tpu_als_torch.api.estimator import ALS, ALSModel
 from tpu_als_torch.api.evaluation import RegressionEvaluator
@@ -287,12 +310,20 @@ from tpu_als_torch.ops import solve as ops_solve
 from tpu_als_torch.ops.solve import (compute_yty, implicit_weights,
                                      regularize, solve_spd)
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
+from tpu_als_torch.parallel import serve
+from tpu_als_torch.parallel.a2a import build_a2a
 from tpu_als_torch.parallel.comm import (ring_fused_half_step,
                                          ring_half_step, shard_csr_grid)
-from tpu_als_torch.parallel.data import partition_balanced
+from tpu_als_torch.parallel.data import partition_balanced, shard_csr
 from tpu_als_torch.parallel.mesh import make_mesh
-from tpu_als_torch.parallel.trainer import stacked_counts, train_sharded
-from tpu_als_torch.resilience import faults, guardrails
+from tpu_als_torch.parallel.trainer import (FactorsCorrupt,
+                                            comm_bytes_per_iter,
+                                            make_a2a_step,
+                                            make_chunked_gather_step,
+                                            make_ring_step,
+                                            make_sharded_step,
+                                            stacked_counts, train_sharded)
+from tpu_als_torch.resilience import elastic, faults, guardrails
 from tpu_als_torch.serving import ServingEngine, build_index
 from tpu_als_torch.stream.microbatch import FoldInServer, pack_rows
 from tpu_als_torch.tenancy import MultiTenantEngine, TenantSpec
@@ -1029,6 +1060,53 @@ def check_k8(rng, dev):
     return 0.0
 
 
+def check_k8_many(rng, dev, shards=(33, 64)):
+    """K8 past 32 shards (the merge's lanes each holding several shards'
+    heads), bitwise its plain version and the whole-catalog plain top-k
+    on the integer tie corpus at 4,096 users x the 59,047-item catalog,
+    r = 16, k = 10 and 128, ~30 % of items valid and shard 1 all invalid,
+    each shard one part (by default and forced); K8 launched each time
+    (``MERGE_LAUNCHES``), where it once raised NotImplementedError.
+    Returns the largest S checked."""
+    U, V = tie_corpus(rng, 4096, N_ITEMS, 16)
+    U, V = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
+    for S in shards:
+        ni_loc = -(-N_ITEMS // S)
+        Vp = torch.zeros(S * ni_loc, 16, device=dev)
+        Vp[:N_ITEMS] = V
+        validp = torch.zeros(S * ni_loc, dtype=torch.bool, device=dev)
+        validp[:N_ITEMS] = torch.from_numpy(rng.random(N_ITEMS) < 0.3)
+        validp[ni_loc:2 * ni_loc] = False
+        Vs, vs = Vp.reshape(S, ni_loc, 16), validp.reshape(S, ni_loc)
+        for k in (10, 128):
+            sp, ip = cuda_topk.topk_merge_ring_plain(U, Vs, vs, k, 1)
+            sc, ic = chunked_topk_scores(U, Vp, validp, k)
+            for P in (None, 1):
+                before = cuda_topk.MERGE_LAUNCHES
+                t0 = time.perf_counter()
+                sk, ik = cuda_topk.topk_merge_ring(U, Vs, vs, k, parts=P)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if cuda_topk.MERGE_LAUNCHES != before + 1:
+                    fail(f"K8 S={S} k={k}: no launch counted")
+                for what, (s, i) in (("plain", (sp, ip)),
+                                     ("the whole-catalog top-k", (sc, ic))):
+                    if not (torch.equal(sk, s) and torch.equal(ik, i)):
+                        bad = int((ik != i).any(dim=1).sum())
+                        fail(f"K8 S={S} k={k} parts={P}: not bitwise {what} "
+                             f"(scores max |diff| "
+                             f"{(sk - s).abs().max().item():.3e}, {bad} rows "
+                             "with other ids)")
+                if bool(((ik >= ni_loc) & (ik < 2 * ni_loc)
+                         & (sk > NEG_INF32)).any()):
+                    fail(f"K8 S={S}: an item of the all-invalid shard came "
+                         "back")
+            log(f"k8 S={S} n=4096 Ni={N_ITEMS} r=16 k={k}, one part a "
+                f"shard: launched, bitwise plain and the whole-catalog "
+                f"top-k (tie corpus); last call {ms:.1f} ms host wall")
+    return max(shards)
+
+
 # -- phase 5 ---------------------------------------------------------------
 def layout(csr, side):
     widths = [(b.width, int((b.rows < csr.num_rows).sum()))
@@ -1410,7 +1488,280 @@ def sharded_train_slice(data, seed, dev):
         fail(f"the unfused and fused rings disagree: {eu1:.3e}, {ev1:.3e}")
     return {"launches": launches, "iter_s": iter_s, "ish": ish,
             "icounts": counts[1], "U0": slot_rows(upart, U0.to(dev)),
-            "mesh": mesh, "upart": upart, "ipart": ipart}
+            "V0": slot_rows(ipart, V0.to(dev)), "ush": ush,
+            "ucounts": counts[0], "mesh": mesh, "upart": upart,
+            "ipart": ipart}
+
+
+def strategies_slice(data, sh, seed, dev):
+    """(a) One iteration of 'all_gather', 'all_gather_chunked' and
+    'all_to_all' on phase 5's partitions (SHARDS logical shards) from one
+    injected init, the other two held row by row within TRAIN_REL of
+    'all_gather'; the a2a plans built with ``on_degenerate='build'`` so
+    that the a2a path runs whatever R is; launches counted per strategy
+    (K2 for chunked, K4 and K3 + K1 for a2a); 'auto''s pick and
+    ``comm_bytes_per_iter`` of each."""
+    mesh, upart, ipart = sh["mesh"], sh["upart"], sh["ipart"]
+    u_idx, i_idx, r = data["u_idx"], data["i_idx"], data["r"]
+    t0 = time.perf_counter()
+    ush = shard_csr(upart, ipart, u_idx, i_idx, r)
+    ish = shard_csr(ipart, upart, i_idx, u_idx, r)
+    t1 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a degenerate plan warns
+        ua = build_a2a(upart, ipart, u_idx, i_idx, r, on_degenerate="build")
+        ia = build_a2a(ipart, upart, i_idx, u_idx, r, on_degenerate="build")
+    t2 = time.perf_counter()
+    log(f"host: shard_csr both sides {t1 - t0:.2f} s, build_a2a both "
+        f"sides {t2 - t1:.2f} s")
+    for side, a, part in (("users", ua, ipart), ("items", ia, upart)):
+        log(f"a2a plan {side}: R {a.request_budget} (opposite rows a shard "
+            f"{part.rows_per_shard}), padding_ratio {a.padding_ratio:.4f}, "
+            f"degenerate {a.degenerate}")
+    cfg = core_als.AlsConfig(rank=RANK, max_iter=1, implicit_prefs=True,
+                             alpha=ALPHA, reg_param=REG)
+    bytes_ = {
+        s: comm_bytes_per_iter(s, upart, ipart, RANK, *c, implicit=True)
+        for s, c in (("all_gather", (ush, ish)),
+                     ("all_gather_chunked", (ush, ish)),
+                     ("all_to_all", (ua, ia)),
+                     ("ring", (sh["ush"], sh["ish"])),
+                     ("gather_fused_ring", (sh["ush"], sh["ish"])))}
+    auto = plan.resolve_gather_strategy(
+        requested="auto", n_users=data["n_users"], n_items=data["n_items"],
+        rank=RANK, n_devices=SHARDS, implicit=True)
+    log(f"'auto' picks {auto!r}; comm_bytes_per_iter: " + ", ".join(
+        f"{k} {v}" for k, v in bytes_.items()))
+    make_step = {
+        "all_gather": lambda: make_sharded_step(mesh, ush, ish, cfg),
+        "all_gather_chunked": lambda: make_chunked_gather_step(
+            mesh, ush, ish, cfg),
+        "all_to_all": lambda: make_a2a_step(mesh, ua, ia, cfg)}
+    out, walls, counts = {}, {}, {}
+    for name, build in make_step.items():
+        step = build()  # the containers moved to the card
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, V = step(sh["U0"], sh["V0"])
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        counts[name] = _launch_counts()
+        if not (torch.isfinite(U).all() and torch.isfinite(V).all()):
+            fail(f"{name}: non-finite factors")
+        out[name] = (U, V)
+        del step
+    Ug, Vg = out["all_gather"]
+    for name in ("all_gather_chunked", "all_to_all"):
+        eu, ev = row_rel(out[name][0], Ug), row_rel(out[name][1], Vg)
+        log(f"{name}: one iteration {walls[name]:.1f} ms (all_gather "
+            f"{walls['all_gather']:.1f} ms); launches " + ", ".join(
+                f"{k.upper()} {v}" for k, v in counts[name].items() if v)
+            + f"; vs all_gather max per-row |diff|/|x| users {eu:.3e}, "
+            f"items {ev:.3e} (tol {TRAIN_REL})")
+        if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+            fail(f"{name} is off all_gather: users {eu:.3e}, items {ev:.3e}")
+    c, a = counts["all_gather_chunked"], counts["all_to_all"]
+    if c["k2"] == 0 or c["k4"] or c["k3"]:
+        fail(f"all_gather_chunked's launches: {c}")
+    if a["k4"] == 0 or a["k3"] == 0 or a["k1"] == 0:
+        fail(f"all_to_all's launches: {a}")
+    return {"walls": walls, "counts": counts, "bytes": bytes_,
+            "auto": auto}
+
+
+def elastic_slice(data, sh, work, dev):
+    """(b) ``ALS(rank=128, maxIter=3, mesh=SHARDS logical shards,
+    gatherStrategy='all_to_all', elastic=True, checkpointDir=...,
+    checkpointInterval=1)`` under ``mesh.device_lost=corrupt@nth=3``: it
+    completes on SHARDS - 1 shards with one ``device_lost``, one
+    ``mesh_reformed`` and one ``elastic_resume`` (from the iteration-2
+    checkpoint) and ``train.reformations`` 1; the effective strategy
+    (``lastFitStrategy``) and its traffic logged; then a fault-free fit
+    on SHARDS - 1 shards resumed from that same checkpoint (copied aside
+    by a ``fitCallback`` before the next save replaced it) equals it bit
+    for bit, or within RESUME_ABS.  The recovery's wall: the injected
+    fault to the resume event."""
+    ck = os.path.join(work, "elastic_ck")
+    kept = os.path.join(work, "elastic_kept")
+
+    def keep(it, U, V):
+        src = os.path.join(ck, "als_checkpoint")
+        dst = os.path.join(kept, str(it - 1))
+        if os.path.isdir(src) and not os.path.exists(dst):
+            shutil.copytree(src, dst)
+
+    kw = dict(rank=RANK, maxIter=3, implicitPrefs=True, alpha=ALPHA,
+              regParam=REG, seed=FIT_SEED, gatherStrategy="all_to_all")
+    obs.reset()
+    elastic.clear_lost()
+    faults.install("mesh.device_lost=corrupt@nth=3")
+    _zero_launches()
+    est = ALS(mesh=sh["mesh"], elastic=True, checkpointDir=ck,
+              checkpointInterval=1, fitCallback=keep, **kw)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = est.fit(data["frame"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    faults.clear()
+    launches = _launch_counts()
+    ev = {t: obs.events(t) for t in ("fault_injected", "device_lost",
+                                     "mesh_reformed", "elastic_resume")}
+    reforms = obs.counter_value("train.reformations")
+    if [len(ev[t]) for t in ev] != [1, 1, 1, 1] or reforms != 1:
+        fail(f"elastic fit: events {[(t, len(v)) for t, v in ev.items()]}, "
+             f"train.reformations {reforms}")
+    res = ev["elastic_resume"][0]
+    if (res["source"], res["iteration"], res["devices"]) != (
+            "checkpoint", 2, SHARDS - 1) or ev["device_lost"][0]["lost"] != [
+            SHARDS - 1]:
+        fail(f"elastic fit: {ev['device_lost'][0]}, {res}")
+    recovery = res["ts"] - ev["fault_injected"][0]["ts"]
+    if not (torch.isfinite(model._U).all() and torch.isfinite(model._V).all()):
+        fail("the elastic fit's factors are not finite")
+    log(f"elastic fit ({SHARDS} -> {SHARDS - 1} logical shards, "
+        f"lastFitStrategy {est.lastFitStrategy!r}, lastFitCommBytes "
+        f"{est.lastFitCommBytes}): {fit_s:.2f} s wall (host work of two "
+        f"passes included); recovery (fault -> resume) {recovery * 1e3:.1f}"
+        " ms; launches " + ", ".join(
+            f"{k.upper()} {v}" for k, v in launches.items() if v))
+    if launches["k4"] == 0:
+        fail(f"K4 never launched in the elastic fit: {launches}")
+    elastic.clear_lost()
+    ref = ALS(mesh=make_mesh(devices=[dev] * (SHARDS - 1)),
+              resumeFrom=os.path.join(kept, str(res["iteration"])), **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m3 = ref.fit(data["frame"])
+    torch.cuda.synchronize()
+    exact = (torch.equal(m3._U, model._U) and torch.equal(m3._V, model._V))
+    diff = max((m3._U - model._U).abs().max().item(),
+               (m3._V - model._V).abs().max().item())
+    log(f"elastic fit vs a fault-free {SHARDS - 1}-shard fit resumed from "
+        f"the same checkpoint: max |diff| {diff:.3e}"
+        + (" (bit for bit)" if exact else f" (tol {RESUME_ABS})"))
+    if not diff <= RESUME_ABS:
+        fail(f"the elastic fit is off the resumed fit: {diff:.3e}")
+    return {"fit_s": fit_s, "recovery_s": recovery, "launches": launches,
+            "exact": exact}
+
+
+def ring_fault_slice(sh, dev):
+    """(c) The ring step with K7 (``gather_fused_ring``) on phase 5's
+    grid: disarmed ``make_ring_step`` returns the raw step; armed
+    (``comm.ring_step``) the wrapper, whose overhead with the point not
+    due is its finiteness check, a host read; ``corrupt@nth=1`` raises
+    ``FactorsCorrupt`` and ``raise@nth=1`` ``InjectedFault``."""
+    mesh = sh["mesh"]
+    cfg = core_als.AlsConfig(rank=RANK, implicit_prefs=True, alpha=ALPHA,
+                             reg_param=REG,
+                             solve_backend="gather_fused_ring")
+    counts = (sh["ucounts"], sh["icounts"])
+    raw = make_ring_step(mesh, sh["ush"], sh["ish"], cfg, counts)
+    if raw.__name__ != "ring_step":
+        fail(f"disarmed make_ring_step gave {raw.__name__}")
+    faults.install("comm.ring_step=raise@nth=1000000")  # armed, not due
+    armed = make_ring_step(mesh, sh["ush"], sh["ish"], cfg, counts)
+    if armed.__name__ != "chaos_step":
+        fail(f"armed make_ring_step gave {armed.__name__}")
+    walls = {}
+    for name, step in (("raw", raw), ("armed", armed), ("raw", raw),
+                       ("armed", armed)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(sh["U0"], sh["V0"])
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3  # the second call
+    before = cuda_gather_ne.RING_LAUNCHES
+    faults.install("comm.ring_step=corrupt@nth=1")
+    try:
+        armed(sh["U0"], sh["V0"])
+        fail("comm.ring_step=corrupt did not raise FactorsCorrupt")
+    except FactorsCorrupt:
+        pass
+    if cuda_gather_ne.RING_LAUNCHES == before:
+        fail("the corrupted ring step launched no K7")
+    faults.install("comm.ring_step=raise@nth=1")
+    try:
+        armed(sh["U0"], sh["V0"])
+        fail("comm.ring_step=raise did not raise InjectedFault")
+    except faults.InjectedFault:
+        pass
+    faults.clear()
+    log(f"ring step (K7): raw {walls['raw']:.1f} ms, armed (the wrapper, "
+        f"not due) {walls['armed']:.1f} ms, extra "
+        f"{walls['armed'] - walls['raw']:.1f} ms; corrupt -> FactorsCorrupt,"
+        " raise -> InjectedFault, disarmed -> the raw step")
+    return walls
+
+
+def degraded_serve_slice(model, sh, dev):
+    """(d) ``topk_sharded`` over the full catalog on the SHARDS-shard mesh,
+    clean ('merge_ring', K8), then under ``serve.gather=raise@once``:
+    answered degraded from the last-good catalog through K5, within
+    K5_TOL of the clean scores, ``serve.degraded`` 1; a fresh mesh (other
+    logical ids) with no last-good raises ``ServeShardLost``."""
+    mesh = sh["mesh"]
+    U, V = model._U, model._V
+    serve.reset_last_good()
+    obs.reset()
+    walls = {}
+    t0 = time.perf_counter()
+    s0, i0 = serve.topk_sharded(U, V, 10, mesh, strategy="merge_ring")
+    torch.cuda.synchronize()
+    walls["clean"] = (time.perf_counter() - t0) * 1e3
+    faults.install("serve.gather=raise@once")
+    k5, k8 = cuda_topk.LAUNCHES, cuda_topk.MERGE_LAUNCHES
+    t0 = time.perf_counter()
+    s1, i1, info = serve.topk_sharded(U, V, 10, mesh, strategy="merge_ring",
+                                      return_info=True)
+    torch.cuda.synchronize()
+    walls["degraded"] = (time.perf_counter() - t0) * 1e3
+    faults.clear()
+    if not info["degraded"] or cuda_topk.LAUNCHES != k5 + 1 \
+            or cuda_topk.MERGE_LAUNCHES != k8:
+        fail(f"the degraded serve: {info}, K5 +{cuda_topk.LAUNCHES - k5}, "
+             f"K8 +{cuda_topk.MERGE_LAUNCHES - k8}")
+    if obs.counter_value("serve.degraded") != 1:
+        fail("serve.degraded is not 1")
+    if not torch.allclose(s1, s0, rtol=K5_TOL, atol=K5_TOL):
+        fail(f"degraded scores {(s1 - s0).abs().max().item():.3e} off the "
+             "clean ones")
+    fresh = make_mesh(devices=[dev] * SHARDS,
+                      ids=range(SHARDS, 2 * SHARDS))
+    faults.install("serve.gather=raise@once")
+    try:
+        serve.topk_sharded(U, V, 10, fresh)
+        fail("a mesh with no last-good catalog did not raise "
+             "ServeShardLost")
+    except serve.ServeShardLost:
+        pass
+    faults.clear()
+    log(f"degraded serve ({U.shape[0]} users x {V.shape[0]} items, k=10): "
+        f"clean (K8) {walls['clean']:.1f} ms, degraded (K5) "
+        f"{walls['degraded']:.1f} ms, scores max |diff| "
+        f"{(s1 - s0).abs().max().item():.3e} (tol {K5_TOL}), ids differing "
+        f"in {int((i1 != i0).any(dim=1).sum())} rows; serve.degraded 1; a "
+        "fresh mesh raises ServeShardLost")
+    return walls
+
+
+def sharded_resilience_phase(data, sh, model, work, seed, dev):
+    """Phase 5b: the strategies, elastic training, the ring step's fault
+    point and the degraded serve on phase 5's SHARDS logical shards."""
+    t0 = time.perf_counter()
+    out = {"strategies": strategies_slice(data, sh, seed, dev)}
+    out["elastic"] = elastic_slice(data, sh, work, dev)
+    out["ring"] = ring_fault_slice(sh, dev)
+    out["serve"] = degraded_serve_slice(model, sh, dev)
+    secs = time.perf_counter() - t0
+    if secs > 100:
+        fail(f"phase 5b took {secs:.1f} s, over its 100-s budget")
+    log(f"phase 5b (strategies, elastic, ring-step and serve-gather faults)"
+        f": {secs:.1f} s, within its 100-s budget")
+    return out
 
 
 def widest_rows_f64(xs, F, data, n_widest=4):
@@ -4558,6 +4909,7 @@ def main():
     errs["k7"] = check_k7(rng, dev)[RANK]
     errs["k7_512"] = check_k7(rng, dev, (RANK512,), (1, SHARDS))[RANK512]
     errs["k8"] = check_k8(rng, dev)
+    check_k8_many(rng, dev)
     check_ladder(dev)
     data = prepare(args.seed, dev)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -4566,6 +4918,8 @@ def main():
     tr256 = train_slice(data, RANK256, args.seed, dev)
     del tr["items"], tr256["items"]
     sh = sharded_train_slice(data, args.seed, dev)
+    sharded_resilience_phase(data, sh, tr["model"], work.name, args.seed,
+                             dev)
     tr512 = rank512_slice(data, sh, args.seed, dev)
     guardrail_fits(data, tr, dev)
     frame25m = data["frame"]

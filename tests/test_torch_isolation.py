@@ -9,8 +9,10 @@
   off.
 - The sharded path (K7, K8): CPU logical shards take the plain versions;
   any other tensor gets the kernel or an error, never a plain version; a
-  mesh over two cards and the strategies not ported yet raise
-  ``NotImplementedError`` naming what is missing.
+  mesh over two cards raises ``NotImplementedError`` naming what is
+  missing; 'all_gather_chunked', 'all_to_all' and ``elastic=True`` run
+  and agree with 'all_gather', and ``train_sharded('auto')`` raises the
+  reference's ``ValueError``.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
   when it stands in a directory without the rest of the repository.
 - The input path and the guardrails (the native bucketizer and CSV
@@ -40,6 +42,11 @@
   ``ServingEngine()`` and ``serve-bench`` with no device raise without a
   CUDA device; on the CPU the engine's exact and merge-ring routes run
   K5's and K8's plain versions and launch nothing.
+- Elastic training and the rest of the single-card sharded path
+  (``resilience/elastic.py``, ``parallel/a2a.py``, the extended ``plan``
+  and ``parallel/serve.py``'s degraded mode): an elastic fit through a
+  lost shard, the chunked and all_to_all fits, ``'auto'`` and a
+  degraded sharded serve run with ``jax`` and ``tpu_als`` unimportable.
 """
 
 import contextlib
@@ -275,17 +282,34 @@ def _sharded_problem(S=3):
 @pytest.mark.parametrize("strategy", ["all_gather_chunked", "all_to_all",
                                       "auto"])
 def test_strategies_not_ported_raise(strategy):
+    """Once these raised ``NotImplementedError``; now ported:
+    ``train_sharded`` runs 'all_gather_chunked' and 'all_to_all' (also
+    with ``elastic=True``) to 'all_gather''s factors within 1e-4, and
+    refuses 'auto' with the reference's ``ValueError`` (the estimator
+    resolves it); ``ALS(mesh=, gatherStrategy=)`` takes all three."""
+    from tpu_als_torch.parallel.a2a import build_a2a
+
     u, i, r, up, ip = _sharded_problem()
-    us, is_ = pdata.shard_csr(up, ip, u, i, r), pdata.shard_csr(ip, up, i, u,
-                                                                r)
     cfg = tpu_als_torch.core.als.AlsConfig(rank=2, max_iter=1)
     mesh = pmesh.make_mesh(devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="slice"):
-        ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tpu_als_torch.ALS(mesh=mesh, gatherStrategy=strategy)
-    with pytest.raises(NotImplementedError, match="resilience"):
-        ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, elastic=True)
+    us, is_ = pdata.shard_csr(up, ip, u, i, r), pdata.shard_csr(ip, up, i, u,
+                                                                r)
+    want = ptrainer.train_sharded(mesh, up, ip, us, is_, cfg)
+    if strategy == "auto":
+        with pytest.raises(ValueError, match="unknown gather strategy 'auto'"):
+            ptrainer.train_sharded(mesh, up, ip, us, is_, cfg,
+                                   strategy=strategy)
+    else:
+        if strategy == "all_to_all":
+            with pytest.warns(UserWarning, match="request budget"):
+                us = build_a2a(up, ip, u, i, r)
+                is_ = build_a2a(ip, up, i, u, r)
+        for elastic in (False, True):
+            got = ptrainer.train_sharded(mesh, up, ip, us, is_, cfg,
+                                         strategy=strategy, elastic=elastic)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    assert tpu_als_torch.ALS(mesh=mesh, gatherStrategy=strategy).mesh is mesh
     with pytest.raises(ValueError, match="unknown gather strategy"):
         ptrainer.train_sharded(mesh, up, ip, us, is_, cfg, strategy="bogus")
 
@@ -534,6 +558,54 @@ def test_serving_engine_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", _DRIVE_SERVING], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_DRIVE_ELASTIC = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import numpy as np
+import tpu_als_torch
+from tpu_als_torch import obs, plan
+from tpu_als_torch.parallel import serve
+from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.resilience import elastic, faults
+rng = np.random.default_rng(0)
+frame = {"user": rng.integers(0, 40, 400), "item": rng.integers(0, 30, 400),
+         "rating": rng.uniform(1, 5, 400).astype(np.float32)}
+faults.install("mesh.device_lost=corrupt@nth=2")
+est = tpu_als_torch.ALS(mesh=make_mesh(devices=["cpu"] * 3), elastic=True,
+                        rank=3, maxIter=3, checkpointDir=tempfile.mkdtemp(),
+                        checkpointInterval=1)
+m = est.fit(frame)
+assert [e["type"] for e in obs.events() if e["type"] in (
+    "device_lost", "mesh_reformed", "elastic_resume")] == [
+    "device_lost", "mesh_reformed", "elastic_resume"]
+faults.clear()
+elastic.clear_lost()
+for strategy in ("all_gather_chunked", "all_to_all", "auto"):
+    est = tpu_als_torch.ALS(mesh=make_mesh(devices=["cpu"] * 3),
+                            gatherStrategy=strategy, rank=3, maxIter=2)
+    est.fit(frame)
+    assert est.lastFitStrategy in plan.GATHER_CANDIDATES + ("all_to_all",)
+mesh = make_mesh(devices=["cpu"] * 3)
+serve.topk_sharded(m._U, m._V, 4, mesh)
+faults.install("serve.gather=raise@once")
+s, ix, info = serve.topk_sharded(m._U, m._V, 4, mesh, return_info=True)
+assert info["degraded"] and obs.counter_value("serve.degraded") == 1
+bad = [k for k, v in sys.modules.items() if v is not None
+       and (k == "jax" or k.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_elastic_strategies_and_degraded_serve_run_without_jax():
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _DRIVE_ELASTIC], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
 

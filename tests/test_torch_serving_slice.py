@@ -287,6 +287,40 @@ def test_remap_ids_and_id_map_match_reference():
                                   .to_dense(probe), -1)
 
 
+@pytest.mark.parametrize("raw", [
+    np.array([127, -128, 0, -128, 5, 127, -1], np.int8),
+    np.array([255, 0, 7, 255, 0], np.uint8),
+    np.array([2 ** 64 - 1, 2 ** 64 - 5, 2 ** 64 - 1, 2 ** 64 - 3,
+              2 ** 64 - 40], np.uint64),
+    np.array([-10 ** 12 + 7, -10 ** 12, -10 ** 12 + 3, -10 ** 12 + 7,
+              -10 ** 12 + 1000], np.int64),
+    np.full(6, 42, np.int64),
+    np.array([-(2 ** 15), 2 ** 15 - 1, 0], np.int16),
+], ids=["int8_extremes", "uint8_extremes", "uint64_top", "neg_int64",
+        "one_value", "int16_extremes"])
+def test_remap_ids_occupancy_table_matches_reference(raw, monkeypatch):
+    """Bounded integer ids take the occupancy table (np.unique is barred
+    during the port's call) and give the reference's arrays exactly,
+    dtypes included."""
+    from tpu_als.core.ratings import remap_ids as jremap
+    from tpu_als_torch.core.ratings import remap_ids
+
+    raw = np.random.default_rng(3).permutation(np.tile(raw, 3))
+    jd, jmap = jremap(raw)
+
+    def barred(*a, **kw):
+        raise AssertionError("np.unique called: not the occupancy table")
+
+    with monkeypatch.context() as m:
+        m.setattr(np, "unique", barred)
+        td, tmap = remap_ids(raw)
+    np.testing.assert_array_equal(td, jd)
+    assert td.dtype == np.int64
+    np.testing.assert_array_equal(tmap.ids, jmap.ids)
+    assert tmap.ids.dtype == jmap.ids.dtype == raw.dtype
+    np.testing.assert_array_equal(tmap.to_dense(raw), jmap.to_dense(raw))
+
+
 def test_ratings_csv_matches_reference_reader(tmp_path):
     p = tmp_path / "ratings.csv"
     p.write_text("userId,movieId,rating,timestamp\n1,2,3.5,100\r\n\n"

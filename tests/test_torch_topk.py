@@ -249,7 +249,7 @@ def test_topk_parts_properties():
             for n in (1, 63, 64, 4096, 8229, 172_781):
                 for ni in (1, 50, 128, 129, 1000, 59_047):
                     P = cuda_topk.topk_parts(n, ni, S, sms)
-                    assert 1 <= P and S * P <= cuda_topk.MAX_SHARDS
+                    assert 1 <= P and S * P <= cuda_topk.MERGE_LANES
                     blocks = -(-n // T_U) * S
                     if blocks >= 2 * sms:
                         assert P == 1

@@ -17,6 +17,8 @@ import os
 import subprocess
 import sys
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -323,17 +325,34 @@ def test_fit_resumes_from_a_shared_checkpoint(tmp_path):
 
 
 def test_fit_callback_and_later_slice_knobs():
+    """The callback; ``elastic`` and the strategies 'all_to_all' and
+    'all_gather_chunked', which once raised ``NotImplementedError``, now
+    fit over a mesh of CPU logical shards and land on the single-device
+    fit (the sharded parity band, 2e-3); ``dataMode='per_host'`` and
+    ``checkpointSharded`` still raise (the multi-GPU slice)."""
+    from tpu_als_torch.parallel.mesh import make_mesh
+
     seen = []
-    tpu_als_torch.ALS(rank=4, maxIter=2, device="cpu",
-                      fitCallback=lambda it, U, V: seen.append(it)).fit(
-        _frame())
+    single = tpu_als_torch.ALS(rank=4, maxIter=2, device="cpu",
+                               fitCallback=lambda it, U, V: seen.append(it)
+                               ).fit(_frame())
     assert seen == [1, 2]
     for knob in ({"elastic": True},
                  {"dataMode": "per_host"}, {"checkpointSharded": True},
                  {"gatherStrategy": "all_to_all"},
                  {"gatherStrategy": "all_gather_chunked"}):
-        with pytest.raises(NotImplementedError):
-            tpu_als_torch.ALS(**knob)
+        if "dataMode" in knob or "checkpointSharded" in knob:
+            with pytest.raises(NotImplementedError):
+                tpu_als_torch.ALS(**knob)
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a degenerate a2a plan warns
+            m = tpu_als_torch.ALS(rank=4, maxIter=2,
+                                  mesh=make_mesh(devices=["cpu"] * 3),
+                                  **knob).fit(_frame())
+        for a, b in ((m._U, single._U), (m._V, single._V)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3,
+                                       rtol=2e-3)
     with pytest.raises(TypeError, match="make_mesh"):
         tpu_als_torch.ALS(mesh=object())
     with pytest.raises(ValueError, match="non-finite"):

@@ -20,8 +20,10 @@ the fit's numerical guardrails (:mod:`tpu_als_torch.resilience.
 guardrails`) and quarantines poisoned ratings instead of refusing them.
 Under a :class:`~tpu_als_torch.resilience.preempt.PreemptionGuard` (or
 ``TPU_ALS_PREEMPT_AT``) a fit stops at an iteration boundary, writes its
-resume point to ``checkpointDir`` and raises ``Preempted``.  Elastic
-training and per-host data belong to later slices and raise
+resume point to ``checkpointDir`` and raises ``Preempted``.
+``elastic=True`` makes a lost shard of a mesh fit a rescheduling event
+(:mod:`tpu_als_torch.resilience.elastic`).  Per-host data and sharded
+checkpoints belong to the multi-GPU slice and raise
 ``NotImplementedError``.
 """
 
@@ -223,11 +225,19 @@ class ALS(_ALSParams, Estimator):
     non-finite or beyond ``RATING_ABS_MAX`` are dropped and counted in
     ``ingest.quarantined_rows`` instead of failing the fit, and the
     single-device fit judges its sentinels (the sharded trainer has no
-    monitor, as in the reference).
-    ``dataMode='per_host'``, ``checkpointSharded``, ``elastic`` and the
-    strategies not ported yet raise ``NotImplementedError``: they belong
-    to later slices.  ``copy(extra)`` keeps every runtime knob, so the
-    inner fits of a tuner run where this estimator was told to.
+    monitor, as in the reference); ``elastic`` — mesh fits: the loss of
+    a shard becomes a rescheduling event (``resilience.elastic``): the
+    mesh re-forms on the surviving shards and the fit resumes from the
+    last checkpoint in ``checkpointDir`` (or from the init when there is
+    none).  After a mesh fit ``lastFitStrategy`` is the strategy that ran
+    (``'auto'`` resolved, a degenerate ``'all_to_all'`` fallen back to
+    ``'all_gather'``) and ``lastFitCommBytes`` its modeled traffic per
+    iteration (``parallel.trainer.comm_bytes_per_iter``); both are None
+    after a single-device fit.
+    ``dataMode='per_host'`` and ``checkpointSharded`` raise
+    ``NotImplementedError``: they belong to the multi-GPU slice.
+    ``copy(extra)`` keeps every runtime knob, so the inner fits of a
+    tuner run where this estimator was told to.
     """
 
     def __init__(self, *, mesh=None, gatherStrategy="all_gather",
@@ -250,8 +260,6 @@ class ALS(_ALSParams, Estimator):
         if guardrails is not None and guardrails not in _guardrails.MODES:
             raise ValueError(f"unknown guardrails mode {guardrails!r} "
                              "(expected 'off', 'warn' or 'recover')")
-        if elastic:
-            _later_slice("elastic=True", "resilience")
         if int(cgIters) < 0:
             raise ValueError("cgIters must be >= 0 (0 = exact solve)")
         if cgMode not in ("matfree", "dense"):
@@ -260,7 +268,10 @@ class ALS(_ALSParams, Estimator):
         if int(fitCallbackInterval) < 1:
             raise ValueError("fitCallbackInterval must be >= 1")
         self.mesh = mesh
+        self.elastic = bool(elastic)
         self.gatherStrategy = gatherStrategy
+        self.lastFitCommBytes = None
+        self.lastFitStrategy = None
         self.dataMode = dataMode
         self.cgIters = int(cgIters)
         self.cgMode = cgMode
@@ -375,6 +386,9 @@ class ALS(_ALSParams, Estimator):
         u_idx, user_map = remap_ids(u_raw)
         i_idx, item_map = remap_ids(i_raw)
         cfg = self._config()
+        # per-fit traffic bookkeeping, set by a mesh fit only
+        self.lastFitCommBytes = None
+        self.lastFitStrategy = None
         init, start_iter = None, 0
         if self.resumeFrom is not None:
             init, start_iter = self._resume(cfg, user_map, item_map)

@@ -117,9 +117,34 @@ class IdMap:
         return self.ids[np.asarray(dense)]
 
 
+def unique_inverse(key, n_keys):
+    """``np.unique(key, return_inverse=True)`` for integer keys in ``[0,
+    n_keys)``: by an occupancy table, in linear time, when the table is
+    not much larger than the keys (the same arrays either way)."""
+    if n_keys > max(4 * len(key), 1 << 24):
+        return np.unique(key, return_inverse=True)
+    seen = np.zeros(n_keys, dtype=bool)
+    seen[key] = True
+    rank = np.cumsum(seen, dtype=np.int64) - 1
+    return np.flatnonzero(seen), rank[key]
+
+
 def remap_ids(raw):
-    """Densify one id column.  Returns (dense_idx [n], IdMap)."""
+    """Densify one id column.  Returns (dense_idx [n], IdMap).  Integer
+    ids go through :func:`unique_inverse` as offsets from their least
+    id; the arrays are ``np.unique``'s either way."""
     raw = np.asarray(raw)
+    if raw.dtype.kind in "iu" and raw.size:
+        lo = raw.min()
+        span = int(raw.max()) - int(lo) + 1
+        if span < 1 << 63:  # the offsets fit int64
+            unsigned = raw.dtype.kind == "u"  # raw - lo cannot wrap
+            off = ((raw - lo).astype(np.int64) if unsigned
+                   else raw.astype(np.int64) - int(lo))
+            uniq, inv = unique_inverse(off, span)
+            uniq = (uniq.astype(raw.dtype) + lo if unsigned
+                    else (uniq + int(lo)).astype(raw.dtype))
+            return inv.astype(np.int64), IdMap(ids=uniq)
     uniq, inv = np.unique(raw, return_inverse=True)
     return inv.astype(np.int64), IdMap(ids=uniq)
 

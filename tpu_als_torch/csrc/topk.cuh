@@ -10,7 +10,9 @@
 // - Grid (user tile, set).  A block owns kTU = 64 query rows and one set:
 //   one of P contiguous parts (in id order, whole item tiles each) of one
 //   shard's items.  The host picks P (ops/cuda_topk.py::topk_parts) so
-//   that a call with few user tiles still fills the card; S·P <= 32.
+//   that a call with few user tiles still fills the card; S·P <= 32
+//   where S allows, else P = 1.  At most kMaxSetsY sets (CUDA's grid
+//   limit in y).
 // - Score GEMM on the tensor cores at f32 accuracy (3xTF32): each
 //   operand x = big + small (split_trunc), and mma.sync m16n8k8
 //   (tf32.cuh, as K3's Gram) accumulates small·big + big·small +
@@ -47,9 +49,11 @@
 //   set to a scratch coll [tiles, S·P, kTU, k] in device memory; the last
 //   block of a user tile to finish (a __threadfence, then an atomic
 //   ticket per tile, which the wrapper zeroes) merges the sets in set
-//   order: one warp per row, lane j holding set j's head, k steps of a
-//   warp-wide argmax, the lower set (so the lower ids) winning a tie.
-//   One launch, no spin-waits.
+//   order: one warp per row, lane j holding the heads of sets j, j + 32,
+//   ... (a byte each, in the shared memory the scan is done with), k
+//   steps of each lane's best head (the lower set first on a tie) and a
+//   warp-wide argmax over (score, set), the lower set (so the lower ids)
+//   winning a tie.  One launch, no spin-waits.
 
 #pragma once
 
@@ -69,7 +73,7 @@ constexpr int kStages = 3;     // stages of the cp.async ring
 constexpr int kLd = kDK + 4;   // staged row stride: conflict-free fragments
 constexpr int kQ = 32;         // queue slots per row (one per lane)
 constexpr int kMaxK = 128;
-constexpr int kMaxSets = 32;   // one merge lane per set
+constexpr int kMaxSetsY = 65535;  // sets: the grid's limit in y
 // a block's shared memory on sm_90 (232,448 bytes) less room for the
 // static `last` flag; and what lets two blocks share a multiprocessor
 // (233,472 bytes, 1,024 of them reserved per block)
@@ -263,10 +267,11 @@ __device__ __forceinline__ void fold(float* ls, int* li, float* ts, int* ti,
   }
 }
 
-// Grid (ceil(n / kTU), S·P); block kThreads; dynamic shared memory
-// layout(k, r, kResident).total.  With S·P == 1 the block writes its
-// rows' results to out; otherwise its set to coll and the last block of
-// the tile merges.
+// Grid (ceil(n / kTU), S·P); block kThreads; dynamic
+// shared memory `mem` bytes, at least layout(k, r, kResident).total and
+// room for the merge's heads.  With S·P == 1 the block writes its rows'
+// results to out; otherwise its set to coll and the last block of the
+// tile merges.
 template <bool kResident>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
@@ -274,7 +279,7 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
             float* __restrict__ coll_s, long long* __restrict__ coll_i,
             unsigned* __restrict__ tickets, float* __restrict__ out_s,
             long long* __restrict__ out_i, long long n, long long ni_loc,
-            int P, int r, int k) {
+            int P, int r, int k, int mem) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool last;
   const Layout L = layout(k, r, kResident);
@@ -526,20 +531,37 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // merge the tile's sets in set order: per row, lane j < sets holds the
-  // head of set j's sorted list; k steps of a warp-wide argmax
+  // merge the tile's sets in set order: per row, lane j holds the heads
+  // of sets j, j + 32, ... of their sorted lists; k steps of a warp-wide
+  // argmax
   const float* t_s = coll_s + static_cast<size_t>(tile) * sets * setsz;
   const long long* t_i = coll_i + static_cast<size_t>(tile) * sets * setsz;
-  for (int row = warp; row < kTU; row += kWarps) {
+  // a head is a byte (k <= 128) in the shared memory the scan is done
+  // with, `sets` bytes for each of the W warps that merge
+  const int W = min(kWarps, mem / sets);
+  if (warp >= W) return;
+  unsigned char* hd = smem + static_cast<size_t>(warp) * sets;
+  for (int row = warp; row < kTU; row += W) {
     const long long u = u0 + row;
     if (u >= n) break;
-    int head = 0;
+    for (int s = lane; s < sets; s += 32) hd[s] = 0;
+    __syncwarp();
     for (int j = 0; j < k; ++j) {
-      // -inf: below every kept score, sentinels included
+      // the lane's best head, the lower set first on a tie; bl == sets:
+      // none left
       float bs = __int_as_float(0xff800000u);
-      int bl = lane;
-      if (lane < sets && head < k)
-        bs = __ldcg(t_s + lane * setsz + static_cast<size_t>(row) * k + head);
+      int bl = sets;
+      for (int s = lane; s < sets; s += 32) {
+        const int h = hd[s];
+        if (h < k) {
+          const float v = __ldcg(t_s + static_cast<size_t>(s) * setsz +
+                                 static_cast<size_t>(row) * k + h);
+          if (v > bs) {
+            bs = v;
+            bl = s;
+          }
+        }
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         const float os = __shfl_xor_sync(0xffffffffu, bs, off);
@@ -549,15 +571,17 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
           bl = ol;
         }
       }
-      const int bh = __shfl_sync(0xffffffffu, head, bl);
       if (lane == 0) {
-        const bool real = bs > kNegInf;
+        const bool real = bs > kNegInf && bl < sets;
         out_s[u * k + j] = real ? bs : kNegInf;
         out_i[u * k + j] =
-            real ? __ldcg(t_i + bl * setsz + static_cast<size_t>(row) * k + bh)
+            real ? __ldcg(t_i + static_cast<size_t>(bl) * setsz +
+                          static_cast<size_t>(row) * k + hd[bl])
                  : 0;
       }
-      if (lane == bl) ++head;
+      __syncwarp();  // lane 0 has read the head before its owner moves it
+      if (bl < sets && lane == bl % 32) ++hd[bl];
+      __syncwarp();
     }
   }
 }
@@ -565,22 +589,24 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
 // Launch the scan over S shards of ni_loc items, each cut in P parts.
 // coll_s / coll_i: scratch of ceil(n / kTU)·S·P·kTU·k entries and
 // tickets: ceil(n / kTU) zeroed counters, when S·P > 1 (else unused).
+// S·P up to kMaxSetsY sets.
 inline int launch(const float* U, const float* V, const unsigned char* valid,
                   float* coll_s, long long* coll_i, unsigned* tickets,
                   float* out_s, long long* out_i, long long n,
                   long long ni_loc, int S, int P, int r, int k,
                   cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (k < 1 || k > kMaxK || r < 1 || S < 1 || P < 1 || S * P > kMaxSets ||
-      ni_loc < 1)
+  const long long sets = static_cast<long long>(S) * P;
+  if (k < 1 || k > kMaxK || r < 1 || S < 1 || P < 1 ||
+      sets > kMaxSetsY || ni_loc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (n + kTU - 1) / kTU;
   // part-local ids are ints
   const long long part_items = ((ni_loc + kTI - 1) / kTI + P - 1) / P * kTI;
   if (tiles > 0x7fffffffLL || part_items > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (S * P > 1 && (coll_s == nullptr || coll_i == nullptr ||
-                    tickets == nullptr))
+  if (sets > 1 && (coll_s == nullptr || coll_i == nullptr ||
+                   tickets == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // the staged copies need V (and U when streamed) aligned to their width
   const int cb = r % 4 == 0 ? 16 : r % 2 == 0 ? 8 : 4;
@@ -588,15 +614,20 @@ inline int launch(const float* U, const float* V, const unsigned char* valid,
       reinterpret_cast<uintptr_t>(U) % cb != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const bool res = resident(k, r);
-  const size_t smem = layout(k, r, res).total;
+  size_t smem = layout(k, r, res).total;
+  // the merge's heads: a byte a set for each warp, fewer warps when the
+  // block's memory cannot hold them all
+  const size_t heads = static_cast<size_t>(kWarps) * sets;
+  if (heads > smem) smem = heads < kMaxSmem ? heads : kMaxSmem;
   auto kern = res ? scan_kernel<true> : scan_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(static_cast<unsigned>(tiles), S * P), kThreads, smem,
-         stream>>>(U, V, valid, coll_s, coll_i, tickets, out_s, out_i, n,
-                   ni_loc, P, r, k);
+  kern<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(sets)),
+         kThreads, smem, stream>>>(U, V, valid, coll_s, coll_i, tickets,
+                                   out_s, out_i, n, ni_loc, P, r, k,
+                                   static_cast<int>(smem));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,8 +26,9 @@
 // add n·S·P·k·12 bytes each way.
 //
 // What the design does about it: topk.cuh's scan with S shards, each
-// shard cut in P parts (S·P <= 32, one merge lane per set), so K8 is K5's
-// kernel with its sets spread over shards.
+// shard cut in P parts (S·P <= 32 where S allows, else P = 1; a lane of
+// the merging warp holds sets j, j + 32, ...), so K8 is K5's kernel with
+// its sets spread over shards, up to 65,535 shards (the grid's y limit).
 
 #include <cuda_runtime.h>
 

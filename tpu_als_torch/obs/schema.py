@@ -7,14 +7,18 @@ ratings, the fault points, the retry helper, the checkpoints, the
 fold-in server, the serving engine (its histograms, gauge and counters,
 publishes, backend and flight records, and the causal-trace hops of a
 request), the stream reader, the live updater, the tenancy control
-plane, the CLI's per-iteration records and the run's final snapshot
-and spans.  The registry
+plane, the CLI's per-iteration records, the sharded trainer's comm
+gauges, elastic recovery (its events, counter and the ``elastic.detect``
+/ ``reform`` / ``resume`` trace hops; its probe and classify run under
+the ``elastic.probe`` and ``elastic.classify`` spans), the degraded
+sharded serve, and the run's final snapshot and spans.  The registry
 (:mod:`tpu_als_torch.obs.metrics`) checks every name against these
 tables when it is written, so an undeclared name raises instead of
 minting a series nothing downstream reads.  Help texts are the
 reference's, so the two packages' Prometheus texts agree.  The other
-rows of the reference (soak, scenario, plan, elastic, the training
-stage and comm gauges) arrive with the modules that write them.
+rows of the reference (soak, scenario, plan, the training stage
+histogram, the sharded serve's latency) arrive with the modules that
+write them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,23 @@ from __future__ import annotations
 # metric name -> (kind, unit, help text); kind in {counter, gauge,
 # histogram}, and a name written as another kind raises
 METRICS = {
+    "train.comm_bytes_per_iter": (
+        "gauge", "bytes",
+        "modeled per-device collective traffic of one ALS iteration "
+        "(trainer.comm_bytes_per_iter, labeled by effective strategy)"),
+    "train.gather_block_rows": (
+        "gauge", "rows",
+        "rows per column block of the chunked all_gather schedule "
+        "(comm.gather_block_plan; bounds the resident gathered slice)"),
+    "serve.degraded": (
+        "counter", "requests",
+        "top-k requests answered from last-good factors because the "
+        "sharded gather failed (parallel.serve degraded mode)"),
+    "train.reformations": (
+        "counter", "reformations",
+        "elastic mesh reformations: a mid-fit device loss was detected, "
+        "the ring re-formed on the surviving mesh and training resumed "
+        "from the last atomic checkpoint (resilience.elastic)"),
     "foldin.update_seconds": (
         "histogram", "seconds",
         "FoldInServer micro-batch latency, labeled side=user|item"),
@@ -133,6 +154,8 @@ METRICS = {
 # metric name -> label keys its writers may attach; a metric absent from
 # this table takes no labels
 LABELS = {
+    "train.comm_bytes_per_iter": ("strategy",),
+    "train.gather_block_rows": ("n_blocks", "side"),
     "foldin.update_seconds": ("side",),
     "foldin.batch_rows": ("side",),
     "serving.enqueue_seconds": ("tenant",),
@@ -160,8 +183,8 @@ TENANT_LABELED = tuple(sorted(
     n for n, keys in LABELS.items() if "tenant" in keys))
 
 # -- causal-trace vocabulary (tpu_als_torch/obs/tracing.py) ----------------
-# every hop a request or rating event takes is one named span, validated
-# when recorded; the elastic hops arrive with their module
+# every hop a request, rating event or elastic recovery takes is one
+# named span, validated when recorded
 TRACE_SPANS = (
     "serve.admit",        # request admitted at the serving front door
     "serve.queue",        # waited in the MicroBatcher admission queue
@@ -174,6 +197,9 @@ TRACE_SPANS = (
     "live.foldin",        # folded into the touched factor rows
     "live.publish",       # rode an incremental publish_update
     "live.visible",       # its publish seq became score-path visible
+    "elastic.detect",     # a failed step was classified (probe verdict)
+    "elastic.reform",     # the mesh was rebuilt on the survivors
+    "elastic.resume",     # training re-entered from the checkpoint
 )
 
 # per-span outcome vocabulary: "ok", or the typed refusal/failure
@@ -296,6 +322,28 @@ EVENTS = {
         ("tenant",),
         "a tenant was deregistered from the control plane; its engine "
         "was stopped and its device buffers released"),
+    "serve_degraded": (
+        ("strategy", "reason"),
+        "a sharded top-k request fell back to last-good gathered "
+        "factors after a gather failure"),
+    "device_lost": (
+        ("iteration", "lost", "surviving"),
+        "the elastic detector classified a failed collective/ring step "
+        "as device loss: the health probe (bounded retry backoff) "
+        "exhausted on the named logical device ids; 'surviving' is how "
+        "many devices stay in the mesh (resilience.elastic)"),
+    "mesh_reformed": (
+        ("old_devices", "new_devices", "lost"),
+        "the mesh was rebuilt from the surviving logical device ids and "
+        "the shard plan / bucket schedule re-derived through the "
+        "planner for the new device count (api.fitting elastic "
+        "recovery)"),
+    "elastic_resume": (
+        ("iteration", "source", "devices"),
+        "training re-entered the (shrunk) ring at an iteration "
+        "boundary: from the last atomic checkpoint ('checkpoint', with "
+        "its path in an extra field) or from the seed-deterministic "
+        "init ('scratch' — the quarantined epoch is re-run in full)"),
     "snapshot": (
         ("counters", "gauges", "histograms"),
         "final registry state, appended once by finalize() so the JSONL "

@@ -24,7 +24,9 @@ included; plain version :func:`topk_merge_ring_plain`.
 Both run one kernel, ``csrc/topk.cuh``'s scan, whose grid is (user tile,
 set): each shard's items are cut into P contiguous parts of whole item
 tiles (:func:`part_bounds`), a block per (user tile, shard, part), and
-the sets merge in order.  :func:`topk_parts` picks P from the shapes and
+the sets merge in order, lane j of a warp holding sets j, j + 32, ...,
+so K8 takes up to :data:`MAX_SETS` shards (CUDA's grid limit in y).
+:func:`topk_parts` picks P from the shapes and
 the card's multiprocessor count; :func:`topk_parts_plain` is K5's
 function computed that way in plain PyTorch.
 
@@ -40,9 +42,13 @@ from tpu_als_torch import _build
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores, merge_topk
 
 MAX_K = 128
-# the scan's merge holds one set (a part of a shard) per lane of a warp:
-# S·P <= MAX_SHARDS
-MAX_SHARDS = 32
+# the lanes of the scan's merging warp: topk_parts keeps S·P within it
+# where S allows (one set, a part of a shard, to a lane), and above it each
+# shard is one set and a lane merges several
+MERGE_LANES = 32
+# the most sets a call takes: one block row of the grid a set, and CUDA's
+# grid limit in y (csrc/topk.cuh::kMaxSetsY)
+MAX_SETS = 65_535
 # csrc/topk.cuh's tile: user rows per block (kTU; the scratch holds one
 # candidate set per tile of this many users and set) and items per tile
 # (kTI; a part is whole tiles)
@@ -87,12 +93,13 @@ def topk_parts(n, ni_loc, S, sms):
     """P, the parts each of S shards of ``ni_loc`` items is cut into for
     ``n`` query rows on a card of ``sms`` multiprocessors: as many as keep
     the (user tile, shard, part) blocks at most two a multiprocessor — 1
-    when the user tiles alone come to that — at most MAX_SHARDS // S (one
-    merge lane per set) and at most one part per item tile."""
+    when the user tiles alone come to that — at most MERGE_LANES // S (one
+    merge lane per set; 1 above MERGE_LANES shards) and at most one part
+    per item tile."""
     blocks = -(-n // TILE_U) * S
     if blocks == 0:
         return 1
-    return max(1, min(2 * sms // blocks, MAX_SHARDS // S,
+    return max(1, min(2 * sms // blocks, MERGE_LANES // S,
                       -(-ni_loc // TILE_I)))
 
 
@@ -112,8 +119,9 @@ def _sms(device):
 def _parts(parts, n, ni_loc, S, device):
     if parts is None:
         return topk_parts(n, ni_loc, S, _sms(device))
-    if not 1 <= parts <= MAX_SHARDS // S:
-        raise ValueError(f"parts must be in [1, {MAX_SHARDS // S}] for {S} "
+    top = max(1, MERGE_LANES // S)
+    if not 1 <= parts <= top:
+        raise ValueError(f"parts must be in [1, {top}] for {S} "
                          f"shard(s), got {parts}")
     return parts
 
@@ -241,10 +249,10 @@ def topk_merge_ring(U, V_shards, valid_shards, k, parts=None):
                                      1 if parts is None else parts)
     if U.device.type != "cuda":
         raise ValueError(f"top-k runs on cuda or cpu, not {U.device}")
-    if S > MAX_SHARDS:
-        raise NotImplementedError(
-            f"{S} shards > {MAX_SHARDS}: K8's merge holds one shard per "
-            "lane of a warp")
+    if S > MAX_SETS:
+        raise ValueError(
+            f"{S} shards > {MAX_SETS}: K8 launches one block row per "
+            "shard, and CUDA's grid takes at most that many")
     if not (U.is_contiguous() and V_shards.is_contiguous()
             and valid_shards.is_contiguous()):
         raise ValueError("topk_merge_ring takes contiguous tensors")

@@ -19,9 +19,13 @@ Two half-steps over it, each for every owner at once:
   one launch of kernel K7 per bucket, whose blocks walk the S sources
   themselves (the long rows' streams split over blocks by width).
 
-The reference's ``gather_block_plan`` and ``chunked_gather_half_step``
-('all_gather_chunked') are not ported yet, nor its multi-host
-``positions=``.
+And ``'all_gather_chunked'``: :func:`chunked_gather_half_step` over the
+stacked CSR shards of ``'all_gather'``, the opposite table taken in the
+column blocks of :func:`gather_block_plan` (on one device a block is a
+slice of every shard's rows, not a gather), the normal equations summed
+block by block in the reference's order, then ``solve_spd`` (K2 up to
+rank 128, K6 above).  The reference's multi-host ``positions=`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -236,6 +240,102 @@ def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
                     x = solve_nnls(A, bb, cnt, sweeps=cfg.nnls_sweeps,
                                    jitter=cfg.jitter)
                 elif cg:
+                    x0 = (None if prev is None
+                          else prev[d * num_rows:(d + 1) * num_rows][at])
+                    x = solve_cg(A, bb, cnt, x0=x0, iters=cfg.cg_iters,
+                                 jitter=cfg.jitter)
+                else:
+                    x = solve_spd(A, bb, cnt, jitter=cfg.jitter,
+                                  adaptive=cfg.adaptive_solve)
+                out[d, rows] = x
+    return out[:, :num_rows].reshape(D * num_rows, r)
+
+
+def gather_block_plan(per, n_blocks):
+    """The column blocks of a ``rows_per_shard``-row factor shard:
+    ``(sub, starts, widths)``, block c covering local rows ``[starts[c],
+    starts[c] + widths[c])`` of every shard; ``sub = ceil(per /
+    n_blocks)``, the last block may be ragged, and the blocks always
+    partition the shard (``sum(widths) == per``)."""
+    per = int(per)
+    sub = -(-per // max(1, int(n_blocks)))
+    starts = list(range(0, per, sub))
+    widths = [min(sub, per - s) for s in starts]
+    return sub, starts, widths
+
+
+def chunked_gather_half_step(V_stacked, buckets, num_rows, n_shards, cfg,
+                             chunk_elems, n_blocks=4, YtY=None, prev=None):
+    """One half-step of every owner with the opposite factors taken in
+    column blocks (``'all_gather_chunked'``).
+
+    ``V_stacked`` [S·per, r]: the opposite factors in slot space;
+    ``buckets``: the side's stacked CSR shards as tensors (rows [D, nb],
+    cols/vals/mask [D, nb, w], cols in the opposite slot space, as
+    ``'all_gather'`` takes them); ``prev`` [D·num_rows, r]: the solved
+    side's current factors, the CG warm start.  Per owner, bucket and row
+    tile (``trainer_chunk``), block c of :func:`gather_block_plan` is
+    rows ``starts[c] .. starts[c] + widths[c]`` of every shard, a
+    ``[S·widths[c], r]`` table; the entries whose column falls in block c
+    add their terms to the tile's normal equations (the others are masked
+    out), block after block.  Then the ridge (λ·count, the count summed
+    from the masks), YᵀY when implicit, and the solve: NNLS when
+    nonnegative, warm-started CG when ``cg_iters > 0``, else
+    ``solve_spd``, as in the reference.  Returns [D·num_rows, r] f32."""
+    r = V_stacked.shape[-1]
+    dev = V_stacked.device
+    cdt = getattr(torch, cfg.compute_dtype)
+    V_sh = V_stacked.to(cdt).reshape(n_shards, -1, r)
+    per = V_sh.shape[1]
+    sub, starts, widths = gather_block_plan(per, n_blocks)
+    C = len(starts)
+    blocks = [V_sh[:, starts[c]:starts[c] + widths[c]].reshape(-1, r)
+              for c in range(C)]
+    D = buckets[0].rows.shape[0] if buckets else n_shards
+    eye = torch.eye(r, dtype=torch.float32, device=dev)
+    out = torch.zeros(D, num_rows + 1, r, dtype=torch.float32, device=dev)
+    cg = (cfg.cg_iters > 0
+          and cfg.solve_backend not in ("gather_fused_solve",
+                                        "gather_fused_ring"))
+    for b in buckets:
+        _, nb, w = b.cols.shape
+        tile = trainer_chunk(nb, w, r, chunk_elems)
+        vals, mask = b.vals.to(cdt), b.mask.to(cdt)
+        src = torch.div(b.cols, per, rounding_mode="floor")
+        loc = b.cols - src * per
+        blkid = torch.clamp(torch.div(loc, sub, rounding_mode="floor"),
+                            max=C - 1)
+        for d in range(D):
+            for s0 in range(0, nb, tile):
+                sl = slice(s0, s0 + tile)
+                rows = b.rows[d, sl]
+                A = torch.zeros(rows.shape[0], r, r, dtype=torch.float32,
+                                device=dev)
+                bb = torch.zeros(rows.shape[0], r, dtype=torch.float32,
+                                 device=dev)
+                cnt = torch.zeros(rows.shape[0], dtype=torch.float32,
+                                  device=dev)
+                for c in range(C):
+                    m_c = mask[d, sl] * (blkid[d, sl] == c).to(cdt)
+                    # masked-out entries' indices clipped into the block
+                    idx = torch.clamp(src[d, sl] * widths[c]
+                                      + (loc[d, sl] - starts[c]),
+                                      0, n_shards * widths[c] - 1)
+                    Sg, bg, ng = gram_terms(blocks[c][idx.long()],
+                                            vals[d, sl], m_c,
+                                            implicit=cfg.implicit_prefs,
+                                            alpha=cfg.alpha)
+                    A = A + Sg
+                    bb = bb + bg
+                    cnt = cnt + ng.float()
+                A = A + (cfg.reg_param * cnt)[:, None, None] * eye
+                if cfg.implicit_prefs:
+                    A = A + YtY[None]
+                if cfg.nonnegative:
+                    x = solve_nnls(A, bb, cnt, sweeps=cfg.nnls_sweeps,
+                                   jitter=cfg.jitter)
+                elif cg:
+                    at = torch.clamp(rows, max=num_rows - 1)
                     x0 = (None if prev is None
                           else prev[d * num_rows:(d + 1) * num_rows][at])
                     x = solve_cg(A, bb, cnt, x0=x0, iters=cfg.cg_iters,

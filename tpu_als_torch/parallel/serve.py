@@ -20,19 +20,74 @@ of ni_loc; global item id = s·ni_loc + local.
 sends a k above 128 to its scan route (``chunked_topk_scores``), as the
 reference's dispatch does.
 
-The reference's degraded mode (answering from a last-good catalog when
-the sharded call raises) is not ported: it would hide a kernel failure;
-it belongs with the resilience slice, and here the call raises.
+Degraded mode, as the reference's: when the sharded call fails (the
+``serve.gather`` fault point: raise = a failed gather, corrupt = a
+stale or lost shard), the request is answered from the last catalog
+this same mesh served (``_last_good``; ``serve.degraded`` counter,
+``serve_degraded`` event) by ``cuda_topk.topk_scores`` on the mesh's
+device, K5 on the card; with no last-good catalog,
+:class:`ServeShardLost` raises.  Two choices of the port:
+
+- **The cache key** is the mesh's ``(device, ids)``, the counterpart of
+  the reference's device ids: two meshes with other logical ids never
+  answer from each other's catalog, even on one card.
+- **What is caught** is :class:`ServeShardLost` and ``OSError`` (which
+  includes the injected ``InjectedFault``), where the reference catches
+  ``(OSError, RuntimeError)``: a ``RuntimeError`` from a kernel raises,
+  so that a kernel failure is never hidden behind a degraded answer.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from tpu_als_torch import obs
 from tpu_als_torch.ops import cuda_topk
 from tpu_als_torch.ops.topk import NEG_INF, merge_topk
+from tpu_als_torch.resilience import faults
 
 STRATEGIES = ("all_gather", "ring", "merge_ring")
+
+
+class ServeShardLost(RuntimeError):
+    """A sharded top-k failed (a lost or stale shard) and no last-good
+    catalog is cached for this mesh to answer from."""
+
+
+# (V, valid) of the last successful sharded serve, one entry per mesh
+# (the newest serve of any strategy replaces it), keyed by _cache_key;
+# the lock guards it against concurrent serving threads
+_last_good = {}
+_last_good_lock = threading.Lock()
+
+
+def _cache_key(mesh):
+    return (mesh.device, mesh.ids)
+
+
+def reset_last_good():
+    """Drop the degraded-serving cache."""
+    with _last_good_lock:
+        _last_good.clear()
+
+
+def _serve_degraded(U, k, Nu, mesh, strategy, reason):
+    """Answer from this mesh's last-good catalog on its device: slower and
+    possibly stale, but an answer."""
+    with _last_good_lock:
+        entry = _last_good.get(_cache_key(mesh))
+    if entry is None:
+        raise ServeShardLost(
+            f"sharded top-k failed ({reason}) and no last-good factors "
+            "are cached for this mesh to serve degraded from")
+    Vg, validg = entry
+    kk = min(k, Vg.shape[0])
+    obs.counter("serve.degraded")
+    obs.emit("serve_degraded", strategy=strategy, reason=reason)
+    s, ix = cuda_topk.topk_scores(U, Vg, validg, kk)
+    return s[:Nu], ix[:Nu]
 
 
 def _as_f32(x, device):
@@ -41,28 +96,56 @@ def _as_f32(x, device):
 
 
 def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
-                 item_chunk=8192):
+                 item_chunk=8192, return_info=False):
     """Top-k of every row of ``U`` [Nu, r] over the catalog ``V`` [Ni, r]
     (``item_valid`` [Ni] bool, default all valid) on ``mesh``: (scores
     [Nu, k'] float32, ids [Nu, k'] int64) with ``k' = min(k, Ni)``, as
     tensors on the mesh's device.  The scores are those of
     ``chunked_topk_scores(U, V, valid, k')``; ``'merge_ring'`` also
-    returns its ids, the others may order ties differently."""
+    returns its ids, the others may order ties differently.  A failed
+    call answers degraded (module docstring); ``return_info=True``
+    appends ``{"degraded": bool, "reason": str or None}``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown serving strategy {strategy!r} "
                          f"(expected one of {STRATEGIES})")
+
+    def _info(out, degraded, reason=None):
+        return out + ({"degraded": degraded, "reason": reason},) \
+            if return_info else out
+
     dev = mesh.device
     U, V = _as_f32(U, dev), _as_f32(V, dev)
     Nu, r = U.shape
     Ni = V.shape[0]
     if Ni == 0 or Nu == 0 or k == 0:
         kk = min(k, Ni)
-        return (torch.zeros(Nu, kk, dtype=torch.float32, device=dev),
-                torch.zeros(Nu, kk, dtype=torch.int64, device=dev))
+        return _info((torch.zeros(Nu, kk, dtype=torch.float32, device=dev),
+                      torch.zeros(Nu, kk, dtype=torch.int64, device=dev)),
+                     False)
     valid = (torch.ones(Ni, dtype=torch.bool, device=dev)
              if item_valid is None
              else torch.as_tensor(item_valid).to(device=dev,
                                                  dtype=torch.bool))
+    try:
+        # fault point: raise = a failed gather; corrupt = a stale or lost
+        # shard (nothing sane to execute against)
+        if faults.check("serve.gather") == "corrupt":
+            raise ServeShardLost("stale/lost factor shard")
+        out = _topk_sharded(U, V, valid, k, mesh, strategy, item_chunk)
+    except (ServeShardLost, OSError) as e:
+        reason = f"{type(e).__name__}: {e}"
+        return _info(_serve_degraded(U, k, Nu, mesh, strategy, reason),
+                     True, reason)
+    with _last_good_lock:
+        _last_good[_cache_key(mesh)] = (V, valid)
+    return _info(out, False)
+
+
+def _topk_sharded(U, V, valid, k, mesh, strategy, item_chunk):
+    """The sharded call of :func:`topk_sharded` (Nu, Ni, k > 0)."""
+    dev = mesh.device
+    Nu, r = U.shape
+    Ni = V.shape[0]
     D = mesh.size
     k_eff = min(k, Ni)
     ni_loc = -(-Ni // D)

@@ -11,16 +11,25 @@ items, with a strategy for how each owner reaches the opposite factors:
   device; on one device the stacked table IS the gathered table, and
   each owner's rows go through the single-device ``local_half_step``
   (kernels K4, K3 + K1/K6);
+- ``'all_gather_chunked'``: the opposite table in column blocks per row
+  tile, the normal equations summed block by block, then ``solve_spd``
+  (K2 up to rank 128, K6 above) (:func:`.comm.chunked_gather_half_step`);
 - ``'ring'`` / ``'ring_overlap'``: the grid of :mod:`.comm`, unfused
   (torch normal equations + ``solve_spd``) or, with
   ``solve_backend='gather_fused_ring'``, kernel K7.  ``'ring_overlap'``
   has the ring's numerics; it exists to put the rotation's collective
   under the compute, and on one device there is no collective to
-  overlap, so it is ``'ring'`` by another name.
+  overlap, so it is ``'ring'`` by another name;
+- ``'all_to_all'``: each owner receives only the rows its ratings
+  reference, then ``local_half_step`` (:mod:`.a2a`).
 
 For implicit feedback YᵀY is the whole opposite table's (the reference
-``psum``s the shards' partial Grams).  ``'all_gather_chunked'``,
-``'all_to_all'`` and ``elastic=True`` raise ``NotImplementedError``.
+``psum``s the shards' partial Grams).  ``elastic=True`` wraps the step
+in the device-loss detector (:mod:`tpu_als_torch.resilience.elastic`);
+an armed ``comm.ring_step`` fault point wraps the ring step in
+:func:`_chaos_wrap_step`.  ``'auto'`` is resolved upstream
+(``plan.resolve_gather_strategy``); ``train_sharded`` refuses it, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -30,54 +39,79 @@ import torch
 
 from tpu_als_torch.convert import slot_rows
 from tpu_als_torch.core.als import AlsConfig, init_factors, local_half_step
-from tpu_als_torch.core.ratings import Bucket
+from tpu_als_torch.core.ratings import Bucket, trainer_chunk
 from tpu_als_torch.ops.solve import compute_yty
-from tpu_als_torch.parallel.comm import ring_half_step
+from tpu_als_torch.parallel.a2a import a2a_half_step
+from tpu_als_torch.parallel.comm import (
+    chunked_gather_half_step,
+    ring_half_step,
+)
+from tpu_als_torch.resilience import faults
+from tpu_als_torch.resilience.elastic import DeviceLost, wrap_step
 
 #: The gather-strategy table (the reference's names and meanings).
 GATHER_STRATEGIES = {
-    "auto": "the execution planner's comm-model pick (not ported: the "
-            "planner comes with the ops-infrastructure slice)",
+    "auto": "the execution planner's comm-model pick "
+            "(plan.resolve_gather_strategy; resolved before the fit)",
     "all_gather": "full opposite-factor gather per half-step "
                   "(the default; on one device, the stacked table)",
-    "all_gather_chunked": "column-block gathers per row tile (not ported: "
-                          "comes with the multi-card transport slice)",
+    "all_gather_chunked": "column-block gathers per row tile; the full "
+                          "opposite table never enters a row tile's "
+                          "normal equations at once",
     "ring": "shards stream past stationary accumulators; with "
             "solve_backend='gather_fused_ring', kernel K7",
     "ring_overlap": "the ring with the rotation under the compute; on one "
                     "device, the ring",
-    "all_to_all": "ragged exchange of only the referenced rows (not "
-                  "ported: comes with the multi-card transport slice)",
+    "all_to_all": "ragged exchange of only the referenced rows (needs the "
+                  "built A2aCsr request plans)",
 }
 
-#: The names train_sharded runs here; the others raise, naming the slice
-#: of the port they come with.
-EXECUTABLE_STRATEGIES = ("all_gather", "ring", "ring_overlap")
-
-_LATER = {
-    "all_gather_chunked": "the multi-card transport slice",
-    "all_to_all": "the multi-card transport slice",
-    "auto": "the ops-infrastructure (planner) slice",
-}
+#: The strategy names train_sharded runs ('auto' resolves to one of
+#: these upstream).
+EXECUTABLE_STRATEGIES = tuple(k for k in GATHER_STRATEGIES if k != "auto")
 
 
-def strategy_help():
+def strategy_help(include_auto=True):
     """One-line rendering of :data:`GATHER_STRATEGIES` for help and error
     messages."""
-    return "; ".join(f"{k} = {v}" for k, v in GATHER_STRATEGIES.items())
+    keys = GATHER_STRATEGIES if include_auto else EXECUTABLE_STRATEGIES
+    return "; ".join(f"{k} = {GATHER_STRATEGIES[k]}" for k in keys)
 
 
 def check_strategy(strategy):
-    """Raise for a name outside the table (ValueError) or one not ported
-    yet (NotImplementedError)."""
+    """Raise ``ValueError`` for a name outside the table."""
     if strategy not in GATHER_STRATEGIES:
         raise ValueError(f"unknown gather strategy {strategy!r} (expected "
                          f"one of {tuple(GATHER_STRATEGIES)}; "
                          f"{strategy_help()})")
-    if strategy not in EXECUTABLE_STRATEGIES:
-        raise NotImplementedError(
-            f"gather strategy {strategy!r} is not ported yet: it comes with "
-            f"{_LATER[strategy]}")
+
+
+class FactorsCorrupt(RuntimeError):
+    """Non-finite factors after a ring step: the sharded counterpart of a
+    torn message.  ALS cannot iterate out of it (NaN is a fixed point of
+    the solve), so the loop stops and resumes from the last
+    checkpoint."""
+
+
+def _chaos_wrap_step(step):
+    """The host-level ``comm.ring_step`` fault wrapper, installed only
+    when the point is armed: raise mode fails before the step (a failed
+    collective), corrupt mode poisons U with NaN after it, and the
+    finiteness check (a host read, paid only here) turns that into
+    :class:`FactorsCorrupt`."""
+
+    def chaos_step(U, V, *args):
+        mode = faults.check("comm.ring_step")
+        U, V = step(U, V, *args)
+        if mode == "corrupt":
+            U = U * float("nan")
+        if not bool(torch.isfinite(U.sum()) & torch.isfinite(V.sum())):
+            raise FactorsCorrupt(
+                "non-finite factors after ring step — resume from the "
+                "last checkpoint")
+        return U, V
+
+    return chaos_step
 
 
 def _check_shards(mesh, *containers):
@@ -133,7 +167,7 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts):
     fused = cfg.solve_backend == "gather_fused_ring" and not cfg.nonnegative
     S = mesh.size
 
-    def step(U, V):
+    def ring_step(U, V):
         YtY = compute_yty(U) if cfg.implicit_prefs else None
         V = ring_half_step(U, ib, ic, item_ring.rows_per_shard, S, cfg,
                            item_ring.chunk_elems, YtY, prev=V, fused=fused)
@@ -142,7 +176,180 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts):
                            user_ring.chunk_elems, YtY, prev=U, fused=fused)
         return U, V
 
+    if faults.armed("comm.ring_step"):
+        return _chaos_wrap_step(ring_step)
+    return ring_step
+
+
+def make_chunked_gather_step(mesh, user_sharded, item_sharded,
+                             cfg: AlsConfig, n_blocks=4):
+    """``step(U, V) -> (U, V)`` with ``'all_gather_chunked'``: the opposite
+    factors taken in ``n_blocks`` column blocks per row tile
+    (:func:`.comm.chunked_gather_half_step`), over the same stacked CSR
+    shards as ``'all_gather'``."""
+    _check_shards(mesh, user_sharded, item_sharded)
+    dev = mesh.device
+    ub, ib = user_sharded.to(dev), item_sharded.to(dev)
+    S = mesh.size
+
+    def step(U, V):
+        YtY = compute_yty(U) if cfg.implicit_prefs else None
+        V = chunked_gather_half_step(
+            U, ib, item_sharded.rows_per_shard, S, cfg,
+            item_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=V)
+        YtY = compute_yty(V) if cfg.implicit_prefs else None
+        U = chunked_gather_half_step(
+            V, ub, user_sharded.rows_per_shard, S, cfg,
+            user_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=U)
+        return U, V
+
     return step
+
+
+def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig):
+    """``step(U, V) -> (U, V)`` with the ragged ``'all_to_all'`` exchange
+    (:mod:`.a2a`): the item-side plan routes U rows to the item half-step,
+    the user-side plan V rows to the user half-step."""
+    for side, plan in (("user", user_a2a), ("item", item_a2a)):
+        if not plan.buckets:
+            raise ValueError(
+                f"the {side} all_to_all plan is a stub (degenerate, built "
+                "with on_degenerate='stub'): it holds no shards to train "
+                "on; fall back to 'all_gather'")
+    _check_shards(mesh, user_a2a, item_a2a)
+    dev = mesh.device
+    ub, us = user_a2a.to(dev)
+    ib, is_ = item_a2a.to(dev)
+    S = mesh.size
+
+    def step(U, V):
+        YtY = compute_yty(U) if cfg.implicit_prefs else None
+        V = a2a_half_step(U, is_, ib, item_a2a.rows_per_shard, S, cfg,
+                          item_a2a.chunk_elems, YtY, prev=V)
+        YtY = compute_yty(V) if cfg.implicit_prefs else None
+        U = a2a_half_step(V, us, ub, user_a2a.rows_per_shard, S, cfg,
+                          user_a2a.chunk_elems, YtY, prev=U)
+        return U, V
+
+    return step
+
+
+def _r_pad(r):
+    return max(128, -(-r // 128) * 128)
+
+
+def _solve_row_tile(r_pad, w8, panel=16, max_wc=256, vmem_budget=1 << 17):
+    """TN, the fused ring kernel's row tile on the TPU: a copy of the
+    reference's ``ops/pallas_gather_ne.py::_tiles`` and ``_tiles_solve``
+    arithmetic, so that :func:`comm_bytes_per_iter` reports the
+    reference's integers for ``'gather_fused_ring'``."""
+    if w8 <= max_wc:
+        wc = w8
+    else:
+        w_pad = -(-w8 // 128) * 128
+        wc = max_wc - (max_wc % 128)
+        while wc > 128 and w_pad % wc:
+            wc -= 128
+    tn = 256
+    while tn > 8 and tn * (r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
+        tn //= 2
+    while tn > 8 and tn * wc > (1 << 13):
+        tn //= 2
+    while tn > 8 and tn * (2 * r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
+        tn //= 2
+    cap = int(vmem_budget) // (max(panel, 32) * r_pad)
+    if cap < 8:
+        raise ValueError(
+            f"vmem_budget {vmem_budget} caps the fused-solve row tile at "
+            f"{cap} rows for r_pad={r_pad} panel={panel} (the reference's "
+            "TileBudgetError)")
+    return max(8, (min(tn, cap) // 8) * 8)
+
+
+def ring_remote_bytes(n_row_tiles, n_shards, per, r, db):
+    """The fused ring kernel's remote-copy payload on the TPU (a copy of
+    the reference's ``perf/roofline.py::ring_remote_bytes``): every row
+    tile runs its own ring pass forwarding the held ``[per, r]`` shard
+    ``S - 1`` times."""
+    return int(n_row_tiles * max(0, n_shards - 1) * per * r * db)
+
+
+def comm_bytes_per_iter(strategy, user_part, item_part, rank,
+                        user_container=None, item_container=None,
+                        implicit=False, compute_dtype="float32",
+                        panel=16):
+    """Per-device collective traffic of ONE full ALS iteration in bytes,
+    the reference's model (its integers, strategy by strategy), f32
+    factors, per half-step the solved side receiving the opposite rows:
+
+    - ``all_gather``: ``(D−1)·rows_per_shard·r·4``;
+    - ``ring`` / ``ring_overlap``: ``D·rows_per_shard·r·4`` per row tile
+      (read from the built containers, else 1);
+    - ``all_gather_chunked``: one full gather per row tile;
+    - ``all_to_all``: ``2·(D−1)·R·r·4`` (received and sent), R from the
+      built ``A2aCsr`` plans;
+    - ``gather_fused_ring``: the fused ring kernel's remote copies
+      (:func:`ring_remote_bytes` over :func:`_solve_row_tile`'s tiles,
+      the rank padded to 128, in the compute dtype);
+    - implicit adds one YᵀY reduction per half-step,
+      ``2·(D−1)/D·r²·4`` each.
+
+    On one card nothing crosses a link: this is the traffic the strategy
+    would move across cards, reported as the reference reports it."""
+    D = user_part.n_shards
+    fb = 4 * rank
+    _db = torch.empty((), dtype=getattr(torch, compute_dtype)).element_size()
+
+    def tiles(container):
+        if container is None or not getattr(container, "buckets", None):
+            return 1
+        n = 0
+        for b in container.buckets:
+            S, nb, w = b.cols.shape[-3:]
+            chunk = trainer_chunk(nb, w, rank, container.chunk_elems)
+            n += nb // chunk
+        return max(1, n)
+
+    def _ring_tiles(container, r):
+        if container is None or not getattr(container, "buckets", None):
+            return 1
+        n = 0
+        for b in container.buckets:
+            S, nb, w = b.cols.shape[-3:]
+            tn = _solve_row_tile(_r_pad(r), -(-w // 8) * 8, panel=panel)
+            n += -(-nb // tn)
+        return max(1, n)
+
+    if strategy == "all_gather":
+        half_u = (D - 1) * item_part.rows_per_shard * fb
+        half_v = (D - 1) * user_part.rows_per_shard * fb
+    elif strategy in ("ring", "ring_overlap"):
+        half_u = D * item_part.rows_per_shard * fb * tiles(user_container)
+        half_v = D * user_part.rows_per_shard * fb * tiles(item_container)
+    elif strategy == "all_gather_chunked":
+        half_u = ((D - 1) * item_part.rows_per_shard * fb
+                  * tiles(user_container))
+        half_v = ((D - 1) * user_part.rows_per_shard * fb
+                  * tiles(item_container))
+    elif strategy == "all_to_all":
+        if user_container is None or item_container is None:
+            raise ValueError("all_to_all traffic needs the built A2aCsr "
+                             "plans (request budgets R)")
+        half_u = 2 * (D - 1) * user_container.request_budget * fb
+        half_v = 2 * (D - 1) * item_container.request_budget * fb
+    elif strategy == "gather_fused_ring":
+        half_u = ring_remote_bytes(
+            _ring_tiles(user_container, rank), D,
+            item_part.rows_per_shard, _r_pad(rank), _db)
+        half_v = ring_remote_bytes(
+            _ring_tiles(item_container, rank), D,
+            user_part.rows_per_shard, _r_pad(rank), _db)
+    else:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    total = half_u + half_v
+    if implicit:
+        total += 2 * 2 * (D - 1) * rank * rank * 4 // D
+    return int(total)
 
 
 def stacked_counts(part, row_idx, vals=None, positive_only=False):
@@ -160,24 +367,34 @@ def stacked_counts(part, row_idx, vals=None, positive_only=False):
 
 def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
                   cfg: AlsConfig, callback=None, strategy="all_gather",
-                  ring_counts=None, init=None, start_iter=0, elastic=False):
+                  ring_counts=None, init=None, start_iter=0,
+                  gather_blocks=4, elastic=False):
     """Sharded ALS training loop.  Returns the slot-space ``(U, V)`` on the
     mesh's device; index them with ``Partition.slot`` for entity rows.
 
-    ``strategy``: a row of :data:`GATHER_STRATEGIES`; the gather family
-    takes :class:`.data.ShardedCsr` containers, the ring family
+    ``strategy``: a row of :data:`EXECUTABLE_STRATEGIES` ('auto' is
+    resolved upstream and raises here, as in the reference).  The gather
+    strategies take :class:`.data.ShardedCsr` containers
+    (``'all_gather_chunked'`` reads ``gather_blocks``), the ring family
     :class:`.comm.RingCsr` grids plus ``ring_counts=(user, item)`` from
-    :func:`stacked_counts`.  ``init``: an entity-space ``(U0, V0)`` warm
-    start, scattered into slot space; without it the rows are
+    :func:`stacked_counts`, and ``'all_to_all'`` :class:`.a2a.A2aCsr`
+    plans from ``build_a2a``.  ``init``: an entity-space ``(U0, V0)``
+    warm start, scattered into slot space; without it the rows are
     ``init_factors`` drawn from ``cfg.seed`` as the single-device
     ``train`` draws them (users first), so both start from the same
     factors.  Runs iterations ``start_iter + 1 .. cfg.max_iter``;
-    ``callback(iteration, U, V)`` gets the slot-space tables."""
-    check_strategy(strategy)
-    if elastic:
-        raise NotImplementedError(
-            "elastic=True (device loss as a rescheduling event) comes with "
-            "the resilience slice of the port")
+    ``callback(iteration, U, V)`` gets the slot-space tables.
+    ``elastic=True`` wraps the step in ``resilience.elastic.wrap_step``:
+    a failed step is probed into a transient retry or a
+    :class:`~tpu_als_torch.resilience.elastic.DeviceLost` stamped with
+    the failing iteration, which ``api.fitting.fit_sharded`` turns into a
+    re-formed mesh."""
+    if strategy not in EXECUTABLE_STRATEGIES:
+        raise ValueError(f"unknown gather strategy {strategy!r} for "
+                         f"train_sharded (expected one of "
+                         f"{EXECUTABLE_STRATEGIES}; 'auto' is resolved "
+                         "before the fit by plan.resolve_gather_strategy; "
+                         f"{strategy_help(include_auto=False)})")
     dev = mesh.device
     if init is None:
         g = torch.Generator().manual_seed(int(cfg.seed))
@@ -193,10 +410,22 @@ def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
                              "stacked_counts")
         step = make_ring_step(mesh, user_sharded, item_sharded, cfg,
                               ring_counts)
+    elif strategy == "all_to_all":
+        step = make_a2a_step(mesh, user_sharded, item_sharded, cfg)
+    elif strategy == "all_gather_chunked":
+        step = make_chunked_gather_step(mesh, user_sharded, item_sharded,
+                                        cfg, n_blocks=gather_blocks)
     else:
         step = make_sharded_step(mesh, user_sharded, item_sharded, cfg)
+    if elastic:
+        step = wrap_step(step, mesh)
     for it in range(start_iter, cfg.max_iter):
-        U, V = step(U, V)
+        try:
+            U, V = step(U, V)
+        except DeviceLost as e:
+            if e.iteration is None:
+                e.iteration = it + 1  # stamp the failing iteration
+            raise
         if callback is not None:
             callback(it + 1, U, V)
     return U, V

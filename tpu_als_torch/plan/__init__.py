@@ -1,11 +1,13 @@
-"""The execution planner's serving resolvers, disarmed.
+"""The execution planner's serving and gather resolvers, disarmed.
 
 Counterpart of ``shape_class``, ``resolve_serving_buckets``,
-``resolve_live_cadence`` and ``resolve_tenant_plan`` in
-``tpu_als/plan/planner.py`` as they resolve with the reference's plan
-cache off: an explicit request passes through, an observed request-size
-mix gives a power-of-two quantile ladder, and the default is the
-built-in constant.  The port has no plan cache yet (nothing is banked,
+``resolve_live_cadence``, ``resolve_tenant_plan``, ``gather_model`` and
+``resolve_gather_strategy`` in ``tpu_als/plan/planner.py`` as they
+resolve with the reference's plan cache off: an explicit request passes
+through, an observed request-size mix gives a power-of-two quantile
+ladder, the default is the built-in constant, and a gather strategy of
+``'auto'`` is the comm model's pick (which the reference never takes
+from its cache either).  The port has no plan cache yet (nothing is banked,
 nothing is read back, no ``plan_*`` event is emitted; ROADMAP Queue 1).
 """
 
@@ -14,6 +16,11 @@ from __future__ import annotations
 import math
 
 from tpu_als_torch.core.ratings import _next_pow2
+
+# the strategies 'auto' chooses among (the reference's order: a tie goes
+# to the earlier)
+GATHER_CANDIDATES = ("all_gather", "all_gather_chunked", "ring_overlap",
+                     "ring")
 
 # live-pipeline cadence: micro-batch accumulation + index compaction
 # (the reference's constants)
@@ -91,3 +98,33 @@ def resolve_tenant_plan(*, rank, n_users=None, n_items=None,
         "cadence": resolve_live_cadence(rank=rank,
                                         requested=requested_cadence),
     }
+
+
+def gather_model(*, n_users, n_items, rank, n_devices, implicit=False):
+    """Closed-form per-device collective bytes of one full ALS iteration
+    for each candidate strategy (the balanced-shard, one-row-tile case of
+    ``parallel.trainer.comm_bytes_per_iter``) and the proposal, the
+    cheapest."""
+    D = max(1, int(n_devices))
+    fb = 4 * int(rank)
+    ru = -(-int(n_users) // D)
+    ri = -(-int(n_items) // D)
+    ag = (D - 1) * ri * fb + (D - 1) * ru * fb
+    ring = D * ri * fb + D * ru * fb
+    psum = 4 * (D - 1) / D * rank * rank * 4 if implicit else 0
+    by = {"all_gather": ag + psum, "all_gather_chunked": ag + psum,
+          "ring_overlap": ring + psum, "ring": ring + psum}
+    proposal = min(GATHER_CANDIDATES, key=lambda s: by[s])
+    return {"comm_bytes_per_iter": by, "proposal": proposal,
+            "n_devices": D}
+
+
+def resolve_gather_strategy(*, requested="auto", n_users, n_items, rank,
+                            n_devices, implicit=False):
+    """An explicit strategy passes through; ``'auto'`` is
+    :func:`gather_model`'s proposal."""
+    if requested != "auto":
+        return requested
+    return gather_model(n_users=n_users, n_items=n_items, rank=rank,
+                        n_devices=n_devices,
+                        implicit=implicit)["proposal"]

@@ -1,3 +1,4 @@
 """Resilience of the port: fault injection (:mod:`.faults`), retry
 policies (:mod:`.retry`), the fit's numerical guardrails
-(:mod:`.guardrails`) and preemption (:mod:`.preempt`)."""
+(:mod:`.guardrails`), preemption (:mod:`.preempt`) and elastic training
+over a mesh of shards (:mod:`.elastic`)."""

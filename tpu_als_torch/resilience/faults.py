@@ -5,8 +5,8 @@ switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
 
-The port wires seven points so far (the others of the reference arrive
-with their modules):
+The port wires ten points (the reference's ``multihost.init`` arrives
+with the multi-process slice):
 
 ========================  ====================================================
 ``checkpoint.write``      inside ``io.checkpoint.save_factors``' write body,
@@ -34,6 +34,18 @@ with their modules):
 ``ingest.record``         per record of a chunk in ``io.stream``, walked
                           only when armed (corrupt = the record's rating
                           rewritten to ``nan`` before parsing)
+``comm.ring_step``        per ring step of ``parallel.trainer``, wrapped
+                          only when armed (raise = a failed collective
+                          before the step; corrupt = NaN-poisoned factors
+                          after it, caught as ``FactorsCorrupt``)
+``serve.gather``          per sharded top-k in ``parallel.serve`` (raise =
+                          a failed gather; corrupt = a stale/lost shard:
+                          both answer degraded from the last-good catalog
+                          or raise ``ServeShardLost``)
+``mesh.device_lost``      per step of an elastic fit
+                          (``resilience.elastic.wrap_step``; corrupt =
+                          the victim shard dies, raise = a transient step
+                          failure with every shard healthy)
 ========================  ====================================================
 
 Spec grammar (``TPU_ALS_FAULT_SPEC`` env var, or :func:`install`)::
@@ -64,9 +76,10 @@ import warnings
 
 from tpu_als_torch import obs
 
-FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "solve.gram",
-                "serving.publish", "serving.score", "ingest.read_chunk",
-                "ingest.record")
+FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "ingest.read_chunk",
+                "comm.ring_step", "serve.gather", "serving.publish",
+                "serving.score", "solve.gram", "ingest.record",
+                "mesh.device_lost")
 
 MODES = ("raise", "corrupt", "hang")
 
@@ -218,6 +231,10 @@ def parse_spec(spec):
 _rules = None
 _lock = threading.Lock()
 
+# saved rule tables for push_spec/pop_spec (scoped arming windows)
+_stack = []
+
+
 def install(spec):
     """Arm the harness: ``spec`` is a grammar string or a pre-parsed
     ``{point: _Rule}``.  Replaces any previous installation."""
@@ -226,6 +243,40 @@ def install(spec):
     with _lock:
         _rules = rules
     return rules
+
+
+def push_spec(spec):
+    """Arm ``spec`` as a scoped overlay over the current rule table and
+    save the previous table for :func:`pop_spec`.  Points named by
+    ``spec`` get fresh rules; every other armed point keeps its rule (hit
+    counters and all).  LIFO: every ``push_spec`` is paired with exactly
+    one ``pop_spec``."""
+    global _rules
+    rules = parse_spec(spec) if isinstance(spec, str) else dict(spec)
+    with _lock:
+        _stack.append(_rules)
+        base = dict(_rules) if _rules else {}
+        base.update(rules)
+        _rules = base
+    return rules
+
+
+def pop_spec():
+    """Restore the rule table saved by the matching :func:`push_spec`
+    (``None`` restores the disarmed state).  Raises ``RuntimeError`` on
+    an unbalanced pop: a silent no-op would leave chaos armed."""
+    global _rules
+    with _lock:
+        if not _stack:
+            raise RuntimeError(
+                "faults.pop_spec() without a matching push_spec()")
+        _rules = _stack.pop()
+
+
+def push_depth():
+    """How many scoped specs are pushed."""
+    with _lock:
+        return len(_stack)
 
 
 def install_from_env(environ=None):
@@ -239,10 +290,17 @@ def install_from_env(environ=None):
 
 
 def clear():
-    """Disarm every fault point."""
+    """Disarm every fault point, and drop any scoped specs still
+    pushed."""
     global _rules
     with _lock:
         _rules = None
+        _stack.clear()
+
+
+def active():
+    """True when any fault point is armed."""
+    return _rules is not None
 
 
 def armed(point):

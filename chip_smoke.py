@@ -222,7 +222,28 @@ Phases (any failure exits non-zero before the final line):
    ``cli.train``, ``data.load``, ``train.block`` and ``train.fit``
    phases) and ``observe tail``, as processes; the profiler's trace
    names K4's kernel;
-11. timings at the slices' shapes (CUDA events), each kernel beside its
+11. the measurement tools and the sharding flags on phase 5's rank-128
+   ML-25M containers and phase 9's 1M-row prefix (budget 60 s): (a)
+   ``perf.attribution.measure_attributed`` ('auto': K4, K3 and K1
+   counted) with its stages covering at least 90 % of the decomposed
+   wall, the gap table against ``perf.roofline.roofline(ne_path='auto')``,
+   the production iteration beside phase 5's and the stage model's floor
+   beside the real-entry bound; ``observe attribution --obs-dir`` (the
+   ``attribution`` event and ``train.stage_seconds`` in its run
+   directory) and ``observe roofline --json`` as processes, the two
+   timed measurements one after the other with nothing else at work
+   (the CLI's processes start after the first, gated: they import
+   beside (b) and touch the card only once released);
+   (b) ``perf.ne_audit.gather_out_bytes`` on CUDA tensors, exactly
+   n·w·r·4 on an 'unfused' item bucket and 0 on a K4 and a K3 bucket,
+   and ``kernel_cost_bytes`` equal to the roofline's closed forms summed
+   over the calls, whose number is held too; (c)
+   ``train --devices 4 --gather-strategy all_gather --elastic`` and
+   ``recommend --devices 4 --gather-strategy ring`` as processes (K4, K3
+   and K1, then K5, counted in them), the model within TRAIN_REL of the
+   same 4-shard fit in this process and every user's top-10 that of
+   ``recommend_arrays(mesh=)``;
+12. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -247,7 +268,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-12. where the time goes: one training iteration, one more fold-in
+13. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, one rank-256 iteration and
     fold-in batch, and one rank-512 iteration, then the serving engine's
     batches of 8 on its int8
@@ -258,12 +279,14 @@ Phases (any failure exits non-zero before the final line):
     row per batch), and the final
     ``{"ok": true, ...}`` line.
 
-Bounds use NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s
-in float32 outside the tensor cores, and for the Gram that K3, K4 and
-K7 run and the score GEMM that K5 and K8 run on the tensor cores in the
-3xTF32 form, three TF32 products per f32 product at 495 TFLOP/s (dense
-TF32); the int8 shortlist GEMM (a library call, not a kernel of the
-port) at 1,979 TOP/s (dense int8).
+Bounds come from ``tpu_als_torch/perf/roofline.py`` (its kernel bounds
+count what the inputs need: real entries and real rows), at NVIDIA's
+H100 SXM data sheet rates: 3.35 TB/s of HBM, 67 TFLOP/s in float32
+outside the tensor cores, and for the Gram that K3, K4 and K7 run and
+the score GEMM that K5 and K8 run on the tensor cores in the 3xTF32
+form, three TF32 products per f32 product at 495 TFLOP/s (dense TF32);
+the int8 shortlist GEMM (a library call, not a kernel of the port) at
+1,979 TOP/s (dense int8).
 """
 
 from __future__ import annotations
@@ -316,6 +339,17 @@ from tpu_als_torch.parallel.comm import (ring_fused_half_step,
                                          ring_half_step, shard_csr_grid)
 from tpu_als_torch.parallel.data import partition_balanced, shard_csr
 from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.perf.attribution import (attribution_report,
+                                            measure_attributed,
+                                            render_attribution)
+from tpu_als_torch.perf.ne_audit import gather_out_bytes, kernel_cost_bytes
+from tpu_als_torch.perf.roofline import (HBM_BYTES_PER_S, INT8_OPS_PER_S,
+                                         bound_note, fused_ne_kernel_bytes,
+                                         fused_solve_bound,
+                                         fused_solve_bytes,
+                                         fused_solve_kernel_bytes, gram_bound,
+                                         gram_bytes, gram_flops, gram_work,
+                                         roofline, solve_bound, topk_bound)
 from tpu_als_torch.parallel.trainer import (FactorsCorrupt,
                                             comm_bytes_per_iter,
                                             make_a2a_step,
@@ -335,9 +369,6 @@ RANK256 = 256                                   # BASELINE config 3's width
 RANK512 = 512                   # the widest rank the reference's K4 takes
 SOLVE_BOUND_RANK = 640          # r_pad 640: past the fused solve's bound
 SHARDS = 4                                      # logical shards on the card
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12                         # H100 SXM, non-tensor f32
-TF32_FLOPS_PER_S = 495e12                       # H100 SXM, dense TF32
 NEG_INF32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
 # stated tolerances
@@ -414,53 +445,6 @@ def timed(fn):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1)
-
-
-def _bound_ms(nbytes, flops, tc_flops):
-    """(bytes over the HBM rate, operations' least time): ``flops`` at
-    the f32 FMA rate plus ``tc_flops`` done in the 3xTF32 form on the
-    tensor cores (three TF32 products each, at the dense TF32 rate)."""
-    return (nbytes / HBM_BYTES_PER_S * 1e3,
-            (flops / F32_FLOPS_PER_S + 3 * tc_flops / TF32_FLOPS_PER_S) * 1e3)
-
-
-def bound(nbytes, flops, tc_flops=0.0):
-    """``(ms, "bytes" or "operations")``: the larger of
-    :func:`_bound_ms`'s two times."""
-    t_b, t_f = _bound_ms(nbytes, flops, tc_flops)
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
-def bound_note(nbytes, flops, tc_flops=0.0):
-    """Both sides of :func:`bound` for the log, and the f32-FMA time of
-    the same work (the bound before the Gram moved to the tensor cores)."""
-    t_b, t_f = _bound_ms(nbytes, flops, tc_flops)
-    fma = (flops + tc_flops) / F32_FLOPS_PER_S * 1e3
-    return (f"bytes {t_b:.4f} ms, operations {t_f:.4f} ms (3xTF32 at "
-            f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s), all-FMA {fma:.4f} ms")
-
-
-def gram_work(bks, num_rows):
-    """``(padded, real, rows)`` of the buckets ``bks``: padded entries,
-    real entries (mask 1) and real rows (``rows < num_rows``).  A bound
-    reads cols and weights for every padded entry, but gathers a factor
-    row and does the Gram's and b's operations only for a real entry, and
-    solves (and writes x for) only a real row: padded entries carry mask
-    0, and the scatter drops padding rows."""
-    padded = sum(b.cols.numel() for b in bks)
-    real = sum(int(b.mask.count_nonzero()) for b in bks)
-    rows = sum(int((b.rows < num_rows).sum()) for b in bks)
-    return padded, real, rows
-
-
-def gram_flops(real, rows, r):
-    """``(flops at the f32 FMA rate, flops on the tensor cores)`` of a
-    fused half-step: the Gram on its lower triangle, r(r+1) per real
-    entry, runs on the tensor cores in 3xTF32 (K3, K4 and K7 share that
-    Gram); b, 2r per real entry, and a Cholesky factorization and two
-    substitutions, r³/3 + 2r², per solved row, at the FMA rate."""
-    return (real * 2 * r + rows * (r ** 3 / 3 + 2 * r * r),
-            real * r * (r + 1))
 
 
 def unit_rows(rng, n, r):
@@ -2737,6 +2721,11 @@ _PROBE = (
     "from tpu_als_torch import cli\n"
     "from tpu_als_torch.ops import (cuda_gather_ne, cuda_lanes,\n"
     "    cuda_lanes_blocked, cuda_solve, cuda_topk)\n"
+    "if sys.argv[1] == '--gated':\n"
+    "    del sys.argv[1]\n"
+    "    print('ready', file=sys.stderr, flush=True)\n"
+    "    if sys.stdin.readline() != 'go\\n':\n"
+    "        sys.exit(1)\n"
     "cli.main(sys.argv[1:])\n"
     "print(json.dumps({'k1': cuda_solve.LAUNCHES,\n"
     "    'k2': cuda_lanes.LAUNCHES, 'k3': cuda_gather_ne.GRAM_LAUNCHES,\n"
@@ -2744,13 +2733,42 @@ _PROBE = (
     "    'k6': cuda_lanes_blocked.LAUNCHES}))\n")
 
 
-def start_probe(args):
+def start_probe(args, gated=False):
     """``python -m tpu_als_torch.cli ARGS`` as a process that prints the
-    kernels' launch counts after the command's own output."""
+    kernels' launch counts after the command's own output.  ``gated``:
+    the process imports torch and the package (host work, no CUDA call),
+    says so on stderr, and waits for :func:`release_probe` before it runs
+    the command."""
     return subprocess.Popen(
-        [sys.executable, "-c", _PROBE, *args], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
+        [sys.executable, "-c", _PROBE, *(["--gated"] if gated else []),
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        stdin=subprocess.PIPE if gated else None, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def probe_ready(p, what, timeout=120):
+    """Wait until a gated probe has done its imports (what it wrote to
+    stderr before is dropped)."""
+    seen = []
+
+    def read():
+        for line in iter(p.stderr.readline, ""):
+            seen.append(line)
+            if line == "ready\n":
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout)
+    if not seen or seen[-1] != "ready\n":
+        p.kill()
+        fail(f"{what}: not ready within {timeout} s: {''.join(seen)[-2000:]}")
+
+
+def release_probe(p):
+    """Let a gated probe run its command."""
+    p.stdin.write("go\n")
+    p.stdin.flush()     # finish_probe's communicate() closes it
 
 
 def finish_probe(p, what, timeout=600):
@@ -2906,7 +2924,6 @@ SERVE_USERS = 4096          # (a)/(b): users scored at once
 SERVE_SK = 64               # the engine's default shortlist
 SERVE_REQS, SERVE_QPS = 3000, 1500.0    # (c): the int8 open loop, 2 s
 EXACT_REQS = 1000                       # (c): the exact open loop, 0.67 s
-INT8_OPS_PER_S = 1979e12    # H100 SXM, dense int8 tensor-core peak
 
 
 def ulps_off(a, b):
@@ -4064,7 +4081,261 @@ def two_tower_phase(dev, keep, seed, smi):
     return secs
 
 
-# -- phase 11 --------------------------------------------------------------
+# -- phase 11: the measurement tools and the sharding flags -----------------
+ATTR_ITERS, ATTR_WARMUP = 3, 1
+ATTR_COVERAGE = 0.9     # stage sums over the decomposed twin's wall
+PHASE11_BUDGET_S = 60.0
+REC_SCORE_TOL = 5e-5    # the CLI prints scores rounded to 4 decimals
+
+
+def attribution_phase(csrs, tr, dev, smi):
+    """(a) ``measure_attributed`` on phase 5's rank-128 ML-25M containers
+    ('auto': K4 on the narrow buckets, K3 + K1 on the wide ones, each
+    counted): stage sums within ATTR_COVERAGE of the decomposed wall,
+    the gap table against ``roofline(ne_path='auto')``, the production
+    iteration beside phase 5's, and the stage model's floor (padded
+    entries) beside the real-entry bound of the same iteration."""
+    ucsr, icsr = csrs
+    cfg = tr["cfg"]
+    _zero_launches()
+    m = measure_attributed(ucsr, icsr, cfg, iters=ATTR_ITERS,
+                           warmup=ATTR_WARMUP, device=dev)
+    counts = _launch_counts()
+    if min(counts[k] for k in ("k1", "k3", "k4")) == 0:
+        fail(f"(a) the attributed iteration did not launch K4, K3 and K1: "
+             f"{counts}")
+    rl = roofline(ucsr.num_rows, icsr.num_rows, ucsr.nnz, RANK,
+                  implicit=True, ne_path=m["ne_path"], cfg=cfg,
+                  user_counts=ucsr.counts, item_counts=icsr.counts)
+    rep = attribution_report(m, rl)
+    log(render_attribution(rep))
+    real = 0.0
+    for bks, n in ((tr["ib"], tr["n_items"]), (tr["ub"], tr["n_users"])):
+        real += fused_solve_bound(*gram_work(bks, n), RANK)[0]
+    floor = rl["roofline_floor_s_per_iter"] * 1e3
+    log(f"(a) attribution ({smi}): routes {m['routes']}, launches "
+        f"{counts}; coverage {m['coverage']:.4f} (>= {ATTR_COVERAGE}); "
+        f"twin {m['wall_s_per_iter'] * 1e3:.1f} ms, production iteration "
+        f"{m['fused_s_per_iter'] * 1e3:.1f} ms beside phase 5's "
+        + ", ".join(f"{x * 1e3:.1f}" for x in tr["iter_s"])
+        + f" ms; stage-model floor {floor:.2f} ms (padding waste "
+        f"{rl['config']['padding_waste']:.4f}, derived) against the "
+        f"real-entry bound {real:.2f} ms ({floor / real:.2f}x)")
+    if not m["coverage"] >= ATTR_COVERAGE:
+        fail(f"(a) the stages cover {m['coverage']:.4f} of the attributed "
+             f"wall, below {ATTR_COVERAGE}")
+    return counts
+
+
+def gather_audit(tr):
+    """(b) ``gather_out_bytes`` on CUDA tensors, one item bucket per
+    route of the rank-128 half-step: exactly n·w·r·4 on 'unfused' (its
+    ``V[cols]``), 0 on K4's and on K3's (the kernels gather inside); and
+    ``kernel_cost_bytes`` equal to the roofline's closed form summed over
+    the calls the half-step makes, whose number is held too (one K4 call
+    for the whole bucket, one K3 call a chunk of ``core.als._chunk_rows``,
+    none unfused).  The declared bytes are the model's at the wrappers'
+    shapes, not a measurement of the kernels' traffic."""
+    cfg, U0, n_items = tr["cfg"], tr["U0"], tr["n_items"]
+    yU = compute_yty(U0)
+    k4_b = next(b for b in tr["ib"] if core_als.resolve_solve_path(
+        cfg, RANK, b.width) == "gatherfused_solve")
+    k3_b = next(b for b in tr["ib"] if core_als.resolve_solve_path(
+        cfg, RANK, b.width).startswith("gatherfused+"))
+    cases = (("unfused", k4_b, "unfused"), ("K4", k4_b, "auto"),
+             ("K3", k3_b, "auto"))
+    got = {}
+    for name, b, backend in cases:
+        c = dataclasses.replace(cfg, solve_backend=backend)
+
+        def half(b=b, c=c):
+            return core_als.local_half_step(U0, [b], n_items, c, yU)
+
+        n, w = b.cols.shape
+        gb = gather_out_bytes(half)[0]
+        kb, calls = kernel_cost_bytes(half)
+        torch.cuda.synchronize()
+        if name == "K3":
+            step = core_als._chunk_rows(core_als.resolve_solve_path(
+                c, RANK, w), n, w, RANK, 1 << 19)
+            rows = [min(step, n - s) for s in range(0, n, step)]
+            want = (0, sum(fused_ne_kernel_bytes(m * w, m, RANK, 4)
+                           for m in rows), len(rows))
+        else:
+            want = {"unfused": (n * w * RANK * 4, 0, 0),
+                    "K4": (0, fused_solve_kernel_bytes(n * w, n, RANK, 4),
+                           1)}[name]
+        got[name] = (n, w, gb, kb, calls)
+        if (gb, kb, calls) != want:
+            fail(f"(b) {name} bucket {n} x {w}: gathered {gb} B, declared "
+                 f"{kb} B in {calls} calls; expected {want}")
+    log("(b) gather audit on the card, rank 128 item buckets: " + "; ".join(
+        f"{k} {n} x {w}: gathered {gb} B, kernels declared {kb} B in "
+        f"{calls} calls" for k, (n, w, gb, kb, calls) in got.items()))
+
+
+def start_sharded_train(prefix, M, seed, dev):
+    """(c) ``train --devices 4 --gather-strategy all_gather --elastic`` on
+    phase 9's 1M-row prefix at rank 128, a gated process with its kernels
+    counted in it (:func:`sharded_clis` releases it)."""
+    return start_probe(
+        ["train", "--data", f"csv:{prefix}", "--rank", str(RANK),
+         "--max-iter", "3", "--implicit", "--alpha", str(ALPHA),
+         "--reg-param", str(REG), "--seed", str(seed), "--device", str(dev),
+         "--devices", str(SHARDS), "--gather-strategy", "all_gather",
+         "--elastic", "--output", M], gated=True)
+
+
+def start_sharded_recommend(M, dev):
+    """(c) ``recommend --devices 4 --gather-strategy ring`` on the model
+    the sharded ``train`` writes, gated until that model is there."""
+    return start_probe(["recommend", "--model", M, "--devices", str(SHARDS),
+                        "--gather-strategy", "ring", "--k", "10", "--limit",
+                        "0", "--device", str(dev)], gated=True)
+
+
+def sharded_clis(pt, pr, M, prefix, seed, dev):
+    """(c) the sharded ``train`` process's model within TRAIN_REL of the
+    same fit in this process on 4 logical shards (same data, split and
+    seed), then the ``recommend`` process on it (K5 counted), every
+    user's top-10 equal to ``recommend_arrays(mesh=)``'s."""
+    from tpu_als_torch.cli import _load_train_data
+
+    release_probe(pt)
+    frame, _ = _load_train_data(f"csv:{prefix}")
+    train, _ = frame.randomSplit([0.8, 0.2], seed=seed)
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    mine = ALS(rank=RANK, maxIter=3, regParam=REG, implicitPrefs=True,
+               alpha=ALPHA, seed=seed, coldStartStrategy="drop", mesh=mesh,
+               gatherStrategy="all_gather").fit(train)
+    tl, tk = finish_probe(pt, "train --devices 4", timeout=120)
+    if min(tk[k] for k in ("k1", "k3", "k4")) == 0:
+        fail(f"(c) train --devices {SHARDS}: launches {tk}")
+    release_probe(pr)
+    saved = ALSModel.load(M, device=dev)
+    if not (np.array_equal(saved._user_map.ids, mine._user_map.ids)
+            and np.array_equal(saved._item_map.ids, mine._item_map.ids)):
+        fail("(c) the CLI's sharded model holds other ids than this "
+             "process's fit")
+    eu, ev = row_rel(saved._U, mine._U), row_rel(saved._V, mine._V)
+    if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+        fail(f"(c) the CLI's sharded fit vs this process's: users "
+             f"{eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    users, ids, scores = saved.recommend_arrays(10, mesh=mesh,
+                                                gatherStrategy="ring")
+    rl, rk = finish_probe(pr, "recommend --devices 4", timeout=120)
+    recs = [json.loads(x) for x in rl if x.startswith("{")]
+    if rk["k5"] == 0 or len(recs) != len(users):
+        fail(f"(c) recommend --devices {SHARDS}: {len(recs)} users of "
+             f"{len(users)}, launches {rk}")
+    worst = 0.0
+    for j, rec in enumerate(recs):
+        got_ids = [i for i, _ in rec["items"]]
+        got_s = np.array([s for _, s in rec["items"]])
+        worst = max(worst, float(np.abs(got_s - scores[j]).max()))
+        if rec["user"] != int(users[j]) or got_ids != ids[j].tolist():
+            fail(f"(c) recommend --devices {SHARDS}, user {rec['user']}: "
+                 f"{got_ids} vs recommend_arrays' {ids[j].tolist()}")
+    if worst > REC_SCORE_TOL:
+        fail(f"(c) recommend scores off recommend_arrays' by {worst:.3e}")
+    log(f"(c) train --devices {SHARDS} --gather-strategy all_gather "
+        f"--elastic (rank {RANK}, 3 iterations, {CSV_TWIN_ROWS} rows): "
+        f"{tl[-1]}, launches {tk}; vs this process's 4-shard fit: max "
+        f"per-row |diff|/|x| users {eu:.3e}, items {ev:.3e} (tol "
+        f"{TRAIN_REL}); recommend --devices {SHARDS} --gather-strategy "
+        f"ring: {len(recs)} users, ids equal to recommend_arrays', scores "
+        f"within {worst:.1e}, launches {rk}")
+
+
+def start_observe_attribution(prefix, run, dev):
+    """(a) ``observe attribution --obs-dir`` on phase 9's prefix, a gated
+    process."""
+    return start_probe(["observe", "attribution", "--data", f"csv:{prefix}",
+                        "--rank", str(RANK), "--alpha", str(ALPHA), "--reg",
+                        str(REG), "--iters", "2", "--json", "--obs-dir", run,
+                        "--device", str(dev)], gated=True)
+
+
+def check_observe_attribution(p, run):
+    """Release the ``observe attribution`` process and wait for it while
+    nothing else runs, since it times its stages: coverage at least
+    ATTR_COVERAGE, and the run directory holds the ``attribution`` event
+    and ``train.stage_seconds``."""
+    release_probe(p)
+    att = json.loads(finish_probe(p, "observe attribution",
+                                  timeout=120)[0][-1])
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(x) for x in f if x.strip()]
+    attr = [e for e in events if e["type"] == "attribution"]
+    snap = [e for e in events if e["type"] == "snapshot"]
+    if len(attr) != 1 or not snap or not any(
+            h.startswith("train.stage_seconds")
+            for h in snap[-1]["histograms"]):
+        fail(f"observe attribution --obs-dir: {len(attr)} attribution "
+             "events, stage histograms missing")
+    if not att["coverage"] >= ATTR_COVERAGE:
+        fail(f"observe attribution: coverage {att['coverage']}")
+    log(f"(a) observe attribution (rank {RANK}, {CSV_TWIN_ROWS} rows, the "
+        f"only process at work): routes {att.get('routes')}, coverage "
+        f"{att['coverage']:.4f}, twin {att['wall_s_per_iter'] * 1e3:.2f} "
+        f"ms, production {att['fused_s_per_iter'] * 1e3:.2f} ms; the run "
+        f"directory holds the attribution event and train.stage_seconds")
+
+
+def start_observe_roofline():
+    """(a) ``observe roofline --json`` as a process (host work only)."""
+    return start_probe(["observe", "roofline", "--ne-path",
+                        "gather_fused_solve", "--json"])
+
+
+def check_observe_roofline(p):
+    """The roofline prices K4's stages at the card's rates."""
+    rl = json.loads(finish_probe(p, "observe roofline", timeout=120)[0][-1])
+    if [s["name"] for s in rl["stages"]] != ["gather_fused_solve",
+                                              "scatter", "yty"] or \
+            rl["config"]["hbm_gbps"] != HBM_BYTES_PER_S / 1e9:
+        fail(f"observe roofline --json: {rl}")
+    log(f"(a) observe roofline (the headline, K4): floor "
+        f"{rl['roofline_floor_s_per_iter'] * 1e3:.3f} ms, HBM floor "
+        f"{rl['hbm_floor_s_per_iter'] * 1e3:.3f} ms")
+
+
+def measurement_phase(csrs, tr, keep, seed, dev, smi):
+    """Phase 11: the measurement tools and the sharding flags on phase
+    5's rank-128 containers and phase 9's prefix (budget
+    PHASE11_BUDGET_S).  The two timed measurements run one after the
+    other with nothing else at work, on the card or on the host: (a) in
+    this process before any other is started, then ``observe
+    attribution``.  The phase's processes start after (a) and do their
+    imports beside (b) and one another; each of the CLI's commands is
+    gated, so none touches the card before it is released, and the
+    other gated ones wait idle while ``observe attribution`` runs."""
+    t0 = time.perf_counter()
+    prefix = os.path.join(keep, "prefix.csv")
+    M = os.path.join(keep, "sharded_model")
+    run = os.path.join(keep, "attribution_obs")
+    counts = attribution_phase(csrs, tr, dev, smi)
+    gated = {"observe attribution": start_observe_attribution(prefix, run,
+                                                              dev),
+             "train --devices 4": start_sharded_train(prefix, M, seed, dev),
+             "recommend --devices 4": start_sharded_recommend(M, dev)}
+    prl = start_observe_roofline()
+    gather_audit(tr)
+    check_observe_roofline(prl)
+    for what, p in gated.items():
+        probe_ready(p, what)
+    check_observe_attribution(gated["observe attribution"], run)
+    sharded_clis(gated["train --devices 4"],
+                 gated["recommend --devices 4"], M, prefix, seed, dev)
+    secs = time.perf_counter() - t0
+    log(f"phase 11 (the measurement tools and the sharding flags): "
+        f"{secs:.1f} s on {smi}")
+    if secs > PHASE11_BUDGET_S:
+        fail(f"phase 11 took {secs:.1f} s, over its {PHASE11_BUDGET_S} s")
+    return counts
+
+
+# -- phase 12: timings -----------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -4073,8 +4344,7 @@ def timings(model, launches, A, b, errs, dev):
     l_ms = cuda_ms(lambda: torch.cholesky_solve(
         b[..., None], torch.linalg.cholesky(A)), 20)
     # the kernel reads only A's lower triangle, then b, and writes x
-    b_ms, by = bound((N * r * (r + 1) // 2 + 2 * N * r) * 4,
-                     N * (r ** 3 / 3 + 2 * r * r))
+    b_ms, by = solve_bound(N, r)
     out.append({"name": "spd_solve_lanes (K2)", "route": "cuda",
                 "source": "tpu_als_torch/csrc/chol_solve.cu",
                 "replaces": "tpu_als/ops/pallas_lanes.py:199",
@@ -4089,15 +4359,6 @@ def timings(model, launches, A, b, errs, dev):
         f"{cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, b), 20):.4f}")
     out.append(k5_timing(model, launches["k5"], errs["k5"], dev))
     return out
-
-
-def topk_bound(n, Ni, r, k):
-    """K5's and K8's bound: the factor tables, the validity mask and the
-    [n, k] result against the score GEMM as three TF32 products each on
-    the tensor cores; and its note with the f32-FMA time beside."""
-    nbytes = (n * r + Ni * r) * 4 + Ni + n * k * (4 + 8)
-    return bound(nbytes, 0.0, 2 * n * Ni * r), bound_note(nbytes, 0.0,
-                                                          2 * n * Ni * r)
 
 
 def k5_timing(model, launches, err, dev):
@@ -4215,8 +4476,8 @@ def train_timings(tr, errs, dev):
 
     P, E, n = gram_work(k4_b, n_items)
     ms4 = cuda_ms(k4, 3)
-    nb4, fl4 = P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r)
-    b4, by4 = bound(nb4, *fl4)
+    nb4, fl4 = fused_solve_bytes(P, E, n, r), gram_flops(E, n, r)
+    b4, by4 = fused_solve_bound(P, E, n, r)
     l4 = cuda_ms(k4_lib, 1)
     out.append({"name": f"gather_solve (K4{tag})", "route": "cuda",
                 "source": "tpu_als_torch/csrc/gather_solve.cu",
@@ -4276,9 +4537,9 @@ def train_timings(tr, errs, dev):
     ms3 = cuda_ms(k3, 3)
     l3 = cuda_ms(k3_lib, 1)
     # the Gram on the tensor cores (3xTF32), b at the FMA rate
-    by_3 = P3 * 12 + E3 * r * 4 + n3 * (r * r + r) * 4
+    by_3 = gram_bytes(P3, E3, n3, r)
     fl_3 = (E3 * 2 * r, E3 * r * (r + 1))
-    b3, by3 = bound(by_3, *fl_3)
+    b3, by3 = gram_bound(P3, E3, n3, r)
     out.append({"name": f"gather_gram (K3{tag})", "route": "cuda",
                 "source": "tpu_als_torch/csrc/gather_gram.cu",
                 "replaces": "tpu_als/ops/pallas_gather_ne.py:167",
@@ -4308,14 +4569,6 @@ def train_timings(tr, errs, dev):
         return out
     out.append(k1_timings(launches, tr["launches"]["k1"], errs["k1"]))
     return out
-
-
-def solve_bound(rows, r, store_l=False):
-    """(ms, by) of solving ``rows`` systems of rank r: reading A's lower
-    triangle and b, writing x (and, with ``store_l``, L's whole square
-    over A); r³/3 + 2r² flops each at the f32 FMA rate."""
-    nbytes = rows * (r * (r + 1) // 2 + 2 * r + (r * r if store_l else 0))
-    return bound(nbytes * 4, rows * (r ** 3 / 3 + 2 * r * r))
 
 
 def per_launch(launches, fn, reps):
@@ -4652,12 +4905,9 @@ def ring_timings(sh, tr, errs, dev):
     l7 = cuda_ms(lambda: ring_half_step(
         Us0, ib, ic, sh["ish"].rows_per_shard, S, unfused,
         sh["ish"].chunk_elems, YtY), 1)
-    rows_per = sh["ish"].rows_per_shard
-    P = sum(b.cols.numel() for b in ib)
-    E = sum(int(b.mask.count_nonzero()) for b in ib)
-    n = sum(int((b.rows < rows_per).sum()) for b in ib)
-    nb7, fl7 = P * 16 + E * r * 4 + n * r * 4, gram_flops(E, n, r)
-    b7, by7 = bound(nb7, *fl7)
+    P, E, n = gram_work(ib, sh["ish"].rows_per_shard)
+    nb7, fl7 = fused_solve_bytes(P, E, n, r), gram_flops(E, n, r)
+    b7, by7 = fused_solve_bound(P, E, n, r)
     split_ms = sum(t for w, t in per if S * w > split)
     log(f"k7 item half-step by bucket (S x width: ms): " + ", ".join(
         f"{S}x{w}: {t:.2f}" for w, t in per) + f"; widest bucket's share "
@@ -4740,8 +4990,7 @@ def bucket_times(tr):
         # gathered row, the lower-triangle Gram and b per real entry, a
         # solve and x written per real row
         P, E, rows = gram_work(bks, n)
-        b_ms, by = bound(P * 16 + E * r * 4 + rows * r * 4,
-                         *gram_flops(E, rows, r))
+        b_ms, by = fused_solve_bound(P, E, rows, r)
         iter_bound += b_ms
         log(f"{side} half-step by bucket (width: ms, rows): "
             + ", ".join(f"{w}: {t:.2f}, {n_b}" for w, t, n_b in per)
@@ -4813,7 +5062,7 @@ def where_time_goes(model, rng, tr, users, items):
 
 
 def profile_engine_batches(fitted, rng, dev, reps=20):
-    """Phase 12's serving rows: for the int8 and the exact route of a
+    """Phase 13's serving rows: for the int8 and the exact route of a
     'local' engine on the rank-128 fit, ``reps`` synchronous
     ``serve_batch`` calls of 8 requests (one bucket) under the profiler:
     wall and device busy time per batch, the device's idle share and the
@@ -4922,7 +5171,7 @@ def main():
                              dev)
     tr512 = rank512_slice(data, sh, args.seed, dev)
     guardrail_fits(data, tr, dev)
-    frame25m = data["frame"]
+    frame25m, csrs = data["frame"], (data["ucsr"], data["icsr"])
     del data
     model, launches, A, b, users = run_slice(rng, dev)
     model256, launches256, A256, b256, users256 = serve_slice_256(
@@ -4936,6 +5185,8 @@ def main():
     s9 += live_tenancy_phase(tr["model"], rng, dev, smi, p8)
     log(f"phase 9 (the stream, the live loop and tenancy): {s9:.1f} s")
     two_tower_phase(dev, work.name, args.seed, smi)
+    measurement_phase(csrs, tr, work.name, args.seed, dev, smi)
+    del csrs
     work.cleanup()
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],

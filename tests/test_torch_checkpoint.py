@@ -5,7 +5,9 @@ retried writes under ``checkpoint.write=raise`` (the same attempts,
 events and backoff draws), a torn save under ``checkpoint.write=corrupt``
 quarantined to ``.corrupt/`` with the ``.old`` generation loaded, a crash
 between the renames under ``checkpoint.rename``, and ``discover_resume``.
-Then the port's fit end to end on the CPU: ``TPU_ALS_PREEMPT_AT`` stops
+``save_factors`` takes the reference's signature, ``extra=`` (by name
+or as the eighth argument) written into the manifest.  Then the port's
+fit end to end on the CPU: ``TPU_ALS_PREEMPT_AT`` stops
 ``train`` with exit 43 and a checkpoint, and ``--resume auto`` ends equal
 to an uninterrupted fit, bit for bit (the same plain versions, from the
 same factors).  Every comparison here is exact.
@@ -63,6 +65,32 @@ def _events(obs, etype):
 def _policy(retry, sleeps, attempts=3):
     return retry.RetryPolicy(max_attempts=attempts, base_delay=0.01,
                              jitter=0.25, seed=3, sleep=sleeps.append)
+
+
+@pytest.mark.parametrize("how", ["keyword", "positional", "none"])
+def test_save_factors_writes_extra_as_the_reference(tmp_path, how):
+    import json
+
+    ids_u, U, ids_i, V = _arrays()
+    extra = {"note": "x", "sources": [1, 2]}
+    manifests = {}
+    for name, (ck, _, retry, _) in PKGS.items():
+        path = str(tmp_path / name)
+        if how == "keyword":
+            ck.save_factors(path, ids_u, U, ids_i, V, {"rank": 3}, 4,
+                            extra=extra)
+        elif how == "positional":
+            ck.save_factors(path, ids_u, U, ids_i, V, {"rank": 3}, 4, extra,
+                            retry.RetryPolicy(max_attempts=1))
+        else:
+            ck.save_factors(path, ids_u, U, ids_i, V, {"rank": 3}, 4)
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifests[name] = json.load(f)
+        assert ck.load_factors(path)[0]["extra"] == \
+            ({} if how == "none" else extra)
+    mine, theirs = manifests["port"], manifests["reference"]
+    assert mine == theirs
+    assert mine["extra"] == ({} if how == "none" else extra)
 
 
 @pytest.mark.parametrize("spec,attempts", [

@@ -18,15 +18,30 @@ the port's CLI against the reference's, in one process (JAX on the CPU,
   users, items, epochs) of the reference's ``--cold`` run, which splits
   the data the same way (the recall differs with the init), the save
   loadable by either package;
-- ``observe roofline|attribution|regress`` raise ``NotImplementedError``.
+- ``observe roofline|attribution|regress``, which raised
+  ``NotImplementedError`` before they were ported, run;
+- ``train --devices 4 --gather-strategy all_gather`` (and with
+  ``--elastic``) on 4 logical CPU shards against the reference's CLI on 4
+  of its 8 forced CPU devices, both fits from the same numpy-drawn
+  factors (``fit_sharded`` wrapped in both packages): holdout RMSE
+  within METRIC_RTOL, the saved factors within the tuners' ATOL/RTOL;
+  ``recommend --devices 4 --gather-strategy ring`` on the same saved
+  model: the same users and items, scores within 1e-4 (printed to 4
+  decimals); and on a model of more users than one block of lines the
+  port writes at once, every user's line in order;
+- ``observe roofline --json``: the reference's stages, bytes and FLOPs
+  at the card's rates; ``observe attribution --device cpu --obs-dir``:
+  coverage >= 0.9, the ``attribution`` event and ``train.stage_seconds``
+  in the run directory.
 """
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
-from tests.test_torch_tuning import inject_init
+from tests.test_torch_tuning import ATOL, RTOL, _init_for, inject_init
 from tpu_als import obs as jobs
 from tpu_als.cli import main as jmain
 from tpu_als_torch import obs as tobs
@@ -178,7 +193,152 @@ def test_tt_train_keys_and_counts_match_reference(tmp_path, capsys):
         assert "cli.tt-train" in {json.loads(x).get("path") for x in f}
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the tiny fits below: under the suite's
+    workers a thread pool per small op mostly waits for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("tool", ["roofline", "attribution", "regress"])
-def test_observe_tools_not_ported_raise(tool):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tmain(["observe", tool, "--json"])
+def test_observe_tools_not_ported_raise(tool, tmp_path, capsys):
+    """The three tools raised ``NotImplementedError`` until they were
+    ported; now each runs and prints one JSON object."""
+    extra = {"roofline": [],
+             "attribution": ["--data", "synthetic:60x30x800", "--rank", "4",
+                             "--iters", "1", "--device", "cpu"],
+             "regress": [str(tmp_path)]}[tool]
+    out = tmain(["observe", tool, "--json"] + extra)
+    assert json.loads(capsys.readouterr().out) == json.loads(
+        json.dumps(out))
+
+
+def _inject_sharded_init(monkeypatch):
+    """Both packages' mesh fits start from ``_init_for``'s factors."""
+    from tpu_als.api import fitting as jfitting
+    from tpu_als_torch.api import estimator as testimator
+
+    def wrap(fit):
+        def seeded(est, u_idx, i_idx, r, user_map, item_map, cfg, init,
+                   start_iter, **kw):
+            if init is None:
+                init = _init_for(len(user_map), len(item_map), cfg.rank,
+                                 cfg.seed)
+            return fit(est, u_idx, i_idx, r, user_map, item_map, cfg, init,
+                       start_iter, **kw)
+        return seeded
+
+    monkeypatch.setattr(jfitting, "fit_sharded",
+                        wrap(jfitting.fit_sharded))
+    monkeypatch.setattr(testimator, "fit_sharded",
+                        wrap(testimator.fit_sharded))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("elastic", [False, True])
+def test_train_and_recommend_devices_match_reference(elastic, tmp_path,
+                                                     monkeypatch, capsys):
+    from tpu_als_torch.io.checkpoint import load_factors
+
+    _inject_sharded_init(monkeypatch)
+    flags = ["--devices", "4", "--gather-strategy", "all_gather"] + (
+        ["--elastic"] if elastic else [])
+    train = ["train", "--data", "synthetic:120x60x2000", "--rank", "4",
+             "--max-iter", "2", "--reg-param", "0.05", "--seed", "3"]
+    rmse, factors = {}, {}
+    for name, main, extra in (("port", tmain, ["--device", "cpu"]),
+                              ("ref", jmain, [])):
+        out = str(tmp_path / name)
+        capsys.readouterr()
+        main(train + flags + ["--output", out] + extra)
+        rmse[name] = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])["holdout_rmse"]
+        factors[name] = load_factors(out)
+    np.testing.assert_allclose(rmse["port"], rmse["ref"], rtol=METRIC_RTOL)
+    (_, tu, tU, ti, tV), (_, ju, jU, ji, jV) = factors["port"], \
+        factors["ref"]
+    np.testing.assert_array_equal(tu, ju)
+    np.testing.assert_array_equal(ti, ji)
+    for got, ref in ((tU, jU), (tV, jV)):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    if elastic:
+        return
+    recs = {}
+    for name, main, extra in (("port", tmain, ["--device", "cpu"]),
+                              ("ref", jmain, [])):
+        capsys.readouterr()
+        main(["recommend", "--model", str(tmp_path / "port"), "--devices",
+              "4", "--gather-strategy", "ring", "--k", "5", "--limit", "0"]
+             + extra)
+        recs[name] = [json.loads(x) for x in
+                      capsys.readouterr().out.strip().splitlines()]
+    assert len(recs["port"]) == len(recs["ref"]) == 120
+    for a, b in zip(recs["port"], recs["ref"]):
+        assert a["user"] == b["user"]
+        assert [i for i, _ in a["items"]] == [i for i, _ in b["items"]]
+        np.testing.assert_allclose([s for _, s in a["items"]],
+                                   [s for _, s in b["items"]], atol=1e-4)
+
+
+def test_observe_roofline_json_matches_reference(capsys):
+    args = ["observe", "roofline", "--ne-path", "gather_fused_solve",
+            "--rank", "64", "--devices", "4", "--strategy", "ring",
+            "--tiles", "3", "--json"]
+    tmain(args)
+    mine = json.loads(capsys.readouterr().out)
+    jmain(args)
+    theirs = json.loads(capsys.readouterr().out)
+    assert [(s["name"], s["bytes"], s["flops"]) for s in mine["stages"]] \
+        == [(s["name"], s["bytes"], s["flops"]) for s in theirs["stages"]]
+    assert mine["config"]["hbm_gbps"] == 3350.0
+    assert "measured_s_per_iter" not in mine
+    assert "measured_s_per_iter" in json.loads(
+        json.dumps(tmain(args[:-1] + ["--measured-s-per-iter", "0.1"])))
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_observe_attribution_writes_its_run_directory(tmp_path, capsys):
+    run = tmp_path / "obs"
+    rep = tmain(["observe", "attribution", "--data", "synthetic:100x60x2000",
+                 "--rank", "4", "--iters", "2", "--device", "cpu", "--json",
+                 "--obs-dir", str(run)])
+    out = json.loads(capsys.readouterr().out)
+    assert out["coverage"] == rep["coverage"] >= 0.9
+    assert {"gather_fused_solve", "scatter", "yty"} <= {
+        r["stage"] for r in out["rows"] if r["measured_s"] is not None}
+    events = [json.loads(x) for x in open(run / "events.jsonl") if x.strip()]
+    attr = [e for e in events if e["type"] == "attribution"]
+    assert len(attr) == 1 and attr[0]["coverage"] == out["coverage"]
+    snap = [e for e in events if e["type"] == "snapshot"][-1]
+    assert any(k.startswith("train.stage_seconds")
+               for k in snap["histograms"])
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_recommend_prints_every_user_across_its_write_blocks(tmp_path,
+                                                            capsys):
+    # more users than one block of lines the port writes at once: every
+    # user's line, in order, as the reference prints them one by one
+    out = str(tmp_path / "m")
+    tmain(["train", "--data", "synthetic:6000x40x30000", "--rank", "4",
+           "--max-iter", "1", "--seed", "3", "--device", "cpu", "--output",
+           out])
+    recs = {}
+    for name, main, extra in (("port", tmain, ["--device", "cpu"]),
+                              ("ref", jmain, [])):
+        capsys.readouterr()
+        main(["recommend", "--model", out, "--k", "3", "--limit", "0"]
+             + extra)
+        recs[name] = [json.loads(x) for x in
+                      capsys.readouterr().out.strip().splitlines()]
+    assert len(recs["port"]) == len(recs["ref"]) > 4096
+    for a, b in zip(recs["port"], recs["ref"]):
+        assert a["user"] == b["user"]
+        assert [i for i, _ in a["items"]] == [i for i, _ in b["items"]]
+        np.testing.assert_allclose([s for _, s in a["items"]],
+                                   [s for _, s in b["items"]], atol=1e-4)

@@ -268,3 +268,22 @@ def test_sharded_index_on_three_logical_shards(with_delta):
         grown = sh.with_updates([102, 103], rng.normal(size=(2, r)))
         assert grown.delta_count == 0 and grown.n_items == 104
         assert torch.equal(sh.compact().topk(U, k)[0], ss)
+
+
+@pytest.mark.parametrize("touched", [(), (3, 17), (5, 40, 41)])
+def test_block_until_ready_and_nbytes_quantized_as_the_reference(touched):
+    """``block_until_ready()`` returns the index (a CPU index has nothing
+    to wait for); ``nbytes_quantized()`` equals the reference's on the
+    same index, base and delta segment: Vq's bytes + 4·n_base +
+    delta_count·(r + 4)."""
+    rng = np.random.default_rng(11)
+    V = rng.normal(size=(40, 12)).astype(np.float32)
+    j, t = _both(V, sk=16)
+    rows = np.array(touched, dtype=np.int64)
+    V2 = rng.normal(size=(len(rows), 12)).astype(np.float32)
+    if len(rows):
+        j, t = j.with_updates(rows, V2), t.with_updates(rows, V2)
+    assert t.block_until_ready() is t
+    assert j.block_until_ready() is j
+    assert t.nbytes_quantized() == j.nbytes_quantized() == \
+        40 * 12 + 4 * 40 + len(rows) * (12 + 4)

@@ -63,8 +63,11 @@ Package map:
            into ``_build/``), the byte-range stream reader, the CSV
            reader's Python twin, synthetic MovieLens-shaped data
   obs/     the metrics registry, its vocabulary, the run manifest, causal
-           tracing, the serving flight recorder, and the run
-           directory's readers (report, explain)
+           tracing, the serving flight recorder, the fenced training
+           stages, the run directory's readers (report, explain) and
+           the bench regression gate (regress)
+  perf/    the roofline at the H100's rates and the kernels' bounds,
+           stage attribution, the normal-equation traffic audit
   models/  the two-tower retrieval model
   resilience/  fault injection, retry policies, the fit's guardrails,
            preemption

@@ -30,8 +30,19 @@ metrics, manifest) to ``--obs-dir``, by default ``<--output>/obs``,
 with a ``cli.<cmd>`` span around the command (``train`` adds
 ``data.load``, ``train.block``, ``train.fit`` and an ``iteration``
 event per iteration).  ``observe summarize|tail|explain RUN`` read such
-a directory and write none; ``observe roofline|attribution|regress``
-are not ported yet and raise.
+a directory and write none.  ``observe roofline`` prints the per-stage
+floor of an iteration at the H100's rates (``perf/roofline.py``),
+``observe attribution`` fits ``--data`` with each stage fenced and joins
+the measured seconds against that floor (``perf/attribution.py``;
+``--obs-dir`` keeps the ``attribution`` event and the
+``train.stage_seconds`` histograms), and ``observe regress`` gates the
+bench series (``obs/regress.py``, exit 1/2/3 on a finding).
+
+``train --devices N`` (N > 1) fits over N logical shards of the one
+device with ``--gather-strategy`` (``--elastic``: a lost shard re-forms
+the mesh), and ``recommend --devices N --gather-strategy
+all_gather|ring`` serves over them; ``--devices 0`` takes every visible
+card, the single-device path on a one-card box.
 
 ``tt-train`` (``cmd_tt_train``) trains the two-tower retrieval model
 (BASELINE config 5) on ``--data``'s positives (rating >=
@@ -373,6 +384,29 @@ def _iteration_cb(logger):
     return cb
 
 
+def _mesh(devices, device):
+    """The mesh ``--devices`` asks for on ``device``: None for one
+    device (``--devices 1``, or 0 where one card is visible), else
+    ``devices`` logical shards of that one device.  ``--devices 0`` is
+    every visible card, and a mesh over several cards raises
+    ``NotImplementedError`` (the transport between cards is not
+    ported)."""
+    if devices < 0:
+        raise SystemExit(f"--devices must be >= 0, got {devices}")
+    if devices == 1:
+        return None
+    import torch
+
+    from tpu_als_torch.parallel.mesh import make_mesh
+    from tpu_als_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    if devices == 0:
+        visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+        return None if visible == 1 else make_mesh(visible)
+    return make_mesh(devices=[dev] * devices)
+
+
 def cmd_train(args):
     from tpu_als_torch import obs
     from tpu_als_torch.api.estimator import ALS
@@ -380,6 +414,7 @@ def cmd_train(args):
     from tpu_als_torch.resilience import preempt
     from tpu_als_torch.utils.observe import IterationLogger
 
+    mesh = _mesh(args.devices, args.device)
     with obs.span("data.load"):
         frame, stream_labels = _load_train_data(args.data)
     train, test = frame.randomSplit([1 - args.holdout, args.holdout],
@@ -400,7 +435,9 @@ def cmd_train(args):
               cgIters=args.cg_iters, checkpointDir=args.checkpoint_dir,
               checkpointInterval=args.checkpoint_interval,
               resumeFrom=_resolve_resume(args), guardrails=args.guardrails,
-              device=args.device)
+              mesh=mesh, gatherStrategy=args.gather_strategy,
+              elastic=args.elastic,
+              device=args.device if mesh is None else None)
     print(f"training on {len(train):,} ratings ({len(test):,} held out)",
           file=sys.stderr)
     try:
@@ -543,6 +580,7 @@ def cmd_recommend(args):
     from tpu_als_torch.utils.frame import ColumnarFrame
 
     model = ALSModel.load(args.model, device=args.device)
+    mesh = _mesh(args.devices, args.device)
     new_user_labels, new_item_labels = [], []
     if args.foldin_data or args.foldin_items_data:
         srv = FoldInServer(model)
@@ -581,9 +619,11 @@ def cmd_recommend(args):
             ids = np.array([resolve(t) for t in toks])
             stream_names = ({v: k for k, v in index.items()}, g_il)
         recs = model.recommendForUserSubset(
-            ColumnarFrame({model._params["userCol"]: ids}), args.k)
+            ColumnarFrame({model._params["userCol"]: ids}), args.k,
+            mesh=mesh, gatherStrategy=args.gather_strategy)
     else:
-        recs = model.recommendForAllUsers(args.k)
+        recs = model.recommendForAllUsers(args.k, mesh=mesh,
+                                          gatherStrategy=args.gather_strategy)
     titles = None
     if args.titles:
         from tpu_als_torch.io.movielens import load_movielens_movies
@@ -592,6 +632,7 @@ def cmd_recommend(args):
         titles = dict(zip(t["item"].tolist(), t["title"].tolist()))
     key = recs.columns[0]
     limit = args.limit if args.limit > 0 else len(recs)
+    lines = []
     for row in range(min(limit, len(recs))):
         out = {"user": int(recs[key][row]),
                "items": [[int(i), round(float(s), 4)]
@@ -612,7 +653,14 @@ def cmd_recommend(args):
         if titles is not None:
             out["titles"] = [titles.get(int(i))
                              for i, _ in recs["recommendations"][row]]
-        print(json.dumps(out))
+        lines.append(json.dumps(out))
+        if len(lines) == 4096:
+            # one write a block of users: an unbuffered stdout (python -u,
+            # PYTHONUNBUFFERED) would otherwise take a system call a user
+            print("\n".join(lines))
+            lines.clear()
+    if lines:
+        print("\n".join(lines))
 
 
 def cmd_foldin_bench(args):
@@ -703,22 +751,87 @@ def cmd_tt_train(args):
     print(json.dumps(out))
 
 
-# the observe tools that need perf/ and obs/regress.py; they take the
-# reference's arguments and raise
-_OBSERVE_LATER = ("roofline", "attribution", "regress")
+def _observe_regress(args):
+    from tpu_als_torch.obs import regress
+
+    result = regress.check(args.root, noise=args.noise, strict=args.strict,
+                           trend=args.trend, trend_window=args.trend_window)
+    print(json.dumps(result) if args.as_json else regress.render(result))
+    if result["exit_code"]:
+        raise SystemExit(result["exit_code"])
+    return result
+
+
+def _observe_attribution(args):
+    from tpu_als_torch import obs
+    from tpu_als_torch.core.als import AlsConfig
+    from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
+    from tpu_als_torch.perf.attribution import (attribution_report,
+                                                measure_attributed,
+                                                render_attribution)
+    from tpu_als_torch.perf.roofline import roofline
+
+    if args.obs_dir:
+        obs.configure(args.obs_dir,
+                      config={k: v for k, v in vars(args).items()
+                              if k != "fn"})
+    frame = _load_data(args.data)
+    u, _ = remap_ids(np.asarray(frame["user"]))
+    i, _ = remap_ids(np.asarray(frame["item"]))
+    r = np.asarray(frame["rating"], dtype=np.float32)
+    nU, nI = int(u.max()) + 1, int(i.max()) + 1
+    ucsr = build_csr_buckets(u, i, r, nU)
+    icsr = build_csr_buckets(i, u, r, nI)
+    cfg = AlsConfig(rank=args.rank, implicit_prefs=not args.explicit,
+                    reg_param=args.reg, alpha=args.alpha,
+                    compute_dtype=args.dtype,
+                    solve_backend=args.solve_backend)
+    measured = measure_attributed(ucsr, icsr, cfg, iters=args.iters,
+                                  warmup=args.warmup, device=args.device)
+    # each stage priced over the buckets that ran it
+    rl = roofline(nU, nI, len(r), args.rank, dtype=args.dtype,
+                  implicit=not args.explicit, ne_path=measured["ne_path"],
+                  cfg=cfg, user_counts=ucsr.counts, item_counts=icsr.counts)
+    rep = attribution_report(measured, rl)
+    obs.emit("attribution", stages=rep["rows"],
+             wall_s_per_iter=rep["wall_s_per_iter"],
+             coverage=rep["coverage"],
+             resolved_solve_path=rep["resolved_solve_path"],
+             config=rl["config"])
+    print(json.dumps(rep) if args.as_json else render_attribution(rep))
+    if args.obs_dir:
+        obs.finalize()
+        obs.deconfigure()
+    return rep
+
+
+def _observe_roofline(args):
+    from tpu_als_torch.perf.roofline import render, roofline
+
+    report = roofline(
+        n_users=args.users, n_items=args.items, nnz=args.ratings,
+        rank=args.rank, dtype=args.dtype, implicit=not args.explicit,
+        padding_waste=args.padding_waste, devices=args.devices,
+        strategy=args.strategy, tiles_user=args.tiles,
+        tiles_item=args.tiles, ne_path=args.ne_path,
+        measured_s_per_iter=args.measured_s_per_iter)
+    print(json.dumps(report) if args.as_json else render(report))
+    return report
 
 
 def cmd_observe(args):
     """Read a run directory written by the other commands:
     ``summarize`` (phases, iterations, gauges, counters, histograms),
     ``tail`` (the last raw events, filtered) and ``explain`` (causal
-    trees).  ``roofline``, ``attribution`` and ``regress`` need the
-    port's ``perf/`` closed forms and bench gate, not ported yet."""
-    if args.action in _OBSERVE_LATER:
-        raise NotImplementedError(
-            f"observe {args.action} is not ported yet: it comes with the "
-            "ops-infrastructure slice of the port (perf/ and "
-            "obs/regress.py, ROADMAP Queue 1 item 9)")
+    trees); or run a measurement tool: ``roofline`` (the per-stage
+    floor of an iteration at the card's rates), ``attribution`` (the
+    measured per-stage seconds joined against that floor) and
+    ``regress`` (the bench-series gate, exit 1/2/3 on a finding)."""
+    tools = {"regress": _observe_regress,
+             "attribution": _observe_attribution,
+             "roofline": _observe_roofline}
+    if args.action in tools:
+        return tools[args.action](args)
     if args.action == "explain":
         from tpu_als_torch.obs import explain as explain_mod
 
@@ -1255,6 +1368,10 @@ def cmd_serve_bench(args):
 
 
 def main(argv=None):
+    from tpu_als_torch.parallel.trainer import (EXECUTABLE_STRATEGIES,
+                                                GATHER_STRATEGIES,
+                                                strategy_help)
+
     parser = argparse.ArgumentParser(prog="tpu_als_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     # every run-producing command can write a metrics/events run dir;
@@ -1303,6 +1420,21 @@ def main(argv=None):
                         "trip; 'recover' adds the adaptive solve and "
                         "bounded rollback to the last good factors; "
                         "default: TPU_ALS_GUARDRAILS (unset = off)")
+    t.add_argument("--devices", type=int, default=1,
+                   help="train sharded over N logical shards of the one "
+                        "device (0 = all visible cards, which on a "
+                        "one-card box is the single-device path; 1 = "
+                        "single device, the default)")
+    t.add_argument("--gather-strategy", default="all_gather",
+                   choices=list(GATHER_STRATEGIES),
+                   help="how sharded half-steps move the opposite factors "
+                        "(table: parallel.trainer.GATHER_STRATEGIES — "
+                        f"{strategy_help()})")
+    t.add_argument("--elastic", action="store_true",
+                   help="elastic mesh training (needs --devices > 1): the "
+                        "loss of a shard re-forms the mesh on the "
+                        "surviving shards and training resumes from the "
+                        "last checkpoint in --checkpoint-dir")
     t.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -1340,6 +1472,15 @@ def main(argv=None):
                         "are folded in "
                         "against the fixed user factors; applied before "
                         "--foldin-data")
+    r.add_argument("--devices", type=int, default=1,
+                   help="serve top-k sharded over N logical shards of the "
+                        "one device (0 = all visible cards, which on a "
+                        "one-card box is the single-device path; 1 = "
+                        "single device)")
+    r.add_argument("--gather-strategy", default="all_gather",
+                   choices=["all_gather", "ring"],
+                   help="sharded serving: gather the catalog once, or "
+                        "stream its shards in ring order")
     r.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -1523,11 +1664,95 @@ def main(argv=None):
     os3.add_argument("--breach", default=None, choices=("last",),
                      help="start from the trail's last breach event and "
                           "render the trace it names")
-    for name in _OBSERVE_LATER:
-        # no option prefix: every argument, dashed or not, lands in rest
-        osub.add_parser(name, help="not ported yet (raises)",
-                        prefix_chars="+", add_help=False).add_argument(
-            "rest", nargs="*")
+    from tpu_als_torch.perf.roofline import HEADLINE
+
+    os4 = osub.add_parser(
+        "roofline",
+        help="the per-stage bytes/FLOPs floor of one ALS iteration at the "
+             "H100's rates (defaults: the headline configuration, ML-25M "
+             "rank 128 implicit)")
+    os4.add_argument("--users", type=int, default=HEADLINE["n_users"])
+    os4.add_argument("--items", type=int, default=HEADLINE["n_items"])
+    os4.add_argument("--ratings", type=int, default=HEADLINE["nnz"])
+    os4.add_argument("--rank", type=int, default=HEADLINE["rank"])
+    os4.add_argument("--dtype", default=HEADLINE["dtype"],
+                     choices=["float32", "bfloat16"])
+    os4.add_argument("--explicit", action="store_true",
+                     help="explicit feedback (default: implicit)")
+    os4.add_argument("--padding-waste", type=float,
+                     default=HEADLINE["padding_waste"],
+                     help="padded_nnz / nnz of the built containers")
+    os4.add_argument("--devices", type=int, default=HEADLINE["devices"],
+                     help="cards the iteration is spread over (logical "
+                          "shards of one card are priced as 1)")
+    os4.add_argument("--strategy", default=None,
+                     choices=list(EXECUTABLE_STRATEGIES),
+                     help="price the collective stage too (devices > 1; "
+                          "table: parallel.trainer.GATHER_STRATEGIES)")
+    os4.add_argument("--tiles", type=int, default=1,
+                     help="row-tile count (ring/chunked strategies "
+                          "re-stream the opposite factors per tile)")
+    os4.add_argument("--ne-path", default="einsum",
+                     choices=["einsum", "gather_fused",
+                              "gather_fused_solve"],
+                     help="normal-equation build to price: the unfused "
+                          "gather + Gram, K3 + a solve (factor rows read "
+                          "once, V[cols] never in HBM), or K4 (the solve "
+                          "fused in, only x written)")
+    os4.add_argument("--measured-s-per-iter", type=float, default=None,
+                     help="overlay a measured point (seconds per "
+                          "iteration)")
+    os4.add_argument("--json", dest="as_json", action="store_true")
+    os5 = osub.add_parser(
+        "attribution",
+        help="measure where an iteration's seconds go: fence-timed "
+             "per-stage seconds joined against the roofline floor")
+    os5.add_argument("--data", default="synthetic:943x1682x100000",
+                     help="same specs as train --data; default: the "
+                          "ml-100k shape, synthetic")
+    os5.add_argument("--rank", type=int, default=16)
+    os5.add_argument("--iters", type=int, default=3,
+                     help="fence-timed iterations (after --warmup ones)")
+    os5.add_argument("--warmup", type=int, default=1)
+    os5.add_argument("--explicit", action="store_true",
+                     help="explicit feedback (default: implicit)")
+    os5.add_argument("--dtype", default="float32",
+                     choices=["float32", "bfloat16"])
+    os5.add_argument("--reg", type=float, default=0.1)
+    os5.add_argument("--alpha", type=float, default=1.0)
+    os5.add_argument("--solve-backend", default="auto",
+                     choices=["auto", "unfused", "gather_fused",
+                              "gather_fused_solve"],
+                     help="exact routes only (CG has no decomposed twin)")
+    os5.add_argument("--obs-dir", default=None, metavar="DIR",
+                     help="also write the stage histograms and the "
+                          "attribution event as a run directory")
+    os5.add_argument("--json", dest="as_json", action="store_true")
+    os5.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' runs the "
+                          "kernels' plain versions)")
+    os6 = osub.add_parser(
+        "regress",
+        help="bench regression gate over the committed BENCH_*/"
+             "MULTICHIP_* series; exit 1 = regression, 2 = null bank, "
+             "3 = provenance")
+    os6.add_argument("root", nargs="?", default=".",
+                     help="directory holding the bench artifacts "
+                          "(default: cwd)")
+    os6.add_argument("--noise", type=float, default=0.10,
+                     help="relative band a latest-vs-best-prior move "
+                          "must exceed to count as a regression")
+    os6.add_argument("--strict", action="store_true",
+                     help="historical nulls and unparseable rounds become "
+                          "errors instead of warnings")
+    os6.add_argument("--trend", action="store_true",
+                     help="also fit the last --trend-window rounds of "
+                          "each series and fail on a sustained drift the "
+                          "worse way beyond the noise band")
+    os6.add_argument("--trend-window", type=int, default=5, metavar="N",
+                     help="rounds in the trend fit (needs >= 3 effective "
+                          "points; default 5)")
+    os6.add_argument("--json", dest="as_json", action="store_true")
     o.set_defaults(fn=cmd_observe)
     args = parser.parse_args(argv)
     _arm_fault_spec()

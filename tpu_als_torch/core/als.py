@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from tpu_als_torch.core.ratings import trainer_chunk
+from tpu_als_torch.obs.trace import stage_attribution_armed
 from tpu_als_torch.ops import cuda_gather_ne as gne
 from tpu_als_torch.ops.solve import (
     DEFAULT_JITTER,
@@ -306,12 +307,22 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
         U = init_factors(num_users, cfg.rank, g).to(device)
         V = init_factors(num_items, cfg.rank, g).to(device)
     ub, ib = user_csr.to(device), item_csr.to(device)
+    # stage attribution (obs/trace.py), armed: the configured iteration
+    # runs as its decomposed, fence-timed twin, its stages' seconds in the
+    # train.stage_seconds histograms; disarmed, this flag is the whole cost
+    attributed = None
+    if stage_attribution_armed():
+        from tpu_als_torch.perf.attribution import make_attributed_step
+
+        attributed = make_attributed_step(
+            ub, ib, num_users, num_items, cfg, user_csr.chunk_elems,
+            item_csr.chunk_elems)
     gmode = guardrails_mode()
     monitor = None
     step_cfg = cfg
     if gmode != "off":
         monitor = Monitor(cfg, gmode)
-        if gmode == "recover":
+        if gmode == "recover" and attributed is None:
             step_cfg = replace(cfg, adaptive_solve=True)
     gram_fault = faults.armed("solve.gram")
     it = start_iter
@@ -319,8 +330,11 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
     while it < cfg.max_iter:
         if monitor is not None:
             monitor.keep_last_good(U, V, retry=retry)
-        U, V = als_step(U, V, ub, ib, num_users, num_items, step_cfg,
-                        user_csr.chunk_elems, item_csr.chunk_elems)
+        if attributed is not None and step_cfg is cfg:
+            U, V = attributed(U, V)
+        else:
+            U, V = als_step(U, V, ub, ib, num_users, num_items, step_cfg,
+                            user_csr.chunk_elems, item_csr.chunk_elems)
         if gram_fault and faults.check("solve.gram") == "corrupt":
             U[0] = torch.nan  # what a blown Gram solve leaves behind
         if monitor is not None:

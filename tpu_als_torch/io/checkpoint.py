@@ -103,12 +103,14 @@ def atomic_install(tmp, path):
 
 
 def save_factors(path, user_ids, user_factors, item_ids, item_factors,
-                 params=None, iteration=None, retry_policy=None):
+                 params=None, iteration=None, extra=None,
+                 retry_policy=None):
     """Write a model or checkpoint directory (numpy arrays in).
 
     ``iteration``: the ALS iterations the factors have seen (a resumable
-    checkpoint); the manifest's ``extra`` is written empty.  The whole
-    write is retried on transient I/O errors; it is idempotent across
+    checkpoint); ``extra``: a JSON-ready dict written as the manifest's
+    ``extra`` (empty when None).  The whole write is retried on
+    transient I/O errors; it is idempotent across
     attempts (a stale tmp directory is removed, the install tolerates an
     existing ``.old``).
     """
@@ -133,7 +135,7 @@ def save_factors(path, user_ids, user_factors, item_ids, item_factors,
             "num_items": int(item_factors.shape[0]),
             "iteration": iteration,
             "params": params or {},
-            "extra": {},
+            "extra": extra or {},
             "files": {name: _file_digest(os.path.join(tmp, name))
                       for name in _DATA_FILES},
         }

@@ -20,11 +20,12 @@ default registry:
 
 Until ``finalize`` everything is in-memory bookkeeping, bounded, so
 library use and the tests need no run directory.  Causal tracing is
-:mod:`tpu_als_torch.obs.tracing`, the serving flight recorder
-:mod:`tpu_als_torch.obs.trace`, and the run directory's readers
-(``observe summarize|tail|explain``) :mod:`tpu_als_torch.obs.report` and
-:mod:`tpu_als_torch.obs.explain`.  The reference's ``regress`` is not
-ported yet.
+:mod:`tpu_als_torch.obs.tracing`, the serving flight recorder and the
+fenced training stages :mod:`tpu_als_torch.obs.trace`, the run
+directory's readers (``observe summarize|tail|explain``)
+:mod:`tpu_als_torch.obs.report` and :mod:`tpu_als_torch.obs.explain`,
+and the bench regression gate (``observe regress``)
+:mod:`tpu_als_torch.obs.regress`.
 """
 
 from __future__ import annotations

@@ -144,6 +144,12 @@ METRICS = {
         "requests completed per tenant by the fair-share scheduler "
         "(labeled tenant=<name>; the goodput series the fairness "
         "ratio is computed from)"),
+    "train.stage_seconds": (
+        "histogram", "seconds",
+        "fence-timed seconds of one attributed ALS stage (obs.trace."
+        "stage), labeled stage=<perf.roofline stage name> so "
+        "`observe attribution` can join measured time against the "
+        "modeled floor"),
     "tenancy.batch_errors": (
         "counter", "batches",
         "micro-batches whose scoring raised, failed in isolation "
@@ -156,6 +162,7 @@ METRICS = {
 LABELS = {
     "train.comm_bytes_per_iter": ("strategy",),
     "train.gather_block_rows": ("n_blocks", "side"),
+    "train.stage_seconds": ("stage",),
     "foldin.update_seconds": ("side",),
     "foldin.batch_rows": ("side",),
     "serving.enqueue_seconds": ("tenant",),
@@ -247,6 +254,11 @@ EVENTS = {
         "on an SLO breach, shed, or degraded-mode answer: spans is the "
         "admission/queue_wait/score/rescore/respond breakdown in "
         "seconds (serving.engine.FlightRecorder)"),
+    "attribution": (
+        ("stages", "wall_s_per_iter", "coverage"),
+        "one per `observe attribution` run: measured per-stage seconds "
+        "joined against the roofline floor (the planner's measured-"
+        "probe input format)"),
     "trace_span": (
         ("trace_id", "span_id", "parent_id", "name", "status",
          "seconds"),

@@ -1,17 +1,111 @@
-"""The serving flight recorder: a bounded ring of per-request traces.
+"""Measurement-side tracing: fence-timed stage spans and the serving
+flight recorder.
 
-Counterpart of the second half of ``tpu_als/obs/trace.py``
-(:class:`FlightRecorder` and its ``SPAN_KEYS``).  The first half, the
-per-stage attribution of a training iteration, waits for the port's
-``perf/`` (ROADMAP).
+Counterpart of ``tpu_als/obs/trace.py``:
+
+- ``stage(name)``: a context manager that times one ALS stage between
+  fences and records the wall clock into the ``train.stage_seconds
+  {stage=name}`` histogram and the span tree.  Stage names are
+  ``perf/roofline.py``'s, so ``observe attribution`` joins measured
+  seconds against the modeled floor by name.  The fence is what makes
+  the numbers mean anything: torch returns before the card finishes, so
+  without it a stage's time is the time to enqueue its kernels.
+  :func:`fence` synchronizes the CUDA device of every CUDA tensor it is
+  given; CPU tensors and host values pass through.
+- :class:`FlightRecorder`: a bounded ring of per-request span records
+  for the serving engine; ``dump(trigger)`` emits the not-yet-dumped
+  tail as ``flight_record`` events.
+
+Arming: the attributed training path is off unless enabled
+(:func:`enable_stage_attribution`, :func:`stage_attribution`, or
+``TPU_ALS_STAGE_ATTRIBUTION`` set to anything but '' or '0').  Disarmed,
+``core.als.train`` reads one flag and runs its iteration as it is.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import os
 import threading
+import time
+
+import torch
+from torch.utils._pytree import tree_leaves
 
 from tpu_als_torch import obs
+
+_ENV_FLAG = "TPU_ALS_STAGE_ATTRIBUTION"
+_armed = False
+
+
+def enable_stage_attribution():
+    """Arm the attributed (decomposed, fence-timed) training path."""
+    global _armed
+    _armed = True
+
+
+def disable_stage_attribution():
+    global _armed
+    _armed = False
+
+
+def stage_attribution_armed():
+    """True when stage attribution is on, explicitly or through the
+    ``TPU_ALS_STAGE_ATTRIBUTION`` variable (any value but '' or '0')."""
+    return _armed or os.environ.get(_ENV_FLAG, "0") not in ("", "0")
+
+
+@contextlib.contextmanager
+def stage_attribution():
+    """Scoped arming, for tests and the attribution command."""
+    was = _armed
+    enable_stage_attribution()
+    try:
+        yield
+    finally:
+        if not was:
+            disable_stage_attribution()
+
+
+def fence(x):
+    """Wait for the CUDA device of every CUDA tensor in ``x`` (any nest
+    of lists, tuples and dicts); CPU tensors and host values pass
+    through.  Returns ``x``."""
+    devices = {t.device for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return x
+
+
+@contextlib.contextmanager
+def stage(name, sink=None):
+    """Fence-timed stage span.
+
+    Yields ``keep(x)``: the body passes every device output it wants
+    attributed through it.  On exit the kept values are fenced, and the
+    fence-to-fence wall clock lands in ``train.stage_seconds{stage=
+    name}``, the span tree (span ``attr.<name>``) and ``sink[name]``
+    when a dict is given (the attribution runner's accumulator).
+    """
+    pending = []
+
+    def keep(x):
+        pending.append(x)
+        return x
+
+    # the clock brackets the span's own bookkeeping too: every second of
+    # the attributed path belongs to some stage (the coverage bound)
+    t0 = time.perf_counter()
+    with obs.span("attr." + name, stage=name):
+        yield keep
+        fence(pending)
+    dt = time.perf_counter() - t0
+    obs.histogram("train.stage_seconds", dt, stage=name)
+    if sink is not None:
+        sink[name] = sink.get(name, 0.0) + dt
+
 
 # per-request span breakdown every flight record carries; rescore is None
 # where the int8 rescore is not timed apart from the shortlist

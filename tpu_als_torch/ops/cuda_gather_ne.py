@@ -39,6 +39,9 @@ from tpu_als_torch import _build
 from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
 from tpu_als_torch.ops.cuda_solve import ONCHIP_MAX_RANK
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
+from tpu_als_torch.perf.roofline import (fused_ne_kernel_bytes,
+                                         fused_ring_kernel_bytes,
+                                         fused_solve_kernel_bytes)
 
 # K3's largest rank: S's entries are indexed by a 32-bit int (r·r < 2^31)
 GRAM_MAX_RANK = 46340
@@ -53,6 +56,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 GRAM_LAUNCHES = 0   # K3
 SOLVE_LAUNCHES = 0  # K4
 RING_LAUNCHES = 0   # K7
+# [bytes, calls] while perf/ne_audit.py::kernel_cost_bytes audits a
+# function: the calls of K3, K4 and K7 then add the HBM bytes each declares
+# (the roofline's closed form at its shapes, a model and not a
+# measurement), on either device; None otherwise, and no call does any
+# bookkeeping
+COST = None
 
 # K4's and K7's scratch (each row's Gram, b and count, and K7's width
 # chunks' partials) is kept within this many f32 elements a launch (1
@@ -148,6 +157,12 @@ def _solve_rank(name, r):
             "K3 + K6 there")
 
 
+def _declare(closed_form, *shape):
+    if COST is not None:
+        COST[0] += int(closed_form(*shape))
+        COST[1] += 1
+
+
 def _cuda_ready(name, V, *tensors):
     if V.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {V.device}")
@@ -169,6 +184,8 @@ def gather_gram(V, cols, aw, bw, *, two_sided, split_width=None):
     chunk sums added in order."""
     global GRAM_LAUNCHES
     _check("gather_gram", V, cols, aw, bw)
+    _declare(fused_ne_kernel_bytes, cols.numel(), cols.shape[0], V.shape[1],
+             V.element_size())
     if V.device.type == "cpu":
         return gather_gram_plain(V, cols, aw, bw, two_sided=two_sided,
                                  split_width=split_width)
@@ -259,6 +276,8 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
     global SOLVE_LAUNCHES
     _check("gather_solve", V, cols, aw, bw, cw)
     _solve_rank("gather_solve", V.shape[1])
+    _declare(fused_solve_kernel_bytes, cols.numel(), cols.shape[0],
+             V.shape[1], V.element_size())
     if V.device.type == "cpu":
         return gather_solve_plain(V, cols, aw, bw, cw, YtY,
                                   two_sided=two_sided, reg=reg,
@@ -364,13 +383,17 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
         if t.shape != cols.shape:
             raise TypeError(f"gather_solve_ring: weights must be "
                             f"{tuple(cols.shape)}, got {tuple(t.shape)}")
+    # every owner's rows over all S sources; the shards share one device's
+    # memory, so no ring payload crosses a link
+    D, _, n, w = cols.shape
+    _declare(fused_ring_kernel_bytes, cols.numel(), D * n, r,
+             V_shards.element_size(), 0)
     if V_shards.device.type == "cpu":
         return gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY,
                                        two_sided=two_sided, reg=reg,
                                        jitter=jitter,
                                        split_width=split_width)
     _cuda_ready("gather_solve_ring", V_shards, cols, aw, bw, cw)
-    D, _, n, w = cols.shape
     if S * per >= 1 << 31:
         raise ValueError(f"gather_solve_ring: {S} x {per} rows overflow the "
                          "kernel's int32 row handles")

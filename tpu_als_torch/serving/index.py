@@ -336,6 +336,23 @@ class Int8CandidateIndex:
                                     (rows, dVq, dsv, dV, dvalid))
         return self._dev_delta
 
+    def block_until_ready(self):
+        """Wait for the index's device (its tensors, the delta segment's
+        mirrors included, are built on it): a CUDA index synchronizes its
+        card, a CPU index has nothing to wait for.  Returns the index."""
+        if self.delta_count:
+            self._device_delta()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def nbytes_quantized(self):
+        """Bytes the shortlist pass reads a batch (a quarter of the f32
+        table's): the int8 rows and f32 scales of the base, and r + 4 a
+        delta row."""
+        base = self.Vq.numel() + 4 * self.n_base
+        return base + self.delta_count * (int(self.V.shape[1]) + 4)
+
     def _shortlist(self, k, shortlist_k):
         sk = self.shortlist_k if shortlist_k is None else \
             min(int(shortlist_k), self.n_items)

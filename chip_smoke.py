@@ -129,7 +129,9 @@ Phases (any failure exits non-zero before the final line):
    1's shape (943 x 1,682 x 100,000, string ids): ``Pipeline([
    StringIndexer, StringIndexer, ALS(maxIter=10)])`` under
    ``CrossValidator(numFolds=3)`` over rank {10, 128} x regParam {0.05,
-   1.0} on the card and with ``device='cpu'`` (every fold's metric within
+   1.0} on the card and with ``device='cpu'`` (the CPU's in a process
+   started after the build, beside phases 2-4, and waited for before
+   phase 5's host work; every fold's metric within
    SELECT_METRIC_REL, the same best index), the CrossValidatorModel saved
    and loaded back as a PipelineModel (transform equal bit for bit),
    ``recommendForAllUsers(10)`` mapped back by ``IndexToString``; (b) the
@@ -243,7 +245,29 @@ Phases (any failure exits non-zero before the final line):
    and K1, then K5, counted in them), the model within TRAIN_REL of the
    same 4-shard fit in this process and every user's top-10 that of
    ``recommend_arrays(mesh=)``;
-12. timings at the slices' shapes (CUDA events), each kernel beside its
+12. the execution planner on phase 5's rank-128 ML-25M containers, in a
+   directory of its own (budget 40 s): (a) a cold ``plan.resolve_kernel_
+   config(rank=128, tune=True)`` with the synthetic timer (one
+   ``local_half_step`` on ~4.2M entries, min of 3): 8 trials, each with
+   its time beside ``autotune.model_seconds`` and K4, K3 and K1 launched
+   in each, the bank ``source="device"``; (b) ``plan tune --rank 128
+   --obs-dir`` as a gated process started before (a): ``plan_cache_hit``
+   and no ``tune_trial`` in its trail, (a)'s config, no kernel launched;
+   (c) the fit's own tune (``TPU_ALS_AUTOTUNE=1``, ``core.als.train``
+   with no iteration from phase 5's init): 8 trials of one ML-25M
+   iteration each, K4, K3 and K1 launched, each beside its model, banked
+   under the problem's shape class; then one tuned iteration reading it
+   back: each bucket's route at the banked split width (K4 and K3
+   counted per bucket and chunk), its time beside phase 5's iterations
+   and an untuned iteration's in the same phase, its factors within
+   TRAIN_REL of the untuned iteration; (d) a planner-off iteration
+   (``TPU_ALS_PLAN_CACHE=off``): phase 5's route labels and launches per
+   iteration, and factors bitwise those of an armed iteration with the
+   gate off; (e) at rank 256, ``space={"split_width": [8192, 16384]}``:
+   2 trials, each launching K4, K3 and K6.  Every process the run starts
+   gets a fresh plan cache of its own (so a ladder ``serve-bench`` banks
+   never reaches a later phase), except (b), which shares (a)'s;
+13. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -268,7 +292,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-13. where the time goes: one training iteration, one more fold-in
+14. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, one rank-256 iteration and
     fold-in batch, and one rank-512 iteration, then the serving engine's
     batches of 8 on its int8
@@ -339,6 +363,7 @@ from tpu_als_torch.parallel.comm import (ring_fused_half_step,
                                          ring_half_step, shard_csr_grid)
 from tpu_als_torch.parallel.data import partition_balanced, shard_csr
 from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.perf import autotune
 from tpu_als_torch.perf.attribution import (attribution_report,
                                             measure_attributed,
                                             render_attribution)
@@ -409,6 +434,11 @@ LADDER_TOL = 1e-2
 RECOVER_OBJ_REL = 1e-2
 FIT_SEED = 0                        # the guarded fits' ALS(seed=)
 CSV_TWIN_ROWS = 1_000_000           # the Python twin parses this prefix
+PLAN_ENV = "TPU_ALS_PLAN_CACHE"
+# the run's plan caches: PLAN_ROOT/run for this process (set first thing
+# in main, before anything resolves), a fresh PLAN_ROOT/proc_* for each
+# process the run starts, PLAN_ROOT/planner for phase 12
+PLAN_ROOT = None
 CSV_HEADER = b"userId,movieId,rating,timestamp\n"
 
 
@@ -1371,7 +1401,8 @@ def train_slice(data, r, seed, dev, max_iter=3):
     if max(e64.values()) > TRAIN_REL:
         fail(f"rank {r}: a route is off the float64 solution: {e64}")
     return {"launches": launches, "iter_s": iter_s, "ub": ub, "ib": ib,
-            "U0": U0, "V0": V0, "cfg": cfg, "n_items": n_items,
+            "max_iter": max_iter, "U0": U0, "V0": V0, "cfg": cfg,
+            "n_items": n_items,
             "n_users": n_users, "model": model,
             "items": {"auto": Va, "unfused": Vu}}
 
@@ -2472,14 +2503,51 @@ def selection_cv(frame, seed, device):
     return model, time.perf_counter() - t0
 
 
-def pipeline_selection(seed, dev, tmp):
+_CPU_CV = (
+    "import json, sys\n"
+    "import chip_smoke as cs\n"
+    "seed = int(sys.argv[1])\n"
+    "m, wall = cs.selection_cv(cs.string_frame(seed), seed, 'cpu')\n"
+    "print(json.dumps({'fold': [[float(x) for x in f] for f in\n"
+    "    m.foldMetrics], 'avg': [float(x) for x in m.avgMetrics],\n"
+    "    'wall': wall}))\n")
+
+
+def start_cpu_cv(seed):
+    """(a)'s cross-validation with ``device='cpu'``, as a process: it runs
+    beside phases 2-4 (kernel checks on the card, no timing), started
+    after the build and waited for before phase 5's host work."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _CPU_CV, str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=proc_env())
+
+
+def finish_cpu_cv(p):
+    """The CPU cross-validation's fold and average metrics and its wall
+    (a failure, or no exit within 900 s, fails the run)."""
+    t0 = time.perf_counter()
+    try:
+        out, err = p.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail("the CPU cross-validation: no exit within 900 s")
+    if p.returncode != 0:
+        fail(f"the CPU cross-validation exited {p.returncode}: {err[-2000:]}")
+    log(f"the CPU cross-validation (phase 7(a)) ran beside phases 2-4; "
+        f"waited {time.perf_counter() - t0:.1f} s more for it")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def pipeline_selection(seed, dev, tmp, cpu):
     """(a) examples/02's workflow at BASELINE config 1's scale: the
-    pipeline cross-validated on the card and on the CPU (every fold's
-    metric within SELECT_METRIC_REL, the same best index), the
-    CrossValidatorModel saved and loaded back as a PipelineModel
-    (transform equal bit for bit), recommendForAllUsers(10) (K5) mapped
-    back with IndexToString.  Launches counted from 0 around the card's
-    part."""
+    pipeline cross-validated on the card and on the CPU (``cpu``:
+    :func:`finish_cpu_cv`'s; every fold's metric within
+    SELECT_METRIC_REL, the same best index), the CrossValidatorModel
+    saved and loaded back as a PipelineModel (transform equal bit for
+    bit), recommendForAllUsers(10) (K5) mapped back with IndexToString.
+    Launches counted from 0 around the card's part."""
     frame = string_frame(seed)
     _zero_launches()
     cvm, wall = selection_cv(frame, seed, dev)
@@ -2489,17 +2557,19 @@ def pipeline_selection(seed, dev, tmp):
     recs = als_model.recommendForAllUsers(10)
     recs_s = time.perf_counter() - recs_t0
     launches = _launch_counts()
-    cpu, cpu_wall = selection_cv(frame, seed, "cpu")
+    cpu_wall = cpu["wall"]
     fold = np.asarray(cvm.foldMetrics)
-    fold_cpu = np.asarray(cpu.foldMetrics)
+    fold_cpu = np.asarray(cpu["fold"])
     rel = float(np.max(np.abs(fold - fold_cpu) / np.abs(fold_cpu)))
-    bi, bi_cpu = int(np.argmin(cvm.avgMetrics)), int(np.argmin(cpu.avgMetrics))
+    bi, bi_cpu = int(np.argmin(cvm.avgMetrics)), int(np.argmin(cpu["avg"]))
     log(f"(a) CrossValidator(3 folds) over rank {SELECT_RANKS} x regParam "
         f"{SELECT_REGS}, Pipeline(StringIndexer x2, ALS(maxIter=10)) at "
         f"ML-100K {ML100K_SHAPE}: card {wall:.2f} s, CPU {cpu_wall:.2f} s "
-        f"(host clock, 12 fits + the refit); avg RMSE card "
+        f"measured beside phases 2-4, on a shared host (host clock, 12 "
+        f"fits + the refit; not comparable with a CPU wall taken alone); "
+        f"avg RMSE card "
         + ", ".join(f"{m:.6f}" for m in cvm.avgMetrics) + "; CPU "
-        + ", ".join(f"{m:.6f}" for m in cpu.avgMetrics)
+        + ", ".join(f"{m:.6f}" for m in cpu["avg"])
         + f"; fold metrics max rel diff {rel:.3e} (tol {SELECT_METRIC_REL});"
         f" best index card {bi}, CPU {bi_cpu}")
     if not rel <= SELECT_METRIC_REL:
@@ -2703,13 +2773,23 @@ def legacy_fits(seed, dev):
     return {"launches": launches}
 
 
+def proc_env(plan_dir=None):
+    """The environment of a process the run starts: a fresh plan cache of
+    its own unless ``plan_dir`` names one to share, so nothing a process
+    banks (``serve-bench``'s observed ladder) steers another phase."""
+    if plan_dir is None:
+        plan_dir = tempfile.mkdtemp(prefix="proc_", dir=PLAN_ROOT)
+    return {**os.environ, PLAN_ENV: plan_dir}
+
+
 def run_cli(args, timeout=600):
     """``python -m tpu_als_torch.cli ARGS`` from the repository root;
     its last stdout line parsed as JSON."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "tpu_als_torch.cli", *args],
                          capture_output=True, text=True, timeout=timeout,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=proc_env())
     if out.returncode != 0:
         fail(f"cli {args[0]} exited {out.returncode}: {out.stderr[-2000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1]), \
@@ -2724,8 +2804,10 @@ _PROBE = (
     "if sys.argv[1] == '--gated':\n"
     "    del sys.argv[1]\n"
     "    print('ready', file=sys.stderr, flush=True)\n"
-    "    if sys.stdin.readline() != 'go\\n':\n"
+    "    go = sys.stdin.readline().split(' ', 1)\n"
+    "    if go[0].strip() != 'go':\n"
     "        sys.exit(1)\n"
+    "    sys.argv += json.loads(go[1]) if len(go) > 1 else []\n"
     "cli.main(sys.argv[1:])\n"
     "print(json.dumps({'k1': cuda_solve.LAUNCHES,\n"
     "    'k2': cuda_lanes.LAUNCHES, 'k3': cuda_gather_ne.GRAM_LAUNCHES,\n"
@@ -2733,17 +2815,19 @@ _PROBE = (
     "    'k6': cuda_lanes_blocked.LAUNCHES}))\n")
 
 
-def start_probe(args, gated=False):
+def start_probe(args, gated=False, plan_dir=None):
     """``python -m tpu_als_torch.cli ARGS`` as a process that prints the
     kernels' launch counts after the command's own output.  ``gated``:
     the process imports torch and the package (host work, no CUDA call),
     says so on stderr, and waits for :func:`release_probe` before it runs
-    the command."""
+    the command.  ``plan_dir``: the plan cache it shares (default: a
+    fresh one, :func:`proc_env`)."""
     return subprocess.Popen(
         [sys.executable, "-c", _PROBE, *(["--gated"] if gated else []),
          *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         stdin=subprocess.PIPE if gated else None, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=proc_env(plan_dir))
 
 
 def probe_ready(p, what, timeout=120):
@@ -2765,9 +2849,10 @@ def probe_ready(p, what, timeout=120):
         fail(f"{what}: not ready within {timeout} s: {''.join(seen)[-2000:]}")
 
 
-def release_probe(p):
-    """Let a gated probe run its command."""
-    p.stdin.write("go\n")
+def release_probe(p, extra=()):
+    """Let a gated probe run its command, with the arguments ``extra``
+    appended."""
+    p.stdin.write(f"go {json.dumps(list(extra))}\n" if extra else "go\n")
     p.stdin.flush()     # finish_probe's communicate() closes it
 
 
@@ -2793,14 +2878,23 @@ def cli_selection(seed, tmp, dev):
     computed in this process."""
     spec = "synthetic:{}x{}x{}".format(*ML100K_SHAPE)
     out = os.path.join(tmp, "tune")
-    tune, tune_s = run_cli(["tune", "--data", spec, "--ranks",
-                            ",".join(map(str, SELECT_RANKS)),
-                            "--reg-params", ",".join(map(str, SELECT_REGS)),
-                            "--folds", "3", "--max-iter", "10", "--seed",
-                            str(seed), "--output", out, "--device", str(dev)])
-    ev, ev_s = run_cli(["evaluate", "--model", os.path.join(out, "bestModel"),
-                        "--data", spec, "--ranking-k", "10", "--device",
-                        str(dev)])
+    # evaluate imports beside tune (gated), and runs once tune's model is
+    # saved: one process start-up on the clock instead of two
+    pe = start_probe(["evaluate", "--model", os.path.join(out, "bestModel"),
+                      "--data", spec, "--ranking-k", "10", "--device",
+                      str(dev)], gated=True)
+    t0 = time.perf_counter()
+    lines, _ = finish_probe(start_probe(
+        ["tune", "--data", spec, "--ranks", ",".join(map(str, SELECT_RANKS)),
+         "--reg-params", ",".join(map(str, SELECT_REGS)), "--folds", "3",
+         "--max-iter", "10", "--seed", str(seed), "--output", out,
+         "--device", str(dev)]), "cli tune")
+    tune, tune_s = json.loads(lines[-1]), time.perf_counter() - t0
+    probe_ready(pe, "cli evaluate")
+    t0 = time.perf_counter()
+    release_probe(pe)
+    lines, _ = finish_probe(pe, "cli evaluate")
+    ev, ev_s = json.loads(lines[-1]), time.perf_counter() - t0
     cvm = CrossValidatorModel.load(out, device=dev)
     best = cvm.bestModel
     mine = {"best_rank": int(best._params["rank"]),
@@ -2815,7 +2909,7 @@ def cli_selection(seed, tmp, dev):
     mine_ev.update({k: v if isinstance(v, int) else round(v, 4)
                     for k, v in ranking_eval(best, frame, 10).items()})
     log(f"(d) cli tune {tune_s:.1f} s: {json.dumps(tune)}; cli evaluate "
-        f"{ev_s:.1f} s: {json.dumps(ev)}")
+        f"{ev_s:.1f} s once released: {json.dumps(ev)}")
     if tune != mine or ev != mine_ev:
         fail(f"(d) the CLI's JSON disagrees with this process: tune "
              f"{tune} vs {mine}, evaluate {ev} vs {mine_ev}")
@@ -2905,12 +2999,13 @@ def checkpoint_lifecycle(seed, tmp, dev):
     return exact
 
 
-def model_selection_phase(frame, seed, dev):
+def model_selection_phase(frame, seed, dev, cpu_cv):
     """The Spark ML surface and the fit's checkpoint lifecycle on the
-    card, (a)-(e)."""
+    card, (a)-(e); ``cpu_cv``: (a)'s CPU cross-validation, run earlier
+    (:func:`start_cpu_cv`)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        a = pipeline_selection(seed, dev, tmp)
+        a = pipeline_selection(seed, dev, tmp, cpu_cv)
         b = headline_rmse(frame, seed, dev)
         c = legacy_fits(seed, dev)
         cli_selection(seed, tmp, dev)
@@ -3225,6 +3320,11 @@ def serving_clis(model, tmp):
     path = os.path.join(tmp, "served_model")
     model.save(path)
     t0 = time.perf_counter()
+    # serve-bench imports beside foldin-bench (gated: it touches the card
+    # only once foldin-bench has exited)
+    ps = start_probe(["serve-bench", "--users", str(N_USERS), "--items",
+                      str(N_ITEMS), "--rank", str(RANK), "--qps", "1000",
+                      "--duration", "1", "--slo-ms", "50"], gated=True)
     lines, launches = finish_probe(
         start_probe(["foldin-bench", "--model", path]), "foldin-bench",
         timeout=300)
@@ -3232,14 +3332,16 @@ def serving_clis(model, tmp):
     if k2 == 0 or fb["metric"] != "foldin_p50_latency":
         fail(f"foldin-bench: {fb}, K2 launches {k2}")
     fb_s = time.perf_counter() - t0
-    sb, sb_s = run_cli(["serve-bench", "--users", str(N_USERS), "--items",
-                        str(N_ITEMS), "--rank", str(RANK), "--qps", "1000",
-                        "--duration", "1", "--slo-ms", "50"])
+    probe_ready(ps, "serve-bench")
+    t0 = time.perf_counter()
+    release_probe(ps)
+    lines, _ = finish_probe(ps, "serve-bench")
+    sb, sb_s = json.loads(lines[-1]), time.perf_counter() - t0
     if sb["scored"] == 0 or sb["config"]["path"] != "int8":
         fail(f"serve-bench: {sb}")
     log(f"foldin-bench: p50 {fb['value']} s over {fb['batches']} batches "
         f"of {fb['batch_size']}, K2 launches {k2} ({fb_s:.1f} s process); "
-        f"serve-bench: {json.dumps(sb)} ({sb_s:.1f} s process)")
+        f"serve-bench: {json.dumps(sb)} ({sb_s:.1f} s once released)")
 
 
 def serving_engine_phase(fitted, served, rng, dev, smi):
@@ -3371,6 +3473,14 @@ def stream_cli_phase(prefix, tmp, seed):
     t0 = time.perf_counter()
     out = os.path.join(tmp, "stream_model")
     spec = f"stream:{prefix}"
+    new = os.path.join(tmp, "new_users.csv")
+    # evaluate and recommend import beside train (gated) and run once the
+    # model and the new users' file are written (recommend's --users,
+    # which name one of the model's users, go with its release)
+    pe = start_probe(["evaluate", "--model", out, "--data", spec],
+                     gated=True)
+    pr = start_probe(["recommend", "--model", out, "--foldin-data",
+                      f"stream:{new}", "--k", "10"], gated=True)
     _, tl = finish_probe(start_probe(
         ["train", "--data", spec, "--rank", str(RANK), "--max-iter", "3",
          "--reg-param", "0.05", "--seed", str(seed), "--output", out]),
@@ -3387,7 +3497,6 @@ def stream_cli_phase(prefix, tmp, seed):
     if tl["k4"] == 0 or (wide and (tl["k3"] == 0 or tl["k1"] == 0)):
         fail(f"train --data stream: launches {tl} (widest row {widest})")
     rng = np.random.default_rng(seed)
-    new = os.path.join(tmp, "new_users.csv")
     items = rng.choice(side["items"], 5 * NEW_STREAM_USERS)
     with open(new, "w") as f:
         f.write("userId,movieId,rating,timestamp\n")
@@ -3396,10 +3505,11 @@ def stream_cli_phase(prefix, tmp, seed):
                     f"{rng.integers(1, 11) * 0.5},1700000000\n")
         f.write("newcomer-0,no-such-item,4.0,1700000000\n")
     asked = ["newcomer-0", "newcomer-5", side["users"][3].decode()]
-    pe = start_probe(["evaluate", "--model", out, "--data", spec])
-    pr = start_probe(["recommend", "--model", out, "--foldin-data",
-                      f"stream:{new}", "--users", ",".join(asked), "--k",
-                      "10"])
+    for p, what in ((pe, "evaluate --data stream:"),
+                    (pr, "recommend --foldin-data stream:")):
+        probe_ready(p, what)
+    release_probe(pe)
+    release_probe(pr, ["--users", ",".join(asked)])
     ev_lines, el = finish_probe(pe, "evaluate --data stream:")
     rec_lines, rl = finish_probe(pr, "recommend --foldin-data stream:")
     ev = json.loads(ev_lines[-1])
@@ -4335,7 +4445,268 @@ def measurement_phase(csrs, tr, keep, seed, dev, smi):
     return counts
 
 
-# -- phase 12: timings -----------------------------------------------------
+# -- phase 12: the execution planner ----------------------------------------
+PHASE12_BUDGET_S = 40.0
+
+
+def counting_timer(rank, dev, launches):
+    """The default timer (``autotune.make_timer`` on the card), each
+    trial's launch counts appended to ``launches``."""
+    timer = autotune.make_timer(rank, "float32", device=dev)
+
+    def counted(config):
+        _zero_launches()
+        seconds = timer(config)
+        launches.append(_launch_counts())
+        return seconds
+
+    counted.source = timer.source
+    counted.shapes, counted.shape = timer.shapes, timer.shape
+    return counted
+
+
+def banked_kernel_config(rank, dev, shape_class="generic"):
+    """The ``kernel_config`` component banked for ``rank`` on ``dev``
+    under ``shape_class``."""
+    from tpu_als_torch.plan import cache as plan_cache
+
+    entry = plan_cache.load_entry(plan.plan_key(
+        rank=rank, dtype="float32", device=dev, shape_class=shape_class))
+    comp = (entry or {}).get("components", {}).get("kernel_config")
+    if comp is None:
+        fail(f"no kernel_config banked at rank {rank} ({shape_class})")
+    return comp
+
+
+def tune_on_card(rank, dev, smi, tag, path, space=None, trials=None):
+    """A cold ``resolve_kernel_config(tune=True)`` with the default timer:
+    ``trials`` trials, each launching every kernel of ``path``, each
+    printed beside ``autotune.model_seconds``; the bank ``source=
+    "device"``.  Returns the winning config."""
+    launches = []
+    n0 = len(obs.events("tune_trial"))
+    t0 = time.perf_counter()
+    config = plan.resolve_kernel_config(
+        rank=rank, tune=True, space=space, device=dev,
+        timer=counting_timer(rank, dev, launches))
+    secs = time.perf_counter() - t0
+    comp = banked_kernel_config(rank, dev)
+    prov = comp["provenance"]
+    shape = prov["model"]["shape"]
+    done = obs.events("tune_trial")[n0:]
+    shapes = autotune.synthetic_shapes(shape["n"], shape["w"],
+                                       shape["max_w"])
+    for ev, counts in zip(done, launches):
+        model = autotune.model_seconds(ev["config"], rank, shapes)
+        log(f"({tag}) trial {ev['config']}: {ev['seconds'] * 1e3:.3f} ms "
+            f"(min of {shape['k']}), model {model * 1e3:.3f} ms "
+            f"({ev['seconds'] / model:.2f}x); launches "
+            + ", ".join(f"{k.upper()} {counts[k]}" for k in path))
+    if len(done) != trials or len(launches) != trials:
+        fail(f"({tag}) {len(done)} trials, expected {trials}")
+    if any(min(c[k] for k in path) == 0 for c in launches):
+        fail(f"({tag}) a trial did not launch all of {path}: {launches}")
+    if prov.get("source") != "device" or comp["resolved"] != config:
+        fail(f"({tag}) banked {comp}, resolved {config}")
+    log(f"({tag}) rank {rank} on {smi}: winner {config}, default "
+        f"{prov['default_seconds'] * 1e3:.3f} ms / measured "
+        f"{prov['measured_seconds'] * 1e3:.3f} ms = "
+        f"{prov['default_seconds'] / prov['measured_seconds']:.3f}x, model "
+        f"{prov['model_seconds'] * 1e3:.3f} ms (measured/model "
+        f"{prov['ratio']:.2f}); tune {secs:.1f} s (timer's instance "
+        f"{shape})")
+    return config
+
+
+def planner_warm_process(p, run, config):
+    """(b) the gated ``plan tune`` process reads (a)'s bank: its trail
+    has ``plan_cache_hit`` and no ``tune_trial``, its config is (a)'s,
+    and it launches no kernel."""
+    probe_ready(p, "plan tune")
+    t0 = time.perf_counter()
+    release_probe(p)
+    lines, counts = finish_probe(p, "plan tune", timeout=120)
+    out = json.loads(lines[-1])
+    with open(os.path.join(run, "events.jsonl")) as f:
+        types = [json.loads(x)["type"] for x in f if x.strip()]
+    log(f"(b) plan tune as a process ({time.perf_counter() - t0:.1f} s once "
+        f"released): config {out['config']}, trail "
+        f"{[t for t in types if t.startswith(('plan_', 'tune_'))]}, "
+        f"launches {counts}")
+    if out["config"] != config or "plan_cache_hit" not in types \
+            or "tune_trial" in types or any(counts.values()):
+        fail(f"(b) the warm process: {out}, trail {types}, launches {counts}")
+
+
+def route_launches(csrs, cfg, r, split):
+    """K4 and K3 launches of one iteration at ``split``: one K4 call a
+    bucket at or below it, one K3 call a row chunk of each wider one."""
+    k4 = k3 = 0
+    for csr in csrs:
+        for b in csr.buckets:
+            nb, w = b.cols.shape
+            path = core_als.resolve_solve_path(cfg, r, w, split)
+            if path in core_als._K4_PATHS:
+                k4 += 1
+            else:
+                k3 += -(-nb // core_als._chunk_rows(path, nb, w, r,
+                                                     csr.chunk_elems, split))
+    return {"k4": k4, "k3": k3}
+
+
+def fit_tune_on_card(csrs, tr, dev, smi, synthetic):
+    """(c) the fit's own tune: ``core.als.train`` with
+    ``TPU_ALS_AUTOTUNE=1`` and no iteration, from phase 5's init, misses
+    its own key (the problem's shape class, not the synthetic timer's
+    ``"generic"``) and times 8 trials of one iteration of itself, K4, K3
+    and K1 launched; each trial is printed beside ``autotune.
+    model_seconds`` over the fit's buckets, the winner beside the
+    synthetic timer's.  Returns the fit's banked config."""
+    ucsr, icsr = csrs
+    n0 = len(obs.events("tune_trial"))
+    _zero_launches()
+    os.environ[plan.AUTOTUNE_ENV] = "1"
+    t0 = time.perf_counter()
+    try:
+        core_als.train(ucsr, icsr,
+                       dataclasses.replace(tr["cfg"], max_iter=0),
+                       init=(tr["U0"], tr["V0"]), device=dev)
+    finally:
+        del os.environ[plan.AUTOTUNE_ENV]
+    secs = time.perf_counter() - t0
+    counts = _launch_counts()
+    done = obs.events("tune_trial")[n0:]
+    sc = plan.shape_class(ucsr.num_rows, icsr.num_rows, ucsr.nnz)
+    comp = banked_kernel_config(RANK, dev, sc)
+    prov, config = comp["provenance"], comp["resolved"]
+    shapes = autotune.data_shapes(ucsr, icsr)
+    for ev in done:
+        model = autotune.model_seconds(ev["config"], RANK, shapes)
+        log(f"(c) fit trial {ev['config']}: {ev['seconds'] * 1e3:.3f} ms an "
+            f"iteration (min of 3), model {model * 1e3:.3f} ms "
+            f"({ev['seconds'] / model:.2f}x)")
+    log(f"(c) the fit's own tune ({sc}, {smi}): winner {config}, default "
+        f"{prov['default_seconds'] * 1e3:.3f} ms / measured "
+        f"{prov['measured_seconds'] * 1e3:.3f} ms = "
+        f"{prov['default_seconds'] / prov['measured_seconds']:.3f}x, model "
+        f"{prov['model_seconds'] * 1e3:.3f} ms; the synthetic timer's "
+        f"winner {synthetic}; launches "
+        + ", ".join(f"{k.upper()} {counts[k]}" for k in ("k1", "k3", "k4"))
+        + f"; {secs:.1f} s")
+    if len(done) != 8 or prov.get("source") != "device" or \
+            min(counts[k] for k in ("k1", "k3", "k4")) == 0:
+        fail(f"(c) the fit's own tune: {len(done)} trials, provenance "
+             f"{prov}, launches {counts}")
+    return config
+
+
+def planner_fits(csrs, tr, config, dev, smi):
+    """(c) two tuned iterations, reading the fit's banked ``config``,
+    (d) two armed ones with the gate off and one planner-off, all from
+    phase 5's init: the factors after the first iteration, the second
+    one's wall, the launches per iteration."""
+    ucsr, icsr = csrs
+    cfg, init = tr["cfg"], (tr["U0"], tr["V0"])
+
+    def fit(iters):
+        ticks, first = [], {}
+
+        def tick(it, U, V):
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+            if it == 1:
+                first["U"], first["V"] = U.clone(), V.clone()
+
+        _zero_launches()
+        core_als.train(ucsr, icsr, dataclasses.replace(cfg, max_iter=iters),
+                       callback=tick, init=init, device=dev)
+        per = {k: v / iters for k, v in _launch_counts().items()}
+        wall = ticks[1] - ticks[0] if iters > 1 else None
+        return first["U"], first["V"], per, wall
+
+    n0 = len(obs.events("plan_resolved"))
+    os.environ[plan.AUTOTUNE_ENV] = "1"
+    try:
+        Ut, Vt, tuned, t_ms = fit(2)
+    finally:
+        del os.environ[plan.AUTOTUNE_ENV]
+    sources = [(e["component"], e["source"])
+               for e in obs.events("plan_resolved")[n0:]]
+    Ua, Va, armed, a_ms = fit(2)
+    split = config["split_width"]
+    want = route_launches(csrs, cfg, RANK, split)
+    log(f"(c) tuned iteration ({smi}): {t_ms * 1e3:.1f} ms beside the "
+        f"untuned {a_ms * 1e3:.1f} ms (each an iteration 2; phase 5's "
+        + ", ".join(f"{x * 1e3:.1f}" for x in tr["iter_s"])
+        + f" ms); per iteration K4 {tuned['k4']:g}, K3 {tuned['k3']:g}, K1 "
+        f"{tuned['k1']:g} (at split {split}: K4 {want['k4']}, K3 "
+        f"{want['k3']}) beside phase 5's "
+        + ", ".join(f"{k.upper()} {v / tr['max_iter']:g}"
+                    for k, v in tr["launches"].items())
+        + f"; planner {sources}")
+    if ("kernel_config", "cache") not in sources or \
+            (tuned["k4"], tuned["k3"]) != (want["k4"], want["k3"]) or \
+            (want["k3"] and tuned["k1"] == 0):
+        fail(f"(c) the tuned iteration's launches {tuned} are not the routes "
+             f"at split {split} ({want}), or its config was not read: "
+             f"{sources}")
+    n0 = len(obs.events())
+    os.environ[PLAN_ENV] = "off"
+    try:
+        Uo, Vo, off, _ = fit(1)
+    finally:
+        os.environ[PLAN_ENV] = os.path.join(PLAN_ROOT, "planner")
+    stray = [e["type"] for e in obs.events()[n0:]
+             if e["type"].startswith(("plan_", "tune_"))]
+    phase5 = {k: v / tr["max_iter"] for k, v in tr["launches"].items()}
+    want = route_launches(csrs, cfg, RANK, core_als.SPLIT_WIDTH)
+    bitwise = torch.equal(Ua, Uo) and torch.equal(Va, Vo)
+    log(f"(d) planner off: launches {off}, armed with the gate off "
+        f"{armed}, phase 5 per iteration {phase5}; factors bitwise equal "
+        f"{bitwise}; plan events while off {stray}")
+    if off != armed or any(off[k] != v for k, v in phase5.items()) or \
+            sum(off.values()) != sum(phase5.values()) or \
+            off["k4"] != want["k4"] or not bitwise or stray:
+        fail(f"(d) off is not free: launches off {off}, armed {armed}, "
+             f"phase 5 {phase5}, routes {want}, bitwise {bitwise}, events "
+             f"{stray}")
+    eu, ev = row_rel(Ut, Ua), row_rel(Vt, Va)
+    log(f"(c) tuned vs untuned iteration: max per-row |diff|/|x| users "
+        f"{eu:.3e}, items {ev:.3e} (tol {TRAIN_REL})")
+    if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+        fail(f"(c) the tuned iteration is off the untuned one: users {eu:.3e}"
+             f", items {ev:.3e} (tol {TRAIN_REL})")
+
+
+def planner_phase(csrs, tr, dev, smi):
+    """Phase 12: the execution planner in a plan cache of its own (budget
+    PHASE12_BUDGET_S): (b)'s process imports beside (a) and runs once
+    (a) has banked."""
+    t0 = time.perf_counter()
+    root = os.path.join(PLAN_ROOT, "planner")
+    run_root = os.environ[PLAN_ENV]
+    os.environ[PLAN_ENV] = root
+    try:
+        run = os.path.join(root, "tune_obs")
+        p = start_probe(["plan", "tune", "--rank", str(RANK), "--obs-dir",
+                         run, "--device", str(dev)], gated=True,
+                        plan_dir=root)
+        config = tune_on_card(RANK, dev, smi, "a", ("k1", "k3", "k4"),
+                              trials=8)
+        planner_warm_process(p, run, config)
+        planner_fits(csrs, tr, fit_tune_on_card(csrs, tr, dev, smi, config),
+                     dev, smi)
+        tune_on_card(RANK256, dev, smi, "e", ("k3", "k4", "k6"),
+                     space={"split_width": [8192, 16384]}, trials=2)
+    finally:
+        os.environ[PLAN_ENV] = run_root
+    secs = time.perf_counter() - t0
+    log(f"phase 12 (the execution planner): {secs:.1f} s on {smi}")
+    if secs > PHASE12_BUDGET_S:
+        fail(f"phase 12 took {secs:.1f} s, over its {PHASE12_BUDGET_S} s")
+
+
+# -- phase 13: timings -----------------------------------------------------
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -5117,6 +5488,13 @@ def main():
     if not _native_build.have_compiler():
         fail("g++ is not on the PATH: the native bucketizer and CSV reader "
              "are built with it")
+    # a fresh plan cache for this run, before anything resolves (a ladder
+    # or a kernel config banked by another run would steer this one)
+    global PLAN_ROOT
+    plan_root = tempfile.TemporaryDirectory(prefix="chip_smoke_plan_")
+    PLAN_ROOT = plan_root.name
+    os.environ[PLAN_ENV] = os.path.join(PLAN_ROOT, "run")
+    os.environ.pop(plan.AUTOTUNE_ENV, None)
     pin_fp32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5133,6 +5511,8 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    t_checks = time.perf_counter()
+    pcv = start_cpu_cv(args.seed)
     split = core_als.SPLIT_WIDTH
     errs = {"k2": check_k2(rng, dev), "k1": check_k1(rng, dev),
             "k6": check_k6(rng, dev)}
@@ -5160,6 +5540,9 @@ def main():
     errs["k8"] = check_k8(rng, dev)
     check_k8_many(rng, dev)
     check_ladder(dev)
+    log(f"phases 2-4 (the kernels against their plain versions): "
+        f"{time.perf_counter() - t_checks:.1f} s")
+    cpu_cv = finish_cpu_cv(pcv)
     data = prepare(args.seed, dev)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     s9 = csv_phase(data["frame"], args.seed, work.name)
@@ -5179,13 +5562,14 @@ def main():
     launches8 = sharded_serve_slice(tr["model"], sh["mesh"], dev)
     topk_k200(tr["model"], sh["mesh"], rng, dev)
     recommend_zero(model)
-    model_selection_phase(frame25m, args.seed, dev)
+    model_selection_phase(frame25m, args.seed, dev, cpu_cv)
     del frame25m
     p8 = serving_engine_phase(tr["model"], model, rng, dev, smi)
     s9 += live_tenancy_phase(tr["model"], rng, dev, smi, p8)
     log(f"phase 9 (the stream, the live loop and tenancy): {s9:.1f} s")
     two_tower_phase(dev, work.name, args.seed, smi)
     measurement_phase(csrs, tr, work.name, args.seed, dev, smi)
+    planner_phase(csrs, tr, dev, smi)
     del csrs
     work.cleanup()
     kernels = timings(model, launches, A, b, errs, dev)
@@ -5213,6 +5597,7 @@ def main():
                     model256._item_map.ids)
     profiled(RANK512, "training iteration", training_iteration(tr512))
     profile_engine_batches(tr["model"], rng, dev)
+    plan_root.cleanup()
     log(f"device: {smi}")   # again, beside the results at the tail
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,13 @@
   subpackages ``core``, ``ops`` and ``resilience`` export the
   reference's names, and importing them loads no kernel library; no
   file of the port carries a TPU v5e constant or the v5e headline time.
+- The execution planner (``plan/cache.py``, ``plan/planner.py``,
+  ``perf/autotune.py``, ``plan show|warm|tune|clear``) runs with ``jax``
+  and ``tpu_als`` unimportable, and an armed fit and recommend bank and
+  read back their plan there; ``plan/cache.py`` loads as a file on its
+  own with ``torch`` unimportable too (stdlib only); ``tpu_als_torch.plan``
+  exports the reference's 24 names; ``plan warm`` and ``plan tune`` with
+  no device raise without a CUDA device.
 """
 
 import contextlib
@@ -760,6 +767,93 @@ def test_measurement_tools_and_flags_run_without_jax(tmp_path):
     assert {"solve_spd", "solve_nnls", "normal_eq_explicit",
             "normal_eq_implicit", "compute_yty",
             "chunked_topk_scores"} <= set(names["ops"])
+
+
+_DRIVE_PLAN = r"""
+import importlib.util, json, os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+os.environ["TPU_ALS_PLAN_CACHE"] = tempfile.mkdtemp()
+import numpy as np
+import tpu_als_torch
+from tpu_als_torch import obs, plan
+from tpu_als_torch.cli import main
+from tpu_als_torch.perf import autotune
+rng = np.random.default_rng(0)
+frame = {"user": rng.integers(0, 40, 400), "item": rng.integers(0, 30, 400),
+         "rating": rng.uniform(1, 5, 400).astype(np.float32)}
+for _ in range(2):
+    m = tpu_als_torch.ALS(rank=3, maxIter=2, device="cpu").fit(frame)
+    m.recommend_arrays(4)
+hits = [e["component"] for e in obs.events("plan_cache_hit")]
+assert len(hits) == 2 and hits[1] == "topk:k=4", hits
+main(["plan", "warm", "--rank", "3", "--k", "4", "--device", "cpu"])
+main(["plan", "tune", "--rank", "3", "--device", "cpu", "--n", "16",
+      "--w", "4", "--max-w", "32", "--reps", "1"])
+main(["plan", "show"])
+main(["plan", "clear"])
+assert len(obs.events("tune_trial")) == len(autotune.enumerate_configs())
+bad = [k for k, v in sys.modules.items() if v is not None
+       and (k == "jax" or k.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+_DRIVE_PLAN_CACHE = r"""
+import importlib.util, os, sys, tempfile
+sys.modules["torch"] = None
+sys.modules["numpy"] = None
+sys.modules["jax"] = None
+spec = importlib.util.spec_from_file_location("plan_cache", sys.argv[1])
+cache = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cache)
+root = tempfile.mkdtemp()
+key = {"rank": 4, "dtype": "float32", "torch_version": cache._torch_version()}
+cache.store_entry(key, {"schema_version": 1, "plan_key": key, "probes": {},
+                        "components": {"x": {"resolved": 1, "provenance": {
+                            "banked_at": "now"}}}}, root)
+assert cache.suggested_probe_budget(600, root)[0] == 120.0
+assert cache.clear(root) == 1
+print("ok")
+"""
+
+
+def test_planner_runs_without_jax():
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _DRIVE_PLAN], cwd=REPO,
+                         env={**_env(), "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_plan_cache_is_stdlib_only():
+    path = os.path.join(REPO, "tpu_als_torch", "plan", "cache.py")
+    out = subprocess.run([sys.executable, "-c", _DRIVE_PLAN_CACHE, path],
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_plan_exports_the_references_names():
+    from tpu_als import plan as jplan
+    from tpu_als_torch import plan as tplan
+
+    want = [n for n in vars(jplan) if not n.startswith("_")
+            and not isinstance(getattr(jplan, n), type(sys))]
+    assert len(want) == 24
+    assert not [n for n in want if not hasattr(tplan, n)]
+
+
+@pytest.mark.parametrize("verb", ["warm", "tune"])
+def test_plan_verbs_without_cuda_raise(verb, monkeypatch, tmp_path):
+    from tpu_als_torch.cli import main
+
+    monkeypatch.setenv("TPU_ALS_PLAN_CACHE", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["plan", verb, "--rank", "4"])
 
 
 def test_subpackages_export_the_references_names():

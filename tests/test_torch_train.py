@@ -37,6 +37,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 5e-4, 5e-3
 NU, NI, NNZ, RANK = 40, 30, 500, 16
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: under the suite's
+    workers a thread pool per small op mostly waits for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONFIGS = {
     "explicit": {},
     "implicit": {"implicit_prefs": True, "alpha": 4.0},

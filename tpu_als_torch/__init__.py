@@ -51,8 +51,8 @@ Package map:
   live/    the live updater: rating events -> fold-in -> incremental
            publish, freshness measured per event
   tenancy/ the tenant registry and the fair-share multi-tenant engine
-  plan/    the planner's serving, live and tenant resolvers (disarmed:
-           no plan cache)
+  plan/    the execution planner and its persistent cache
+           (``TPU_ALS_PLAN_CACHE``; ``off`` disarms)
   parallel/  the mesh, sharded layouts, the sharded trainer and server
   api/     ALS, ALSModel, the sharded fit, params, the evaluators, the
            pipeline stages, the tuners, the legacy API, and the table of
@@ -67,7 +67,8 @@ Package map:
            stages, the run directory's readers (report, explain) and
            the bench regression gate (regress)
   perf/    the roofline at the H100's rates and the kernels' bounds,
-           stage attribution, the normal-equation traffic audit
+           stage attribution, the normal-equation traffic audit, the
+           autotuner of the kernel knobs
   models/  the two-tower retrieval model
   resilience/  fault injection, retry policies, the fit's guardrails,
            preemption

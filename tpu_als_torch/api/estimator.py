@@ -48,7 +48,7 @@ from tpu_als_torch.core.ratings import (
     remap_ids,
 )
 from tpu_als_torch.io.checkpoint import load_factors, save_factors
-from tpu_als_torch.ops.cuda_topk import topk_scores
+from tpu_als_torch.ops.cuda_topk import topk_route, topk_scores
 from tpu_als_torch.parallel.mesh import Mesh
 from tpu_als_torch.parallel.serve import topk_sharded
 from tpu_als_torch.parallel.trainer import check_strategy
@@ -659,6 +659,7 @@ class ALSModel:
             ids_out = other_ids[ix.cpu().numpy()]
             scores_out = sc.cpu().numpy()
         else:
+            self._plan_topk(Q.shape[1], k)
             block = max(1, int(self._get("blockSize")))
             valid = torch.ones(other.shape[0], dtype=torch.bool,
                                device=self.device)
@@ -698,10 +699,22 @@ class ALSModel:
         if mesh is not None:
             sc, ix = topk_sharded(Q, other, k, mesh, strategy=gatherStrategy)
         else:
+            self._plan_topk(Q.shape[1], k)
             sc, ix = topk_scores(
                 Q, other, torch.ones(other.shape[0], dtype=torch.bool,
                                      device=self.device), k)
         return frame_ids, other_ids[ix.cpu().numpy()], sc.cpu().numpy()
+
+    def _plan_topk(self, rank, k):
+        """The top-k route through the planner, once per recommend call
+        (never per block): banked, with its ``plan_*`` events, when
+        armed.  The route itself is ``topk_scores``' own, from k."""
+        from tpu_als_torch import plan
+
+        if plan.armed():
+            plan.resolve_topk(rank=int(rank), k=int(k),
+                              walk=lambda: topk_route(int(k)),
+                              device=self.device)
 
     # -- persistence ----------------------------------------------------
     def save(self, path):

@@ -1,5 +1,5 @@
 """Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune|
-foldin-bench|serve-bench|tt-train|observe``.
+foldin-bench|serve-bench|tt-train|observe|plan``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
@@ -97,6 +97,17 @@ the headline becomes ``live_freshness_p99_ms`` against
 ``--freshness-slo-ms``.  ``--tenants N`` serves N same-shaped models
 behind one ``MultiTenantEngine`` (``--tenant-weights``), headline
 ``tenancy_worst_p99_ms`` with the weighted ``fairness_ratio``.
+
+``plan show|warm|tune|clear`` (``cmd_plan``) drive the execution
+planner's cache (``TPU_ALS_PLAN_CACHE`` names its directory, ``off``
+disarms it): ``show`` prints every entry with its provenance (a corrupt
+file flagged, not fatal), ``warm`` resolves the whole plan for one
+configuration (cold: walked and banked; warm: read back), ``tune`` runs
+the measured autotune of the kernel knobs (``perf/autotune.py``: the
+split width, K4's scratch tile, the table's type) on the card and banks
+the winner (warm: a cache read with no trial; ``--force`` re-tunes;
+``--bank-out`` writes the winner as a bench bank), ``clear`` drops the
+entries.
 
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
@@ -1159,6 +1170,177 @@ def _publish_probe(engine, model, dev):
             "catalog_rows": int(idx.n_items)}
 
 
+def _tune_on_data(args, dev, search):
+    """``plan tune --data``: the search a ``train`` of the same data,
+    holdout, seed, rank and type runs on a miss under
+    ``TPU_ALS_AUTOTUNE=1``, on that fit's own buckets and initial
+    factors (an explicit fit: the knobs move the gathers and Grams both
+    kinds run), banked under the same key.  Returns ``(config, shape
+    class)``."""
+    import torch
+
+    from tpu_als_torch import plan as plan_pkg
+    from tpu_als_torch.core import als as core_als
+    from tpu_als_torch.core.ratings import build_csr_buckets, remap_ids
+
+    frame, _ = _load_train_data(args.data)
+    train, _ = frame.randomSplit([1 - args.holdout, args.holdout],
+                                 seed=args.seed)
+    u_idx, user_map = remap_ids(np.asarray(train["user"]))
+    i_idx, item_map = remap_ids(np.asarray(train["item"]))
+    r = np.asarray(train["rating"], dtype=np.float32)
+    ucsr = build_csr_buckets(u_idx, i_idx, r, len(user_map))
+    icsr = build_csr_buckets(i_idx, u_idx, r, len(item_map))
+    cfg = core_als.AlsConfig(rank=int(args.rank), seed=int(args.seed),
+                             compute_dtype=args.dtype)
+    g = torch.Generator().manual_seed(int(cfg.seed))
+    U = core_als.init_factors(ucsr.num_rows, cfg.rank, g).to(dev)
+    V = core_als.init_factors(icsr.num_rows, cfg.rank, g).to(dev)
+    ub, ib = ucsr.to(dev), icsr.to(dev)
+
+    def prepare(knobs):
+        return lambda: core_als.als_step(U, V, ub, ib, ucsr.num_rows,
+                                         icsr.num_rows, cfg,
+                                         ucsr.chunk_elems, icsr.chunk_elems,
+                                         knobs)
+
+    config = core_als.tuned_kernel_knobs(cfg, dev, prepare, (ucsr, icsr),
+                                         ucsr.num_rows, icsr.num_rows,
+                                         **search)
+    return config, plan_pkg.shape_class(ucsr.num_rows, icsr.num_rows,
+                                        ucsr.nnz)
+
+
+def cmd_plan(args):
+    """The execution planner's verbs: ``show`` renders the cache (mode,
+    entries, each component's provenance, the model beside the
+    measurement where one was banked; corrupt files flagged); ``warm``
+    resolves the whole ``ExecutionPlan`` for one configuration on
+    ``--device`` and prints it with the resolve's wall time; ``tune``
+    runs the kernel-knob autotune (cold: every trial timed on the
+    device and the winner banked; warm: read back with no trial;
+    ``--force`` re-tunes; ``--bank-out`` writes the bench bank);
+    ``clear`` drops the on-disk entries."""
+    from tpu_als_torch import plan as plan_pkg
+    from tpu_als_torch.plan import cache as plan_cache
+
+    if args.plan_cmd == "show":
+        entries = []
+        for path, doc in plan_cache.list_entries():
+            if isinstance(doc, dict):
+                comps = {}
+                for name, comp in doc["components"].items():
+                    prov = comp["provenance"]
+                    comps[name] = {
+                        "resolved": comp["resolved"],
+                        "banked_at": prov["banked_at"],
+                        "walk_seconds": prov.get("walk_seconds"),
+                        "probes_executed": prov.get("probes_executed"),
+                        "model": prov.get("model"),
+                    }
+                    if prov.get("measured_seconds") is not None:
+                        comps[name]["model_vs_measured"] = {
+                            "prediction_s": prov.get("model_seconds"),
+                            "measured_s": prov.get("measured_seconds"),
+                            "ratio": prov.get("ratio"),
+                            "source": prov.get("source"),
+                            "tuned_config": comp["resolved"],
+                            "invalidated": prov.get("invalidated"),
+                        }
+                entries.append({"path": path, "plan_key": doc["plan_key"],
+                                "probes": doc["probes"],
+                                "components": comps})
+            else:                       # PlanCacheCorrupt: shown, not fatal
+                entries.append({"path": path, "corrupt": str(doc)})
+        print(json.dumps({"mode": plan_pkg.mode(),
+                          "cache_dir": plan_cache.cache_dir(),
+                          "entries": entries}, indent=2, default=str))
+        return
+
+    if args.plan_cmd == "warm":
+        from tpu_als_torch.utils.platform import resolve_device
+
+        dev = resolve_device(args.device)
+        t0 = time.perf_counter()
+        ep = plan_pkg.resolve_execution_plan(
+            rank=args.rank, compute_dtype=args.dtype,
+            solve_backend=args.solve_backend, cg_iters=args.cg_iters,
+            k=args.k, n_users=args.users, n_items=args.items,
+            n_devices=args.devices, device=dev)
+        out = ep.summary()
+        out["resolve_seconds"] = round(time.perf_counter() - t0, 4)
+        out["mode"] = plan_pkg.mode()
+        print(json.dumps(out, default=str))
+        return out
+
+    if args.plan_cmd == "tune":
+        from tpu_als_torch.perf import autotune
+        from tpu_als_torch.utils.platform import resolve_device
+
+        if not plan_pkg.armed():
+            print(json.dumps({"error": "plan cache is off "
+                              "(TPU_ALS_PLAN_CACHE=off): nothing to "
+                              "tune against"}))
+            raise SystemExit(2)
+        space = None
+        if args.space is not None:
+            try:
+                space = json.loads(args.space)
+                autotune.enumerate_configs(space)
+            except (json.JSONDecodeError, ValueError, TypeError,
+                    AttributeError) as e:
+                print(f"tpu_als_torch: --space: {e}", file=sys.stderr)
+                raise SystemExit(2) from e
+        dev = resolve_device(args.device)
+        t0 = time.perf_counter()
+        search = dict(tune=True, force=args.force, budget_s=args.budget_s,
+                      space=space, k=args.reps)
+        if args.data is None:
+            config = plan_pkg.resolve_kernel_config(
+                rank=args.rank, compute_dtype=args.dtype, n=args.n,
+                w=args.w, max_w=args.max_w, seed=args.seed, device=dev,
+                **search)
+            shape_class = "generic"
+        else:
+            config, shape_class = _tune_on_data(args, dev, search)
+        key = plan_pkg.plan_key(rank=int(args.rank), dtype=str(args.dtype),
+                                device=dev, shape_class=shape_class)
+        entry = plan_cache.load_entry(key)
+        comp = (entry or {}).get("components", {}).get("kernel_config")
+        prov = (comp or {}).get("provenance") or {}
+        out = {"mode": plan_pkg.mode(), "config": config,
+               "provenance": prov,
+               "resolve_seconds": round(time.perf_counter() - t0, 4)}
+        if args.bank_out is not None and prov:
+            bank = {"metric": "autotune_fused_solve_speedup_"
+                              + ("cpu" if prov["source"] == "plain"
+                                 else "gpu"),
+                    "value": (prov["default_seconds"]
+                              / prov["measured_seconds"]),
+                    "unit": "x",
+                    "kernel": "local_half_step",
+                    "source": prov["source"],
+                    "config": comp["resolved"],
+                    "default_seconds": prov["default_seconds"],
+                    "tuned_seconds": prov["measured_seconds"],
+                    "model_seconds": prov["model_seconds"],
+                    "tune_seconds": prov["tune_seconds"],
+                    "shape": prov["model"]["shape"],
+                    "banked_at": prov["banked_at"]}
+            with open(args.bank_out, "w") as f:
+                json.dump(bank, f, indent=2)
+                f.write("\n")
+            out["bank_out"] = args.bank_out
+        print(json.dumps(out, default=str))
+        return out
+
+    if args.plan_cmd == "clear":
+        root = plan_cache.cache_dir()
+        n = plan_pkg.clear()
+        print(json.dumps({"cleared_entries": n, "cache_dir": root}))
+        return
+
+
 def cmd_serve_bench(args):
     """Open-loop serving latency benchmark: seeded factors, a fixed
     request rate for a fixed window, p50/p99/shed read back from the obs
@@ -1754,6 +1936,91 @@ def main(argv=None):
                           "points; default 5)")
     os6.add_argument("--json", dest="as_json", action="store_true")
     o.set_defaults(fn=cmd_observe)
+
+    pl = sub.add_parser(
+        "plan",
+        help="execution planner: inspect, warm, tune or clear the "
+             "persistent plan cache (TPU_ALS_PLAN_CACHE names its "
+             "directory, 'off' disarms)")
+    plsub = pl.add_subparsers(dest="plan_cmd", required=True)
+    pls = plsub.add_parser(
+        "show", help="render the cache: mode, entries, per-component "
+                     "provenance (corrupt files flagged, not fatal)")
+    pls.set_defaults(fn=cmd_plan, obs_dir=None)
+    plw = plsub.add_parser(
+        "warm", parents=[obs_common],
+        help="resolve the whole ExecutionPlan for one configuration: a "
+             "cold resolve walks and banks, a warm one reads the bank")
+    plw.add_argument("--rank", type=int, default=128)
+    plw.add_argument("--dtype", default="float32",
+                     choices=["float32", "bfloat16"])
+    plw.add_argument("--solve-backend", default="auto",
+                     choices=["auto", "unfused", "gather_fused",
+                              "gather_fused_solve", "gather_fused_ring"])
+    plw.add_argument("--cg-iters", type=int, default=0)
+    plw.add_argument("--k", type=int, default=10,
+                     help="serving top-k (the top-k route keys on it)")
+    plw.add_argument("--users", type=int, default=None,
+                     help="with --items and --devices > 1: also resolve "
+                          "the gather strategy for this shape")
+    plw.add_argument("--items", type=int, default=None)
+    plw.add_argument("--devices", type=int, default=1)
+    plw.add_argument("--device", default=None,
+                     help="torch device the plan is for (default: cuda; "
+                          "plan keys name the device)")
+    plw.set_defaults(fn=cmd_plan)
+    plt = plsub.add_parser(
+        "tune", parents=[obs_common],
+        help="measured autotune of the kernel knobs (split width, K4's "
+             "scratch tile): cold, the timed call (--data: one iteration "
+             "of that fit; else one synthetic local_half_step) min-of-k "
+             "per trial and the winner banked; warm, the banked config "
+             "read back with no trial (--force re-tunes)")
+    plt.add_argument("--rank", type=int, default=128)
+    plt.add_argument("--dtype", default="float32",
+                     choices=["float32", "bfloat16"])
+    plt.add_argument("--budget-s", type=float, default=None,
+                     help="wall-clock tuning budget in seconds; the "
+                          "trial loop stops when exceeded (default: "
+                          "120)")
+    plt.add_argument("--space", default=None,
+                     help="JSON dict restricting the search space, e.g. "
+                          "'{\"split_width\": [4096, 16384]}'; knobs: "
+                          "split_width, scratch_elems (another knob "
+                          "exits 2)")
+    plt.add_argument("--data", default=None,
+                     help="tune on this data's fit (as train's --data): "
+                          "one iteration of that fit timed per trial and "
+                          "banked under the key its train run reads with "
+                          "TPU_ALS_AUTOTUNE=1 (default: the synthetic "
+                          "timer of --n/--w/--max-w, which no fit reads)")
+    plt.add_argument("--holdout", type=float, default=0.2,
+                     help="with --data: the held-out share, as train's")
+    plt.add_argument("--n", type=int, default=4096,
+                     help="the timer's rows in its narrowest bucket")
+    plt.add_argument("--w", type=int, default=64,
+                     help="the timer's narrowest bucket width")
+    plt.add_argument("--max-w", type=int, default=1 << 17,
+                     help="the timer's widest bucket width (widths "
+                          "double from --w)")
+    plt.add_argument("--reps", type=int, default=3,
+                     help="min-of-k repetitions per trial")
+    plt.add_argument("--seed", type=int, default=0)
+    plt.add_argument("--force", action="store_true",
+                     help="re-tune even when a valid banked config "
+                          "exists (a config measured on the card still "
+                          "refuses a plain-version overwrite)")
+    plt.add_argument("--bank-out", default=None,
+                     help="also write a BENCH-style direct bank to this "
+                          "path")
+    plt.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' times the "
+                          "kernels' plain versions)")
+    plt.set_defaults(fn=cmd_plan)
+    plc = plsub.add_parser(
+        "clear", help="drop the on-disk entries (.corrupt/ evidence is "
+                      "kept)")
+    plc.set_defaults(fn=cmd_plan, obs_dir=None)
     args = parser.parse_args(argv)
     _arm_fault_spec()
     if args.cmd == "observe":

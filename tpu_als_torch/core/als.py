@@ -41,6 +41,16 @@ whole-iteration kernel has none.
 guardrails`): disarmed, one mode check; armed, a sentinel read at each
 iteration boundary and, in 'recover', the adaptive solve and a rollback
 to the last good factors when a sentinel trips.
+
+The kernel knobs (:mod:`tpu_als_torch.perf.autotune`: the split width
+and K4's scratch tile) are run-time arguments:
+:func:`resolve_solve_path`, :func:`local_half_step` and :func:`als_step`
+take them explicitly, ``None`` meaning the module constants
+(:data:`SPLIT_WIDTH`, ``cuda_gather_ne._SCRATCH_ELEMS``) read at call
+time.  :func:`train` takes a tuned set from the planner only when it is
+armed and ``TPU_ALS_AUTOTUNE=1`` (:func:`tuned_kernel_knobs`); it also
+resolves the fit's training plan once, before the first iteration
+(:func:`plan_training`).
 """
 
 from __future__ import annotations
@@ -115,9 +125,15 @@ class AlsConfig:
     adaptive_solve: bool = False    # solve_spd's residual-checked ladder
 
 
-def resolve_solve_path(cfg: AlsConfig, rank, width):
+def _split(split_width):
+    """``split_width``, or :data:`SPLIT_WIDTH` (read at call time) when
+    None."""
+    return SPLIT_WIDTH if split_width is None else int(split_width)
+
+
+def resolve_solve_path(cfg: AlsConfig, rank, width, split_width=None):
     """The route label of one bucket of ``width`` at ``rank``, from the
-    config and the shapes alone.
+    config and the shapes alone; ``split_width`` None: :data:`SPLIT_WIDTH`.
 
     With ``adaptive_solve`` under 'auto', a bucket of width <=
     :data:`SPLIT_WIDTH` resolves to K3 + the laddered ``solve_spd``
@@ -145,7 +161,7 @@ def resolve_solve_path(cfg: AlsConfig, rank, width):
                 if cfg.cg_mode == "matfree"
                 else f"einsum+cg{cfg.cg_iters}_warmstart")
     if cfg.solve_backend == "auto":
-        if width <= SPLIT_WIDTH and rank <= gne.SOLVE_MAX_RANK:
+        if width <= _split(split_width) and rank <= gne.SOLVE_MAX_RANK:
             return ("gatherfused+" + solver if cfg.adaptive_solve
                     else "gatherfused_solve")
         # the wide rows' systems (above K4's rank 512 every bucket's):
@@ -166,7 +182,7 @@ def init_factors(num_rows, rank, generator):
     return x / torch.clamp(nrm, min=1e-12)
 
 
-def _chunk_rows(path, nb, w, r, chunk_elems):
+def _chunk_rows(path, nb, w, r, chunk_elems, split_width=None):
     """Rows per launch.  K4 builds no intermediate, so it takes the whole
     bucket; a K3 route takes as many rows as keep its A [chunk, r, r], and
     K3's partial Grams [chunk, width chunks, r, r], each within the
@@ -176,26 +192,29 @@ def _chunk_rows(path, nb, w, r, chunk_elems):
     if path in _K4_PATHS:
         return nb
     if path.startswith("gatherfused+"):
-        return max(1, min(nb, _MEM_ELEMS // (r * r * -(-w // SPLIT_WIDTH))))
+        return max(1, min(nb, _MEM_ELEMS
+                          // (r * r * -(-w // _split(split_width)))))
     return trainer_chunk(nb, w, r, chunk_elems)
 
 
 def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
-                 num_rows):
+                 num_rows, split_width, scratch_elems):
     if path in _K4_PATHS:
         if cfg.implicit_prefs:
             return gne.gather_fused_solve_implicit(
-                V_comp, c, v, m, reg, alpha, YtY, jitter=cfg.jitter)
+                V_comp, c, v, m, reg, alpha, YtY, jitter=cfg.jitter,
+                scratch_elems=scratch_elems)
         return gne.gather_fused_solve_explicit(V_comp, c, v, m, reg,
-                                               jitter=cfg.jitter)
+                                               jitter=cfg.jitter,
+                                               scratch_elems=scratch_elems)
     backend = _SOLVER_BACKEND.get(path.partition("+")[2])
     if path.startswith("gatherfused+"):
         if cfg.implicit_prefs:
             A, rhs, count = gne.gather_normal_eq_implicit(
-                V_comp, c, v, m, reg, alpha, YtY, split_width=SPLIT_WIDTH)
+                V_comp, c, v, m, reg, alpha, YtY, split_width=split_width)
         else:
             A, rhs, count = gne.gather_normal_eq_explicit(
-                V_comp, c, v, m, reg, split_width=SPLIT_WIDTH)
+                V_comp, c, v, m, reg, split_width=split_width)
         return solve_spd(A, rhs, count, jitter=cfg.jitter, backend=backend,
                          adaptive=cfg.adaptive_solve)
     Vg = V_comp[c.long()]
@@ -225,15 +244,21 @@ def _solve_chunk(path, cfg, V_comp, c, v, m, rw, YtY, reg, alpha, prev,
 
 
 def local_half_step(V_full, buckets, num_rows, cfg: AlsConfig, YtY=None,
-                    chunk_elems=1 << 19, prev=None, reg=None, alpha=None):
+                    chunk_elems=1 << 19, prev=None, reg=None, alpha=None,
+                    knobs=None):
     """Solve every row of one side given the full opposite factors.
 
     ``V_full`` [N_opposite, r]; ``buckets``: the side's buckets as tensors
     (:meth:`CsrBuckets.to`); ``YtY``: the opposite side's Gram (implicit);
     ``prev``: this side's current factors, the warm start of the CG
-    routes.  Returns new factors [num_rows, r] f32; rows no bucket holds
-    stay 0, and padding rows (``rows == num_rows``) are dropped.
+    routes; ``knobs``: ``{"split_width", "scratch_elems"}`` (either may be
+    absent or None: the module constant).  Returns new factors
+    [num_rows, r] f32; rows no bucket holds stay 0, and padding rows
+    (``rows == num_rows``) are dropped.
     """
+    knobs = knobs or {}
+    split = _split(knobs.get("split_width"))
+    scratch = knobs.get("scratch_elems")
     reg = cfg.reg_param if reg is None else reg
     alpha = cfg.alpha if alpha is None else alpha
     r = V_full.shape[-1]
@@ -245,31 +270,110 @@ def local_half_step(V_full, buckets, num_rows, cfg: AlsConfig, YtY=None,
                       device=V_full.device)
     for b in buckets:
         nb, w = b.cols.shape
-        path = resolve_solve_path(cfg, r, w)
+        path = resolve_solve_path(cfg, r, w, split)
         vals, mask = b.vals.to(cdt), b.mask.to(cdt)
-        step = _chunk_rows(path, nb, w, r, chunk_elems)
+        step = _chunk_rows(path, nb, w, r, chunk_elems, split)
         for s in range(0, nb, step):
             sl = slice(s, s + step)
             x = _solve_chunk(path, cfg, V_comp, b.cols[sl], vals[sl],
                              mask[sl], b.rows[sl], YtY, reg, alpha, prev,
-                             num_rows)
+                             num_rows, split, scratch)
             out[b.rows[sl]] = x
     return out[:num_rows]
 
 
 def als_step(U, V, user_buckets, item_buckets, num_users, num_items,
              cfg: AlsConfig, user_chunk_elems=1 << 19,
-             item_chunk_elems=1 << 19):
+             item_chunk_elems=1 << 19, knobs=None):
     """One full ALS iteration: the item half-step against the current U
     (with YᵀY = UᵀU when implicit), then the user half-step against the
-    new V."""
+    new V; ``knobs`` as :func:`local_half_step`'s."""
     yty_u = compute_yty(U) if cfg.implicit_prefs else None
     V = local_half_step(U, item_buckets, num_items, cfg, yty_u,
-                        item_chunk_elems, prev=V)
+                        item_chunk_elems, prev=V, knobs=knobs)
     yty_v = compute_yty(V) if cfg.implicit_prefs else None
     U = local_half_step(V, user_buckets, num_users, cfg, yty_v,
-                        user_chunk_elems, prev=U)
+                        user_chunk_elems, prev=U, knobs=knobs)
     return U, V
+
+
+def training_walk(cfg: AlsConfig, rank, split_width=None):
+    """The fit's routes at ``split_width`` (None: :data:`SPLIT_WIDTH`):
+    a narrow bucket's (``resolved_solve_path``), a bucket's just past the
+    split (``wide_solve_path``), and the split width itself.  The planner
+    banks this dict; each bucket's route is still taken from its shape."""
+    split = _split(split_width)
+    return {"resolved_solve_path": resolve_solve_path(cfg, rank, 1, split),
+            "wide_solve_path": resolve_solve_path(cfg, rank, split + 1,
+                                                  split),
+            "split_width": split}
+
+
+def _plan_label(cfg: AlsConfig, split_width):
+    return (f"solve={cfg.solve_backend},cg={cfg.cg_iters},"
+            f"mode={cfg.cg_mode},nonneg={int(cfg.nonnegative)},"
+            f"adaptive={int(cfg.adaptive_solve)},split={split_width}")
+
+
+def plan_training(cfg: AlsConfig, rank, split_width=None, device=None):
+    """:func:`training_walk` through the planner when it is armed
+    (``plan.resolve_training``: banked, with its ``plan_*`` events), else
+    the walk alone."""
+    from tpu_als_torch import plan
+
+    split = _split(split_width)
+
+    def walk():
+        return training_walk(cfg, rank, split)
+
+    if plan.armed():
+        return plan.resolve_training(rank=int(rank),
+                                     compute_dtype=cfg.compute_dtype,
+                                     label=_plan_label(cfg, split),
+                                     walk=walk, device=device)
+    return walk()
+
+
+def autotune_gate():
+    """Whether a fit consults the tuned kernel knobs: the planner armed
+    AND ``TPU_ALS_AUTOTUNE=1``.  With the gate off nothing is read, and
+    the fit runs on the module constants."""
+    from tpu_als_torch import plan
+
+    return plan.armed() and plan.autotune_enabled()
+
+
+def tuned_kernel_knobs(cfg: AlsConfig, device, prepare, containers,
+                       num_users, num_items, mesh_shape=None, **search):
+    """One fit's kernel knobs, ``{"split_width", "scratch_elems"}``, from
+    the planner's ``kernel_config``, keyed on the fit's problem
+    (``plan.shape_class`` of its sizes, and ``mesh_shape``); or None
+    (nothing banked and no tuning asked for: the module constants).
+
+    On a miss with tuning asked for (``TPU_ALS_AUTOTUNE=1`` or
+    ``search``'s ``tune``), the search times ``prepare(knobs)()``, one
+    iteration of this fit from its initial factors, on its own buckets;
+    ``containers`` are the host buckets that iteration solves, priced by
+    ``perf.autotune.model_seconds``.  ``search``: the rest of
+    ``plan.resolve_kernel_config``'s arguments (``k`` the timer's)."""
+    from tpu_als_torch import plan
+    from tpu_als_torch.perf import autotune
+
+    nnz = int(containers[0].nnz)
+    timer = autotune.make_step_timer(
+        prepare, device, shapes=autotune.data_shapes(*containers),
+        k=search.pop("k", 3),
+        shape={"rank": int(cfg.rank), "data": "fit",
+               "n_users": int(num_users), "n_items": int(num_items),
+               "nnz": nnz})
+    kcfg = plan.resolve_kernel_config(
+        rank=int(cfg.rank), compute_dtype=cfg.compute_dtype, device=device,
+        timer=timer, shape_class=plan.shape_class(num_users, num_items, nnz),
+        mesh_shape=mesh_shape, **search)
+    if not kcfg:
+        return None
+    return {"split_width": int(kcfg["split_width"]),
+            "scratch_elems": int(kcfg["scratch_elems"])}
 
 
 def _as_factors(x, device):
@@ -288,6 +392,10 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
     start (a resumed checkpoint): the loop then runs iterations
     ``start_iter + 1 .. cfg.max_iter``.  Returns ``(U, V)`` on the device.
 
+    Before the first iteration the fit takes its tuned kernel knobs
+    (:func:`tuned_kernel_knobs`, tuned on this fit's own iteration on a
+    miss; with ``TPU_ALS_AUTOTUNE`` unset, none) and resolves its
+    training plan (:func:`plan_training`), once each.
     The guardrails' mode (:func:`~tpu_als_torch.resilience.guardrails.
     guardrails_mode`) is read once: 'off' leaves the loop as it is;
     'warn' judges the sentinels after each iteration and reports a trip;
@@ -310,20 +418,33 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
     # stage attribution (obs/trace.py), armed: the configured iteration
     # runs as its decomposed, fence-timed twin, its stages' seconds in the
     # train.stage_seconds histograms; disarmed, this flag is the whole cost
-    attributed = None
-    if stage_attribution_armed():
-        from tpu_als_torch.perf.attribution import make_attributed_step
-
-        attributed = make_attributed_step(
-            ub, ib, num_users, num_items, cfg, user_csr.chunk_elems,
-            item_csr.chunk_elems)
+    attribution = stage_attribution_armed()
     gmode = guardrails_mode()
     monitor = None
     step_cfg = cfg
     if gmode != "off":
         monitor = Monitor(cfg, gmode)
-        if gmode == "recover" and attributed is None:
+        if gmode == "recover" and not attribution:
             step_cfg = replace(cfg, adaptive_solve=True)
+    knobs = None
+    if autotune_gate():
+        def prepare(kn):
+            return lambda: als_step(U, V, ub, ib, num_users, num_items,
+                                    step_cfg, user_csr.chunk_elems,
+                                    item_csr.chunk_elems, kn)
+
+        knobs = tuned_kernel_knobs(step_cfg, device, prepare,
+                                   (user_csr, item_csr), num_users,
+                                   num_items)
+    attributed = None
+    if attribution:
+        from tpu_als_torch.perf.attribution import make_attributed_step
+
+        attributed = make_attributed_step(
+            ub, ib, num_users, num_items, cfg, user_csr.chunk_elems,
+            item_csr.chunk_elems, knobs=knobs)
+    plan_training(step_cfg, cfg.rank,
+                  None if knobs is None else knobs["split_width"], device)
     gram_fault = faults.armed("solve.gram")
     it = start_iter
     retry = False
@@ -334,7 +455,8 @@ def train(user_csr, item_csr, cfg: AlsConfig, callback=None, init=None,
             U, V = attributed(U, V)
         else:
             U, V = als_step(U, V, ub, ib, num_users, num_items, step_cfg,
-                            user_csr.chunk_elems, item_csr.chunk_elems)
+                            user_csr.chunk_elems, item_csr.chunk_elems,
+                            knobs)
         if gram_fault and faults.check("solve.gram") == "corrupt":
             U[0] = torch.nan  # what a blown Gram solve leaves behind
         if monitor is not None:

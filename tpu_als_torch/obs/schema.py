@@ -11,14 +11,14 @@ plane, the CLI's per-iteration records, the sharded trainer's comm
 gauges, elastic recovery (its events, counter and the ``elastic.detect``
 / ``reform`` / ``resume`` trace hops; its probe and classify run under
 the ``elastic.probe`` and ``elastic.classify`` spans), the degraded
-sharded serve, and the run's final snapshot and spans.  The registry
+sharded serve, the execution planner and its autotuner, and the run's
+final snapshot and spans.  The registry
 (:mod:`tpu_als_torch.obs.metrics`) checks every name against these
 tables when it is written, so an undeclared name raises instead of
 minting a series nothing downstream reads.  Help texts are the
 reference's, so the two packages' Prometheus texts agree.  The other
-rows of the reference (soak, scenario, plan, the training stage
-histogram, the sharded serve's latency) arrive with the modules that
-write them.
+rows of the reference (soak, scenario, the sharded serve's latency)
+arrive with the modules that write them.
 """
 
 from __future__ import annotations
@@ -356,6 +356,44 @@ EVENTS = {
         "boundary: from the last atomic checkpoint ('checkpoint', with "
         "its path in an extra field) or from the seed-deterministic "
         "init ('scratch' — the quarantined epoch is re-run in full)"),
+    "plan_resolved": (
+        ("key", "component", "source", "resolved"),
+        "the execution planner settled a plan component (solve path / "
+        "top-k backend / gather strategy / serving buckets): the plan "
+        "key, whether the verdict came from 'cache' or a fresh 'probe' "
+        "walk, and the resolved value (tpu_als.plan.planner)"),
+    "plan_probe": (
+        ("kernel", "outcome", "seconds"),
+        "one probe consultation spent by a COLD plan resolve (the "
+        "per-kernel verdicts newly cached during the walk, plus one "
+        "'walk:<component>' record for the walk itself); a warm-cache "
+        "resolve emits none — the warm-start tests pin exactly that"),
+    "plan_cache_hit": (
+        ("key", "component", "path", "seeded"),
+        "a plan component resolved from the persistent autotune cache: "
+        "entry path and how many banked probe verdicts were seeded "
+        "into the in-process registry (zero probe executions)"),
+    "plan_cache_miss": (
+        ("key", "component", "reason"),
+        "a plan component was not servable from the cache (reason: "
+        "absent|component_absent|corrupt) — a probe walk follows and "
+        "its verdict is banked; 'corrupt' means the entry file was "
+        "quarantined to .corrupt/ first"),
+    "plan_tuned": (
+        ("key", "component", "source", "config", "measured_seconds",
+         "model_seconds"),
+        "the measured-timing autotuner banked a kernel config into the "
+        "plan entry: the winning knobs (panel/vmem_budget/max_wc/depth/"
+        "dtype), the min-of-k measured seconds next to the roofline "
+        "closed-form prediction, and whether the timings came from the "
+        "'device' or the CPU 'interpret' path — interpret verdicts "
+        "never override an on-chip one (tpu_als.plan.planner)"),
+    "tune_trial": (
+        ("kernel", "config", "seconds"),
+        "one autotune search trial: the kernel timed, the candidate "
+        "config, and its min-of-k seconds (tpu_als.perf.autotune); a "
+        "warm kernel-config resolve emits none — autotune_smoke pins "
+        "exactly that"),
     "snapshot": (
         ("counters", "gauges", "histograms"),
         "final registry state, appended once by finalize() so the JSONL "

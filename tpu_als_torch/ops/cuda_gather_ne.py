@@ -65,7 +65,8 @@ COST = None
 
 # K4's and K7's scratch (each row's Gram, b and count, and K7's width
 # chunks' partials) is kept within this many f32 elements a launch (1
-# GiB, the trainer's per-launch budget): the rows go in tiles
+# GiB, the trainer's per-launch budget): the rows go in tiles.  K4 takes
+# another tile per call (``scratch_elems``, a knob of perf/autotune.py)
 _SCRATCH_ELEMS = 1 << 28
 
 
@@ -265,14 +266,15 @@ def _reg_w(reg, dtype):
 
 
 def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
-                 jitter=DEFAULT_JITTER):
+                 jitter=DEFAULT_JITTER, scratch_elems=None):
     """``x [n, r]`` f32: kernel K4 for CUDA tensors, the plain version for
     CPU tensors, rank <= :data:`SOLVE_MAX_RANK` on both (``ValueError``
     above).  ``reg`` and ``jitter`` are the ridge coefficient and the
     jitter of the in-kernel tail; ``YtY`` [r, r] f32 or None (zero).  The
     kernel's two passes run on row tiles whose scratch stays within
-    :data:`_SCRATCH_ELEMS` (1,021 rows a tile at rank 512);
-    ``SOLVE_LAUNCHES`` counts one per call."""
+    ``scratch_elems`` floats (None: :data:`_SCRATCH_ELEMS`, 1,021 rows a
+    tile at rank 512; at least one row's); ``SOLVE_LAUNCHES`` counts one
+    per call."""
     global SOLVE_LAUNCHES
     _check("gather_solve", V, cols, aw, bw, cw)
     _solve_rank("gather_solve", V.shape[1])
@@ -291,7 +293,8 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
         return x
     if w == 0:
         return x.zero_()
-    step = max(1, min(n, _SCRATCH_ELEMS // _row_floats(r)))
+    scratch = _SCRATCH_ELEMS if scratch_elems is None else int(scratch_elems)
+    step = max(1, min(n, scratch // _row_floats(r)))
     sums = torch.empty(step * _row_floats(r), dtype=torch.float32,
                        device=V.device)
     fn = _build.load("gather_solve")
@@ -310,21 +313,21 @@ def gather_solve(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
 
 
 def gather_fused_solve_explicit(V, cols, vals, mask, reg, *,
-                                jitter=DEFAULT_JITTER):
+                                jitter=DEFAULT_JITTER, scratch_elems=None):
     """``normal_eq_explicit(V[cols], ...)`` + ``solve_spd`` in one kernel:
     returns x only."""
     return gather_solve(V, cols, mask, vals * mask, mask, two_sided=True,
-                        reg=reg, jitter=jitter)
+                        reg=reg, jitter=jitter, scratch_elems=scratch_elems)
 
 
 def gather_fused_solve_implicit(V, cols, vals, mask, reg, alpha, YtY, *,
-                                jitter=DEFAULT_JITTER):
+                                jitter=DEFAULT_JITTER, scratch_elems=None):
     """``normal_eq_implicit(V[cols], ...)`` + ``solve_spd`` in one kernel:
     returns x only."""
     conf_m1, pref = implicit_weights(vals, mask, alpha)
     return gather_solve(V, cols, conf_m1, (1.0 + conf_m1) * pref * mask,
                         pref * mask, YtY, two_sided=False, reg=reg,
-                        jitter=jitter)
+                        jitter=jitter, scratch_elems=scratch_elems)
 
 
 def gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY=None, *,

@@ -148,7 +148,7 @@ def build_a2a(row_part, col_part, row_idx, col_idx, vals, min_width=8,
 
 
 def a2a_half_step(V_stacked, send_idx, buckets, num_rows, n_shards, cfg,
-                  chunk_elems, YtY=None, prev=None):
+                  chunk_elems, YtY=None, prev=None, knobs=None):
     """One half-step of every owner with the ragged exchange.
 
     ``V_stacked`` [S·per, r]: the opposite factors in slot space;
@@ -157,7 +157,8 @@ def a2a_half_step(V_stacked, send_idx, buckets, num_rows, n_shards, cfg,
     the solved side's current factors, the CG warm start.  Owner d
     receives ``V_shard_s[send_idx[s, d]]`` from every source s, stacked
     in source order into the compact ``[S·R, r]`` table its column ids
-    index, and solves its rows with ``local_half_step``.  Returns
+    index, and solves its rows with ``local_half_step`` (``knobs`` as
+    its).  Returns
     [D·num_rows, r] f32."""
     r = V_stacked.shape[-1]
     V_sh = V_stacked.reshape(n_shards, -1, r)
@@ -171,5 +172,5 @@ def a2a_half_step(V_stacked, send_idx, buckets, num_rows, n_shards, cfg,
         out.append(local_half_step(
             V_compact, own, num_rows, cfg, YtY, chunk_elems,
             prev=None if prev is None
-            else prev[d * num_rows:(d + 1) * num_rows]))
+            else prev[d * num_rows:(d + 1) * num_rows], knobs=knobs))
     return torch.cat(out)

@@ -152,15 +152,18 @@ def _scatter(out, b, x):
 
 
 def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
-                         YtY=None):
+                         YtY=None, split_width=None):
     """One half-step of every owner through kernel K7, one launch per
     bucket; a bucket whose rows' ring streams (S·w entries) are longer
-    than ``core.als.SPLIT_WIDTH`` is split over blocks in chunks of that
-    many entries, as the single-device trainer splits K3's wide rows.
+    than ``split_width`` (None: ``core.als.SPLIT_WIDTH``; the fit's tuned
+    one, :func:`~tpu_als_torch.parallel.trainer.train_sharded`) is split
+    over blocks in chunks of that many entries, as the single-device
+    trainer splits K3's wide rows.
     ``V_stacked`` [S·per, r]: the opposite factors in slot space;
     ``ring_buckets``: the grid as tensors (:meth:`RingCsr.to`).  Returns
     the solved side [D·num_rows, r] f32.  The count and the ridge come from
     the kernel's own ``cw`` sums, as in the reference."""
+    split = core_als._split(split_width)
     r = V_stacked.shape[-1]
     cdt = getattr(torch, cfg.compute_dtype)
     V_sh = V_stacked.to(cdt).reshape(n_shards, -1, r).contiguous()
@@ -172,17 +175,18 @@ def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
         if cfg.implicit_prefs:
             x = gne.gather_fused_ring_implicit(
                 V_sh, b.cols, vals, mask, cfg.reg_param, cfg.alpha, YtY,
-                jitter=cfg.jitter, split_width=core_als.SPLIT_WIDTH)
+                jitter=cfg.jitter, split_width=split)
         else:
             x = gne.gather_fused_ring_explicit(
                 V_sh, b.cols, vals, mask, cfg.reg_param, jitter=cfg.jitter,
-                split_width=core_als.SPLIT_WIDTH)
+                split_width=split)
         _scatter(out, b, x)
     return out[:, :num_rows].reshape(D * num_rows, r)
 
 
 def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
-                   chunk_elems, YtY=None, prev=None, fused=False):
+                   chunk_elems, YtY=None, prev=None, fused=False,
+                   split_width=None):
     """One half-step of every owner with the factor shards streaming.
 
     ``V_stacked`` [S·per, r]: the opposite factors in slot space;
@@ -194,10 +198,11 @@ def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
     the tile is solved: NNLS when nonnegative, warm-started CG when
     ``cg_iters > 0``, else ``solve_spd``.  ``fused=True`` is
     :func:`ring_fused_half_step` (not with nonnegative: NNLS has no fused
-    kernel).  Returns [D·num_rows, r] f32."""
+    kernel; ``split_width`` as there).  Returns [D·num_rows, r] f32."""
     if fused and not cfg.nonnegative:
         return ring_fused_half_step(V_stacked, ring_buckets, num_rows,
-                                    n_shards, cfg, YtY=YtY)
+                                    n_shards, cfg, YtY=YtY,
+                                    split_width=split_width)
     r = V_stacked.shape[-1]
     dev = V_stacked.device
     cdt = getattr(torch, cfg.compute_dtype)

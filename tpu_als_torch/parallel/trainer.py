@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from tpu_als_torch.convert import slot_rows
+from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.als import AlsConfig, init_factors, local_half_step
 from tpu_als_torch.core.ratings import Bucket, trainer_chunk
 from tpu_als_torch.ops.solve import compute_yty
@@ -128,10 +129,12 @@ def _owner(buckets, d):
                    mask=b.mask[d]) for b in buckets]
 
 
-def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig):
+def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig,
+                      knobs=None):
     """``step(U, V) -> (U, V)`` on slot-space tables, strategy
     ``'all_gather'``: each owner's rows solved by ``local_half_step``
-    against the whole stacked opposite table."""
+    (with the fit's ``knobs``) against the whole stacked opposite
+    table."""
     _check_shards(mesh, user_sharded, item_sharded)
     dev = mesh.device
     ub, ib = user_sharded.to(dev), item_sharded.to(dev)
@@ -140,7 +143,7 @@ def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig):
         YtY = compute_yty(Y) if cfg.implicit_prefs else None
         return torch.cat([
             local_half_step(Y, _owner(buckets, d), per, cfg, YtY, chunk,
-                            prev=prev[d * per:(d + 1) * per])
+                            prev=prev[d * per:(d + 1) * per], knobs=knobs)
             for d in range(mesh.size)])
 
     def step(U, V):
@@ -153,12 +156,13 @@ def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig):
     return step
 
 
-def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts):
+def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
+                   knobs=None):
     """``step(U, V) -> (U, V)`` with the ring strategy over the grids
     ``user_ring``/``item_ring`` (:class:`.comm.RingCsr`), kernel K7 when
-    ``solve_backend='gather_fused_ring'`` (and not nonnegative).
-    ``ring_counts``: ``(user_counts, item_counts)`` from
-    :func:`stacked_counts`."""
+    ``solve_backend='gather_fused_ring'`` (and not nonnegative), split at
+    the ``knobs``' split width.  ``ring_counts``: ``(user_counts,
+    item_counts)`` from :func:`stacked_counts`."""
     _check_shards(mesh, user_ring, item_ring)
     dev = mesh.device
     ub, ib = user_ring.to(dev), item_ring.to(dev)
@@ -166,14 +170,17 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts):
               for c in ring_counts)
     fused = cfg.solve_backend == "gather_fused_ring" and not cfg.nonnegative
     S = mesh.size
+    split = (knobs or {}).get("split_width")
 
     def ring_step(U, V):
         YtY = compute_yty(U) if cfg.implicit_prefs else None
         V = ring_half_step(U, ib, ic, item_ring.rows_per_shard, S, cfg,
-                           item_ring.chunk_elems, YtY, prev=V, fused=fused)
+                           item_ring.chunk_elems, YtY, prev=V, fused=fused,
+                           split_width=split)
         YtY = compute_yty(V) if cfg.implicit_prefs else None
         U = ring_half_step(V, ub, uc, user_ring.rows_per_shard, S, cfg,
-                           user_ring.chunk_elems, YtY, prev=U, fused=fused)
+                           user_ring.chunk_elems, YtY, prev=U, fused=fused,
+                           split_width=split)
         return U, V
 
     if faults.armed("comm.ring_step"):
@@ -206,10 +213,11 @@ def make_chunked_gather_step(mesh, user_sharded, item_sharded,
     return step
 
 
-def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig):
+def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig, knobs=None):
     """``step(U, V) -> (U, V)`` with the ragged ``'all_to_all'`` exchange
     (:mod:`.a2a`): the item-side plan routes U rows to the item half-step,
-    the user-side plan V rows to the user half-step."""
+    the user-side plan V rows to the user half-step (``knobs`` as
+    ``local_half_step``'s)."""
     for side, plan in (("user", user_a2a), ("item", item_a2a)):
         if not plan.buckets:
             raise ValueError(
@@ -225,10 +233,10 @@ def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig):
     def step(U, V):
         YtY = compute_yty(U) if cfg.implicit_prefs else None
         V = a2a_half_step(U, is_, ib, item_a2a.rows_per_shard, S, cfg,
-                          item_a2a.chunk_elems, YtY, prev=V)
+                          item_a2a.chunk_elems, YtY, prev=V, knobs=knobs)
         YtY = compute_yty(V) if cfg.implicit_prefs else None
         U = a2a_half_step(V, us, ub, user_a2a.rows_per_shard, S, cfg,
-                          user_a2a.chunk_elems, YtY, prev=U)
+                          user_a2a.chunk_elems, YtY, prev=U, knobs=knobs)
         return U, V
 
     return step
@@ -388,7 +396,9 @@ def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
     a failed step is probed into a transient retry or a
     :class:`~tpu_als_torch.resilience.elastic.DeviceLost` stamped with
     the failing iteration, which ``api.fitting.fit_sharded`` turns into a
-    re-formed mesh."""
+    re-formed mesh.  Before the first iteration the fit takes its tuned
+    kernel knobs and resolves its training plan once each, as
+    ``core.als.train`` does."""
     if strategy not in EXECUTABLE_STRATEGIES:
         raise ValueError(f"unknown gather strategy {strategy!r} for "
                          f"train_sharded (expected one of "
@@ -403,20 +413,38 @@ def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
     # padding slots start at 0; a row with no rating solves to 0
     U, V = (slot_rows(part, torch.as_tensor(x).float().to(dev))
             for part, x in ((user_part, init[0]), (item_part, init[1])))
-    if strategy in ("ring", "ring_overlap"):
-        if ring_counts is None:
-            raise ValueError(f"strategy={strategy!r} requires ring_counts="
-                             "(user_counts, item_counts) from "
-                             "stacked_counts")
-        step = make_ring_step(mesh, user_sharded, item_sharded, cfg,
-                              ring_counts)
-    elif strategy == "all_to_all":
-        step = make_a2a_step(mesh, user_sharded, item_sharded, cfg)
-    elif strategy == "all_gather_chunked":
-        step = make_chunked_gather_step(mesh, user_sharded, item_sharded,
-                                        cfg, n_blocks=gather_blocks)
-    else:
-        step = make_sharded_step(mesh, user_sharded, item_sharded, cfg)
+    if strategy in ("ring", "ring_overlap") and ring_counts is None:
+        raise ValueError(f"strategy={strategy!r} requires ring_counts="
+                         "(user_counts, item_counts) from stacked_counts")
+
+    def make_step(knobs):
+        if strategy in ("ring", "ring_overlap"):
+            return make_ring_step(mesh, user_sharded, item_sharded, cfg,
+                                  ring_counts, knobs)
+        if strategy == "all_to_all":
+            return make_a2a_step(mesh, user_sharded, item_sharded, cfg,
+                                 knobs)
+        if strategy == "all_gather_chunked":
+            return make_chunked_gather_step(mesh, user_sharded,
+                                            item_sharded, cfg,
+                                            n_blocks=gather_blocks)
+        return make_sharded_step(mesh, user_sharded, item_sharded, cfg,
+                                 knobs)
+
+    knobs = None
+    # the chunked gather's half-steps run no K3 or K4: no knob reaches them
+    if strategy != "all_gather_chunked" and core_als.autotune_gate():
+        def prepare(kn):
+            step = make_step(kn)
+            return lambda: step(U, V)
+
+        knobs = core_als.tuned_kernel_knobs(
+            cfg, dev, prepare, (user_sharded, item_sharded),
+            len(user_part.owner), len(item_part.owner),
+            mesh_shape=(mesh.size,))
+    core_als.plan_training(
+        cfg, cfg.rank, None if knobs is None else knobs["split_width"], dev)
+    step = make_step(knobs)
     if elastic:
         step = wrap_step(step, mesh)
     for it in range(start_iter, cfg.max_iter):

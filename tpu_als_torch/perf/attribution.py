@@ -24,7 +24,7 @@ route's stages, named as the roofline's:
 
 every route ends with ``scatter``, and implicit fits add ``yty``.  The
 roofline prices each stage over the buckets that ran it (its
-``ne_path='auto'`` splits the iteration at the same ``SPLIT_WIDTH``).
+``ne_path='auto'`` splits the iteration at the same split width).
 The CG routes have no twin (:class:`AttributionUnsupported`).
 
 The twin loses the overlap of host and device across stages, so its wall
@@ -55,16 +55,17 @@ class AttributionUnsupported(ValueError):
     CG routes): attribution covers the exact routes."""
 
 
-def _bucket_plan(buckets, cfg, rank, chunk_elems):
+def _bucket_plan(buckets, cfg, rank, chunk_elems, split_width):
     """Each bucket's route and its chunks as ``local_half_step`` cuts
-    them, the rating stream cast to the compute dtype once."""
+    them at ``split_width``, the rating stream cast to the compute dtype
+    once."""
     cdt = getattr(torch, cfg.compute_dtype)
     plan = []
     for b in buckets:
         nb, w = b.cols.shape
-        path = als.resolve_solve_path(cfg, rank, w)
+        path = als.resolve_solve_path(cfg, rank, w, split_width)
         vals, mask = b.vals.to(cdt), b.mask.to(cdt)
-        step = als._chunk_rows(path, nb, w, rank, chunk_elems)
+        step = als._chunk_rows(path, nb, w, rank, chunk_elems, split_width)
         plan.append({"path": path, "rows": b.rows, "chunks": [
             (b.cols[s:s + step], vals[s:s + step], mask[s:s + step])
             for s in range(0, nb, step)]})
@@ -73,11 +74,13 @@ def _bucket_plan(buckets, cfg, rank, chunk_elems):
 
 def make_attributed_step(user_buckets, item_buckets, num_users, num_items,
                          cfg: als.AlsConfig, user_chunk_elems=1 << 19,
-                         item_chunk_elems=1 << 19, sink=None):
+                         item_chunk_elems=1 << 19, sink=None, knobs=None):
     """The decomposed, fence-timed twin of ``core.als.als_step``.
 
     ``user_buckets``/``item_buckets``: each side's buckets as tensors
-    (``CsrBuckets.to``).  Returns ``step(U, V) -> (U, V)``, the same
+    (``CsrBuckets.to``); ``knobs``: the kernel knobs, as
+    ``core.als.local_half_step``'s (None or an absent knob: the module
+    constant, read here).  Returns ``step(U, V) -> (U, V)``, the same
     iteration (the item half-step, then the user half-step) with each
     stage in an ``obs.trace.stage`` fence: its seconds land in
     ``train.stage_seconds{stage=...}`` and, with a ``sink`` dict, add up
@@ -90,23 +93,27 @@ def make_attributed_step(user_buckets, item_buckets, num_users, num_items,
     r = cfg.rank
     cdt = getattr(torch, cfg.compute_dtype)
     reg, alpha, jitter = cfg.reg_param, cfg.alpha, cfg.jitter
-    item_plan = _bucket_plan(item_buckets, cfg, r, item_chunk_elems)
-    user_plan = _bucket_plan(user_buckets, cfg, r, user_chunk_elems)
+    knobs = knobs or {}
+    split = als._split(knobs.get("split_width"))
+    scratch = knobs.get("scratch_elems")
+    item_plan = _bucket_plan(item_buckets, cfg, r, item_chunk_elems, split)
+    user_plan = _bucket_plan(user_buckets, cfg, r, user_chunk_elems, split)
 
     def fused_solve(V_comp, c, v, m, YtY):
         if cfg.implicit_prefs:
             return gne.gather_fused_solve_implicit(
-                V_comp, c, v, m, reg, alpha, YtY, jitter=jitter)
+                V_comp, c, v, m, reg, alpha, YtY, jitter=jitter,
+                scratch_elems=scratch)
         return gne.gather_fused_solve_explicit(V_comp, c, v, m, reg,
-                                               jitter=jitter)
+                                               jitter=jitter,
+                                               scratch_elems=scratch)
 
     def fused_ne(V_comp, c, v, m, YtY):
         if cfg.implicit_prefs:
             return gne.gather_normal_eq_implicit(
-                V_comp, c, v, m, reg, alpha, YtY,
-                split_width=als.SPLIT_WIDTH)
+                V_comp, c, v, m, reg, alpha, YtY, split_width=split)
         return gne.gather_normal_eq_explicit(V_comp, c, v, m, reg,
-                                             split_width=als.SPLIT_WIDTH)
+                                             split_width=split)
 
     def normal_eq(Vg, v, m, YtY):
         if cfg.implicit_prefs:

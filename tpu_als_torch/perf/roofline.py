@@ -549,30 +549,31 @@ def gram_flops(real, rows, r):
             real * r * (r + 1))
 
 
-def fused_solve_bytes(padded, real, rows, r):
-    """K4's and K7's bytes: cols and three weights (16 B) per padded
-    entry, a factor row per real entry, x per real row."""
-    return padded * 16 + real * r * 4 + rows * r * 4
+def fused_solve_bytes(padded, real, rows, r, db=4):
+    """K4's and K7's bytes: cols and three weights (16 B in float32) per
+    padded entry, a factor row per real entry, x per real row; ``db`` is
+    the table's (and the weights') bytes an element."""
+    return padded * (4 + 3 * db) + real * r * db + rows * r * 4
 
 
-def fused_solve_bound(padded, real, rows, r):
+def fused_solve_bound(padded, real, rows, r, db=4):
     """``(ms, by)`` of K4 or K7 over ``padded`` entries, ``real`` of them
     real, and ``rows`` real rows at rank r (:func:`fused_solve_bytes`,
     :func:`gram_flops`)."""
-    return bound(fused_solve_bytes(padded, real, rows, r),
+    return bound(fused_solve_bytes(padded, real, rows, r, db),
                  *gram_flops(real, rows, r))
 
 
-def gram_bytes(padded, real, rows, r):
-    """K3's bytes: cols and two weights (12 B) per padded entry, a factor
-    row per real entry, S and b per real row."""
-    return padded * 12 + real * r * 4 + rows * (r * r + r) * 4
+def gram_bytes(padded, real, rows, r, db=4):
+    """K3's bytes: cols and two weights (12 B in float32) per padded
+    entry, a factor row per real entry, S and b per real row."""
+    return padded * (4 + 2 * db) + real * r * db + rows * (r * r + r) * 4
 
 
-def gram_bound(padded, real, rows, r):
+def gram_bound(padded, real, rows, r, db=4):
     """``(ms, by)`` of K3: :func:`gram_bytes`, the Gram on the tensor
     cores (3xTF32) and b at the FMA rate, r(r+1) and 2r per real entry."""
-    return bound(gram_bytes(padded, real, rows, r), real * 2 * r,
+    return bound(gram_bytes(padded, real, rows, r, db), real * 2 * r,
                  real * r * (r + 1))
 
 

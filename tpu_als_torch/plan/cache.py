@@ -1,0 +1,238 @@
+"""The execution planner's persistent cache (stdlib only).
+
+Counterpart of ``tpu_als/plan/cache.py``, under the reference's names
+and with its schema: one JSON file per plan key under the cache
+directory, written to a same-directory temp file and renamed into place,
+and a corrupt or schema-mismatched file moved into a ``.corrupt/``
+sibling with a ``.reason`` file (typed :class:`PlanCacheCorrupt`) rather
+than crashed on or trusted; the planner reads a quarantined entry as a
+miss and walks again.
+
+Differences from the reference:
+
+- The environment variable is the reference's, ``TPU_ALS_PLAN_CACHE``,
+  with the same "off" values (``off``, ``0``, ``none``, ``disabled``),
+  so one setting arms or disarms both packages.
+- The default directory is the port's own, ``~/.cache/tpu_als_torch/
+  plan``, so by default neither package reads the other's entries.
+- Plan keys carry ``torch_version`` where the reference's carry
+  ``jax_version``; it is read with ``importlib.metadata``, without
+  importing torch, and :func:`suggested_probe_budget` counts the warm
+  entries banked under the installed torch.
+
+An entry either package writes passes the other's :func:`_validate`:
+the schema (``schema_version``, ``plan_key``, ``probes``, ``components``
+with ``resolved`` and ``provenance.banked_at``) is the same.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+
+SCHEMA_VERSION = 1
+
+ENV_VAR = "TPU_ALS_PLAN_CACHE"
+_OFF_VALUES = ("off", "0", "none", "disabled")
+
+DEFAULT_DIR = os.path.join("~", ".cache", "tpu_als_torch", "plan")
+
+
+class PlanCacheCorrupt(ValueError):
+    """A plan-cache entry that cannot be trusted: unparseable JSON, a
+    schema version this build does not speak, or a payload whose shape
+    fails validation.  Carries ``path`` and ``reason``; the planner
+    quarantines the file and walks again instead of propagating this."""
+
+    def __init__(self, path, reason):
+        super().__init__(f"plan cache entry {path}: {reason}")
+        self.path = path
+        self.reason = reason
+
+
+def mode():
+    """``"off"`` when the planner is disarmed, else the cache directory
+    (absolute, user-expanded)."""
+    raw = os.environ.get(ENV_VAR)
+    if raw is not None and raw.strip().lower() in _OFF_VALUES:
+        return "off"
+    return os.path.abspath(os.path.expanduser(raw or DEFAULT_DIR))
+
+
+def cache_dir():
+    """The cache directory, or ``None`` when disarmed."""
+    m = mode()
+    return None if m == "off" else m
+
+
+def key_digest(key):
+    """Stable short digest of a plan-key dict (the file name's stem)."""
+    blob = json.dumps(key, sort_keys=True, default=str).encode()
+    return hashlib.blake2b(blob, digest_size=10).hexdigest()
+
+
+def entry_path(key, root=None):
+    root = root or cache_dir()
+    if root is None:
+        raise RuntimeError("plan cache is disarmed (TPU_ALS_PLAN_CACHE=off)")
+    return os.path.join(root, f"plan_{key_digest(key)}.json")
+
+
+def _validate(doc, path, key=None):
+    if not isinstance(doc, dict):
+        raise PlanCacheCorrupt(path, "entry is not a JSON object")
+    ver = doc.get("schema_version")
+    if ver != SCHEMA_VERSION:
+        raise PlanCacheCorrupt(
+            path, f"schema_version {ver!r} != supported {SCHEMA_VERSION} "
+                  "(written by a different build)")
+    if not isinstance(doc.get("plan_key"), dict):
+        raise PlanCacheCorrupt(path, "missing plan_key object")
+    if key is not None and doc["plan_key"] != key:
+        raise PlanCacheCorrupt(
+            path, "plan_key mismatch (digest collision or edited file)")
+    probes = doc.get("probes")
+    if not isinstance(probes, dict):
+        raise PlanCacheCorrupt(path, "missing probes object")
+    for name, entries in probes.items():
+        if not isinstance(entries, dict) or not all(
+                isinstance(v, bool) for v in entries.values()):
+            raise PlanCacheCorrupt(
+                path, f"probe table {name!r} is not {{key: bool}}")
+    comps = doc.get("components")
+    if not isinstance(comps, dict):
+        raise PlanCacheCorrupt(path, "missing components object")
+    for cname, comp in comps.items():
+        if not isinstance(comp, dict) or "resolved" not in comp:
+            raise PlanCacheCorrupt(
+                path, f"component {cname!r} carries no resolved plan")
+        prov = comp.get("provenance")
+        if not isinstance(prov, dict) or not prov.get("banked_at"):
+            raise PlanCacheCorrupt(
+                path, f"component {cname!r} is missing banked_at provenance")
+    return doc
+
+
+def load_entry(key, root=None):
+    """Load and validate the entry for ``key``.  Returns ``None`` when no
+    file exists; raises :class:`PlanCacheCorrupt` when the file exists
+    but cannot be trusted (callers quarantine and treat it as a miss)."""
+    path = entry_path(key, root)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        raise PlanCacheCorrupt(path, f"unreadable JSON ({e})") from e
+    return _validate(doc, path, key=key)
+
+
+def store_entry(key, doc, root=None):
+    """Install ``doc`` as the entry for ``key``: a temp file in the same
+    directory, then a rename, so a reader never sees half an entry."""
+    path = entry_path(key, root)
+    _validate(doc, path, key=key)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=1, sort_keys=True, default=str)
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def quarantine(path, reason):
+    """Move an untrusted entry into a ``.corrupt/`` sibling (timestamped,
+    suffixed on a collision) beside a ``.reason`` file, so the evidence
+    survives while the planner walks again.  Returns the quarantine
+    path, or ``None`` if the file was already gone (another process
+    moved it first)."""
+    if not os.path.exists(path):
+        return None
+    qdir = os.path.join(os.path.dirname(path), ".corrupt")
+    os.makedirs(qdir, exist_ok=True)
+    base = f"{os.path.basename(path)}.{int(time.time())}"
+    dest = os.path.join(qdir, base)
+    n = 0
+    while os.path.exists(dest):
+        n += 1
+        dest = os.path.join(qdir, f"{base}.{n}")
+    try:
+        os.replace(path, dest)
+    except OSError:
+        return None
+    with open(dest + ".reason", "w", encoding="utf-8") as f:
+        f.write(f"{reason}\n")
+    return dest
+
+
+def list_entries(root=None):
+    """Every entry in the cache directory: ``[(path, doc_or_error)]``,
+    the second element the validated doc or a :class:`PlanCacheCorrupt`
+    (``plan show`` renders both; nothing raises)."""
+    root = root or cache_dir()
+    out = []
+    if root is None or not os.path.isdir(root):
+        return out
+    for name in sorted(os.listdir(root)):
+        if not (name.startswith("plan_") and name.endswith(".json")):
+            continue
+        path = os.path.join(root, name)
+        try:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            out.append((path, _validate(doc, path)))
+        except PlanCacheCorrupt as e:
+            out.append((path, e))
+        except (OSError, ValueError) as e:
+            out.append((path, PlanCacheCorrupt(path, f"unreadable ({e})")))
+    return out
+
+
+def clear(root=None):
+    """Delete every entry file (``.corrupt/`` evidence is kept).  Returns
+    the number of entries removed."""
+    root = root or cache_dir()
+    n = 0
+    if root is None or not os.path.isdir(root):
+        return n
+    for name in sorted(os.listdir(root)):
+        if name.startswith("plan_") and name.endswith(".json"):
+            try:
+                os.remove(os.path.join(root, name))
+                n += 1
+            except OSError:
+                pass
+    return n
+
+
+def _torch_version():
+    """torch's installed version, read without importing torch."""
+    from importlib import metadata
+
+    try:
+        return metadata.version("torch")
+    except metadata.PackageNotFoundError:
+        return "unknown"
+
+
+def suggested_probe_budget(default_s, root=None):
+    """A probe-budget suggestion: when the cache holds at least one valid
+    entry banked under the installed torch, the budget shrinks to
+    ``max(default/5, 120)`` seconds, capped by the default.  A disarmed,
+    empty or version-mismatched cache returns the default unchanged."""
+    root = root if root is not None else cache_dir()
+    if root is None:
+        return float(default_s), "planner off"
+    ver = _torch_version()
+    warm = [p for p, doc in list_entries(root)
+            if isinstance(doc, dict)
+            and doc.get("plan_key", {}).get("torch_version") == ver]
+    if not warm:
+        return float(default_s), "no warm plan entries"
+    budget = min(float(default_s), max(float(default_s) / 5.0, 120.0))
+    return budget, (f"{len(warm)} warm plan entr"
+                    f"{'y' if len(warm) == 1 else 'ies'} for torch {ver}")

@@ -267,7 +267,22 @@ Phases (any failure exits non-zero before the final line):
    2 trials, each launching K4, K3 and K6.  Every process the run starts
    gets a fresh plan cache of its own (so a ladder ``serve-bench`` banks
    never reaches a later phase), except (b), which shares (a)'s;
-13. timings at the slices' shapes (CUDA events), each kernel beside its
+13. two processes on the one card (budget 90 s): each holds 2 logical
+   shards of a 4-position mesh on ``cuda:0`` and an interleaved half of
+   phase 5's ML-25M triples, joined over gloo (``tcp://localhost``),
+   CUDA tensors staged through host memory; started gated (imports and
+   loads beside the single-process reference's build, nothing timed
+   beside them): (a) ``ALS(mesh=, dataMode='per_host',
+   gatherStrategy='all_gather', maxIter=2)`` from phase 5's init (a
+   checkpoint at iteration 0) at rank 128, implicit, each process's
+   iteration wall, bytes staged a half-step, collective share and
+   K4/K3/K1 launches, the gathered factors against the single-process
+   4-shard fit of the same triples from the same init (bitwise
+   expected); (b) the sharded checkpoint both wrote, read here by
+   ``load_factors``, equal to (a)'s factors; (c) ``topk_sharded(...,
+   'all_gather')`` for 4,096 users through K5 in both, ids equal to the
+   single-process K5's, scores within SERVE_ULPS;
+14. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -292,7 +307,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-14. where the time goes: one training iteration, one more fold-in
+15. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, one rank-256 iteration and
     fold-in batch, and one rank-512 iteration, then the serving engine's
     batches of 8 on its int8
@@ -1297,7 +1312,8 @@ def prepare(seed, dev):
     return {"frame": frame, "ucsr": ucsr, "icsr": icsr,
             "ub": ucsr.to(dev), "ib": icsr.to(dev),
             "n_users": len(umap), "n_items": len(imap),
-            "u_idx": u_idx, "i_idx": i_idx, "r": r}
+            "u_idx": u_idx, "i_idx": i_idx, "r": r, "umap": umap,
+            "imap": imap}
 
 
 def _launch_counts():
@@ -4707,6 +4723,270 @@ def planner_phase(csrs, tr, dev, smi):
 
 
 # -- phase 13: timings -----------------------------------------------------
+# -- phase 13: two processes on the one card --------------------------------
+
+PHASE13_BUDGET_S = 90.0
+MH_PROCS, MH_SHARDS = 2, 2      # processes, logical shards each: 4 positions
+MH_SERVE_USERS = 4096
+
+
+def mh_worker(work):
+    """One process of phase 13 (``chip_smoke.py --mh-worker WORK``, with
+    torch's launcher variables set by the run): load this process's
+    interleaved half of the ML-25M triples, say ``ready`` on stderr and
+    wait for ``go``; then (a) ``ALS(mesh=2 logical shards of cuda:0,
+    dataMode='per_host', gatherStrategy='all_gather', maxIter=2)`` from
+    phase 5's init (a checkpoint at iteration 0, ``resumeFrom``), each
+    iteration timed around the step the fit builds (device synced, the
+    processes lined up by a barrier first) with the multihost
+    transport's counts (``multihost.COMM``) read around it, (b) a sharded checkpoint at iteration 2 (``checkpointSharded``),
+    (c) ``topk_sharded(U[:4096], V, 10, mesh, 'all_gather')`` (K5).
+    Process 0 saves the fit's factors; each process its top-k rows.  The
+    last stdout line: this process's JSON (walls, counts, launches)."""
+    from tpu_als_torch.parallel import multihost, trainer
+
+    pin_fp32()
+    pid = int(os.environ["RANK"])
+    local = ColumnarFrame({k: np.load(os.path.join(work, f"{k}{pid}.npy"))
+                           for k in ("user", "item", "rating")})
+    print("ready", file=sys.stderr, flush=True)
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(1)
+    multihost.init_distributed()
+    mesh = make_mesh(devices=["cuda:0"] * MH_SHARDS)
+    iters = []
+    make_step = trainer.make_process_step
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(U, V):
+            torch.cuda.synchronize()
+            multihost.barrier()  # both processes start the step together
+            c0, t0 = dict(multihost.COMM), time.perf_counter()
+            U, V = step(U, V)
+            torch.cuda.synchronize()
+            iters.append({"wall_s": time.perf_counter() - t0,
+                          **{k: multihost.COMM[k] - c0[k] for k in c0}})
+            return U, V
+        return run
+
+    trainer.make_process_step = timed_step
+    est = ALS(rank=RANK, implicitPrefs=True, alpha=ALPHA, regParam=REG,
+              maxIter=2, mesh=mesh, dataMode="per_host",
+              gatherStrategy="all_gather",
+              resumeFrom=os.path.join(work, "init"),
+              checkpointDir=os.path.join(work, "ckpt"), checkpointInterval=2,
+              checkpointSharded=True)
+    _zero_launches()
+    t0 = time.perf_counter()
+    model = est.fit(local)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _launch_counts()
+    if pid == 0:
+        np.save(os.path.join(work, "U.npy"), model._U.cpu().numpy())
+        np.save(os.path.join(work, "V.npy"), model._V.cpu().numpy())
+    _zero_launches()
+    t0 = time.perf_counter()
+    sc, ix, off = serve.topk_sharded(model._U[:MH_SERVE_USERS], model._V,
+                                     10, mesh, strategy="all_gather")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    np.save(os.path.join(work, f"serve_s{pid}.npy"), sc.cpu().numpy())
+    np.save(os.path.join(work, f"serve_i{pid}.npy"), ix.cpu().numpy())
+    print(json.dumps({"pid": pid, "positions": list(mesh.positions),
+                      "iters": iters, "fit_s": fit_s,
+                      "fit_launches": fit_launches, "serve_s": serve_s,
+                      "serve_k5": cuda_topk.LAUNCHES, "serve_offset": off,
+                      "serve_rows": int(sc.shape[0]),
+                      "route": multihost.ROUTE}))
+
+
+def _reordered(data):
+    """Phase 13's triples in the order its exchange leaves them: process
+    0's interleaved half, then process 1's."""
+    return [np.concatenate([x[p::MH_PROCS] for p in range(MH_PROCS)])
+            for x in (data["u_idx"], data["i_idx"], data["r"])]
+
+
+def mh_reference(data, U0, V0, dev):
+    """The single-process 4-shard 'all_gather' fit of phase 13's
+    triples (in the exchanged order) from the same init: 2 iterations,
+    entity space."""
+    u, i, r = _reordered(data)
+    nu, ni = data["n_users"], data["n_items"]
+    S = MH_PROCS * MH_SHARDS
+    up = partition_balanced(np.bincount(u, minlength=nu), S)
+    ip = partition_balanced(np.bincount(i, minlength=ni), S)
+    cfg = core_als.AlsConfig(rank=RANK, max_iter=2, implicit_prefs=True,
+                             alpha=ALPHA, reg_param=REG)
+    Us, Vs = train_sharded(make_mesh(devices=[dev] * S), up, ip,
+                           shard_csr(up, ip, u, i, r),
+                           shard_csr(ip, up, i, u, r), cfg, init=(U0, V0))
+    return entity_rows(up, Us), entity_rows(ip, Vs)
+
+
+def start_mh_workers(work):
+    """Phase 13's processes, gated: each imports and loads its split,
+    then waits for ``go``.  Joined over gloo on ``tcp://localhost``."""
+    with contextlib.closing(__import__("socket").socket()) as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    procs = []
+    for pid in range(MH_PROCS):
+        env = {**proc_env(), "WORLD_SIZE": str(MH_PROCS), "RANK": str(pid),
+               "LOCAL_RANK": str(pid), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "PYTHONWARNINGS": "ignore"}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mh-worker", work],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            stdin=subprocess.PIPE, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    return procs
+
+
+def finish_mh_workers(procs, timeout=120):
+    """Each process's JSON line; a failure or a hang in any of them kills
+    every one and fails the run."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                fail(f"phase 13 process exited {p.returncode}: "
+                     f"{err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13: a process did not finish within {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def multiprocess_phase(data, seed, dev, smi):
+    """Phase 13: two processes on the one H100, 2 logical shards each of
+    a 4-position mesh, over gloo with CUDA tensors staged through host
+    memory (budget 90 s; no timed phase runs beside its processes: they
+    import and load gated, while this process builds the single-process
+    reference, and run once it is done).  Each process keeps an
+    interleaved half of the ML-25M triples (``dataMode='per_host'``):
+    (a) 'all_gather', 2 iterations from phase 5's init, the gathered
+    factors against the single-process 4-shard fit of the same triples
+    (in the exchanged order) from the same init: bitwise expected (YᵀY
+    from the gathered table), TRAIN_REL per row required; per process
+    the iteration wall, the bytes staged through host memory a
+    half-step, the collective's share of the iteration and K4/K3/K1
+    launches; (b) the sharded checkpoint both processes wrote, read by
+    ``load_factors`` here, equal to (a)'s factors; (c) the processes'
+    ``topk_sharded('all_gather')`` rows for 4,096 users through K5, ids
+    equal to the single-process K5's and scores within SERVE_ULPS."""
+    from tpu_als_torch.io.checkpoint import load_factors, save_factors
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    try:
+        frame = data["frame"]
+        for p in range(MH_PROCS):
+            for k in ("user", "item", "rating"):
+                np.save(os.path.join(work, f"{k}{p}.npy"),
+                        np.asarray(frame[k])[p::MH_PROCS])
+        g = torch.Generator().manual_seed(seed)     # phase 5's init
+        U0 = core_als.init_factors(data["n_users"], RANK, g)
+        V0 = core_als.init_factors(data["n_items"], RANK, g)
+        params = ALS(rank=RANK, implicitPrefs=True, alpha=ALPHA,
+                     regParam=REG, maxIter=2)._ckpt_params()
+        save_factors(os.path.join(work, "init"), data["umap"].ids,
+                     U0.numpy(), data["imap"].ids, V0.numpy(),
+                     params=params, iteration=0)
+        torch.cuda.empty_cache()
+        procs = start_mh_workers(work)
+        t0 = time.perf_counter()
+        Ur, Vr = mh_reference(data, U0, V0, dev)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        for p in procs:
+            probe_ready(p, "phase 13 process")
+        t_run = time.perf_counter()
+        for p in procs:
+            release_probe(p)
+        outs = finish_mh_workers(procs)
+        run_s = time.perf_counter() - t_run
+        for o in outs:
+            it = o["iters"]
+            walls = [x["wall_s"] * 1e3 for x in it]
+            staged = [x["staged_bytes"] / 2 for x in it]
+            share = [x["seconds"] / x["wall_s"] for x in it]
+            fl = o["fit_launches"]
+            log(f"phase 13 process {o['pid']} (positions {o['positions']}): "
+                f"iteration walls {', '.join(f'{w:.1f}' for w in walls)} ms; "
+                f"staged through host a half-step "
+                f"{', '.join(f'{b:.0f}' for b in staged)} B; collective "
+                f"share {', '.join(f'{x:.3f}' for x in share)}; collectives "
+                f"{sum(x['collectives'] for x in it)}; fit {o['fit_s']:.2f} s;"
+                f" launches K4 {fl['k4']}, K3 {fl['k3']}, K1 {fl['k1']}; "
+                f"serve {o['serve_s'] * 1e3:.1f} ms, K5 {o['serve_k5']}, "
+                f"rows {o['serve_offset']}..{o['serve_offset'] + o['serve_rows']}"
+                f" on {smi}")
+            if min(fl["k4"], fl["k3"], fl["k1"]) == 0 or o["serve_k5"] == 0:
+                fail(f"phase 13 process {o['pid']}: a kernel of its path "
+                     f"never launched: {fl}, K5 {o['serve_k5']}")
+            if len(it) != 2 or min(staged) <= 0:
+                fail(f"phase 13: iterations or staged bytes missing: {it}")
+        log(f"phase 13 route: {outs[0]['route']}")
+        # (a) the gathered factors against the single-process fit
+        U = torch.from_numpy(np.load(os.path.join(work, "U.npy"))).to(dev)
+        V = torch.from_numpy(np.load(os.path.join(work, "V.npy"))).to(dev)
+        eu, ev = row_rel(U, Ur), row_rel(V, Vr)
+        bitwise = bool(torch.equal(U, Ur) and torch.equal(V, Vr))
+        log(f"phase 13 (a): two-process fit vs the single-process 4-shard "
+            f"fit ({ref_s:.1f} s to build and run), 2 iterations: max "
+            f"per-row |diff|/|x| users {eu:.3e}, items {ev:.3e}, bitwise "
+            f"{bitwise} (tol {TRAIN_REL}; bitwise expected)")
+        if not (eu <= TRAIN_REL and ev <= TRAIN_REL):
+            fail(f"phase 13: the two-process fit is off the single-process "
+                 f"fit: users {eu:.3e}, items {ev:.3e}")
+        # (b) the sharded checkpoint, read here
+        m, cu, cU, ci, cV = load_factors(os.path.join(work, "ckpt",
+                                                      "als_checkpoint"))
+        same = (m.get("sharded") and m.get("iteration") == 2
+                and np.array_equal(cu, data["umap"].ids)
+                and np.array_equal(cU, U.cpu().numpy())
+                and np.array_equal(cV, V.cpu().numpy()))
+        log(f"phase 13 (b): the sharded checkpoint ({m.get('n_shards')} "
+            f"position files) loads equal to (a)'s factors: {bool(same)}")
+        if not same:
+            fail("phase 13: the sharded checkpoint differs from the fit")
+        # (c) the processes' top-k rows against the single-process K5
+        s = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(work, f"serve_s{p}.npy"))
+             for p in range(MH_PROCS)])).to(dev)
+        ix = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(work, f"serve_i{p}.npy"))
+             for p in range(MH_PROCS)])).to(dev)
+        Q = U[:MH_SERVE_USERS].contiguous()
+        s1, i1 = cuda_topk.topk_scores(
+            Q, V, torch.ones(V.shape[0], dtype=torch.bool, device=dev), 10)
+        ids_eq = bool(torch.equal(ix, i1))
+        ulps = ulps_off(s, s1)
+        log(f"phase 13 (c): {s.shape[0]} users' top-10 across the "
+            f"processes vs the single-process K5: ids equal {ids_eq}, "
+            f"scores {ulps} ulp apart at most (tol {SERVE_ULPS})")
+        if s.shape[0] != MH_SERVE_USERS or not ids_eq or ulps > SERVE_ULPS:
+            fail("phase 13: the two-process top-k is not the single-process "
+                 "K5's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 13 (two processes on one card, per-host data, 4 positions): "
+        f"{secs:.1f} s ({run_s:.1f} s after release) on {smi}")
+    if secs > PHASE13_BUDGET_S:
+        fail(f"phase 13 took {secs:.1f} s, over its {PHASE13_BUDGET_S} s")
+
+
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -5433,7 +5713,7 @@ def where_time_goes(model, rng, tr, users, items):
 
 
 def profile_engine_batches(fitted, rng, dev, reps=20):
-    """Phase 13's serving rows: for the int8 and the exact route of a
+    """Phase 15's serving rows: for the int8 and the exact route of a
     'local' engine on the rank-128 fit, ``reps`` synchronous
     ``serve_batch`` calls of 8 requests (one bucket) under the profiler:
     wall and device busy time per batch, the device's idle share and the
@@ -5482,9 +5762,12 @@ def profile_engine_batch(eng, users, path, reps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mh-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
+    if args.mh_worker:
+        return mh_worker(args.mh_worker)
     if not _native_build.have_compiler():
         fail("g++ is not on the PATH: the native bucketizer and CSV reader "
              "are built with it")
@@ -5552,6 +5835,7 @@ def main():
     sh = sharded_train_slice(data, args.seed, dev)
     sharded_resilience_phase(data, sh, tr["model"], work.name, args.seed,
                              dev)
+    multiprocess_phase(data, args.seed, dev, smi)
     tr512 = rank512_slice(data, sh, args.seed, dev)
     guardrail_fits(data, tr, dev)
     frame25m, csrs = data["frame"], (data["ucsr"], data["icsr"])

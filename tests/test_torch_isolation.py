@@ -61,6 +61,15 @@
   own with ``torch`` unimportable too (stdlib only); ``tpu_als_torch.plan``
   exports the reference's 24 names; ``plan warm`` and ``plan tune`` with
   no device raise without a CUDA device.
+- Multi-process training (``parallel/multihost.py``): the module, a
+  one-process ``init_distributed``/``rejoin`` and the CLI's
+  ``train --per-host-data`` refusal in one process run with ``jax`` and
+  ``tpu_als`` unimportable and create no process group;
+  ``torch.distributed`` is read through ``sys.modules`` and imported
+  only where a group is created (``init_distributed``); the CLI under
+  ``--per-host-data`` across two processes is driven with ``jax``
+  blocked by ``tests/test_torch_multihost.py``.  The fault points are
+  now the reference's eleven.
 """
 
 import contextlib
@@ -878,8 +887,50 @@ def test_subpackages_export_the_references_names():
     assert tres.__all__ == jres.__all__
     assert tres.FAULT_SPEC_ENV == jres.FAULT_SPEC_ENV
     assert tres.EXIT_PREEMPTED == jres.EXIT_PREEMPTED
-    # the points of the ported paths (multi-process ones wait for it)
-    assert set(tres.FAULT_POINTS) <= set(jres.FAULT_POINTS)
+    # every point of the reference is wired, multihost.init included
+    assert set(tres.FAULT_POINTS) == set(jres.FAULT_POINTS)
+
+
+_DRIVE_MULTIHOST = r"""
+import ast, inspect, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+from tpu_als_torch.parallel import multihost
+from tpu_als_torch.parallel.mesh import make_mesh
+import torch.distributed as dist
+assert multihost.init_distributed() == (0, 1)
+assert multihost.rejoin() == (0, 1)
+assert not dist.is_initialized() and multihost.ROUTE is None
+mesh = make_mesh(devices=["cpu"] * 3)
+assert mesh.positions == (0, 1, 2) and mesh.global_size == 3
+# torch.distributed is imported only where the group is created
+tree = ast.parse(inspect.getsource(multihost))
+top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+names = [a.name for n in top for a in n.names] + [
+    getattr(n, "module", None) or "" for n in top]
+assert not any("distributed" in x for x in names), names
+from tpu_als_torch.cli import main
+try:
+    main(["train", "--data", "synthetic:30x20x200", "--per-host-data",
+          "--devices", "0", "--device", "cpu"])
+except SystemExit as e:
+    assert "multi-process only" in str(e), e
+else:
+    raise AssertionError("--per-host-data ran in one process")
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_multihost_runs_without_jax():
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _DRIVE_MULTIHOST], cwd=REPO,
+                         env={**_env(), "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_no_tpu_number_in_the_port():

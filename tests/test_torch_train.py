@@ -336,11 +336,13 @@ def test_fit_resumes_from_a_shared_checkpoint(tmp_path):
 
 
 def test_fit_callback_and_later_slice_knobs():
-    """The callback; ``elastic`` and the strategies 'all_to_all' and
-    'all_gather_chunked', which once raised ``NotImplementedError``, now
+    """The callback; ``elastic``, the strategies 'all_to_all' and
+    'all_gather_chunked', ``dataMode='per_host'`` and
+    ``checkpointSharded``, which once raised ``NotImplementedError``, now
     fit over a mesh of CPU logical shards and land on the single-device
-    fit (the sharded parity band, 2e-3); ``dataMode='per_host'`` and
-    ``checkpointSharded`` still raise (the multi-GPU slice)."""
+    fit (the sharded parity band, 2e-3; in one process 'per_host' is the
+    one split's fit, and the knobs across processes are
+    ``tests/test_torch_multihost.py``'s)."""
     from tpu_als_torch.parallel.mesh import make_mesh
 
     seen = []
@@ -352,10 +354,6 @@ def test_fit_callback_and_later_slice_knobs():
                  {"dataMode": "per_host"}, {"checkpointSharded": True},
                  {"gatherStrategy": "all_to_all"},
                  {"gatherStrategy": "all_gather_chunked"}):
-        if "dataMode" in knob or "checkpointSharded" in knob:
-            with pytest.raises(NotImplementedError):
-                tpu_als_torch.ALS(**knob)
-            continue
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # a degenerate a2a plan warns
             m = tpu_als_torch.ALS(rank=4, maxIter=2,

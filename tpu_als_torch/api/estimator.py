@@ -22,9 +22,11 @@ Under a :class:`~tpu_als_torch.resilience.preempt.PreemptionGuard` (or
 ``TPU_ALS_PREEMPT_AT``) a fit stops at an iteration boundary, writes its
 resume point to ``checkpointDir`` and raises ``Preempted``.
 ``elastic=True`` makes a lost shard of a mesh fit a rescheduling event
-(:mod:`tpu_als_torch.resilience.elastic`).  Per-host data and sharded
-checkpoints belong to the multi-GPU slice and raise
-``NotImplementedError``.
+(:mod:`tpu_als_torch.resilience.elastic`).  A mesh across processes
+(:mod:`tpu_als_torch.parallel.multihost`) makes the fit collective
+(``api.fitting.fit_multiprocess``), with per-host data
+(``dataMode='per_host'``) and sharded checkpoints
+(``checkpointSharded=True``).
 """
 
 from __future__ import annotations
@@ -37,7 +39,13 @@ import numpy as np
 import torch
 
 from tpu_als_torch import obs
-from tpu_als_torch.api.fitting import fit_sharded
+from tpu_als_torch.api.fitting import (
+    check_finite_ratings_collective,
+    check_multiprocess_gate,
+    fit_multiprocess,
+    fit_sharded,
+    multiprocess_knobs,
+)
 from tpu_als_torch.api.params import Estimator, Params, TypeConverters
 from tpu_als_torch.core.als import AlsConfig, predict as _predict
 from tpu_als_torch.core.als import train as _train
@@ -183,12 +191,6 @@ class _ALSParams(Params):
             raise ValueError("blockSize must be >= 1")
 
 
-def _later_slice(knob, slice_name):
-    raise NotImplementedError(
-        f"ALS({knob}) is not ported yet: it comes with the {slice_name} "
-        "slice of the port")
-
-
 def _attach_accessors(cls, names):
     for name in names:
         cap = name[0].upper() + name[1:]
@@ -234,8 +236,17 @@ class ALS(_ALSParams, Estimator):
     ``'all_gather'``) and ``lastFitCommBytes`` its modeled traffic per
     iteration (``parallel.trainer.comm_bytes_per_iter``); both are None
     after a single-device fit.
-    ``dataMode='per_host'`` and ``checkpointSharded`` raise
-    ``NotImplementedError``: they belong to the multi-GPU slice.
+    Across processes (a ``mesh`` built under an initialized process
+    group, ``parallel.multihost``) the fit is collective
+    (``api.fitting.fit_multiprocess``): every process calls it, the knob
+    gate is its first collective, the guardrails' screen is off (a
+    nan/inf rating on any process raises on every process), and
+    ``dataMode`` says whether every process passes the same frame
+    ('replicated') or its own split ('per_host': the id maps are the
+    union of every process's ids); ``checkpointSharded=True`` has every
+    process write the positions it holds instead of one gathered
+    checkpoint.  The recommend surfaces refuse a mesh across processes
+    and point at ``parallel.serve.topk_sharded``.
     ``copy(extra)`` keeps every runtime knob, so the inner fits of a
     tuner run where this estimator was told to.
     """
@@ -250,13 +261,9 @@ class ALS(_ALSParams, Estimator):
             raise TypeError("mesh must be a tpu_als_torch.parallel.mesh.Mesh "
                             f"(make_mesh), got {type(mesh).__name__}")
         check_strategy(gatherStrategy)
-        if dataMode == "per_host":
-            _later_slice("dataMode='per_host'", "multi-GPU")
-        if dataMode != "replicated":
+        if dataMode not in ("replicated", "per_host"):
             raise ValueError(f"unknown dataMode {dataMode!r} (expected "
                              "'replicated' or 'per_host')")
-        if checkpointSharded:
-            _later_slice("checkpointSharded=True", "multi-GPU")
         if guardrails is not None and guardrails not in _guardrails.MODES:
             raise ValueError(f"unknown guardrails mode {guardrails!r} "
                              "(expected 'off', 'warn' or 'recover')")
@@ -273,6 +280,7 @@ class ALS(_ALSParams, Estimator):
         self.lastFitCommBytes = None
         self.lastFitStrategy = None
         self.dataMode = dataMode
+        self.checkpointSharded = bool(checkpointSharded)
         self.cgIters = int(cgIters)
         self.cgMode = cgMode
         self.checkpointDir = checkpointDir
@@ -381,11 +389,39 @@ class ALS(_ALSParams, Estimator):
                                 else self.mesh.device)
         gmode = (self.guardrails if self.guardrails is not None
                  else _guardrails.guardrails_mode())
-        u_raw, i_raw, r = self._screen(*self._extract_columns(
-            as_frame(dataset)), gmode)
-        u_idx, user_map = remap_ids(u_raw)
-        i_idx, item_map = remap_ids(i_raw)
         cfg = self._config()
+        u_raw, i_raw, r, nonfinite = self._extract_columns(as_frame(dataset))
+        multiproc = self.mesh is not None and self.mesh.process_count > 1
+        knobs = None
+        if multiproc:
+            # the FIRST collective of every multi-process fit: a knob
+            # divergence raises here, on every process, instead of pairing
+            # mismatched collectives later; then bad data on ANY process
+            # raises on EVERY process, before any data-derived collective
+            knobs = multiprocess_knobs(self, cfg, u_raw, i_raw)
+            check_multiprocess_gate(self, knobs)
+            check_finite_ratings_collective(nonfinite, self.getRatingCol())
+        else:
+            u_raw, i_raw, r = self._screen(u_raw, i_raw, r, nonfinite,
+                                           gmode)
+        if self.dataMode == "per_host":
+            from tpu_als_torch.parallel.multihost import (global_id_union,
+                                                          process_count)
+
+            if process_count() > 1 and self.mesh is None:
+                # without a mesh every process would fit only its split
+                raise ValueError(
+                    "dataMode='per_host' in a multi-process deployment "
+                    "requires mesh= (the per-host splits are combined by "
+                    "the multi-process trainer; without a mesh each "
+                    "process would silently fit only its own split)")
+            user_map = IdMap(ids=global_id_union(u_raw))
+            item_map = IdMap(ids=global_id_union(i_raw))
+            u_idx = user_map.to_dense(u_raw)
+            i_idx = item_map.to_dense(i_raw)
+        else:
+            u_idx, user_map = remap_ids(u_raw)
+            i_idx, item_map = remap_ids(i_raw)
         # per-fit traffic bookkeeping, set by a mesh fit only
         self.lastFitCommBytes = None
         self.lastFitStrategy = None
@@ -394,7 +430,11 @@ class ALS(_ALSParams, Estimator):
             init, start_iter = self._resume(cfg, user_map, item_map)
         callback = self._callback(user_map, item_map)
         with _guardrails.scoped(gmode):
-            if self.mesh is not None:
+            if multiproc:
+                U, V = fit_multiprocess(self, u_idx, i_idx, r, user_map,
+                                        item_map, cfg, init, start_iter,
+                                        knobs=knobs)
+            elif self.mesh is not None:
                 U, V = fit_sharded(self, u_idx, i_idx, r, user_map, item_map,
                                    cfg, init, start_iter, callback=callback)
             else:
@@ -655,6 +695,7 @@ class ALSModel:
                 "column before calling recommendFor*")
         k = min(k, other.shape[0])
         if mesh is not None:
+            _single_process_mesh(mesh, "recommendFor*")
             sc, ix = topk_sharded(Q, other, k, mesh, strategy=gatherStrategy)
             ids_out = other_ids[ix.cpu().numpy()]
             scores_out = sc.cpu().numpy()
@@ -697,6 +738,7 @@ class ALSModel:
         other_ids = self._item_map.ids if for_users else self._user_map.ids
         k = min(numItems, other.shape[0])
         if mesh is not None:
+            _single_process_mesh(mesh, "recommend_arrays")
             sc, ix = topk_sharded(Q, other, k, mesh, strategy=gatherStrategy)
         else:
             self._plan_topk(Q.shape[1], k)
@@ -739,6 +781,18 @@ class ALSModel:
         return cls(rank=manifest["rank"], user_map=IdMap(ids=u_ids),
                    item_map=IdMap(ids=i_ids), user_factors=U,
                    item_factors=V, params=manifest["params"], device=device)
+
+
+def _single_process_mesh(mesh, surface):
+    """The model's recommend surfaces assemble host rows from the whole
+    result; across processes ``topk_sharded`` returns each process's own
+    rows, so they refuse with the reference's direction."""
+    if mesh.process_count > 1:
+        raise ValueError(
+            f"{surface}(mesh=...) supports single-process meshes; in a "
+            "multi-process deployment call "
+            "tpu_als_torch.parallel.serve.topk_sharded directly and read "
+            "each process's rows (returned with their global row offset)")
 
 
 def _to_object_rows(table):

@@ -1,24 +1,37 @@
-"""The sharded fit behind ``ALS(mesh=...).fit``, with elastic recovery.
+"""The mesh fits behind ``ALS(mesh=...).fit``.
 
-Counterpart of ``tpu_als/api/fitting.py::fit_sharded`` for one process:
-balanced entity partitions, the strategy's rating containers (stacked
-CSR shards, the ring's owner × source grid with its per-row counts, or
-the all_to_all plans, with the reference's fallback from a degenerate
-plan to ``'all_gather'``), the traffic model, then
-:func:`tpu_als_torch.parallel.trainer.train_sharded`.  ``'auto'`` is
-resolved by ``plan.resolve_gather_strategy``.  With ``est.elastic`` a
-lost shard re-forms the mesh on the survivors and the fit resumes from
-the last checkpoint (:func:`_reform_and_resume`).  The reference's
-multi-process fit is not ported.
+Counterpart of ``tpu_als/api/fitting.py``:
+
+- :func:`fit_sharded` — one process: balanced entity partitions, the
+  strategy's rating containers (stacked CSR shards, the ring's owner ×
+  source grid with its per-row counts, or the all_to_all plans, with the
+  reference's fallback from a degenerate plan to ``'all_gather'``), the
+  traffic model, then :func:`tpu_als_torch.parallel.trainer.
+  train_sharded`.  ``'auto'`` is resolved by
+  ``plan.resolve_gather_strategy``.  With ``est.elastic`` a lost shard
+  re-forms the mesh on the survivors and the fit resumes from the last
+  checkpoint (:func:`_reform_and_resume`).
+- :func:`check_multiprocess_gate` — the FIRST collective of every
+  multi-process fit: the reference's 11 fields plus the port's kernel
+  knobs (``split_width``, K4's ``scratch_elems``), so a divergence
+  raises on every process instead of pairing mismatched collectives or
+  training shards with different numerics.
+- :func:`fit_multiprocess` — P processes × L logical shards
+  (``parallel.multihost.train_multihost``), replicated or per-host data,
+  sharded or replicated checkpoints, the collective preemption decision.
 """
 
 from __future__ import annotations
+
+import hashlib
+import os
 
 import numpy as np
 import torch
 
 from tpu_als_torch import obs
 from tpu_als_torch.convert import entity_rows
+from tpu_als_torch.parallel import multihost
 from tpu_als_torch.parallel.comm import gather_block_plan, shard_csr_grid
 from tpu_als_torch.parallel.data import partition_balanced, shard_csr
 from tpu_als_torch.parallel.trainer import (
@@ -27,6 +40,7 @@ from tpu_als_torch.parallel.trainer import (
     stacked_counts,
     train_sharded,
 )
+from tpu_als_torch.resilience import preempt
 from tpu_als_torch.resilience.elastic import DeviceLost
 
 
@@ -83,6 +97,10 @@ def _reform_and_resume(est, mesh, exc, cfg, user_map, item_map, orig_init,
              surviving=len(surviving))
     ctx = tracing.start_trace("elastic.detect", iteration=exc.iteration,
                               lost=lost)
+    if multihost.process_count() > 1:
+        # the group re-forms before the shrunk mesh's first collective
+        # (one process: nothing to re-form)
+        multihost.rejoin()
     new_mesh = make_mesh(devices=[s.device for s in surviving],
                          ids=[s.id for s in surviving])
     obs.emit("mesh_reformed", old_devices=len(old),
@@ -183,3 +201,165 @@ def _fit_sharded_once(est, mesh, u_idx, i_idx, r, user_map, item_map, cfg,
         if U.is_cuda:
             torch.cuda.synchronize(U.device)
     return U, V
+
+
+# -- multi-process ------------------------------------------------------
+
+_GATE_FIELDS = ("dataMode", "fitCallback present", "fitCallbackInterval",
+                "checkpointing", "checkpointInterval", "checkpointSharded",
+                "checkpointDir digest", "maxIter", "gatherStrategy",
+                "cgIters", "cgMode", "split_width", "scratch_elems")
+
+
+def multiprocess_knobs(est, cfg, u_raw, i_raw):
+    """The kernel knobs a multi-process fit runs with: the planner's
+    banked ``kernel_config`` for this process's view of the problem (its
+    ratings ``u_raw``/``i_raw``; keyed like a single-process fit, with
+    the mesh's global size), read and never tuned (a tune would time
+    collectives per process and decide per process), or None (the module
+    constants) when the gate ``core.als.autotune_gate`` is off or nothing
+    is banked.  Processes whose banks differ meet in
+    :func:`check_multiprocess_gate`."""
+    from tpu_als_torch import plan
+    from tpu_als_torch.core import als as core_als
+
+    if not core_als.autotune_gate():
+        return None
+    kcfg = plan.resolve_kernel_config(
+        rank=int(cfg.rank), compute_dtype=cfg.compute_dtype,
+        device=est.mesh.device, tune=False,
+        shape_class=plan.shape_class(len(np.unique(u_raw)),
+                                     len(np.unique(i_raw)), len(u_raw)),
+        mesh_shape=(est.mesh.global_size,))
+    if not kcfg:
+        return None
+    return {"split_width": int(kcfg["split_width"]),
+            "scratch_elems": int(kcfg["scratch_elems"])}
+
+
+def check_multiprocess_gate(est, knobs=None):
+    """All-gather and compare the fit's knobs every process must share:
+    the reference's 11 (dataMode, fitCallback present,
+    fitCallbackInterval, checkpointing, checkpointInterval,
+    checkpointSharded, a digest of the resolved checkpointDir when the
+    checkpoints are sharded, maxIter, gatherStrategy, cgIters, cgMode)
+    and the port's kernel knobs ``knobs`` (None: the module constants).
+    ``gatherStrategy='auto'`` is refused, as in the reference: the
+    planner's pick must be made up front and passed explicitly."""
+    from tpu_als_torch.core import als as core_als
+    from tpu_als_torch.ops import cuda_gather_ne
+    from tpu_als_torch.parallel.trainer import EXECUTABLE_STRATEGIES
+
+    interval = est.getCheckpointInterval()
+    ckpt_on = est.checkpointDir is not None and interval >= 1
+    ckdir_digest = 0
+    if est.checkpointSharded and ckpt_on and est.checkpointDir:
+        h = hashlib.blake2b(os.path.abspath(est.checkpointDir).encode(),
+                            digest_size=8).digest()
+        ckdir_digest = int(np.frombuffer(h, dtype=np.int64)[0])
+    if est.gatherStrategy == "auto":
+        raise ValueError(
+            "gatherStrategy='auto' is not supported in multi-process "
+            "fits — resolve it up front (tpu_als_torch plan warm shows the "
+            "modeled pick) and pass the same explicit strategy on every "
+            "process")
+    knobs = knobs or {}
+    row = np.array(
+        [int(est.dataMode == "per_host"), int(est.fitCallback is not None),
+         est.fitCallbackInterval, int(ckpt_on), interval,
+         int(est.checkpointSharded), ckdir_digest, est.getMaxIter(),
+         EXECUTABLE_STRATEGIES.index(est.gatherStrategy), est.cgIters,
+         ("matfree", "dense").index(est.cgMode),
+         int(knobs.get("split_width", core_als.SPLIT_WIDTH)),
+         int(knobs.get("scratch_elems", cuda_gather_ne._SCRATCH_ELEMS))],
+        dtype=np.int64)
+    gate = multihost.process_allgather(row)
+    if not (gate == gate[0]).all():
+        raise ValueError(
+            "processes disagree on multi-process fit config "
+            f"({', '.join(_GATE_FIELDS)}): {gate.tolist()} — pass the SAME "
+            "knobs on every process (peers may use an inert callback; "
+            "only process 0's is invoked; the kernel knobs come from each "
+            "process's plan cache: share one TPU_ALS_PLAN_CACHE or tune "
+            "once with plan tune)")
+
+
+def check_finite_ratings_collective(local_nonfinite, rating_col):
+    """Raise on EVERY process when any process's ratings hold nan/inf: a
+    one-process abort before the data collectives would strand its peers
+    inside them."""
+    counts = multihost.process_allgather(
+        np.array([local_nonfinite], dtype=np.int64))
+    if counts.sum() > 0:
+        raise ValueError(
+            f"ratingCol {rating_col!r} contains non-finite values "
+            f"(nan/inf) — per-process counts {counts.ravel().tolist()}; "
+            "clean the input before fit")
+
+
+def fit_multiprocess(est, u_idx, i_idx, r, user_map, item_map, cfg, init,
+                     start_iter, knobs=None):
+    """Multi-process fit: every process passes the SAME dataset
+    (``dataMode='replicated'``) or its own split (``'per_host'``: the id
+    maps were agreed by ``global_id_union``, the triples are exchanged
+    inside ``train_multihost``); blocking is per process, training
+    crosses processes through the multihost transport, and the fitted
+    factors are gathered to every process for the model object.  Same
+    init, partitions and layout as the one-process mesh fit, so
+    'all_gather' gives its factors bit for bit.
+
+    Per iteration, collectively: the preemption decision (a signal on
+    any process saves and stops every process at the same boundary); a
+    sharded checkpoint written by every process when due
+    (``checkpointSharded``); else, when a checkpoint, the fitCallback
+    (every ``fitCallbackInterval``) or a stop is due, the entity-space
+    gather, then on process 0 only the callback and the replicated
+    checkpoint.  The last gather is reused when it was the final
+    iteration's.  Returns entity-space ``(U, V)``."""
+    last_gather = {}  # iteration -> (U, V), so the final gather is not
+    # repeated after training (the costliest collective at the end)
+
+    def mp_cb(iteration, Us, Vs, up, ip):
+        due_cb, due_ck = est._due(iteration)
+        stopping = bool(multihost.process_allgather(np.array(
+            [int(preempt.pending(iteration))], dtype=np.int64)).sum() > 0)
+        if stopping and est.checkpointDir is not None:
+            due_ck = True  # a resume point at this boundary
+        if due_ck and est.checkpointSharded:
+            multihost.save_checkpoint_sharded(
+                os.path.join(est.checkpointDir, "als_checkpoint"), Us, Vs,
+                up, ip, user_map, item_map, est.mesh,
+                params=est._ckpt_params(), iteration=iteration)
+            due_ck = False
+        if not (due_cb or due_ck or stopping):
+            return
+        Ue = multihost.gather_entity_factors(Us, up, est.mesh)
+        Ve = multihost.gather_entity_factors(Vs, ip, est.mesh)
+        last_gather.clear()
+        last_gather[iteration] = (Ue, Ve)
+        if multihost.process_index() == 0:
+            if due_cb and est.fitCallback is not None:
+                est.fitCallback(iteration, Ue, Ve)
+            if due_ck:
+                est._save_checkpoint(user_map, item_map, iteration, Ue, Ve)
+        if stopping:
+            path = (os.path.join(est.checkpointDir, "als_checkpoint")
+                    if est.checkpointDir is not None else None)
+            g = preempt.installed()
+            signum = g.signum if g is not None else None
+            obs.emit("preempted", iteration=iteration, signum=signum)
+            raise preempt.Preempted(iteration, path, signum)
+
+    # nothing observes the fit (the one-process rule): no per-iteration
+    # collective; the gate made this the same decision on every process
+    observed = est._callback(user_map, item_map) is not None
+    with obs.span("train.fit", strategy=est.gatherStrategy):
+        Us, Vs, upart, ipart = multihost.train_multihost(
+            u_idx, i_idx, r, len(user_map), len(item_map), cfg,
+            mesh=est.mesh, replicated=est.dataMode == "replicated",
+            strategy=est.gatherStrategy, init=init, start_iter=start_iter,
+            callback=mp_cb if observed else None, knobs=knobs)
+        if cfg.max_iter in last_gather:
+            return last_gather[cfg.max_iter]
+        return (multihost.gather_entity_factors(Us, upart, est.mesh),
+                multihost.gather_entity_factors(Vs, ipart, est.mesh))

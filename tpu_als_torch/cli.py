@@ -138,34 +138,44 @@ def _vocab_lookup(labels, g):
     return pos, known
 
 
-def _load_stream(path, vocab=None):
+def _load_stream(path, vocab=None, host_index=0, num_hosts=1):
     """``stream:PATH``: a STRING-id ``user_id,item_id,rating,timestamp``
-    file with a header, read by the byte-range stream reader and
-    densified in the lexicographic entity space.  Returns ``(frame,
-    user_labels, item_labels)`` (labels: numpy ``S`` arrays).
+    file with a header, read by the byte-range stream reader (this
+    process's split ``host_index`` of ``num_hosts``) and densified in the
+    lexicographic entity space.  Returns ``(frame, user_labels,
+    item_labels)`` (labels: numpy ``S`` arrays).
 
-    The port has one process, so one host reads the whole file: the
-    vocabulary union is ``np.unique`` (what the reference's
-    ``global_vocab_union`` is in one process), and the host's split claim
-    rides it and is validated, as the reference does when every host is
-    present.  ``vocab``: ``(user_labels,
-    item_labels)`` of a trained model's ``stream_labels.npz``; the data is
-    then densified in the MODEL's id space, and rows with ids the model
-    never saw are dropped with a count on stderr.
+    The vocabularies are agreed across processes
+    (``multihost.global_vocab_union``; one process: ``np.unique``), and
+    this process's byte-range claim rides the user-vocabulary union, so
+    a stale split count on any process fails here instead of silently
+    double-reading or dropping ratings; a single process splitting for a
+    larger count cannot see its peers' claims and strips them unchecked,
+    as the reference does.  ``vocab``: ``(user_labels, item_labels)`` of a
+    trained model's ``stream_labels.npz``; the data is then densified in
+    the MODEL's id space, and rows with ids the model never saw are
+    dropped with a count on stderr.
     """
     from tpu_als_torch.io.stream import (split_claim, stream_ingest,
+                                         strip_split_claims,
                                          validate_split_claims)
+    from tpu_als_torch.parallel.multihost import (global_vocab_union,
+                                                  process_count)
     from tpu_als_torch.utils.frame import ColumnarFrame
 
-    u_loc, i_loc, r, ul, il = stream_ingest(path, require_cols=4,
-                                            skip_header=1)
+    u_loc, i_loc, r, ul, il = stream_ingest(path, host_index, num_hosts,
+                                            require_cols=4, skip_header=1)
     if vocab is None:
-        claim = np.array([split_claim(0, 1)])
+        claim = np.array([split_claim(host_index, num_hosts)])
         w = max(ul.dtype.itemsize, claim.dtype.itemsize, 1)
         claimed = np.concatenate([ul.astype(f"S{w}"),
                                   claim.astype(f"S{w}")])
-        g_ul, _ = validate_split_claims(np.unique(claimed))
-        g_il = np.unique(il)
+        union = global_vocab_union(claimed)
+        if process_count() >= num_hosts:
+            g_ul, _ = validate_split_claims(union)
+        else:
+            g_ul = strip_split_claims(union)
+        g_il = global_vocab_union(il)
         u = np.searchsorted(g_ul, ul)[u_loc]
         i = np.searchsorted(g_il, il)[i_loc]
     else:
@@ -207,14 +217,24 @@ def _load_data(spec):
                      "stream:PATH | synthetic:UxIxN)")
 
 
-def _load_train_data(spec):
+def _load_train_data(spec, pid=0, pcount=1, per_host=False):
     """``(frame, stream_labels or None)``: a ``stream:`` spec also
     returns the ``(user_labels, item_labels)`` the model's sidecar
-    keeps."""
-    kind, _, arg = spec.partition(":")
+    keeps.
+
+    Across ``pcount`` processes (this one ``pid``): a ``{proc}``
+    placeholder expands to the process index, ONLY under a real
+    multi-process group (one process expanding it to 0 would silently
+    train on 1/N of the data where the literal path fails loudly).  For
+    ``stream:``, a placeholder means the files are per-process splits
+    already, each streamed whole; else ``per_host`` byte-splits the one
+    shared file, and a replicated load streams it whole everywhere."""
+    expanded = spec.replace("{proc}", str(pid)) if pcount > 1 else spec
+    kind, _, arg = expanded.partition(":")
     if kind != "stream":
-        return _load_data(spec), None
-    frame, g_ul, g_il = _load_stream(arg)
+        return _load_data(expanded), None
+    host, hosts = (pid, pcount) if per_host and expanded == spec else (0, 1)
+    frame, g_ul, g_il = _load_stream(arg, host_index=host, num_hosts=hosts)
     return frame, (g_ul, g_il)
 
 
@@ -425,6 +445,20 @@ def cmd_train(args):
     from tpu_als_torch.resilience import preempt
     from tpu_als_torch.utils.observe import IterationLogger
 
+    # the multi-process branch is chosen before any load: every process
+    # runs this same command, and _train_multiprocess loads its own split
+    if args.devices != 1:
+        from tpu_als_torch.parallel.multihost import init_distributed
+
+        _, pcount = init_distributed()  # one process: a no-op
+        if pcount > 1:
+            return _train_multiprocess(args)
+    if args.per_host_data:
+        raise SystemExit(
+            "--per-host-data is multi-process only (each process loads "
+            "its own split); launch under a torch.distributed group "
+            "(torchrun, or WORLD_SIZE/RANK/MASTER_ADDR/MASTER_PORT) with "
+            "--devices 0 — single-process runs load one dataset")
     mesh = _mesh(args.devices, args.device)
     with obs.span("data.load"):
         frame, stream_labels = _load_train_data(args.data)
@@ -479,6 +513,102 @@ def cmd_train(args):
         model.write().overwrite().save(args.output)
         if stream_labels is not None:
             _save_stream_labels(args.output, *stream_labels)
+
+
+def _train_multiprocess(args):
+    """``train`` in every process of a group: each process calls the same
+    ``ALS(mesh=...).fit``, whose multi-process branch blocks only the
+    positions it holds and trains through the collectives.  The mesh:
+    one shard per process on its device for ``--devices 0``, N logical
+    shards of it for ``--devices N``.  Default is a replicated load;
+    with ``--per-host-data`` each process reads its own split (a
+    ``{proc}`` in ``--data`` expands to the process index; a ``stream:``
+    file without one is byte-split) and the estimator runs
+    ``dataMode='per_host'``.  The split seed is the same on every
+    process, so an accidentally shared file still meets the trainer's
+    duplicated-split check.  ``--log-file`` logs from process 0 (the
+    iteration gather is collective; peers pass an inert callback).
+    Process 0 evaluates its holdout and saves the model."""
+    import contextlib
+
+    import torch
+
+    from tpu_als_torch.api.estimator import ALS
+    from tpu_als_torch.api.evaluation import RegressionEvaluator
+    from tpu_als_torch.parallel.mesh import make_mesh
+    from tpu_als_torch.parallel.multihost import process_count, process_index
+    from tpu_als_torch.resilience import preempt
+    from tpu_als_torch.utils.observe import IterationLogger
+    from tpu_als_torch.utils.platform import resolve_device
+
+    pid, pcount = process_index(), process_count()
+    if args.devices < 0:
+        raise SystemExit(f"--devices must be >= 0, got {args.devices}")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(devices=[dev] * max(1, args.devices))
+    spec = args.data.replace("{proc}", str(pid))
+    if (args.per_host_data and args.data == spec
+            and spec.partition(":")[0] != "stream"):
+        print(f"[proc {pid}] warning: --per-host-data without a {{proc}} "
+              "placeholder in --data — every process loads the same path "
+              "(valid only for process-local disks holding different "
+              "splits; identical content is rejected at train time)",
+              file=sys.stderr)
+    frame, stream_labels = _load_train_data(args.data, pid, pcount,
+                                            args.per_host_data)
+    train, test = frame.randomSplit([1 - args.holdout, args.holdout],
+                                    seed=args.seed)
+    logger = fit_cb = None
+    if args.log_file:
+        if pid == 0:
+            logger = IterationLogger(path=args.log_file)
+            fit_cb = _iteration_cb(logger)
+        else:
+            fit_cb = (lambda iteration, U, V: None)
+    print(f"[proc {pid}/{pcount}] training {len(train):,} ratings "
+          f"({'per-host' if args.per_host_data else 'replicated'} load) "
+          f"over {mesh.global_size} positions", file=sys.stderr)
+    als = ALS(rank=args.rank, maxIter=args.max_iter, regParam=args.reg_param,
+              implicitPrefs=args.implicit, alpha=args.alpha,
+              nonnegative=args.nonnegative, seed=args.seed,
+              coldStartStrategy="drop", mesh=mesh,
+              gatherStrategy=args.gather_strategy, fitCallback=fit_cb,
+              dataMode="per_host" if args.per_host_data else "replicated",
+              cgIters=args.cg_iters, checkpointDir=args.checkpoint_dir,
+              checkpointInterval=args.checkpoint_interval,
+              resumeFrom=_resolve_resume(args), guardrails=args.guardrails,
+              elastic=args.elastic)
+    ctx = contextlib.nullcontext()
+    if args.profile_dir:
+        from tpu_als_torch.utils.observe import trace
+
+        ctx = trace(os.path.join(args.profile_dir, f"proc{pid}"))
+    try:
+        # the preemption decision is collective inside fit: a signal on
+        # ANY process checkpoints and stops EVERY process at one boundary
+        with preempt.PreemptionGuard(), ctx:
+            model = als.fit(train)
+    except preempt.Preempted as p:
+        print(f"[proc {pid}] preempted — {p}; rerun with --resume auto",
+              file=sys.stderr)
+        raise
+    finally:
+        if logger is not None:
+            logger.close()
+    if pid != 0:
+        return None
+    if len(test):
+        rmse = RegressionEvaluator(labelCol="rating").evaluate(
+            model.transform(test))
+        print(json.dumps({"holdout_rmse": round(rmse, 4)}))
+    if args.output:
+        model.write().overwrite().save(args.output)
+        if stream_labels is not None:
+            _save_stream_labels(args.output, *stream_labels)
+        print(f"model saved to {args.output}", file=sys.stderr)
+    return model
 
 
 def ranking_eval(model, frame, k, positive_threshold=3.5):
@@ -1606,12 +1736,21 @@ def main(argv=None):
                    help="train sharded over N logical shards of the one "
                         "device (0 = all visible cards, which on a "
                         "one-card box is the single-device path; 1 = "
-                        "single device, the default)")
+                        "single device, the default); under a "
+                        "torch.distributed group (torchrun, or WORLD_SIZE/"
+                        "RANK/MASTER_ADDR/MASTER_PORT) any value but 1 "
+                        "trains across the processes: 0 = one shard a "
+                        "process, N = N logical shards a process")
     t.add_argument("--gather-strategy", default="all_gather",
                    choices=list(GATHER_STRATEGIES),
                    help="how sharded half-steps move the opposite factors "
                         "(table: parallel.trainer.GATHER_STRATEGIES — "
                         f"{strategy_help()})")
+    t.add_argument("--per-host-data", action="store_true",
+                   help="multi-process only: each process loads its OWN "
+                        "--data split ('{proc}' in the spec expands to "
+                        "the process index; a stream: file is byte-split) "
+                        "instead of a replicated load")
     t.add_argument("--elastic", action="store_true",
                    help="elastic mesh training (needs --devices > 1): the "
                         "loss of a shard re-forms the mesh on the "

@@ -23,8 +23,10 @@ Transient I/O errors in a save or a load are retried under
 :func:`~tpu_als_torch.resilience.retry.retry_call` (a corrupt checkpoint
 is a fact about bytes and is never retried).  The fault points
 ``checkpoint.write`` and ``checkpoint.rename`` drive each branch on
-demand.  The sharded layout (format 2, one file per process) is not read
-here: it comes with the multi-process slice.
+demand.  The sharded layout (format 2, ``SHARDED_FORMAT``: one npz per
+mesh position, ``slots.npz`` and a manifest without digests, written by
+``parallel.multihost.save_checkpoint_sharded`` of either package) loads
+through the same :func:`load_factors`, reassembled into entity space.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ from tpu_als_torch import obs
 from tpu_als_torch.resilience import faults
 from tpu_als_torch.resilience.retry import RetryPolicy, retry_call
 
-# the replicated layout; the sharded layout (format 2) is not read here
+# the replicated layout, and the shard-per-position one
 REPLICATED_FORMAT = 1
+SHARDED_FORMAT = 2
 _DATA_FILES = ("user_factors.npz", "item_factors.npz")
 
 # transient-I/O budget for a save or a load; tests pass a fast policy
@@ -252,12 +255,36 @@ def _load_validated(path):
         raise
 
 
+def _load_sharded(path, manifest):
+    """The sharded layout in entity space: each side's slot space
+    reassembled from its per-position files, then indexed by the saved
+    slot arrays (the reference's ``_load_dir`` arithmetic)."""
+    slots = np.load(os.path.join(path, "slots.npz"), allow_pickle=False)
+    rank = int(manifest["rank"])
+    D = int(manifest["n_shards"])
+
+    def side(name, rps, slot):
+        full = np.zeros((D * rps, rank), dtype=np.float32)
+        for pos in range(D):
+            f = np.load(os.path.join(path, f"{name}_shard_{pos:05d}.npz"),
+                        allow_pickle=False)
+            full[pos * rps:(pos + 1) * rps] = f["factors"]
+        return full[slot]
+
+    U = side("user", int(manifest["rows_per_shard_user"]),
+             slots["user_slot"])
+    V = side("item", int(manifest["rows_per_shard_item"]),
+             slots["item_slot"])
+    return manifest, slots["user_ids"], U, slots["item_ids"], V
+
+
 def _load_dir(path, manifest):
-    if manifest["format_version"] != REPLICATED_FORMAT \
-            or manifest.get("sharded"):
+    if manifest["format_version"] > SHARDED_FORMAT:
         raise ValueError(
             f"checkpoint format {manifest['format_version']} at {path} is "
-            "not the replicated layout this package reads")
+            f"newer than this package reads ({SHARDED_FORMAT})")
+    if manifest.get("sharded"):
+        return _load_sharded(path, manifest)
     try:
         u = np.load(os.path.join(path, "user_factors.npz"),
                     allow_pickle=False)

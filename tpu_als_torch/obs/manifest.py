@@ -48,12 +48,15 @@ def build_manifest(config=None, argv=None):
 
 
 def late_device_info():
-    """torch's version and, when CUDA is already initialized, the device
-    count and the first device's name; gathered at finalize."""
+    """torch's version, the process count (``parallel.multihost``'s, 1
+    when it is not loaded) and, when CUDA is already initialized, the
+    device count and the first device's name; gathered at finalize."""
     torch = sys.modules.get("torch")
     if torch is None:
         return {}
     info = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    mh = sys.modules.get("tpu_als_torch.parallel.multihost")
+    info["process_count"] = mh.process_count() if mh is not None else 1
     if torch.cuda.is_initialized():
         info["device_count"] = torch.cuda.device_count()
         info["device_name"] = torch.cuda.get_device_name(0)

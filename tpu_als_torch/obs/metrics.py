@@ -328,10 +328,17 @@ class MetricsRegistry:
         rewrite ``metrics.prom`` and ``run_manifest.json``.  A second call
         appends only the events recorded since the first; a full
         ``events.jsonl`` rotates first (:func:`maybe_rotate`).  Returns
-        the run directory, or None when none is configured."""
+        the run directory, or None when none is configured.  Across
+        processes only process 0 writes."""
         with self._lock:
             run_dir = self._run_dir
         if run_dir is None:
+            return None
+        # across processes only process 0 writes (the peers share the
+        # directory); read through sys.modules, so nothing is imported
+        mh = sys.modules.get("tpu_als_torch.parallel.multihost")
+        if mh is not None and mh.process_count() > 1 \
+                and mh.process_index() != 0:
             return None
         snap = self.snapshot()
         if self._dropped:

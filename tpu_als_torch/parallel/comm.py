@@ -24,8 +24,14 @@ stacked CSR shards of ``'all_gather'``, the opposite table taken in the
 column blocks of :func:`gather_block_plan` (on one device a block is a
 slice of every shard's rows, not a gather), the normal equations summed
 block by block in the reference's order, then ``solve_spd`` (K2 up to
-rank 128, K6 above).  The reference's multi-host ``positions=`` is not
-ported.
+rank 128, K6 above).
+
+Across processes (:mod:`.multihost`): ``shard_csr_grid(positions=)``
+allocates and fills only one process's owner rows of the grid (the
+layout is still derived from every rating, so every process agrees), and
+:func:`ring_process_half_step` runs the unfused ring with the opposite
+shards rotating between processes by send/recv (the reference's
+``ppermute``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from tpu_als_torch.core.ratings import (
 from tpu_als_torch.ops import cuda_gather_ne as gne
 from tpu_als_torch.ops.solve import gram_terms, solve_cg, solve_nnls, \
     solve_spd
+from tpu_als_torch.parallel import multihost
 
 
 @dataclass
@@ -58,6 +65,8 @@ class RingCsr:
     rows_per_shard: int
     chunk_elems: int
     nnz: int
+    # None: the full grid; a tuple: one process's owner positions
+    positions: tuple = None
 
     @property
     def padded_nnz(self):
@@ -69,11 +78,16 @@ class RingCsr:
 
 
 def shard_csr_grid(row_part, col_part, row_idx, col_idx, vals, min_width=8,
-                   chunk_elems=1 << 19):
+                   chunk_elems=1 << 19, positions=None):
     """Build the grid with a row space shared by the source shards: every
     source stores entity u's ratings at the same (bucket, row) position,
     and entities are bucketed by their max-per-source degree (each
-    source's slice of a row pads to that width)."""
+    source's slice of a row pads to that width).
+
+    ``positions``: allocate and fill ONLY these owner positions' rows
+    (one process of a multi-process mesh; the layout is still computed
+    from every rating, so every process agrees on the shapes).  The
+    result equals the full grid's slice at ``positions``."""
     D = row_part.n_shards
     S = col_part.n_shards
     row_idx = np.asarray(row_idx)
@@ -125,23 +139,31 @@ def shard_csr_grid(row_part, col_part, row_idx, col_idx, vals, min_width=8,
     e_w = widths_all[flat]
     e_pos = local_pos[flat]
 
+    local = positions is not None
+    pos_list = list(positions) if local else list(range(D))
+    L = len(pos_list)
+    # owner position -> leading-axis index (-1: another process's owner)
+    owner_to_li = np.full(D, -1, dtype=np.int64)
+    owner_to_li[pos_list] = np.arange(L)
     buckets = []
     for w, nb in zip(bucket_widths, nb_pads):
-        rows = np.full((D, nb), num_rows, dtype=np.int32)
-        for d in range(D):
+        rows = np.full((L, nb), num_rows, dtype=np.int32)
+        for li, d in enumerate(pos_list):
             sel = selections[w, d]
-            rows[d, :len(sel)] = sel
-        cols = np.zeros((D, S, nb, w), dtype=np.int32)
-        v = np.zeros((D, S, nb, w), dtype=np.float32)
-        m = np.zeros((D, S, nb, w), dtype=np.float32)
-        esel = e_w == w
-        at = (e_owner[esel], e_src[esel], e_pos[esel], off[esel])
+            rows[li, :len(sel)] = sel
+        cols = np.zeros((L, S, nb, w), dtype=np.int32)
+        v = np.zeros((L, S, nb, w), dtype=np.float32)
+        m = np.zeros((L, S, nb, w), dtype=np.float32)
+        esel = (e_w == w) & (owner_to_li[e_owner] >= 0)
+        at = (owner_to_li[e_owner[esel]], e_src[esel], e_pos[esel],
+              off[esel])
         cols[at] = e_cols[esel]
         v[at] = e_vals[esel]
         m[at] = 1.0
         buckets.append(Bucket(rows=rows, cols=cols, vals=v, mask=m))
     return RingCsr(buckets=buckets, rows_per_shard=num_rows,
-                   chunk_elems=chunk_elems, nnz=n)
+                   chunk_elems=chunk_elems, nnz=n,
+                   positions=tuple(pos_list) if local else None)
 
 
 def _scatter(out, b, x):
@@ -210,9 +232,6 @@ def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
     D = counts.shape[0]
     eye = torch.eye(r, dtype=torch.float32, device=dev)
     out = torch.zeros(D, num_rows + 1, r, dtype=torch.float32, device=dev)
-    cg = (cfg.cg_iters > 0
-          and cfg.solve_backend not in ("gather_fused_solve",
-                                        "gather_fused_ring"))
     for b in ring_buckets:
         _, S, nb, w = b.cols.shape
         tile = trainer_chunk(nb, w, r, chunk_elems)
@@ -234,26 +253,100 @@ def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,
                                            alpha=cfg.alpha)
                     A = A + Sg
                     bb = bb + bg
-                # padding rows read a real row's count; their b is 0, so
-                # they solve to 0, and the scatter drops them
-                at = torch.clamp(rows, max=num_rows - 1)
-                cnt = counts[d][at]
-                A = A + (cfg.reg_param * cnt)[:, None, None] * eye
-                if cfg.implicit_prefs:
-                    A = A + YtY[None]
-                if cfg.nonnegative:
-                    x = solve_nnls(A, bb, cnt, sweeps=cfg.nnls_sweeps,
-                                   jitter=cfg.jitter)
-                elif cg:
-                    x0 = (None if prev is None
-                          else prev[d * num_rows:(d + 1) * num_rows][at])
-                    x = solve_cg(A, bb, cnt, x0=x0, iters=cfg.cg_iters,
-                                 jitter=cfg.jitter)
-                else:
-                    x = solve_spd(A, bb, cnt, jitter=cfg.jitter,
-                                  adaptive=cfg.adaptive_solve)
-                out[d, rows] = x
+                out[d, rows] = _ring_tile_solve(A, bb, rows, counts[d],
+                                                num_rows, cfg, YtY, eye,
+                                                _prev_rows(prev, d, num_rows))
     return out[:, :num_rows].reshape(D * num_rows, r)
+
+
+def _prev_rows(prev, d, num_rows):
+    return None if prev is None else prev[d * num_rows:(d + 1) * num_rows]
+
+
+def _ring_tile_solve(A, bb, rows, counts, num_rows, cfg, YtY, eye, prev):
+    """The ring's tail on one owner's row tile: the λ·n ridge from the
+    rows' ``counts``, YᵀY when implicit, then NNLS when nonnegative,
+    warm-started CG (from ``prev``, the owner's current rows) when
+    ``cg_iters > 0``, else ``solve_spd``."""
+    # padding rows read a real row's count; their b is 0, so they solve
+    # to 0, and the scatter drops them
+    at = torch.clamp(rows, max=num_rows - 1)
+    cnt = counts[at]
+    A = A + (cfg.reg_param * cnt)[:, None, None] * eye
+    if cfg.implicit_prefs:
+        A = A + YtY[None]
+    if cfg.nonnegative:
+        return solve_nnls(A, bb, cnt, sweeps=cfg.nnls_sweeps,
+                          jitter=cfg.jitter)
+    if cfg.cg_iters > 0 and cfg.solve_backend not in (
+            "gather_fused_solve", "gather_fused_ring"):
+        x0 = None if prev is None else prev[at]
+        return solve_cg(A, bb, cnt, x0=x0, iters=cfg.cg_iters,
+                        jitter=cfg.jitter)
+    return solve_spd(A, bb, cnt, jitter=cfg.jitter,
+                     adaptive=cfg.adaptive_solve)
+
+
+def ring_process_half_step(V_local, ring_buckets, counts, num_rows, cfg,
+                           chunk_elems, YtY=None, prev=None):
+    """One half-step of this process's owners with the opposite shards
+    rotating between processes (the unfused ring across a mesh of P
+    processes × L shards).
+
+    ``V_local`` [L·per, r]: this process's shards of the opposite
+    factors; ``ring_buckets``: its owner rows of the grid as tensors
+    (``shard_csr_grid(positions=)``: rows [L, nb], cols [L, S, nb, w]);
+    ``counts`` [L, num_rows]; ``prev`` [L·num_rows, r], the CG warm
+    start.  Per bucket and row tile, the held block of L opposite shards
+    makes P − 1 hops (sent to process p + 1, received from p − 1,
+    :func:`~tpu_als_torch.parallel.multihost.ppermute`), each owner
+    adding the terms of every shard it holds; then the tile is solved as
+    in :func:`ring_half_step`.  Every process walks the same buckets and
+    tiles (the grid's layout is agreed), so the hops pair up.  The terms
+    are summed in the order the shards arrive (this process's block
+    first), not the one-process ring's, so the result differs from it by
+    rounding.  Returns [L·num_rows, r] f32."""
+    P, p = multihost.process_count(), multihost.process_index()
+    r = V_local.shape[-1]
+    dev = V_local.device
+    cdt = getattr(torch, cfg.compute_dtype)
+    L = counts.shape[0]
+    home = V_local.float().reshape(L, -1, r)
+    eye = torch.eye(r, dtype=torch.float32, device=dev)
+    out = torch.zeros(L, num_rows + 1, r, dtype=torch.float32, device=dev)
+    for b in ring_buckets:
+        nb, w = b.cols.shape[-2:]
+        tile = trainer_chunk(nb, w, r, chunk_elems)
+        vals, mask = b.vals.to(cdt), b.mask.to(cdt)
+        for s0 in range(0, nb, tile):
+            sl = slice(s0, s0 + tile)
+            n = b.rows[0, sl].shape[0]
+            A = [torch.zeros(n, r, r, dtype=torch.float32, device=dev)
+                 for _ in range(L)]
+            bb = [torch.zeros(n, r, dtype=torch.float32, device=dev)
+                  for _ in range(L)]
+            held = home
+            for q in range(P):
+                src_proc = (p - q) % P  # whose block is held after q hops
+                held_c = held.to(cdt)
+                for j in range(L):
+                    for li in range(L):
+                        src = src_proc * L + li
+                        Vg = held_c[li][b.cols[j, src, sl].long()]
+                        Sg, bg, _ = gram_terms(Vg, vals[j, src, sl],
+                                               mask[j, src, sl],
+                                               implicit=cfg.implicit_prefs,
+                                               alpha=cfg.alpha)
+                        A[j] = A[j] + Sg
+                        bb[j] = bb[j] + bg
+                if q < P - 1:
+                    held = multihost.ppermute(held)
+            for j in range(L):
+                rows = b.rows[j, sl]
+                out[j, rows] = _ring_tile_solve(
+                    A[j], bb[j], rows, counts[j], num_rows, cfg, YtY, eye,
+                    _prev_rows(prev, j, num_rows))
+    return out[:, :num_rows].reshape(L * num_rows, r)
 
 
 def gather_block_plan(per, n_blocks):

@@ -11,8 +11,11 @@ Counterpart of ``tpu_als/parallel/data.py`` (numpy, array-equal to it):
   CSR buckets padded to common shapes and stacked on a leading shard
   axis, with col ids in the opposite side's slot space.
 
-The reference's multi-host arguments (``positions=``, per-host
-``row_counts``) are left out: the port runs one process.
+Across processes (:mod:`.multihost`) each process builds only its mesh
+positions' shards (``positions=``) from its local ratings, in the layout
+:func:`shard_layout` derives from the GLOBAL per-entity counts
+(``row_counts=``), so every process agrees on the shapes; the result
+equals the full build's slice at those positions.
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ class ShardedCsr:
     rows_per_shard: int
     chunk_elems: int
     nnz: int
+    # None: the full build; a tuple: one process's mesh positions, in the
+    # order of the leading axis
+    positions: tuple = None
 
     def to(self, device):
         """The stacked buckets as tensors on ``device``."""
@@ -100,33 +106,55 @@ def shard_layout(row_part, row_counts, min_width=8, chunk_elems=1 << 19,
 
 
 def shard_csr(row_part, col_part, row_idx, col_idx, vals, min_width=8,
-              chunk_elems=1 << 19):
+              chunk_elems=1 << 19, positions=None, row_counts=None):
     """Per-shard CSR buckets in slot space, stacked.  ``row_part`` /
-    ``col_part``: the Partition of the solved side / the gathered side."""
+    ``col_part``: the Partition of the solved side / the gathered side.
+
+    ``positions``: build ONLY these mesh positions' shards (one process of
+    a multi-process mesh, fed its local ratings,
+    ``multihost.local_rating_mask``) in the layout of :func:`shard_layout`
+    over ``row_counts``, the GLOBAL per-entity counts of the solved side,
+    which it then requires.  The leading axis is ``len(positions)`` in
+    the given order, and the arrays equal the full build's at
+    ``positions``."""
     row_idx = np.asarray(row_idx)
     owner = row_part.owner[row_idx]
     local_rows = row_part.local[row_idx]
     slot_cols = col_part.slot[np.asarray(col_idx)]
-    if len(row_idx):
-        row_counts = np.bincount(row_idx, minlength=len(row_part.owner))
-    else:
-        row_counts = np.zeros(len(row_part.owner), np.int64)
+    local = positions is not None
+    if not local:
+        positions = range(row_part.n_shards)
+    elif row_counts is None:
+        # local ratings cannot give the GLOBAL layout: this process would
+        # build other bucket shapes than its peers
+        raise ValueError(
+            "positions= requires row_counts (global per-entity counts of "
+            "the solved side; multi-process fits sum per-process "
+            "bincounts, see shard_layout)")
+    if row_counts is None:
+        if len(row_idx):
+            row_counts = np.bincount(row_idx, minlength=len(row_part.owner))
+        else:
+            row_counts = np.zeros(len(row_part.owner), np.int64)
     layout = shard_layout(row_part, row_counts, min_width, chunk_elems)
     shards = []
-    for d in range(row_part.n_shards):
+    for d in positions:
         sel = owner == d
         shards.append(build_csr_buckets(
             local_rows[sel], slot_cols[sel], np.asarray(vals)[sel],
             num_rows=row_part.rows_per_shard, min_width=min_width,
             chunk_elems=chunk_elems))
-    return stack_shards(shards, chunk_elems, layout=layout)
+    return stack_shards(shards, chunk_elems, layout=layout,
+                        positions=tuple(positions) if local else None)
 
 
-def stack_shards(shards, chunk_elems, layout=None):
+def stack_shards(shards, chunk_elems, layout=None, positions=None):
     """Unify bucket shapes across shards and stack them on a leading axis.
     ``layout``: ``[(width, padded_nb)]`` (default: derived from the shards
-    with the same arithmetic); a built width missing from it raises rather
-    than silently dropping ratings."""
+    with the same arithmetic; a multi-process build passes the agreed one
+    from :func:`shard_layout`); a built width missing from it raises
+    rather than silently dropping ratings.  ``positions``: the mesh
+    positions the shards are (recorded on the result)."""
     num_rows = shards[0].num_rows
     built_widths = sorted({b.width for s in shards for b in s.buckets})
     if layout is None:
@@ -161,4 +189,4 @@ def stack_shards(shards, chunk_elems, layout=None):
         stacked.append(Bucket(rows=rows, cols=cols, vals=vals, mask=mask))
     return ShardedCsr(buckets=stacked, rows_per_shard=num_rows,
                       chunk_elems=chunk_elems,
-                      nnz=sum(s.nnz for s in shards))
+                      nnz=sum(s.nnz for s in shards), positions=positions)

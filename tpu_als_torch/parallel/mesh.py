@@ -20,14 +20,25 @@ so a second loss picks its victim by position as the reference's does.
 A mesh whose shards sit on more than one device raises
 ``NotImplementedError``: the transport across cards (peer-mapped shard
 pointers over NVLink, or NCCL) is not written yet.
+
+Across processes (:mod:`tpu_als_torch.parallel.multihost`): under an
+initialized process group of P processes each process lists its own L
+shards, and the mesh spans them all: ``global_size`` is P·L and this
+process holds the ``positions`` p·L .. p·L + L - 1 (its shards' default
+ids).  Building the mesh is collective: every process builds it, and a
+shard count that differs across processes raises on every process.  The
+one-device rule above holds for the shards of one process.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from tpu_als_torch.parallel import multihost
 
 
 class Shard(NamedTuple):
@@ -40,15 +51,31 @@ class Shard(NamedTuple):
 @dataclass(frozen=True)
 class Mesh:
     """S shards in ring order; ``devices[s]`` holds shard s, whose
-    logical id is ``ids[s]`` (default ``s``)."""
+    logical id is ``ids[s]`` (default: its mesh position).  Across P
+    processes these are this process's shards, and ``process_count`` /
+    ``process_index`` are the group's (module docstring)."""
 
     devices: tuple
     ids: tuple = None
+    process_count: int = field(init=False, default=1)
+    process_index: int = field(init=False, default=0)
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one shard")
-        ids = (tuple(range(len(self.devices))) if self.ids is None
+        P, p = multihost.process_count(), multihost.process_index()
+        if P > 1:
+            counts = multihost.process_allgather(
+                np.array([len(self.devices)], dtype=np.int64)).ravel()
+            if not (counts == counts[0]).all():
+                raise ValueError(
+                    f"processes list different shard counts for one mesh "
+                    f"({counts.tolist()}); every process must hold as many "
+                    "shards")
+        object.__setattr__(self, "process_count", P)
+        object.__setattr__(self, "process_index", p)
+        L = len(self.devices)
+        ids = (tuple(range(p * L, p * L + L)) if self.ids is None
                else tuple(int(i) for i in self.ids))
         if len(ids) != len(self.devices) or len(set(ids)) != len(ids):
             raise ValueError(f"a mesh of {len(self.devices)} shards needs "
@@ -69,7 +96,20 @@ class Mesh:
 
     @property
     def size(self):
+        """This process's shards (all of them in one process)."""
         return len(self.devices)
+
+    @property
+    def global_size(self):
+        """The mesh's positions across every process, P·L."""
+        return self.process_count * len(self.devices)
+
+    @property
+    def positions(self):
+        """The mesh positions this process's shards hold, p·L .. p·L+L-1."""
+        L = len(self.devices)
+        return tuple(range(self.process_index * L,
+                           (self.process_index + 1) * L))
 
     @property
     def device(self):

@@ -35,6 +35,21 @@ device, K5 on the card; with no last-good catalog,
   includes the injected ``InjectedFault``), where the reference catches
   ``(OSError, RuntimeError)``: a ``RuntimeError`` from a kernel raises,
   so that a kernel failure is never hidden behind a degraded answer.
+
+Across processes (a mesh of P processes × L shards,
+:mod:`.multihost`): every process passes the whole ``U`` and ``V`` and
+keeps only its own: the query rows of its positions and the catalog
+shards of its positions.  ``'all_gather'`` gathers the catalog shards
+between processes once, then scores each local query shard through K5
+over the whole catalog; ``'ring'`` rotates the processes' catalog blocks
+(send/recv) and folds each held shard into the running set.  The result
+is this process's query rows and their global row offset, ``(scores,
+ids, row_offset)``: the port's counterpart of reading
+``.addressable_shards`` of the reference's global arrays.  There is no
+degraded mode across processes (the processes could not agree on it):
+a failure raises.  ``'merge_ring'`` (K8) reads every shard's candidate
+set in one launch and raises ``NotImplementedError`` across processes
+(ROADMAP Queue 2 item 1).
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ import torch
 from tpu_als_torch import obs
 from tpu_als_torch.ops import cuda_topk
 from tpu_als_torch.ops.topk import NEG_INF, merge_topk
+from tpu_als_torch.parallel import multihost
 from tpu_als_torch.resilience import faults
 
 STRATEGIES = ("all_gather", "ring", "merge_ring")
@@ -104,7 +120,10 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
     ``chunked_topk_scores(U, V, valid, k')``; ``'merge_ring'`` also
     returns its ids, the others may order ties differently.  A failed
     call answers degraded (module docstring); ``return_info=True``
-    appends ``{"degraded": bool, "reason": str or None}``."""
+    appends ``{"degraded": bool, "reason": str or None}``.  Across
+    processes (module docstring) it returns ``(scores, ids,
+    row_offset)``: this process's query rows ``row_offset ..
+    row_offset + len(scores)`` of ``U``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown serving strategy {strategy!r} "
                          f"(expected one of {STRATEGIES})")
@@ -117,8 +136,20 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
     U, V = _as_f32(U, dev), _as_f32(V, dev)
     Nu, r = U.shape
     Ni = V.shape[0]
+    if mesh.process_count > 1 and strategy == "merge_ring":
+        raise NotImplementedError(
+            "strategy='merge_ring' (kernel K8) across processes: K8 merges "
+            "every shard's candidate set in one launch, which needs the "
+            "transport across cards (ROADMAP Queue 2 item 1); use "
+            "'all_gather' or 'ring'")
     if Ni == 0 or Nu == 0 or k == 0:
         kk = min(k, Ni)
+        if mesh.process_count > 1:
+            lo, hi = _process_rows(Nu, mesh)
+            return _info((torch.zeros(hi - lo, kk, dtype=torch.float32,
+                                      device=dev),
+                          torch.zeros(hi - lo, kk, dtype=torch.int64,
+                                      device=dev), lo), False)
         return _info((torch.zeros(Nu, kk, dtype=torch.float32, device=dev),
                       torch.zeros(Nu, kk, dtype=torch.int64, device=dev)),
                      False)
@@ -126,6 +157,13 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
              if item_valid is None
              else torch.as_tensor(item_valid).to(device=dev,
                                                  dtype=torch.bool))
+    if mesh.process_count > 1:
+        # no degraded mode: every process would have to degrade alike
+        if faults.check("serve.gather") == "corrupt":
+            raise ServeShardLost("stale/lost factor shard (no degraded "
+                                 "mode across processes)")
+        return _info(_topk_processes(U, V, valid, k, mesh, strategy,
+                                     item_chunk), False)
     try:
         # fault point: raise = a failed gather; corrupt = a stale or lost
         # shard (nothing sane to execute against)
@@ -183,3 +221,66 @@ def _topk_sharded(U, V, valid, k, mesh, strategy, item_chunk):
         out_s.append(s)
         out_i.append(ix)
     return torch.cat(out_s), torch.cat(out_i)
+
+
+def _process_rows(Nu, mesh):
+    """``[lo, hi)``: the query rows of this process's positions (the
+    queries cut into S shards of ceil(Nu / S) rows)."""
+    nu_loc = -(-Nu // mesh.global_size)
+    lo = min(Nu, mesh.positions[0] * nu_loc)
+    return lo, min(Nu, (mesh.positions[-1] + 1) * nu_loc)
+
+
+def _topk_processes(U, V, valid, k, mesh, strategy, item_chunk):
+    """This process's part of a sharded top-k across processes
+    (``'all_gather'`` or ``'ring'``; module docstring): ``(scores, ids,
+    row_offset)``."""
+    dev = mesh.device
+    Nu, r = U.shape
+    Ni = V.shape[0]
+    S, L = mesh.global_size, mesh.size
+    P, p = mesh.process_count, mesh.process_index
+    k_eff = min(k, Ni)
+    ni_loc = -(-Ni // S)
+    nu_loc = -(-Nu // S)
+    if k_eff > cuda_topk.MAX_K:
+        strategy = "ring"  # as on one process
+    Vp = torch.zeros(S * ni_loc, r, dtype=torch.float32, device=dev)
+    Vp[:Ni] = V
+    validp = torch.zeros(S * ni_loc, dtype=torch.uint8, device=dev)
+    validp[:Ni] = valid
+    # this process's query shards and catalog block (its positions')
+    queries = [U[min(Nu, d * nu_loc):min(Nu, (d + 1) * nu_loc)]
+               for d in mesh.positions]
+    blk = slice(mesh.positions[0] * ni_loc, (mesh.positions[-1] + 1) * ni_loc)
+    held, held_valid = Vp[blk].contiguous(), validp[blk].contiguous()
+    if strategy == "all_gather":
+        Vg = multihost.all_gather(held)
+        vg = multihost.all_gather(held_valid).bool()
+        out = [cuda_topk.topk_scores(Ud, Vg, vg, k_eff,
+                                     item_chunk=min(item_chunk, S * ni_loc))
+               for Ud in queries]
+    else:
+        k_loc = min(k_eff, ni_loc)
+        out = [(torch.full((Ud.shape[0], k_eff), NEG_INF,
+                           dtype=torch.float32, device=dev),
+                torch.zeros(Ud.shape[0], k_eff, dtype=torch.int64,
+                            device=dev)) for Ud in queries]
+        for q in range(P):
+            src_proc = (p - q) % P  # whose block is held after q hops
+            for j, Ud in enumerate(queries):
+                s, ix = out[j]
+                for li in range(L):
+                    sl = slice(li * ni_loc, (li + 1) * ni_loc)
+                    st, it = cuda_topk.topk_scores(
+                        Ud, held[sl], held_valid[sl].bool(), k_loc,
+                        item_chunk=min(item_chunk, ni_loc))
+                    s, ix = merge_topk(s, ix, st,
+                                       (src_proc * L + li) * ni_loc + it,
+                                       k_eff)
+                out[j] = (s, ix)
+            if q < P - 1:
+                held = multihost.ppermute(held)
+                held_valid = multihost.ppermute(held_valid)
+    return (torch.cat([s for s, _ in out]), torch.cat([ix for _, ix in out]),
+            _process_rows(Nu, mesh)[0])

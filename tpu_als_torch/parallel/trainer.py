@@ -24,8 +24,20 @@ items, with a strategy for how each owner reaches the opposite factors:
   reference, then ``local_half_step`` (:mod:`.a2a`).
 
 For implicit feedback YᵀY is the whole opposite table's (the reference
-``psum``s the shards' partial Grams).  ``elastic=True`` wraps the step
-in the device-loss detector (:mod:`tpu_als_torch.resilience.elastic`);
+``psum``s the shards' partial Grams).
+
+Across processes (:mod:`tpu_als_torch.parallel.multihost`) the steps run
+on this process's slot rows only (``[L·per, r]`` a table) over the
+``positions=`` builds, with the multihost transport between processes:
+'all_gather' and 'all_gather_chunked' gather the opposite table once a
+half-step (YᵀY from the gathered table, so the result is the one-process
+fit's, bit for bit), the unfused ring rotates it between processes
+(:func:`.comm.ring_process_half_step`), 'all_to_all' exchanges the
+referenced rows; the last two sum the processes' partial YᵀY.  K7
+(``solve_backend='gather_fused_ring'``) reads every shard's base pointer
+in one launch and raises across processes (:func:`make_process_step`).
+
+``elastic=True`` wraps the step in the device-loss detector (:mod:`tpu_als_torch.resilience.elastic`);
 an armed ``comm.ring_step`` fault point wraps the ring step in
 :func:`_chaos_wrap_step`.  ``'auto'`` is resolved upstream
 (``plan.resolve_gather_strategy``); ``train_sharded`` refuses it, as the
@@ -42,10 +54,12 @@ from tpu_als_torch.core import als as core_als
 from tpu_als_torch.core.als import AlsConfig, init_factors, local_half_step
 from tpu_als_torch.core.ratings import Bucket, trainer_chunk
 from tpu_als_torch.ops.solve import compute_yty
+from tpu_als_torch.parallel import multihost
 from tpu_als_torch.parallel.a2a import a2a_half_step
 from tpu_als_torch.parallel.comm import (
     chunked_gather_half_step,
     ring_half_step,
+    ring_process_half_step,
 )
 from tpu_als_torch.resilience import faults
 from tpu_als_torch.resilience.elastic import DeviceLost, wrap_step
@@ -129,17 +143,36 @@ def _owner(buckets, d):
                    mask=b.mask[d]) for b in buckets]
 
 
+def _across(mesh):
+    return mesh.process_count > 1
+
+
+def _gather(mesh, Y):
+    """The whole stacked opposite table: ``Y`` itself in one process, the
+    processes' rows gathered across several."""
+    return multihost.all_gather(Y) if _across(mesh) else Y
+
+
+def _yty_partial(mesh, Y):
+    """YᵀY of the whole opposite table from this process's rows ``Y``:
+    across processes the sum of every process's partial Gram."""
+    YtY = compute_yty(Y)
+    return multihost.all_reduce_sum(YtY) if _across(mesh) else YtY
+
+
 def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig,
                       knobs=None):
     """``step(U, V) -> (U, V)`` on slot-space tables, strategy
     ``'all_gather'``: each owner's rows solved by ``local_half_step``
     (with the fit's ``knobs``) against the whole stacked opposite
-    table."""
+    table (across processes: this process's rows, the opposite table
+    gathered once a half-step)."""
     _check_shards(mesh, user_sharded, item_sharded)
     dev = mesh.device
     ub, ib = user_sharded.to(dev), item_sharded.to(dev)
 
     def half(Y, buckets, per, chunk, prev):
+        Y = _gather(mesh, Y)
         YtY = compute_yty(Y) if cfg.implicit_prefs else None
         return torch.cat([
             local_half_step(Y, _owner(buckets, d), per, cfg, YtY, chunk,
@@ -171,6 +204,29 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
     fused = cfg.solve_backend == "gather_fused_ring" and not cfg.nonnegative
     S = mesh.size
     split = (knobs or {}).get("split_width")
+    if _across(mesh):
+        if fused:
+            raise NotImplementedError(
+                "solve_backend='gather_fused_ring' (kernel K7) across "
+                "processes: K7 reads every shard's base pointer in one "
+                "launch, which needs the transport across cards (ROADMAP "
+                "Queue 2 item 1); use the unfused ring (solve_backend="
+                "'auto') or 'all_gather'")
+
+        def ring_step(U, V):
+            YtY = _yty_partial(mesh, U) if cfg.implicit_prefs else None
+            V = ring_process_half_step(U, ib, ic, item_ring.rows_per_shard,
+                                       cfg, item_ring.chunk_elems, YtY,
+                                       prev=V)
+            YtY = _yty_partial(mesh, V) if cfg.implicit_prefs else None
+            U = ring_process_half_step(V, ub, uc, user_ring.rows_per_shard,
+                                       cfg, user_ring.chunk_elems, YtY,
+                                       prev=U)
+            return U, V
+
+        if faults.armed("comm.ring_step"):
+            return _chaos_wrap_step(ring_step)
+        return ring_step
 
     def ring_step(U, V):
         YtY = compute_yty(U) if cfg.implicit_prefs else None
@@ -197,16 +253,18 @@ def make_chunked_gather_step(mesh, user_sharded, item_sharded,
     _check_shards(mesh, user_sharded, item_sharded)
     dev = mesh.device
     ub, ib = user_sharded.to(dev), item_sharded.to(dev)
-    S = mesh.size
+    S = mesh.global_size
 
     def step(U, V):
-        YtY = compute_yty(U) if cfg.implicit_prefs else None
+        Uf = _gather(mesh, U)
+        YtY = compute_yty(Uf) if cfg.implicit_prefs else None
         V = chunked_gather_half_step(
-            U, ib, item_sharded.rows_per_shard, S, cfg,
+            Uf, ib, item_sharded.rows_per_shard, S, cfg,
             item_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=V)
-        YtY = compute_yty(V) if cfg.implicit_prefs else None
+        Vf = _gather(mesh, V)
+        YtY = compute_yty(Vf) if cfg.implicit_prefs else None
         U = chunked_gather_half_step(
-            V, ub, user_sharded.rows_per_shard, S, cfg,
+            Vf, ub, user_sharded.rows_per_shard, S, cfg,
             user_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=U)
         return U, V
 
@@ -228,18 +286,44 @@ def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig, knobs=None):
     dev = mesh.device
     ub, us = user_a2a.to(dev)
     ib, is_ = item_a2a.to(dev)
-    S = mesh.size
+    S = mesh.global_size
+    across = _across(mesh)
 
     def step(U, V):
-        YtY = compute_yty(U) if cfg.implicit_prefs else None
+        YtY = _yty_partial(mesh, U) if cfg.implicit_prefs else None
         V = a2a_half_step(U, is_, ib, item_a2a.rows_per_shard, S, cfg,
-                          item_a2a.chunk_elems, YtY, prev=V, knobs=knobs)
-        YtY = compute_yty(V) if cfg.implicit_prefs else None
+                          item_a2a.chunk_elems, YtY, prev=V, knobs=knobs,
+                          across_processes=across)
+        YtY = _yty_partial(mesh, V) if cfg.implicit_prefs else None
         U = a2a_half_step(V, us, ub, user_a2a.rows_per_shard, S, cfg,
-                          user_a2a.chunk_elems, YtY, prev=U, knobs=knobs)
+                          user_a2a.chunk_elems, YtY, prev=U, knobs=knobs,
+                          across_processes=across)
         return U, V
 
     return step
+
+
+def make_process_step(mesh, strategy, user_c, item_c, cfg: AlsConfig,
+                      ring_counts=None, knobs=None, gather_blocks=4):
+    """The step of ``strategy`` (a row of :data:`EXECUTABLE_STRATEGIES`)
+    over this process's containers: the whole mesh's in one process, the
+    ``positions=`` builds across processes, where ``step(U, V)`` takes
+    and returns this process's slot rows.  The ring family needs
+    ``ring_counts`` (this process's rows of :func:`stacked_counts`);
+    with ``solve_backend='gather_fused_ring'`` across processes it
+    raises ``NotImplementedError`` (ROADMAP Queue 2 item 1)."""
+    if strategy in ("ring", "ring_overlap"):
+        if ring_counts is None:
+            raise ValueError(f"strategy={strategy!r} requires ring_counts="
+                             "(user_counts, item_counts) from "
+                             "stacked_counts")
+        return make_ring_step(mesh, user_c, item_c, cfg, ring_counts, knobs)
+    if strategy == "all_to_all":
+        return make_a2a_step(mesh, user_c, item_c, cfg, knobs)
+    if strategy == "all_gather_chunked":
+        return make_chunked_gather_step(mesh, user_c, item_c, cfg,
+                                        n_blocks=gather_blocks)
+    return make_sharded_step(mesh, user_c, item_c, cfg, knobs)
 
 
 def _r_pad(r):
@@ -405,6 +489,10 @@ def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
                          f"{EXECUTABLE_STRATEGIES}; 'auto' is resolved "
                          "before the fit by plan.resolve_gather_strategy; "
                          f"{strategy_help(include_auto=False)})")
+    if _across(mesh):
+        raise ValueError("train_sharded runs one process's mesh; a mesh "
+                         "across processes trains through "
+                         "parallel.multihost.train_multihost")
     dev = mesh.device
     if init is None:
         g = torch.Generator().manual_seed(int(cfg.seed))
@@ -418,18 +506,9 @@ def train_sharded(mesh, user_part, item_part, user_sharded, item_sharded,
                          "(user_counts, item_counts) from stacked_counts")
 
     def make_step(knobs):
-        if strategy in ("ring", "ring_overlap"):
-            return make_ring_step(mesh, user_sharded, item_sharded, cfg,
-                                  ring_counts, knobs)
-        if strategy == "all_to_all":
-            return make_a2a_step(mesh, user_sharded, item_sharded, cfg,
-                                 knobs)
-        if strategy == "all_gather_chunked":
-            return make_chunked_gather_step(mesh, user_sharded,
-                                            item_sharded, cfg,
-                                            n_blocks=gather_blocks)
-        return make_sharded_step(mesh, user_sharded, item_sharded, cfg,
-                                 knobs)
+        return make_process_step(mesh, strategy, user_sharded, item_sharded,
+                                 cfg, ring_counts=ring_counts, knobs=knobs,
+                                 gather_blocks=gather_blocks)
 
     knobs = None
     # the chunked gather's half-steps run no K3 or K4: no knob reaches them

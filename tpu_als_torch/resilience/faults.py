@@ -5,8 +5,7 @@ switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
 
-The port wires ten points (the reference's ``multihost.init`` arrives
-with the multi-process slice):
+The port wires the reference's eleven points:
 
 ========================  ====================================================
 ``checkpoint.write``      inside ``io.checkpoint.save_factors``' write body,
@@ -27,6 +26,9 @@ with the multi-process slice):
 ``serving.score``         per micro-batch in ``ServingEngine.serve_batch``
                           (corrupt = treat the index as stale for the
                           batch; raise = fail the batch's tickets)
+``multihost.init``        inside ``parallel.multihost.init_distributed``'s
+                          rendezvous attempt (raise = a failed rendezvous,
+                          retried)
 ``ingest.read_chunk``     per chunk read in ``io.stream.stream_ingest``
                           (raise = a transient read error, retried;
                           corrupt = a stray newline tears a line, which
@@ -77,9 +79,9 @@ import warnings
 from tpu_als_torch import obs
 
 FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "ingest.read_chunk",
-                "comm.ring_step", "serve.gather", "serving.publish",
-                "serving.score", "solve.gram", "ingest.record",
-                "mesh.device_lost")
+                "multihost.init", "comm.ring_step", "serve.gather",
+                "serving.publish", "serving.score", "solve.gram",
+                "ingest.record", "mesh.device_lost")
 
 MODES = ("raise", "corrupt", "hang")
 

@@ -282,6 +282,24 @@ Phases (any failure exits non-zero before the final line):
    ``load_factors``, equal to (a)'s factors; (c) ``topk_sharded(...,
    'all_gather')`` for 4,096 users through K5 in both, ids equal to the
    single-process K5's, scores within SERVE_ULPS;
+13b. the analysis layer, run beside phase 7(a)'s CPU cross-validation
+   once phases 2-4 are done and phase 5's frame is drawn (nothing in
+   it is timed against the card), in two parts of 60 s each: (a)
+   ``python -m tpu_als_torch.cli lint`` over the port's tree as a
+   process, exit 0 (its wall printed), and beside it (b) ``lint
+   --contracts`` on the card in this process: each of the ten
+   contracts' verdict line, all OK, K1, K3, K4, K7 and K8 launched
+   (counted around it), while (c)'s two processes start and block
+   their containers, gated; then (c), released: one logical shard each
+   on the card, rank 128, implicit, on phase 9's 1M-row prefix (the
+   frame's first 1M rows), one iteration of every multi-process
+   strategy ('all_gather', 'all_gather_chunked', 'ring', 'all_to_all';
+   'ring_overlap' is the ring's own step across processes and is
+   audited with it) under ``parallel/comm_audit.py::collective_bytes``,
+   the audited bytes printed beside ``comm_bytes_per_iter`` and
+   required equal, each iteration's wall beside; and after phase 12,
+   (d) ``floor_audit`` against the bank phase 12's ``plan tune``
+   process wrote with ``--bank-out``;
 14. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
@@ -333,6 +351,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -348,6 +367,7 @@ import numpy as np
 import torch
 
 from tpu_als_torch import _build, obs, plan
+from tpu_als_torch.analysis import contracts
 from tpu_als_torch.api import legacy
 from tpu_als_torch.api.estimator import ALS, ALSModel
 from tpu_als_torch.api.evaluation import RegressionEvaluator
@@ -372,7 +392,7 @@ from tpu_als_torch.ops import solve as ops_solve
 from tpu_als_torch.ops.solve import (compute_yty, implicit_weights,
                                      regularize, solve_spd)
 from tpu_als_torch.ops.topk import NEG_INF, chunked_topk_scores
-from tpu_als_torch.parallel import serve
+from tpu_als_torch.parallel import comm_audit, serve
 from tpu_als_torch.parallel.a2a import build_a2a
 from tpu_als_torch.parallel.comm import (ring_fused_half_step,
                                          ring_half_step, shard_csr_grid)
@@ -1279,13 +1299,20 @@ def csv_phase(frame, seed, keep):
     return t9
 
 
-def prepare(seed, dev):
-    """The ML-25M-shaped ratings and their bucketed layout both ways,
-    made once for the training slices at both ranks."""
+def ml25m_frame(seed):
+    """The ML-25M-shaped synthetic ratings, drawn once: phase 13b's (c)
+    takes its first 1M rows (phase 9's prefix) beside the CPU
+    cross-validation, and :func:`prepare` the whole."""
     t0 = time.perf_counter()
     frame = synthetic_movielens(*ML25M_SHAPE, seed=seed)
     log(f"synthetic_movielens{ML25M_SHAPE}: "
         f"{time.perf_counter() - t0:.1f} s (host)")
+    return frame
+
+
+def prepare(frame, dev):
+    """The bucketed layout of ``frame`` (:func:`ml25m_frame`) both ways,
+    made once for the training slices at both ranks."""
     u_idx, umap = remap_ids(frame["user"])
     i_idx, imap = remap_ids(frame["item"])
     r = frame["rating"]
@@ -4697,16 +4724,18 @@ def planner_fits(csrs, tr, config, dev, smi):
 def planner_phase(csrs, tr, dev, smi):
     """Phase 12: the execution planner in a plan cache of its own (budget
     PHASE12_BUDGET_S): (b)'s process imports beside (a) and runs once
-    (a) has banked."""
+    (a) has banked, and writes the bank (``--bank-out``) that phase 13b
+    audits.  Returns the bank's path."""
     t0 = time.perf_counter()
     root = os.path.join(PLAN_ROOT, "planner")
     run_root = os.environ[PLAN_ENV]
     os.environ[PLAN_ENV] = root
     try:
         run = os.path.join(root, "tune_obs")
+        bank = os.path.join(root, "bank.json")
         p = start_probe(["plan", "tune", "--rank", str(RANK), "--obs-dir",
-                         run, "--device", str(dev)], gated=True,
-                        plan_dir=root)
+                         run, "--device", str(dev), "--bank-out", bank],
+                        gated=True, plan_dir=root)
         config = tune_on_card(RANK, dev, smi, "a", ("k1", "k3", "k4"),
                               trials=8)
         planner_warm_process(p, run, config)
@@ -4720,6 +4749,9 @@ def planner_phase(csrs, tr, dev, smi):
     log(f"phase 12 (the execution planner): {secs:.1f} s on {smi}")
     if secs > PHASE12_BUDGET_S:
         fail(f"phase 12 took {secs:.1f} s, over its {PHASE12_BUDGET_S} s")
+    if not os.path.exists(bank):
+        fail("(b) plan tune --bank-out wrote no bank")
+    return bank
 
 
 # -- phase 13: timings -----------------------------------------------------
@@ -4876,8 +4908,9 @@ def multiprocess_phase(data, seed, dev, smi):
     interleaved half of the ML-25M triples (``dataMode='per_host'``):
     (a) 'all_gather', 2 iterations from phase 5's init, the gathered
     factors against the single-process 4-shard fit of the same triples
-    (in the exchanged order) from the same init: bitwise expected (YᵀY
-    from the gathered table), TRAIN_REL per row required; per process
+    (in the exchanged order) from the same init: bitwise expected (the
+    shards' partial YᵀY summed in position order in both), TRAIN_REL per
+    row required; per process
     the iteration wall, the bytes staged through host memory a
     half-step, the collective's share of the iteration and K4/K3/K1
     launches; (b) the sharded checkpoint both processes wrote, read by
@@ -4985,6 +5018,167 @@ def multiprocess_phase(data, seed, dev, smi):
         f"{secs:.1f} s ({run_s:.1f} s after release) on {smi}")
     if secs > PHASE13_BUDGET_S:
         fail(f"phase 13 took {secs:.1f} s, over its {PHASE13_BUDGET_S} s")
+
+
+# -- phase 13b: the analysis layer -------------------------------------------
+
+PHASE13B_BUDGET_S = 60.0
+
+
+def analysis_phase(dev, smi):
+    """Phase 13b (a) and (b), run beside phase 7(a)'s CPU cross-validation
+    once phases 2-4 are done (nothing in them is timed against the card;
+    budget PHASE13B_BUDGET_S): (a) ``python -m tpu_als_torch.cli lint``
+    over the port's tree as a process, exit 0; (b) beside it, in this
+    process, ``lint --contracts`` on the card: every contract's verdict,
+    K1/K3/K4/K7/K8 launches counted around it (its ``floor_audit`` tunes
+    a bank of its own).  (c)'s processes start and block beside them
+    (:func:`start_comm_audit`) and run after them
+    (:func:`comm_audit_phase`); (d) runs after phase 12
+    (:func:`floor_audit_phase12`)."""
+    from tpu_als_torch.cli import main as cli_main
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pl = subprocess.Popen([sys.executable, "-m", "tpu_als_torch.cli",
+                           "lint"], cwd=repo, env=proc_env(),
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+    lint_out = {}
+
+    def lint_wait():
+        lint_out["out"] = pl.communicate(timeout=300)
+        lint_out["secs"] = time.perf_counter() - t_phase
+
+    tl = threading.Thread(target=lint_wait)
+    tl.start()
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["lint", "--paths", os.path.join(
+                    repo, "tpu_als_torch", "analysis"), "--contracts",
+                    "--device", str(dev)])
+        except SystemExit as e:
+            rc = e.code
+        torch.cuda.synchronize()
+        secs_b = time.perf_counter() - t0
+        counts = _launch_counts()
+        for line in buf.getvalue().splitlines():
+            log(f"(b) {line}")
+        log(f"(b) lint --contracts on {dev}: {secs_b:.1f} s; launches "
+            + ", ".join(f"{k.upper()} {v}" for k, v in sorted(counts.items())))
+        verdicts = [x for x in buf.getvalue().splitlines()
+                    if x.startswith("contract ")]
+        if rc != 0 or len(verdicts) != len(contracts.names()) \
+                or any(": OK" not in x for x in verdicts):
+            fail(f"(b) lint --contracts failed (rc {rc}): {verdicts}")
+        if min(counts[k] for k in ("k1", "k3", "k4", "k7", "k8")) == 0:
+            fail(f"(b) a kernel of the contracts' path never launched: "
+                 f"{counts}")
+    finally:
+        tl.join()
+        if pl.poll() is None:
+            pl.kill()
+    out, err = lint_out.get("out", ("", "lint did not finish"))
+    log(f"(a) python -m tpu_als_torch.cli lint: exit {pl.returncode}, "
+        f"{out.strip().splitlines()[-1] if out.strip() else err[-300:]} "
+        f"({lint_out.get('secs', float('nan')):.1f} s of wall to its "
+        "exit, process start included, beside (b))")
+    if pl.returncode != 0:
+        fail(f"(a) lint found something: {err[-2000:]}")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 13b (a)-(b) (the linter and the contracts, beside the CPU "
+        f"cross-validation): {secs:.1f} s on {smi}")
+    if secs > PHASE13B_BUDGET_S:
+        fail(f"phase 13b (a)-(b) took {secs:.1f} s, over its "
+             f"{PHASE13B_BUDGET_S} s")
+
+
+def start_comm_audit(frame, dev):
+    """Phase 13b (c)'s two processes, gated (:func:`comm_audit_phase`):
+    started in a thread before (a) and (b), they import, join and block
+    phase 9's 1M-row prefix (the first CSV_TWIN_ROWS rows of ``frame``,
+    what phase 9 writes as ``prefix.csv``) beside them, then wait.
+    Returns ``(gate, out, thread)``."""
+    u_ids, u = np.unique(np.asarray(frame["user"])[:CSV_TWIN_ROWS],
+                         return_inverse=True)
+    i_ids, i = np.unique(np.asarray(frame["item"])[:CSV_TWIN_ROWS],
+                         return_inverse=True)
+    r = np.asarray(frame["rating"], np.float32)[:CSV_TWIN_ROWS]
+    gate, out = threading.Event(), {"shape": (len(u_ids), len(i_ids),
+                                              len(u))}
+
+    def run():
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") \
+                    as td:
+                out["rows"] = comm_audit.spawn(
+                    td, u, i, r, len(u_ids), len(i_ids), RANK, nproc=2,
+                    device=str(dev), implicit=(True,), min_width=8,
+                    threads=1, env=proc_env(), timeout=300, gate=gate)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the caller
+            out["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    return gate, out, th
+
+
+def comm_audit_phase(started, smi):
+    """Phase 13b (c), beside phase 7(a)'s CPU cross-validation after (a)
+    and (b) (budget PHASE13B_BUDGET_S, from the release): the gated
+    processes of :func:`start_comm_audit`, one logical shard each on the
+    card, run every multi-process strategy for one iteration at rank
+    128, implicit, under ``comm_audit.collective_bytes``, the audited
+    bytes beside ``comm_bytes_per_iter`` and equal ('ring_overlap',
+    across processes the ring's own step, is audited once with it)."""
+    gate, out, th = started
+    t_phase = time.perf_counter()
+    gate.set()
+    th.join()
+    if "error" in out:
+        fail(f"(c) the comm audit failed: {out['error']}")
+    rows = out["rows"]
+    bad = []
+    for p, prows in enumerate(rows):
+        for x in prows:
+            ran = (f"the iteration {x['seconds']:.2f} s"
+                   if x.get("same_step_as") is None else
+                   f"the {x['same_step_as']} step's audit, not run again")
+            log(f"(c) process {p}: {x['strategy']:18s} implicit: audited "
+                f"{x['audited']} B, comm_bytes_per_iter {x['model']} B "
+                f"({x['breakdown']}); {ran}")
+            if x["audited"] != x["model"]:
+                bad.append((p, x["strategy"]))
+    if bad or len(rows) != 2 \
+            or len(rows[0]) != len(comm_audit.PROCESS_STRATEGIES):
+        fail(f"(c) audited bytes off comm_bytes_per_iter: {bad}")
+    secs = time.perf_counter() - t_phase
+    nu, ni, n = out["shape"]
+    log(f"phase 13b (c) (the comm audit, {nu} x {ni} x {n}, phase 9's "
+        f"prefix; beside the CPU cross-validation, the processes' start "
+        f"and blocking beside (a)-(b)): {secs:.1f} s from the release on "
+        f"{smi}")
+    if secs > PHASE13B_BUDGET_S:
+        fail(f"phase 13b (c) took {secs:.1f} s, over its "
+             f"{PHASE13B_BUDGET_S} s")
+
+
+def floor_audit_phase12(bank, dev):
+    """Phase 13b (d): ``floor_audit`` against the bank phase 12's ``plan
+    tune`` process wrote with ``--bank-out``."""
+    os.environ[contracts.FLOOR_AUDIT_BANK_ENV] = bank
+    try:
+        r = contracts.verify("floor_audit", device=dev)
+    finally:
+        os.environ.pop(contracts.FLOOR_AUDIT_BANK_ENV, None)
+    log(f"(d) floor_audit on phase 12's bank: "
+        f"{'OK' if r.ok else 'FAIL'} — {r.detail}")
+    if not r.ok:
+        fail(f"(d) floor_audit: {r.detail}")
 
 
 def timings(model, launches, A, b, errs, dev):
@@ -5825,8 +6019,15 @@ def main():
     check_ladder(dev)
     log(f"phases 2-4 (the kernels against their plain versions): "
         f"{time.perf_counter() - t_checks:.1f} s")
+    frame = ml25m_frame(args.seed)
+    audit = start_comm_audit(frame, dev)
+    try:
+        analysis_phase(dev, smi)
+    finally:
+        comm_audit_phase(audit, smi)  # releases the gated processes
     cpu_cv = finish_cpu_cv(pcv)
-    data = prepare(args.seed, dev)
+    data = prepare(frame, dev)
+    del frame
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     s9 = csv_phase(data["frame"], args.seed, work.name)
     tr = train_slice(data, RANK, args.seed, dev)
@@ -5853,7 +6054,7 @@ def main():
     log(f"phase 9 (the stream, the live loop and tenancy): {s9:.1f} s")
     two_tower_phase(dev, work.name, args.seed, smi)
     measurement_phase(csrs, tr, work.name, args.seed, dev, smi)
-    planner_phase(csrs, tr, dev, smi)
+    floor_audit_phase12(planner_phase(csrs, tr, dev, smi), dev)
     del csrs
     work.cleanup()
     kernels = timings(model, launches, A, b, errs, dev)

@@ -70,6 +70,13 @@
   ``--per-host-data`` across two processes is driven with ``jax``
   blocked by ``tests/test_torch_multihost.py``.  The fault points are
   now the reference's eleven.
+- The analysis layer (``analysis/lint.py``, ``analysis/vocab.py``,
+  ``analysis/contracts.py``, ``parallel/comm_audit.py``, ``lint``): the
+  linter and the vocabulary engine, three contracts and the audit run
+  with ``jax`` and ``tpu_als`` unimportable; ``lint.py`` and
+  ``vocab.py`` load as files with ``torch`` unimportable too (stdlib
+  only); in one process no collective crosses anything, so the audit
+  counts nothing.
 """
 
 import contextlib
@@ -948,3 +955,57 @@ def test_no_tpu_number_in_the_port():
                 if pat.search(line):
                     hits.append(f"{os.path.relpath(path, REPO)}:{k}")
     assert not hits, hits
+
+
+_DRIVE_ANALYSIS = r"""
+import importlib.util, os, sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import torch
+from tpu_als_torch.analysis import contracts
+from tpu_als_torch.cli import main
+from tpu_als_torch.parallel import comm_audit, multihost
+assert main(["lint"]) == 0
+for name in ("live_delta_index", "serve_comm_audit", "elastic_disarmed"):
+    r = contracts.verify(name, device="cpu")
+    assert r.ok, r.detail
+x = torch.ones(3, 2)
+assert comm_audit.collective_bytes(
+    lambda: (multihost.all_gather(x), multihost.all_reduce_sum(x[None]),
+             multihost.ppermute(x)), axis_size=4) == (0, {})
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+_DRIVE_LINT_FILES = r"""
+import importlib.util, sys
+for name in ("torch", "numpy", "jax", "tpu_als", "tpu_als_torch"):
+    sys.modules[name] = None
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("_f", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--paths", path]) == 0
+print("ok")
+"""
+
+
+def test_analysis_layer_runs_without_jax():
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _DRIVE_ANALYSIS], cwd=REPO,
+                         env={**_env(), "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_lint_and_vocab_load_as_files_without_torch():
+    paths = [os.path.join(REPO, "tpu_als_torch", "analysis", f)
+             for f in ("lint.py", "vocab.py")]
+    out = subprocess.run([sys.executable, "-c", _DRIVE_LINT_FILES, *paths],
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -1,0 +1,580 @@
+"""The obs and fault literal vocabulary of the port, checked against its
+registries.
+
+Counterpart of ``tpu_als/analysis/vocab.py``: the engine behind the
+linter's ``unregistered-name`` rule (:mod:`tpu_als_torch.analysis.lint`)
+and, run as a file (``python tpu_als_torch/analysis/vocab.py
+[--paths ...]``), its own front end.
+
+What it checks (the reference's contracts): every literal ``.counter( /
+.gauge( / .histogram( / .emit(`` call site and read-side accessor must
+name a declared metric or event of the right kind; non-literal names are
+violations for write methods outside ``tpu_als_torch/obs/``;
+``Assertion(metric=/event=/num=/den=)`` literals and inline ``{"ts":
+..., "type": ...}`` event dicts validate against the same schema;
+``faults.check/armed/hits`` literals and ``fault_spec=`` strings
+validate against ``FAULT_POINTS`` / ``parse_spec``.  Over the default
+roots it adds the cross-module contracts: the five ``plan_*`` events
+declared and emitted by ``plan/planner.py``, the tenant label on every
+``serving.*`` / ``live.*`` metric, the causal-trace vocabulary
+(``obs/tracing.py``), and the elastic recovery trail (``api/fitting.py``
+and ``resilience/elastic.py``).  The reference's
+``check_soak_vocabulary`` arrives with the port's ``soak/`` (ROADMAP
+Queue 1 item 6).
+
+Deliberately stdlib-only: the registries, ``tpu_als_torch/obs/schema.py``
+and ``tpu_als_torch/resilience/faults.py`` (both stdlib-only), are loaded
+by file path, never through the package root, whose ``__init__``
+imports torch.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import re
+import sys
+
+# tpu_als_torch/analysis/vocab.py -> repo root
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# a counter/gauge/histogram/emit (write) or quantile/count/value (read
+# accessor) call with either a literal first argument (named groups
+# q/name) or anything else (group expr); longest alternatives first so
+# 'histogram_quantile' never half-matches as 'histogram'
+CALL_RE = re.compile(
+    r"\.(?P<method>histogram_quantile|histogram_count|histogram"
+    r"|counter_value|counter|gauge|emit)\(\s*"
+    r"(?:(?P<q>['\"])(?P<name>[^'\"]+)(?P=q)|(?P<expr>[^)\s][^),]*))")
+
+# accessor method -> the metric kind its name must be declared as; a
+# non-literal name is allowed for these (read-only: can't mint a series)
+ACCESSOR_KIND = {"histogram_quantile": "histogram",
+                 "histogram_count": "histogram",
+                 "counter_value": "counter"}
+
+# scenario-spec literals: Assertion(metric=/event=/num=/den=) bind to
+# the registry only at evaluation time — validate them where declared.
+# "$key"-prefixed values resolve from scenario config, not the schema.
+ASSERT_KW_RE = re.compile(
+    r"\b(?P<kw>metric|event|num)\s*=\s*"
+    r"(?P<q>['\"])(?P<name>[^'\"]+)(?P=q)")
+ASSERT_DEN_RE = re.compile(r"\bden\s*=\s*\((?P<body>[^)]*)\)")
+_STR_RE = re.compile(r"['\"]([^'\"]+)['\"]")
+
+# fault-point literals: consultation sites (check/armed/hits) must name
+# a declared point; scenario fault_spec= strings (possibly implicit-
+# concat inside parens) must survive parse_spec whole
+FAULT_CALL_RE = re.compile(
+    r"\bfaults\.(?P<method>check|armed|hits)\(\s*"
+    r"(?:(?P<q>['\"])(?P<name>[^'\"]+)(?P=q)|(?P<expr>[^)\s][^),]*))")
+FAULT_SPEC_RE = re.compile(
+    r"\bfault_spec\s*=\s*(?P<body>\([^)]*\)|['\"][^'\"]*['\"])",
+    re.DOTALL)
+
+# same-line suppression, the linter's reasoned form only: this engine
+# maps 1:1 onto the linter's `unregistered-name` rule, so a site the
+# linter accepts as suppressed must not resurface through this module's
+# own front end (a reason-less `tal: disable` stays flagged — the linter
+# reports those as bad-suppression)
+SUPPRESS_RE = re.compile(
+    r"#\s*tal:\s*disable=(?P<rules>[A-Za-z0-9_,\-]+)\s*--\s*\S")
+
+# causal-trace span literals: every start_trace/record_span call site
+# must name a span declared in schema.TRACE_SPANS — same stance as the
+# metric vocabulary, so `observe explain` trees never carry a hop name
+# the docs table doesn't list.  record_span's first argument is the
+# parent context (may span a newline), so skip one comma-delimited arg.
+TRACE_START_RE = re.compile(
+    r"\btracing\.start_trace\(\s*(?P<q>['\"])(?P<name>[^'\"]+)(?P=q)")
+TRACE_RECORD_RE = re.compile(
+    r"\btracing\.record_span\(\s*[^,]+,\s*"
+    r"(?P<q>['\"])(?P<name>[^'\"]+)(?P=q)")
+
+# inline event dicts: a line carrying both a "ts" key and a literal
+# "type" value (the hand-built shape allowed where importing the package
+# is off-limits)
+INLINE_RE = re.compile(r"['\"]type['\"]\s*:\s*['\"](?P<name>\w+)['\"]")
+INLINE_TS_RE = re.compile(r"['\"]ts['\"]\s*:")
+
+DEFAULT_ROOTS = ("tpu_als_torch", "chip_smoke.py")
+
+# the execution planner's event vocabulary is a cross-process CONTRACT:
+# the warm-start tests assert trails like "plan_cache_hit present,
+# plan_probe absent" (and autotune_smoke asserts "plan_tuned on cold
+# tune, absent on warm"), so a renamed/undeclared literal would
+# silently void those assertions.  Pin all five here, over and above
+# the generic call-site validation.
+PLAN_EVENTS = ("plan_resolved", "plan_probe", "plan_cache_hit",
+               "plan_cache_miss", "plan_tuned")
+
+# the tenancy contract pins the LABEL vocabulary the same way: every
+# serving.*/live.* series must declare the tenant label (the tenant-
+# isolation scenario and serve-bench --tenants read per-tenant tails
+# from exactly these names), and serving.publish_seconds must keep its
+# historical "mode" dimension alongside tenant — dropping either key
+# silently voids the per-tenant SLO assertions without failing a test
+TENANT_PREFIXES = ("serving.", "live.")
+
+# the elastic-training recovery trail is a cross-process contract too:
+# the device-loss scenario (and any orchestrator watching events.jsonl)
+# re-derives the loss -> reform -> resume tree from exactly these
+# names, so a rename would green the scenario's zero-count assertions
+# instead of failing them.  Pinned declared AND emitted, the PLAN_EVENTS
+# discipline.
+ELASTIC_EVENTS = ("device_lost", "mesh_reformed", "elastic_resume")
+ELASTIC_SPANS = ("elastic.detect", "elastic.reform", "elastic.resume")
+ELASTIC_FAULT_POINT = "mesh.device_lost"
+
+def _load_standalone(name, relpath, repo):
+    """Load one stdlib-only registry module by file path, bypassing the
+    ``tpu_als_torch`` package root (whose ``__init__`` imports torch)."""
+    path = os.path.join(repo, *relpath.split("/"))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_REGISTRY_CACHE = {}
+
+
+def load_registries(repo=REPO):
+    """Return ``(schema, faults)`` — the two vocabulary registries,
+    loaded standalone (without torch) and cached per repo root."""
+    if repo not in _REGISTRY_CACHE:
+        _REGISTRY_CACHE[repo] = (
+            _load_standalone("_tal_torch_obs_schema",
+                             "tpu_als_torch/obs/schema.py",
+                             repo),
+            _load_standalone("_tal_torch_faults",
+                             "tpu_als_torch/resilience/faults.py",
+                             repo),
+        )
+    return _REGISTRY_CACHE[repo]
+
+
+def check_plan_vocabulary(repo=REPO):
+    """The five plan_* events must be declared in the schema AND emitted
+    by tpu_als_torch/plan/planner.py (an emit that moved elsewhere without a
+    declaration update fails the generic pass; a declaration whose emit
+    vanished fails here)."""
+    schema, _ = load_registries(repo)
+    errors = []
+    for name in PLAN_EVENTS:
+        if name not in schema.EVENTS:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: planner event {name!r} is not "
+                "declared in EVENTS (the tpu_als_torch.plan contract pins all "
+                f"of {', '.join(PLAN_EVENTS)})")
+    planner_py = os.path.join(repo, "tpu_als_torch", "plan", "planner.py")
+    if os.path.exists(planner_py):
+        with open(planner_py, encoding="utf-8") as f:
+            text = f.read()
+        for name in PLAN_EVENTS:
+            if f'"{name}"' not in text:
+                errors.append(
+                    f"tpu_als_torch/plan/planner.py: never emits {name!r} — "
+                    "the plan_* event trail is the warm-start test "
+                    "contract (docs/planner.md)")
+    return errors
+
+
+def check_elastic_vocabulary(repo=REPO):
+    """The elastic recovery-trail contract: the three elastic events
+    declared in the schema AND emitted by the fit loop
+    (tpu_als_torch/api/fitting.py), the ``mesh.device_lost`` fault point
+    declared AND consulted by the detector
+    (tpu_als_torch/resilience/elastic.py), the three ``elastic.*`` trace
+    spans declared, and the ``train.reformations`` counter declared."""
+    schema, faults = load_registries(repo)
+    errors = []
+    for name in ELASTIC_EVENTS:
+        if name not in schema.EVENTS:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: elastic event {name!r} is not "
+                "declared in EVENTS (the device-loss recovery trail "
+                f"pins all of {', '.join(ELASTIC_EVENTS)})")
+    fitting_py = os.path.join(repo, "tpu_als_torch", "api", "fitting.py")
+    if os.path.exists(fitting_py):
+        with open(fitting_py, encoding="utf-8") as f:
+            text = f.read()
+        for name in ELASTIC_EVENTS:
+            if f'"{name}"' not in text:
+                errors.append(
+                    f"tpu_als_torch/api/fitting.py: never emits {name!r} — "
+                    "the recovery trail is the device-loss scenario's "
+                    "contract (docs/resilience.md)")
+    for name in ELASTIC_SPANS:
+        if name not in getattr(schema, "TRACE_SPANS", ()):
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: trace span {name!r} is not "
+                "declared in TRACE_SPANS (the elastic recovery hops)")
+    if ELASTIC_FAULT_POINT not in faults.FAULT_POINTS:
+        errors.append(
+            "tpu_als_torch/resilience/faults.py: fault point "
+            f"{ELASTIC_FAULT_POINT!r} is not declared in FAULT_POINTS "
+            "— deterministic device-loss injection is the elastic "
+            "test surface")
+    elastic_py = os.path.join(repo, "tpu_als_torch", "resilience",
+                              "elastic.py")
+    if not os.path.exists(elastic_py):
+        errors.append("tpu_als_torch/resilience/elastic.py: missing (the "
+                      "device-loss detector)")
+    else:
+        with open(elastic_py, encoding="utf-8") as f:
+            if f'"{ELASTIC_FAULT_POINT}"' not in f.read():
+                errors.append(
+                    "tpu_als_torch/resilience/elastic.py: never consults the "
+                    f"declared {ELASTIC_FAULT_POINT!r} fault point")
+    if schema.METRICS.get("train.reformations", ("",))[0] != "counter":
+        errors.append(
+            "tpu_als_torch/obs/schema.py: METRICS['train.reformations'] must "
+            "be a counter — the mesh-reformation tally "
+            "(docs/observability.md)")
+    return errors
+
+
+def check_tenant_vocabulary(repo=REPO):
+    """Every serving.*/live.* metric must declare the ``tenant`` label
+    (schema.TENANT_LABELED), and ``serving.publish_seconds`` must keep
+    its ``mode`` dimension — the multi-tenant obs contract
+    (docs/tenancy.md)."""
+    schema, _ = load_registries(repo)
+    errors = []
+    labels = getattr(schema, "LABELS", {})
+    tenant_labeled = set(getattr(schema, "TENANT_LABELED", ()))
+    for name in sorted(schema.METRICS):
+        if name.startswith(TENANT_PREFIXES) \
+                and name not in tenant_labeled:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: metric {name!r} matches the "
+                "tenant-attributed prefixes "
+                f"({'/'.join(TENANT_PREFIXES)}) but does not declare "
+                "the 'tenant' label key in LABELS — per-tenant SLO "
+                "reads would silently return the cross-tenant series "
+                "(docs/tenancy.md)")
+    if "mode" not in labels.get("serving.publish_seconds", ()):
+        errors.append(
+            "tpu_als_torch/obs/schema.py: LABELS['serving.publish_seconds'] "
+            "must keep the 'mode' key — the publish-mode histogram "
+            "(retag/delta/full) is the incremental-publish contract "
+            "(docs/serving.md)")
+    for name in tenant_labeled:
+        if name not in schema.METRICS:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: LABELS declares {name!r} but "
+                "METRICS does not — a label table entry for an "
+                "undeclared metric is dead vocabulary")
+    # the flight ring stamps tenant (and trace ids) STRUCTURALLY on
+    # every record; a span key colliding with a reserved record field
+    # would silently overwrite the attribution
+    reserved = set(getattr(schema, "FLIGHT_RESERVED", ())) \
+        | {"tenant", "trace_id", "trace_ids"}
+    for attr in ("SERVE_SPAN_KEYS", "LIVE_SPAN_KEYS"):
+        overlap = sorted(set(getattr(schema, attr, ())) & reserved)
+        if overlap:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: {attr} overlaps the reserved "
+                f"flight-record field names ({', '.join(overlap)}) — a "
+                "span named like a structural field would overwrite the "
+                "tenant/trace attribution on every record "
+                "(docs/observability.md)")
+    return errors
+
+
+def check_trace_vocabulary(repo=REPO):
+    """The causal-tracing contract: ``trace_span`` is declared with the
+    six linkage fields ``observe explain`` rebuilds trees from, the span
+    vocabulary is non-empty, the emitter (``obs/tracing.py``) writes the
+    declared event type, and every declared span name is actually
+    recorded somewhere under ``tpu_als_torch/`` — dead vocabulary in the docs
+    table is as misleading as an undeclared hop."""
+    schema, _ = load_registries(repo)
+    errors = []
+    decl = schema.EVENTS.get("trace_span")
+    if decl is None:
+        errors.append(
+            "tpu_als_torch/obs/schema.py: event type 'trace_span' is not "
+            "declared in EVENTS — the causal-tracing trail has no "
+            "schema (docs/observability.md)")
+    else:
+        for k in ("trace_id", "span_id", "parent_id", "name", "status",
+                  "seconds"):
+            if k not in decl[0]:
+                errors.append(
+                    "tpu_als_torch/obs/schema.py: EVENTS['trace_span'] is "
+                    f"missing the {k!r} field — `observe explain` "
+                    "links spans by exactly these keys")
+    spans = getattr(schema, "TRACE_SPANS", ())
+    if not spans:
+        errors.append(
+            "tpu_als_torch/obs/schema.py: TRACE_SPANS is empty/missing — the "
+            "span-name vocabulary is the explain trees' legend")
+    tracing_py = os.path.join(repo, "tpu_als_torch", "obs", "tracing.py")
+    if not os.path.exists(tracing_py):
+        errors.append("tpu_als_torch/obs/tracing.py: missing (the trace_span "
+                      "emitter)")
+    else:
+        with open(tracing_py, encoding="utf-8") as f:
+            if '"trace_span"' not in f.read():
+                errors.append(
+                    "tpu_als_torch/obs/tracing.py: never emits the declared "
+                    "'trace_span' event type")
+    used = set()
+    for path in py_files([os.path.join(repo, "tpu_als_torch")]):
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for name in spans:
+            if f'"{name}"' in text:
+                used.add(name)
+    for name in spans:
+        if name not in used:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: TRACE_SPANS declares {name!r} "
+                "but no call site under tpu_als_torch/ records it — dead "
+                "vocabulary (remove it or record the hop)")
+    return errors
+
+
+def py_files(paths):
+    for p in paths:
+        if os.path.isfile(p):
+            if p.endswith(".py"):
+                yield p
+        else:
+            for root, _, files in os.walk(p):
+                for name in sorted(files):
+                    if name.endswith(".py"):
+                        yield os.path.join(root, name)
+
+
+_TENANT_KW_RE = re.compile(r"\btenant\s*=")
+
+
+def _call_block(text, start):
+    """The balanced ``(...)`` call text opening at/after ``start`` (the
+    _assertion_blocks idiom; our call sites carry no parens inside their
+    string literals)."""
+    open_pos = text.find("(", start)
+    if open_pos < 0:
+        return ""
+    depth = 0
+    for i in range(open_pos, min(len(text), open_pos + 4000)):
+        ch = text[i]
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+            if depth == 0:
+                return text[open_pos:i + 1]
+    return text[open_pos:open_pos + 4000]
+
+
+def _assertion_blocks(text):
+    """Yield (start_pos, block_text) for every ``Assertion(...)`` call,
+    matched by paren balance (good enough for our code: no parens inside
+    the string literals these blocks carry)."""
+    for m in re.finditer(r"\bAssertion\s*\(", text):
+        start = m.end() - 1
+        depth = 0
+        for i in range(start, min(len(text), start + 4000)):
+            ch = text[i]
+            if ch == "(":
+                depth += 1
+            elif ch == ")":
+                depth -= 1
+                if depth == 0:
+                    yield m.start(), text[start:i + 1]
+                    break
+
+
+def check_file(path, repo=REPO):
+    """Return ``(lineno, message)`` pairs for every vocabulary violation
+    in one file.  Messages carry their own ``rel:line`` prefix so the
+    shim's output stays byte-compatible with the historical script."""
+    schema, faults = load_registries(repo)
+    errors = []
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    rel = os.path.relpath(path, repo)
+    # the registry/schema themselves pass names through variables; the
+    # analysis engine (this module + the linter) quotes call shapes in
+    # docstrings, so it is exempt too
+    in_obs = "tpu_als_torch/obs/" in path.replace(os.sep, "/") \
+        or "tpu_als_torch/analysis/" in path.replace(os.sep, "/")
+
+    def line_of(pos):
+        return text.count("\n", 0, pos) + 1
+
+    lines = text.splitlines()
+
+    def suppressed(lineno):
+        if not 1 <= lineno <= len(lines):
+            return False
+        m = SUPPRESS_RE.search(lines[lineno - 1])
+        return m is not None and "unregistered-name" in {
+            r.strip() for r in m.group("rules").split(",")}
+
+    def add(lineno, msg):
+        if not suppressed(lineno):
+            errors.append((lineno, msg))
+
+    for m in CALL_RE.finditer(text):
+        method, name = m.group("method"), m.group("name")
+        lineno = line_of(m.start())
+        where = f"{rel}:{lineno}"
+        if name is None:
+            if not in_obs and method not in ACCESSOR_KIND:
+                add(lineno,
+                    f"{where}: {method}() with a non-literal name "
+                    f"({m.group('expr').strip()!r}) — the static check "
+                    "cannot validate it; use a literal declared in "
+                    "tpu_als_torch.obs.schema")
+            continue
+        if method == "emit":
+            if name not in schema.EVENTS:
+                add(lineno,
+                    f"{where}: emit of undeclared event type {name!r} "
+                    "(declare it in tpu_als_torch.obs.schema.EVENTS)")
+        else:
+            want_kind = ACCESSOR_KIND.get(method, method)
+            decl = schema.METRICS.get(name)
+            if decl is None:
+                add(lineno,
+                    f"{where}: {method} of undeclared metric {name!r} "
+                    "(declare it in tpu_als_torch.obs.schema.METRICS)")
+            elif decl[0] != want_kind:
+                add(lineno,
+                    f"{where}: metric {name!r} is declared as a "
+                    f"{decl[0]}, used as a {want_kind} ({method})")
+            elif (method not in ACCESSOR_KIND and not in_obs
+                  and name not in getattr(schema, "TENANT_LABELED", ())
+                  and _TENANT_KW_RE.search(_call_block(text, m.start()))):
+                add(lineno,
+                    f"{where}: {method} of {name!r} passes a tenant= "
+                    "label, but the metric does not declare the "
+                    "'tenant' key in tpu_als_torch.obs.schema.LABELS — the "
+                    "write would raise at runtime (docs/tenancy.md)")
+
+    for pos, block in _assertion_blocks(text):
+        lineno = line_of(pos)
+        where = f"{rel}:{lineno}"
+        for m in ASSERT_KW_RE.finditer(block):
+            kw, name = m.group("kw"), m.group("name")
+            if name.startswith("$"):     # resolved from scenario config
+                continue
+            if kw == "event":
+                if name not in schema.EVENTS:
+                    add(lineno,
+                        f"{where}: Assertion(event={name!r}) names an "
+                        "undeclared event type (declare it in "
+                        "tpu_als_torch.obs.schema.EVENTS)")
+            elif name not in schema.METRICS:
+                add(lineno,
+                    f"{where}: Assertion({kw}={name!r}) names an "
+                    "undeclared metric (declare it in "
+                    "tpu_als_torch.obs.schema.METRICS)")
+        for m in ASSERT_DEN_RE.finditer(block):
+            for name in _STR_RE.findall(m.group("body")):
+                if not name.startswith("$") \
+                        and name not in schema.METRICS:
+                    add(lineno,
+                        f"{where}: Assertion(den=...) entry {name!r} is "
+                        "not a declared metric (declare it in "
+                        "tpu_als_torch.obs.schema.METRICS)")
+
+    if not in_obs:
+        trace_spans = getattr(schema, "TRACE_SPANS", ())
+        for regex in (TRACE_START_RE, TRACE_RECORD_RE):
+            for m in regex.finditer(text):
+                name = m.group("name")
+                if name not in trace_spans:
+                    lineno = line_of(m.start())
+                    add(lineno,
+                        f"{rel}:{lineno}: trace span {name!r} is not "
+                        "declared in tpu_als_torch.obs.schema.TRACE_SPANS — "
+                        "explain trees must only carry documented hop "
+                        "names")
+
+    in_faults = in_obs or path.replace(os.sep, "/").endswith(
+        "tpu_als_torch/resilience/faults.py")
+    for m in FAULT_CALL_RE.finditer(text) if not in_obs else ():
+        method, name = m.group("method"), m.group("name")
+        lineno = line_of(m.start())
+        where = f"{rel}:{lineno}"
+        if name is None:
+            if not in_faults:
+                add(lineno,
+                    f"{where}: faults.{method}() with a non-literal "
+                    f"point ({m.group('expr').strip()!r}) — the static "
+                    "check cannot validate it; use a literal from "
+                    "tpu_als_torch.resilience.faults.FAULT_POINTS")
+        elif name not in faults.FAULT_POINTS:
+            add(lineno,
+                f"{where}: faults.{method} of undeclared fault point "
+                f"{name!r} (declare it in "
+                "tpu_als_torch.resilience.faults.FAULT_POINTS)")
+
+    for m in FAULT_SPEC_RE.finditer(text) if not in_obs else ():
+        lineno = line_of(m.start())
+        where = f"{rel}:{lineno}"
+        spec = "".join(_STR_RE.findall(m.group("body")))
+        if not spec:
+            continue                         # non-literal: runtime checks it
+        try:
+            faults.parse_spec(spec)
+        except faults.FaultSpecError as e:
+            add(lineno, f"{where}: fault_spec {spec!r} does not parse: "
+                        f"{e}")
+
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not INLINE_TS_RE.search(line):
+            continue
+        for m in INLINE_RE.finditer(line):
+            name = m.group("name")
+            if name not in schema.EVENTS:
+                add(lineno,
+                    f"{rel}:{lineno}: inline event dict with undeclared "
+                    f"type {name!r} (declare it in "
+                    "tpu_als_torch.obs.schema.EVENTS)")
+    return errors
+
+
+def main(argv=None):
+    """The front end: exit 1 and one line a violation on stderr, else
+    exit 0 and an OK line with the number of files scanned."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="tpu_als_torch/analysis/vocab.py",
+        description="statically validate the port's observability and "
+                    "fault-point literals against tpu_als_torch.obs.schema "
+                    "and tpu_als_torch.resilience.faults")
+    ap.add_argument("--paths", nargs="*", default=None,
+                    help="files/dirs to scan (default: tpu_als_torch/ and "
+                         "chip_smoke.py under the repo root)")
+    args = ap.parse_args(argv)
+    paths = args.paths or [os.path.join(REPO, p) for p in DEFAULT_ROOTS]
+    errors = []
+    if args.paths is None:          # fixture runs scan only their files
+        errors.extend(check_plan_vocabulary())
+        errors.extend(check_tenant_vocabulary())
+        errors.extend(check_trace_vocabulary())
+        errors.extend(check_elastic_vocabulary())
+    nfiles = 0
+    for path in py_files(paths):
+        nfiles += 1
+        errors.extend(msg for _, msg in check_file(path))
+    if errors:
+        print("\n".join(errors), file=sys.stderr)
+        print(f"tpu_als_torch vocab: {len(errors)} violation(s) in "
+              f"{nfiles} files", file=sys.stderr)
+        return 1
+    print(f"tpu_als_torch vocab: OK ({nfiles} files)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 """Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune|
-foldin-bench|serve-bench|tt-train|observe|plan``.
+foldin-bench|serve-bench|tt-train|observe|plan|lint``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
@@ -108,6 +108,14 @@ split width, K4's scratch tile, the table's type) on the card and banks
 the winner (warm: a cache read with no trial; ``--force`` re-tunes;
 ``--bank-out`` writes the winner as a bench bank), ``clear`` drops the
 entries.
+
+``lint`` (``cmd_lint``) runs the port's linter over ``tpu_als_torch/``
+and ``chip_smoke.py`` against its empty baseline
+(``analysis/lint.py``: ``--paths``, ``--baseline``,
+``--write-baseline``, ``--rules``) and exits 1 on a finding; with
+``--contracts`` (or ``--contract NAME``) it also verifies the contract
+registry (``analysis/contracts.py``) on ``--device``.  It writes no run
+directory.
 
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
@@ -1679,6 +1687,33 @@ def cmd_serve_bench(args):
     return result
 
 
+def cmd_lint(args):
+    """The port's linter (``analysis/lint.py``), its argv rebuilt: the
+    engine owns the flags, and ``python tpu_als_torch/analysis/lint.py``
+    runs the same code without torch."""
+    from tpu_als_torch.analysis import lint
+
+    argv = []
+    if args.paths is not None:
+        argv += ["--paths", *args.paths]
+    if args.baseline is not None:
+        argv += ["--baseline", args.baseline]
+    if args.write_baseline:
+        argv.append("--write-baseline")
+    if args.rules:
+        argv.append("--rules")
+    if args.contracts:
+        argv.append("--contracts")
+    for name in args.contract or ():
+        argv += ["--contract", name]
+    if args.device is not None:
+        argv += ["--device", args.device]
+    rc = lint.main(argv)
+    if rc:
+        raise SystemExit(rc)  # `python -m tpu_als_torch.cli lint` exits rc
+    return rc
+
+
 def main(argv=None):
     from tpu_als_torch.parallel.trainer import (EXECUTABLE_STRATEGIES,
                                                 GATHER_STRATEGIES,
@@ -2160,9 +2195,34 @@ def main(argv=None):
         "clear", help="drop the on-disk entries (.corrupt/ evidence is "
                       "kept)")
     plc.set_defaults(fn=cmd_plan, obs_dir=None)
+    ln = sub.add_parser(
+        "lint", help="the port's linter and contract registry (the AST "
+                     "pass is stdlib-only; --contracts verifies the byte "
+                     "and signature pins on --device)")
+    ln.add_argument("--paths", nargs="*", default=None,
+                    help="files/dirs to lint (default: tpu_als_torch/ and "
+                         "chip_smoke.py)")
+    ln.add_argument("--baseline", default=None,
+                    help="baseline file of accepted findings (default: "
+                         "tpu_als_torch/analysis/lint_baseline.txt; "
+                         "'none' disables)")
+    ln.add_argument("--write-baseline", action="store_true",
+                    help="write current findings to the baseline file")
+    ln.add_argument("--rules", action="store_true",
+                    help="print the rule catalog and exit")
+    ln.add_argument("--contracts", action="store_true",
+                    help="also verify every registered contract")
+    ln.add_argument("--contract", action="append", default=None,
+                    help="verify only this named contract (repeatable; "
+                         "implies --contracts)")
+    ln.add_argument("--device", default=None,
+                    help="torch device for the contracts (default: cuda, "
+                         "raising without it; 'cpu' runs the kernels' "
+                         "plain versions)")
+    ln.set_defaults(fn=cmd_lint)
     args = parser.parse_args(argv)
     _arm_fault_spec()
-    if args.cmd == "observe":
+    if args.cmd in ("observe", "lint"):
         return args.fn(args)  # read-only: writes no run directory
     from tpu_als_torch import obs
 

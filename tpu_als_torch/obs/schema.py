@@ -1,6 +1,7 @@
 """The declared observability vocabulary of the port.
 
-Counterpart of ``tpu_als/obs/schema.py`` (stdlib only), holding the rows
+Counterpart of ``tpu_als/obs/schema.py``, deliberately stdlib-only
+(``analysis/vocab.py`` loads it by file path), holding the rows
 of the metrics, events and trace spans the port's modules write: the
 guardrails' trips and rollbacks, the estimator's quarantine of poisoned
 ratings, the fault points, the retry helper, the checkpoints, the

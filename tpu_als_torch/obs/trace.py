@@ -95,8 +95,10 @@ def stage(name, sink=None):
         pending.append(x)
         return x
 
-    # the clock brackets the span's own bookkeeping too: every second of
-    # the attributed path belongs to some stage (the coverage bound)
+    # tal: disable=timer-brackets-span -- deliberate: the clock brackets
+    # the span's own bookkeeping too, so every second of the attributed
+    # path belongs to some stage (the coverage bound of
+    # perf/attribution.py: the stages cover >= 90 % of the wall iteration)
     t0 = time.perf_counter()
     with obs.span("attr." + name, stage=name):
         yield keep

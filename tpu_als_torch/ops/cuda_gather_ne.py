@@ -41,7 +41,8 @@ from tpu_als_torch.ops.cuda_solve import ONCHIP_MAX_RANK
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
 from tpu_als_torch.perf.roofline import (fused_ne_kernel_bytes,
                                          fused_ring_kernel_bytes,
-                                         fused_solve_kernel_bytes)
+                                         fused_solve_kernel_bytes,
+                                         ring_r_pad, ring_row_tile)
 
 # K3's largest rank: S's entries are indexed by a 32-bit int (r·r < 2^31)
 GRAM_MAX_RANK = 46340
@@ -62,6 +63,11 @@ RING_LAUNCHES = 0   # K7
 # measurement), on either device; None otherwise, and no call does any
 # bookkeeping
 COST = None
+# [(payload bytes, grid)] while parallel/comm_audit.py::remote_dma_bytes
+# audits a function: each K7 call adds the cross-shard payload one hop of
+# its ring schedule carries and the schedule's grid (row tiles, shards),
+# on either device; None otherwise
+REMOTE = None
 
 # K4's and K7's scratch (each row's Gram, b and count, and K7's width
 # chunks' partials) is kept within this many f32 elements a launch (1
@@ -391,6 +397,12 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     D, _, n, w = cols.shape
     _declare(fused_ring_kernel_bytes, cols.numel(), D * n, r,
              V_shards.element_size(), 0)
+    if REMOTE is not None:
+        # the reference's schedule over S cards: one [per, r_pad] shard a
+        # hop, one ring pass per row tile of its TN rows
+        r_pad = ring_r_pad(r)
+        tiles = -(-n // ring_row_tile(r_pad, -(-w // 8) * 8))
+        REMOTE.append((per * r_pad * V_shards.element_size(), (tiles, S)))
     if V_shards.device.type == "cpu":
         return gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY,
                                        two_sided=two_sided, reg=reg,

@@ -55,6 +55,15 @@ MAX_SETS = 65_535
 TILE_U = 64
 TILE_I = 128
 
+# [(payload bytes, grid)] while parallel/comm_audit.py::remote_dma_bytes
+# audits a function: each K8 call adds the candidate set one hop of the
+# reference's merge ring carries and its grid (user tiles, shards), on
+# either device; None otherwise
+REMOTE = None
+# the reference's merge ring: user rows a tile (at most) and the lanes of
+# a packed candidate set (perf/roofline.py::serve_merge_remote_bytes)
+RING_TILE_U, RING_LANES = 256, 128
+
 # kernel launches in this process; a run reads them to show that its path
 # went through the kernels
 LAUNCHES = 0        # K5
@@ -244,6 +253,11 @@ def topk_merge_ring(U, V_shards, valid_shards, k, parts=None):
         raise ValueError(f"topk_merge_ring takes k <= {MAX_K}, got {k}: the "
                          "merged candidate sets hold at most that many, as "
                          "the TPU kernel's do")
+    if REMOTE is not None:
+        # one packed [tile_u, 2·lanes] f32 set a hop, one pass a user tile
+        tile_u = min(RING_TILE_U, -(-U.shape[0] // 8) * 8)
+        REMOTE.append((tile_u * 2 * RING_LANES * 4,
+                       (-(-U.shape[0] // max(1, tile_u)), S)))
     if U.device.type == "cpu":
         return topk_merge_ring_plain(U, V_shards, valid_shards, k,
                                      1 if parts is None else parts)

@@ -298,10 +298,13 @@ def ring_process_half_step(V_local, ring_buckets, counts, num_rows, cfg,
     (``shard_csr_grid(positions=)``: rows [L, nb], cols [L, S, nb, w]);
     ``counts`` [L, num_rows]; ``prev`` [L·num_rows, r], the CG warm
     start.  Per bucket and row tile, the held block of L opposite shards
-    makes P − 1 hops (sent to process p + 1, received from p − 1,
+    makes P hops (sent to process p + 1, received from p − 1,
     :func:`~tpu_als_torch.parallel.multihost.ppermute`), each owner
-    adding the terms of every shard it holds; then the tile is solved as
-    in :func:`ring_half_step`.  Every process walks the same buckets and
+    adding the terms of every shard it holds before each; the last hop
+    brings the block home, where the next tile starts from it, as the
+    reference's ring returns each shard home once a tile (the bytes of
+    ``comm_bytes_per_iter('ring')``).  Then the tile is solved as in
+    :func:`ring_half_step`.  Every process walks the same buckets and
     tiles (the grid's layout is agreed), so the hops pair up.  The terms
     are summed in the order the shards arrive (this process's block
     first), not the one-process ring's, so the result differs from it by
@@ -339,8 +342,9 @@ def ring_process_half_step(V_local, ring_buckets, counts, num_rows, cfg,
                                                alpha=cfg.alpha)
                         A[j] = A[j] + Sg
                         bb[j] = bb[j] + bg
-                if q < P - 1:
-                    held = multihost.ppermute(held)
+                # P hops: the block is home again, the next tile's start
+                held = multihost.ppermute(held)
+            home = held
             for j in range(L):
                 rows = b.rows[j, sl]
                 out[j, rows] = _ring_tile_solve(
@@ -363,11 +367,16 @@ def gather_block_plan(per, n_blocks):
 
 
 def chunked_gather_half_step(V_stacked, buckets, num_rows, n_shards, cfg,
-                             chunk_elems, n_blocks=4, YtY=None, prev=None):
+                             chunk_elems, n_blocks=4, YtY=None, prev=None,
+                             across_processes=False):
     """One half-step of every owner with the opposite factors taken in
     column blocks (``'all_gather_chunked'``).
 
-    ``V_stacked`` [S·per, r]: the opposite factors in slot space;
+    ``V_stacked`` [S·per, r]: the opposite factors in slot space
+    (``across_processes``: this process's L shards, ``[L·per, r]``, and
+    block c of every shard is gathered between the processes once per
+    row tile, :func:`~tpu_als_torch.parallel.multihost.all_gather`, as
+    the reference gathers it);
     ``buckets``: the side's stacked CSR shards as tensors (rows [D, nb],
     cols/vals/mask [D, nb, w], cols in the opposite slot space, as
     ``'all_gather'`` takes them); ``prev`` [D·num_rows, r]: the solved
@@ -383,13 +392,20 @@ def chunked_gather_half_step(V_stacked, buckets, num_rows, n_shards, cfg,
     r = V_stacked.shape[-1]
     dev = V_stacked.device
     cdt = getattr(torch, cfg.compute_dtype)
-    V_sh = V_stacked.to(cdt).reshape(n_shards, -1, r)
+    D = buckets[0].rows.shape[0] if buckets else n_shards
+    # the opposite table's shards: all S on one process, the L owners'
+    # own across processes
+    V_sh = V_stacked.to(cdt).reshape(D if across_processes else n_shards,
+                                      -1, r)
     per = V_sh.shape[1]
     sub, starts, widths = gather_block_plan(per, n_blocks)
     C = len(starts)
     blocks = [V_sh[:, starts[c]:starts[c] + widths[c]].reshape(-1, r)
               for c in range(C)]
-    D = buckets[0].rows.shape[0] if buckets else n_shards
+    # block c of every shard, [S·widths[c], r]: across processes gathered
+    # for each row tile, on one process a slice of the stacked table
+    block = (lambda c: multihost.all_gather(blocks[c])) \
+        if across_processes else blocks.__getitem__
     eye = torch.eye(r, dtype=torch.float32, device=dev)
     out = torch.zeros(D, num_rows + 1, r, dtype=torch.float32, device=dev)
     cg = (cfg.cg_iters > 0
@@ -403,29 +419,30 @@ def chunked_gather_half_step(V_stacked, buckets, num_rows, n_shards, cfg,
         loc = b.cols - src * per
         blkid = torch.clamp(torch.div(loc, sub, rounding_mode="floor"),
                             max=C - 1)
-        for d in range(D):
-            for s0 in range(0, nb, tile):
-                sl = slice(s0, s0 + tile)
-                rows = b.rows[d, sl]
-                A = torch.zeros(rows.shape[0], r, r, dtype=torch.float32,
-                                device=dev)
-                bb = torch.zeros(rows.shape[0], r, dtype=torch.float32,
-                                 device=dev)
-                cnt = torch.zeros(rows.shape[0], dtype=torch.float32,
-                                  device=dev)
-                for c in range(C):
+        for s0 in range(0, nb, tile):
+            sl = slice(s0, s0 + tile)
+            n = b.rows[0, sl].shape[0]
+            # every owner's normal equations, summed block by block
+            acc = [[torch.zeros(n, r, r, dtype=torch.float32, device=dev),
+                    torch.zeros(n, r, dtype=torch.float32, device=dev),
+                    torch.zeros(n, dtype=torch.float32, device=dev)]
+                   for _ in range(D)]
+            for c in range(C):
+                table = block(c)
+                for d in range(D):
                     m_c = mask[d, sl] * (blkid[d, sl] == c).to(cdt)
                     # masked-out entries' indices clipped into the block
                     idx = torch.clamp(src[d, sl] * widths[c]
                                       + (loc[d, sl] - starts[c]),
                                       0, n_shards * widths[c] - 1)
-                    Sg, bg, ng = gram_terms(blocks[c][idx.long()],
-                                            vals[d, sl], m_c,
-                                            implicit=cfg.implicit_prefs,
+                    Sg, bg, ng = gram_terms(table[idx.long()], vals[d, sl],
+                                            m_c, implicit=cfg.implicit_prefs,
                                             alpha=cfg.alpha)
-                    A = A + Sg
-                    bb = bb + bg
-                    cnt = cnt + ng.float()
+                    a = acc[d]
+                    a[0], a[1], a[2] = a[0] + Sg, a[1] + bg, a[2] + ng.float()
+            for d in range(D):
+                A, bb, cnt = acc[d]
+                rows = b.rows[d, sl]
                 A = A + (cfg.reg_param * cnt)[:, None, None] * eye
                 if cfg.implicit_prefs:
                     A = A + YtY[None]

@@ -68,6 +68,13 @@ COMM = {"collectives": 0, "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
 #: (None before a group exists).
 ROUTE = None
 
+#: ``record(primitive, out_bytes)`` while ``parallel/comm_audit.py``
+#: audits a function: each collective that crosses processes calls it
+#: once with the reference's primitive name and its output's bytes.
+#: None otherwise, and then no collective does any bookkeeping for it
+#: (:data:`COMM` counts either way).
+RECORD = None
+
 # the reference's rendezvous policy
 _INIT_RETRY = dict(max_attempts=5, base_delay=1.0, max_delay=15.0)
 # seconds a collective may wait for its peers
@@ -221,10 +228,12 @@ def _start(t):
     return time.perf_counter()
 
 
-def _account(t0, received):
+def _account(t0, received, primitive=None, out_bytes=0):
     COMM["collectives"] += 1
     COMM["bytes"] += int(received)
     COMM["seconds"] += time.perf_counter() - t0
+    if RECORD is not None and primitive is not None:
+        RECORD(primitive, int(out_bytes))
 
 
 def all_gather(t):
@@ -239,20 +248,32 @@ def all_gather(t):
     parts = [torch.empty_like(h) for _ in range(d.get_world_size())]
     d.all_gather(parts, h)
     out = torch.cat(parts)
-    _account(t0, _nbytes(out))
+    _account(t0, _nbytes(out), "all_gather", _nbytes(out))
     return _to_device(out, t.device)
 
 
-def all_reduce_sum(t):
-    """The sum over processes of ``t``, on ``t``'s device."""
+def all_reduce_sum(parts):
+    """The sum over every shard of the mesh of a per-shard value: the
+    reference's ``psum`` over the mesh axis.  ``parts`` ``[L, ...]``:
+    this process's L shards' values, in position order.  The values are
+    added one shard after another in mesh-position order, so every
+    process, and one process holding all the shards, gets the same bits.
+    Across processes the stacks move by one gloo all-gather and each
+    process adds them up; one process: the fold of its own ``L``.
+    Returns ``parts[0]``'s shape on its device."""
     d = _dist()
-    if d is None:
-        return t
-    t0 = _start(t)
-    h = _to_host(t).clone()
-    d.all_reduce(h)
-    _account(t0, _nbytes(h))
-    return _to_device(h, t.device)
+    if d is not None:
+        t0 = _start(parts)
+        h = _to_host(parts)
+        gathered = [torch.empty_like(h) for _ in range(d.get_world_size())]
+        d.all_gather(gathered, h)
+        out = torch.cat(gathered)
+        _account(t0, _nbytes(out), "psum", _nbytes(out[0]))
+        parts = _to_device(out, parts.device)
+    total = parts[0].clone()
+    for x in parts[1:]:
+        total += x
+    return total
 
 
 def ppermute(t, shift=1):
@@ -269,7 +290,7 @@ def ppermute(t, shift=1):
     reqs = [d.isend(h, (p + shift) % P), d.irecv(out, (p - shift) % P)]
     for q in reqs:
         q.wait()
-    _account(t0, _nbytes(out))
+    _account(t0, _nbytes(out), "ppermute", _nbytes(out))
     return _to_device(out, t.device)
 
 
@@ -282,11 +303,15 @@ def all_to_all(blocks):
         return list(blocks)
     t0 = _start(blocks[0])
     dev = blocks[0].device
-    hs = [_to_host(b) for b in blocks]
-    outs = [torch.empty_like(h) for h in hs]
-    d.all_to_all(outs, hs)
-    _account(t0, sum(_nbytes(o) for o in outs))
-    return [_to_device(o, dev) for o in outs]
+    # one stacked buffer through all_to_all_single: gloo has no list
+    # all_to_all in every torch release (2.11's raises "Backend gloo does
+    # not support alltoall"), while the single-tensor form is gloo's own
+    h = _to_host(torch.stack(list(blocks)))
+    out = torch.empty_like(h)
+    d.all_to_all_single(out, h)
+    received = _nbytes(out)
+    _account(t0, received, "all_to_all", received)
+    return list(_to_device(out, dev).unbind(0))
 
 
 def barrier():

@@ -23,17 +23,21 @@ items, with a strategy for how each owner reaches the opposite factors:
 - ``'all_to_all'``: each owner receives only the rows its ratings
   reference, then ``local_half_step`` (:mod:`.a2a`).
 
-For implicit feedback YᵀY is the whole opposite table's (the reference
-``psum``s the shards' partial Grams).
+For implicit feedback YᵀY is the whole opposite table's: the shards'
+partial Grams summed shard after shard in mesh-position order, the
+reference's ``psum`` (:func:`_yty`).
 
 Across processes (:mod:`tpu_als_torch.parallel.multihost`) the steps run
 on this process's slot rows only (``[L·per, r]`` a table) over the
-``positions=`` builds, with the multihost transport between processes:
-'all_gather' and 'all_gather_chunked' gather the opposite table once a
-half-step (YᵀY from the gathered table, so the result is the one-process
-fit's, bit for bit), the unfused ring rotates it between processes
+``positions=`` builds, with the multihost transport between processes,
+moving what the reference's steps move (``parallel/comm_audit.py``
+holds the two to ``comm_bytes_per_iter``): 'all_gather' gathers the
+opposite table once a half-step (the result is the one-process fit's,
+bit for bit), 'all_gather_chunked' each column block once
+per row tile, the unfused ring rotates the opposite shards between
+processes, back home once per row tile
 (:func:`.comm.ring_process_half_step`), 'all_to_all' exchanges the
-referenced rows; the last two sum the processes' partial YᵀY.  K7
+referenced rows, and every strategy sums the shards' partial YᵀY.  K7
 (``solve_backend='gather_fused_ring'``) reads every shard's base pointer
 in one launch and raises across processes (:func:`make_process_step`).
 
@@ -61,6 +65,8 @@ from tpu_als_torch.parallel.comm import (
     ring_half_step,
     ring_process_half_step,
 )
+from tpu_als_torch.perf.roofline import (ring_r_pad, ring_remote_bytes,
+                                         ring_row_tile)
 from tpu_als_torch.resilience import faults
 from tpu_als_torch.resilience.elastic import DeviceLost, wrap_step
 
@@ -153,11 +159,16 @@ def _gather(mesh, Y):
     return multihost.all_gather(Y) if _across(mesh) else Y
 
 
-def _yty_partial(mesh, Y):
-    """YᵀY of the whole opposite table from this process's rows ``Y``:
-    across processes the sum of every process's partial Gram."""
-    YtY = compute_yty(Y)
-    return multihost.all_reduce_sum(YtY) if _across(mesh) else YtY
+def _yty(mesh, Y):
+    """YᵀY of the whole opposite table from this process's rows ``Y``
+    (``[L·per, r]``; one process: the whole stacked table): every
+    shard's partial Gram, summed shard after shard in mesh-position
+    order (:func:`~tpu_als_torch.parallel.multihost.all_reduce_sum`, the
+    reference's ``psum``), so one process and several get the same
+    bits."""
+    parts = torch.stack([compute_yty(y)
+                         for y in Y.reshape(mesh.size, -1, Y.shape[-1])])
+    return multihost.all_reduce_sum(parts)
 
 
 def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig,
@@ -172,8 +183,8 @@ def make_sharded_step(mesh, user_sharded, item_sharded, cfg: AlsConfig,
     ub, ib = user_sharded.to(dev), item_sharded.to(dev)
 
     def half(Y, buckets, per, chunk, prev):
+        YtY = _yty(mesh, Y) if cfg.implicit_prefs else None
         Y = _gather(mesh, Y)
-        YtY = compute_yty(Y) if cfg.implicit_prefs else None
         return torch.cat([
             local_half_step(Y, _owner(buckets, d), per, cfg, YtY, chunk,
                             prev=prev[d * per:(d + 1) * per], knobs=knobs)
@@ -214,11 +225,11 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
                 "'auto') or 'all_gather'")
 
         def ring_step(U, V):
-            YtY = _yty_partial(mesh, U) if cfg.implicit_prefs else None
+            YtY = _yty(mesh, U) if cfg.implicit_prefs else None
             V = ring_process_half_step(U, ib, ic, item_ring.rows_per_shard,
                                        cfg, item_ring.chunk_elems, YtY,
                                        prev=V)
-            YtY = _yty_partial(mesh, V) if cfg.implicit_prefs else None
+            YtY = _yty(mesh, V) if cfg.implicit_prefs else None
             U = ring_process_half_step(V, ub, uc, user_ring.rows_per_shard,
                                        cfg, user_ring.chunk_elems, YtY,
                                        prev=U)
@@ -229,11 +240,11 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
         return ring_step
 
     def ring_step(U, V):
-        YtY = compute_yty(U) if cfg.implicit_prefs else None
+        YtY = _yty(mesh, U) if cfg.implicit_prefs else None
         V = ring_half_step(U, ib, ic, item_ring.rows_per_shard, S, cfg,
                            item_ring.chunk_elems, YtY, prev=V, fused=fused,
                            split_width=split)
-        YtY = compute_yty(V) if cfg.implicit_prefs else None
+        YtY = _yty(mesh, V) if cfg.implicit_prefs else None
         U = ring_half_step(V, ub, uc, user_ring.rows_per_shard, S, cfg,
                            user_ring.chunk_elems, YtY, prev=U, fused=fused,
                            split_width=split)
@@ -255,17 +266,19 @@ def make_chunked_gather_step(mesh, user_sharded, item_sharded,
     ub, ib = user_sharded.to(dev), item_sharded.to(dev)
     S = mesh.global_size
 
+    across = _across(mesh)
+
     def step(U, V):
-        Uf = _gather(mesh, U)
-        YtY = compute_yty(Uf) if cfg.implicit_prefs else None
+        YtY = _yty(mesh, U) if cfg.implicit_prefs else None
         V = chunked_gather_half_step(
-            Uf, ib, item_sharded.rows_per_shard, S, cfg,
-            item_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=V)
-        Vf = _gather(mesh, V)
-        YtY = compute_yty(Vf) if cfg.implicit_prefs else None
+            U, ib, item_sharded.rows_per_shard, S, cfg,
+            item_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=V,
+            across_processes=across)
+        YtY = _yty(mesh, V) if cfg.implicit_prefs else None
         U = chunked_gather_half_step(
-            Vf, ub, user_sharded.rows_per_shard, S, cfg,
-            user_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=U)
+            V, ub, user_sharded.rows_per_shard, S, cfg,
+            user_sharded.chunk_elems, n_blocks=n_blocks, YtY=YtY, prev=U,
+            across_processes=across)
         return U, V
 
     return step
@@ -290,11 +303,11 @@ def make_a2a_step(mesh, user_a2a, item_a2a, cfg: AlsConfig, knobs=None):
     across = _across(mesh)
 
     def step(U, V):
-        YtY = _yty_partial(mesh, U) if cfg.implicit_prefs else None
+        YtY = _yty(mesh, U) if cfg.implicit_prefs else None
         V = a2a_half_step(U, is_, ib, item_a2a.rows_per_shard, S, cfg,
                           item_a2a.chunk_elems, YtY, prev=V, knobs=knobs,
                           across_processes=across)
-        YtY = _yty_partial(mesh, V) if cfg.implicit_prefs else None
+        YtY = _yty(mesh, V) if cfg.implicit_prefs else None
         U = a2a_half_step(V, us, ub, user_a2a.rows_per_shard, S, cfg,
                           user_a2a.chunk_elems, YtY, prev=U, knobs=knobs,
                           across_processes=across)
@@ -326,46 +339,6 @@ def make_process_step(mesh, strategy, user_c, item_c, cfg: AlsConfig,
     return make_sharded_step(mesh, user_c, item_c, cfg, knobs)
 
 
-def _r_pad(r):
-    return max(128, -(-r // 128) * 128)
-
-
-def _solve_row_tile(r_pad, w8, panel=16, max_wc=256, vmem_budget=1 << 17):
-    """TN, the fused ring kernel's row tile on the TPU: a copy of the
-    reference's ``ops/pallas_gather_ne.py::_tiles`` and ``_tiles_solve``
-    arithmetic, so that :func:`comm_bytes_per_iter` reports the
-    reference's integers for ``'gather_fused_ring'``."""
-    if w8 <= max_wc:
-        wc = w8
-    else:
-        w_pad = -(-w8 // 128) * 128
-        wc = max_wc - (max_wc % 128)
-        while wc > 128 and w_pad % wc:
-            wc -= 128
-    tn = 256
-    while tn > 8 and tn * (r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
-        tn //= 2
-    while tn > 8 and tn * wc > (1 << 13):
-        tn //= 2
-    while tn > 8 and tn * (2 * r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
-        tn //= 2
-    cap = int(vmem_budget) // (max(panel, 32) * r_pad)
-    if cap < 8:
-        raise ValueError(
-            f"vmem_budget {vmem_budget} caps the fused-solve row tile at "
-            f"{cap} rows for r_pad={r_pad} panel={panel} (the reference's "
-            "TileBudgetError)")
-    return max(8, (min(tn, cap) // 8) * 8)
-
-
-def ring_remote_bytes(n_row_tiles, n_shards, per, r, db):
-    """The fused ring kernel's remote-copy payload on the TPU (a copy of
-    the reference's ``perf/roofline.py::ring_remote_bytes``): every row
-    tile runs its own ring pass forwarding the held ``[per, r]`` shard
-    ``S - 1`` times."""
-    return int(n_row_tiles * max(0, n_shards - 1) * per * r * db)
-
-
 def comm_bytes_per_iter(strategy, user_part, item_part, rank,
                         user_container=None, item_container=None,
                         implicit=False, compute_dtype="float32",
@@ -381,8 +354,9 @@ def comm_bytes_per_iter(strategy, user_part, item_part, rank,
     - ``all_to_all``: ``2·(D−1)·R·r·4`` (received and sent), R from the
       built ``A2aCsr`` plans;
     - ``gather_fused_ring``: the fused ring kernel's remote copies
-      (:func:`ring_remote_bytes` over :func:`_solve_row_tile`'s tiles,
-      the rank padded to 128, in the compute dtype);
+      (``perf/roofline.py``'s :func:`ring_remote_bytes` over
+      :func:`ring_row_tile`'s tiles, the rank padded to 128, in the
+      compute dtype);
     - implicit adds one YᵀY reduction per half-step,
       ``2·(D−1)/D·r²·4`` each.
 
@@ -408,7 +382,7 @@ def comm_bytes_per_iter(strategy, user_part, item_part, rank,
         n = 0
         for b in container.buckets:
             S, nb, w = b.cols.shape[-3:]
-            tn = _solve_row_tile(_r_pad(r), -(-w // 8) * 8, panel=panel)
+            tn = ring_row_tile(ring_r_pad(r), -(-w // 8) * 8, panel=panel)
             n += -(-nb // tn)
         return max(1, n)
 
@@ -432,10 +406,10 @@ def comm_bytes_per_iter(strategy, user_part, item_part, rank,
     elif strategy == "gather_fused_ring":
         half_u = ring_remote_bytes(
             _ring_tiles(user_container, rank), D,
-            item_part.rows_per_shard, _r_pad(rank), _db)
+            item_part.rows_per_shard, ring_r_pad(rank), _db)
         half_v = ring_remote_bytes(
             _ring_tiles(item_container, rank), D,
-            user_part.rows_per_shard, _r_pad(rank), _db)
+            user_part.rows_per_shard, ring_r_pad(rank), _db)
     else:
         raise ValueError(f"unknown strategy {strategy!r}")
     total = half_u + half_v

@@ -6,7 +6,8 @@ live here, and they count different work:
 
 - **The stage model** (:func:`roofline` and the closed forms it is built
   from: :func:`fused_ne_kernel_bytes`, :func:`fused_solve_kernel_bytes`,
-  :func:`ring_remote_bytes`, :func:`fused_ring_kernel_bytes`,
+  :func:`ring_remote_bytes` over :func:`ring_row_tile`'s tiles,
+  :func:`fused_ring_kernel_bytes`,
   :func:`serve_merge_remote_bytes`, :func:`serve_query_bytes`,
   :func:`einsum_ne_build_bytes`, :func:`modeled_padding_waste`) counts
   PADDED work: ``P = 2·padding_waste·nnz`` entries an iteration, every
@@ -104,6 +105,42 @@ def fused_solve_kernel_bytes(P, n, r, db):
     entry's factor row read once, the cols and three weight streams, and
     x written; the ``[n, r, r]`` normal equations never reach HBM."""
     return int(P * r * db + P * (4 + 3 * db) + n * r * 4)
+
+
+def ring_r_pad(r):
+    """The rank the fused ring's schedule carries: padded to the TPU
+    kernel's 128-wide lanes, as the reference prices it."""
+    return max(128, -(-int(r) // 128) * 128)
+
+
+def ring_row_tile(r_pad, w8, panel=16, max_wc=256, vmem_budget=1 << 17):
+    """TN, the fused ring kernel's row tile in the reference's schedule (a
+    copy of ``tpu_als/ops/pallas_gather_ne.py::_tiles`` and
+    ``_tiles_solve``): each row tile makes its own ring pass, so the
+    tiles of a bucket of ``nb`` rows, ``ceil(nb / TN)``, multiply
+    :func:`ring_remote_bytes`.  ``w8``: the bucket's width rounded up to
+    8."""
+    if w8 <= max_wc:
+        wc = w8
+    else:
+        w_pad = -(-w8 // 128) * 128
+        wc = max_wc - (max_wc % 128)
+        while wc > 128 and w_pad % wc:
+            wc -= 128
+    tn = 256
+    while tn > 8 and tn * (r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
+        tn //= 2
+    while tn > 8 and tn * wc > (1 << 13):
+        tn //= 2
+    while tn > 8 and tn * (2 * r_pad * r_pad + 3 * wc * r_pad) > (1 << 21):
+        tn //= 2
+    cap = int(vmem_budget) // (max(panel, 32) * r_pad)
+    if cap < 8:
+        raise ValueError(
+            f"vmem_budget {vmem_budget} caps the fused-solve row tile at "
+            f"{cap} rows for r_pad={r_pad} panel={panel} (the reference's "
+            "TileBudgetError)")
+    return max(8, (min(tn, cap) // 8) * 8)
 
 
 def ring_remote_bytes(n_row_tiles, n_shards, per, r, db):

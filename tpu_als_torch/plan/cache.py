@@ -1,4 +1,4 @@
-"""The execution planner's persistent cache (stdlib only).
+"""The execution planner's persistent cache, deliberately stdlib-only.
 
 Counterpart of ``tpu_als/plan/cache.py``, under the reference's names
 and with its schema: one JSON file per plan key under the cache

@@ -202,7 +202,7 @@ def wrap_step(step, mesh, policy=None, max_transient=2):
         transient = 0
         while True:
             try:
-                mode = faults.check(FAULT_POINT)
+                mode = faults.check("mesh.device_lost")
                 if mode == "corrupt":
                     victim = shards[_victim_index(len(shards))]
                     mark_lost(int(victim.id))

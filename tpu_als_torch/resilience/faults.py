@@ -1,6 +1,7 @@
 """Deterministic fault injection: every failure path reachable on demand.
 
-Counterpart of ``tpu_als/resilience/faults.py`` (stdlib only): the
+Counterpart of ``tpu_als/resilience/faults.py``, deliberately
+stdlib-only (``analysis/vocab.py`` loads it by file path): the
 switchboard a test or a chip run uses to make a failure happen at a named
 point, deterministically, so that it can assert the recovery instead of
 hoping a flake exercises it.
@@ -72,11 +73,10 @@ from __future__ import annotations
 
 import os
 import random
+import sys
 import threading
 import time
 import warnings
-
-from tpu_als_torch import obs
 
 FAULT_POINTS = ("checkpoint.write", "checkpoint.rename", "ingest.read_chunk",
                 "multihost.init", "comm.ring_step", "serve.gather",
@@ -345,9 +345,14 @@ def check(point):
 
 
 def _emit_fired(rule):
-    """One ``fault_injected`` obs event per firing."""
-    obs.emit("fault_injected", point=rule.point, mode=rule.mode,
-             hit=rule.hits)
+    """One ``fault_injected`` obs event per firing, once the obs module is
+    loaded: it is looked up in ``sys.modules`` at the firing, as the
+    reference does, so this module loads by file path on its own, without
+    torch or the package."""
+    obs = sys.modules.get("tpu_als_torch.obs")
+    if obs is not None:
+        obs.emit("fault_injected", point=rule.point, mode=rule.mode,
+                 hit=rule.hits)
 
 
 try:

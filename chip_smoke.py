@@ -57,8 +57,10 @@ Phases (any failure exits non-zero before the final line):
 5. the training slice at the full ML-25M shape (162,541 users x 59,047
    items x 25,000,095 ratings, ``synthetic_movielens``): the bucketed
    layout both ways, by the native bucketizer and by numpy (host
-   seconds each, array-equal; the fits train on the native layout), each
-   bucket's route; the frame written as a 25M-line ``ratings.csv`` and
+   seconds each, array-equal; the fits train on the native layout;
+   numpy's made in the CPU cross-validation's wait after phase 13b (c),
+   so its seconds are taken beside that process, the native one timed
+   after the wait with no other process at work), each bucket's route; the frame written as a 25M-line ``ratings.csv`` and
    read back by the native reader (equal to the frame) and, on its first
    1M rows, by the Python twin (equal), rows a second each; then
    ``ALS(rank=128, implicitPrefs=True, alpha=40.0, regParam=0.01,
@@ -300,7 +302,23 @@ Phases (any failure exits non-zero before the final line):
    required equal, each iteration's wall beside; and after phase 12,
    (d) ``floor_audit`` against the bank phase 12's ``plan tune``
    process wrote with ``--bank-out``;
-14. timings at the slices' shapes (CUDA events), each kernel beside its
+14. the scenarios and the soak on the card (budget 100 s), nothing else
+   at work beside them (they are judged against wall-clock SLOs): (a)
+   ``python -m tpu_als_torch.cli soak --rank 128 --device cuda --obs-dir
+   DIR --json`` as a process (started gated; the reference's other
+   defaults: 8 windows of 3 s, both CLI chaos children on the card, all
+   six injections): exit 0, the verdict passed, all six injections fired
+   and recovered, K2, K4 and K5 launched in it, and then the port's
+   ``tpu_als_torch/soak/verdict.py DIR`` and the reference's stdlib
+   ``tpu_als/soak/verdict.py DIR`` as processes, each exiting 0 with the
+   run's own checks; (b) ``run_scenario`` in this process on the card
+   for traffic-spike, torn-publish, cold-start and tenant-isolation at
+   rank 128 (the reference's other defaults), every assertion held, each
+   one's wall and K2/K4/K5 launches printed, and the kernels of its path
+   launched (K5 in all four; K2 and K4 where it fits and folds in); (c)
+   ``scenario list`` as a process, beside (a)'s import: exit 0, the
+   twelve names, no kernel library loaded and CUDA never initialized;
+15. timings at the slices' shapes (CUDA events), each kernel beside its
    plain version, its library yardstick and its bound (K5 at ranks 128
    and 256); recommend-all three ways at both ranks (host clock, results
    on the host): ``recommend_arrays(10)`` (one K5 call),
@@ -325,7 +343,7 @@ Phases (any failure exits non-zero before the final line):
    Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
    bucket); each bucket's time in both half-steps, and one
    iteration beside its bound;
-15. where the time goes: one training iteration, one more fold-in
+16. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, one rank-256 iteration and
     fold-in batch, and one rank-512 iteration, then the serving engine's
     batches of 8 on its int8
@@ -1310,30 +1328,42 @@ def ml25m_frame(seed):
     return frame
 
 
-def prepare(frame, dev):
-    """The bucketed layout of ``frame`` (:func:`ml25m_frame`) both ways,
-    made once for the training slices at both ranks."""
+def block_numpy(frame):
+    """The numpy bucketizer's layout of ``frame`` (:func:`ml25m_frame`)
+    both ways, for :func:`prepare` to hold the native layout to.  It runs
+    in the CPU cross-validation's wait, so its seconds are taken beside
+    that process and are logged as such."""
     u_idx, umap = remap_ids(frame["user"])
     i_idx, imap = remap_ids(frame["item"])
     r = frame["rating"]
-    secs = {}
-    for native in (True, False):
-        t0 = time.perf_counter()
-        u = build_csr_buckets(u_idx, i_idx, r, len(umap), native=native)
-        t1 = time.perf_counter()
-        i = build_csr_buckets(i_idx, u_idx, r, len(imap), native=native)
-        t2 = time.perf_counter()
-        secs[native] = (t1 - t0, t2 - t1)
-        if native:
-            ucsr, icsr = u, i
-        else:
-            same_layout(ucsr, u, "users")
-            same_layout(icsr, i, "items")
-        del u, i
-    log(f"host blocking (native, threaded C++): users {secs[True][0]:.2f} "
-        f"s, items {secs[True][1]:.2f} s; numpy: users {secs[False][0]:.2f}"
-        f" s, items {secs[False][1]:.2f} s; array-equal; the fits train "
+    t0 = time.perf_counter()
+    u = build_csr_buckets(u_idx, i_idx, r, len(umap), native=False)
+    t1 = time.perf_counter()
+    i = build_csr_buckets(i_idx, u_idx, r, len(imap), native=False)
+    t2 = time.perf_counter()
+    log(f"host blocking (numpy, beside the CPU cross-validation process): "
+        f"users {t1 - t0:.2f} s, items {t2 - t1:.2f} s")
+    return {"u_idx": u_idx, "i_idx": i_idx, "r": r, "umap": umap,
+            "imap": imap, "ucsr": u, "icsr": i}
+
+
+def prepare(frame, nb, dev):
+    """The native bucketizer's layout of ``frame`` both ways, timed on a
+    host with no other process at work, held array-equal to
+    :func:`block_numpy`'s ``nb``; made once for the training slices at
+    both ranks."""
+    u_idx, i_idx, r = nb["u_idx"], nb["i_idx"], nb["r"]
+    umap, imap = nb["umap"], nb["imap"]
+    t0 = time.perf_counter()
+    ucsr = build_csr_buckets(u_idx, i_idx, r, len(umap), native=True)
+    t1 = time.perf_counter()
+    icsr = build_csr_buckets(i_idx, u_idx, r, len(imap), native=True)
+    t2 = time.perf_counter()
+    log(f"host blocking (native, threaded C++): users {t1 - t0:.2f} s, "
+        f"items {t2 - t1:.2f} s; array-equal to numpy's; the fits train "
         "on the native layout")
+    same_layout(ucsr, nb["ucsr"], "users")
+    same_layout(icsr, nb["icsr"], "items")
     layout(ucsr, "users")
     layout(icsr, "items")
     return {"frame": frame, "ucsr": ucsr, "icsr": icsr,
@@ -5181,6 +5211,178 @@ def floor_audit_phase12(bank, dev):
         fail(f"(d) floor_audit: {r.detail}")
 
 
+# -- phase 14: the scenarios and the soak on the card -------------------------
+
+PHASE14_BUDGET_S = 100.0
+# the scenarios (b) runs in this process, each with the reference's
+# defaults but the rank
+PHASE14_SCENARIOS = ("traffic-spike", "torn-publish", "cold-start",
+                     "tenant-isolation")
+SCENARIO_COUNT = 12                 # the reference's twelve
+SOAK_INJECTIONS = 6                 # the default schedule, children too
+# (c): ``scenario list`` as a process, then what it loaded
+_SCENARIO_LIST = (
+    "import json, sys\n"
+    "from tpu_als_torch import _build, cli\n"
+    "cli.main(['scenario', 'list'])\n"
+    "torch = sys.modules.get('torch')\n"
+    "print(json.dumps({'libs': sorted(_build._LIBS), 'cuda_initialized':\n"
+    "    bool(torch is not None and torch.cuda.is_initialized())}))\n")
+
+
+def start_scenario_list():
+    return subprocess.Popen(
+        [sys.executable, "-c", _SCENARIO_LIST], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=proc_env())
+
+
+def check_scenario_list(p):
+    """(c): exit 0, the twelve names, no kernel library loaded and CUDA
+    never initialized."""
+    out, err = p.communicate(timeout=120)
+    if p.returncode != 0:
+        fail(f"(c) scenario list exited {p.returncode}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    seen = json.loads(lines[-1])
+    names = [ln.split()[0] for ln in lines[:-1] if ln and not ln[0].isspace()]
+    log(f"(c) scenario list: {len(names)} scenarios ({', '.join(names)}); "
+        f"kernel libraries loaded {seen['libs']}, CUDA initialized "
+        f"{seen['cuda_initialized']}")
+    if len(names) != SCENARIO_COUNT or len(set(names)) != SCENARIO_COUNT:
+        fail(f"(c) scenario list printed {names}, not twelve names")
+    if seen["libs"] or seen["cuda_initialized"]:
+        fail("(c) scenario list built or loaded a kernel, or touched the "
+             "card")
+
+
+def rederive_verdict(script, obs_dir, checks):
+    """Judge the soak's trail with the stdlib ``script`` as a process:
+    exit 0 and the run's own checks."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(here, script),
+                        obs_dir, "--json"], capture_output=True, text=True,
+                       timeout=120, cwd=here)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"(a) {script} exited {p.returncode}: {p.stderr[-2000:]}")
+    again = json.loads(p.stdout)
+    log(f"(a) {script} on the trail: passed {again['passed']}, the run's "
+        f"checks {'re-derived' if again['checks'] == checks else 'NOT re-derived'} "
+        f"({secs:.2f} s)")
+    if again["checks"] != checks:
+        fail(f"(a) {script} judged other checks than the soak: "
+             f"{again['checks']} against {checks}")
+
+
+def soak_on_card(p, obs_dir):
+    """(a): the soak process's verdict, its six injections fired and
+    recovered, its K2/K4/K5 launches, then both stdlib judges on its
+    trail."""
+    lines, launches = finish_probe(p, "(a) soak", timeout=600)
+    res = json.loads(lines[-1])
+    checks = res["checks"]
+    log(f"(a) soak --rank {RANK}: passed {res['passed']}, "
+        f"{res['windows']} windows, {res['answered']}/{res['offered']} "
+        f"answered, worst victim-free p99 {res['worst_window_p99_ms']} ms, "
+        f"freshness p99 {res['freshness_p99_ms']} ms, fairness "
+        f"{res['fairness_ratio']}, shed {res['shed_rate']}, injections "
+        f"{res['injections']} fired {res['recoveries']} recovered, wall "
+        f"{res['wall_seconds']} s; launches K2 {launches['k2']}, K4 "
+        f"{launches['k4']}, K5 {launches['k5']}")
+    for rec in res["injection_records"]:
+        log(f"    window {rec['window']} {rec['name']}: fired "
+            f"{rec['fired']}, recovered {rec['recovered']}")
+    for w in res["window_records"]:
+        log(f"    window {w['window']}: {w['seconds']} s, "
+            f"{w['answered']}/{w['offered']} answered, p99 ms "
+            + ", ".join(f"{n} {t['p99_ms']}" for n, t in w["tenants"].items()))
+    if not res["passed"]:
+        fail(f"(a) the soak's verdict failed: "
+             f"{[c for c in checks if not c['ok']]}")
+    if res["injections"] != SOAK_INJECTIONS or \
+            res["recoveries"] != SOAK_INJECTIONS or \
+            not all(r["fired"] and r["recovered"]
+                    for r in res["injection_records"]):
+        fail(f"(a) not every one of the {SOAK_INJECTIONS} injections fired "
+             f"and recovered: {res['injection_records']}")
+    for k in ("k2", "k4", "k5"):
+        if launches[k] <= 0:
+            fail(f"(a) the soak launched no {k.upper()}")
+    rederive_verdict(os.path.join("tpu_als_torch", "soak", "verdict.py"),
+                     obs_dir, checks)
+    rederive_verdict(os.path.join("tpu_als", "soak", "verdict.py"),
+                     obs_dir, checks)
+
+
+# the kernels each scenario's path runs: traffic-spike and torn-publish
+# serve factors drawn at random (no fit, no fold-in)
+SCENARIO_KERNELS = {"traffic-spike": ("k5",), "torn-publish": ("k5",),
+                    "cold-start": ("k2", "k4", "k5"),
+                    "tenant-isolation": ("k2", "k4", "k5")}
+
+
+def scenarios_on_card(dev):
+    """(b): each scenario in this process on the card at rank 128, every
+    assertion held; its wall and K2/K4/K5 launches."""
+    from tpu_als_torch import scenario
+
+    for name in PHASE14_SCENARIOS:
+        obs.reset()
+        faults.clear()
+        guardrails.clear_mode()
+        serve.reset_last_good()
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            res = scenario.run_scenario(scenario.get_scenario(name),
+                                        config={"rank": RANK}, device=dev)
+        except scenario.PhaseFailed as e:
+            fail(f"(b) {name}: {e}")
+        secs = time.perf_counter() - t0
+        n = _launch_counts()
+        log(f"(b) {name} at rank {RANK}: "
+            f"{'PASS' if res['passed'] else 'FAIL'} in {secs:.2f} s "
+            f"(phases " + ", ".join(f"{p['phase']} {p['seconds']:.3f}"
+                                   for p in res["phases"])
+            + f"); launches K2 {n['k2']}, K4 {n['k4']}, K5 {n['k5']}")
+        for a in res["assertions"]:
+            log(f"    {'ok  ' if a['ok'] else 'FAIL'} {a['check']}: "
+                f"{a['observed']} {a['op']} {a['expected']}")
+        if not res["passed"]:
+            fail(f"(b) {name}: {[a for a in res['assertions'] if not a['ok']]}")
+        for k in SCENARIO_KERNELS[name]:
+            if n[k] <= 0:
+                fail(f"(b) {name} launched no {k.upper()}")
+    obs.reset()
+    faults.clear()
+
+
+def scenario_soak_phase(dev, smi):
+    """Phase 14: the production-week soak as a process (a), four
+    scenarios in this process (b) and ``scenario list`` as a process
+    (c), budget PHASE14_BUDGET_S.  The runs are judged against
+    wall-clock SLOs, so nothing else works beside them: (c) and the
+    soak's import overlap, the soak runs alone, then (b)."""
+    t0 = time.perf_counter()
+    obs_dir = tempfile.mkdtemp(prefix="soak_obs_", dir=PLAN_ROOT)
+    pc = start_scenario_list()
+    ps = start_probe(["soak", "--rank", str(RANK), "--device", str(dev),
+                      "--obs-dir", obs_dir, "--json"], gated=True)
+    check_scenario_list(pc)
+    probe_ready(ps, "(a) soak")
+    release_probe(ps)
+    soak_on_card(ps, obs_dir)
+    t_soak = time.perf_counter() - t0
+    scenarios_on_card(dev)
+    secs = time.perf_counter() - t0
+    log(f"phase 14 (the scenarios and the soak on the card): {secs:.1f} s "
+        f"((a) with (c) {t_soak:.1f} s) on {smi}")
+    if secs > PHASE14_BUDGET_S:
+        fail(f"phase 14 took {secs:.1f} s, over its {PHASE14_BUDGET_S} s")
+
+
 def timings(model, launches, A, b, errs, dev):
     out = []
     N, r = b.shape
@@ -6025,9 +6227,11 @@ def main():
         analysis_phase(dev, smi)
     finally:
         comm_audit_phase(audit, smi)  # releases the gated processes
+    # the numpy blocking in the CV's wait; the native one timed after it
+    nb = block_numpy(frame)
     cpu_cv = finish_cpu_cv(pcv)
-    data = prepare(frame, dev)
-    del frame
+    data = prepare(frame, nb, dev)
+    del frame, nb
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     s9 = csv_phase(data["frame"], args.seed, work.name)
     tr = train_slice(data, RANK, args.seed, dev)
@@ -6057,6 +6261,7 @@ def main():
     floor_audit_phase12(planner_phase(csrs, tr, dev, smi), dev)
     del csrs
     work.cleanup()
+    scenario_soak_phase(dev, smi)
     kernels = timings(model, launches, A, b, errs, dev)
     kernels.append(k5_timing(model256, launches256["k5"], errs["k5_256"],
                              dev))

@@ -153,6 +153,21 @@ def main(out):
         res[f"serve_{strategy}_scores"] = got_s.reshape(-1, 5)
         res[f"serve_{strategy}_ids"] = got_i.reshape(-1, 5)
     res["serve_U"], res["serve_V"] = Uq, Vc
+    # above k = 128 both strategies keep their name (only 'merge_ring' is
+    # swapped, and it raises across processes)
+    from tpu_als_torch import obs
+
+    Vw = rng.normal(size=(150, 8)).astype(np.float32)
+    for strategy in ("all_gather", "ring"):
+        n0 = obs.histogram_count("serve.request_seconds", strategy=strategy)
+        s, ix, off = serve.topk_sharded(Uq, Vw, 130, mesh, strategy=strategy)
+        res[f"serve_k130_{strategy}_recorded"] = np.int64(obs.histogram_count(
+            "serve.request_seconds", strategy=strategy) - n0)
+        res[f"serve_k130_{strategy}_scores"] = multihost._ragged_allgather(
+            s.numpy().ravel()).reshape(-1, 130)
+        res[f"serve_k130_{strategy}_ids"] = multihost._ragged_allgather(
+            ix.numpy().ravel()).reshape(-1, 130)
+    res["serve_k130_V"] = Vw
 
     # what must raise, on every process and with no hang
     expect_raise(errors, "merge_ring", lambda: serve.topk_sharded(
@@ -206,8 +221,6 @@ def main(out):
     # the group is still usable after every raise above
     multihost.barrier()
     # a shared run directory: only process 0 writes it
-    from tpu_als_torch import obs
-
     obs.configure(os.path.join(out, "obs"), config={}, argv=[])
     errors["_obs_wrote"] = obs.finalize() is not None
     obs.deconfigure()

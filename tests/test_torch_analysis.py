@@ -12,10 +12,11 @@ vocabulary engine (``analysis/vocab.py``), against the reference's.
 - Parity: on the reference's own fixtures for TAL007, TAL009, TAL011 and
   TAL012 (``tests/fixtures_analysis/``, read only) the port's engine
   reports those rules at the lines ``tpu_als/analysis/lint.py`` does,
-  given the same registries.  (On the port's own schema the reference's
-  ``ok_unregistered_name.py`` fires: it counts ``serve.requests``, a
-  metric of the reference's sharded serve that the port's does not
-  write yet; ROADMAP Queue 1 item 6.)
+  given the same registries, and on the port's own registries the
+  reference's ok fixtures are finding-free too (``ok_unregistered_name.py``
+  counts ``serve.requests``, which the port's sharded serve writes since
+  ``parallel/serve.py`` took the reference's metrics) while its bad
+  fixtures fire alike.
 - The three faults the linter found in the port stay repaired:
   ``resilience/faults.py`` and ``obs/schema.py`` load by file path
   without torch or the package (and ``fault_injected`` is still emitted
@@ -203,11 +204,12 @@ def test_lint_and_vocab_run_with_torch_and_jax_poisoned(tmp_path):
 
 
 def test_stdlib_only_modules_declare_it():
-    """The four modules TAL010 holds to the standard library say so in
-    the words the rule reads (and lint clean, above)."""
+    """The modules TAL010 holds to the standard library say so in the
+    words the rule reads (and lint clean, above)."""
     for rel in ("analysis/lint.py", "analysis/vocab.py", "obs/schema.py",
                 "plan/cache.py", "resilience/faults.py",
-                "analysis/contracts.py"):
+                "analysis/contracts.py", "soak/verdict.py",
+                "scenario/spec.py"):
         with open(os.path.join(REPO, "tpu_als_torch", rel)) as f:
             assert lint._STDLIB_CLAIM_RE.search(f.read()[:4000]), rel
 
@@ -244,9 +246,10 @@ def test_parity_on_the_references_fixtures(stem, kind):
     assert pick(ours) == pick(theirs)
     if kind == "bad":
         assert pick(ours), "the reference's bad fixture fired nothing here"
-        # on the port's own registries the bad fixtures fire alike
-        own, _ = lint.lint_paths([path])
-        assert pick(own) == pick(theirs)
+    # on the port's own registries the fixtures fire alike: the bad ones
+    # their rules, the ok ones nothing
+    own, _ = lint.lint_paths([path])
+    assert pick(own) == pick(theirs)
 
 
 # -- the three repairs ---------------------------------------------------------

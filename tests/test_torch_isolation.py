@@ -77,6 +77,14 @@
   ``vocab.py`` load as files with ``torch`` unimportable too (stdlib
   only); in one process no collective crosses anything, so the audit
   counts nothing.
+- The scenarios and the soak (``scenario/``, ``soak/``, ``scenario
+  run|list``, ``soak``): a toy scenario, torn-publish, the traffic model,
+  the chaos schedule and ``scenario list`` run with ``jax`` and
+  ``tpu_als`` unimportable; ``soak/verdict.py`` and ``scenario/spec.py``
+  load as files with ``torch``, ``numpy`` and the package unimportable
+  too (stdlib only); ``run_scenario``, ``run_soak``, ``bank_result``,
+  ``scenario run`` and ``soak`` with no device raise without a CUDA
+  device, and ``scenario list`` runs without one, touching no device.
 """
 
 import contextlib
@@ -1009,3 +1017,99 @@ def test_lint_and_vocab_load_as_files_without_torch():
                          text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_DRIVE_SCENARIOS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import io
+from contextlib import redirect_stdout
+from tpu_als_torch import cli, scenario
+from tpu_als_torch.scenario.spec import Assertion, Phase, ScenarioSpec
+from tpu_als_torch.soak import chaos, traffic
+toy = ScenarioSpec(name="toy", doc="inline",
+                   phases=(Phase("p", lambda c: c.facts.update(x=1)),),
+                   assertions=(Assertion("x", "fact", fact="x", op="==",
+                                         value=1),))
+assert scenario.run_scenario(toy, device="cpu")["passed"]
+r = scenario.run_scenario(scenario.get_scenario("torn-publish"),
+                          device="cpu")
+assert r["passed"], r["assertions"]
+assert traffic.stream_bytes(traffic.TrafficConfig(windows=2))
+assert "device-loss" in chaos.default_schedule(8).describe()
+buf = io.StringIO()
+with redirect_stdout(buf):
+    cli.main(["scenario", "list"])
+assert buf.getvalue().count("\n    ") >= 12
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_scenarios_and_soak_run_without_jax():
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _DRIVE_SCENARIOS], cwd=REPO,
+                         env={**_env(), "OMP_NUM_THREADS": "1",
+                              "TPU_ALS_PLAN_CACHE": "off"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_LOAD_STDLIB_FILES = r"""
+import importlib.util, sys
+for name in ("torch", "numpy", "jax", "tpu_als", "tpu_als_torch"):
+    sys.modules[name] = None
+mods = []
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"_f{i}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # dataclasses look it up
+    spec.loader.exec_module(mod)
+    mods.append(mod)
+verdict, spec_mod = mods
+assert verdict.judge([])["windows"] == 0
+ctx = spec_mod.RunContext(None, {"b": 2}, None, None, device="cpu")
+assert spec_mod.resolve_bound("$b", ctx.config) == 2
+bad = [m for m, v in sys.modules.items() if v is not None
+       and m.split(".")[0] in ("torch", "numpy", "tpu_als_torch")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_verdict_and_spec_load_as_files_without_torch():
+    paths = [os.path.join(REPO, "tpu_als_torch", *rel) for rel in
+             (("soak", "verdict.py"), ("scenario", "spec.py"))]
+    out = subprocess.run([sys.executable, "-c", _LOAD_STDLIB_FILES, *paths],
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_scenarios_and_soak_without_cuda_raise(monkeypatch, tmp_path,
+                                               capsys):
+    from tpu_als_torch import scenario
+    from tpu_als_torch.cli import main
+    from tpu_als_torch.soak import orchestrator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenario.run_scenario(scenario.get_scenario("cold-start"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        orchestrator.run_soak()
+    result = scenario.run_scenario(scenario.SCENARIOS["torn-publish"],
+                                   device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenario.bank_result(result, str(tmp_path / "b.json"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["scenario", "run", "torn-publish"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["soak", "--windows", "1"])
+    capsys.readouterr()
+    main(["scenario", "list"])
+    assert "production-week" in capsys.readouterr().out

@@ -519,6 +519,22 @@ def test_two_process_serve(run, strategy):
     np.testing.assert_allclose(earned, s, atol=SERVE_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("strategy", ["all_gather", "ring"])
+def test_two_process_serve_above_k_128_keeps_the_strategy(run, strategy):
+    """k = 130 across processes: the strategy asked runs and labels the
+    latency (only 'merge_ring' is swapped for 'ring', as the reference's
+    ``topk_sharded`` does), and the answer is the scan's."""
+    res = run["res"]
+    U, V = res["serve_U"], res["serve_k130_V"]
+    assert res[f"serve_k130_{strategy}_recorded"] == 1
+    s, ix = (res[f"serve_k130_{strategy}_{x}"] for x in ("scores", "ids"))
+    want_s, _ = chunked_topk_scores(torch.from_numpy(U), torch.from_numpy(V),
+                                    torch.ones(len(V), dtype=torch.bool), 130)
+    np.testing.assert_allclose(s, want_s.numpy(), atol=SERVE_TOL, rtol=0)
+    earned = np.einsum("nr,nkr->nk", U, V[ix])
+    np.testing.assert_allclose(earned, s, atol=SERVE_TOL, rtol=0)
+
+
 @pytest.mark.parametrize("case,kind,match", [
     ("merge_ring", "NotImplementedError", "Queue 2 item 1"),
     ("fused_ring", "NotImplementedError", "Queue 2 item 1"),

@@ -217,3 +217,54 @@ def test_foldin_and_checkpoint_histograms(_fresh, tmp_path):
     load_factors(str(tmp_path / "m"))
     assert tobs.histogram_count("checkpoint.save_seconds") == 1
     assert tobs.histogram_count("checkpoint.load_seconds") == 1
+
+
+@pytest.mark.parametrize("strategy,k,n_items", [
+    ("all_gather", 5, 24), ("ring", 5, 24), ("merge_ring", 5, 24),
+    ("merge_ring", 130, 150)])
+def test_sharded_serve_metrics_match_reference(_fresh, strategy, k,
+                                               n_items):
+    """``topk_sharded`` writes the reference's ``serve.requests``,
+    ``serve.rows`` and ``serve.request_seconds{strategy}`` on the clean,
+    the degraded and the empty path, the strategy being the one that ran
+    (K8's candidate sets hold at most 128: 'merge_ring' above runs 'ring';
+    an empty query set runs nothing and keeps the one asked for)."""
+    from tpu_als.parallel import serve as jserve
+    from tpu_als.parallel.mesh import make_mesh as jmake_mesh
+    from tpu_als.resilience import faults as jfaults
+    from tpu_als_torch.parallel import serve as tserve
+    from tpu_als_torch.parallel.mesh import make_mesh as tmake_mesh
+    from tpu_als_torch.resilience import faults as tfaults
+
+    jreg, treg = _fresh
+    rng = np.random.default_rng(0)
+    U = rng.normal(size=(16, 8)).astype(np.float32)
+    V = rng.normal(size=(n_items, 8)).astype(np.float32)
+    for serve, faults, mesh in ((jserve, jfaults, jmake_mesh(4)),
+                                (tserve, tfaults,
+                                 tmake_mesh(devices=["cpu"] * 4))):
+        serve.reset_last_good()
+        faults.install("serve.gather=corrupt@nth=2")
+        try:
+            serve.topk_sharded(U, V, k, mesh, strategy=strategy)
+            out = serve.topk_sharded(U[:5], V, k, mesh, strategy=strategy,
+                                     return_info=True)
+            assert out[-1]["degraded"] is True
+            serve.topk_sharded(U[:0], V, k, mesh, strategy=strategy)
+        finally:
+            faults.clear()
+    ran = "ring" if k > 128 else strategy
+    for name in ("serve.requests", "serve.rows", "serve.degraded"):
+        assert tobs.counter_value(name) == jobs.counter_value(name), name
+    assert tobs.counter_value("serve.requests") == 3
+    assert tobs.counter_value("serve.rows") == 21
+    counts = {}
+    for label in {strategy, ran}:
+        counts[label] = tobs.histogram_count("serve.request_seconds",
+                                             strategy=label)
+        assert counts[label] == jobs.histogram_count(
+            "serve.request_seconds", strategy=label), label
+    assert sum(counts.values()) == 3 and counts[ran] >= 2
+    assert [e["strategy"] for e in treg.events("serve_degraded")] == \
+        [e["strategy"] for e in jreg._events
+         if e["type"] == "serve_degraded"] == [ran]

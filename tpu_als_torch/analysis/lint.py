@@ -581,7 +581,8 @@ def main(argv=None):
         for check in (vocab.check_plan_vocabulary,
                       vocab.check_tenant_vocabulary,
                       vocab.check_trace_vocabulary,
-                      vocab.check_elastic_vocabulary):
+                      vocab.check_elastic_vocabulary,
+                      vocab.check_soak_vocabulary):
             for msg in check(REPO):
                 path, _, rest = msg.partition(": ")
                 findings.append(Finding(path, 1, "unregistered-name", rest))

@@ -18,9 +18,10 @@ roots it adds the cross-module contracts: the five ``plan_*`` events
 declared and emitted by ``plan/planner.py``, the tenant label on every
 ``serving.*`` / ``live.*`` metric, the causal-trace vocabulary
 (``obs/tracing.py``), and the elastic recovery trail (``api/fitting.py``
-and ``resilience/elastic.py``).  The reference's
-``check_soak_vocabulary`` arrives with the port's ``soak/`` (ROADMAP
-Queue 1 item 6).
+and ``resilience/elastic.py``), and the production-week soak's trail
+(``check_soak_vocabulary``: the ``soak_*`` events declared and emitted
+by ``soak/orchestrator.py``, the ``soak.*`` metrics' kinds, and a
+``soak/verdict.py`` free of torch and the package).
 
 Deliberately stdlib-only: the registries, ``tpu_als_torch/obs/schema.py``
 and ``tpu_als_torch/resilience/faults.py`` (both stdlib-only), are loaded
@@ -126,6 +127,18 @@ TENANT_PREFIXES = ("serving.", "live.")
 ELASTIC_EVENTS = ("device_lost", "mesh_reformed", "elastic_resume")
 ELASTIC_SPANS = ("elastic.detect", "elastic.reform", "elastic.resume")
 ELASTIC_FAULT_POINT = "mesh.device_lost"
+
+# the production-week soak's trail is the verdict's ONLY input: the
+# standalone judge (soak/verdict.py) re-derives the SLO verdict from
+# these events alone, so a renamed or undeclared soak event silently
+# voids the offline re-derivation.  Pinned declared AND emitted, with
+# the soak tallies' kinds.
+SOAK_EVENTS = ("soak_start", "soak_window", "soak_injection",
+               "soak_verdict")
+SOAK_METRICS = (("soak.windows", "counter"),
+                ("soak.injections", "counter"),
+                ("soak.recoveries", "counter"),
+                ("soak.window_seconds", "histogram"))
 
 def _load_standalone(name, relpath, repo):
     """Load one stdlib-only registry module by file path, bypassing the
@@ -233,6 +246,54 @@ def check_elastic_vocabulary(repo=REPO):
             "tpu_als_torch/obs/schema.py: METRICS['train.reformations'] must "
             "be a counter — the mesh-reformation tally "
             "(docs/observability.md)")
+    return errors
+
+
+def check_soak_vocabulary(repo=REPO):
+    """The production-week contract: the four soak_* events declared in
+    the schema AND emitted by the orchestrator
+    (tpu_als_torch/soak/orchestrator.py), the four soak.* metrics
+    declared with their kinds, and the standalone judge
+    (tpu_als_torch/soak/verdict.py) free of torch and tpu_als_torch
+    imports — the verdict must re-derive from events.jsonl on a machine
+    with nothing but python installed."""
+    schema, _ = load_registries(repo)
+    errors = []
+    for name in SOAK_EVENTS:
+        if name not in schema.EVENTS:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: soak event {name!r} is not "
+                "declared in EVENTS (the production-week trail pins "
+                f"all of {', '.join(SOAK_EVENTS)})")
+    orch_py = os.path.join(repo, "tpu_als_torch", "soak", "orchestrator.py")
+    if not os.path.exists(orch_py):
+        errors.append("tpu_als_torch/soak/orchestrator.py: missing (the "
+                      "production-week driver)")
+    else:
+        with open(orch_py, encoding="utf-8") as f:
+            text = f.read()
+        for name in SOAK_EVENTS:
+            if f'"{name}"' not in text:
+                errors.append(
+                    f"tpu_als_torch/soak/orchestrator.py: never emits "
+                    f"{name!r} — the soak trail is the verdict's only "
+                    "input")
+    for name, kind in SOAK_METRICS:
+        if schema.METRICS.get(name, ("",))[0] != kind:
+            errors.append(
+                f"tpu_als_torch/obs/schema.py: METRICS[{name!r}] must be a "
+                f"{kind} (the production-week soak tally)")
+    verdict_py = os.path.join(repo, "tpu_als_torch", "soak", "verdict.py")
+    if os.path.exists(verdict_py):
+        with open(verdict_py, encoding="utf-8") as f:
+            vtext = f.read()
+        if re.search(r"^\s*(import|from)\s+(tpu_als_torch|torch)\b", vtext,
+                     re.MULTILINE):
+            errors.append(
+                "tpu_als_torch/soak/verdict.py: imports torch or "
+                "tpu_als_torch — the standalone judge must stay "
+                "stdlib-only so the verdict re-derives from a copied run "
+                "dir offline")
     return errors
 
 
@@ -563,6 +624,7 @@ def main(argv=None):
         errors.extend(check_tenant_vocabulary())
         errors.extend(check_trace_vocabulary())
         errors.extend(check_elastic_vocabulary())
+        errors.extend(check_soak_vocabulary())
     nfiles = 0
     for path in py_files(paths):
         nfiles += 1

@@ -1,5 +1,5 @@
 """Command line: ``python -m tpu_als_torch.cli train|evaluate|recommend|tune|
-foldin-bench|serve-bench|tt-train|observe|plan|lint``.
+foldin-bench|serve-bench|tt-train|observe|plan|lint|scenario|soak``.
 
 ``train`` is the counterpart of ``tpu_als/cli.py::cmd_train`` on one
 device: load ``--data`` (``ml-100k:PATH`` a ``u.data`` or its directory,
@@ -116,6 +116,21 @@ and ``chip_smoke.py`` against its empty baseline
 ``--contracts`` (or ``--contract NAME``) it also verifies the contract
 registry (``analysis/contracts.py``) on ``--device``.  It writes no run
 directory.
+
+``scenario run NAME`` (``cmd_scenario``) runs one of the reference's
+twelve production-day scenarios (``scenario/library.py``) and exits 0
+only if every assertion holds: 1 on a failed assertion or a phase that
+raised, 2 naming the scenarios for an unknown name; ``--slo-ms``,
+``--freshness-slo-ms`` and ``--seed`` override its config, ``--json``
+prints the result, ``--bench-json`` banks it with the card's name.
+``scenario list`` prints every scenario, its chaos and its phases and
+touches no device.  ``soak`` (``cmd_soak``) runs the production week
+(``soak/``): seeded zipfian/diurnal traffic over two tenants with live
+fold-in and periodic refits under the chaos schedule, and exits 0 only
+when the SLO verdict passes; ``--plan`` prints the schedule, and the
+verdict re-derives from the run directory alone with ``python
+tpu_als_torch/soak/verdict.py DIR``.  The CLI children both start get
+the parent's ``--device``.
 
 ``--device`` defaults to the CUDA device; pass ``--device cpu`` to run on
 the CPU.
@@ -1714,6 +1729,89 @@ def cmd_lint(args):
     return rc
 
 
+def cmd_scenario(args):
+    """Run (or list) a production-day scenario: composed chaos over
+    train, serve and stream, judged by hard assertions evaluated from
+    the obs trail (``tpu_als_torch.scenario``)."""
+    from tpu_als_torch import scenario
+
+    if args.action == "list":
+        for name in scenario.names():
+            spec = scenario.SCENARIOS[name]
+            chaos = f"  [faults: {spec.fault_spec}]" if spec.fault_spec \
+                else ""
+            print(f"{name}{chaos}")
+            print(f"    {' '.join(spec.doc.split())}")
+            for p in spec.phases:
+                print(f"      - {p.name}: {p.doc}")
+        return
+
+    try:
+        spec = scenario.get_scenario(args.name)
+    except scenario.UnknownScenario as e:
+        print(f"tpu_als_torch scenario: {e}", file=sys.stderr)
+        raise SystemExit(2) from e
+    overrides = {"slo_ms": args.slo_ms,
+                 "freshness_slo_ms": args.freshness_slo_ms,
+                 "seed": args.seed}
+    try:
+        result = scenario.run_scenario(spec, config=overrides,
+                                       device=args.device)
+    except scenario.PhaseFailed as e:
+        # harness breakage (a phase body raised), as opposed to a judged
+        # assertion failure: one clean line, still non-zero
+        print(f"tpu_als_torch scenario: {e}", file=sys.stderr)
+        raise SystemExit(1) from e
+    print(scenario.render_result(result))
+    if args.as_json:
+        print(json.dumps(result, default=str))
+    if args.bench_json:
+        scenario.bank_result(result, args.bench_json, device=args.device)
+        print(f"banked {args.bench_json}", file=sys.stderr)
+    if not result["passed"]:
+        raise SystemExit(1)
+
+
+def cmd_soak(args):
+    """Run the production-week soak (``tpu_als_torch.soak``): seeded
+    zipfian/diurnal traffic over a multi-tenant fleet with live fold-in
+    and periodic refit, under the declarative chaos schedule; exit 0
+    only when the SLO verdict passes.  The verdict re-derives offline
+    from the run dir alone: ``python tpu_als_torch/soak/verdict.py
+    <obs-dir>``."""
+    from tpu_als_torch.soak import chaos, orchestrator, traffic
+
+    cfg = traffic.TrafficConfig(
+        seed=args.seed, windows=args.windows, window_s=args.window_s,
+        base_qps=args.base_qps, update_qps=args.update_qps,
+        poison_frac=args.poison_frac)
+    schedule = chaos.default_schedule(
+        cfg.windows, victim=cfg.tenants[0][0],
+        subprocesses=not args.no_subprocess_chaos)
+    if args.plan:
+        print(f"{cfg.windows} windows x {cfg.window_s}s "
+              f"(~{cfg.windows * cfg.window_s / 60.0:.2f} scheduled "
+              f"minutes), tenants "
+              + ", ".join(f"{n}:{w:g}" for n, w in cfg.tenants))
+        print(schedule.describe())
+        return
+    result = orchestrator.run_soak(
+        cfg, schedule, rank=args.rank, refit_every=args.refit_every,
+        judge_config={"slo_ms": args.slo_ms,
+                      "freshness_slo_ms": args.freshness_slo_ms,
+                      "fairness_max": args.fairness_max,
+                      "shed_max": args.shed_max},
+        device=args.device)
+    print(orchestrator.render(result))
+    if args.as_json:
+        print(json.dumps(result, default=str))
+    if args.bench_json:
+        orchestrator.bank_result(result, args.bench_json)
+        print(f"banked {args.bench_json}", file=sys.stderr)
+    if not result["passed"]:
+        raise SystemExit(1)
+
+
 def main(argv=None):
     from tpu_als_torch.parallel.trainer import (EXECUTABLE_STRATEGIES,
                                                 GATHER_STRATEGIES,
@@ -2195,6 +2293,88 @@ def main(argv=None):
         "clear", help="drop the on-disk entries (.corrupt/ evidence is "
                       "kept)")
     plc.set_defaults(fn=cmd_plan, obs_dir=None)
+    sc = sub.add_parser(
+        "scenario",
+        help="scripted production-day scenarios: composed chaos over "
+             "train + serve + stream, judged by hard assertions "
+             "evaluated from the obs trail")
+    scsub = sc.add_subparsers(dest="action", required=True)
+    scr = scsub.add_parser(
+        "run", help="run one named scenario; exit 0 only if every "
+                    "assertion holds", parents=[obs_common])
+    scr.add_argument("name",
+                     help="scenario name (see `tpu_als_torch scenario "
+                          "list`)")
+    scr.add_argument("--slo-ms", type=float, default=None,
+                     help="override the latency-SLO bound scenarios "
+                          "judge p99 against (traffic-spike)")
+    scr.add_argument("--freshness-slo-ms", type=float, default=None,
+                     help="override the rating-arrival -> servable "
+                          "bound (cold-start)")
+    scr.add_argument("--seed", type=int, default=None,
+                     help="override the scenario's default seed")
+    scr.add_argument("--bench-json", default=None, metavar="PATH",
+                     help="also bank the result JSON (with banked_at "
+                          "provenance and the card's name) here")
+    scr.add_argument("--json", dest="as_json", action="store_true",
+                     help="also print the result as one JSON object")
+    scr.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' runs the "
+                          "kernels' plain versions); the scenario's CLI "
+                          "children get the same")
+    scr.set_defaults(fn=cmd_scenario)
+    scl = scsub.add_parser(
+        "list", help="list the scenarios, their chaos and their phases")
+    scl.set_defaults(fn=cmd_scenario, obs_dir=None)
+
+    sk = sub.add_parser(
+        "soak",
+        help="the production week at compressed timescale: synthetic "
+             "zipfian/diurnal traffic drives multi-tenant serve + live "
+             "fold-in + refit under a chaos schedule; exit 0 only when "
+             "the SLO verdict passes",
+        parents=[obs_common])
+    sk.add_argument("--windows", type=int, default=8,
+                    help="soak windows (the compressed week's length)")
+    sk.add_argument("--window-s", type=float, default=3.0,
+                    help="wall seconds per window")
+    sk.add_argument("--base-qps", type=float, default=40.0,
+                    help="serve queries/sec at the diurnal mean")
+    sk.add_argument("--update-qps", type=float, default=25.0,
+                    help="rating arrivals/sec at the diurnal mean")
+    sk.add_argument("--poison-frac", type=float, default=0.02,
+                    help="per-event probability a rating arrives "
+                         "poisoned (nan -> quarantine path)")
+    sk.add_argument("--seed", type=int, default=17,
+                    help="traffic seed; (seed, schedule) replays the "
+                         "whole workload byte-for-byte")
+    sk.add_argument("--rank", type=int, default=8)
+    sk.add_argument("--refit-every", type=int, default=3,
+                    help="periodic refit-and-republish cadence, in "
+                         "windows (0 disables; chaos refits still run)")
+    sk.add_argument("--no-subprocess-chaos", action="store_true",
+                    help="drop the CLI-child injections (preempt, "
+                         "device loss) for a fast in-process soak")
+    sk.add_argument("--slo-ms", type=float, default=None,
+                    help="serve p99 bound for victim-free tenants")
+    sk.add_argument("--freshness-slo-ms", type=float, default=None,
+                    help="rating-arrival -> servable p99 bound")
+    sk.add_argument("--fairness-max", type=float, default=None,
+                    help="max/min answered-rate ratio across tenants")
+    sk.add_argument("--shed-max", type=float, default=None,
+                    help="shed/offered ceiling over the whole soak")
+    sk.add_argument("--plan", action="store_true",
+                    help="print the chaos schedule and exit (no soak)")
+    sk.add_argument("--bench-json", default=None, metavar="PATH",
+                    help="bank the verdict (survived-minutes headline, "
+                         "tz-aware banked_at) here")
+    sk.add_argument("--json", dest="as_json", action="store_true",
+                    help="also print the result as one JSON object")
+    sk.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions); the chaos children "
+                         "get the same")
+    sk.set_defaults(fn=cmd_soak)
     ln = sub.add_parser(
         "lint", help="the port's linter and contract registry (the AST "
                      "pass is stdlib-only; --contracts verifies the byte "

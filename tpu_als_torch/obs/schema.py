@@ -11,15 +11,18 @@ request), the stream reader, the live updater, the tenancy control
 plane, the CLI's per-iteration records, the sharded trainer's comm
 gauges, elastic recovery (its events, counter and the ``elastic.detect``
 / ``reform`` / ``resume`` trace hops; its probe and classify run under
-the ``elastic.probe`` and ``elastic.classify`` spans), the degraded
-sharded serve, the execution planner and its autotuner, and the run's
+the ``elastic.probe`` and ``elastic.classify`` spans), the sharded
+serve (its latency, requests and rows, and its degraded mode), the
+execution planner and its autotuner, the production-day scenarios
+(``scenario/``), the production-week soak (``soak/``), and the run's
 final snapshot and spans.  The registry
 (:mod:`tpu_als_torch.obs.metrics`) checks every name against these
 tables when it is written, so an undeclared name raises instead of
 minting a series nothing downstream reads.  Help texts are the
-reference's, so the two packages' Prometheus texts agree.  The other
-rows of the reference (soak, scenario, the sharded serve's latency)
-arrive with the modules that write them.
+reference's, so the two packages' Prometheus texts agree.  The
+reference's two rows not here, ``bench_retry`` and
+``bench_probe_exhausted``, belong to its ``bench.py``, which the port
+does not carry yet.
 """
 
 from __future__ import annotations
@@ -35,6 +38,14 @@ METRICS = {
         "gauge", "rows",
         "rows per column block of the chunked all_gather schedule "
         "(comm.gather_block_plan; bounds the resident gathered slice)"),
+    "serve.request_seconds": (
+        "histogram", "seconds",
+        "wall-clock latency of one sharded top-k request "
+        "(parallel.serve.topk_sharded), labeled by strategy"),
+    "serve.requests": (
+        "counter", "requests", "sharded top-k requests served"),
+    "serve.rows": (
+        "counter", "rows", "query rows scored by sharded top-k"),
     "serve.degraded": (
         "counter", "requests",
         "top-k requests answered from last-good factors because the "
@@ -156,6 +167,26 @@ METRICS = {
         "micro-batches whose scoring raised, failed in isolation "
         "(labeled tenant=<name>: the failing tenant's tickets erred, "
         "every other tenant kept serving)"),
+    "scenario.freshness_seconds": (
+        "histogram", "seconds",
+        "cold-start scenario: rating-arrival -> servable latency (fold-"
+        "in + republish + first successful recommend for a NEW user)"),
+    "soak.windows": (
+        "counter", "windows",
+        "soak windows completed by the production-week orchestrator "
+        "(tpu_als.soak.orchestrator)"),
+    "soak.injections": (
+        "counter", "injections",
+        "chaos injections whose fault observably fired during a soak "
+        "(the soak_injection event carries the evidence)"),
+    "soak.recoveries": (
+        "counter", "recoveries",
+        "chaos injections that fired AND left recovery evidence in the "
+        "trail before their window closed"),
+    "soak.window_seconds": (
+        "histogram", "seconds",
+        "wall-clock duration of one soak window (traffic replay + "
+        "chaos actions + joins; the schedule's window_s is the floor)"),
 }
 
 # metric name -> label keys its writers may attach; a metric absent from
@@ -164,6 +195,7 @@ LABELS = {
     "train.comm_bytes_per_iter": ("strategy",),
     "train.gather_block_rows": ("n_blocks", "side"),
     "train.stage_seconds": ("stage",),
+    "serve.request_seconds": ("strategy",),
     "foldin.update_seconds": ("side",),
     "foldin.batch_rows": ("side",),
     "serving.enqueue_seconds": ("tenant",),
@@ -395,6 +427,46 @@ EVENTS = {
         "config, and its min-of-k seconds (tpu_als.perf.autotune); a "
         "warm kernel-config resolve emits none — autotune_smoke pins "
         "exactly that"),
+    "scenario_start": (
+        ("scenario", "phases"),
+        "a scenario run began: its name, phase list, and effective "
+        "config (tpu_als.scenario.runner)"),
+    "scenario_phase": (
+        ("scenario", "phase", "seconds"),
+        "one scenario phase completed, with its wall-clock seconds"),
+    "scenario_assert": (
+        ("scenario", "check", "ok", "observed", "expected"),
+        "one scenario assertion judged: observed value vs bound (the "
+        "verdict is re-derivable from these events alone)"),
+    "scenario_end": (
+        ("scenario", "passed", "seconds"),
+        "a scenario run finished (or aborted on a phase failure, with "
+        "an extra 'error' field): the verdict and total seconds"),
+    "soak_start": (
+        ("windows", "window_s", "tenants", "seed"),
+        "a production-week soak began: the compressed timeline "
+        "(windows x window_s seconds), the tenant mix, and the traffic "
+        "seed; 'scheduled_injections' (extra field) is the chaos "
+        "schedule's size — the verdict's injections_observed check "
+        "compares against it (tpu_als.soak.orchestrator)"),
+    "soak_window": (
+        ("window", "offered", "answered", "shed", "errors"),
+        "one soak window's serve outcome totals plus a 'tenants' extra "
+        "field mapping tenant -> {offered, answered, shed, errors, "
+        "p99_ms} — the verdict judges victim-free tenants from these "
+        "per-window records alone"),
+    "soak_injection": (
+        ("window", "action", "fired", "recovered"),
+        "one scheduled chaos injection's outcome: the window it landed "
+        "in, the action performed, whether the fault observably fired, "
+        "and whether its recovery evidence made it into the trail "
+        "before the window closed; 'victim' and 'spec' ride as extra "
+        "fields"),
+    "soak_verdict": (
+        ("passed", "survived_minutes", "checks"),
+        "the soak's SLO verdict as judged from the trail (tpu_als/soak/"
+        "verdict.py — stdlib-only, so the same verdict re-derives "
+        "offline from events.jsonl alone)"),
     "snapshot": (
         ("counters", "gauges", "histograms"),
         "final registry state, appended once by finalize() so the JSONL "

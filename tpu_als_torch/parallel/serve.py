@@ -9,12 +9,13 @@ of ni_loc; global item id = s·ni_loc + local.
 - ``'ring'``: each query shard runs K5 over one catalog shard per
   rotation — owner d holds catalog shard (d - t) mod S after t of them —
   and folds it into its running set with the stable merge (the
-  reference leaves that merge to XLA).  ``k > 128`` takes this strategy
-  whatever was asked, as in the reference.
+  reference leaves that merge to XLA).
 - ``'merge_ring'``: kernel K8 — every shard scores the whole query set
   against its own catalog shard, and the S candidate sets merge in shard
   order, bitwise ``chunked_topk_scores`` over the whole catalog, tie
-  order included.
+  order included.  Its candidate sets hold at most 128, so above
+  k = 128 :func:`topk_sharded` runs ``'ring'`` in its place, as the
+  reference does; that is the only strategy swapped.
 
 ``'all_gather'`` and ``'ring'`` reach K5 through ``topk_scores``, which
 sends a k above 128 to its scan route (``chunked_topk_scores``), as the
@@ -26,8 +27,17 @@ stale or lost shard), the request is answered from the last catalog
 this same mesh served (``_last_good``; ``serve.degraded`` counter,
 ``serve_degraded`` event) by ``cuda_topk.topk_scores`` on the mesh's
 device, K5 on the card; with no last-good catalog,
-:class:`ServeShardLost` raises.  Two choices of the port:
+:class:`ServeShardLost` raises.  Every answered call, clean, degraded,
+empty or across processes, writes the reference's
+``serve.request_seconds{strategy}`` (the strategy that ran:
+``'merge_ring'`` above k = 128 runs ``'ring'``, as the reference's),
+``serve.requests`` and ``serve.rows`` (the query rows of ``U``).  Three
+choices of the port:
 
+- **The latency ends in a device sync** (``torch.cuda.synchronize`` on
+  a CUDA mesh): the reference's clock stops once its results are on the
+  host, the port's results are device tensors whose kernels may still
+  be running.
 - **The cache key** is the mesh's ``(device, ids)``, the counterpart of
   the reference's device ids: two meshes with other logical ids never
   answer from each other's catalog, even on one card.
@@ -55,6 +65,7 @@ set in one launch and raises ``NotImplementedError`` across processes
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
 
@@ -89,7 +100,7 @@ def reset_last_good():
         _last_good.clear()
 
 
-def _serve_degraded(U, k, Nu, mesh, strategy, reason):
+def _serve_degraded(U, k, Nu, mesh, strategy, reason, record):
     """Answer from this mesh's last-good catalog on its device: slower and
     possibly stale, but an answer."""
     with _last_good_lock:
@@ -103,6 +114,7 @@ def _serve_degraded(U, k, Nu, mesh, strategy, reason):
     obs.counter("serve.degraded")
     obs.emit("serve_degraded", strategy=strategy, reason=reason)
     s, ix = cuda_topk.topk_scores(U, Vg, validg, kk)
+    record(Nu)
     return s[:Nu], ix[:Nu]
 
 
@@ -127,12 +139,23 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown serving strategy {strategy!r} "
                          f"(expected one of {STRATEGIES})")
+    t0 = time.perf_counter()
+    dev = mesh.device
+
+    def _record(nrows):
+        # the reference's latency histogram and throughput counters; the
+        # clock stops once the result's kernels are done
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        obs.histogram("serve.request_seconds", time.perf_counter() - t0,
+                      strategy=strategy)
+        obs.counter("serve.requests")
+        obs.counter("serve.rows", nrows)
 
     def _info(out, degraded, reason=None):
         return out + ({"degraded": degraded, "reason": reason},) \
             if return_info else out
 
-    dev = mesh.device
     U, V = _as_f32(U, dev), _as_f32(V, dev)
     Nu, r = U.shape
     Ni = V.shape[0]
@@ -144,6 +167,7 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
             "'all_gather' or 'ring'")
     if Ni == 0 or Nu == 0 or k == 0:
         kk = min(k, Ni)
+        _record(Nu)
         if mesh.process_count > 1:
             lo, hi = _process_rows(Nu, mesh)
             return _info((torch.zeros(hi - lo, kk, dtype=torch.float32,
@@ -153,6 +177,8 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
         return _info((torch.zeros(Nu, kk, dtype=torch.float32, device=dev),
                       torch.zeros(Nu, kk, dtype=torch.int64, device=dev)),
                      False)
+    if strategy == "merge_ring" and min(k, Ni) > cuda_topk.MAX_K:
+        strategy = "ring"  # the merged candidate sets hold at most 128
     valid = (torch.ones(Ni, dtype=torch.bool, device=dev)
              if item_valid is None
              else torch.as_tensor(item_valid).to(device=dev,
@@ -162,8 +188,9 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
         if faults.check("serve.gather") == "corrupt":
             raise ServeShardLost("stale/lost factor shard (no degraded "
                                  "mode across processes)")
-        return _info(_topk_processes(U, V, valid, k, mesh, strategy,
-                                     item_chunk), False)
+        out = _topk_processes(U, V, valid, k, mesh, strategy, item_chunk)
+        _record(Nu)
+        return _info(out, False)
     try:
         # fault point: raise = a failed gather; corrupt = a stale or lost
         # shard (nothing sane to execute against)
@@ -172,10 +199,11 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
         out = _topk_sharded(U, V, valid, k, mesh, strategy, item_chunk)
     except (ServeShardLost, OSError) as e:
         reason = f"{type(e).__name__}: {e}"
-        return _info(_serve_degraded(U, k, Nu, mesh, strategy, reason),
-                     True, reason)
+        return _info(_serve_degraded(U, k, Nu, mesh, strategy, reason,
+                                     _record), True, reason)
     with _last_good_lock:
         _last_good[_cache_key(mesh)] = (V, valid)
+    _record(Nu)
     return _info(out, False)
 
 
@@ -187,8 +215,6 @@ def _topk_sharded(U, V, valid, k, mesh, strategy, item_chunk):
     D = mesh.size
     k_eff = min(k, Ni)
     ni_loc = -(-Ni // D)
-    if strategy == "merge_ring" and k_eff > cuda_topk.MAX_K:
-        strategy = "ring"  # the merged candidate sets hold at most 128
     # the catalog in D shards of ni_loc rows; padding rows are invalid
     Vp = torch.zeros(D * ni_loc, r, dtype=torch.float32, device=dev)
     Vp[:Ni] = V
@@ -243,8 +269,6 @@ def _topk_processes(U, V, valid, k, mesh, strategy, item_chunk):
     k_eff = min(k, Ni)
     ni_loc = -(-Ni // S)
     nu_loc = -(-Nu // S)
-    if k_eff > cuda_topk.MAX_K:
-        strategy = "ring"  # as on one process
     Vp = torch.zeros(S * ni_loc, r, dtype=torch.float32, device=dev)
     Vp[:Ni] = V
     validp = torch.zeros(S * ni_loc, dtype=torch.uint8, device=dev)

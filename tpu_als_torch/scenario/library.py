@@ -1,0 +1,1834 @@
+"""The named production-day scenarios, on the card.
+
+Counterpart of ``tpu_als/scenario/library.py``: the reference's twelve
+scenarios with its names, phases, assertions, ``fault_spec`` strings and
+defaults.  Every phase runs on ``ctx.device`` (the card unless the
+caller asks for the CPU) and hands it to each entry point it calls.
+Where the port differs:
+
+- **CLI children** (``preempt-resume``, ``device-loss``) run
+  ``tpu_als_torch.cli`` with the parent's ``--device`` passed on.  The
+  device-loss children train over ``--devices N``: N logical shards of
+  that one device (the port's one-device mesh), where the reference
+  forces a CPU platform of ``host_devices`` devices through
+  ``XLA_FLAGS``.  ``host_devices`` keeps its meaning as the most
+  shards a child's mesh may hold: ``devices`` above it raises, as the
+  reference's mesh would.
+- **Factors to the host** with ``.cpu()`` (the reference's
+  ``np.asarray``), which waits for the kernels that wrote them.
+- **The torn publish's reference answer** is the port's plain
+  ``ops/topk.py::chunked_topk_scores`` on the device; the engine's
+  exact route is K5 on the card, so the scores are held to the
+  reference's ``allclose`` and the ids bitwise, as the reference does.
+- **The sharded degrade** serves over ``SERVE_SHARDS`` (8) logical
+  shards of the device, the size of the reference's test mesh (its
+  ``make_mesh()`` takes every device JAX sees).
+- **production-week** re-derives its verdict with the port's own
+  ``tpu_als_torch/soak/verdict.py``, run by file path.
+- **tenant-churn's watcher** yields the GIL after each snapshot
+  (``time.sleep(0)``).  torch lets the GIL go around every op of the
+  request path, and a thread that never sleeps takes it back each time,
+  so tenant B's requests during the churn waited the interpreter's
+  switch interval (5 ms) an op: a p99 near 1 s on the CPU, where the
+  reference's compiled scoring makes one call a batch.
+
+Every scenario here composes primitives that already exist and are
+individually tested — the fault harness (``resilience/faults.py``), the
+preemption guard (``resilience/preempt.py``), the serving engine
+(``serving/engine.py``), the fold-in server (``stream/microbatch.py``),
+sharded degraded serving (``parallel/serve.py``) and checkpoint resume —
+into one assertable run each:
+
+``traffic-spike``        10× load step against the serving engine;
+                         shed-rate bounded, p99 under the SLO.
+``preempt-under-serve``  train + serve in ONE process, SIGTERM lands
+                         mid-train; answers keep flowing, resume is
+                         bitwise vs an unpreempted run.
+``torn-publish``         a corrupt publish tags the int8 index stale and
+                         a sharded gather loses a shard; both degrade
+                         (exact-path fallback, last-good catalog) with
+                         the full obs trail.
+``cold-start``           sparse data → fit → new users fold in mid-serve;
+                         rating-arrival → servable freshness is bounded.
+``preempt-resume``       the chaos_smoke kill-and-resume flow: CLI train
+                         preempted at an iteration boundary exits 43,
+                         ``--resume auto`` finishes cleanly.
+``continuous-freshness`` sustained rating-event stream (new users/items
+                         + poison) folds in and publishes incrementally
+                         under serve load; freshness p99 ≤ SLO, zero
+                         torn publishes, quarantine from the trail.
+``flight-recorder``      every request breaches a microsecond SLO; the
+                         engine's flight recorder dumps per-request span
+                         breakdowns as ``flight_record`` events.
+``tenant-isolation``     the multi-tenant fault matrix lands on tenant A
+                         (torn publish, poisoned stream, rollback, 10×
+                         spike) while tenant B's top-k stays bitwise
+                         equal to its solo run, in SLO, zero shed.
+``device-loss``          elastic training: a device dies mid-fit, the
+                         ring re-forms on the survivors and resumes from
+                         the last atomic checkpoint; the final factors
+                         are bitwise equal to a fresh shrunk-mesh fit
+                         resumed from the same checkpoint.
+``production-week``      the soak subsystem end-to-end: zipfian/diurnal
+                         traffic drives multi-tenant serve + live
+                         fold-in + periodic refit while the chaos
+                         schedule lands every injection; the SLO verdict
+                         passes AND re-derives identically from the
+                         dumped events alone (stdlib verdict.py child).
+
+Phase bodies import the package's modules lazily, so ``scenario
+list`` and the CLI's error paths build no kernel and touch no device.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+from tpu_als_torch.scenario.spec import Assertion, Phase, ScenarioSpec
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# logical shards of the one device the sharded degrade serves over
+SERVE_SHARDS = 8
+
+
+def _host(x):
+    """A factor table as host numpy (``.cpu()`` waits for the kernels
+    that wrote a device tensor)."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# shared machinery
+
+
+class _LoadDriver:
+    """Background request driver: submits user-id requests at a fixed
+    rate and resolves each ticket, classifying the outcome.  ``shed``
+    (Overloaded) and ``expired`` (DeadlineExceeded) are acceptable
+    degradations under the scenarios' contracts; anything else is a
+    ``hard_failures`` — the bucket the assertions pin to zero."""
+
+    def __init__(self, engine, n_users, rate_hz=100.0, timeout_s=5.0,
+                 seed=0):
+        self.engine = engine
+        self.n_users = n_users
+        self.rate_hz = rate_hz
+        self.timeout_s = timeout_s
+        self.answered = 0
+        self.shed = 0
+        self.expired = 0
+        self.hard_failures = 0
+        self._rng = np.random.default_rng(seed)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="scenario-load", daemon=True)
+
+    def _run(self):
+        from tpu_als_torch.serving import DeadlineExceeded, Overloaded
+
+        period = 1.0 / self.rate_hz
+        while not self._stop.is_set():
+            uid = int(self._rng.integers(0, self.n_users))
+            try:
+                self.engine.recommend(uid, timeout=self.timeout_s)
+                self.answered += 1
+            except Overloaded:
+                self.shed += 1
+            except DeadlineExceeded:
+                self.expired += 1
+            except Exception:   # noqa: BLE001 — the judged bucket
+                self.hard_failures += 1
+            self._stop.wait(period)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(max(2 * self.timeout_s, 5.0))
+
+
+def _submit_open_loop(engine, U, qps, duration_s, rng, counts):
+    """Open-loop submit at ``qps`` for ``duration_s`` (arrivals follow
+    the clock, not completions — serve-bench's honest load model), then
+    resolve every admitted ticket.  Mutates ``counts`` in place."""
+    from tpu_als_torch.serving import DeadlineExceeded, Overloaded
+
+    n_req = max(1, int(qps * duration_s))
+    uids = rng.integers(0, U.shape[0], n_req)
+    tickets = []
+    t0 = time.perf_counter()
+    for j in range(n_req):
+        delay = (t0 + j / qps) - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            tickets.append(engine.submit(int(uids[j])))
+        except Overloaded:
+            counts["shed"] += 1
+    for t in tickets:
+        try:
+            t.result(timeout=10.0)
+            counts["answered"] += 1
+        except DeadlineExceeded:
+            counts["expired"] += 1
+        except Exception:   # noqa: BLE001
+            counts["hard_failures"] += 1
+
+
+def _cli_subprocess(args, device, env_extra=None):
+    """Run the tpu_als_torch CLI in a child process on ``device`` (the
+    preempt scenarios need a real exit status).  The repo root rides
+    PYTHONPATH so the child resolves the same checkout the parent runs
+    from."""
+    env = dict(os.environ)
+    env.pop("TPU_ALS_PREEMPT_AT", None)   # only explicit knobs apply
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    if env_extra:
+        env.update(env_extra)
+    return subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from tpu_als_torch.cli import main; "
+         "main(sys.argv[1:])"]
+        + list(args) + ["--device", str(device)],
+        capture_output=True, text=True, env=env)
+
+
+# ---------------------------------------------------------------------------
+# traffic-spike
+
+
+def _spike_publish(ctx):
+    from tpu_als_torch.serving import ServingEngine
+
+    c = ctx.config
+    rng = np.random.default_rng(c["seed"])
+    U = rng.normal(size=(c["users"], c["rank"])).astype(np.float32)
+    V = rng.normal(size=(c["items"], c["rank"])).astype(np.float32)
+    engine = ServingEngine(k=c["k"], max_queue=c["max_queue"],
+                           max_wait_s=c["max_wait_ms"] / 1e3,
+                           device=ctx.device)
+    engine.publish(U, V)
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    ctx.state.update(engine=engine, U=U,
+                     rng=rng, counts={"answered": 0, "shed": 0,
+                                      "expired": 0, "hard_failures": 0})
+
+
+def _spike_baseline(ctx):
+    c, s = ctx.config, ctx.state
+    _submit_open_loop(s["engine"], s["U"], c["base_qps"], c["base_s"],
+                      s["rng"], s["counts"])
+
+
+def _spike_spike(ctx):
+    c, s = ctx.config, ctx.state
+    _submit_open_loop(s["engine"], s["U"],
+                      c["base_qps"] * c["spike_mult"], c["spike_s"],
+                      s["rng"], s["counts"])
+    ctx.facts.update(s["counts"])
+
+
+def _traffic_spike():
+    return ScenarioSpec(
+        name="traffic-spike",
+        doc="10x open-loop load step against the serving engine: "
+            "shed-rate stays bounded, e2e p99 stays under --slo-ms, "
+            "and nothing fails hard.",
+        defaults=dict(seed=0, users=400, items=2000, rank=16, k=10,
+                      max_queue=64, max_wait_ms=2.0,
+                      base_qps=40.0, spike_mult=10, base_s=1.0,
+                      spike_s=1.5, slo_ms=250.0),
+        phases=(
+            Phase("publish-and-warmup", _spike_publish,
+                  "synthetic factors published, every bucket compiled"),
+            Phase("baseline-load", _spike_baseline,
+                  "open-loop base_qps for base_s"),
+            Phase("spike-load", _spike_spike,
+                  "base_qps x spike_mult for spike_s"),
+        ),
+        assertions=(
+            Assertion("e2e_p99_under_slo", "quantile",
+                      metric="serving.e2e_seconds", q=0.99,
+                      scale_ms=True, op="<=", value="$slo_ms",
+                      doc="tail latency through the spike"),
+            Assertion("shed_rate_bounded", "ratio",
+                      num="serving.shed",
+                      den=("serving.shed", "serving.requests"),
+                      op="<=", value=0.5,
+                      doc="shedding is the valve, not the norm"),
+            Assertion("answered_floor", "fact", fact="answered",
+                      op=">=", value=50,
+                      doc="the spike was actually served, not just shed"),
+            Assertion("no_hard_failures", "fact", fact="hard_failures",
+                      op="==", value=0),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# preempt-under-serve
+
+
+def _pus_fit_reference(ctx):
+    import tpu_als_torch
+    from tpu_als_torch.io.movielens import synthetic_movielens
+
+    c = ctx.config
+    frame = synthetic_movielens(c["users"], c["items"], c["nnz"],
+                                seed=c["seed"])
+    ref = tpu_als_torch.ALS(rank=c["rank"], maxIter=c["iters"],
+                            regParam=c["reg"], seed=c["seed"],
+                            device=ctx.device).fit(frame)
+    ctx.state.update(frame=frame, ref=ref)
+
+
+def _pus_serve_start(ctx):
+    from tpu_als_torch.serving import ServingEngine
+
+    ref = ctx.state["ref"]
+    engine = ServingEngine(k=5, device=ctx.device)
+    engine.publish(_host(ref._U), _host(ref._V))
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    driver = _LoadDriver(engine, n_users=ref._U.shape[0],
+                         rate_hz=ctx.config["serve_hz"]).start()
+    ctx.defer(driver.stop)
+    ctx.state.update(engine=engine, driver=driver)
+
+
+def _pus_train_preempt(ctx):
+    import signal
+
+    import tpu_als_torch
+    from tpu_als_torch.resilience import preempt
+
+    c = ctx.config
+    ckdir = os.path.join(ctx.workdir, "ck")
+    driver = ctx.state["driver"]
+    answered_before = driver.answered
+
+    def send_sigterm(iteration, U, V):
+        if iteration == c["preempt_at"]:
+            # prove answers flow WHILE the trainer is mid-fit before
+            # pulling the plug: warm jit caches make these iterations
+            # millisecond-fast on CPU, so polling the driver here is
+            # the deterministic form of "serving continued during
+            # training" (not a race against iteration wall-clock)
+            deadline = time.monotonic() + 30.0
+            while (driver.answered <= answered_before
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            g = preempt.installed()
+            if g is not None and g._installed:
+                signal.raise_signal(signal.SIGTERM)
+            elif g is not None:
+                # non-main-thread harness (guard degrades to the env
+                # knob): trigger programmatically instead of letting the
+                # raw signal kill the process
+                g.trigger(signal.SIGTERM)
+
+    als = tpu_als_torch.ALS(rank=c["rank"], maxIter=c["iters"],
+                            regParam=c["reg"], seed=c["seed"],
+                            checkpointDir=ckdir, checkpointInterval=100,
+                            fitCallback=send_sigterm, device=ctx.device)
+    preempted_at = None
+    try:
+        with preempt.PreemptionGuard():
+            als.fit(ctx.state["frame"])
+    except preempt.Preempted as p:
+        preempted_at = p.iteration
+        ctx.state["ckpt"] = p.checkpoint_path
+    ctx.facts["preempted"] = preempted_at is not None
+    ctx.facts["preempt_iteration"] = preempted_at
+    ctx.facts["served_during_train"] = driver.answered - answered_before
+
+
+def _pus_resume(ctx):
+    import tpu_als_torch
+
+    c = ctx.config
+    resumed = tpu_als_torch.ALS(rank=c["rank"], maxIter=c["iters"],
+                                regParam=c["reg"], seed=c["seed"],
+                                resumeFrom=ctx.state["ckpt"],
+                                device=ctx.device,
+                                ).fit(ctx.state["frame"])
+    ref = ctx.state["ref"]
+    ctx.facts["resume_bitwise"] = bool(
+        np.array_equal(_host(resumed._U), _host(ref._U))
+        and np.array_equal(_host(resumed._V), _host(ref._V)))
+
+
+def _pus_serve_stop(ctx):
+    driver = ctx.state["driver"]
+    driver.stop()
+    ctx.facts["serve_answered"] = driver.answered
+    ctx.facts["serve_hard_failures"] = driver.hard_failures
+    ctx.facts["serve_shed"] = driver.shed + driver.expired
+
+
+def _preempt_under_serve():
+    return ScenarioSpec(
+        name="preempt-under-serve",
+        doc="train and serve share one process; SIGTERM lands mid-train. "
+            "Serving keeps answering throughout (shed/degraded allowed, "
+            "hard failures not) and the resumed factors are BITWISE "
+            "equal to an unpreempted run.",
+        defaults=dict(seed=7, users=80, items=40, nnz=1500, rank=4,
+                      iters=6, reg=0.05, preempt_at=3, serve_hz=100.0),
+        phases=(
+            Phase("fit-reference", _pus_fit_reference,
+                  "the unpreempted run the resume must match bitwise"),
+            Phase("serve-start", _pus_serve_start,
+                  "publish yesterday's model, start the load driver"),
+            Phase("train-preempt", _pus_train_preempt,
+                  "refit under a PreemptionGuard; SIGTERM at preempt_at"),
+            Phase("resume", _pus_resume,
+                  "warm-start from the preemption checkpoint"),
+            Phase("serve-stop", _pus_serve_stop,
+                  "drain the driver, collect the serving verdict"),
+        ),
+        assertions=(
+            Assertion("preempted_at_boundary", "fact", fact="preempted",
+                      op="==", value=True),
+            Assertion("preempted_event", "event", event="preempted",
+                      op=">=", value=1),
+            Assertion("resume_bitwise", "fact", fact="resume_bitwise",
+                      op="==", value=True,
+                      doc="restart-from-factors of a deterministic "
+                          "fixed point — anything weaker hides "
+                          "divergence"),
+            Assertion("served_through_preemption", "fact",
+                      fact="served_during_train", op=">=", value=1),
+            Assertion("no_hard_failures", "fact",
+                      fact="serve_hard_failures", op="==", value=0),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# torn-publish
+
+
+def _torn_publish_good(ctx):
+    from tpu_als_torch.serving import ServingEngine
+
+    c = ctx.config
+    rng = np.random.default_rng(c["seed"])
+    U = rng.normal(size=(c["users"], c["rank"])).astype(np.float32)
+    V = rng.normal(size=(c["items"], c["rank"])).astype(np.float32)
+    engine = ServingEngine(k=c["k"], shortlist_k=c["shortlist_k"],
+                           device=ctx.device)
+    engine.publish(U, V)           # serving.publish hit 1: clean
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    engine.recommend(0, timeout=10.0)   # int8 path sanity
+    ctx.state.update(engine=engine, U=U, rng=rng)
+
+
+def _torn_publish_torn(ctx):
+    import torch
+
+    from tpu_als_torch.ops.topk import chunked_topk_scores
+
+    c = ctx.config
+    dev = ctx.device
+    engine, U, rng = (ctx.state[k] for k in ("engine", "U", "rng"))
+    V2 = rng.normal(size=(c["items"], c["rank"])).astype(np.float32)
+    engine.publish(U, V2)          # serving.publish hit 2: torn (stale)
+    s, ix = engine.recommend(1, timeout=10.0)
+    ref_s, ref_ix = chunked_topk_scores(
+        torch.as_tensor(U[1:2], device=dev), torch.as_tensor(V2, device=dev),
+        torch.ones(c["items"], dtype=torch.bool, device=dev), c["k"],
+        item_chunk=min(8192, c["items"]))
+    ref_s, ref_ix = _host(ref_s), _host(ref_ix)
+    # indices bitwise; scores allclose only — the engine scores a PADDED
+    # batch, so the matmul reduction order differs from the 1-row
+    # reference in the low-order bits
+    ctx.facts["exact_path_match"] = bool(
+        np.array_equal(ix, np.asarray(ref_ix)[0])
+        and np.allclose(s, np.asarray(ref_s)[0], rtol=1e-5, atol=1e-6))
+    ctx.state["V2"] = V2
+
+
+def _torn_sharded_degrade(ctx):
+    from tpu_als_torch.parallel import serve
+    from tpu_als_torch.parallel.mesh import make_mesh
+
+    U, V2 = ctx.state["U"], ctx.state["V2"]
+    mesh = make_mesh(devices=[ctx.device] * SERVE_SHARDS)
+    serve.topk_sharded(U, V2, 5, mesh)       # serve.gather hit 1: clean,
+    #                                          primes the last-good catalog
+    _, _, info = serve.topk_sharded(U, V2, 5, mesh,
+                                    return_info=True)   # hit 2: shard lost
+    ctx.facts["sharded_degraded"] = bool(info["degraded"])
+
+
+def _torn_publish():
+    return ScenarioSpec(
+        name="torn-publish",
+        doc="a publish is torn by fault injection (the new int8 index is "
+            "tagged stale) and a sharded gather loses a shard: serving "
+            "falls back to the exact path / the last-good catalog, and "
+            "the serve.degraded + serving_publish obs trail is emitted.",
+        fault_spec=("serving.publish=corrupt@nth=2;"
+                    "serve.gather=corrupt@nth=2"),
+        defaults=dict(seed=0, users=64, items=300, rank=16, k=10,
+                      shortlist_k=64),
+        phases=(
+            Phase("publish-good", _torn_publish_good,
+                  "generation 1: quantized index, int8 path serves"),
+            Phase("torn-publish", _torn_publish_torn,
+                  "generation 2 is torn; requests take the exact path"),
+            Phase("sharded-degrade", _torn_sharded_degrade,
+                  "a sharded gather fails; last-good catalog answers"),
+        ),
+        assertions=(
+            Assertion("exact_fallback_counted", "counter",
+                      metric="serving.fallback_exact", op=">=", value=1),
+            Assertion("publish_trail", "event", event="serving_publish",
+                      op=">=", value=2),
+            Assertion("exact_path_match", "fact",
+                      fact="exact_path_match", op="==", value=True,
+                      doc="the stale-index fallback serves the exact "
+                          "kernel's answer, bitwise"),
+            Assertion("sharded_degraded", "fact",
+                      fact="sharded_degraded", op="==", value=True),
+            Assertion("degraded_counted", "counter",
+                      metric="serve.degraded", op=">=", value=1),
+            Assertion("degraded_event", "event", event="serve_degraded",
+                      op=">=", value=1),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# cold-start
+
+
+def _cold_fit(ctx):
+    import tpu_als_torch
+    from tpu_als_torch.io.movielens import synthetic_movielens
+
+    c = ctx.config
+    frame = synthetic_movielens(c["users"], c["items"], c["nnz"],
+                                seed=c["seed"])
+    model = tpu_als_torch.ALS(rank=c["rank"], maxIter=c["iters"],
+                              regParam=0.05, seed=c["seed"],
+                              device=ctx.device).fit(frame)
+    ctx.state["model"] = model
+
+
+def _cold_serve_start(ctx):
+    from tpu_als_torch.serving import ServingEngine
+    from tpu_als_torch.stream.microbatch import FoldInServer
+    from tpu_als_torch.core.ratings import _next_pow2
+
+    c = ctx.config
+    model = ctx.state["model"]
+    engine = ServingEngine(k=c["k"], device=ctx.device)
+    engine.publish(_host(model._U), _host(model._V))
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    engine.recommend(0, timeout=10.0)   # pre-fold-in serving sanity
+    srv = FoldInServer(model)
+    # production startup discipline: the fold-in kernel shapes the new-
+    # user batch will need are compiled BEFORE traffic arrives, so the
+    # measured freshness window is fold-in + republish + serve, not jit
+    srv.prewarm(rows=(_next_pow2(c["new_users"]),),
+                widths=(_next_pow2(c["ratings_per"]),))
+    ctx.state.update(engine=engine, srv=srv)
+
+
+def _cold_foldin_serve(ctx):
+    from tpu_als_torch.utils.frame import ColumnarFrame
+
+    c = ctx.config
+    model, engine, srv = (ctx.state[k] for k in ("model", "engine", "srv"))
+    rng = np.random.default_rng(c["seed"] + 1)
+    base = int(np.asarray(model._user_map.ids).max()) + 1000
+    new_raw = np.repeat(np.arange(base, base + c["new_users"]),
+                        c["ratings_per"])
+    items = rng.choice(np.asarray(model._item_map.ids),
+                       size=len(new_raw))
+    batch = ColumnarFrame({
+        "user": new_raw, "item": items,
+        "rating": rng.uniform(0.5, 5.0, len(new_raw)).astype(np.float32),
+    })
+    t_arrival = time.perf_counter()
+    srv.update(batch)                                  # fold in
+    engine.publish(_host(model._U), _host(model._V))
+    new_dense = int(model._user_map.to_dense(
+        np.array([base]))[0])
+    s, ix = engine.recommend(new_dense, timeout=30.0)  # first servable
+    freshness = time.perf_counter() - t_arrival
+
+    from tpu_als_torch import obs
+
+    obs.histogram("scenario.freshness_seconds", freshness)
+    ctx.facts["freshness_ms"] = round(freshness * 1e3, 3)
+    ctx.facts["new_user_served"] = bool(
+        len(s) == c["k"] and np.isfinite(np.asarray(s)).all())
+
+
+def _cold_start():
+    return ScenarioSpec(
+        name="cold-start",
+        doc="sparse synthetic data -> fit -> serve; NEW users arrive as a "
+            "rating micro-batch mid-serve and must become servable "
+            "(fold-in + republish) within the freshness bound.",
+        defaults=dict(seed=11, users=48, items=32, nnz=600, rank=8,
+                      iters=3, k=5, new_users=6, ratings_per=4,
+                      freshness_slo_ms=5000.0),
+        phases=(
+            Phase("fit-base", _cold_fit,
+                  "ALS on the sparse base dataset"),
+            Phase("serve-start", _cold_serve_start,
+                  "publish, warm the engine AND the fold-in shapes"),
+            Phase("foldin-and-serve", _cold_foldin_serve,
+                  "new users' ratings arrive; fold in, republish, serve"),
+        ),
+        assertions=(
+            Assertion("freshness_under_bound", "fact",
+                      fact="freshness_ms", op="<=",
+                      value="$freshness_slo_ms",
+                      doc="rating-arrival -> servable latency"),
+            Assertion("freshness_recorded", "counter",
+                      metric="foldin.ratings", op=">=", value=1),
+            Assertion("new_user_served", "fact",
+                      fact="new_user_served", op="==", value=True),
+            Assertion("republished", "event", event="serving_publish",
+                      op=">=", value=2),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# preempt-resume (the chaos_smoke stage-3 flow, now with ONE
+# implementation: the shell script and the pytest port both run this)
+
+
+def _pr_preempt(ctx):
+    from tpu_als_torch.resilience.preempt import EXIT_PREEMPTED
+
+    c = ctx.config
+    ckdir = os.path.join(ctx.workdir, "ck")
+    base = ["train", "--data", c["data"], "--rank", str(c["rank"]),
+            "--max-iter", str(c["iters"]), "--reg-param", str(c["reg"]),
+            "--seed", str(c["seed"]), "--checkpoint-dir", ckdir]
+    ctx.state["base"] = base
+    p = _cli_subprocess(
+        base, ctx.device,
+        env_extra={"TPU_ALS_PREEMPT_AT": str(c["preempt_at"])})
+    ctx.facts["preempt_exit_code"] = p.returncode
+    ctx.facts["preempt_exit_expected"] = EXIT_PREEMPTED
+    ctx.state["preempt_stderr"] = p.stderr
+
+
+def _pr_resume(ctx):
+    out = os.path.join(ctx.workdir, "model")
+    p = _cli_subprocess(ctx.state["base"]
+                        + ["--resume", "auto", "--output", out],
+                        ctx.device)
+    ctx.facts["resume_exit_code"] = p.returncode
+    ctx.facts["resume_discovered"] = "resuming from" in p.stderr
+    ctx.facts["model_saved"] = os.path.isfile(
+        os.path.join(out, "manifest.json"))
+    ctx.state["resume_stderr"] = p.stderr
+
+
+def _preempt_resume():
+    from tpu_als_torch.resilience.preempt import EXIT_PREEMPTED
+
+    return ScenarioSpec(
+        name="preempt-resume",
+        doc="the end-to-end kill-and-resume train: a CLI train preempted "
+            "at an iteration boundary (deterministic TPU_ALS_PREEMPT_AT "
+            "knob) exits 43 with a checkpoint on disk; the SAME command "
+            "with --resume auto discovers it and finishes cleanly.",
+        defaults=dict(data="synthetic:80x40x1500", rank=4, iters=6,
+                      reg=0.05, seed=7, preempt_at=3),
+        phases=(
+            Phase("preempt", _pr_preempt,
+                  "train killed at the preempt_at iteration boundary"),
+            Phase("resume", _pr_resume,
+                  "--resume auto discovers the checkpoint and finishes"),
+        ),
+        assertions=(
+            Assertion("preempt_exit_43", "fact", fact="preempt_exit_code",
+                      op="==", value=EXIT_PREEMPTED,
+                      doc="the orchestrator-visible 'reschedule me' "
+                          "status, distinct from failure"),
+            Assertion("resume_exit_0", "fact", fact="resume_exit_code",
+                      op="==", value=0),
+            Assertion("resume_discovered_checkpoint", "fact",
+                      fact="resume_discovered", op="==", value=True),
+            Assertion("model_saved", "fact", fact="model_saved",
+                      op="==", value=True),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# flight-recorder
+
+
+def _fr_publish(ctx):
+    from tpu_als_torch.serving import ServingEngine
+
+    c = ctx.config
+    rng = np.random.default_rng(c["seed"])
+    U = rng.normal(size=(c["users"], c["rank"])).astype(np.float32)
+    V = rng.normal(size=(c["items"], c["rank"])).astype(np.float32)
+    # a microsecond SLO no real request can meet: every served batch is
+    # a breach, so the recorder's dump path runs on ordinary traffic
+    engine = ServingEngine(k=c["k"], slo_s=c["slo_us"] / 1e6,
+                           device=ctx.device)
+    engine.publish(U, V)
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    ctx.state.update(engine=engine, U=U, rng=rng,
+                     counts={"answered": 0, "shed": 0, "expired": 0,
+                             "hard_failures": 0})
+
+
+def _fr_load(ctx):
+    c, s = ctx.config, ctx.state
+    _submit_open_loop(s["engine"], s["U"], c["qps"], c["load_s"],
+                      s["rng"], s["counts"])
+    ctx.facts.update(s["counts"])
+
+
+def _fr_collect(ctx):
+    from tpu_als_torch import obs
+    from tpu_als_torch.obs.trace import SPAN_KEYS
+
+    reg = obs.default_registry()
+    records = [e for e in reg._events
+               if e.get("type") == "flight_record"]
+    # the acceptance shape: an slo_breach dump whose record carries the
+    # FULL per-request span breakdown (rescore stays None — it is fused
+    # into the int8 top-k kernel and not separately fenceable)
+    complete = [
+        r for r in records
+        if r.get("trigger") == "slo_breach" and r.get("status") == "ok"
+        and set(r.get("spans") or ()) == set(SPAN_KEYS)
+        and all(r["spans"][k] is not None
+                for k in ("admission", "queue_wait", "score", "respond"))]
+    ctx.facts["flight_records"] = len(records)
+    ctx.facts["complete_breach_records"] = len(complete)
+
+
+def _flight_recorder():
+    return ScenarioSpec(
+        name="flight-recorder",
+        doc="force an SLO breach on every request (microsecond slo_us) "
+            "and assert the serving flight recorder dumps full "
+            "per-request span breakdowns as flight_record events.",
+        defaults=dict(seed=0, users=200, items=800, rank=16, k=10,
+                      slo_us=1.0, qps=200.0, load_s=0.1),
+        phases=(
+            Phase("publish-and-warmup", _fr_publish,
+                  "synthetic factors behind a microsecond SLO"),
+            Phase("load", _fr_load,
+                  "open-loop traffic; every answer is a breach"),
+            Phase("collect", _fr_collect,
+                  "count dumped records, check span completeness"),
+        ),
+        assertions=(
+            Assertion("flight_records_dumped", "event",
+                      event="flight_record", op=">=", value=8,
+                      doc="the last-N trace ring reached the obs trail"),
+            Assertion("span_breakdown_complete", "fact",
+                      fact="complete_breach_records", op=">=", value=8,
+                      doc="each record carries admission/queue_wait/"
+                          "score/respond timings"),
+            Assertion("requests_served", "counter",
+                      metric="serving.requests", op=">=", value=12),
+            Assertion("no_hard_failures", "fact", fact="hard_failures",
+                      op="==", value=0),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# solver-divergence
+
+
+def _sd_problem(c):
+    from tpu_als_torch.core.ratings import build_csr_buckets
+
+    rng = np.random.default_rng(c["seed"])
+    u = rng.integers(0, c["users"], c["nnz"])
+    i = rng.integers(0, c["items"], c["nnz"])
+    r = rng.uniform(0.5, 5.0, c["nnz"]).astype(np.float32)
+    ucsr = build_csr_buckets(u, i, r, c["users"], min_width=4,
+                             chunk_elems=1 << 12)
+    icsr = build_csr_buckets(i, u, r, c["items"], min_width=4,
+                             chunk_elems=1 << 12)
+    return u, i, r, ucsr, icsr
+
+
+def _fit_rmse(U, V, u, i, r):
+    U, V = _host(U), _host(V)
+    pred = np.einsum("nr,nr->n", U[u], V[i])
+    return float(np.sqrt(np.mean((pred - r) ** 2)))
+
+
+def _sd_divergent(ctx):
+    from tpu_als_torch.core.als import AlsConfig, train
+    from tpu_als_torch.resilience import guardrails
+
+    c = ctx.config
+    u, i, r, ucsr, icsr = _sd_problem(c)
+    cfg = AlsConfig(rank=c["rank"], max_iter=c["iters"],
+                    reg_param=c["reg"], seed=c["seed"])
+    ctx.state.update(u=u, i=i, r=r, ucsr=ucsr, icsr=icsr, cfg=cfg)
+    with guardrails.scoped("recover"):
+        U, V = train(ucsr, icsr, cfg, device=ctx.device)
+    ctx.facts["recovered_finite"] = bool(
+        np.isfinite(_host(U)).all() and np.isfinite(_host(V)).all())
+    ctx.facts["recovered_rmse"] = _fit_rmse(U, V, u, i, r)
+
+
+def _sd_clean(ctx):
+    from tpu_als_torch.core.als import train
+
+    s = ctx.state
+    # the divergent phase consumed the nth=3 firing (nth schedules fire
+    # exactly once), so the still-armed spec can never fire here
+    U, V = train(s["ucsr"], s["icsr"], s["cfg"], device=ctx.device)
+    clean = _fit_rmse(U, V, s["u"], s["i"], s["r"])
+    ctx.facts["clean_rmse"] = clean
+    ctx.facts["rmse_ratio"] = ctx.facts["recovered_rmse"] / clean
+
+
+def _solver_divergence():
+    return ScenarioSpec(
+        name="solver-divergence",
+        doc="a NaN poisoned into the factors mid-train (solve.gram "
+            "corrupt at iteration 3) must trip the nonfinite sentinel, "
+            "roll back to the last-good snapshot, and finish with final "
+            "RMSE inside the clean-run band — the --guardrails recover "
+            "contract (docs/resilience.md).",
+        fault_spec="solve.gram=corrupt@nth=3",
+        defaults=dict(seed=0, users=300, items=200, nnz=5000, rank=8,
+                      iters=6, reg=0.1, rmse_band=1.2),
+        phases=(
+            Phase("divergent-fit", _sd_divergent,
+                  "guardrails=recover train with the mid-train NaN"),
+            Phase("clean-fit", _sd_clean,
+                  "reference run, same config, fault already consumed"),
+        ),
+        assertions=(
+            Assertion("sentinel_tripped", "event",
+                      event="guardrail_tripped", op=">=", value=1,
+                      doc="the nonfinite sentinel fired at the poisoned "
+                          "iteration's boundary"),
+            Assertion("rolled_back", "event", event="train_rollback",
+                      op=">=", value=1),
+            Assertion("rollback_counted", "counter",
+                      metric="train.rollbacks", op=">=", value=1),
+            Assertion("recovered_factors_finite", "fact",
+                      fact="recovered_finite", op="==", value=True),
+            Assertion("rmse_within_clean_band", "fact",
+                      fact="rmse_ratio", op="<=", value="$rmse_band",
+                      doc="recovered fit quality vs the clean reference"),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# poisoned-stream
+
+
+def _ps_write(ctx):
+    c = ctx.config
+    rng = np.random.default_rng(c["seed"])
+    u = rng.integers(0, c["users"], c["rows"])
+    i = rng.integers(0, c["items"], c["rows"])
+    r = rng.uniform(0.5, 5.0, c["rows"]).astype(np.float32)
+    path = os.path.join(ctx.workdir, "ratings.csv")
+    with open(path, "wb") as f:
+        for k in range(c["rows"]):
+            f.write(f"u{u[k]},i{i[k]},{r[k]:.4f}\n".encode())
+    ctx.state.update(path=path, u=u, i=i, r=r)
+
+
+def _ps_ingest(ctx):
+    from tpu_als_torch import obs
+    from tpu_als_torch.io.stream import stream_ingest
+    from tpu_als_torch.resilience import faults
+
+    c0 = obs.counter_value("ingest.quarantined_rows")
+    uo, io_, ro, ul, il = stream_ingest(ctx.state["path"],
+                                        quarantine=True)
+    quarantined = obs.counter_value("ingest.quarantined_rows") - c0
+    injected = faults.hits("ingest.record")[1]
+    ctx.state.update(uo=uo, io=io_, ro=ro, ul=ul, il=il)
+    ctx.facts["injected_records"] = int(injected)
+    ctx.facts["quarantined_rows"] = int(quarantined)
+    ctx.facts["quarantined_equals_injected"] = \
+        int(quarantined) == int(injected)
+    ctx.facts["rows_out"] = int(len(ro))
+    ctx.facts["survivors_finite"] = bool(np.isfinite(ro).all())
+
+
+def _ps_fit(ctx):
+    from tpu_als_torch.core.als import AlsConfig, train
+    from tpu_als_torch.core.ratings import build_csr_buckets
+
+    c, s = ctx.config, ctx.state
+    cfg = AlsConfig(rank=c["rank"], max_iter=c["iters"],
+                    reg_param=c["reg"], seed=c["seed"])
+
+    def fit_rmse(u, i, r, nu, ni):
+        ucsr = build_csr_buckets(u, i, r, nu, min_width=4,
+                                 chunk_elems=1 << 12)
+        icsr = build_csr_buckets(i, u, r, ni, min_width=4,
+                                 chunk_elems=1 << 12)
+        U, V = train(ucsr, icsr, cfg, device=ctx.device)
+        return _fit_rmse(U, V, u, i, r)
+
+    # survivors: the ~99% that passed quarantine, in local dense ids
+    survivor = fit_rmse(s["uo"], s["io"], s["ro"],
+                        len(s["ul"]), len(s["il"]))
+    # reference: the full clean arrays the csv was synthesized from
+    clean = fit_rmse(s["u"], s["i"], s["r"], c["users"], c["items"])
+    ctx.facts["survivor_rmse"] = survivor
+    ctx.facts["clean_rmse"] = clean
+    ctx.facts["rmse_ratio"] = survivor / clean
+
+
+def _poisoned_stream():
+    return ScenarioSpec(
+        name="poisoned-stream",
+        doc="a ~1%-poisoned rating stream (ingest.record corrupt every "
+            "100 records) must quarantine EVERY bad record — sink + "
+            "counter == injected count, exactly — while the surviving "
+            "99% fit to the clean run's quality (docs/resilience.md "
+            "quarantine).",
+        fault_spec="ingest.record=corrupt@every=100",
+        defaults=dict(seed=0, users=120, items=80, rows=4000, rank=8,
+                      iters=5, reg=0.1, rmse_band=1.1),
+        phases=(
+            Phase("write-stream", _ps_write,
+                  "synthesize the rating csv"),
+            Phase("poisoned-ingest", _ps_ingest,
+                  "stream_ingest with quarantine on; the armed fault "
+                  "point poisons the scheduled records pre-parse"),
+            Phase("fit-survivors", _ps_fit,
+                  "train on the surviving rows vs the clean reference"),
+        ),
+        assertions=(
+            Assertion("poison_injected", "fact", fact="injected_records",
+                      op=">=", value=20,
+                      doc="the chaos schedule actually fired (~1% of "
+                          "the stream)"),
+            Assertion("all_poison_quarantined", "fact",
+                      fact="quarantined_equals_injected", op="==",
+                      value=True,
+                      doc="quarantine counter == injected count"),
+            Assertion("quarantine_counted", "counter",
+                      metric="ingest.quarantined_rows", op=">=", value=1),
+            Assertion("quarantine_event", "event",
+                      event="ingest_quarantined", op=">=", value=1),
+            Assertion("survivors_finite", "fact", fact="survivors_finite",
+                      op="==", value=True),
+            Assertion("fit_quality_unchanged", "fact", fact="rmse_ratio",
+                      op="<=", value="$rmse_band"),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# continuous-freshness
+
+
+def _cf_start(ctx):
+    import tpu_als_torch
+    from tpu_als_torch.core.ratings import _next_pow2
+    from tpu_als_torch.io.movielens import synthetic_movielens
+    from tpu_als_torch.live import LiveUpdater
+    from tpu_als_torch.serving import ServingEngine
+    from tpu_als_torch.stream.microbatch import FoldInServer
+
+    c = ctx.config
+    frame = synthetic_movielens(c["users"], c["items"], c["nnz"],
+                                seed=c["seed"])
+    model = tpu_als_torch.ALS(rank=c["rank"], maxIter=c["iters"],
+                              regParam=0.05, seed=c["seed"],
+                              device=ctx.device).fit(frame)
+    engine = ServingEngine(k=c["k"], device=ctx.device)
+    engine.publish(_host(model._U), _host(model._V))
+    engine.warmup()
+    engine.start()
+    ctx.defer(engine.stop)
+    srv = FoldInServer(model)
+    # the cold-start discipline scaled up: every (rows, width) shape the
+    # sustained stream can produce compiles BEFORE traffic, so measured
+    # freshness is fold-in + publish, never jit.  Both fold directions
+    # (fold_items streams touch the item side too), widths up to 4
+    # (history merge accretes ratings per entity across batches), and
+    # one table doubling of headroom (appended users push the fixed-U
+    # pad past its pow2 mid-stream otherwise).
+    rows, m = [], c["max_batch"]
+    while m >= 1:
+        rows.append(_next_pow2(m))
+        m //= 2
+    srv.prewarm(rows=tuple(sorted(set(rows))), widths=(1, 2, 4),
+                sides=("user", "item"), growth=1)
+    updater = LiveUpdater(
+        engine, srv, max_batch=c["max_batch"],
+        max_wait_ms=c["max_wait_ms"], fold_items=True,
+        slo_s=c["freshness_slo_ms"] / 1e3, device=ctx.device)
+    updater.start()
+    ctx.defer(updater.stop)           # LIFO: updater stops before engine
+    ctx.state.update(model=model, engine=engine, srv=srv,
+                     updater=updater,
+                     base_items=engine.published_index.n_items)
+
+
+def _cf_stream(ctx):
+    from tpu_als_torch.serving import Overloaded
+
+    c, s = ctx.config, ctx.state
+    model, updater = s["model"], s["updater"]
+    rng = np.random.default_rng(c["seed"] + 1)
+    driver = _LoadDriver(s["engine"],
+                         n_users=int(model._U.shape[0]),
+                         rate_hz=c["serve_qps"], seed=c["seed"])
+    driver.start()
+    user_ids = np.asarray(model._user_map.ids)
+    item_ids = np.asarray(model._item_map.ids)
+    new_user_base = int(user_ids.max()) + 1000
+    new_item_base = int(item_ids.max()) + 1000
+    n_events = max(1, int(c["update_qps"] * c["stream_s"]))
+    # schedule the poison deterministically inside the stream
+    poison_at = set(np.linspace(1, n_events - 1, int(c["poison_events"]),
+                                dtype=int).tolist())
+    shed = 0
+    first_new_user = None
+    t0 = time.perf_counter()
+    for j in range(n_events):
+        delay = (t0 + j / c["update_qps"]) - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        if j in poison_at:
+            ev = (int(rng.choice(user_ids)), int(rng.choice(item_ids)),
+                  float("nan"))
+        elif j % 11 == 3:   # a NEW user joins the service
+            ev = (new_user_base + j, int(rng.choice(item_ids)),
+                  float(rng.uniform(0.5, 5.0)))
+        elif j % 17 == 5:   # a NEW item enters the catalog
+            ev = (int(rng.choice(user_ids)), new_item_base + j,
+                  float(rng.uniform(0.5, 5.0)))
+        else:               # known user rates a known item
+            ev = (int(rng.choice(user_ids)), int(rng.choice(item_ids)),
+                  float(rng.uniform(0.5, 5.0)))
+        try:
+            updater.submit(*ev)
+            if (first_new_user is None and j not in poison_at
+                    and j % 11 == 3):
+                first_new_user = ev[0]
+        except Overloaded:
+            shed += 1
+    # drain: every admitted event must reach a publish before judging
+    deadline = time.perf_counter() + 30.0
+    while updater.queue_depth and time.perf_counter() < deadline:
+        time.sleep(0.02)
+    time.sleep(2.5 * c["max_wait_ms"] / 1e3)   # the in-flight batch
+    driver.stop()
+    ctx.facts.update(events=n_events, update_shed=shed,
+                     answered=driver.answered,
+                     hard_failures=driver.hard_failures)
+    ctx.state["new_user_raw"] = first_new_user
+
+
+def _cf_collect(ctx):
+    from tpu_als_torch import obs
+
+    s = ctx.state
+    reg = obs.default_registry()
+    updates = [e for e in reg._events if e.get("type") == "live_update"]
+    ctx.facts["live_updates"] = len(updates)
+    # zero torn publishes, structurally: every live publish after the
+    # bootstrap one is incremental (retag/delta/compact) — a "full"
+    # mode here would mean the pipeline lost its index and silently
+    # paid O(catalog)
+    ctx.facts["all_incremental"] = bool(updates) and all(
+        e.get("mode") in ("retag", "delta", "compact") for e in updates)
+    # the fold-ins are servable: a user who EXISTS only via the stream
+    # answers from the published tables
+    nur = s.get("new_user_raw")
+    new_dense = (-1 if nur is None else
+                 int(s["model"]._user_map.to_dense(np.array([nur]))[0]))
+    ctx.facts["new_user_known"] = new_dense >= 0
+    if new_dense >= 0:
+        sc, _ = s["engine"].recommend(new_dense, timeout=10.0)
+        ctx.facts["new_user_served"] = bool(
+            np.isfinite(np.asarray(sc)).all())
+    else:
+        ctx.facts["new_user_served"] = False
+    idx = s["engine"].published_index
+    ctx.facts["catalog_grew"] = bool(
+        idx is not None and idx.n_items > s["base_items"])
+    # explainability is itself an assertion: at least one admitted
+    # rating event must have a COMPLETE causal trail in the obs events
+    # — admit -> queue -> foldin -> publish -> visible — the exact
+    # spans `observe explain` rebuilds a breach from (docs/
+    # observability.md).  Judged from reg._events, like everything else.
+    full_chain = {"live.admit", "live.queue", "live.foldin",
+                  "live.publish", "live.visible"}
+    names_by_trace = {}
+    for e in reg._events:
+        if e.get("type") == "trace_span" and e.get("trace_id"):
+            names_by_trace.setdefault(e["trace_id"], set()).add(
+                e.get("name"))
+    ctx.facts["explainable_traces"] = sum(
+        1 for names in names_by_trace.values()
+        if full_chain <= names)
+
+
+def _continuous_freshness():
+    return ScenarioSpec(
+        name="continuous-freshness",
+        doc="the live pipeline end to end: a sustained rating-event "
+            "stream (new users, new items, poisoned events) folds in "
+            "and publishes INCREMENTALLY under concurrent serve load; "
+            "freshness p99 holds the SLO, every publish after bootstrap "
+            "is retag/delta/compact (zero torn publishes, zero "
+            "O(catalog) rebuilds), and the poison count is re-derivable "
+            "from the obs trail alone.",
+        defaults=dict(seed=13, users=64, items=48, nnz=800, rank=8,
+                      iters=3, k=5, serve_qps=60.0, update_qps=150.0,
+                      stream_s=1.2, max_batch=32, max_wait_ms=25.0,
+                      poison_events=3,
+                      # Judged against an obs-histogram QUANTILE, which
+                      # reports bucket upper bounds on the x10^0.25 grid
+                      # (... 3162, 5623, 10000 ms) — an SLO between
+                      # rungs is unimplementable (5000 silently meant
+                      # 3162).  Sit on the rung: p99 bucket <= 5623 ms.
+                      freshness_slo_ms=5623.5),
+        phases=(
+            Phase("fit-and-start", _cf_start,
+                  "fit, publish, warm serve + fold-in shapes, start "
+                  "the live updater"),
+            Phase("stream-under-serve", _cf_stream,
+                  "sustained update stream with poison, against live "
+                  "request load; drain before judging"),
+            Phase("collect", _cf_collect,
+                  "freshness, publish modes, and servability from the "
+                  "obs trail"),
+        ),
+        assertions=(
+            Assertion("freshness_p99_under_slo", "quantile",
+                      metric="live.freshness_seconds", q=0.99,
+                      scale_ms=True, op="<=", value="$freshness_slo_ms",
+                      doc="rating-arrival -> servable p99 vs the SLO"),
+            Assertion("zero_torn_publishes", "counter",
+                      metric="serving.fallback_exact", op="==", value=0,
+                      doc="no request ever saw a stale index"),
+            Assertion("all_publishes_incremental", "fact",
+                      fact="all_incremental", op="==", value=True),
+            Assertion("poison_quarantined_exactly", "counter",
+                      metric="ingest.quarantined_rows", op="==",
+                      value="$poison_events",
+                      doc="quarantine count == injected poison, from "
+                          "the counter alone"),
+            Assertion("quarantine_event", "event",
+                      event="ingest_quarantined", op=">=", value=1),
+            Assertion("live_updates_flowed", "event", event="live_update",
+                      op=">=", value=2),
+            Assertion("stream_new_user_served", "fact",
+                      fact="new_user_served", op="==", value=True),
+            Assertion("catalog_grew", "fact", fact="catalog_grew",
+                      op="==", value=True,
+                      doc="new items appended via the delta segment"),
+            Assertion("no_hard_failures", "fact", fact="hard_failures",
+                      op="==", value=0),
+            Assertion("traces_explainable", "fact",
+                      fact="explainable_traces", op=">=", value=1,
+                      doc="at least one rating event's full causal "
+                          "trail (admit->queue->foldin->publish->"
+                          "visible) is reconstructible from the obs "
+                          "events alone"),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# tenant-isolation
+
+
+def _ti_solo(ctx):
+    """Tenant B alone: publish its factors into a solo engine and serve
+    the seeded query set synchronously — the bitwise reference the
+    multi-tenant run must reproduce under a fault storm on A."""
+    from tpu_als_torch import plan as _plan
+    from tpu_als_torch.serving import ServingEngine
+
+    c = ctx.config
+    rng = np.random.default_rng(c["seed"])
+    Ub = rng.normal(size=(c["users"], c["rank"])).astype(np.float32)
+    Vb = rng.normal(size=(c["items"], c["rank"])).astype(np.float32)
+    uids = np.random.default_rng(c["seed"] + 1).integers(
+        0, c["users"], c["n_queries"])
+    # the same planner resolution the registry applies to tenant B —
+    # bitwise equality needs the same bucket ladder, hence the same
+    # padded shapes and compiled executables
+    tplan = _plan.resolve_tenant_plan(rank=c["rank"],
+                                      n_users=c["users"],
+                                      n_items=c["items"])
+    solo = ServingEngine(k=c["k"], buckets=tplan["buckets"],
+                         device=ctx.device)
+    solo.publish(Ub, Vb)
+    solo.warmup()
+    results = []
+    for uid in uids:
+        # one ticket per batch, drained synchronously — the multi-tenant
+        # driver blocks per request, so its batches are 1-row too and
+        # the compiled (bucket=1) path is byte-identical across runs
+        t = solo.submit(int(uid))
+        solo.serve_batch(solo.batcher.next_batch(timeout=0))
+        s, ix = t.result(timeout=10.0)
+        results.append((np.asarray(s).copy(), np.asarray(ix).copy()))
+    solo.stop()
+    ctx.state.update(Ub=Ub, Vb=Vb, uids=uids, solo_results=results)
+
+
+def _ti_start(ctx):
+    """Two tenants behind one front door: A with the full live stack
+    (its own model, fold-in, updater) and a deliberately small admission
+    queue; B with the SAME factors the solo run served."""
+    import tpu_als_torch
+    from tpu_als_torch import obs
+    from tpu_als_torch.io.movielens import synthetic_movielens
+    from tpu_als_torch.stream.microbatch import FoldInServer
+    from tpu_als_torch.tenancy import MultiTenantEngine, TenantSpec
+
+    c = ctx.config
+    frame = synthetic_movielens(c["a_users"], c["a_items"], c["a_nnz"],
+                                seed=c["seed"] + 2)
+    model = tpu_als_torch.ALS(rank=c["rank"], maxIter=2, regParam=0.05,
+                              seed=c["seed"], device=ctx.device).fit(frame)
+    eng = MultiTenantEngine(device=ctx.device)
+    eng.add_tenant(
+        TenantSpec(name="a", max_queue=c["a_max_queue"]),
+        _host(model._U), _host(model._V))
+    eng.add_tenant(TenantSpec(name="b", k=c["k"]), ctx.state["Ub"],
+                   ctx.state["Vb"])
+    eng.warmup()
+    srv = FoldInServer(model)
+    eng.attach_live("a", srv, max_batch=16, max_wait_ms=10.0)
+    eng.start()
+    ctx.defer(eng.stop)
+    # per-tenant baselines: the facts judge DELTAS over this scenario,
+    # not whatever the registry accumulated before it
+    ctx.state.update(
+        eng=eng, model=model,
+        base=dict(
+            b_shed=obs.counter_value("serving.shed", tenant="b"),
+            a_shed=obs.counter_value("serving.shed", tenant="a"),
+            a_exact=obs.counter_value("serving.fallback_exact",
+                                      tenant="a")))
+
+
+def _ti_storm(ctx):
+    """The storm, aimed at A only, while B's seeded queries run: a 10×
+    spike past A's queue budget, a torn publish into A's seq-space, NaN
+    poison into A's live stream, and a guardrails=recover re-fit with a
+    mid-train corrupt — every fault armed in-phase and cleared, so only
+    A's lifecycle can observe it."""
+    from tpu_als_torch.core.als import AlsConfig, train
+    from tpu_als_torch.core.ratings import build_csr_buckets
+    from tpu_als_torch.resilience import faults, guardrails
+    from tpu_als_torch.tenancy import TenantOverloaded
+
+    c, s = ctx.config, ctx.state
+    eng, model = s["eng"], s["model"]
+    b_results, b_errors = [], []
+
+    def drive_b():
+        t0 = time.perf_counter()
+        for j, uid in enumerate(s["uids"]):
+            delay = (t0 + j / c["b_qps"]) - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                sc, ix = eng.recommend("b", int(uid), timeout=10.0)
+                b_results.append((np.asarray(sc).copy(),
+                                  np.asarray(ix).copy()))
+            except Exception as e:   # noqa: BLE001 — the judged bucket
+                b_errors.append(type(e).__name__)
+
+    driver = threading.Thread(target=drive_b, name="scenario-tenant-b",
+                              daemon=True)
+    driver.start()
+
+    # 1. traffic spike vs A's small queue: its typed shed, nobody else's
+    spike_shed = 0
+    tickets = []
+    for _ in range(c["spike_submits"]):
+        try:
+            tickets.append(eng.submit("a", 0))
+        except TenantOverloaded as e:
+            assert e.tenant == "a"
+            spike_shed += 1
+
+    # 2. torn publish into A's seq-space: the corrupt tags A's int8
+    # index stale; A's next requests degrade to the exact path
+    faults.install("serving.publish=corrupt@once")
+    try:
+        eng.publish("a", _host(model._U), _host(model._V))
+    finally:
+        faults.clear()
+    for uid in (0, 1, 2):
+        # A's queue may still be draining the spike backlog; backing
+        # off on ITS typed shed is exactly the client contract
+        for _ in range(500):
+            try:
+                eng.recommend("a", uid, timeout=10.0)
+                break
+            except TenantOverloaded:
+                time.sleep(0.01)
+
+    # 3. poison A's live stream (quarantined, attributed to A) plus a
+    # few clean events so A's pipeline demonstrably still publishes
+    updater = eng.tenant("a").updater
+    rngA = np.random.default_rng(c["seed"] + 3)
+    user_ids = np.asarray(model._user_map.ids)
+    item_ids = np.asarray(model._item_map.ids)
+    for _ in range(c["poison_events"]):
+        updater.submit(int(rngA.choice(user_ids)),
+                       int(rngA.choice(item_ids)), float("nan"))
+    for _ in range(c["good_events"]):
+        updater.submit(int(rngA.choice(user_ids)),
+                       int(rngA.choice(item_ids)),
+                       float(rngA.uniform(0.5, 5.0)))
+
+    # 4. guardrails=recover re-fit for A with a mid-train corrupt: the
+    # sentinel trips, rolls back, and the recovered factors publish
+    # into A's seq-space
+    u = rngA.integers(0, c["a_users"], c["a_nnz"])
+    i = rngA.integers(0, c["a_items"], c["a_nnz"])
+    r = rngA.uniform(0.5, 5.0, c["a_nnz"]).astype(np.float32)
+    ucsr = build_csr_buckets(u, i, r, c["a_users"], min_width=4,
+                             chunk_elems=1 << 12)
+    icsr = build_csr_buckets(i, u, r, c["a_items"], min_width=4,
+                             chunk_elems=1 << 12)
+    faults.install("solve.gram=corrupt@nth=2")
+    try:
+        with guardrails.scoped("recover"):
+            Ua2, Va2 = train(ucsr, icsr,
+                             AlsConfig(rank=c["rank"], max_iter=4,
+                                       reg_param=0.1, seed=c["seed"]),
+                             device=ctx.device)
+    finally:
+        faults.clear()
+    eng.publish("a", _host(Ua2), _host(Va2))
+
+    # drain: A's spike tickets resolve or expire, A's live queue
+    # empties, B's driver finishes its query list
+    for t in tickets:
+        try:
+            t.result(timeout=10.0)
+        except Exception:   # noqa: BLE001 — A's outcomes judged via obs
+            pass
+    deadline = time.perf_counter() + 30.0
+    while updater.queue_depth and time.perf_counter() < deadline:
+        time.sleep(0.02)
+    driver.join(60.0)
+    ctx.state.update(b_results=b_results)
+    ctx.facts.update(a_spike_shed=spike_shed,
+                     b_hard_failures=len(b_errors))
+
+
+def _ti_churn(ctx):
+    """Tenant churn under load: register/remove a short-lived tenant C
+    through the live front door while B keeps serving.  The registry's
+    publish-before-visible discipline is watched from a snapshot
+    thread — no snapshot may ever expose a tenant without a published
+    generation — and C must be servable the instant it IS visible."""
+    from tpu_als_torch.tenancy import TenantSpec
+
+    c, s = ctx.config, ctx.state
+    eng = s["eng"]
+    rng = np.random.default_rng(c["seed"] + 7)
+    Uc = rng.normal(size=(16, c["rank"])).astype(np.float32)
+    Vc = rng.normal(size=(24, c["rank"])).astype(np.float32)
+    unpublished, stop = [], threading.Event()
+
+    def snapshotter():
+        while not stop.is_set():
+            for t in eng.registry.tenants():
+                if t.engine.published_seq < 1:
+                    unpublished.append(t.name)
+            # yield the GIL after every snapshot: torch lets it go around
+            # each op of the request path, and a thread that never sleeps
+            # takes it back each time, stretching every op to the
+            # interpreter's switch interval (5 ms)
+            time.sleep(0)
+
+    watcher = threading.Thread(target=snapshotter,
+                               name="scenario-churn-watch", daemon=True)
+    watcher.start()
+    b_errors = 0
+    try:
+        for _ in range(c["churn_cycles"]):
+            eng.add_tenant(TenantSpec(name="c", k=c["k"]), Uc, Vc)
+            # servable the instant it is visible: its FIRST generation
+            # was published before the registry ever listed it
+            eng.recommend("c", 0, timeout=10.0)
+            for uid in s["uids"][:3]:
+                try:
+                    eng.recommend("b", int(uid), timeout=10.0)
+                except Exception:   # noqa: BLE001 — the judged bucket
+                    b_errors += 1
+            eng.remove_tenant("c")
+    finally:
+        stop.set()
+        watcher.join(5.0)
+    ctx.facts.update(churn_unpublished_snapshots=len(unpublished),
+                     churn_b_errors=b_errors,
+                     churn_final_tenants=len(eng.registry))
+
+
+def _ti_judge(ctx):
+    """The isolation verdict, from B's answers and the labeled trail:
+    B bitwise vs solo, B's tail and shed in budget, A's storm evidence
+    attributed to A."""
+    from tpu_als_torch import obs
+
+    s, base = ctx.state, ctx.state["base"]
+    solo, multi = s["solo_results"], s["b_results"]
+    ok = len(solo) == len(multi)
+    for (ss, si), (ms, mi) in zip(solo, multi):
+        ok = ok and bool(np.array_equal(ss, ms)
+                         and np.array_equal(si, mi))
+    ctx.facts["b_topk_bitwise"] = ok
+    p99 = obs.histogram_quantile("serving.e2e_seconds", 0.99,
+                                 tenant="b")
+    ctx.facts["b_p99_ms"] = (1e3 * float(p99)
+                             if p99 == p99 else float("inf"))
+    ctx.facts["b_shed"] = int(
+        obs.counter_value("serving.shed", tenant="b") - base["b_shed"])
+    ctx.facts["a_shed"] = int(
+        obs.counter_value("serving.shed", tenant="a") - base["a_shed"])
+    ctx.facts["a_fallback_exact"] = int(
+        obs.counter_value("serving.fallback_exact", tenant="a")
+        - base["a_exact"])
+    events = obs.default_registry()._events
+    ctx.facts["a_quarantine_attributed"] = bool(any(
+        e.get("type") == "ingest_quarantined" and e.get("tenant") == "a"
+        for e in events))
+    ctx.facts["a_live_published"] = bool(any(
+        e.get("type") == "live_update" and e.get("tenant") == "a"
+        for e in events))
+
+
+def _tenant_isolation():
+    return ScenarioSpec(
+        name="tenant-isolation",
+        doc="the multi-tenant fault matrix: a torn publish, a poisoned "
+            "live stream, a guardrail-rollback re-fit and a 10× spike "
+            "all land on tenant A while tenant B serves its seeded "
+            "queries — B's top-k stays BITWISE equal to its solo run, "
+            "its p99/shed hold the SLO, and every piece of A's storm is "
+            "attributed to A in the labeled obs trail (docs/tenancy.md).",
+        defaults=dict(seed=21, users=64, items=96, rank=8, k=5,
+                      n_queries=40, b_qps=80.0, b_slo_ms=500.0,
+                      a_users=48, a_items=36, a_nnz=600,
+                      a_max_queue=8, spike_submits=64,
+                      poison_events=3, good_events=8, churn_cycles=5),
+        phases=(
+            Phase("solo-baseline", _ti_solo,
+                  "tenant B alone: the bitwise reference answers"),
+            Phase("multi-tenant-start", _ti_start,
+                  "register A (full live stack, small queue) and B "
+                  "(the solo factors) behind one front door"),
+            Phase("fault-storm", _ti_storm,
+                  "spike + torn publish + poison + rollback, all on A, "
+                  "under B's query load; drain before judging"),
+            Phase("tenant-churn", _ti_churn,
+                  "register/remove tenant C while B serves: no "
+                  "snapshot ever exposes an unpublished tenant"),
+            Phase("judge", _ti_judge,
+                  "B bitwise + SLO, A's evidence from the labeled "
+                  "trail"),
+        ),
+        assertions=(
+            Assertion("b_topk_bitwise", "fact", fact="b_topk_bitwise",
+                      op="==", value=True,
+                      doc="B's answers under A's storm == B's solo "
+                          "answers, bit for bit"),
+            Assertion("b_p99_under_slo", "fact", fact="b_p99_ms",
+                      op="<=", value="$b_slo_ms"),
+            Assertion("b_zero_shed", "fact", fact="b_shed",
+                      op="==", value=0,
+                      doc="A's overload never consumed B's queue "
+                          "budget"),
+            Assertion("b_no_hard_failures", "fact",
+                      fact="b_hard_failures", op="==", value=0),
+            Assertion("a_spike_shed", "fact", fact="a_spike_shed",
+                      op=">=", value=1,
+                      doc="the spike DID overflow A's small queue "
+                          "(typed TenantOverloaded naming A)"),
+            Assertion("a_degraded_exact", "fact",
+                      fact="a_fallback_exact", op=">=", value=1,
+                      doc="A's torn publish degraded A to the exact "
+                          "path"),
+            Assertion("a_quarantine_attributed", "fact",
+                      fact="a_quarantine_attributed", op="==",
+                      value=True,
+                      doc="the poison's quarantine event carries "
+                          "tenant=a"),
+            Assertion("a_live_recovered", "fact",
+                      fact="a_live_published", op="==", value=True,
+                      doc="A's live pipeline still published after the "
+                          "poison"),
+            Assertion("churn_publish_before_visible", "fact",
+                      fact="churn_unpublished_snapshots", op="==",
+                      value=0,
+                      doc="no registry snapshot during churn exposed a "
+                          "tenant without a published generation"),
+            Assertion("churn_b_undisturbed", "fact",
+                      fact="churn_b_errors", op="==", value=0,
+                      doc="B served through every register/remove "
+                          "cycle of C"),
+            Assertion("churn_no_leak", "fact",
+                      fact="churn_final_tenants", op="==", value=2,
+                      doc="every churned C was fully torn down"),
+            Assertion("quarantine_event", "event",
+                      event="ingest_quarantined", op=">=", value=1),
+            Assertion("sentinel_tripped", "event",
+                      event="guardrail_tripped", op=">=", value=1),
+            Assertion("rolled_back", "event", event="train_rollback",
+                      op=">=", value=1),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# device-loss (elastic mesh training: loss -> reform -> resume, bitwise)
+
+
+def _dl_env(c):
+    """The environment every phase's CLI child adds to its own: none.
+    The elastic protocol needs a mesh to shrink, and the port's children
+    build it from ``--devices``, logical shards of the one device, where
+    the reference forces ``host_devices`` CPU devices through
+    ``XLA_FLAGS``; a mesh wider than ``host_devices`` is refused, as the
+    reference's would be."""
+    if c["devices"] > c["host_devices"]:
+        raise ValueError(
+            f"requested a {c['devices']}-shard mesh but host_devices is "
+            f"{c['host_devices']}; refusing to build a silently smaller "
+            "mesh")
+    return {}
+
+
+def _dl_train_args(c):
+    return ["train", "--data", c["data"], "--rank", str(c["rank"]),
+            "--reg-param", str(c["reg"]), "--seed", str(c["seed"])]
+
+
+def _dl_elastic(ctx):
+    import json
+
+    c = ctx.config
+    ckdir = os.path.join(ctx.workdir, "ck")
+    out = os.path.join(ctx.workdir, "elastic_model")
+    obsdir = os.path.join(ctx.workdir, "elastic_obs")
+    env = dict(_dl_env(c))
+    # deterministic loss: the nth traversal of the detector's fault
+    # point kills the victim device (corrupt mode = a dead peer the
+    # health probe confirms)
+    env["TPU_ALS_FAULT_SPEC"] = \
+        f"mesh.device_lost=corrupt@nth={c['lose_at']}"
+    p = _cli_subprocess(
+        _dl_train_args(c)
+        + ["--devices", str(c["devices"]), "--elastic",
+           "--max-iter", str(c["iters"]),
+           "--checkpoint-dir", ckdir, "--checkpoint-interval", "1",
+           "--output", out, "--obs-dir", obsdir],
+        ctx.device, env_extra=env)
+    ctx.facts["elastic_exit_code"] = p.returncode
+    ctx.state["elastic_stderr"] = p.stderr
+    by = {}
+    epath = os.path.join(obsdir, "events.jsonl")
+    if os.path.isfile(epath):
+        with open(epath) as f:
+            for line in f:
+                e = json.loads(line)
+                by.setdefault(e["type"], []).append(e)
+    # the recovery tree must be re-derivable from events.jsonl alone
+    ctx.facts["device_lost_events"] = len(by.get("device_lost", ()))
+    ctx.facts["mesh_reformed_events"] = len(by.get("mesh_reformed", ()))
+    ctx.facts["elastic_resume_events"] = len(
+        by.get("elastic_resume", ()))
+    res = (by.get("elastic_resume") or [{}])[0]
+    ctx.facts["resume_from_checkpoint"] = res.get("source") == "checkpoint"
+    ctx.state["resume_iteration"] = int(res.get("iteration") or 0)
+
+
+def _dl_reference(ctx):
+    """The recovery's ground truth, built WITHOUT any fault: the same
+    fit stopped at the elastic run's resume iteration reproduces the
+    checkpoint it recovered from (ALS iterations are max_iter-
+    independent), then a FRESH fit on the shrunk mesh resumes from it."""
+    c = ctx.config
+    env = _dl_env(c)
+    refck = os.path.join(ctx.workdir, "refck")
+    out = os.path.join(ctx.workdir, "reference_model")
+    it = ctx.state["resume_iteration"]
+    survivors = c["devices"] - 1   # corrupt mode kills ONE device
+    args = _dl_train_args(c)
+    p = _cli_subprocess(
+        args + ["--devices", str(c["devices"]), "--max-iter", str(it),
+                "--checkpoint-dir", refck, "--checkpoint-interval", "1"],
+        ctx.device, env_extra=env)
+    ctx.facts["reference_prefix_exit"] = p.returncode
+    p = _cli_subprocess(
+        args + ["--devices", str(survivors),
+                "--max-iter", str(c["iters"]),
+                "--resume", os.path.join(refck, "als_checkpoint"),
+                "--output", out],
+        ctx.device, env_extra=env)
+    ctx.facts["reference_exit_code"] = p.returncode
+    ctx.state["reference_stderr"] = p.stderr
+
+
+def _dl_judge(ctx):
+    a = os.path.join(ctx.workdir, "elastic_model")
+    b = os.path.join(ctx.workdir, "reference_model")
+    eq = True
+    for side in ("user_factors.npz", "item_factors.npz"):
+        pa, pb = os.path.join(a, side), os.path.join(b, side)
+        if not (os.path.isfile(pa) and os.path.isfile(pb)):
+            eq = False
+            break
+        fa, fb = np.load(pa), np.load(pb)
+        eq = (eq and np.array_equal(fa["factors"], fb["factors"])
+              and np.array_equal(fa["ids"], fb["ids"]))
+    ctx.facts["factors_bitwise_equal"] = bool(eq)
+
+
+def _device_loss():
+    return ScenarioSpec(
+        name="device-loss",
+        doc="elastic mesh training: a device dies mid-fit (injected "
+            "mesh.device_lost), the health probe confirms a dead peer, "
+            "the ring re-forms on the surviving mesh and training "
+            "resumes from the last atomic checkpoint; the run completes "
+            "and the final factors are BITWISE equal to a fresh "
+            "shrunk-mesh fit resumed from the same checkpoint.",
+        defaults=dict(data="synthetic:80x40x1500", rank=4, iters=5,
+                      reg=0.05, seed=7, devices=4, host_devices=8,
+                      lose_at=3),
+        phases=(
+            Phase("elastic-train", _dl_elastic,
+                  "device dies at iteration $lose_at; the fit recovers "
+                  "and completes"),
+            Phase("reference", _dl_reference,
+                  "fault-free shrunk-mesh fit resumed from the same "
+                  "checkpoint"),
+            Phase("judge", _dl_judge,
+                  "bitwise-compare the two models' factor tables"),
+        ),
+        assertions=(
+            Assertion("elastic_exit_0", "fact",
+                      fact="elastic_exit_code", op="==", value=0,
+                      doc="device loss is a rescheduling event, not a "
+                          "crash"),
+            Assertion("one_device_lost_event", "fact",
+                      fact="device_lost_events", op="==", value=1),
+            Assertion("one_mesh_reformed_event", "fact",
+                      fact="mesh_reformed_events", op="==", value=1),
+            Assertion("one_elastic_resume_event", "fact",
+                      fact="elastic_resume_events", op="==", value=1),
+            Assertion("resumed_from_checkpoint", "fact",
+                      fact="resume_from_checkpoint", op="==", value=True),
+            Assertion("reference_exit_0", "fact",
+                      fact="reference_exit_code", op="==", value=0),
+            Assertion("factors_bitwise_equal", "fact",
+                      fact="factors_bitwise_equal", op="==", value=True,
+                      doc="recovery is restart-from-factors of a "
+                          "deterministic iteration — anything weaker "
+                          "than array_equal would hide divergence"),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# production-week
+
+
+def _pw_soak(ctx):
+    from tpu_als_torch import obs
+    from tpu_als_torch.soak.orchestrator import run_soak
+    from tpu_als_torch.soak.traffic import TrafficConfig
+
+    c = ctx.config
+    cfg = TrafficConfig(seed=c["seed"], windows=c["windows"],
+                        window_s=c["window_s"], base_qps=c["base_qps"],
+                        update_qps=c["update_qps"])
+    reg = obs.default_registry()
+    ev0 = len(reg._events)
+    res = run_soak(cfg, rank=c["rank"], refit_every=c["refit_every"],
+                   subprocesses=bool(c["subprocesses"]),
+                   workdir=os.path.join(ctx.workdir, "soak"),
+                   judge_config={"slo_ms": c["slo_ms"],
+                                 "freshness_slo_ms":
+                                     c["freshness_slo_ms"]},
+                   device=ctx.device)
+    # the exact event slice the soak produced — what the judge phase
+    # dumps and re-derives the verdict from
+    ctx.state["events"] = [dict(e) for e in reg._events[ev0:]]
+    ctx.state["result"] = res
+    ctx.facts["soak_passed"] = res["passed"]
+    ctx.facts["windows_complete"] = res["windows"] == c["windows"]
+    ctx.facts["scheduled_injections"] = res["injections"]
+    ctx.facts["all_injections_recovered"] = (
+        res["injections"] > 0
+        and res["recoveries"] == res["injections"])
+    ctx.facts["victim_free_errors"] = next(
+        chk["observed"] for chk in res["checks"]
+        if chk["check"] == "victim_free_errors")
+    ctx.facts["answered"] = res["answered"]
+
+
+def _pw_rederive(ctx):
+    """The re-derivability pin, in-scenario: dump the soak's event
+    slice to a jsonl file and have the STANDALONE stdlib judge
+    (``tpu_als_torch/soak/verdict.py`` run as a plain-python child, no
+    tpu_als_torch import, no torch) reproduce the identical verdict."""
+    import json
+
+    epath = os.path.join(ctx.workdir, "events.jsonl")
+    with open(epath, "w") as f:
+        for e in ctx.state["events"]:
+            f.write(json.dumps(e) + "\n")
+    vpath = os.path.join(_REPO, "tpu_als_torch", "soak", "verdict.py")
+    c = ctx.config
+    p = subprocess.run(
+        [sys.executable, vpath, epath, "--json",
+         "--slo-ms", str(c["slo_ms"]),
+         "--freshness-slo-ms", str(c["freshness_slo_ms"])],
+        capture_output=True, text=True)
+    ctx.facts["rederive_exit"] = p.returncode
+    rederived = json.loads(p.stdout) if p.stdout.strip() else {}
+    res = ctx.state["result"]
+    ctx.facts["rederived_verdict_matches"] = (
+        rederived.get("passed") == res["passed"]
+        and rederived.get("checks") == res["checks"]
+        and rederived.get("survived_minutes") == res["survived_minutes"])
+
+
+def _production_week():
+    return ScenarioSpec(
+        name="production-week",
+        doc="the soak subsystem end-to-end at compressed timescale: "
+            "seeded zipfian/diurnal traffic drives two tenants' serve "
+            "+ live fold-in + periodic refit while the default chaos "
+            "schedule lands every injection (torn publish, poisoned "
+            "refit, solver rollback, tenant churn, preemption, device "
+            "loss); the SLO verdict must pass, and a standalone "
+            "stdlib verdict.py child must re-derive the IDENTICAL "
+            "verdict from the dumped events alone.",
+        # latency bounds are the COMPRESSED-timescale tier-1 ones: the
+        # CI box is often one shared core and the chaos children (CLI
+        # preempt/device-loss trains, refits) compete with the serve
+        # pool for it, so p99s run 2-3x what an idle box shows.  The
+        # structural checks (recovery, fairness, shed, victim-free
+        # errors) keep the verdict's teeth; `tpu_als_torch soak` defaults to
+        # the tighter production bounds (soak/verdict.py DEFAULTS).
+        defaults=dict(seed=17, windows=8, window_s=1.5, base_qps=25.0,
+                      update_qps=12.0, rank=8, refit_every=3,
+                      subprocesses=True, slo_ms=2500.0,
+                      freshness_slo_ms=10000.0),
+        phases=(
+            Phase("soak", _pw_soak,
+                  "$windows windows of traffic under the full chaos "
+                  "schedule"),
+            Phase("judge", _pw_rederive,
+                  "stdlib verdict.py child re-derives the verdict from "
+                  "events alone"),
+        ),
+        assertions=(
+            Assertion("soak_passed", "fact", fact="soak_passed",
+                      op="==", value=True,
+                      doc="every SLO check green: serve p99, freshness "
+                          "p99, fairness, shed rate, zero victim-free "
+                          "errors, all injections observed+recovered"),
+            Assertion("windows_complete", "fact",
+                      fact="windows_complete", op="==", value=True),
+            Assertion("all_injections_recovered", "fact",
+                      fact="all_injections_recovered", op="==",
+                      value=True,
+                      doc="every scheduled injection fired AND left "
+                          "recovery evidence in the trail"),
+            Assertion("victim_free_errors_zero", "fact",
+                      fact="victim_free_errors", op="==", value=0),
+            Assertion("rederive_exit_0", "fact", fact="rederive_exit",
+                      op="==", value=0,
+                      doc="the standalone judge exits 0 = verdict "
+                          "passes offline too"),
+            Assertion("rederived_verdict_matches", "fact",
+                      fact="rederived_verdict_matches", op="==",
+                      value=True,
+                      doc="byte-identical checks: the verdict is a "
+                          "pure function of the trail"),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# registry
+
+_BUILDERS = (
+    _traffic_spike,
+    _preempt_under_serve,
+    _torn_publish,
+    _cold_start,
+    _preempt_resume,
+    _flight_recorder,
+    _solver_divergence,
+    _poisoned_stream,
+    _continuous_freshness,
+    _tenant_isolation,
+    _device_loss,
+    _production_week,
+)
+
+SCENARIOS = {s.name: s for s in (b() for b in _BUILDERS)}
+
+
+def names():
+    return tuple(SCENARIOS)
+
+
+def get_scenario(name):
+    """The spec for ``name``; raises the typed :class:`UnknownScenario`
+    (listing what IS available) on a miss."""
+    from tpu_als_torch.scenario.spec import UnknownScenario
+
+    try:
+        return SCENARIOS[name]
+    except KeyError:
+        raise UnknownScenario(name, names()) from None

@@ -1,0 +1,762 @@
+"""The production-week driver: serve + fold-in + refit, under chaos.
+
+Counterpart of ``tpu_als/soak/orchestrator.py`` on the card.  Where the
+port differs:
+
+- **The device.** :func:`run_soak` takes ``device`` (None -> the card,
+  raising without CUDA; ``'cpu'`` runs the kernels' plain versions):
+  the fleet's fits, engines, fold-in servers and updaters, the refits
+  and the chaos re-fits all run there.  The fleet's factors come to the
+  host with ``.cpu()`` where the reference reads ``np.asarray``.
+- **The children.** The two CLI-child actions run
+  ``tpu_als_torch.cli train`` with the parent's ``--device`` passed on;
+  the device-loss child trains over ``--devices 3 --elastic``: three
+  logical shards of that one device (the port's one-device mesh), where
+  the reference forces a 4-device CPU platform through ``XLA_FLAGS``.
+  The fault spec is the reference's, ``mesh.device_lost=corrupt@nth=2``.
+  Every child starts gated before the fleet is built (:class:`_Child`:
+  it imports torch and the package, then waits on its stdin, touching
+  no device) and is released when its action runs, so the window pays
+  the child's fit and not its interpreter's start (about 8 s a child on
+  the card's host); the reference starts each one when its action
+  runs.  So the preempt and device-loss windows carry a lighter load
+  than the reference's while the victim-free tenant is served and
+  judged: the port's victim-free p99 in those windows is not
+  comparable with the reference's.  The arguments, environment and
+  exit codes are the reference's, and every child the soak starts has
+  exited when :func:`run_soak` returns.
+- **Publishes and the score path.** The serve pool's threads, the
+  engine's batcher, each updater's thread and the refits share the
+  card.  Every launch goes on the thread's current stream, the default
+  stream in each of them, so a score launched after a publish runs
+  after the kernels that wrote the published factors.  A refit reads
+  its factors to the host (``.cpu()`` waits for the fit's kernels)
+  before it scatters and republishes them; the live loop publishes
+  through ``publish_update`` as ``live/updater.py`` does.
+- **Warm before traffic.** ``FoldInServer.prewarm`` and the engine's
+  ``warmup`` launch the fold-in's and every serving route's kernels
+  once before window 0, so no window pays a kernel build.
+
+``run_soak`` compresses a week of production into minutes: it builds a
+small multi-tenant fleet (one ALS model per tenant, live fold-in
+attached), replays the seeded :mod:`tpu_als_torch.soak.traffic` workload
+window by window, and — while traffic is in flight — performs the
+:mod:`tpu_als_torch.soak.chaos` schedule's injections with the matching fault
+specs armed for exactly that window.  Every window closes with one
+``soak_window`` event (per-tenant offered/answered/shed/errors/p99) and
+one ``soak_injection`` event per scheduled injection (did the fault
+observably fire, and is its recovery evidence in the trail).  The run
+closes with a ``soak_verdict``.
+
+The discipline that matters: the verdict is computed by
+:func:`tpu_als_torch.soak.verdict.judge` from the EVENT LIST ALONE — the
+orchestrator hands it the same records ``events.jsonl`` holds, so
+anyone holding a copied run dir re-derives the identical verdict
+offline (``python tpu_als_torch/soak/verdict.py RUN_DIR``).  When the obs
+registry is configured, each window boundary also drains to disk
+(``finalize`` is idempotent), which is what engages the trail's
+size-bounded rotation on long soaks.
+
+Recovery evidence per action (the chaos vocabulary):
+
+- ``torn_publish``    — the corrupt publish fired, then a clean publish
+  landed and the victim answered with finite scores;
+- ``poisoned_refit``  — the refit's ingest quarantined the poisoned
+  records and still published;
+- ``solver_rollback`` — a ``guardrails=recover`` re-fit tripped the
+  sentinel, rolled back (``train.rollbacks`` advanced), and published
+  finite factors;
+- ``tenant_churn``    — a short-lived tenant registered, answered, and
+  was removed without touching the base fleet;
+- ``preempt``         — a CLI train child exited ``EXIT_PREEMPTED`` and
+  the same command with ``--resume auto`` completed;
+- ``device_loss``     — an elastic train child lost a device, re-formed
+  the mesh, resumed from checkpoint, and exited 0 (evidence read from
+  the CHILD's own events.jsonl, then folded into the parent's
+  ``soak_injection`` record so the parent trail stays self-contained).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime, timezone
+
+import numpy as np
+
+from tpu_als_torch.soak import chaos as chaos_mod
+from tpu_als_torch.soak import traffic as traffic_mod
+from tpu_als_torch.soak.verdict import DEFAULTS as JUDGE_DEFAULTS
+from tpu_als_torch.soak.verdict import judge, p99, render  # noqa: F401
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# the chaos children's training problem: small enough that a child fits
+# inside a couple of windows, big enough to cross checkpoints
+_CHILD_DATA = "synthetic:48x24x600"
+
+
+# a chaos child: import the package (torch with it), wait for "go" on
+# stdin, then run the command; a closed stdin ends it unrun
+_GATED_CHILD = (
+    "import sys\n"
+    "import tpu_als_torch.api.estimator\n"
+    "from tpu_als_torch.cli import main\n"
+    "if sys.stdin.readline().strip() != 'go':\n"
+    "    sys.exit(3)\n"
+    "main(sys.argv[1:])\n")
+
+
+class _Child:
+    """A real tpu_als_torch CLI child (preempt/device-loss need real exit
+    statuses and their own fault env) on the parent's ``device``, started
+    gated: it imports, then waits until :meth:`run` releases it."""
+
+    def __init__(self, args, device, env_extra=None):
+        env = dict(os.environ)
+        env.pop("TPU_ALS_PREEMPT_AT", None)
+        env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+        if env_extra:
+            env.update(env_extra)
+        self._p = subprocess.Popen(
+            [sys.executable, "-c", _GATED_CHILD, *args,
+             "--device", str(device)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)
+
+    def run(self):
+        """Release the child and wait for its exit (a CompletedProcess)."""
+        out, err = self._p.communicate("go\n")
+        return subprocess.CompletedProcess(self._p.args,
+                                           self._p.returncode, out, err)
+
+    def close(self):
+        """End a child never released (its closed stdin stops it before
+        it runs anything); a no-op once it has exited."""
+        if self._p.returncode is not None:
+            return
+        try:
+            self._p.communicate("", timeout=60)
+        except subprocess.TimeoutExpired:
+            self._p.kill()
+            self._p.communicate()
+
+
+def _child_commands(cfg, cw, workdir):
+    """The CLI children of one chaos window, in the order its action runs
+    them: ``[(args, env_extra), ...]`` (none for in-process actions)."""
+    w = cw.window
+    if cw.action == "preempt":
+        d = os.path.join(workdir, f"preempt_w{w}")
+        base = ["train", "--data", _CHILD_DATA, "--rank", "4",
+                "--max-iter", "5", "--reg-param", "0.05",
+                "--seed", str(cfg.seed),
+                "--checkpoint-dir", os.path.join(d, "ck")]
+        return [(base, {"TPU_ALS_PREEMPT_AT": "2"}),
+                (base + ["--resume", "auto", "--output",
+                         os.path.join(d, "model")], None)]
+    if cw.action == "device_loss":
+        d = os.path.join(workdir, f"device_loss_w{w}")
+        return [(["train", "--data", _CHILD_DATA, "--rank", "4",
+                  "--reg-param", "0.05", "--seed", str(cfg.seed),
+                  "--devices", "3", "--elastic", "--max-iter", "4",
+                  "--checkpoint-dir", os.path.join(d, "ck"),
+                  "--checkpoint-interval", "1",
+                  "--output", os.path.join(d, "model"),
+                  "--obs-dir", os.path.join(d, "obs")],
+                 {"TPU_ALS_FAULT_SPEC": "mesh.device_lost=corrupt@nth=2"})]
+    return []
+
+
+def _start_children(cfg, schedule, workdir, device):
+    """Every chaos window's CLI children, started gated: name -> list."""
+    children = {}
+    for cw in schedule.windows:
+        cmds = _child_commands(cfg, cw, workdir)
+        if cmds:
+            children[cw.name] = [_Child(args, device, env)
+                                 for args, env in cmds]
+    return children
+
+
+# ---------------------------------------------------------------------------
+# fleet
+
+
+def _build_fleet(cfg, *, rank, fit_iters, judge_cfg, device):
+    """One small ALS model per tenant — IDENTICAL shapes across tenants
+    (trained on the window-0 catalog), so the planner's shape-class
+    compile sharing applies and window-0 traffic pays no jit.  Items
+    beyond the trained catalog arrive later as NEW raw ids through the
+    fold-in path (``fold_items``) — the catalog-growth contract under
+    sustained load."""
+    import tpu_als_torch
+    from tpu_als_torch import plan as _plan
+    from tpu_als_torch.core.ratings import _next_pow2
+    from tpu_als_torch.io.movielens import synthetic_movielens
+    from tpu_als_torch.stream.microbatch import FoldInServer
+    from tpu_als_torch.tenancy import MultiTenantEngine, TenantSpec
+
+    n_items = traffic_mod.catalog_size(cfg, 0)
+    nnz = min(3 * cfg.n_users * n_items // 4, 1500)
+    tplan = _plan.resolve_tenant_plan(rank=rank, n_users=cfg.n_users,
+                                      n_items=n_items)
+    cad = tplan["cadence"]
+    max_batch = min(int(cad["max_batch"]), 32)
+    max_wait_ms = min(float(cad["max_wait_ms"]), 25.0)
+    eng = MultiTenantEngine(device=device)
+    tenants = {}
+    for idx, (name, weight) in enumerate(cfg.tenants):
+        frame = synthetic_movielens(cfg.n_users, n_items, nnz,
+                                    seed=cfg.seed + 101 * idx)
+        model = tpu_als_torch.ALS(rank=rank, maxIter=fit_iters,
+                                  regParam=0.05, seed=cfg.seed + idx,
+                                  device=device).fit(frame)
+        U, V = model._U.cpu().numpy(), model._V.cpu().numpy()
+        eng.add_tenant(
+            TenantSpec(name=name, weight=weight, k=cfg.k,
+                       buckets=tplan["buckets"], max_queue=256,
+                       slo_s=judge_cfg["slo_ms"] / 1e3,
+                       freshness_slo_s=judge_cfg["freshness_slo_ms"] / 1e3,
+                       fold_items=True),
+            U, V)
+        srv = FoldInServer(model)
+        # continuous-freshness startup discipline: every (rows, width)
+        # shape the stream can produce compiles BEFORE traffic, both
+        # fold directions, one table doubling of catalog headroom
+        rows, m = [], max_batch
+        while m >= 1:
+            rows.append(_next_pow2(m))
+            m //= 2
+        srv.prewarm(rows=tuple(sorted(set(rows))), widths=(1, 2, 4),
+                    sides=("user", "item"), growth=1)
+        eng.attach_live(name, srv, max_batch=max_batch,
+                        max_wait_ms=max_wait_ms, fold_items=True,
+                        slo_s=judge_cfg["freshness_slo_ms"] / 1e3)
+        item_ids = np.asarray(model._item_map.ids)
+        tenants[name] = dict(
+            model=model, U0=U, V0=V,
+            user_ids=np.asarray(model._user_map.ids),
+            item_ids=item_ids,
+            dense_users=int(U.shape[0]),
+            new_item_base=int(item_ids.astype(np.int64).max()) + 1000,
+            base_u=np.asarray(frame["user"]),
+            base_i=np.asarray(frame["item"]),
+            base_r=np.asarray(frame["rating"], dtype=np.float64),
+            clean=[],
+        )
+    eng.warmup()
+    eng.start()
+    return dict(eng=eng, tenants=tenants, plan=tplan, rank=rank,
+                max_batch=max_batch, max_wait_ms=max_wait_ms,
+                device=device)
+
+
+# ---------------------------------------------------------------------------
+# traffic replay
+
+
+def _serve_one(fleet, op, stats, lock):
+    from tpu_als_torch.serving import DeadlineExceeded
+    from tpu_als_torch.tenancy import TenantOverloaded
+
+    name = op["tenant"]
+    t = fleet["tenants"][name]
+    t_req = time.perf_counter()
+    outcome = "answered"
+    try:
+        fleet["eng"].recommend(name, int(op["user"]) % t["dense_users"],
+                               timeout=5.0)
+    except TenantOverloaded:
+        outcome = "shed"
+    except DeadlineExceeded:
+        outcome = "shed"
+    except Exception:   # noqa: BLE001 — classified, judged by verdict
+        outcome = "errors"
+    ms = 1e3 * (time.perf_counter() - t_req)
+    with lock:
+        s = stats[name]
+        s["offered"] += 1
+        s[outcome] += 1
+        if outcome == "answered":
+            s["lat"].append(ms)
+
+
+def _rate_one(fleet, op):
+    """One rating arrival into the tenant's live pipeline.  Poisoned
+    events materialize ``nan`` (the quarantine path); item indexes past
+    the trained catalog become NEW raw ids (catalog growth via
+    fold-in).  Clean events also accumulate as the tenant's refit
+    corpus."""
+    from tpu_als_torch.serving import Overloaded
+
+    t = fleet["tenants"][op["tenant"]]
+    try:
+        tn = fleet["eng"].tenant(op["tenant"])
+    except Exception:   # noqa: BLE001 — tenant mid-churn
+        return
+    if tn.updater is None:
+        return
+    user_raw = int(t["user_ids"][int(op["user"]) % len(t["user_ids"])])
+    idx = int(op["item"])
+    if idx < len(t["item_ids"]):
+        item_raw = int(t["item_ids"][idx])
+    else:
+        item_raw = t["new_item_base"] + idx
+    rating = float("nan") if op["poison"] else float(op["rating"])
+    try:
+        tn.updater.submit(user_raw, item_raw, rating)
+    except Overloaded:
+        pass    # the updater already counted live.shed
+    if not op["poison"]:
+        clean = t["clean"]
+        clean.append((user_raw, item_raw, float(op["rating"])))
+        if len(clean) > 4000:
+            del clean[:len(clean) - 4000]
+
+
+def _replay(fleet, ops, stats, lock, pool):
+    """Replay one window's ops on their scheduled offsets: serve ops go
+    through the executor (client-side latency measured per request),
+    rating arrivals submit inline (admission is non-blocking)."""
+    t0 = time.perf_counter()
+    futures = []
+    for op in ops:
+        delay = op["t"] - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        if op["op"] == "serve":
+            futures.append(pool.submit(_serve_one, fleet, op, stats,
+                                       lock))
+        else:
+            _rate_one(fleet, op)
+    for f in futures:
+        f.result()   # workers classify, they never raise
+
+
+# ---------------------------------------------------------------------------
+# refit
+
+
+def _refit(cfg, fleet, name, w, workdir):
+    """Refit-and-republish one tenant from its accumulated clean
+    ratings (plus the original corpus, so an early refit is never
+    underdetermined): CSV -> ``stream_ingest`` (quarantine on) ->
+    bucketed CSR -> ``guardrails=recover`` train -> scatter the solved
+    rows back into the base-shaped tables by raw id -> atomic publish.
+    Catalog-growth items (raw ids past the trained table) stay owned by
+    the fold-in path and are skipped by the scatter."""
+    from tpu_als_torch import obs
+    from tpu_als_torch.core.als import AlsConfig, train
+    from tpu_als_torch.core.ratings import build_csr_buckets
+    from tpu_als_torch.io.stream import stream_ingest
+    from tpu_als_torch.resilience import guardrails
+
+    t = fleet["tenants"][name]
+    path = os.path.join(workdir, f"refit_{name}_w{w}.csv")
+    with open(path, "w") as f:
+        for uu, ii, rr in zip(t["base_u"], t["base_i"], t["base_r"]):
+            f.write(f"{int(uu)},{int(ii)},{float(rr):.3f}\n")
+        for uu, ii, rr in list(t["clean"]):
+            f.write(f"{uu},{ii},{rr:.3f}\n")
+    q0 = obs.counter_value("ingest.quarantined_rows")
+    uo, io_, ro, ul, il = stream_ingest(path, quarantine=True)
+    quarantined = int(obs.counter_value("ingest.quarantined_rows") - q0)
+    ucsr = build_csr_buckets(uo, io_, ro, len(ul), min_width=4,
+                             chunk_elems=1 << 12)
+    icsr = build_csr_buckets(io_, uo, ro, len(il), min_width=4,
+                             chunk_elems=1 << 12)
+    with guardrails.scoped("recover"):
+        U, V = train(ucsr, icsr,
+                     AlsConfig(rank=fleet["rank"], max_iter=2,
+                               reg_param=0.1, seed=cfg.seed + w),
+                     device=fleet["device"])
+    # to the host: waits for the fit's kernels before the publish
+    U, V = U.cpu().numpy(), V.cpu().numpy()
+    Ufull, Vfull = np.array(t["U0"]), np.array(t["V0"])
+    umap = {int(x): j for j, x in
+            enumerate(t["user_ids"].astype(np.int64))}
+    imap = {int(x): j for j, x in
+            enumerate(t["item_ids"].astype(np.int64))}
+    for local, raw in enumerate(ul.astype(np.int64)):
+        j = umap.get(int(raw))
+        if j is not None:
+            Ufull[j] = U[local]
+    for local, raw in enumerate(il.astype(np.int64)):
+        j = imap.get(int(raw))
+        if j is not None:
+            Vfull[j] = V[local]
+    fleet["eng"].publish(name, Ufull, Vfull)
+    return dict(published=True, quarantined=quarantined,
+                rows=int(len(ro)))
+
+
+# ---------------------------------------------------------------------------
+# chaos action handlers — each returns recovery evidence (and `fired`
+# when the injection has no parent-process fault spec to count hits on)
+
+
+def _act_torn_publish(cfg, fleet, cw, w, workdir):
+    t = fleet["tenants"][cw.victim]
+    eng = fleet["eng"]
+    eng.publish(cw.victim, t["U0"], t["V0"])   # armed: tags int8 stale
+    eng.publish(cw.victim, t["U0"], t["V0"])   # the clean republish
+    scores, _ = eng.recommend(cw.victim, 0, timeout=10.0)
+    finite = bool(np.isfinite(np.asarray(scores)).all())
+    return dict(recovered=finite)
+
+
+def _act_poisoned_refit(cfg, fleet, cw, w, workdir):
+    res = _refit(cfg, fleet, cw.victim, w, workdir)
+    return dict(recovered=bool(res["published"]
+                               and res["quarantined"] > 0), **res)
+
+
+def _act_solver_rollback(cfg, fleet, cw, w, workdir):
+    from tpu_als_torch import obs
+    from tpu_als_torch.core.als import AlsConfig, train
+    from tpu_als_torch.core.ratings import build_csr_buckets
+    from tpu_als_torch.resilience import guardrails
+
+    t = fleet["tenants"][cw.victim]
+    nu, ni = t["U0"].shape[0], t["V0"].shape[0]
+    rng = np.random.default_rng([cfg.seed, w, 77])
+    u = rng.integers(0, nu, 600)
+    i = rng.integers(0, ni, 600)
+    r = rng.uniform(0.5, 5.0, 600).astype(np.float32)
+    ucsr = build_csr_buckets(u, i, r, nu, min_width=4,
+                             chunk_elems=1 << 12)
+    icsr = build_csr_buckets(i, u, r, ni, min_width=4,
+                             chunk_elems=1 << 12)
+    rb0 = obs.counter_value("train.rollbacks")
+    with guardrails.scoped("recover"):
+        U, V = train(ucsr, icsr,
+                     AlsConfig(rank=fleet["rank"], max_iter=4,
+                               reg_param=0.1, seed=cfg.seed),
+                     device=fleet["device"])
+    rolled = int(obs.counter_value("train.rollbacks") - rb0)
+    U, V = U.cpu().numpy(), V.cpu().numpy()
+    finite = bool(np.isfinite(U).all() and np.isfinite(V).all())
+    fleet["eng"].publish(cw.victim, U, V)
+    return dict(recovered=bool(rolled > 0 and finite),
+                rollbacks=rolled)
+
+
+def _act_tenant_churn(cfg, fleet, cw, w, workdir):
+    from tpu_als_torch.tenancy import TenantSpec
+
+    eng = fleet["eng"]
+    shape = next(iter(fleet["tenants"].values()))
+    rng = np.random.default_rng([cfg.seed, w, 55])
+    U = rng.normal(size=shape["U0"].shape).astype(np.float32)
+    V = rng.normal(size=shape["V0"].shape).astype(np.float32)
+    name = f"churn{w}"
+    eng.add_tenant(TenantSpec(name=name, k=cfg.k), U, V)
+    served = False
+    try:
+        eng.warmup(name)
+        _, idx = eng.recommend(name, 0, timeout=10.0)
+        served = len(np.asarray(idx)) > 0
+    finally:
+        eng.remove_tenant(name)
+    return dict(fired=True, recovered=served)
+
+
+def _act_preempt(cfg, fleet, cw, w, workdir):
+    from tpu_als_torch.resilience.preempt import EXIT_PREEMPTED
+
+    first, resume = fleet["children"][cw.name]
+    p1 = first.run()                 # preempted at iteration 2
+    p2 = resume.run()                # --resume auto, after p1 has exited
+    out = os.path.join(workdir, f"preempt_w{w}", "model")
+    return dict(fired=p1.returncode == EXIT_PREEMPTED,
+                recovered=bool(
+                    p2.returncode == 0
+                    and os.path.isfile(os.path.join(out,
+                                                    "manifest.json"))),
+                preempt_exit=p1.returncode, resume_exit=p2.returncode)
+
+
+def _act_device_loss(cfg, fleet, cw, w, workdir):
+    obsdir = os.path.join(workdir, f"device_loss_w{w}", "obs")
+    p = fleet["children"][cw.name][0].run()
+    by = {}
+    epath = os.path.join(obsdir, "events.jsonl")
+    if os.path.isfile(epath):
+        with open(epath) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    e = json.loads(line)
+                    by[e["type"]] = by.get(e["type"], 0) + 1
+    child = {k: by.get(k, 0) for k in
+             ("device_lost", "mesh_reformed", "elastic_resume")}
+    return dict(fired=child["device_lost"] >= 1,
+                recovered=bool(p.returncode == 0
+                               and child["mesh_reformed"] >= 1
+                               and child["elastic_resume"] >= 1),
+                exit=p.returncode, child_events=child)
+
+
+_HANDLERS = {
+    "torn_publish": _act_torn_publish,
+    "poisoned_refit": _act_poisoned_refit,
+    "solver_rollback": _act_solver_rollback,
+    "tenant_churn": _act_tenant_churn,
+    "preempt": _act_preempt,
+    "device_loss": _act_device_loss,
+}
+
+
+def _run_action(cfg, fleet, cw, w, workdir, outcomes):
+    try:
+        outcomes[cw.name] = _HANDLERS[cw.action](cfg, fleet, cw, w,
+                                                 workdir)
+    except Exception as e:   # noqa: BLE001 — a dead action is a failed
+        # recovery, judged by the verdict, never a crashed soak
+        outcomes[cw.name] = dict(
+            recovered=False, error=f"{type(e).__name__}: {e}")
+
+
+def _run_refit(cfg, fleet, name, w, workdir, outcomes):
+    """The PERIODIC refit (no chaos attached) — same pipeline as the
+    poisoned one, but its success is just published-or-not."""
+    try:
+        outcomes["periodic-refit"] = _refit(cfg, fleet, name, w,
+                                            workdir)
+    except Exception as e:   # noqa: BLE001 — reported, never fatal
+        outcomes["periodic-refit"] = dict(
+            published=False, error=f"{type(e).__name__}: {e}")
+
+
+# ---------------------------------------------------------------------------
+# the window loop
+
+
+def _refit_due(injections, w, refit_every):
+    if any(cw.action == "poisoned_refit" for cw in injections):
+        return False    # the chaos refit IS this window's refit
+    return bool(refit_every) and w > 0 \
+        and w % refit_every == refit_every - 1
+
+
+def _run_window(cfg, schedule, fleet, w, workdir, refit_every, pool):
+    from tpu_als_torch import obs
+    from tpu_als_torch.resilience import faults
+
+    injections = schedule.for_window(w)
+    stats = {name: {"offered": 0, "answered": 0, "shed": 0,
+                    "errors": 0, "lat": []}
+             for name in fleet["tenants"]}
+    lock = threading.Lock()
+    outcomes = {}
+    refit_name = cfg.tenants[0][0]
+    t0 = time.perf_counter()
+    irecs = []
+    with schedule.armed(w):
+        # hit baselines AFTER arming: push_spec installs fresh rules,
+        # and hits() reads the armed table (popped specs vanish)
+        points = sorted({p for cw in injections if cw.fault_spec
+                         for p in faults.parse_spec(cw.fault_spec)})
+        hits0 = {p: faults.hits(p)[1] for p in points}  # tal: disable=unregistered-name -- points come from parse_spec of construction-validated chaos specs
+        threads = []
+        for cw in injections:
+            if cw.action:
+                th = threading.Thread(
+                    target=_run_action,
+                    args=(cfg, fleet, cw, w, workdir, outcomes),
+                    name=f"soak-{cw.name}", daemon=True)
+                th.start()
+                threads.append(th)
+        if _refit_due(injections, w, refit_every):
+            th = threading.Thread(
+                target=_run_refit, args=(cfg, fleet, refit_name, w,
+                                         workdir, outcomes),
+                name="soak-refit", daemon=True)
+            th.start()
+            threads.append(th)
+        _replay(fleet, traffic_mod.generate_window(cfg, w), stats,
+                lock, pool)
+        deadline = time.perf_counter() + 300.0
+        for th in threads:
+            th.join(max(0.1, deadline - time.perf_counter()))
+        # injection verdicts, while the armed table still exists
+        for cw in injections:
+            out = dict(outcomes.get(cw.name, {}))
+            if cw.fault_spec:
+                pts = sorted(faults.parse_spec(cw.fault_spec))
+                fired = any(faults.hits(p)[1] > hits0[p] for p in pts)  # tal: disable=unregistered-name -- same parse_spec-validated points as the baseline above
+            else:
+                fired = bool(out.pop("fired", False))
+            out.pop("fired", None)
+            recovered = bool(out.pop("recovered", False)) \
+                if cw.action else fired
+            irecs.append({"window": w, "name": cw.name,
+                          "action": cw.action, "victim": cw.victim,
+                          "spec": cw.fault_spec, "fired": bool(fired),
+                          "recovered": bool(fired and recovered),
+                          "detail": out})
+    seconds = round(time.perf_counter() - t0, 3)
+
+    tstats = {}
+    totals = {"offered": 0, "answered": 0, "shed": 0, "errors": 0}
+    for name, s in stats.items():
+        q = p99(s["lat"])
+        tstats[name] = {"offered": s["offered"],
+                        "answered": s["answered"], "shed": s["shed"],
+                        "errors": s["errors"],
+                        "p99_ms": round(q, 3) if q is not None else None}
+        for k in totals:
+            totals[k] += s[k]
+    wrec = {"window": w, "seconds": seconds, "tenants": tstats,
+            **totals}
+    if "periodic-refit" in outcomes:
+        wrec["refit"] = outcomes["periodic-refit"]
+    obs.emit("soak_window", **wrec)
+    obs.counter("soak.windows")
+    obs.histogram("soak.window_seconds", seconds)
+    for rec in irecs:
+        obs.emit("soak_injection", **rec)
+        if rec["fired"]:
+            obs.counter("soak.injections")
+        if rec["recovered"]:
+            obs.counter("soak.recoveries")
+    return wrec, irecs
+
+
+def _drain(fleet, timeout_s=30.0):
+    """Wait for every tenant's live queue to empty, then one cadence
+    tick more, so queued events' ``live.visible`` spans land before the
+    verdict reads freshness."""
+    deadline = time.perf_counter() + timeout_s
+    for name in fleet["tenants"]:
+        try:
+            tn = fleet["eng"].tenant(name)
+        except Exception:   # noqa: BLE001
+            continue
+        if tn.updater is None:
+            continue
+        while tn.updater.queue_depth and time.perf_counter() < deadline:
+            time.sleep(0.02)
+    time.sleep(2.5 * fleet["max_wait_ms"] / 1e3)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+
+
+def run_soak(cfg=None, schedule=None, *, rank=8, fit_iters=2,
+             refit_every=3, subprocesses=True, judge_config=None,
+             workdir=None, device=None):
+    """The whole production week on ``device`` (None -> the card, raising
+    without CUDA).  Returns the verdict dict (see
+    :func:`tpu_als_torch.soak.verdict.judge`) plus ``window_records``,
+    ``injection_records``, ``config`` and ``wall_seconds``."""
+    from tpu_als_torch import obs
+    from tpu_als_torch.obs import tracing
+    from tpu_als_torch.utils.platform import resolve_device
+
+    device = resolve_device(device)
+
+    cfg = cfg if cfg is not None else traffic_mod.TrafficConfig()
+    if schedule is None:
+        schedule = chaos_mod.default_schedule(
+            cfg.windows, victim=cfg.tenants[0][0],
+            subprocesses=subprocesses)
+    jcfg = dict(JUDGE_DEFAULTS)
+    if judge_config:
+        jcfg.update({k: v for k, v in judge_config.items()
+                     if k in jcfg and v is not None})
+    reg = obs.default_registry()
+    own_wd = workdir is None
+    if own_wd:
+        workdir = tempfile.mkdtemp(prefix="tpu_als_soak_")
+    else:
+        os.makedirs(workdir, exist_ok=True)
+    was_traced = tracing.tracing_armed()
+    tracing.enable_tracing()   # freshness verdict reads live.visible
+    ev_start = len(reg._events)
+    t_soak = time.perf_counter()
+    obs.emit("soak_start", windows=cfg.windows, window_s=cfg.window_s,
+             tenants=[[n, wt] for n, wt in cfg.tenants], seed=cfg.seed,
+             scheduled_injections=len(schedule))
+    window_records, injection_records = [], []
+    # the CLI children import while the fleet is built
+    children = _start_children(cfg, schedule, workdir, device)
+    fleet = pool = None
+    try:
+        fleet = _build_fleet(cfg, rank=rank, fit_iters=fit_iters,
+                             judge_cfg=jcfg, device=device)
+        fleet["children"] = children
+        pool = ThreadPoolExecutor(max_workers=8,
+                                  thread_name_prefix="soak-serve")
+        for w in range(cfg.windows):
+            wrec, irecs = _run_window(cfg, schedule, fleet, w, workdir,
+                                      refit_every, pool)
+            window_records.append(wrec)
+            injection_records.extend(irecs)
+            if reg.active():
+                reg.finalize()   # drains the trail — and engages the
+                # size-bounded events.jsonl rotation on long soaks
+        _drain(fleet)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False)
+        if fleet is not None:
+            try:
+                fleet["eng"].stop()
+            except Exception:   # noqa: BLE001 — verdict still owed
+                pass
+        for child in (c for cs in children.values() for c in cs):
+            child.close()
+        if not was_traced:
+            tracing.disable_tracing()
+        if own_wd:
+            shutil.rmtree(workdir, ignore_errors=True)
+    events = [dict(e) for e in reg._events[ev_start:]]
+    result = judge(events, jcfg)
+    obs.emit("soak_verdict", passed=result["passed"],
+             survived_minutes=result["survived_minutes"],
+             checks=result["checks"])
+    result["events"] = events
+    result["window_records"] = window_records
+    result["injection_records"] = injection_records
+    result["config"] = cfg.to_dict()
+    result["judge_config"] = jcfg
+    result["wall_seconds"] = round(time.perf_counter() - t_soak, 3)
+    return result
+
+
+def bank_result(result, path):
+    """Bank the soak verdict for ``observe regress --trend``: the
+    survived-minutes headline (unit 'minutes' is higher-is-better under
+    the gate's unit table) plus the SLO extras."""
+    rec = {
+        "metric": "soak_survived_minutes",
+        "value": result["survived_minutes"],
+        "unit": "minutes",
+        "passed": result["passed"],
+        "windows": result["windows"],
+        "worst_window_p99_ms": result["worst_window_p99_ms"],
+        "freshness_p99_ms": result["freshness_p99_ms"],
+        "fairness_ratio": result["fairness_ratio"],
+        "shed_rate": result["shed_rate"],
+        "injections": result["injections"],
+        "recoveries": result["recoveries"],
+        "config": result["config"],
+        "banked_by": "tpu_als_torch soak",
+        "banked_at": datetime.now(timezone.utc).isoformat(
+            timespec="seconds"),
+    }
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=2, sort_keys=False)
+        f.write("\n")
+    return rec

@@ -271,7 +271,7 @@ Phases (any failure exits non-zero before the final line):
    never reaches a later phase), except (b), which shares (a)'s;
 13. two processes on the one card (budget 90 s): each holds 2 logical
    shards of a 4-position mesh on ``cuda:0`` and an interleaved half of
-   phase 5's ML-25M triples, joined over gloo (``tcp://localhost``),
+   phase 5's ML-25M triples, joined over gloo (a ``file://`` store),
    CUDA tensors staged through host memory; started gated (imports and
    loads beside the single-process reference's build, nothing timed
    beside them): (a) ``ALS(mesh=, dataMode='per_host',
@@ -302,6 +302,26 @@ Phases (any failure exits non-zero before the final line):
    required equal, each iteration's wall beside; and after phase 12,
    (d) ``floor_audit`` against the bank phase 12's ``plan tune``
    process wrote with ``--bank-out``;
+13c. K7 and K8 across two processes on the one card over CUDA IPC
+   (budget 60 s, in the CPU cross-validation's wait after 13b (c); its
+   two processes start gated beside 13b (a)-(b)): 2 logical shards each
+   (4 positions), rank 128, implicit, on phase 9's 1M-row prefix from
+   an injected init, so every K7 and K8 launch mixes local and mapped
+   pointers (``parallel/peer.py``): (a) ``train_multihost(...,
+   solve_backend='gather_fused_ring', strategy='ring')``, 2 iterations,
+   the gathered factors bitwise the single-process 4-shard K7 fit of
+   the same triples (run here first), each process's iteration walls
+   and K7 launches beside 13b (c)'s 'ring' and 'all_gather' walls, its
+   declared payload (``comm_audit.remote_dma_bytes``) equal to
+   ``comm_bytes_per_iter('gather_fused_ring')`` and printed beside
+   'ring''s; (b) ``topk_sharded(..., 'merge_ring')`` for 4,096 users,
+   k = 10 (K8's scan-to-sets and merge-from-sets), ids and scores
+   bitwise the single-process K8's over the same 4 shards, within
+   K5_TOL of its plain version; (c) every mapping closed and every
+   buffer freed, both processes exiting 0; then each process, in turn,
+   times K7 over mapped shards (the item half-step) and K8's two
+   halves beside their plain versions, for two rows of the kernels
+   line;
 14. the scenarios and the soak on the card (budget 100 s), nothing else
    at work beside them (they are judged against wall-clock SLOs): (a)
    ``python -m tpu_als_torch.cli soak --rank 128 --device cuda --obs-dir
@@ -1379,7 +1399,9 @@ def _launch_counts():
             "k4": cuda_gather_ne.SOLVE_LAUNCHES,
             "k6": cuda_lanes_blocked.LAUNCHES, "k5": cuda_topk.LAUNCHES,
             "k7": cuda_gather_ne.RING_LAUNCHES,
-            "k8": cuda_topk.MERGE_LAUNCHES}
+            "k8": cuda_topk.MERGE_LAUNCHES,
+            "k8_sets": cuda_topk.SETS_LAUNCHES,
+            "k8_merge_sets": cuda_topk.MERGE_SETS_LAUNCHES}
 
 
 def _zero_launches():
@@ -1387,6 +1409,7 @@ def _zero_launches():
     cuda_gather_ne.GRAM_LAUNCHES = cuda_gather_ne.SOLVE_LAUNCHES = 0
     cuda_lanes_blocked.LAUNCHES = cuda_topk.LAUNCHES = 0
     cuda_gather_ne.RING_LAUNCHES = cuda_topk.MERGE_LAUNCHES = 0
+    cuda_topk.SETS_LAUNCHES = cuda_topk.MERGE_SETS_LAUNCHES = 0
 
 
 def train_slice(data, r, seed, dev, max_iter=3):
@@ -4792,7 +4815,7 @@ MH_PROCS, MH_SHARDS = 2, 2      # processes, logical shards each: 4 positions
 MH_SERVE_USERS = 4096
 
 
-def mh_worker(work):
+def mh_worker(work, init_method):
     """One process of phase 13 (``chip_smoke.py --mh-worker WORK``, with
     torch's launcher variables set by the run): load this process's
     interleaved half of the ML-25M triples, say ``ready`` on stderr and
@@ -4814,7 +4837,7 @@ def mh_worker(work):
     print("ready", file=sys.stderr, flush=True)
     if sys.stdin.readline().strip() != "go":
         sys.exit(1)
-    multihost.init_distributed()
+    multihost.init_distributed(init_method=init_method)
     mesh = make_mesh(devices=["cuda:0"] * MH_SHARDS)
     iters = []
     make_step = trainer.make_process_step
@@ -4889,26 +4912,28 @@ def mh_reference(data, U0, V0, dev):
     return entity_rows(up, Us), entity_rows(ip, Vs)
 
 
-def start_mh_workers(work):
-    """Phase 13's processes, gated: each imports and loads its split,
-    then waits for ``go``.  Joined over gloo on ``tcp://localhost``."""
-    with contextlib.closing(__import__("socket").socket()) as so:
-        so.bind(("127.0.0.1", 0))
-        port = so.getsockname()[1]
+def start_mh_workers(work, mode="--mh-worker"):
+    """Phase 13's (or, ``mode='--ipc-worker'``, 13c's) processes, gated:
+    each imports and loads, then waits for ``go``.  Joined over gloo by
+    a ``file://`` rendezvous in ``work`` (no port to collide with another
+    group's)."""
+    from tpu_als_torch.parallel import multihost
+
+    init = multihost.file_init_method(work)
     procs = []
     for pid in range(MH_PROCS):
         env = {**proc_env(), "WORLD_SIZE": str(MH_PROCS), "RANK": str(pid),
-               "LOCAL_RANK": str(pid), "MASTER_ADDR": "127.0.0.1",
-               "MASTER_PORT": str(port), "PYTHONWARNINGS": "ignore"}
+               "LOCAL_RANK": str(pid), "PYTHONWARNINGS": "ignore"}
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mh-worker", work],
+            [sys.executable, os.path.abspath(__file__), mode, work,
+             "--init-method", init],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             stdin=subprocess.PIPE, text=True, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__))))
     return procs
 
 
-def finish_mh_workers(procs, timeout=120):
+def finish_mh_workers(procs, timeout=120, what="phase 13"):
     """Each process's JSON line; a failure or a hang in any of them kills
     every one and fails the run."""
     outs = []
@@ -4916,11 +4941,11 @@ def finish_mh_workers(procs, timeout=120):
         for p in procs:
             out, err = p.communicate(timeout=timeout)
             if p.returncode != 0:
-                fail(f"phase 13 process exited {p.returncode}: "
+                fail(f"{what} process exited {p.returncode}: "
                      f"{err[-2000:]}")
             outs.append(json.loads(out.strip().splitlines()[-1]))
     except subprocess.TimeoutExpired:
-        fail(f"phase 13: a process did not finish within {timeout} s")
+        fail(f"{what}: a process did not finish within {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5195,6 +5220,477 @@ def comm_audit_phase(started, smi):
     if secs > PHASE13B_BUDGET_S:
         fail(f"phase 13b (c) took {secs:.1f} s, over its "
              f"{PHASE13B_BUDGET_S} s")
+    return rows[0]
+
+
+# -- phase 13c: K7 and K8 across processes over CUDA IPC -------------------
+
+PHASE13C_BUDGET_S = 60.0
+IPC_ITERS = 2
+
+
+def ipc_worker(work, init_method):
+    """One process of phase 13c (``chip_smoke.py --ipc-worker WORK
+    --init-method INIT``, ``WORLD_SIZE``/``RANK`` set by the run): load
+    phase 9's 1M-row prefix and the injected init, load the kernels'
+    libraries, say ``ready`` on stderr and wait for ``go``; then, on 2
+    logical shards of ``cuda:0`` (positions 2·pid, 2·pid + 1 of 4), (a)
+    ``train_multihost(..., solve_backend='gather_fused_ring',
+    strategy='ring', replicated=True)`` for IPC_ITERS iterations (K7
+    reading the peer's shards through its mapped buffer), each iteration
+    timed around the step (device synced, the processes lined up by a
+    barrier first) with its K7 launches and ``multihost.COMM``, the
+    declared cross-shard payload read by ``comm_audit.remote_dma_bytes``;
+    (b) ``topk_sharded(U[:4096], V, 10, mesh, 'merge_ring')`` on the
+    fitted factors (K8's scan-to-sets and merge-from-sets, the sets in
+    mapped buffers), its declared payload; (c) the peer buffers left
+    open (``peer.OPEN``).  Process 0 saves the gathered factors; each
+    process its top-k rows.  The last stdout line: this process's
+    JSON."""
+    from tpu_als_torch.parallel import multihost, peer, trainer
+
+    pin_fp32()
+    pid = int(os.environ["RANK"])
+    d = np.load(os.path.join(work, "prefix.npz"))
+    for name in ("gather_solve_ring", "topk_sets", "topk_merge_sets",
+                 "peer_alloc", "peer_export", "peer_open", "peer_close",
+                 "peer_free", "peer_handle_bytes"):
+        _build.load(name)
+    print("ready", file=sys.stderr, flush=True)
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(1)
+    multihost.init_distributed(init_method=init_method)
+    mesh = make_mesh(devices=["cuda:0"] * MH_SHARDS)
+    cfg = core_als.AlsConfig(rank=RANK, max_iter=IPC_ITERS,
+                             implicit_prefs=True, alpha=ALPHA, reg_param=REG,
+                             solve_backend="gather_fused_ring")
+    iters = []
+    make_step = trainer.make_process_step
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(U, V):
+            torch.cuda.synchronize()
+            multihost.barrier()  # both processes start the step together
+            c0, k0 = dict(multihost.COMM), cuda_gather_ne.RING_LAUNCHES
+            t0 = time.perf_counter()
+            U, V = step(U, V)
+            torch.cuda.synchronize()
+            iters.append({"wall_s": time.perf_counter() - t0,
+                          "k7": cuda_gather_ne.RING_LAUNCHES - k0,
+                          **{k: multihost.COMM[k] - c0[k] for k in c0}})
+            return U, V
+
+        run.close = step.close  # the mapped buffers, released at the end
+        return run
+
+    trainer.make_process_step = timed_step
+    _zero_launches()
+    fit = {}
+
+    def fused_fit():
+        fit["out"] = multihost.train_multihost(
+            d["u"], d["i"], d["r"], int(d["nu"]), int(d["ni"]), cfg,
+            mesh=mesh, replicated=True, strategy="ring",
+            init=(d["U0"], d["V0"]))
+
+    t0 = time.perf_counter()
+    fit_declared, _ = comm_audit.remote_dma_bytes(fused_fit)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    Us, Vs, up, ip = fit["out"]
+    U = multihost.gather_entity_factors(Us, up, mesh)
+    V = multihost.gather_entity_factors(Vs, ip, mesh)
+    if pid == 0:
+        np.save(os.path.join(work, "U.npy"), U.cpu().numpy())
+        np.save(os.path.join(work, "V.npy"), V.cpu().numpy())
+    open_after_fit = dict(peer.OPEN)
+    got = {}
+
+    def merge_serve():
+        got["out"] = serve.topk_sharded(U[:MH_SERVE_USERS].contiguous(), V,
+                                        10, mesh, strategy="merge_ring")
+
+    torch.cuda.synchronize()
+    multihost.barrier()
+    t0 = time.perf_counter()
+    serve_declared, _ = comm_audit.remote_dma_bytes(
+        merge_serve, fires=lambda g: g[0] * (g[1] - 1))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    sc, ix, off = got["out"]
+    np.save(os.path.join(work, f"serve_s{pid}.npy"), sc.cpu().numpy())
+    np.save(os.path.join(work, f"serve_i{pid}.npy"), ix.cpu().numpy())
+    launches = {"k7": cuda_gather_ne.RING_LAUNCHES,
+                "sets": cuda_topk.SETS_LAUNCHES,
+                "merge_sets": cuda_topk.MERGE_SETS_LAUNCHES}
+    times = ipc_kernel_times(d, mesh, cfg, Us, up, ip,
+                             U[:MH_SERVE_USERS].contiguous(), V)
+    print(json.dumps({
+        "pid": pid, "positions": list(mesh.positions), "iters": iters,
+        "fit_s": fit_s, "k7": launches["k7"],
+        "fit_declared": fit_declared, "open_after_fit": open_after_fit,
+        "serve_s": serve_s, "sets": launches["sets"],
+        "merge_sets": launches["merge_sets"],
+        "k8_one_launch": cuda_topk.MERGE_LAUNCHES,
+        "serve_declared": serve_declared, "serve_offset": off,
+        "serve_rows": int(sc.shape[0]), "times": times,
+        "open": dict(peer.OPEN)}))
+
+
+def ipc_kernel_times(d, mesh, cfg, Us, up, ip, Q, V):
+    """Phase 13c's kernel timings, in each worker, at 13c's shapes: K7's
+    mapped entry over this process's owners of the item half-step's ring
+    grid (rolled to its first position) from the fitted U, the peer's
+    shards mapped; K8's scan-to-sets of ``Q`` against this process's
+    catalog shards and its merge-from-sets of this process's rows over
+    both processes' sets (mapped).  The processes take turns (a barrier
+    between), so each times its own launches on an otherwise idle card;
+    each beside its plain version on the same inputs (K7: the gathered
+    shards, chunked as :func:`ring_timings` chunks it; K8: the gathered
+    sets), with the work its bound counts."""
+    from tpu_als_torch.parallel import comm, multihost, peer, trainer
+
+    dev, r = Us.device, RANK
+    P, pid = multihost.process_count(), multihost.process_index()
+    S, L, first = mesh.global_size, mesh.size, mesh.positions[0]
+    split = core_als.SPLIT_WIDTH
+    ig = shard_csr_grid(ip, up, d["i"], d["u"], d["r"],
+                        positions=mesh.positions)
+    ib = comm.roll_sources(ig.to(dev), first)
+    src = comm.ProcessSources(mesh, up.rows_per_shard, r, torch.float32)
+    mapped = src.publish(Us)
+    gathered = torch.roll(multihost.all_gather(Us.reshape(L, -1, r)),
+                          -first, 0)
+    YtY = trainer._yty(mesh, Us)
+    pre = []
+    for b in ib:
+        conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
+        pre.append((b, conf, (1.0 + conf) * pref * b.mask, pref * b.mask))
+
+    def k7():
+        return [cuda_gather_ne.gather_solve_ring(
+            mapped, b.cols, aw, bw, cw, YtY, two_sided=False, reg=REG,
+            split_width=split) for b, aw, bw, cw in pre]
+
+    def k7_plain():
+        xs = []
+        for b, aw, bw, cw in pre:
+            step = max(1, (1 << 28) // (S * min(b.width, split) * r))
+            xs.append(torch.cat([cuda_gather_ne.gather_solve_ring_plain(
+                gathered, b.cols[:, :, sl], aw[:, :, sl], bw[:, :, sl],
+                cw[:, :, sl], YtY, two_sided=False, reg=REG,
+                split_width=split)
+                for sl in (slice(s0, s0 + step)
+                           for s0 in range(0, b.cols.shape[2], step))],
+                dim=1))
+        return xs
+
+    # K8's halves: this process's catalog shards and a sets buffer the
+    # peer maps, written once before the turns
+    n, k = Q.shape[0], 10
+    ni_loc = -(-V.shape[0] // S)
+    Vp = torch.zeros(S * ni_loc, r, device=dev)
+    Vp[:V.shape[0]] = V
+    vp = torch.zeros(S * ni_loc, dtype=torch.bool, device=dev)
+    vp[:V.shape[0]] = True
+    blk = slice(first * ni_loc, (first + L) * ni_loc)
+    Vl, vl = Vp[blk].reshape(L, ni_loc, r), vp[blk].reshape(L, ni_loc)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = cuda_topk.topk_parts(n, ni_loc, S, sms)
+    shape = (-(-n // cuda_topk.TILE_U), L * parts, cuda_topk.TILE_U, k)
+    n_el = int(np.prod(shape))
+    buf = peer.PeerBuffer(n_el * 12, dev)
+    cs = buf.local(shape, torch.float32)
+    ci = buf.local(shape, torch.int64, offset=n_el * 4)
+
+    def sets():
+        cuda_topk.topk_sets(Q, Vl, vl, k, parts=parts, first=first,
+                            coll_s=cs, coll_i=ci, n_shards=S)
+
+    sets()
+    peer.publish()
+    mapped_sets = cuda_topk.MappedSets(
+        torch.tensor(buf.ptrs, dtype=torch.int64, device=dev),
+        torch.tensor([q + n_el * 4 for q in buf.ptrs], dtype=torch.int64,
+                     device=dev), L * parts)
+    lo, hi = serve._process_rows(n, mesh)
+    ps = torch.empty(shape, device=dev)
+    pi = torch.empty(shape, dtype=torch.int64, device=dev)
+
+    def sets_plain():
+        cuda_topk.topk_sets_plain(Q, Vl, vl, k, parts, first, ps, pi)
+
+    sets_plain()
+
+    def every(t):
+        g = multihost.all_gather(t).reshape(P, *t.shape)
+        return g.permute(1, 0, 2, 3, 4).reshape(shape[0], P * L * parts,
+                                                shape[2], k)
+
+    every_s, every_i = every(ps), every(pi)
+    out = {}
+    for turn in range(P):
+        torch.cuda.synchronize()
+        multihost.barrier()
+        if turn != pid:
+            continue
+        xp, p7 = timed(k7_plain)
+        xk = k7()
+        torch.cuda.synchronize()
+        out["k7_err"] = max((x - y).abs().max().item()
+                            for x, y in zip(xk, xp))
+        out["k7_close"] = all(bool(torch.isfinite(x).all()) and bool(
+            torch.allclose(x, y, rtol=K4_RTOL, atol=K4_ATOL))
+            for x, y in zip(xk, xp))
+        del xk, xp
+        out["k7_ms"], out["k7_plain_ms"] = cuda_ms(k7, 3), p7
+        out["k7_work"] = gram_work(ib, ip.rows_per_shard)
+        _, p_sets = timed(sets_plain)
+        (ms_, _), p_merge = timed(lambda: cuda_topk.topk_merge_sets_plain(
+            every_s, every_i, k, lo, hi - lo))
+        ks, ki = cuda_topk.topk_merge_sets(mapped_sets, k, lo, hi - lo)
+        out["k8_err"] = (ks - ms_).abs().max().item()
+        out["sets_ms"] = cuda_ms(sets, 3)
+        out["merge_ms"] = cuda_ms(lambda: cuda_topk.topk_merge_sets(
+            mapped_sets, k, lo, hi - lo), 3)
+        out["k8_plain_ms"] = p_sets + p_merge
+    torch.cuda.synchronize()
+    multihost.barrier()
+    buf.close()
+    src.close()
+    out.update(n=n, ni=S * ni_loc, k=k, parts=parts)
+    return out
+
+
+def start_ipc_phase(frame):
+    """Phase 13c's processes, gated, started beside 13b's (a)-(b): the
+    prefix of :func:`start_comm_audit` and an injected init written to
+    a work directory, then the two processes import, load and wait.
+    Returns ``(work, procs, (u, i, r, nu, ni, U0, V0))``."""
+    u_ids, u = np.unique(np.asarray(frame["user"])[:CSV_TWIN_ROWS],
+                         return_inverse=True)
+    i_ids, i = np.unique(np.asarray(frame["item"])[:CSV_TWIN_ROWS],
+                         return_inverse=True)
+    r = np.asarray(frame["rating"], np.float32)[:CSV_TWIN_ROWS]
+    g = torch.Generator().manual_seed(13)
+    U0 = core_als.init_factors(len(u_ids), RANK, g).numpy()
+    V0 = core_als.init_factors(len(i_ids), RANK, g).numpy()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ipc_")
+    np.savez(os.path.join(work, "prefix.npz"), u=u, i=i, r=r,
+             nu=len(u_ids), ni=len(i_ids), U0=U0, V0=V0)
+    procs = start_mh_workers(work, mode="--ipc-worker")
+    return work, procs, (u, i, r, len(u_ids), len(i_ids), U0, V0)
+
+
+def ipc_phase(started, audit_rows, dev, smi):
+    """Phase 13c, in the CPU cross-validation's wait after 13b (c)
+    (budget PHASE13C_BUDGET_S from here): K7 and K8 across two processes
+    on the one card, 2 logical shards each (4 positions), the peers'
+    shards and candidate sets reached through CUDA IPC mappings
+    (``parallel/peer.py``), so every K7 and K8 launch mixes local and
+    mapped pointers.  First the single-process 4-shard K7 fit of the
+    same triples in the same order from the same init, here on the card;
+    then the gated processes (:func:`ipc_worker`) run: (a) the
+    two-process fused-ring fit, its gathered factors bitwise the
+    single-process fit's, each process's iteration walls and K7 launches
+    beside 13b (c)'s 'ring' and 'all_gather' walls, its declared payload
+    beside ``comm_bytes_per_iter('ring' | 'gather_fused_ring')``; (b)
+    ``'merge_ring'`` for 4,096 users, k = 10, ids and scores bitwise the
+    single-process K8's over the same 4 shards (and within K5_TOL of
+    its plain version), both entries launched in both processes; (c)
+    every mapping closed and every buffer freed, both processes exiting
+    0."""
+    work, procs, (u, i, r, nu, ni, U0, V0) = started
+    t_phase = time.perf_counter()
+    try:
+        S = MH_PROCS * MH_SHARDS
+        cfg = core_als.AlsConfig(rank=RANK, max_iter=IPC_ITERS,
+                                 implicit_prefs=True, alpha=ALPHA,
+                                 reg_param=REG,
+                                 solve_backend="gather_fused_ring")
+        up = partition_balanced(np.bincount(u, minlength=nu), S)
+        ip = partition_balanced(np.bincount(i, minlength=ni), S)
+        ug = shard_csr_grid(up, ip, u, i, r)
+        ig = shard_csr_grid(ip, up, i, u, r)
+        rc = (stacked_counts(up, u, r, positive_only=True),
+              stacked_counts(ip, i, r, positive_only=True))
+        t0 = time.perf_counter()
+        k7_0 = cuda_gather_ne.RING_LAUNCHES
+        Us, Vs = train_sharded(make_mesh(devices=[dev] * S), up, ip, ug, ig,
+                               cfg, strategy="ring", ring_counts=rc,
+                               init=(U0, V0))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        if cuda_gather_ne.RING_LAUNCHES == k7_0:
+            fail("phase 13c: the single-process K7 fit launched no K7")
+        Ur, Vr = entity_rows(up, Us), entity_rows(ip, Vs)
+        for p in procs:
+            probe_ready(p, "phase 13c process")
+        t_run = time.perf_counter()
+        for p in procs:
+            release_probe(p)
+        outs = finish_mh_workers(procs, what="phase 13c")
+        run_s = time.perf_counter() - t_run
+        walls = {x["strategy"]: x["seconds"] for x in audit_rows
+                 if x.get("seconds") is not None}
+        ring_model = comm_bytes_per_iter("ring", up, ip, RANK,
+                                         user_container=ug,
+                                         item_container=ig, implicit=True)
+        fused_model = comm_bytes_per_iter(
+            "gather_fused_ring", up, ip, RANK, user_container=ug,
+            item_container=ig, implicit=False)
+        for o in outs:
+            it = o["iters"]
+            it_ms = ", ".join("%.1f" % (x["wall_s"] * 1e3) for x in it)
+            it_k7 = ", ".join(str(x["k7"]) for x in it)
+            it_staged = ", ".join(str(x["staged_bytes"]) for x in it)
+            log(f"phase 13c process {o['pid']} (positions "
+                f"{o['positions']}): fused-ring iteration walls {it_ms} ms, "
+                f"K7 launches {it_k7} ({o['k7']} in the fit), staged "
+                f"through host {it_staged} B (YᵀY only), fit "
+                f"{o['fit_s']:.2f} s; beside 13b (c) on this "
+                f"prefix (one shard a process): 'ring' "
+                f"{walls.get('ring', float('nan')) * 1e3:.1f} ms, "
+                f"'all_gather' {walls.get('all_gather', float('nan')) * 1e3:.1f}"
+                f" ms an iteration; declared K7 payload {o['fit_declared']} "
+                f"B for {IPC_ITERS} iterations (comm_bytes_per_iter "
+                f"'gather_fused_ring' {fused_model} B, 'ring' {ring_model} B "
+                f"an iteration) on {smi}")
+            if len(it) != IPC_ITERS or min(x["k7"] for x in it) == 0:
+                fail(f"phase 13c process {o['pid']}: K7 did not launch in "
+                     f"every iteration: {it}")
+            if o["fit_declared"] != IPC_ITERS * fused_model:
+                fail(f"phase 13c: declared K7 payload {o['fit_declared']} "
+                     f"!= {IPC_ITERS} x {fused_model}")
+        # (a) the gathered factors against the single-process fit
+        U = torch.from_numpy(np.load(os.path.join(work, "U.npy"))).to(dev)
+        V = torch.from_numpy(np.load(os.path.join(work, "V.npy"))).to(dev)
+        eu, ev = row_rel(U, Ur), row_rel(V, Vr)
+        bitwise = bool(torch.equal(U, Ur) and torch.equal(V, Vr))
+        log(f"phase 13c (a): two-process fused ring (K7 over mapped peer "
+            f"shards) vs the single-process 4-shard K7 fit ({ref_s:.1f} s "
+            f"here), {IPC_ITERS} iterations at rank {RANK}, {nu} x {ni} x "
+            f"{len(u)}: bitwise {bitwise}, max per-row |diff|/|x| users "
+            f"{eu:.3e}, items {ev:.3e}")
+        if not bitwise:
+            fail("phase 13c (a): the two-process fused-ring fit is not the "
+                 "single-process K7 fit bit for bit")
+        # (b) the processes' top-k rows against the single-process K8
+        s = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(work, f"serve_s{p}.npy"))
+             for p in range(MH_PROCS)])).to(dev)
+        ix = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(work, f"serve_i{p}.npy"))
+             for p in range(MH_PROCS)])).to(dev)
+        Q = U[:MH_SERVE_USERS].contiguous()
+        ni_loc = -(-V.shape[0] // S)
+        Vp = torch.zeros(S * ni_loc, RANK, device=dev)
+        Vp[:V.shape[0]] = V
+        vp = torch.zeros(S * ni_loc, dtype=torch.bool, device=dev)
+        vp[:V.shape[0]] = True
+        Vs4, vs4 = Vp.reshape(S, ni_loc, RANK), vp.reshape(S, ni_loc)
+        s1, i1 = cuda_topk.topk_merge_ring(Q, Vs4, vs4, 10)
+        sp, _ = cuda_topk.topk_merge_ring_plain(Q, Vs4, vs4, 10)
+        same = bool(torch.equal(s, s1) and torch.equal(ix, i1))
+        e_plain = (s - sp).abs().max().item()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for o in outs:
+            log(f"phase 13c (b) process {o['pid']}: merge_ring serve "
+                f"{o['serve_s'] * 1e3:.1f} ms, rows {o['serve_offset']}.."
+                f"{o['serve_offset'] + o['serve_rows']}, scan-to-sets "
+                f"launches {o['sets']}, merge-from-sets {o['merge_sets']}, "
+                f"one-process K8 {o['k8_one_launch']}; declared payload "
+                f"{o['serve_declared']} B (the candidate sets; the catalog "
+                "never moves)")
+            if min(o["sets"], o["merge_sets"]) == 0:
+                fail(f"phase 13c process {o['pid']}: an entry of K8 across "
+                     "processes never launched")
+        log(f"phase 13c (b): {s.shape[0]} users' top-10 across the "
+            f"processes vs the single-process K8 over the same {S} shards "
+            f"(parts {cuda_topk.topk_parts(MH_SERVE_USERS, ni_loc, S, sms)}"
+            f"): bitwise {same}; max |scores - plain| {e_plain:.3e} (tol "
+            f"{K5_TOL})")
+        if s.shape[0] != MH_SERVE_USERS or not same or e_plain > K5_TOL:
+            fail("phase 13c (b): the two-process merge_ring is not the "
+                 "single-process K8's")
+        rows = ipc_kernel_rows(outs, smi)
+        # (c) the teardown
+        opened = [o["open"] for o in outs]
+        log(f"phase 13c (c): peer buffers open at the end {opened} (after "
+            f"the fit {[o['open_after_fit'] for o in outs]}); both "
+            "processes exited 0")
+        if any(x != {"mapped": 0, "exported": 0} for x in opened
+               + [o["open_after_fit"] for o in outs]):
+            fail("phase 13c (c): a peer buffer was left open")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 13c (K7 and K8 across two processes on one card over CUDA "
+        f"IPC): {secs:.1f} s ({run_s:.1f} s after release) on {smi}")
+    if secs > PHASE13C_BUDGET_S:
+        fail(f"phase 13c took {secs:.1f} s, over its {PHASE13C_BUDGET_S} s")
+    return rows
+
+
+def ipc_kernel_rows(outs, smi):
+    """The ``kernels`` rows of K7's and K8's cross-process entries from
+    the workers' timings (:func:`ipc_kernel_times`): the card runs both
+    processes' launches, so each row's times are the two processes'
+    summed, its bound that of the whole work (every owner of the item
+    half-step; every query row against the whole catalog), and its
+    launches those of 13c's fit (K7) and serve (K8's two entries)."""
+    t = [o["times"] for o in outs]
+    for o, x in zip(outs, t):
+        log(f"phase 13c timing process {o['pid']}: K7 mapped "
+            f"{x['k7_ms']:.4f} ms (plain {x['k7_plain_ms']:.4f} ms, max "
+            f"|diff| {x['k7_err']:.3e}); K8 scan-to-sets {x['sets_ms']:.4f}"
+            f" ms, merge-from-sets {x['merge_ms']:.4f} ms (plain "
+            f"{x['k8_plain_ms']:.4f} ms, max |diff| {x['k8_err']:.3e}) on "
+            f"{smi}")
+        if not x["k7_close"]:
+            fail(f"phase 13c: K7 over mapped shards vs its plain version "
+                 f"max |diff| {x['k7_err']:.3e} (rtol {K4_RTOL}, atol "
+                 f"{K4_ATOL})")
+        if x["k8_err"] > K5_TOL:
+            fail(f"phase 13c: K8's merge-from-sets vs its plain version max"
+                 f" |diff| {x['k8_err']:.3e} (tol {K5_TOL})")
+    P, E, n = (sum(x["k7_work"][j] for x in t) for j in range(3))
+    b7, by7 = fused_solve_bound(P, E, n, RANK)
+    (b8, by8), note8 = topk_bound(t[0]["n"], t[0]["ni"], RANK, t[0]["k"])
+    ms7 = sum(x["k7_ms"] for x in t)
+    ms8 = sum(x["sets_ms"] + x["merge_ms"] for x in t)
+    log(f"timing K7 across processes (mapped peer shards) r={RANK} item "
+        f"half-step, {n} real rows, {E} real of {P} padded entries: "
+        f"kernel_ms={ms7:.4f} plain_ms="
+        f"{sum(x['k7_plain_ms'] for x in t):.4f} bound_ms={b7:.4f} ({by7})")
+    log(f"timing K8 across processes (scan-to-sets + merge-from-sets) "
+        f"n={t[0]['n']} Ni={t[0]['ni']} parts {t[0]['parts']} k="
+        f"{t[0]['k']}: kernel_ms={ms8:.4f} plain_ms="
+        f"{sum(x['k8_plain_ms'] for x in t):.4f} bound_ms={b8:.4f} ({by8};"
+        f" {note8})")
+    return [
+        {"name": "gather_solve_ring across processes (K7, mapped peer "
+                 "shards)", "route": "cuda",
+         "source": "tpu_als_torch/csrc/gather_solve_ring.cu",
+         "replaces": "tpu_als/ops/pallas_gather_ne.py:708",
+         "launches": sum(o["k7"] for o in outs),
+         "max_abs_err": max(x["k7_err"] for x in t), "ms": ms7,
+         "plain_ms": sum(x["k7_plain_ms"] for x in t), "bound_ms": b7,
+         "bound_by": by7, "library_ms": None},
+        {"name": "topk_merge_ring across processes (K8, scan-to-sets + "
+                 "merge-from-sets)", "route": "cuda",
+         "source": "tpu_als_torch/csrc/topk_merge_ring.cu",
+         "replaces": "tpu_als/ops/pallas_topk.py:346",
+         "launches": sum(o["sets"] + o["merge_sets"] for o in outs),
+         "max_abs_err": max(x["k8_err"] for x in t), "ms": ms8,
+         "plain_ms": sum(x["k8_plain_ms"] for x in t), "bound_ms": b8,
+         "bound_by": by8, "library_ms": None}]
 
 
 def floor_audit_phase12(bank, dev):
@@ -6159,11 +6655,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mh-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ipc-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
     if args.mh_worker:
-        return mh_worker(args.mh_worker)
+        return mh_worker(args.mh_worker, args.init_method)
+    if args.ipc_worker:
+        return ipc_worker(args.ipc_worker, args.init_method)
     if not _native_build.have_compiler():
         fail("g++ is not on the PATH: the native bucketizer and CSV reader "
              "are built with it")
@@ -6223,10 +6723,12 @@ def main():
         f"{time.perf_counter() - t_checks:.1f} s")
     frame = ml25m_frame(args.seed)
     audit = start_comm_audit(frame, dev)
+    ipc = start_ipc_phase(frame)
     try:
         analysis_phase(dev, smi)
     finally:
-        comm_audit_phase(audit, smi)  # releases the gated processes
+        audit_rows = comm_audit_phase(audit, smi)  # releases its processes
+    ipc_rows = ipc_phase(ipc, audit_rows, dev, smi)
     # the numpy blocking in the CV's wait; the native one timed after it
     nb = block_numpy(frame)
     cpu_cv = finish_cpu_cv(pcv)
@@ -6279,6 +6781,7 @@ def main():
     kernels.append(merge_timings(tr["model"], launches8, dev))
     kernels.append(k6_timings([(A256, b256, b256.shape[0])],
                               launches256["k6"], errs["k6"], "fold-in"))
+    kernels += ipc_rows
     del A256, b256
     kernels.sort(key=lambda k: k["name"].split("(K")[1])
     bucket_times(tr)

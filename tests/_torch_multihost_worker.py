@@ -2,9 +2,10 @@
 joined over gloo on the CPU (``torch.distributed``), each holding 2
 logical CPU shards of a 4-position mesh.
 
-Run as ``python tests/_torch_multihost_worker.py OUT`` with torch's
-launcher variables (``WORLD_SIZE=2``, ``RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``) set by the parent.  Every case of the group runs here in
+Run as ``python tests/_torch_multihost_worker.py OUT INIT`` with torch's
+launcher variables ``WORLD_SIZE=2`` and ``RANK`` set by the parent and
+INIT a ``file://`` rendezvous in the parent's directory
+(``multihost.file_init_method``).  Every case of the group runs here in
 turn, in both processes, and process 0 writes what the parent compares:
 ``OUT/result.npz`` (factors, top-k rows) and ``OUT/result.json`` (the
 errors each expected failure raised, per process).  ``jax`` and
@@ -78,7 +79,7 @@ def expect_raise(errors, name, fn):
         errors[name] = None
 
 
-def main(out):
+def main(out, init_method):
     import torch
 
     from tpu_als_torch.api import fitting
@@ -86,7 +87,7 @@ def main(out):
     from tpu_als_torch.parallel.mesh import make_mesh
 
     torch.set_num_threads(1)
-    pid, pcount = multihost.init_distributed()
+    pid, pcount = multihost.init_distributed(init_method=init_method)
     assert pcount == 2, pcount
     mesh = make_mesh(devices=["cpu"] * 2)
     assert mesh.global_size == 4 and mesh.positions == (2 * pid, 2 * pid + 1)
@@ -113,6 +114,29 @@ def main(out):
                 U, up, mesh).numpy()
             res[f"{strategy}_{mode}_V"] = multihost.gather_entity_factors(
                 V, ip, mesh).numpy()
+
+    # the fused ring (K7's plain version on the CPU: the peers' shards
+    # gathered), both data modes; its declared cross-shard payload
+    from tpu_als_torch.parallel import comm_audit
+
+    for mode in ("replicated", "per_host"):
+        sel = slice(None) if mode == "replicated" else mine
+        fitted = {}
+
+        def fused_fit():
+            fitted["fit"] = multihost.train_multihost(
+                u[sel], i[sel], r[sel], NU, NI,
+                cfg(solve_backend="gather_fused_ring"), mesh=mesh,
+                min_width=4, replicated=mode == "replicated",
+                strategy="ring", init=(U0, V0))
+
+        declared, _ = comm_audit.remote_dma_bytes(fused_fit)
+        U, V, up, ip = fitted["fit"]
+        res[f"fused_ring_{mode}_U"] = multihost.gather_entity_factors(
+            U, up, mesh).numpy()
+        res[f"fused_ring_{mode}_V"] = multihost.gather_entity_factors(
+            V, ip, mesh).numpy()
+        res[f"fused_ring_{mode}_declared"] = np.int64(declared)
 
     # the estimator: per-host frames, the seeded init drawn alike
     fr = frame(u, i, r)
@@ -153,11 +177,33 @@ def main(out):
         res[f"serve_{strategy}_scores"] = got_s.reshape(-1, 5)
         res[f"serve_{strategy}_ids"] = got_i.reshape(-1, 5)
     res["serve_U"], res["serve_V"] = Uq, Vc
-    # above k = 128 both strategies keep their name (only 'merge_ring' is
-    # swapped, and it raises across processes)
+    # above k = 128 'all_gather' and 'ring' keep their name, 'merge_ring'
+    # runs 'ring' (as in one process)
     from tpu_als_torch import obs
 
     Vw = rng.normal(size=(150, 8)).astype(np.float32)
+    # K8 across processes (its plain halves: the sets gathered), at k = 5
+    # and above 128, with its declared payload
+    for k, Vm in ((5, Vc), (130, Vw)):
+        got = {}
+
+        def merge_serve():
+            got["out"] = serve.topk_sharded(Uq, Vm, k, mesh,
+                                            strategy="merge_ring")
+
+        n0 = obs.histogram_count("serve.request_seconds", strategy="ring")
+        declared, _ = comm_audit.remote_dma_bytes(
+            merge_serve, fires=lambda g: g[0] * (g[1] - 1))
+        s, ix, off = got["out"]
+        res[f"merge_ring_k{k}_rows"] = multihost.process_allgather(np.array(
+            [off, s.shape[0]], dtype=np.int64))
+        res[f"merge_ring_k{k}_scores"] = multihost._ragged_allgather(
+            s.numpy().ravel()).reshape(-1, k)
+        res[f"merge_ring_k{k}_ids"] = multihost._ragged_allgather(
+            ix.numpy().ravel()).reshape(-1, k)
+        res[f"merge_ring_k{k}_declared"] = np.int64(declared)
+        res[f"merge_ring_k{k}_as_ring"] = np.int64(obs.histogram_count(
+            "serve.request_seconds", strategy="ring") - n0)
     for strategy in ("all_gather", "ring"):
         n0 = obs.histogram_count("serve.request_seconds", strategy=strategy)
         s, ix, off = serve.topk_sharded(Uq, Vw, 130, mesh, strategy=strategy)
@@ -170,11 +216,6 @@ def main(out):
     res["serve_k130_V"] = Vw
 
     # what must raise, on every process and with no hang
-    expect_raise(errors, "merge_ring", lambda: serve.topk_sharded(
-        Uq, Vc, 5, mesh, strategy="merge_ring"))
-    expect_raise(errors, "fused_ring", lambda: multihost.train_multihost(
-        u, i, r, NU, NI, cfg(solve_backend="gather_fused_ring"), mesh=mesh,
-        min_width=4, replicated=True, strategy="ring", init=(U0, V0)))
     knobs = fitting.multiprocess_knobs
     if pid == 1:
         fitting.multiprocess_knobs = lambda *a: {"split_width": 1 << 11,
@@ -245,4 +286,4 @@ if __name__ == "__main__":
         __file__))))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        main(sys.argv[1])
+        main(sys.argv[1], sys.argv[2])

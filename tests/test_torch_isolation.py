@@ -10,7 +10,8 @@
 - The sharded path (K7, K8): CPU logical shards take the plain versions;
   any other tensor gets the kernel or an error, never a plain version; a
   mesh over two cards raises ``NotImplementedError`` naming what is
-  missing; 'all_gather_chunked', 'all_to_all' and ``elastic=True`` run
+  missing; ``parallel/peer.py`` (their transport across processes on
+  one card) imports without ``jax`` and ``tpu_als``; 'all_gather_chunked', 'all_to_all' and ``elastic=True`` run
   and agree with 'all_gather', and ``train_sharded('auto')`` raises the
   reference's ``ValueError``.
 - ``chip_smoke.py`` fails, printing no result, without a CUDA device and
@@ -406,6 +407,39 @@ def test_ring_kernel_wrappers_raise_rather_than_run_plain(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("topk_merge_ring")
     assert cuda_gather_ne.RING_LAUNCHES == before
+
+
+_DRIVE_PEER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["tpu_als"] = None
+import torch
+from tpu_als_torch import _build
+from tpu_als_torch.parallel import peer
+try:
+    peer.PeerBuffer(64, "cpu")
+    raise AssertionError("a peer buffer on the CPU")
+except ValueError as e:
+    assert "CUDA device" in str(e), e
+assert peer.OPEN == {"mapped": 0, "exported": 0}, peer.OPEN
+assert not _build._LIBS, _build._LIBS  # importing loads no library
+bad = [m for m, v in sys.modules.items() if v is not None
+       and (m == "jax" or m.startswith(("jax.", "tpu_als.")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_peer_transport_imports_without_jax_or_the_reference():
+    """``parallel/peer.py``, the CUDA IPC transport of K7 and K8 across
+    processes, imports with ``jax`` and ``tpu_als`` unimportable, loads
+    no kernel library when imported, and refuses a buffer off the
+    card."""
+    out = subprocess.run([sys.executable, "-c", _DRIVE_PEER], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 _DRIVE_USER_SURFACE = r"""

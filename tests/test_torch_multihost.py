@@ -19,8 +19,11 @@ In process, reference and port side by side:
 
 Spawned: two port processes over gloo on the CPU, 2 logical CPU shards
 each (``tests/_torch_multihost_worker.py``, run ONCE for every case
-below by a module-scoped fixture, and ``train --devices 0
---per-host-data`` once, both with ``jax`` and ``tpu_als`` blocked):
+below by a module-scoped fixture and joined by a ``file://`` store in
+its directory, and ``train --devices 0 --per-host-data`` twice through
+env:// against a store this process serves, all with ``jax`` and
+``tpu_als`` blocked; no port is picked and released, so no other group
+on the host can take the rendezvous):
 
 - ``train_multihost`` with 'all_gather', 'ring', 'all_to_all' (and
   'all_gather_chunked') on replicated and per-host data, from one
@@ -37,11 +40,19 @@ below by a module-scoped fixture, and ``train --devices 0
 - multi-process serve ('all_gather', 'ring') against
   ``chunked_topk_scores`` (scores within SERVE_TOL, every id earning
   its score);
+- K7 across processes (``solve_backend='gather_fused_ring'`` under
+  'ring', its plain version: the peers' shards gathered) on replicated
+  and per-host data, bitwise the port's one-process 4-shard fused-ring
+  fit and within MH_TOL of the reference's 4-device one (interpret
+  mode); K8 across processes (``'merge_ring'``: the candidate sets
+  gathered, each process's rows merged) at k = 5 and k = 130 ('ring'
+  above 128), bitwise the one-process plain K8 over the same shards;
+  the payloads both declare to ``comm_audit.remote_dma_bytes``;
 - the gate (a divergent kernel knob, a divergent strategy, 'auto'), NaN
   ratings, a duplicated split, disagreeing dims, replicated data that
-  differ, shard counts that differ, K7 and K8 across processes and the
-  recommend surfaces each raise on BOTH processes, and the group stays
-  usable; a degenerate all_to_all plan trains as 'all_gather';
+  differ, shard counts that differ and the recommend surfaces each
+  raise on BOTH processes, and the group stays usable; a degenerate
+  all_to_all plan trains as 'all_gather';
 - the CLI's per-host fit (``{proc}`` files, and one ``stream:`` file
   byte-split between the processes with its vocabularies and split
   claims agreed collectively) equals the one-process ``train --devices
@@ -53,7 +64,6 @@ below by a module-scoped fixture, and ``train --devices 0
 import importlib.util
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -77,9 +87,12 @@ from tpu_als_torch.api.estimator import ALS, ALSModel
 from tpu_als_torch.convert import entity_rows
 from tpu_als_torch.core.ratings import IdMap
 from tpu_als_torch.io.checkpoint import load_factors
+from tpu_als_torch.ops import cuda_topk
+from tpu_als_torch.ops.cuda_topk import topk_merge_ring_plain
 from tpu_als_torch.ops.topk import chunked_topk_scores
 from tpu_als_torch.parallel import a2a, comm, data, multihost, trainer
 from tpu_als_torch.parallel.mesh import make_mesh
+from tpu_als_torch.perf.roofline import serve_merge_remote_bytes
 from tpu_als_torch.resilience import faults
 from tpu_als_torch.resilience.retry import RetryPolicy
 
@@ -359,18 +372,27 @@ def test_multiprocess_knobs_read_the_bank_and_never_tune(monkeypatch):
 
 # -- spawned: two port processes over gloo ---------------------------------
 
-def _spawn(argv, env_extra=None, timeout=SPAWN_TIMEOUT_S):
-    """Two processes of ``argv`` joined by torch's launcher variables;
-    their outputs.  Both are killed on any failure or timeout."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+def _spawn(argv, env_extra=None, timeout=SPAWN_TIMEOUT_S, store=None):
+    """Two processes of ``argv`` with torch's launcher variables
+    ``WORLD_SIZE`` and ``RANK``; their outputs.  Both are killed on any
+    failure or timeout.
+
+    The rendezvous cannot collide with another group's on the host:
+    ``argv`` carries a ``file://`` init method in the test's own
+    directory (``multihost.file_init_method``), or, with ``store`` (a
+    ``torch.distributed.TCPStore`` this process serves, bound and held
+    on a port of its own), the children join through env:// as
+    ``torchrun`` starts them: ``MASTER_ADDR``/``MASTER_PORT`` name that
+    store and ``TORCHELASTIC_USE_AGENT_STORE`` makes every rank its
+    client."""
     procs = []
     for pid in range(2):
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env.update(WORLD_SIZE="2", RANK=str(pid), LOCAL_RANK=str(pid),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    OMP_NUM_THREADS="1", **(env_extra or {}))
+        if store is not None:
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                       TORCHELASTIC_USE_AGENT_STORE="True")
         procs.append(subprocess.Popen(
             argv, env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -388,10 +410,19 @@ def _spawn(argv, env_extra=None, timeout=SPAWN_TIMEOUT_S):
     return outs
 
 
+def _agent_store():
+    """A fresh rendezvous store served here, on a port bound by the
+    store itself and held until the group is done (torchrun's agent
+    store)."""
+    return torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                      wait_for_workers=False)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("mh"))
-    logs = _spawn([sys.executable, WORKER, out])
+    logs = _spawn([sys.executable, WORKER, out,
+                   multihost.file_init_method(out)])
     assert all("ok" in t for t in logs)
     with open(os.path.join(out, "result.json")) as f:
         meta = json.load(f)
@@ -405,11 +436,15 @@ _REF = {}
 
 def _reference_fit(strategy):
     """The reference's one-process 4-device mesh fit from the injected
-    init (entity space), once per strategy."""
+    init (entity space), once per strategy ('gather_fused_ring': the
+    ring with its fused kernel, in interpret mode)."""
     if strategy not in _REF:
         u, i, r = W.ratings()
         up, ip = _parts(jdata, u, i, W.NU, W.NI, 4)
         rc = None
+        backend = "auto"
+        if strategy == "gather_fused_ring":
+            strategy, backend = "ring", strategy
         if strategy == "ring":
             us = jcomm.shard_csr_grid(up, ip, u, i, r, min_width=4)
             is_ = jcomm.shard_csr_grid(ip, up, i, u, r, min_width=4)
@@ -424,9 +459,12 @@ def _reference_fit(strategy):
         U, V = jtrainer.train_sharded(
             j_make_mesh(4), up, ip, us, is_, JConfig(
                 rank=W.RANK, max_iter=2, reg_param=0.05,
-                implicit_prefs=True, alpha=3.0, seed=0),
+                implicit_prefs=True, alpha=3.0, seed=0,
+                solve_backend=backend),
             strategy=strategy, ring_counts=rc, init=W.init())
-        _REF[strategy] = (np.asarray(U)[up.slot], np.asarray(V)[ip.slot])
+        key = strategy if backend == "auto" else backend
+        _REF[key] = (np.asarray(U)[up.slot], np.asarray(V)[ip.slot])
+        strategy = key
     return _REF[strategy]
 
 
@@ -465,6 +503,102 @@ def test_two_process_all_gather_is_the_one_process_fit_bitwise(run, mode):
                                   entity_rows(up, Us).numpy())
     np.testing.assert_array_equal(run["res"][f"all_gather_{mode}_V"],
                                   entity_rows(ip, Vs).numpy())
+
+
+def _ring_grids(u, i, r, S=4):
+    up, ip = _parts(data, u, i, W.NU, W.NI, S)
+    return (up, ip, comm.shard_csr_grid(up, ip, u, i, r, min_width=4),
+            comm.shard_csr_grid(ip, up, i, u, r, min_width=4))
+
+
+@pytest.mark.parametrize("mode", ["replicated", "per_host"])
+def test_two_process_fused_ring_is_the_one_process_fit_bitwise(run, mode):
+    """K7 across processes (its plain version on the CPU, the peers'
+    shards gathered; each process's grid rolled to its first position)
+    gives the port's one-process 4-shard fused-ring fit bit for bit, on
+    the triples in the order the processes hold them."""
+    u, i, r = W.ratings() if mode == "replicated" else _exchanged_frame()
+    up, ip, ug, ig = _ring_grids(u, i, r)
+    rc = (trainer.stacked_counts(up, u, r, positive_only=True),
+          trainer.stacked_counts(ip, i, r, positive_only=True))
+    Us, Vs = trainer.train_sharded(
+        make_mesh(devices=["cpu"] * 4), up, ip, ug, ig,
+        W.cfg(solve_backend="gather_fused_ring"), strategy="ring",
+        ring_counts=rc, init=W.init())
+    np.testing.assert_array_equal(run["res"][f"fused_ring_{mode}_U"],
+                                  entity_rows(up, Us).numpy())
+    np.testing.assert_array_equal(run["res"][f"fused_ring_{mode}_V"],
+                                  entity_rows(ip, Vs).numpy())
+
+
+@pytest.mark.parametrize("mode", ["replicated", "per_host"])
+def test_two_process_fused_ring_matches_the_reference(run, mode):
+    """Against the reference's one-process 4-device ``gather_fused_ring``
+    fit (its Pallas kernel in interpret mode), from the same init."""
+    U, V = (run["res"][f"fused_ring_{mode}_{s}"] for s in "UV")
+    JU, JV = _reference_fit("gather_fused_ring")
+    assert np.isfinite(U).all() and np.isfinite(V).all()
+    np.testing.assert_allclose(U, JU, atol=MH_TOL, rtol=MH_TOL)
+    np.testing.assert_allclose(V, JV, atol=MH_TOL, rtol=MH_TOL)
+
+
+def test_two_process_fused_ring_declares_the_ring_payload(run):
+    """Each process's K7 calls declare, for ``comm_audit.
+    remote_dma_bytes``, the reference schedule's payload: the two
+    iterations' ``comm_bytes_per_iter('gather_fused_ring')`` without
+    the YᵀY reduction, which is a collective."""
+    u, i, r = W.ratings()
+    up, ip, ug, ig = _ring_grids(u, i, r)
+    model = trainer.comm_bytes_per_iter(
+        "gather_fused_ring", up, ip, W.RANK, user_container=ug,
+        item_container=ig, implicit=False)
+    assert model > 0
+    for mode in ("replicated", "per_host"):
+        assert run["res"][f"fused_ring_{mode}_declared"] == 2 * model
+
+
+@pytest.mark.parametrize("k", [5, 130])
+def test_two_process_merge_ring_serve(run, k):
+    """K8 across processes (its plain halves on the CPU: each process's
+    sets gathered, its rows merged): each process's rows are the
+    one-process plain K8's over the same 4 shards bit for bit, and every
+    id earns its score against the reference's scan.  Above k = 128 it
+    runs 'ring' and labels the latency so, as in one process."""
+    res = run["res"]
+    U = res["serve_U"]
+    V = res["serve_V"] if k == 5 else res["serve_k130_V"]
+    rows = res[f"merge_ring_k{k}_rows"]
+    assert rows[0].tolist() == [0, rows[0][1]]
+    assert rows[1][0] == rows[0][1] and rows[1].sum() == len(U)
+    s, ix = res[f"merge_ring_k{k}_scores"], res[f"merge_ring_k{k}_ids"]
+    S, r = 4, U.shape[1]
+    ni_loc = -(-len(V) // S)
+    Vp = np.zeros((S * ni_loc, r), np.float32)
+    Vp[:len(V)] = V
+    valid = np.arange(S * ni_loc) < len(V)
+    want_s, want_i = topk_merge_ring_plain(
+        torch.from_numpy(U), torch.from_numpy(Vp).reshape(S, ni_loc, r),
+        torch.from_numpy(valid).reshape(S, ni_loc), k, 1)
+    np.testing.assert_array_equal(s, want_s.numpy())
+    np.testing.assert_array_equal(ix, want_i.numpy())
+    js, _ = j_topk(U, V, np.ones(len(V), bool), k)
+    np.testing.assert_allclose(s, np.asarray(js), atol=SERVE_TOL, rtol=0)
+    earned = np.einsum("nr,nkr->nk", U, V[ix])
+    np.testing.assert_allclose(earned, s, atol=SERVE_TOL, rtol=0)
+    assert res[f"merge_ring_k{k}_as_ring"] == (k > 128)
+
+
+def test_two_process_merge_ring_declares_the_candidate_sets(run):
+    """K8's scan-to-sets declares the reference merge ring's payload, one
+    packed candidate set a hop per user tile
+    (``serve_merge_remote_bytes``); above k = 128 'ring' runs and no K8
+    declares anything."""
+    n = len(run["res"]["serve_U"])
+    tile_u = min(cuda_topk.RING_TILE_U, -(-n // 8) * 8)
+    want = serve_merge_remote_bytes(-(-n // tile_u), 4, tile_u)
+    assert want > 0
+    assert run["res"]["merge_ring_k5_declared"] == want
+    assert run["res"]["merge_ring_k130_declared"] == 0
 
 
 @pytest.mark.parametrize("strategy", ["all_gather", "ring", "all_to_all"])
@@ -536,8 +670,6 @@ def test_two_process_serve_above_k_128_keeps_the_strategy(run, strategy):
 
 
 @pytest.mark.parametrize("case,kind,match", [
-    ("merge_ring", "NotImplementedError", "Queue 2 item 1"),
-    ("fused_ring", "NotImplementedError", "Queue 2 item 1"),
     ("gate_knob", "ValueError", "processes disagree"),
     ("gate_strategy", "ValueError", "processes disagree"),
     ("gate_auto", "ValueError", "not supported in multi-process"),
@@ -602,7 +734,8 @@ def cli_run(tmp_path_factory):
             "assert not bad, bad; print('cli ok')")
     logs = _spawn([sys.executable, "-c", code, *args, "--data",
                    f"csv:{d}/part-{{proc}}.csv", "--per-host-data",
-                   "--devices", "0", "--output", str(d / "mp")])
+                   "--devices", "0", "--output", str(d / "mp")],
+                  store=_agent_store())
     # one shared string-id stream file, byte-split between the processes
     with open(d / "all.stream.csv", "w") as f:
         f.write("user_id,item_id,rating,timestamp\n")
@@ -610,7 +743,8 @@ def cli_run(tmp_path_factory):
             f.write(f"u{a},i{b},{c},0\n")
     logs += _spawn([sys.executable, "-c", code, *args, "--data",
                     f"stream:{d}/all.stream.csv", "--per-host-data",
-                    "--devices", "0", "--output", str(d / "mps")])
+                    "--devices", "0", "--output", str(d / "mps")],
+                   store=_agent_store())
     return d, args, logs
 
 

@@ -11,9 +11,10 @@ rebuilt and a stale library is never loaded.  Outputs go under
 ``tpu_als_torch/_build/`` (listed in ``.gitignore``).  Nothing is built
 or imported when this module is imported.
 
-Every C entry point takes raw device pointers and the CUDA stream as
-``void*`` and returns ``cudaGetLastError()`` after its launch; the
-wrappers raise when that is non-zero.  An entry point is named after its
+Every kernel's C entry point takes raw device pointers and the CUDA
+stream as ``void*`` and returns ``cudaGetLastError()`` after its launch;
+the host entries of ``csrc/peer_ipc.cu`` return their call's
+``cudaError_t``; the wrappers raise when that is non-zero.  An entry point is named after its
 source unless :data:`SIGNATURES` names the source beside it.
 """
 
@@ -74,6 +75,23 @@ SIGNATURES = {
     "topk_merge_ring": ("topk_merge_ring_f32", [_P, _P, _P, _P, _P, _P, _P,
                                                 _P, _LL, _LL, _I, _I, _I, _I,
                                                 _P]),
+    # K8 across processes: topk_sets_f32(U, V, valid, coll_s, coll_i, n,
+    # ni_loc, L, r, k, P, id0, stream) and topk_merge_sets_f32(bases_s,
+    # bases_i, nbase, spb, q0, nq, k, out_s, out_i, stream)
+    "topk_sets": ("topk_sets_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                    _I, _I, _LL, _P], "topk_merge_ring"),
+    "topk_merge_sets": ("topk_merge_sets_f32", [_P, _P, _I, _I, _LL, _LL,
+                                                _I, _P, _P, _P],
+                        "topk_merge_ring"),
+    # the buffers K7 and K8 share across processes (host code):
+    # peer_handle_bytes(), peer_alloc(bytes, &ptr), peer_free(ptr),
+    # peer_export(ptr, handle), peer_open(handle, &ptr), peer_close(ptr)
+    "peer_handle_bytes": ("peer_handle_bytes", [], "peer_ipc"),
+    "peer_alloc": ("peer_alloc", [_LL, _P], "peer_ipc"),
+    "peer_free": ("peer_free", [_P], "peer_ipc"),
+    "peer_export": ("peer_export", [_P, _P], "peer_ipc"),
+    "peer_open": ("peer_open", [_P, _P], "peer_ipc"),
+    "peer_close": ("peer_close", [_P], "peer_ipc"),
 }
 
 _LIBS = {}  # name -> loaded ctypes function

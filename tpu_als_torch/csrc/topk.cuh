@@ -54,6 +54,13 @@
 //   steps of each lane's best head (the lower set first on a tie) and a
 //   warp-wide argmax over (score, set), the lower set (so the lower ids)
 //   winning a tie.  One launch, no spin-waits.
+// - Across processes (K8 with its sets in buffers the processes map from
+//   each other, parallel/peer.py) the two halves run apart: scan-to-sets
+//   (launch_scan with sets_only) writes every set of this process's
+//   shards for every user tile to an exported buffer, ids offset by the
+//   first shard's mesh position; after a barrier, merge-from-sets
+//   (merge_kernel) merges the rows of this process's queries over every
+//   process's sets, in shard and part order, with the same merge.
 
 #pragma once
 
@@ -267,6 +274,54 @@ __device__ __forceinline__ void fold(float* ls, int* li, float* ts, int* ti,
   }
 }
 
+// One warp merges one row's `sets` sorted lists of k (score, id) into
+// out_s / out_i [k], in set order: lane j holds the heads of sets j, j +
+// 32, ... (a byte each at hd, k <= 128), k steps of each lane's best
+// head (the lower set first on a tie) and a warp-wide argmax over
+// (score, set), the lower set (so the lower ids) winning a tie.
+// score(s, h) / id(s, h): entry h of set s's list.
+template <typename Score, typename Id>
+__device__ __forceinline__ void merge_row(Score score, Id id, int sets,
+                                          int k, unsigned char* hd,
+                                          int lane, float* out_s,
+                                          long long* out_i) {
+  for (int s = lane; s < sets; s += 32) hd[s] = 0;
+  __syncwarp();
+  for (int j = 0; j < k; ++j) {
+    // the lane's best head, the lower set first on a tie; bl == sets:
+    // none left
+    float bs = __int_as_float(0xff800000u);
+    int bl = sets;
+    for (int s = lane; s < sets; s += 32) {
+      const int h = hd[s];
+      if (h < k) {
+        const float v = score(s, h);
+        if (v > bs) {
+          bs = v;
+          bl = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, bs, off);
+      const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
+      if (os > bs || (os == bs && ol < bl)) {
+        bs = os;
+        bl = ol;
+      }
+    }
+    if (lane == 0) {
+      const bool real = bs > kNegInf && bl < sets;
+      out_s[j] = real ? bs : kNegInf;
+      out_i[j] = real ? id(bl, hd[bl]) : 0;
+    }
+    __syncwarp();  // lane 0 has read the head before its owner moves it
+    if (bl < sets && lane == bl % 32) ++hd[bl];
+    __syncwarp();
+  }
+}
+
 // Grid (ceil(n / kTU), S·P); block kThreads; dynamic
 // shared memory `mem` bytes, at least layout(k, r, kResident).total and
 // room for the merge's heads.  With S·P == 1 the block writes its rows'
@@ -279,7 +334,7 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
             float* __restrict__ coll_s, long long* __restrict__ coll_i,
             unsigned* __restrict__ tickets, float* __restrict__ out_s,
             long long* __restrict__ out_i, long long n, long long ni_loc,
-            int P, int r, int k, int mem) {
+            int P, int r, int k, int mem, long long id0, bool sets_only) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool last;
   const Layout L = layout(k, r, kResident);
@@ -307,7 +362,7 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
   const long long lo = t_lo * kTI, hi = min(ni_loc, t_hi * kTI);
   const float* Vs = V + static_cast<size_t>(shard) * ni_loc * r;
   const unsigned char* vs = valid + static_cast<size_t>(shard) * ni_loc;
-  const long long base = static_cast<long long>(shard) * ni_loc + lo;
+  const long long base = id0 + static_cast<long long>(shard) * ni_loc + lo;
   const int r8 = rank8(r);
   const int nch = (r8 + kDK - 1) / kDK;
   const int nst = static_cast<int>(t_hi - t_lo) * nch;
@@ -506,7 +561,7 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
   __syncthreads();  // the last folds are everyone's
 
   // the kept lists, global ids; a slot no item reached is (NEG_INF, 0)
-  if (sets == 1) {
+  if (sets == 1 && !sets_only) {
     for (int t = tid; t < kTU * k; t += kThreads) {
       const long long u = u0 + t / k;
       if (u < n) {
@@ -525,6 +580,7 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
     cs[t] = s;
     ci[t] = s > kNegInf ? base + li[t] : 0;
   }
+  if (sets_only) return;  // merged by merge_kernel, across processes
   __threadfence();  // the set is visible device-wide before the ticket
   __syncthreads();
   if (tid == 0) last = atomicAdd(tickets + tile, 1u) == sets - 1u;
@@ -544,69 +600,76 @@ scan_kernel(const float* __restrict__ U, const float* __restrict__ V,
   for (int row = warp; row < kTU; row += W) {
     const long long u = u0 + row;
     if (u >= n) break;
-    for (int s = lane; s < sets; s += 32) hd[s] = 0;
-    __syncwarp();
-    for (int j = 0; j < k; ++j) {
-      // the lane's best head, the lower set first on a tie; bl == sets:
-      // none left
-      float bs = __int_as_float(0xff800000u);
-      int bl = sets;
-      for (int s = lane; s < sets; s += 32) {
-        const int h = hd[s];
-        if (h < k) {
-          const float v = __ldcg(t_s + static_cast<size_t>(s) * setsz +
-                                 static_cast<size_t>(row) * k + h);
-          if (v > bs) {
-            bs = v;
-            bl = s;
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float os = __shfl_xor_sync(0xffffffffu, bs, off);
-        const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
-        if (os > bs || (os == bs && ol < bl)) {
-          bs = os;
-          bl = ol;
-        }
-      }
-      if (lane == 0) {
-        const bool real = bs > kNegInf && bl < sets;
-        out_s[u * k + j] = real ? bs : kNegInf;
-        out_i[u * k + j] =
-            real ? __ldcg(t_i + static_cast<size_t>(bl) * setsz +
-                          static_cast<size_t>(row) * k + hd[bl])
-                 : 0;
-      }
-      __syncwarp();  // lane 0 has read the head before its owner moves it
-      if (bl < sets && lane == bl % 32) ++hd[bl];
-      __syncwarp();
-    }
+    const size_t at = static_cast<size_t>(row) * k;
+    merge_row(
+        [&](int s, int h) {
+          return __ldcg(t_s + static_cast<size_t>(s) * setsz + at + h);
+        },
+        [&](int s, int h) {
+          return __ldcg(t_i + static_cast<size_t>(s) * setsz + at + h);
+        },
+        sets, k, hd, lane, out_s + u * k, out_i + u * k);
   }
 }
 
-// Launch the scan over S shards of ni_loc items, each cut in P parts.
-// coll_s / coll_i: scratch of ceil(n / kTU)·S·P·kTU·k entries and
-// tickets: ceil(n / kTU) zeroed counters, when S·P > 1 (else unused).
-// S·P up to kMaxSetsY sets.
-inline int launch(const float* U, const float* V, const unsigned char* valid,
-                  float* coll_s, long long* coll_i, unsigned* tickets,
-                  float* out_s, long long* out_i, long long n,
-                  long long ni_loc, int S, int P, int r, int k,
-                  cudaStream_t stream) {
+// The sets of a user tile across processes (merge-from-sets): query rows
+// [q0, q0 + nq) of U, warp w of block b merging row q0 + b·W + w, W =
+// blockDim.x / 32.  The S·P sets of a row are reached through
+// `nbase` base pointers (one a process, its own and its peers' mapped
+// buffers, in process order), each buffer holding `spb` sets of every
+// user tile as the scan writes them, [tiles, spb, kTU, k]: set g is set
+// g % spb of buffer g / spb, so the sets come in shard and part order.
+// The merge is the scan's own (merge_row), so a row's result is the
+// one-process launch's bit for bit.  A row need not start a user tile.
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(const float* const* __restrict__ bases_s,
+             const long long* const* __restrict__ bases_i, int nbase,
+             int spb, long long q0, long long nq, int k,
+             float* __restrict__ out_s, long long* __restrict__ out_i) {
+  extern __shared__ unsigned char heads[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int sets = nbase * spb;
+  const long long q = static_cast<long long>(blockIdx.x) * W + warp;
+  if (q >= nq) return;
+  const long long u = q0 + q;
+  const long long tile = u / kTU;
+  const int row = static_cast<int>(u - tile * kTU);
+  const size_t setsz = static_cast<size_t>(kTU) * k;
+  // set g's list: set g % spb of the tile in buffer g / spb
+  auto at = [&](int g) {
+    const int b = g / spb;
+    return (static_cast<size_t>(tile) * spb + (g - b * spb)) * setsz +
+           static_cast<size_t>(row) * k;
+  };
+  merge_row([&](int s, int h) { return bases_s[s / spb][at(s) + h]; },
+            [&](int s, int h) { return bases_i[s / spb][at(s) + h]; },
+            sets, k, heads + static_cast<size_t>(warp) * sets, lane,
+            out_s + q * k, out_i + q * k);
+}
+
+// The scan's launch, for every entry: S shards of ni_loc items, each cut
+// in P parts, ids offset by id0; sets_only writes every set to coll and
+// merges none (then tickets are unused).
+inline int launch_scan(const float* U, const float* V,
+                       const unsigned char* valid, float* coll_s,
+                       long long* coll_i, unsigned* tickets, float* out_s,
+                       long long* out_i, long long n, long long ni_loc,
+                       int S, int P, int r, int k, long long id0,
+                       bool sets_only, cudaStream_t stream) {
   if (n <= 0) return 0;
   const long long sets = static_cast<long long>(S) * P;
   if (k < 1 || k > kMaxK || r < 1 || S < 1 || P < 1 ||
-      sets > kMaxSetsY || ni_loc < 1)
+      sets > kMaxSetsY || ni_loc < 1 || id0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (n + kTU - 1) / kTU;
   // part-local ids are ints
   const long long part_items = ((ni_loc + kTI - 1) / kTI + P - 1) / P * kTI;
   if (tiles > 0x7fffffffLL || part_items > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (sets > 1 && (coll_s == nullptr || coll_i == nullptr ||
-                   tickets == nullptr))
+  if ((sets > 1 || sets_only) &&
+      (coll_s == nullptr || coll_i == nullptr ||
+       (!sets_only && tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the staged copies need V (and U when streamed) aligned to their width
   const int cb = r % 4 == 0 ? 16 : r % 2 == 0 ? 8 : 4;
@@ -618,7 +681,7 @@ inline int launch(const float* U, const float* V, const unsigned char* valid,
   // the merge's heads: a byte a set for each warp, fewer warps when the
   // block's memory cannot hold them all
   const size_t heads = static_cast<size_t>(kWarps) * sets;
-  if (heads > smem) smem = heads < kMaxSmem ? heads : kMaxSmem;
+  if (!sets_only && heads > smem) smem = heads < kMaxSmem ? heads : kMaxSmem;
   auto kern = res ? scan_kernel<true> : scan_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -627,7 +690,47 @@ inline int launch(const float* U, const float* V, const unsigned char* valid,
   kern<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(sets)),
          kThreads, smem, stream>>>(U, V, valid, coll_s, coll_i, tickets,
                                    out_s, out_i, n, ni_loc, P, r, k,
-                                   static_cast<int>(smem));
+                                   static_cast<int>(smem), id0, sets_only);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the scan over S shards of ni_loc items, each cut in P parts.
+// coll_s / coll_i: scratch of ceil(n / kTU)·S·P·kTU·k entries and
+// tickets: ceil(n / kTU) zeroed counters, when S·P > 1 (else unused).
+// S·P up to kMaxSetsY sets.
+inline int launch(const float* U, const float* V, const unsigned char* valid,
+                  float* coll_s, long long* coll_i, unsigned* tickets,
+                  float* out_s, long long* out_i, long long n,
+                  long long ni_loc, int S, int P, int r, int k,
+                  cudaStream_t stream) {
+  return launch_scan(U, V, valid, coll_s, coll_i, tickets, out_s, out_i, n,
+                     ni_loc, S, P, r, k, 0, false, stream);
+}
+
+// Merge-from-sets (merge_kernel) of query rows [q0, q0 + nq): bases_s /
+// bases_i device arrays of nbase pointers, each buffer [tiles, spb, kTU,
+// k]; out [nq, k].  Up to kMaxSetsY sets.
+inline int launch_merge(const float* const* bases_s,
+                        const long long* const* bases_i, int nbase, int spb,
+                        long long q0, long long nq, int k, float* out_s,
+                        long long* out_i, cudaStream_t stream) {
+  if (nq <= 0) return 0;
+  const long long sets = static_cast<long long>(nbase) * spb;
+  if (k < 1 || k > kMaxK || nbase < 1 || spb < 1 || sets > kMaxSetsY ||
+      q0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a warp a row, as many warps a block as the heads' memory allows
+  const long long fit = static_cast<long long>(kMaxSmem) / sets;
+  const int W = static_cast<int>(fit < kWarps ? fit : kWarps);
+  const size_t smem = static_cast<size_t>(W) * sets;
+  cudaError_t e = cudaFuncSetAttribute(
+      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (nq + W - 1) / W;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  merge_kernel<<<static_cast<unsigned>(blocks), 32 * W, smem, stream>>>(
+      bases_s, bases_i, nbase, spb, q0, nq, k, out_s, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 

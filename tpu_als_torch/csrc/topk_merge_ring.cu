@@ -29,6 +29,15 @@
 // shard cut in P parts (S·P <= 32 where S allows, else P = 1; a lane of
 // the merging warp holds sets j, j + 32, ...), so K8 is K5's kernel with
 // its sets spread over shards, up to 65,535 shards (the grid's y limit).
+//
+// Across the processes of a group on one card (parallel/serve.py's
+// 'merge_ring' when process_count > 1) the candidate sets, not the
+// catalog, move, as on the TPU: topk_sets_f32 scores every query row
+// against this process's L shards and writes the L·P sets to a buffer
+// its peers map (CUDA IPC); after a barrier topk_merge_sets_f32 merges
+// this process's query rows over every process's sets, reached through
+// arrays of base pointers.  Both are topk.cuh's own scan and merge, so
+// the rows are the one-process launch's bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -44,4 +53,30 @@ extern "C" int topk_merge_ring_f32(const float* U, const float* V,
                                    int r, int k, int P, void* stream) {
   return topk::launch(U, V, valid, coll_s, coll_i, tickets, out_s, out_i, n,
                       ni_loc, S, P, r, k, static_cast<cudaStream_t>(stream));
+}
+
+// Scan-to-sets: coll_s/coll_i [ceil(n / 64), L·P, 64, k] (the exported
+// buffer), every (user tile, local shard, part)'s stable set, ids
+// globalized as id0 + s·ni_loc + local (id0: the first local shard's
+// mesh position times ni_loc).
+extern "C" int topk_sets_f32(const float* U, const float* V,
+                             const unsigned char* valid, float* coll_s,
+                             long long* coll_i, long long n,
+                             long long ni_loc, int L, int r, int k, int P,
+                             long long id0, void* stream) {
+  return topk::launch_scan(U, V, valid, coll_s, coll_i, nullptr, nullptr,
+                           nullptr, n, ni_loc, L, P, r, k, id0, true,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Merge-from-sets: query rows [q0, q0 + nq) -> out [nq, k]; bases_s /
+// bases_i: device arrays of nbase pointers (one buffer a process, in
+// process order), each [ceil(n / 64), spb, 64, k].
+extern "C" int topk_merge_sets_f32(const float* const* bases_s,
+                                   const long long* const* bases_i,
+                                   int nbase, int spb, long long q0,
+                                   long long nq, int k, float* out_s,
+                                   long long* out_i, void* stream) {
+  return topk::launch_merge(bases_s, bases_i, nbase, spb, q0, nq, k, out_s,
+                            out_i, static_cast<cudaStream_t>(stream));
 }

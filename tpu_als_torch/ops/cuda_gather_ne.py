@@ -33,6 +33,8 @@ plain versions :func:`gather_gram_plain`, :func:`gather_solve_plain` and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tpu_als_torch import _build
@@ -361,12 +363,36 @@ def gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY=None, *,
     return torch.stack(xs)
 
 
+class MappedShards(NamedTuple):
+    """The S shards of a ring's opposite table as K7 reaches them across
+    the processes of a group on one card (``parallel/peer.py``):
+    ``bases`` a CUDA int64 tensor of S device addresses, this process's
+    own shards and its peers' mapped ones, each shard ``per`` rows of
+    ``r`` values of ``dtype``.  :func:`gather_solve_ring` takes it in
+    place of the stacked ``V_shards``."""
+
+    bases: torch.Tensor
+    per: int
+    r: int
+    dtype: torch.dtype
+
+    @property
+    def shape(self):
+        return (self.bases.shape[0], self.per, self.r)
+
+    @property
+    def device(self):
+        return self.bases.device
+
+
 def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
                       reg, jitter=DEFAULT_JITTER, split_width=None):
     """``x [D, n, r]`` f32 for the rows of all D owners of a ring: kernel K7
     for CUDA tensors, the plain version for CPU tensors.
 
-    ``V_shards`` [S, per, r]: the opposite factors' S shards, stacked;
+    ``V_shards`` [S, per, r]: the opposite factors' S shards, stacked, or
+    a :class:`MappedShards` (their base pointers across processes, on
+    the card only);
     ``cols``/``aw``/``bw``/``cw`` [D, S, n, w]: each owner's bucket,
     shard-local ids, source-major and unrotated — owner d's row sums its
     entries over the sources (d - t) mod S, t = 0 .. S-1, in that order;
@@ -379,72 +405,83 @@ def gather_solve_ring(V_shards, cols, aw, bw, cw, YtY=None, *, two_sided,
     ``RING_LAUNCHES`` counts one per call, whatever the number of passes
     and row tiles.  Rank <= :data:`SOLVE_MAX_RANK`, as K4."""
     global RING_LAUNCHES
-    if V_shards.dim() != 3 or cols.dim() != 4 \
-            or cols.shape[1] != V_shards.shape[0]:
+    mapped = isinstance(V_shards, MappedShards)
+    if cols.dim() != 4 or cols.shape[1] != V_shards.shape[0] or (
+            not mapped and V_shards.dim() != 3):
         raise ValueError(f"gather_solve_ring takes V_shards [S, per, r] and "
                          f"cols [D, S, n, w]; got {tuple(V_shards.shape)}, "
                          f"{tuple(cols.shape)}")
     S, per, r = V_shards.shape
-    _check("gather_solve_ring", V_shards.reshape(S * per, r), cols[0, 0],
+    dtype, device = V_shards.dtype, V_shards.device
+    if mapped and (device.type != "cuda"
+                   or V_shards.bases.dtype != torch.int64):
+        raise ValueError("gather_solve_ring: mapped shards are an int64 "
+                         "array of device addresses on the card")
+    table = (torch.empty(0, r, dtype=dtype, device=device) if mapped
+             else V_shards.reshape(S * per, r))
+    _check("gather_solve_ring", table, cols[0, 0],
            *(t[0, 0] for t in (aw, bw, cw)))
     _solve_rank("gather_solve_ring", r)
     for t in (aw, bw, cw):
         if t.shape != cols.shape:
             raise TypeError(f"gather_solve_ring: weights must be "
                             f"{tuple(cols.shape)}, got {tuple(t.shape)}")
-    # every owner's rows over all S sources; the shards share one device's
-    # memory, so no ring payload crosses a link
     D, _, n, w = cols.shape
-    _declare(fused_ring_kernel_bytes, cols.numel(), D * n, r,
-             V_shards.element_size(), 0)
+    db = torch.empty((), dtype=dtype).element_size()
+    # every owner's rows over all S sources; the shards share one card's
+    # memory, so no ring payload crosses a link
+    _declare(fused_ring_kernel_bytes, cols.numel(), D * n, r, db, 0)
     if REMOTE is not None:
         # the reference's schedule over S cards: one [per, r_pad] shard a
         # hop, one ring pass per row tile of its TN rows
         r_pad = ring_r_pad(r)
         tiles = -(-n // ring_row_tile(r_pad, -(-w // 8) * 8))
-        REMOTE.append((per * r_pad * V_shards.element_size(), (tiles, S)))
-    if V_shards.device.type == "cpu":
+        REMOTE.append((per * r_pad * db, (tiles, S)))
+    if device.type == "cpu":
         return gather_solve_ring_plain(V_shards, cols, aw, bw, cw, YtY,
                                        two_sided=two_sided, reg=reg,
                                        jitter=jitter,
                                        split_width=split_width)
-    _cuda_ready("gather_solve_ring", V_shards, cols, aw, bw, cw)
+    if mapped:
+        _cuda_ready("gather_solve_ring", V_shards.bases, cols, aw, bw, cw)
+        bases = V_shards.bases
+    else:
+        _cuda_ready("gather_solve_ring", V_shards, cols, aw, bw, cw)
+        # the shards' base pointers; on this one-device mesh they point
+        # into the stacked table
+        bases = torch.tensor([V_shards[s].data_ptr() for s in range(S)],
+                             dtype=torch.int64, device=device)
     if S * per >= 1 << 31:
         raise ValueError(f"gather_solve_ring: {S} x {per} rows overflow the "
                          "kernel's int32 row handles")
-    YtY = _yty("gather_solve_ring", YtY, r, V_shards.device)
-    x = torch.empty(D, n, r, dtype=torch.float32, device=V_shards.device)
+    YtY = _yty("gather_solve_ring", YtY, r, device)
+    x = torch.empty(D, n, r, dtype=torch.float32, device=device)
     if D * n == 0:
         return x
     if w == 0:
         return x.zero_()
-    # the shards' base pointers; on this one-device mesh they point into
-    # the stacked table
-    bases = torch.tensor([V_shards[s].data_ptr() for s in range(S)],
-                         dtype=torch.int64, device=V_shards.device)
     split = 0 if split_width is None else max(1, int(split_width))
     # per row of every owner: its sum (and, split, its chunks' partials)
     E = _row_floats(r)
     nchunk = -(-S * w // split) if split and S * w > split else 0
     step = max(1, min(n, _SCRATCH_ELEMS // (D * (nchunk + 1) * E)))
-    sums = torch.empty(D * step * E, dtype=torch.float32,
-                       device=V_shards.device)
+    sums = torch.empty(D * step * E, dtype=torch.float32, device=device)
     part = None
     if nchunk:
         part = torch.empty(D * step * nchunk * E, dtype=torch.float32,
-                           device=V_shards.device)
+                           device=device)
     fn = _build.load("gather_solve_ring")
-    with torch.cuda.device(V_shards.device):
+    with torch.cuda.device(device):
         for row0 in range(0, n, step):
             nrows = min(step, n - row0)
             err = fn(bases.data_ptr(), per, cols.data_ptr(), aw.data_ptr(),
                      bw.data_ptr(), cw.data_ptr(),
                      None if YtY is None else YtY.data_ptr(), x.data_ptr(),
-                     D, S, n, w, r, _reg_w(reg, V_shards.dtype),
+                     D, S, n, w, r, _reg_w(reg, dtype),
                      float(jitter), int(two_sided),
-                     int(V_shards.dtype == torch.bfloat16), split, row0,
+                     int(dtype == torch.bfloat16), split, row0,
                      nrows, None if part is None else part.data_ptr(),
-                     sums.data_ptr(), _stream(V_shards))
+                     sums.data_ptr(), _stream(x))
             _build.check(err, "gather_solve_ring")
     RING_LAUNCHES += 1
     return x

@@ -30,11 +30,24 @@ so K8 takes up to :data:`MAX_SETS` shards (CUDA's grid limit in y).
 the card's multiprocessor count; :func:`topk_parts_plain` is K5's
 function computed that way in plain PyTorch.
 
+K8 across the processes of a group on one card splits the launch in
+two, and the candidate sets, not the catalog, move between them:
+:func:`topk_sets` (scan-to-sets) writes every set of this process's
+shards for every query row, and :func:`topk_merge_sets`
+(merge-from-sets) merges this process's rows over every process's sets
+in shard and part order, on the card through buffers the processes map
+from each other (``parallel/peer.py``), on the CPU through the gathered
+sets (plain versions :func:`topk_sets_plain`,
+:func:`topk_merge_sets_plain`).  The rows are the one-process K8's
+bit for bit.
+
 A CUDA tensor goes to a kernel (or raises); only a CPU tensor takes a
 plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +81,8 @@ RING_TILE_U, RING_LANES = 256, 128
 # went through the kernels
 LAUNCHES = 0        # K5
 MERGE_LAUNCHES = 0  # K8
+SETS_LAUNCHES = 0        # K8 across processes: scan-to-sets
+MERGE_SETS_LAUNCHES = 0  # K8 across processes: merge-from-sets
 # calls of topk_scores on the card that the scan route served (k > MAX_K)
 SCAN_CALLS = 0
 
@@ -280,3 +295,151 @@ def topk_merge_ring(U, V_shards, valid_shards, k, parts=None):
                   S, P, k)
     MERGE_LAUNCHES += 1
     return out
+
+
+class MappedSets(NamedTuple):
+    """Every process's candidate sets as :func:`topk_merge_sets` reaches
+    them across processes on one card (``parallel/peer.py``): ``bases_s``
+    and ``bases_i``, CUDA int64 tensors of one device address a process
+    (its own buffer's and its peers' mapped ones, in process order), each
+    buffer holding ``spb`` sets of every user tile, scores
+    ``[tiles, spb, TILE_U, k]`` f32 and ids int64 alike."""
+
+    bases_s: torch.Tensor
+    bases_i: torch.Tensor
+    spb: int
+
+
+def _sets_check(U, V_shards, valid_shards, k, coll_s, coll_i, parts):
+    if V_shards.dim() != 3 or valid_shards.shape != V_shards.shape[:2]:
+        raise ValueError(f"topk_sets takes V_shards [L, ni_loc, r] and "
+                         f"valid_shards [L, ni_loc]; got "
+                         f"{tuple(V_shards.shape)}, "
+                         f"{tuple(valid_shards.shape)}")
+    L, ni_loc, r = V_shards.shape
+    _check(U, V_shards.reshape(L * ni_loc, r), valid_shards.reshape(-1), k)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"topk_sets takes 1 <= k <= {MAX_K}, got {k}")
+    want = (-(-U.shape[0] // TILE_U), L * parts, TILE_U, k)
+    if tuple(coll_s.shape) != want or tuple(coll_i.shape) != want \
+            or coll_s.dtype != torch.float32 or coll_i.dtype != torch.int64:
+        raise ValueError(f"topk_sets writes f32 scores and int64 ids "
+                         f"{want}; got {tuple(coll_s.shape)} {coll_s.dtype},"
+                         f" {tuple(coll_i.shape)} {coll_i.dtype}")
+
+
+def topk_sets_plain(U, V_shards, valid_shards, k, parts, first, coll_s,
+                    coll_i):
+    """Scan-to-sets in plain PyTorch: each local shard's parts' stable
+    chunked top-k (ids globalized, (first + s)·ni_loc + local, as
+    :func:`topk_merge_ring_plain` globalizes them), written to ``coll_s``
+    / ``coll_i`` ``[tiles, L·parts, TILE_U, k]`` (rows past n hold
+    (NEG_INF, 0))."""
+    L, ni_loc = V_shards.shape[:2]
+    n = U.shape[0]
+    pad = coll_s.shape[0] * TILE_U - n
+    for s in range(L):
+        for j, (lo, hi) in enumerate(part_bounds(ni_loc, parts)):
+            cs, ci = chunked_topk_scores(U, V_shards[s, lo:hi],
+                                         valid_shards[s, lo:hi], k)
+            ci = ci + (first + s) * ni_loc + lo
+            cs = torch.cat([cs, cs.new_full((pad, k), NEG_INF)])
+            ci = torch.cat([ci, ci.new_zeros((pad, k))])
+            coll_s[:, s * parts + j] = cs.reshape(-1, TILE_U, k)
+            coll_i[:, s * parts + j] = ci.reshape(-1, TILE_U, k)
+
+
+def topk_sets(U, V_shards, valid_shards, k, *, parts, first, coll_s, coll_i,
+              n_shards):
+    """K8's scan-to-sets across processes: every query row of ``U`` [n, r]
+    against this process's L shards ``V_shards`` [L, ni_loc, r]
+    (``valid_shards`` [L, ni_loc]), each cut in ``parts`` parts, every
+    (user tile, shard, part)'s stable set written to ``coll_s`` (f32)
+    and ``coll_i`` (int64) ``[ceil(n / TILE_U), L·parts, TILE_U, k]``
+    (on the card: this process's exported buffer), ids globalized from
+    the mesh position ``first`` of its first shard.  The kernel for
+    CUDA tensors (``SETS_LAUNCHES``), :func:`topk_sets_plain` for CPU
+    tensors.  ``n_shards``: the mesh's S, for the reference's declared
+    payload (one packed set a hop, ``comm_audit.remote_dma_bytes``)."""
+    global SETS_LAUNCHES
+    _sets_check(U, V_shards, valid_shards, k, coll_s, coll_i, parts)
+    L, ni_loc, r = V_shards.shape
+    n = U.shape[0]
+    if REMOTE is not None:
+        tile_u = min(RING_TILE_U, -(-n // 8) * 8)
+        REMOTE.append((tile_u * 2 * RING_LANES * 4,
+                       (-(-n // max(1, tile_u)), int(n_shards))))
+    if U.device.type == "cpu":
+        return topk_sets_plain(U, V_shards, valid_shards, k, parts, first,
+                               coll_s, coll_i)
+    if U.device.type != "cuda":
+        raise ValueError(f"top-k runs on cuda or cpu, not {U.device}")
+    if not (U.is_contiguous() and V_shards.is_contiguous()
+            and valid_shards.is_contiguous() and coll_s.is_contiguous()
+            and coll_i.is_contiguous()):
+        raise ValueError("topk_sets takes contiguous tensors")
+    if n == 0:
+        return
+    fn = _build.load("topk_sets")
+    with torch.cuda.device(U.device):
+        err = fn(U.data_ptr(), V_shards.data_ptr(), valid_shards.data_ptr(),
+                 coll_s.data_ptr(), coll_i.data_ptr(), n, ni_loc, L, r, k,
+                 parts, int(first) * ni_loc,
+                 torch.cuda.current_stream(U.device).cuda_stream)
+    _build.check(err, "topk_sets_f32")
+    SETS_LAUNCHES += 1
+
+
+def topk_merge_sets_plain(sets_s, sets_i, k, q0, nq):
+    """Merge-from-sets in plain PyTorch: ``sets_s`` / ``sets_i``
+    ``[tiles, S·P, TILE_U, k]`` (every process's sets, in shard and part
+    order), the rows ``q0 .. q0 + nq`` folded set after set by the
+    stable merge, the carried set first, as
+    :func:`topk_merge_ring_plain` folds them."""
+    SP = sets_s.shape[1]
+    flat_s = sets_s.permute(1, 0, 2, 3).reshape(SP, -1, k)[:, q0:q0 + nq]
+    flat_i = sets_i.permute(1, 0, 2, 3).reshape(SP, -1, k)[:, q0:q0 + nq]
+    best_s = torch.full((nq, k), NEG_INF, dtype=torch.float32,
+                        device=sets_s.device)
+    best_i = torch.zeros((nq, k), dtype=torch.int64, device=sets_s.device)
+    for g in range(SP):
+        best_s, best_i = merge_topk(best_s, best_i, flat_s[g], flat_i[g], k)
+    return best_s, best_i
+
+
+def topk_merge_sets(sets, k, q0, nq):
+    """K8's merge-from-sets across processes: the top-k of query rows
+    ``q0 .. q0 + nq`` over every process's candidate sets, in shard and
+    part order.  ``sets``: a :class:`MappedSets` on the card (the
+    kernel, ``MERGE_SETS_LAUNCHES``), or the gathered ``(sets_s,
+    sets_i)`` ``[tiles, S·P, TILE_U, k]`` on the CPU
+    (:func:`topk_merge_sets_plain`).  Returns (scores [nq, k] f32, ids
+    [nq, k] int64)."""
+    global MERGE_SETS_LAUNCHES
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"topk_merge_sets takes 1 <= k <= {MAX_K}, got {k}")
+    if not isinstance(sets, MappedSets):
+        sets_s, sets_i = sets
+        if sets_s.device.type != "cpu":
+            raise ValueError("topk_merge_sets takes MappedSets on the card")
+        return topk_merge_sets_plain(sets_s, sets_i, k, q0, nq)
+    dev = sets.bases_s.device
+    if dev.type != "cuda" or sets.bases_s.dtype != torch.int64 \
+            or sets.bases_i.shape != sets.bases_s.shape:
+        raise ValueError("topk_merge_sets: mapped sets are int64 arrays of "
+                         "device addresses on the card, one a process")
+    nbase = sets.bases_s.shape[0]
+    if nbase * sets.spb > MAX_SETS:
+        raise ValueError(f"{nbase * sets.spb} sets > {MAX_SETS}")
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out_s, out_i
+    fn = _build.load("topk_merge_sets")
+    with torch.cuda.device(dev):
+        err = fn(sets.bases_s.data_ptr(), sets.bases_i.data_ptr(), nbase,
+                 sets.spb, q0, nq, k, out_s.data_ptr(), out_i.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "topk_merge_sets_f32")
+    MERGE_SETS_LAUNCHES += 1
+    return out_s, out_i

@@ -31,7 +31,10 @@ allocates and fills only one process's owner rows of the grid (the
 layout is still derived from every rating, so every process agrees), and
 :func:`ring_process_half_step` runs the unfused ring with the opposite
 shards rotating between processes by send/recv (the reference's
-``ppermute``).
+``ppermute``), while :func:`ring_process_fused_half_step` runs K7 on
+this process's owners over all S sources, the peers' shards reached on
+the card through buffers mapped from them (:class:`ProcessSources`,
+``parallel/peer.py``) and on the CPU gathered.
 """
 
 from __future__ import annotations
@@ -185,13 +188,22 @@ def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
     ``ring_buckets``: the grid as tensors (:meth:`RingCsr.to`).  Returns
     the solved side [D·num_rows, r] f32.  The count and the ridge come from
     the kernel's own ``cw`` sums, as in the reference."""
-    split = core_als._split(split_width)
     r = V_stacked.shape[-1]
     cdt = getattr(torch, cfg.compute_dtype)
     V_sh = V_stacked.to(cdt).reshape(n_shards, -1, r).contiguous()
-    D = ring_buckets[0].rows.shape[0] if ring_buckets else n_shards
-    out = torch.zeros(D, num_rows + 1, r, dtype=torch.float32,
-                      device=V_stacked.device)
+    return _fused_rows(V_sh, ring_buckets, num_rows, cfg, YtY, split_width,
+                       V_stacked.device)
+
+
+def _fused_rows(V_sh, ring_buckets, num_rows, cfg, YtY, split_width, dev):
+    """K7 over every bucket of the grid, each launch's rows scattered into
+    the owners' tables: ``V_sh`` the S source shards (a stacked ``[S,
+    per, r]`` tensor, or ``MappedShards`` across processes)."""
+    split = core_als._split(split_width)
+    r = V_sh.shape[-1]
+    cdt = getattr(torch, cfg.compute_dtype)
+    D = ring_buckets[0].rows.shape[0] if ring_buckets else V_sh.shape[0]
+    out = torch.zeros(D, num_rows + 1, r, dtype=torch.float32, device=dev)
     for b in ring_buckets:
         vals, mask = b.vals.to(cdt), b.mask.to(cdt)
         if cfg.implicit_prefs:
@@ -204,6 +216,90 @@ def ring_fused_half_step(V_stacked, ring_buckets, num_rows, n_shards, cfg,
                 split_width=split)
         _scatter(out, b, x)
     return out[:, :num_rows].reshape(D * num_rows, r)
+
+
+def roll_sources(ring_buckets, first):
+    """This process's owner rows of the grid (``positions=`` build, [L, S,
+    nb, w] tensors) with the source axis rolled by ``first``, its first
+    mesh position: source s of the result is position (first + s) mod S.
+    K7 walks owner j's sources (j - t) mod S of what it is given, so on
+    the rolled grid and shards local owner j walks the global order
+    (first + j - t) mod S of the one-process ring.  Rolled once, when
+    the step is built."""
+    if not first:
+        return ring_buckets
+    return [Bucket(rows=b.rows, cols=torch.roll(b.cols, -first, 1),
+                   vals=torch.roll(b.vals, -first, 1),
+                   mask=torch.roll(b.mask, -first, 1)) for b in ring_buckets]
+
+
+class ProcessSources:
+    """The opposite table's S shards as this process's K7 reads them
+    across processes (a mesh of P processes × L shards), in the order of
+    the rolled grid (:func:`roll_sources`).
+
+    On the card: one :class:`~tpu_als_torch.parallel.peer.PeerBuffer`
+    holding this process's L shards in the compute dtype, allocated and
+    mapped by every peer once, when the step is built, and the S base
+    pointers (this process's own, its peers' mapped ones) as
+    ``MappedShards``.  On the CPU: K7's plain version over the shards
+    gathered by ``multihost.all_gather``.  :meth:`close` is collective
+    (``PeerBuffer.close``)."""
+
+    def __init__(self, mesh, per, r, dtype):
+        from tpu_als_torch.parallel import peer
+
+        self.first, self.S, self.L = (mesh.positions[0], mesh.global_size,
+                                      mesh.size)
+        self.per, self.r, self.dtype = int(per), int(r), dtype
+        self.buf = None
+        if mesh.device.type == "cuda":
+            db = torch.empty((), dtype=dtype).element_size()
+            self.buf = peer.PeerBuffer(self.L * self.per * self.r * db,
+                                       mesh.device)
+            stride = self.per * self.r * db
+            ptrs = [self.buf.ptrs[s // self.L] + (s % self.L) * stride
+                    for s in range(self.S)]
+            rolled = [ptrs[(s + self.first) % self.S] for s in range(self.S)]
+            self.mapped = gne.MappedShards(
+                torch.tensor(rolled, dtype=torch.int64, device=mesh.device),
+                self.per, self.r, dtype)
+            self.local = self.buf.local((self.L, self.per, self.r), dtype)
+
+    def publish(self, Y_local):
+        """This process's rows ``Y_local`` [L·per, r] in; the S shards K7
+        reads out, once every process's rows are in.  On the card: the
+        rows copied into this process's buffer, then its stream synced
+        and every process met at a barrier (the peers' rows are then
+        written, and their reads of the last half-step that read this
+        table are done)."""
+        Y = Y_local.to(self.dtype).reshape(self.L, self.per, self.r)
+        if self.buf is None:
+            return torch.roll(multihost.all_gather(Y), -self.first, 0)
+        from tpu_als_torch.parallel import peer
+
+        self.local.copy_(Y)
+        peer.publish()
+        return self.mapped
+
+    def close(self):
+        if self.buf is not None:
+            self.buf.close()
+
+
+def ring_process_fused_half_step(Y_local, sources, ring_buckets, num_rows,
+                                 cfg, YtY=None, split_width=None):
+    """One half-step of this process's L owners through K7 over all S
+    sources across processes: ``Y_local`` [L·per, r] this process's rows
+    of the opposite table, ``sources`` its :class:`ProcessSources`,
+    ``ring_buckets`` its owner rows of the grid rolled by
+    :func:`roll_sources`.  On the card K7 reads the peers' shards
+    through their mapped base pointers; on the CPU its plain version
+    reads the gathered ones.  Each owner's rows are the one-process
+    ring's bit for bit (the same entries in the same order, the same
+    tail).  Returns [L·num_rows, r] f32."""
+    return _fused_rows(sources.publish(Y_local), ring_buckets, num_rows, cfg,
+                       YtY, split_width, Y_local.device)
 
 
 def ring_half_step(V_stacked, ring_buckets, counts, num_rows, n_shards, cfg,

@@ -37,6 +37,12 @@ exchange nothing (a stacked table is already the gathered one).  So:
   ``perf/ne_audit.py::kernel_cost_bytes``.  On one card this is the
   traffic the schedule would move across cards, as
   ``comm_bytes_per_iter`` says of itself; no byte of it crosses a link.
+  Across processes the same declarations come from K7's mapped-pointer
+  entry (each process's fused ring, over all S positions) and K8's
+  scan-to-sets (``'merge_ring'``), so an audit of one process's step or
+  serve reports the cross-process payload per process, which the
+  processes really exchange through their mapped buffers
+  (``parallel/peer.py``) and which no collective counts.
 
 :func:`audit_strategies` runs every strategy of the multi-process path
 once in each process of a group (one shard a process) under
@@ -47,10 +53,8 @@ on the CPU or on one card and returns each process's rows.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -60,8 +64,12 @@ import torch
 
 from tpu_als_torch.parallel import multihost
 
-#: The strategies the multi-process path runs ('gather_fused_ring', K7,
-#: raises across processes: ROADMAP Queue 2).
+#: The strategies the multi-process path runs through collectives.  The
+#: fused ring (K7, ``'ring'`` with ``solve_backend='gather_fused_ring'``)
+#: and ``'merge_ring'`` serving (K8) move their shards and candidate sets
+#: through buffers the processes map from each other on one card, not
+#: through a collective: :func:`remote_dma_bytes` reports what they
+#: declare.
 PROCESS_STRATEGIES = ("all_gather", "all_gather_chunked", "ring",
                       "ring_overlap", "all_to_all")
 
@@ -242,9 +250,9 @@ def audit_strategies(u, i, r, num_users, num_items, rank, *, implicit,
 def _worker(spec_dir):
     """One process of :func:`spawn`: join the group, audit, write
     ``rank<p>.json`` (this process's rows)."""
-    multihost.init_distributed()
     with open(os.path.join(spec_dir, "spec.json")) as f:
         spec = json.load(f)
+    multihost.init_distributed(init_method=spec["init_method"])
     if spec.get("threads"):
         torch.set_num_threads(int(spec["threads"]))
     data = np.load(os.path.join(spec_dir, "data.npz"))
@@ -278,8 +286,10 @@ def spawn(spec_dir, u, i, r, num_users, num_items, rank, *, nproc=2,
           device="cpu", implicit=(False, True), min_width=4,
           chunk_elems=1 << 19, gather_blocks=4, a2a=None, threads=1,
           timeout=600, env=None, gate=None):
-    """Start ``nproc`` processes over gloo on ``tcp://127.0.0.1`` (a free
-    port), each one shard of the mesh on ``device``, and run
+    """Start ``nproc`` processes over gloo, joined by a ``file://``
+    rendezvous in ``spec_dir`` (``multihost.file_init_method``: no port
+    to collide with another group's), each one shard of the mesh on
+    ``device``, and run
     :func:`audit_strategies` in all of them for each value of
     ``implicit``.  ``gate`` (a ``threading.Event``): the processes import,
     join and build their containers, then wait until it is set before
@@ -295,7 +305,8 @@ def spawn(spec_dir, u, i, r, num_users, num_items, rank, *, nproc=2,
             "min_width": int(min_width),
             "chunk_elems": int(chunk_elems),
             "gather_blocks": int(gather_blocks), "threads": threads,
-            "gated": gate is not None}
+            "gated": gate is not None,
+            "init_method": multihost.file_init_method(spec_dir)}
     if a2a is not None:
         arrays.update(a2a_u=np.asarray(a2a[0], np.int64),
                       a2a_i=np.asarray(a2a[1], np.int64),
@@ -304,9 +315,6 @@ def spawn(spec_dir, u, i, r, num_users, num_items, rank, *, nproc=2,
     np.savez(os.path.join(spec_dir, "data.npz"), **arrays)
     with open(os.path.join(spec_dir, "spec.json"), "w") as f:
         json.dump(spec, f)
-    with contextlib.closing(socket.socket()) as so:
-        so.bind(("127.0.0.1", 0))
-        port = so.getsockname()[1]
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     base = dict(os.environ if env is None else env)
@@ -315,8 +323,7 @@ def spawn(spec_dir, u, i, r, num_users, num_items, rank, *, nproc=2,
     procs = []
     try:
         for p in range(nproc):
-            penv = {**base, "WORLD_SIZE": str(nproc), "RANK": str(p),
-                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+            penv = {**base, "WORLD_SIZE": str(nproc), "RANK": str(p)}
             if threads:
                 penv["OMP_NUM_THREADS"] = str(threads)
             procs.append(subprocess.Popen(

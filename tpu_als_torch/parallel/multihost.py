@@ -21,10 +21,12 @@ every process agrees on.
 ``torch.distributed`` over gloo.  A CPU tensor goes to gloo directly.  A
 CUDA tensor is copied to host memory, passed through the gloo collective
 and copied back (``.cpu()`` -> gloo -> ``.to(device)``): NCCL refuses two
-ranks on one card, and the transport across cards is not written yet
-(``NotImplementedError`` for K7's and K8's cross-process routes names
-it).  The route is fixed when the group is created and printed then; it
-is not a fallback.  The compute stays on the device: only the collective
+ranks on one card, and the transport across cards is not written yet.
+The route is fixed when the group is created and printed then; it is
+not a fallback.  K7 (the fused ring) and K8 (``'merge_ring'``) move no
+data through a collective: on one card their processes map each other's
+buffers (:mod:`.peer`, CUDA IPC), and only the handles and a barrier go
+through gloo.  The compute stays on the device: only the collective
 passes through the host.  Every collective adds to :data:`COMM` the
 bytes it received, the bytes it staged between the device and the host,
 and its wall time (staging included), so a caller reads per half-step
@@ -166,6 +168,20 @@ def init_distributed(init_method=None, world_size=None, rank=None,
             and torch.cuda.device_count() > 1):
         torch.cuda.set_device(int(lr) % torch.cuda.device_count())
     return process_index(), process_count()
+
+
+def file_init_method(directory):
+    """A ``file://`` rendezvous for a group that one parent starts, to
+    pass to every process's :func:`init_distributed` (with its
+    ``world_size`` and ``rank``): a store file that does not exist yet
+    in ``directory``, which the parent owns.  No port is chosen, so no
+    other group on the host can take it between the choice and the
+    bind, as a port picked by binding port 0 and closing it can be."""
+    import uuid
+
+    path = os.path.join(os.path.abspath(directory),
+                        f"rendezvous-{uuid.uuid4().hex}")
+    return "file://" + path
 
 
 def _announce():
@@ -588,10 +604,15 @@ def train_multihost(u, i, r, num_users, num_items, cfg, mesh=None,
                            dev)
     step = make_process_step(mesh, strategy, ush, ish, cfg,
                              ring_counts=ring_counts, knobs=knobs)
-    for it in range(start_iter, cfg.max_iter):
-        U, V = step(U, V)
-        if callback is not None:
-            callback(it + 1, U, V, upart, ipart)
+    try:
+        for it in range(start_iter, cfg.max_iter):
+            U, V = step(U, V)
+            if callback is not None:
+                callback(it + 1, U, V, upart, ipart)
+    finally:
+        # the fused ring's mapped buffers (collective)
+        if hasattr(step, "close"):
+            step.close()
     return U, V, upart, ipart
 
 

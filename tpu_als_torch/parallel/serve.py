@@ -57,9 +57,12 @@ is this process's query rows and their global row offset, ``(scores,
 ids, row_offset)``: the port's counterpart of reading
 ``.addressable_shards`` of the reference's global arrays.  There is no
 degraded mode across processes (the processes could not agree on it):
-a failure raises.  ``'merge_ring'`` (K8) reads every shard's candidate
-set in one launch and raises ``NotImplementedError`` across processes
-(ROADMAP Queue 2 item 1).
+a failure raises.  ``'merge_ring'`` runs K8 in two halves: each process
+scores every query row against its own shards and writes the candidate
+sets, and each merges its own query rows over every process's sets
+(:func:`_merge_ring_processes`: on the card through buffers the
+processes map from each other, on the CPU gathered); above k = 128 it
+runs ``'ring'``, as in one process.
 """
 
 from __future__ import annotations
@@ -159,12 +162,6 @@ def topk_sharded(U, V, k, mesh, strategy="all_gather", item_valid=None,
     U, V = _as_f32(U, dev), _as_f32(V, dev)
     Nu, r = U.shape
     Ni = V.shape[0]
-    if mesh.process_count > 1 and strategy == "merge_ring":
-        raise NotImplementedError(
-            "strategy='merge_ring' (kernel K8) across processes: K8 merges "
-            "every shard's candidate set in one launch, which needs the "
-            "transport across cards (ROADMAP Queue 2 item 1); use "
-            "'all_gather' or 'ring'")
     if Ni == 0 or Nu == 0 or k == 0:
         kk = min(k, Ni)
         _record(Nu)
@@ -278,6 +275,12 @@ def _topk_processes(U, V, valid, k, mesh, strategy, item_chunk):
                for d in mesh.positions]
     blk = slice(mesh.positions[0] * ni_loc, (mesh.positions[-1] + 1) * ni_loc)
     held, held_valid = Vp[blk].contiguous(), validp[blk].contiguous()
+    if strategy == "merge_ring":
+        lo, hi = _process_rows(Nu, mesh)
+        s, ix = _merge_ring_processes(
+            U, held.reshape(L, ni_loc, r),
+            held_valid.bool().reshape(L, ni_loc), k_eff, mesh, lo, hi)
+        return s, ix, lo
     if strategy == "all_gather":
         Vg = multihost.all_gather(held)
         vg = multihost.all_gather(held_valid).bool()
@@ -308,3 +311,60 @@ def _topk_processes(U, V, valid, k, mesh, strategy, item_chunk):
                 held_valid = multihost.ppermute(held_valid)
     return (torch.cat([s for s, _ in out]), torch.cat([ix for _, ix in out]),
             _process_rows(Nu, mesh)[0])
+
+
+def _merge_ring_processes(U, V_loc, valid_loc, k, mesh, lo, hi):
+    """K8 across processes (``'merge_ring'``, k <= 128): every process
+    scores every query row against its own L catalog shards
+    (scan-to-sets), the candidate sets move, and each process merges its
+    query rows ``lo .. hi`` over every shard's sets in shard order
+    (merge-from-sets), as the reference's ring moves the packed sets and
+    never the catalog.  Each shard is cut in the parts the one-process
+    K8 over the S shards cuts it in, so the rows are its rows bit for
+    bit.  On the card the sets go to a buffer every peer maps
+    (``parallel/peer.py``), written, then a stream sync and a barrier,
+    then merged, then released by the buffer's collective close (its
+    first barrier waits for every merge); on the CPU they move by
+    ``multihost.all_gather``."""
+    from tpu_als_torch.parallel import peer
+
+    Nu = U.shape[0]
+    L, ni_loc = V_loc.shape[:2]
+    S, P = mesh.global_size, mesh.process_count
+    first = mesh.positions[0]
+    dev = U.device
+    tiles = -(-Nu // cuda_topk.TILE_U)
+    if dev.type == "cpu":
+        parts = 1
+        shape = (tiles, L * parts, cuda_topk.TILE_U, k)
+        cs = torch.empty(shape, dtype=torch.float32)
+        ci = torch.empty(shape, dtype=torch.int64)
+        cuda_topk.topk_sets(U, V_loc, valid_loc, k, parts=parts, first=first,
+                            coll_s=cs, coll_i=ci, n_shards=S)
+
+        def every(t):  # [P·tiles, ...] -> the processes' sets side by side
+            g = multihost.all_gather(t).reshape(P, *t.shape)
+            return g.permute(1, 0, 2, 3, 4).reshape(
+                tiles, P * L * parts, cuda_topk.TILE_U, k)
+
+        return cuda_topk.topk_merge_sets((every(cs), every(ci)), k, lo,
+                                         hi - lo)
+    parts = cuda_topk.topk_parts(Nu, ni_loc, S, cuda_topk._sms(dev))
+    shape = (tiles, L * parts, cuda_topk.TILE_U, k)
+    n_el = tiles * L * parts * cuda_topk.TILE_U * k
+    buf = peer.PeerBuffer(n_el * (4 + 8), dev)
+    try:
+        cs = buf.local(shape, torch.float32)
+        ci = buf.local(shape, torch.int64, offset=n_el * 4)
+        cuda_topk.topk_sets(U, V_loc.contiguous(), valid_loc.contiguous(),
+                            k, parts=parts, first=first, coll_s=cs,
+                            coll_i=ci, n_shards=S)
+        peer.publish()
+        sets = cuda_topk.MappedSets(
+            torch.tensor(buf.ptrs, dtype=torch.int64, device=dev),
+            torch.tensor([q + n_el * 4 for q in buf.ptrs],
+                         dtype=torch.int64, device=dev), L * parts)
+        out = cuda_topk.topk_merge_sets(sets, k, lo, hi - lo)
+    finally:
+        buf.close()
+    return out

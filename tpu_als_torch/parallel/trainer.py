@@ -39,7 +39,10 @@ processes, back home once per row tile
 (:func:`.comm.ring_process_half_step`), 'all_to_all' exchanges the
 referenced rows, and every strategy sums the shards' partial YᵀY.  K7
 (``solve_backend='gather_fused_ring'``) reads every shard's base pointer
-in one launch and raises across processes (:func:`make_process_step`).
+in one launch: across the processes of one card, its own shards' and
+its peers' through buffers each process maps from the others (CUDA
+IPC, :mod:`.peer`), one barrier a half-step
+(:func:`_fused_process_ring_step`).
 
 ``elastic=True`` wraps the step in the device-loss detector (:mod:`tpu_als_torch.resilience.elastic`);
 an armed ``comm.ring_step`` fault point wraps the ring step in
@@ -61,9 +64,12 @@ from tpu_als_torch.ops.solve import compute_yty
 from tpu_als_torch.parallel import multihost
 from tpu_als_torch.parallel.a2a import a2a_half_step
 from tpu_als_torch.parallel.comm import (
+    ProcessSources,
     chunked_gather_half_step,
     ring_half_step,
+    ring_process_fused_half_step,
     ring_process_half_step,
+    roll_sources,
 )
 from tpu_als_torch.perf.roofline import (ring_r_pad, ring_remote_bytes,
                                          ring_row_tile)
@@ -215,15 +221,10 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
     fused = cfg.solve_backend == "gather_fused_ring" and not cfg.nonnegative
     S = mesh.size
     split = (knobs or {}).get("split_width")
+    if _across(mesh) and fused:
+        return _fused_process_ring_step(mesh, ub, ib, user_ring, item_ring,
+                                        cfg, split)
     if _across(mesh):
-        if fused:
-            raise NotImplementedError(
-                "solve_backend='gather_fused_ring' (kernel K7) across "
-                "processes: K7 reads every shard's base pointer in one "
-                "launch, which needs the transport across cards (ROADMAP "
-                "Queue 2 item 1); use the unfused ring (solve_backend="
-                "'auto') or 'all_gather'")
-
         def ring_step(U, V):
             YtY = _yty(mesh, U) if cfg.implicit_prefs else None
             V = ring_process_half_step(U, ib, ic, item_ring.rows_per_shard,
@@ -253,6 +254,47 @@ def make_ring_step(mesh, user_ring, item_ring, cfg: AlsConfig, ring_counts,
     if faults.armed("comm.ring_step"):
         return _chaos_wrap_step(ring_step)
     return ring_step
+
+
+def _fused_process_ring_step(mesh, ub, ib, user_ring, item_ring, cfg,
+                             split):
+    """The fused ring (K7) across processes: this process's L owners over
+    all S sources, the grid's source axis rolled to this process's first
+    position once (:func:`.comm.roll_sources`), and one
+    :class:`.comm.ProcessSources` per factor table, built here, once (on
+    the card: the exported buffer each peer maps).  A half-step publishes
+    the table it reads (this process's rows in, a stream sync and one
+    barrier), then launches K7; the barrier also keeps a table from being
+    overwritten while a peer still reads it.  YᵀY is the shards'
+    partials summed in mesh-position order, as every strategy's.  The
+    returned step's ``close()`` (collective) releases the buffers:
+    ``multihost.train_multihost`` calls it when the loop ends."""
+    first = mesh.positions[0]
+    ub, ib = roll_sources(ub, first), roll_sources(ib, first)
+    cdt = getattr(torch, cfg.compute_dtype)
+    # item half-steps read U (the user side's shards), user half-steps V
+    u_src = ProcessSources(mesh, user_ring.rows_per_shard, cfg.rank, cdt)
+    v_src = ProcessSources(mesh, item_ring.rows_per_shard, cfg.rank, cdt)
+
+    def ring_step(U, V):
+        YtY = _yty(mesh, U) if cfg.implicit_prefs else None
+        V = ring_process_fused_half_step(U, u_src, ib,
+                                         item_ring.rows_per_shard, cfg, YtY,
+                                         split_width=split)
+        YtY = _yty(mesh, V) if cfg.implicit_prefs else None
+        U = ring_process_fused_half_step(V, v_src, ub,
+                                         user_ring.rows_per_shard, cfg, YtY,
+                                         split_width=split)
+        return U, V
+
+    def close():
+        u_src.close()
+        v_src.close()
+
+    step = _chaos_wrap_step(ring_step) if faults.armed("comm.ring_step") \
+        else ring_step
+    step.close = close
+    return step
 
 
 def make_chunked_gather_step(mesh, user_sharded, item_sharded,
@@ -322,9 +364,9 @@ def make_process_step(mesh, strategy, user_c, item_c, cfg: AlsConfig,
     over this process's containers: the whole mesh's in one process, the
     ``positions=`` builds across processes, where ``step(U, V)`` takes
     and returns this process's slot rows.  The ring family needs
-    ``ring_counts`` (this process's rows of :func:`stacked_counts`);
-    with ``solve_backend='gather_fused_ring'`` across processes it
-    raises ``NotImplementedError`` (ROADMAP Queue 2 item 1)."""
+    ``ring_counts`` (this process's rows of :func:`stacked_counts`).
+    The fused ring's step across processes holds buffers that its
+    ``close()`` releases."""
     if strategy in ("ring", "ring_overlap"):
         if ring_counts is None:
             raise ValueError(f"strategy={strategy!r} requires ring_counts="

@@ -36,13 +36,19 @@ Phases (any failure exits non-zero before the final line):
 4. K3 (gather + Gram) and K4 (gather + Gram + tail + solve) against
    their plain versions (``V[cols]`` + ``torch.bmm``, K2's plain solve)
    at rank 128, then at ranks 200 and 256, then above 256 (the Gram
-   staged by strips, the solve streamed above 288) at 257, 320, 333, 384
-   and 512 and K3 also at 640: two- and one-sided, f32 and bf16 tables, widths
+   staged by strips, the solve on a thread-block cluster above 288) at
+   257, 320, 333, 384 and 512 and K3 also at 640: two- and one-sided, f32 and bf16 tables, widths
    24, 100 (rank 128), 512 and a row wider than the trainer's split
    width (K3's split path; K4 above rank 128 too); empty rows, duplicate
    columns and an implicit row with no positive rating (K4: exactly 0);
    K4 and K7 at rank 640 raising ValueError (the reference's
-   TileBudgetError bound); K7 (K4 over S shards in ring order) against
+   TileBudgetError bound); K4's cluster solve pass at ranks 289, 320,
+   333 (unaligned rows), 384, 448 and 512, f32 and bf16, explicit and
+   implicit: its cluster size and shared bytes a block as the card
+   reports them (``cudaFuncGetAttributes``, the mirror
+   ``cuda_gather_ne._cluster_plan``), x bit for bit K1's streamed entry
+   (``stream_solve``) on the A the tail forms from K3's Gram of the same
+   rows, the empty and no-positive rows exactly 0; K7 (K4 over S shards in ring order) against
    its plain version at ranks 128, 200 and 256, S = 1, 3 and 4 shards,
    and at 512, S = 1 and 4, explicit and implicit, f32 and bf16, also
    with a split width of 64 below S·w (the width split's three passes,
@@ -359,10 +365,12 @@ Phases (any failure exits non-zero before the final line):
    shard on the single-device item half-step's K4 buckets and K7 within
    K4's band of the wide route (K3 + tail + K1) on its K3 buckets; K8 at
    the sharded serving shape beside its plain version and a matmul +
-   stable sort; where K4's time goes on its buckets at both ranks (K3's
-   Gram, K1, K6's fused entry, K2 at rank 128, and K4 itself, bucket by
-   bucket); each bucket's time in both half-steps, and one
-   iteration beside its bound;
+   stable sort; where K4's time goes on its buckets at ranks 128, 256 and
+   512 (K3's Gram, K1, K6's fused entry up to rank 256, K2 at rank 128,
+   and K4 itself, bucket by bucket, the systems built in chunks of at
+   most 4 GiB: at rank 512 K1 is ``stream_solve``, the anchor of K4's
+   cluster solve pass, whose time is K4's less K3's Gram); each bucket's
+   time in both half-steps, and one iteration beside its bound;
 16. where the time goes: one training iteration, one more fold-in
     batch and one all-users recommend, one rank-256 iteration and
     fold-in batch, and one rank-512 iteration, then the serving engine's
@@ -466,6 +474,11 @@ N_USERS, N_ITEMS, RANK = 162_541, 59_047, 128   # ML-25M serving shape
 RANK256 = 256                                   # BASELINE config 3's width
 RANK512 = 512                   # the widest rank the reference's K4 takes
 SOLVE_BOUND_RANK = 640          # r_pad 640: past the fused solve's bound
+# ranks of K4's cluster solve pass held bit for bit to K1's streamed one:
+# its first, two 2-block ranks (333: rows not 16-byte aligned), then
+# 4-block ones up to the reference's bound
+CLUSTER_RANKS = (289, 320, 333, 384, 448, 512)
+SPLIT_CHUNK_BYTES = 1 << 32     # k4_split: systems built at a time
 SHARDS = 4                                      # logical shards on the card
 NEG_INF32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
@@ -1092,6 +1105,63 @@ def check_solve_bound(rng, dev):
             fail(f"{name} at rank {r} did not raise")
     log(f"k4, k7 at rank {r}: ValueError (the reference's TileBudgetError "
         "bound, r_pad 512); K3 takes the rank")
+
+
+def check_cluster_solve(rng, dev, ranks=CLUSTER_RANKS,
+                        shapes=((48, 24), (16, 512))):
+    """K4's solve pass above rank 288 (``csrc/chol_cluster.cuh``, a
+    thread-block cluster a row) at ``ranks``: the cluster size and a
+    block's shared bytes as the card reports them against the launcher's
+    plan (``cuda_gather_ne._cluster_plan``); then, f32 and bf16,
+    explicit and implicit, K4's x bit for bit K1's streamed entry
+    (``stream_solve``) on the A the tail forms (``tail_system``) from
+    K3's unsplit Gram of the same rows (the block body of K4's first
+    pass), and the empty and no-positive rows exactly 0."""
+    for r in ranks:
+        info = cuda_gather_ne.cluster_info(r)
+        plan = cuda_gather_ne._cluster_plan(r)
+        if (info["size"], info["dynamic_smem"]) != (plan.size,
+                                                     plan.smem_bytes) \
+                or info["max_active_clusters"] < 1:
+            fail(f"K4 r={r}: the card's cluster launch {info} is not the "
+                 f"plan ({plan.size} blocks, {plan.smem_bytes} B a block)")
+        log(f"k4 r={r} cluster solve: {info['size']} blocks a cluster, "
+            f"{info['dynamic_smem']} B dynamic + {info['static_smem']} B "
+            f"static shared a block, {info['registers']} registers a "
+            f"thread, at most {info['max_active_clusters']} clusters "
+            f"active (tiles a block {plan.tiles})")
+        for dtype in (torch.float32, torch.bfloat16):
+            for n, w in shapes:
+                V, cols, vals, mask = gather_problem(rng, dev, n, w, dtype,
+                                                     r=r)
+                YtY = compute_yty(V.float())
+                conf, pref = implicit_weights(vals, mask, ALPHA)
+                for name, aw, bw, cw, two, yty in (
+                        ("implicit", conf, (1.0 + conf) * pref * mask,
+                         pref * mask, False, YtY),
+                        ("explicit", mask, vals * mask, mask, True, None)):
+                    xk = cuda_gather_ne.gather_solve(
+                        V, cols, aw, bw, cw, yty, two_sided=two, reg=REG)
+                    S, b = cuda_gather_ne.gather_gram(V, cols, aw, bw,
+                                                      two_sided=two)
+                    A = cuda_gather_ne.tail_system(S, cw.float().sum(-1),
+                                                   dtype, yty, REG)
+                    x1 = cuda_solve.spd_solve_blocked(A.contiguous(), b)
+                    torch.cuda.synchronize()
+                    zero = (0, 2) if name == "implicit" else (0,)
+                    if not all(bool((xk[j] == 0).all()) for j in zero):
+                        fail(f"K4 r={r} {name} {dtype}: rows {zero} did not "
+                             "solve to exactly 0")
+                    if not (torch.isfinite(xk).all()
+                            and torch.equal(xk, x1)):
+                        fail(f"K4 r={r} {name} {dtype} n={n} w={w}: the "
+                             "cluster solve is not K1's streamed solve bit "
+                             f"for bit (max |diff| "
+                             f"{(xk - x1).abs().max().item():.3e})")
+                    del S, b, A
+        log(f"k4 r={r}: x == K1's streamed solve (stream_solve) bit for "
+            "bit on the tail's A, explicit and implicit, f32 and bf16, "
+            f"widths {[w for _, w in shapes]}; empty rows exactly 0")
 
 
 def tie_corpus(rng, n, ni, r, pool=7):
@@ -2513,8 +2583,8 @@ def dense_half_step_f64(F, rows, cols, vals, n_rows, reg, alpha):
 
 def rank320_fit(seed, dev):
     """``ALS(rank=320).fit`` on the card: every bucket of this frame is
-    narrow, so 'auto' takes K4 (its Gram staged by strips, its solve
-    streamed above rank 288) and nothing else.  Then one more item
+    narrow, so 'auto' takes K4 (its Gram staged by strips, its solve on a
+    thread-block cluster above rank 288) and nothing else.  Then one more item
     half-step on the card against a float64 solve of the same normal
     equations, row by row."""
     frame = synthetic_movielens(2000, 800, 40_000, seed=seed)
@@ -6186,42 +6256,64 @@ def k4_split(tr, smi):
     """Where K4's time goes, on the rows it times (the item half-step's
     K4 buckets from the seeded init), bucket by bucket: (a) K3's Gram on
     those rows (one block a row, no width split), (b) K1 on their
-    regularized systems, (c) K6's fused factorization and solve on the
-    same systems, (d) K4 itself; at rank <= 128 also (e) K2 on them.
-    Each bucket's systems are built, timed and freed in turn, so the
-    rank-256 systems (15 GB in all) never sit on the card together.
+    regularized systems (above rank 288 ``stream_solve``, the anchor of
+    K4's cluster solve pass), (c) up to rank 256 K6's fused
+    factorization and solve on the same systems, (d) K4 itself; at rank
+    <= 128 also (e) K2 on them.  Each bucket's systems are built, timed
+    and freed in chunks of at most SPLIT_CHUNK_BYTES (4 GiB: 4,096 rows
+    at rank 512, with K1's copy 8.6 GB on the card), K4 on the whole
+    bucket as the fit calls it.  K4's solve pass is K4 less K3's Gram.
     Returns the sums in ms by name."""
     ib, U0, cfg = tr["ib"], tr["U0"], tr["cfg"]
     r = U0.shape[1]
     YtY = compute_yty(U0)
-    t = {"gram (K3)": 0.0, "K1": 0.0, "K6 fused": 0.0, "K4": 0.0}
+    t = {"gram (K3)": 0.0, "K1": 0.0, "K4": 0.0}
+    if r <= RANK256:
+        t["K6 fused"] = 0.0
     if r <= cuda_lanes.MAX_RANK:
         t["K2"] = 0.0
+    step = max(1, SPLIT_CHUNK_BYTES // (4 * r * r))
+    rows = 0
+    t0 = time.perf_counter()
     for b in ib:
         if core_als.resolve_solve_path(cfg, r, b.width) != \
                 "gatherfused_solve":
             continue
-        conf, pref = implicit_weights(b.vals, b.mask, ALPHA)
-        bw = (1.0 + conf) * pref * b.mask
-        t["gram (K3)"] += cuda_ms(lambda: cuda_gather_ne.gather_gram(
-            U0, b.cols, conf, bw, two_sided=False), 1)
-        A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
-            U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY)
-        A = regularize(A, count)
-        del count
-        t["K1"] += cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, rhs), 1)
-        if "K2" in t:
-            t["K2"] += cuda_ms(lambda: cuda_lanes.spd_solve_lanes(A, rhs), 1)
-        Aw = torch.empty_like(A)
-        t["K6 fused"] += kernel_ms_each(
-            lambda: Aw.copy_(A),
-            lambda: cuda_lanes_blocked.spd_solve_lanes_blocked(Aw, rhs), 1)
-        del A, Aw, rhs
+        rows += int((b.rows < tr["n_items"]).sum())
+        for c0 in range(0, b.cols.shape[0], step):
+            cols, vals, mask = (a[c0:c0 + step] for a in (b.cols, b.vals,
+                                                          b.mask))
+            conf, pref = implicit_weights(vals, mask, ALPHA)
+            bw = (1.0 + conf) * pref * mask
+            t["gram (K3)"] += cuda_ms(lambda: cuda_gather_ne.gather_gram(
+                U0, cols, conf, bw, two_sided=False), 1)
+            A, rhs, count = cuda_gather_ne.gather_normal_eq_implicit(
+                U0, cols, vals, mask, REG, ALPHA, YtY)
+            A = regularize(A, count)
+            del count
+            t["K1"] += cuda_ms(lambda: cuda_solve.spd_solve_blocked(A, rhs),
+                               1)
+            if "K2" in t:
+                t["K2"] += cuda_ms(lambda: cuda_lanes.spd_solve_lanes(A, rhs),
+                                   1)
+            if "K6 fused" in t:
+                Aw = torch.empty_like(A)
+                t["K6 fused"] += kernel_ms_each(
+                    lambda: Aw.copy_(A),
+                    lambda: cuda_lanes_blocked.spd_solve_lanes_blocked(
+                        Aw, rhs), 1)
+                del Aw
+            del A, rhs
         t["K4"] += cuda_ms(lambda: cuda_gather_ne.gather_fused_solve_implicit(
             U0, b.cols, b.vals, b.mask, REG, ALPHA, YtY), 1)
-    log(f"k4 split r={r} (the item half-step's K4 buckets; {smi}): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-        + f"; K3's Gram + K6 fused {t['gram (K3)'] + t['K6 fused']:.4f} ms")
+    t["K4 solve pass"] = t["K4"] - t["gram (K3)"]
+    b_ms, by = solve_bound(rows, r)
+    log(f"k4 split r={r} (the item half-step's K4 buckets, {rows} real "
+        f"rows; {smi}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f" (K4 less K3's Gram; its bound {b_ms:.4f} ms, {by})"
+        + (f"; K3's Gram + K6 fused {t['gram (K3)'] + t['K6 fused']:.4f} ms"
+           if "K6 fused" in t else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
     return t
 
 
@@ -6701,8 +6793,8 @@ def main():
     # the larger error of the ranks of a class: 200 and 256 (gram_sm90.cuh
     # cut over blocks), 257 to 512 (gram_strips.cuh; 257: the solve's 9
     # tiles on chip, a one-column last strip in a one-strip group; above
-    # 288 the solve streamed; 333: 4- and 2-byte copies, the streamed
-    # solve's scalar loads; K3 also at 640)
+    # 288 the solve on a thread-block cluster; 333: 4- and 2-byte copies,
+    # the cluster solve's scalar loads; K3 also at 640)
     for cls, ranks in (("256", (200, RANK256)),
                        ("512", (257, 320, 333, 384, RANK512,
                                 SOLVE_BOUND_RANK))):
@@ -6714,6 +6806,7 @@ def main():
             for k, v in e.items():
                 errs[f"{k}_{cls}"] = max(errs.get(f"{k}_{cls}", 0.0), v)
     check_solve_bound(rng, dev)
+    check_cluster_solve(rng, dev)
     errs["k7"] = check_k7(rng, dev)[RANK]
     errs["k7_512"] = check_k7(rng, dev, (RANK512,), (1, SHARDS))[RANK512]
     errs["k8"] = check_k8(rng, dev)
@@ -6774,6 +6867,10 @@ def main():
     kernels += train_timings(tr512, errs, dev)
     k4_split(tr, smi)
     k4_split(tr256, smi)
+    t0 = time.perf_counter()
+    k4_split(tr512, smi)   # its budget: 30 s
+    log(f"k4 split at rank {RANK512}: {time.perf_counter() - t0:.1f} s "
+        "(budget 30 s)")
     iteration_logger_cost(tr, rng, smi)
     kernels.append(ring_timings(sh, tr, errs, dev))
     kernels.append(ring_timings(tr512.pop("ring"), tr512, errs, dev))

@@ -250,10 +250,12 @@ def test_k4_plain_at_rank_320_matches_the_einsum_route():
     assert np.all(x.numpy()[[0, 2]] == 0)
 
 
-@pytest.mark.parametrize("r,implicit", [(320, False), (512, True)])
+@pytest.mark.parametrize("r,implicit", [(320, False), (512, True),
+                                        (289, True)])
 def test_k4_plain_above_rank_256_matches_reference(r, implicit):
-    """Above rank 256 (the kernels' strip-staged Gram; the solve pass
-    streamed above rank 288) K4's plain version against the reference's
+    """Above rank 256 (the kernels' strip-staged Gram; the solve pass on
+    a thread-block cluster from rank 289, the first rank it takes) K4's
+    plain version against the reference's
     fused solve in interpret mode, up to its own bound r_pad 512, with
     K4's tolerance (atol 5e-5, rtol 5e-4)."""
     n, w = 8, 24
@@ -275,6 +277,58 @@ def test_k4_plain_above_rank_256_matches_reference(r, implicit):
                                rtol=5e-4)
     zero = [0, 2] if implicit else [0]
     assert np.all(got.numpy()[zero] == 0)
+
+
+def test_cluster_plan_holds_every_rank_289_to_512():
+    """The solve pass's cluster plan (the mirror of
+    ``gsolve::launch_tail_solve``'s ``ccl::cluster_size``) at every rank
+    the cluster solve takes: C in {2, 4, 8}, the fewest whose largest share
+    fits; every tile row owned by exactly one block of C, the blocks'
+    tiles summing to the lower triangle's; the largest share within a
+    block's 232,448 bytes."""
+    for r in range(289, 513):
+        plan = tg._cluster_plan(r)
+        t = -(-r // 32)
+        assert plan.size in (2, 4, 8), r
+        assert len(plan.owners) == t and set(plan.owners) <= set(
+            range(plan.size)), r
+        assert sum(plan.tiles) == t * (t + 1) // 2, r
+        assert plan.tiles == tuple(
+            sum(i + 1 for i in range(t) if plan.owners[i] == c)
+            for c in range(plan.size)), r
+        assert plan.smem_bytes <= 232_448, r
+        for c in (2, 4, 8):
+            if c < plan.size:
+                assert tg._cluster_share(t, c)[0] > 232_448, (r, c)
+    for r in (288, 513):
+        with pytest.raises(ValueError):
+            tg._cluster_plan(r)
+
+
+def test_cluster_plan_mirrors_the_header():
+    """The Python plan equals what ``csrc/chol_cluster.cuh`` computes
+    (``ccl::cluster_size``, ``smem_bytes``, ``owner``), compiled with g++
+    under ``scripts/cluster_shim/``'s CUDA stand-in, at every rank 289 to
+    512."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not on the PATH")
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "chol_cluster_shim.py")
+    spec = importlib.util.spec_from_file_location("chol_cluster_shim", path)
+    shim = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(shim)
+    with tempfile.TemporaryDirectory() as work:
+        header = shim.plans(shim.build(work))
+    assert sorted(header) == list(range(289, 513))
+    for r, (c, nbytes, owners) in header.items():
+        plan = tg._cluster_plan(r)
+        assert (plan.size, plan.smem_bytes, plan.owners) == (c, nbytes,
+                                                             owners), r
 
 
 def test_k3_plain_at_rank_384_matches_reference():

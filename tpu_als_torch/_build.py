@@ -56,6 +56,10 @@ SIGNATURES = {
     "gather_solve": ("gather_solve", [_P, _P, _P, _P, _P, _P, _P, _P, _LL,
                                       _LL, _I, _F, _F, _I, _I, _LL, _LL,
                                       _P]),
+    # gather_solve_cluster_info(r, bf16, out [5]): the cluster launch of
+    # K4's and K7's solve pass above rank 288 as the card takes it
+    "gather_solve_cluster_info": ("gather_solve_cluster_info", [_I, _I, _P],
+                                  "gather_solve"),
     # chol_lanes_blocked_f32(A, n, r, stream): L written over A
     "chol_lanes_blocked": ("chol_lanes_blocked_f32", [_P, _LL, _I, _P]),
     # chol_lanes_blocked_solve_f32(A, b, x, n, r, stream): L written over

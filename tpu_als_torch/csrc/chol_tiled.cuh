@@ -3,8 +3,9 @@
 //
 // Device routines of kernels K2 (chol_solve.cu), K1 (chol_blocked.cu),
 // K6 (chol_lanes_blocked.cu) and of the solve pass of kernels K4 and K7
-// (gather_solve.cuh's tail_solve_kernel); K1's and K6's kernels are at
-// the end of this file.  Every routine is called by all the block's
+// (gather_solve.cuh's tail_solve_kernel, and above rank 288
+// chol_cluster.cuh's cluster solve); K1's and K6's kernels are at the end
+// of this file.  Every routine is called by all the block's
 // threads unless it says otherwise.
 //
 // On chip (up to kMaxTiles = 9 tiles a side, rank 288): the lower
@@ -58,7 +59,9 @@
 // (Z -= Σ_q over each m: the sums the right-looking trailing update
 // forms, in the same order), a group of kGroup tiles at a time in shared
 // memory (23 KB at any rank); the forward substitution runs with each
-// block column, the backward one reads L's rows back.
+// block column, the backward one reads L's rows back.  K1's and K6's path
+// above rank 288, and the card-side anchor of K4's and K7's cluster solve
+// (chol_cluster.cuh), which gives the same x bit for bit.
 
 #pragma once
 
@@ -336,6 +339,40 @@ __device__ __forceinline__ void panel(TileAt tile_at, const float* Dk,
   }
 }
 
+// One 4 x 4 register tile of a trailing update: Z[x][y] -= Σ_q X[x][q]
+// Y[y][q], X and Y column-major at kLd (rows x, y = 0..3), Z's column y
+// at Z + y·kLd; the 32 products q summed in order first, then subtracted
+// (the sums stream_solve's schur_tile forms and subtracts the same way).
+__device__ __forceinline__ void sub_products(const float* X, const float* Y,
+                                             float* Z) {
+  float acc[4][4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+#pragma unroll 8
+  for (int q = 0; q < kNB; ++q) {
+    const float4 xv = *reinterpret_cast<const float4*>(X + q * kLd);
+    const float4 yv = *reinterpret_cast<const float4*>(Y + q * kLd);
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+    const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] += xs[x] * ys[y];
+  }
+#pragma unroll
+  for (int y = 0; y < 4; ++y) {
+    float4* zp = reinterpret_cast<float4*>(Z + y * kLd);
+    float4 z = *zp;
+    z.x -= acc[0][y];
+    z.y -= acc[1][y];
+    z.z -= acc[2][y];
+    z.w -= acc[3][y];
+    *zp = z;
+  }
+}
+
 // The trailing update of block column k, Z -= Σ_q P_I[:, q] P_J[:, q]ᵀ,
 // on the tiles (I, J) = (k+1+ii, k+1+jj), jj <= ii < m: 64 register
 // tiles of 4 x 4 a tile; a warp takes 32 of them, lanes over its rows
@@ -347,35 +384,8 @@ __device__ __forceinline__ void trailing(float* S, int k, int m, int nt) {
     const int ii = kTileRow[p], jj = p - ii * (ii + 1) / 2;
     if (ii == jj && b4 > a4) continue;  // wholly above the diagonal
     const int I = k + 1 + ii, J = k + 1 + jj;
-    const float* X = tile(S, I, k) + 4 * a4;
-    const float* Y = tile(S, J, k) + 4 * b4;
-    float acc[4][4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
-#pragma unroll 8
-    for (int q = 0; q < kNB; ++q) {
-      const float4 xv = *reinterpret_cast<const float4*>(X + q * kLd);
-      const float4 yv = *reinterpret_cast<const float4*>(Y + q * kLd);
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] += xs[x] * ys[y];
-    }
-    float* Z = tile(S, I, J) + 4 * a4;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      float4* zp = reinterpret_cast<float4*>(Z + (4 * b4 + y) * kLd);
-      float4 z = *zp;
-      z.x -= acc[0][y];
-      z.y -= acc[1][y];
-      z.z -= acc[2][y];
-      z.w -= acc[3][y];
-      *zp = z;
-    }
+    sub_products(tile(S, I, k) + 4 * a4, tile(S, J, k) + 4 * b4,
+                 tile(S, I, J) + 4 * a4 + 4 * b4 * kLd);
   }
 }
 

@@ -22,9 +22,9 @@
 // each staging only the strips it reads); it writes each row's S, b and
 // count to scratch (gsolve::row_floats(r) floats a row).  Pass 2 is
 // gather_solve.cuh's tail and chol_tiled.cuh's solve, a block of 8 warps
-// per row at rank <= 128, 16 up to rank 288, and above it stream_solve()
-// on A formed in place in the row's scratch.  Rank <= 512, the
-// reference's bound.  Two passes, because the two halves want other
+// per row at rank <= 128, 16 up to rank 288, and above it a cluster of 2
+// or 4 blocks a row holding the system in distributed shared memory
+// (chol_cluster.cuh).  Rank <= 512, the reference's bound.  Two passes, because the two halves want other
 // blocks: the Gram one block of up to 12 warps at ~150 registers a thread
 // (its triangle cut over blocks above rank 128), the solve several small
 // blocks an SM to hide its barriers.  Rows wider than the trainer's split
@@ -133,4 +133,14 @@ extern "C" int gather_solve(const void* V, const int* cols, const void* aw,
         : launch<float, false>(V, cols, aw, bw, cw, YtY, x, sums, n, w, r,
                                reg_w, jitter, row0, nrows, st);
   return static_cast<int>(e);
+}
+
+// The solve pass's cluster launch above rank 288 as the card takes it
+// (gsolve::cluster_info): out [5] = cluster size, dynamic and static
+// shared bytes a block, registers a thread, the most clusters active.
+extern "C" int gather_solve_cluster_info(int r, int bf16, long long* out) {
+  if (!gsolve::streamed(r) || r > gram::kSolveRankLimit || !out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bf16 ? gsolve::cluster_info<__nv_bfloat16>(r, out)
+                               : gsolve::cluster_info<float>(r, out));
 }

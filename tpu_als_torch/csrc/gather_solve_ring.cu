@@ -38,8 +38,9 @@
 //   2. (more than one chunk) the partials summed in chunk order
 //      (deterministic, no atomics);
 //   3. a block per row: gather_solve.cuh's tail and chol_tiled.cuh's
-//      solve, in shared memory up to rank 288 and streamed through the
-//      row's scratch above; only x is written.
+//      solve, in shared memory up to rank 288; above it a cluster of
+//      blocks per row (chol_cluster.cuh, the system in their distributed
+//      shared memory); only x is written.
 // The wrapper launches the passes on row tiles that keep the scratch
 // within a fixed budget.
 

@@ -19,7 +19,10 @@ only the 32-column strips its tiles read), so K3 takes any rank (up to
 :data:`GRAM_MAX_RANK`, where S's entries outgrow an int index).  K4 and
 K7 write each row's Gram, b and count to scratch and solve it in a
 second pass (``csrc/gather_solve.cuh``, ``csrc/chol_tiled.cuh``: K2's
-routines in shared memory up to rank 288, K1's streamed solve above),
+routines in one block's shared memory up to rank 288; above it
+``csrc/chol_cluster.cuh``, the system in a thread-block cluster's
+distributed shared memory, bit for bit K1's streamed solve, see
+:func:`_cluster_plan`),
 up to :data:`SOLVE_MAX_RANK` = 512, the reference's own bound (its
 ``TileBudgetError``); above it their wrappers raise ``ValueError`` on
 any device, and 'auto' takes K3 + K6 there.  The plain versions take
@@ -39,7 +42,7 @@ import torch
 
 from tpu_als_torch import _build
 from tpu_als_torch.ops.cuda_lanes import chol_solve_plain
-from tpu_als_torch.ops.cuda_solve import ONCHIP_MAX_RANK
+from tpu_als_torch.ops.cuda_solve import ONCHIP_MAX_RANK, SMEM_BYTES
 from tpu_als_torch.ops.solve import DEFAULT_JITTER, implicit_weights
 from tpu_als_torch.perf.roofline import (fused_ne_kernel_bytes,
                                          fused_ring_kernel_bytes,
@@ -86,6 +89,71 @@ def _row_floats(r):
     return e + -e % 4 if r > ONCHIP_MAX_RANK else e
 
 
+# Above ONCHIP_MAX_RANK the solve pass of K4 and K7 runs one thread-block
+# cluster a row (csrc/chol_cluster.cuh): C blocks of 512 threads, the
+# fewest of CLUSTER_SIZES whose largest share of the system (its tiles,
+# the slots for the panel tiles it is handed, a handed diagonal tile, the
+# vectors and tables) fits in a block's shared memory on the card
+CLUSTER_SIZES = (2, 4, 8)
+_TILE_FLOATS = 32 * 36
+_CLUSTER_TABLE_INTS = 3 * 16 + 8 * 16 + 64
+
+
+class ClusterPlan(NamedTuple):
+    """``ccl::cluster_size`` / ``ccl::owner`` / ``ccl::smem_bytes``."""
+    size: int           # blocks a cluster
+    owners: tuple       # the block of each tile row
+    tiles: tuple        # the tiles each block holds
+    smem_bytes: int     # shared memory a block (the largest share)
+
+
+def _cluster_owner(i, t, c):
+    """The block of the ``c`` owning tile row ``i`` of ``t``: rows dealt
+    from the last up in a snake (ccl::owner)."""
+    p = (t - 1 - i) % (2 * c)
+    return p if p < c else 2 * c - 1 - p
+
+
+def _cluster_share(t, c):
+    """Bytes of shared memory a block takes with ``t`` tile rows on ``c``
+    blocks (ccl::smem_bytes)."""
+    owners = [_cluster_owner(i, t, c) for i in range(t)]
+    tiles = [sum(i + 1 for i in range(t) if owners[i] == b) for b in range(c)]
+    slots = [t - owners.count(b) for b in range(c)]
+    floats = ((max(tiles) + max(slots) + 1) * _TILE_FLOATS + 3 * 32
+              + 2 * 32 * t + _CLUSTER_TABLE_INTS)
+    return 4 * floats, tuple(owners), tuple(tiles)
+
+
+def _cluster_plan(r):
+    """The launcher's cluster plan at rank ``r`` (above ONCHIP_MAX_RANK, up
+    to SOLVE_MAX_RANK): gsolve::launch_tail_solve's ccl::cluster_size."""
+    if not ONCHIP_MAX_RANK < r <= SOLVE_MAX_RANK:
+        raise ValueError(f"rank {r}: the cluster solve takes ranks "
+                         f"{ONCHIP_MAX_RANK + 1} to {SOLVE_MAX_RANK}")
+    t = -(-r // 32)
+    for c in CLUSTER_SIZES:
+        nbytes, owners, tiles = _cluster_share(t, c)
+        if c <= t and nbytes <= SMEM_BYTES:
+            return ClusterPlan(c, owners, tiles, nbytes)
+    raise ValueError(f"rank {r}: no cluster size holds the system")
+
+
+def cluster_info(r, dtype=torch.float32):
+    """The card's view of K4's and K7's cluster launch at rank ``r``
+    (``gather_solve_cluster_info``): ``{"size", "dynamic_smem",
+    "static_smem", "registers", "max_active_clusters"}``, the shared bytes
+    a block and registers a thread from ``cudaFuncGetAttributes``."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 5)()
+    fn = _build.load("gather_solve_cluster_info")
+    _build.check(fn(int(r), int(dtype == torch.bfloat16), out),
+                 "gather_solve_cluster_info")
+    return dict(zip(("size", "dynamic_smem", "static_smem", "registers",
+                     "max_active_clusters"), (int(v) for v in out)))
+
+
 def _chunks(w, split_width):
     """Width chunks [(start, stop)] of ``split_width`` entries (one chunk
     when split_width is None or not below w)."""
@@ -114,18 +182,25 @@ def _round(x, dtype):
     return x.to(dtype).float()
 
 
-def _tail_solve(S, b, cnt, dt, YtY, reg, jitter):
-    """The tail of ``gather_solve.cuh`` on a summed Gram (A += YᵀY; diag
-    += ridge, then + jitter; rows with count <= 0 become (1 + jitter)·I),
-    then the solve of ``chol_tiled.cuh`` (K2's plain version)."""
+def tail_system(S, cnt, dt, YtY, reg, jitter=DEFAULT_JITTER):
+    """The tail of ``gather_solve.cuh`` on summed Grams S [n, r, r] with
+    counts ``cnt`` [n] (weights of type ``dt``): A += YᵀY; diag += ridge,
+    then + jitter; rows with count <= 0 become (1 + jitter)·I.  The
+    kernels form these entries in the same f32 operations."""
     ridge = _round(_round(cnt, dt) * _round(torch.tensor(reg), dt), dt)
     r = S.shape[-1]
     eye = torch.eye(r, dtype=torch.float32, device=S.device)
     A = S if YtY is None else S + YtY.float()[None]
     A = A + torch.diag_embed(ridge[:, None].expand(-1, r))
     A = A + jitter * eye
-    A = torch.where((cnt <= 0)[:, None, None], eye + jitter * eye, A)
-    return chol_solve_plain(A.contiguous(), b)
+    return torch.where((cnt <= 0)[:, None, None], eye + jitter * eye, A)
+
+
+def _tail_solve(S, b, cnt, dt, YtY, reg, jitter):
+    """:func:`tail_system`, then the solve of ``chol_tiled.cuh`` (K2's
+    plain version)."""
+    return chol_solve_plain(
+        tail_system(S, cnt, dt, YtY, reg, jitter).contiguous(), b)
 
 
 def gather_solve_plain(V, cols, aw, bw, cw, YtY=None, *, two_sided, reg,
